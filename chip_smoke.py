@@ -12,28 +12,37 @@ Phases, each fatal on failure:
    tpu_torch/csrc`` with nvcc for sm_90a, with ptxas's register and spill
    counts;
 3. kernels: K1 (forward) and K2 (backward) against their plain PyTorch
-   versions at the main path's shape (q/k/v [1152, 6, 64, 10]: batch 18 at
-   LR 64x64), f32 and bf16, with and without the shift mask, pack 1 and 2;
-   errors against the stated tolerance and median times (CUDA events) of
-   the kernel, the plain version and one PyTorch library call
-   (``scaled_dot_product_attention`` with a float mask of bias + mask);
-   then a toy SwinIR on the card against the same model on the CPU;
+   versions at every shape the two driven paths below give them: the
+   bench shape (q/k/v [1152, 6, 64, 10]: batch 18 at LR 64x64) in f32 and
+   bf16, with and without the shift mask, pack 1 and 2; the driver's
+   training batches ([288, 6, 64, 10]: batch 18 at LR 32x32) and its
+   validation batch ([160, 6, 64, 10]: 10 images) in f32, with and
+   without the mask. Errors against the stated tolerance and median
+   times (CUDA events) of the kernel, the plain version and one PyTorch
+   library call (``scaled_dot_product_attention`` with a float mask of
+   bias + mask); then a toy SwinIR on the card against the same model on
+   the CPU;
 4. driver: ``drivers.stoke_ddp.main`` (full-width SwinIR-S, one epoch of
    synthetic data, two optimizer steps) in a scratch directory: finite
    losses, a checkpoint written, and the launch counts of both kernels;
-5. bench shape: the facade as the driver builds it at batch 18, LR 64x64
-   -> HR 128x128, in f32 and bf16: a few optimizer steps, finite loss,
-   moved weights, exactly 24 K1 and 24 K2 launches per micro-batch, and
-   step time and images/s beside the card's name and power limit.
+5. bench shape: the model and facade from the driver's ``build_model``
+   and ``build_stoke`` at batch 18, LR 64x64 -> HR 128x128, in f32 and
+   bf16: a few optimizer steps, finite loss, moved weights, exactly 24 K1
+   and 24 K2 launches per micro-batch, and step time and images/s beside
+   the card's name and power limit.
 
-The last lines are the kernels' JSON, the ``nvidia-smi`` name and power
-limit, and ``{"ok": true, "device": {...}}``. Without a CUDA device, or
-without the rest of the repository beside it, it exits non-zero before
-printing a result.
+Phases 4 and 5 note the shape, dtype and mask of every launch; the run
+fails if one of them was not held against the plain version in phase 3.
+The kernels' JSON describes phase 5's f32 run: its launch counts, and the
+errors and times of phase 3 at its shape. The last lines are that JSON,
+the ``nvidia-smi`` name and power limit, and ``{"ok": true, "device":
+{...}}``. Without a CUDA device, or without the rest of the repository
+beside it, it exits non-zero before printing a result.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import re
@@ -53,7 +62,11 @@ REPLACES = {
     "window_attn_fwd": "pytorch_distributedtraining_tpu/ops/pallas_window_attn.py:35",
     "window_attn_bwd": "pytorch_distributedtraining_tpu/ops/pallas_window_attn.py:58",
 }
-BATCH, LR_SIZE, HEADS, WINDOW, DIM = 18, 64, 6, 8, 60
+BATCH, LR_SIZE, HEADS, WINDOW, DIM = 18, 64, 6, 8, 60  # the bench shape
+# the driver run of phase 4: 100 synthetic images at LR 32x32 (the driver's
+# SyntheticSRDataset), split 90 / 10: five training batches of 18 and one
+# validation batch of 10
+DRIVER_N, DRIVER_LR, DRIVER_VAL = 100, 32, 10
 
 
 def smi_line() -> str:
@@ -119,25 +132,53 @@ def phase_build():
           f"spill stores max {max(spills, default=0)} bytes")
 
 
-def _attention_inputs(dtype, with_mask: bool, seed: int):
+def launch_signature(kernel: str, q, mask) -> tuple:
+    """What a kernel launch depends on: q's shape and dtype, mask windows."""
+    return kernel, tuple(q.shape), str(q.dtype), None if mask is None else mask.shape[0]
+
+
+@contextlib.contextmanager
+def record_launches(seen: set):
+    """Add the signature of every K1 and K2 launch made inside to ``seen``."""
+    from pytorch_distributedtraining_tpu_torch.ops import window_attn as twa
+
+    fwd, bwd = twa.kernel_forward, twa.kernel_backward
+
+    def forward(q, k, v, bias, mask):
+        seen.add(launch_signature("fwd", q, mask))
+        return fwd(q, k, v, bias, mask)
+
+    def backward(q, k, v, bias, mask, do):
+        seen.add(launch_signature("bwd", q, mask))
+        return bwd(q, k, v, bias, mask, do)
+
+    twa.kernel_forward, twa.kernel_backward = forward, backward
+    try:
+        yield
+    finally:
+        twa.kernel_forward, twa.kernel_backward = fwd, bwd
+
+
+def _attention_inputs(dtype, with_mask: bool, batch: int, lr_size: int, seed: int):
     import torch
 
     from pytorch_distributedtraining_tpu_torch.models.swinir import _shift_attn_mask
 
     g = torch.Generator(device="cuda").manual_seed(seed)
     n, d = WINDOW * WINDOW, DIM // HEADS
-    nw = (LR_SIZE // WINDOW) ** 2
-    bn = BATCH * nw
+    nw = (lr_size // WINDOW) ** 2
+    bn = batch * nw
     q, k, v, do = (torch.randn(bn, HEADS, n, d, generator=g, device="cuda").to(dtype)
                    for _ in range(4))
     bias = torch.randn(HEADS, n, n, generator=g, device="cuda") * 0.5
     mask = None
     if with_mask:
-        mask = torch.from_numpy(_shift_attn_mask(LR_SIZE, LR_SIZE, WINDOW, WINDOW // 2)).cuda()
+        mask = torch.from_numpy(_shift_attn_mask(lr_size, lr_size, WINDOW, WINDOW // 2)).cuda()
     return q, k, v, do, bias, mask
 
 
-def _kernel_case(dtype, with_mask: bool, pack: int) -> dict:
+def _kernel_case(dtype, with_mask: bool, pack: int, batch: int, lr_size: int,
+                 seed: int) -> dict:
     """One configuration: errors of both kernels and the times of kernel,
     plain version and library call, forward and backward."""
     import torch
@@ -145,7 +186,8 @@ def _kernel_case(dtype, with_mask: bool, pack: int) -> dict:
 
     from pytorch_distributedtraining_tpu_torch.ops import window_attn as twa
 
-    q, k, v, do, bias, mask = _attention_inputs(dtype, with_mask, seed=pack + 2 * with_mask)
+    q, k, v, do, bias, mask = _attention_inputs(dtype, with_mask, batch, lr_size, seed)
+    checked = {launch_signature(kind, q, mask) for kind in ("fwd", "bwd")} if pack == 1 else set()
     want = [twa.plain_forward(q, k, v, bias, mask),
             *twa.plain_backward(q, k, v, bias, mask, do)]
     if pack == 1:
@@ -189,34 +231,38 @@ def _kernel_case(dtype, with_mask: bool, pack: int) -> dict:
     fwd_bound = bound_ms(4 * q.numel() * esize + side, 4 * bn * h * n * n * d, dt)
     bwd_bound = bound_ms(7 * q.numel() * esize + side + bias.numel() * 4,
                          10 * bn * h * n * n * d, dt)
-    return {"dtype": dt, "mask": with_mask, "pack": pack, "errors": errors, "times": t,
-            "fwd_bound": fwd_bound, "bwd_bound": bwd_bound}
+    return {"dtype": dt, "mask": with_mask, "pack": pack, "shape": tuple(q.shape),
+            "errors": errors, "times": t, "fwd_bound": fwd_bound, "bwd_bound": bwd_bound,
+            "checked": checked}
 
 
-def phase_kernels(smi: str) -> dict:
+def phase_kernels(smi: str) -> list[dict]:
     import torch
 
     from pytorch_distributedtraining_tpu_torch.ops import window_attn as twa
 
+    configs = [(dtype, with_mask, pack, BATCH, LR_SIZE)
+               for dtype in (torch.float32, torch.bfloat16)
+               for with_mask in (False, True) for pack in (1, 2)]
+    configs += [(torch.float32, with_mask, 1, batch, DRIVER_LR)
+                for batch in (BATCH, DRIVER_VAL) for with_mask in (False, True)]
     cases = []
-    for dtype in (torch.float32, torch.bfloat16):
-        for with_mask in (False, True):
-            for pack in (1, 2):
-                c = _kernel_case(dtype, with_mask, pack)
-                tol = TOL[c["dtype"]]
-                worst = max(rel for _, rel in c["errors"].values())
-                errs = " ".join(f"{nm} {a:.2e}/{r:.2e}" for nm, (a, r) in c["errors"].items())
-                t = c["times"]
-                print(f"[kernels] {c['dtype']:8s} mask={int(with_mask)} pack={pack} "
-                      f"abs/rel err: {errs} (tol rel {tol:g})")
-                print(f"[kernels]   ms fwd {t['fwd']:.4f} bwd {t['bwd']:.4f} | plain fwd "
-                      f"{t['plain_fwd']:.4f} bwd {t['plain_bwd']:.4f} | library fwd "
-                      f"{t['lib_fwd']:.4f} bwd {t['lib_bwd']:.4f} | bound fwd "
-                      f"{c['fwd_bound'][0]:.4f} ({c['fwd_bound'][1]}) bwd "
-                      f"{c['bwd_bound'][0]:.4f} ({c['bwd_bound'][1]}) | {smi}")
-                if not worst <= tol:
-                    raise SystemExit(f"kernel disagrees with its plain version: {c['errors']}")
-                cases.append(c)
+    for seed, (dtype, with_mask, pack, batch, lr_size) in enumerate(configs):
+        c = _kernel_case(dtype, with_mask, pack, batch, lr_size, seed)
+        tol = TOL[c["dtype"]]
+        worst = max(rel for _, rel in c["errors"].values())
+        errs = " ".join(f"{nm} {a:.2e}/{r:.2e}" for nm, (a, r) in c["errors"].items())
+        t = c["times"]
+        print(f"[kernels] {c['dtype']:8s} q {list(c['shape'])} (batch {batch}, LR {lr_size}) "
+              f"mask={int(with_mask)} pack={pack} abs/rel err: {errs} (tol rel {tol:g})")
+        print(f"[kernels]   ms fwd {t['fwd']:.4f} bwd {t['bwd']:.4f} | plain fwd "
+              f"{t['plain_fwd']:.4f} bwd {t['plain_bwd']:.4f} | library fwd "
+              f"{t['lib_fwd']:.4f} bwd {t['lib_bwd']:.4f} | bound fwd "
+              f"{c['fwd_bound'][0]:.4f} ({c['fwd_bound'][1]}) bwd "
+              f"{c['bwd_bound'][0]:.4f} ({c['bwd_bound'][1]}) | {smi}")
+        if not worst <= tol:
+            raise SystemExit(f"kernel disagrees with its plain version: {c['errors']}")
+        cases.append(c)
 
     from pytorch_distributedtraining_tpu_torch.models import SwinIR
 
@@ -237,10 +283,10 @@ def phase_kernels(smi: str) -> dict:
           f"{grad_err:.2e}, launches {launched}")
     if launched != (4, 4) or out_err > 1e-4 or grad_err > 1e-4:
         raise SystemExit("toy SwinIR on the card disagrees with the CPU")
-    return next(c for c in cases if c["dtype"] == "float32" and c["mask"] and c["pack"] == 1)
+    return cases
 
 
-def phase_driver() -> tuple[int, int]:
+def phase_driver() -> None:
     from pytorch_distributedtraining_tpu_torch.drivers import stoke_ddp
     from pytorch_distributedtraining_tpu_torch.ops import window_attn as twa
 
@@ -253,7 +299,7 @@ def phase_driver() -> tuple[int, int]:
             twa.reset_launch_counts()
             t0 = time.perf_counter()
             train_loss, val_loss = stoke_ddp.main([
-                "--synthetic", "--synthetic-n", "100", "--nEpochs", "1",
+                "--synthetic", "--synthetic-n", str(DRIVER_N), "--nEpochs", "1",
                 "--batchSize", str(BATCH), "--threads", "2",
             ])
             seconds = time.perf_counter() - t0
@@ -264,9 +310,10 @@ def phase_driver() -> tuple[int, int]:
     print(f"[driver] train loss {train_loss}, val loss {val_loss}, checkpoint "
           f"{[p.name for p in ckpts]}, {seconds:.1f} s, launches fwd {launches[0]} "
           f"bwd {launches[1]}")
-    # 90 training samples: 5 micro-batches of 18 (24 layers each, fwd+bwd);
-    # 10 validation samples: one forward-only batch
-    expected = (24 * 5 + 24, 24 * 5)
+    # five training micro-batches (24 layers each, fwd+bwd) and one
+    # forward-only validation batch
+    train_batches = (DRIVER_N - DRIVER_VAL) // BATCH
+    expected = (24 * train_batches + 24, 24 * train_batches)
     if not (train_loss == train_loss and val_loss == val_loss
             and abs(train_loss) < float("inf") and abs(val_loss) < float("inf")):
         raise SystemExit("driver losses are not finite")
@@ -274,7 +321,6 @@ def phase_driver() -> tuple[int, int]:
         raise SystemExit("driver wrote no checkpoint")
     if launches != expected:
         raise SystemExit(f"driver launches {launches}, expected {expected}")
-    return launches
 
 
 def phase_bench(smi: str, steps: int = 5, warmup: int = 2):
@@ -282,14 +328,15 @@ def phase_bench(smi: str, steps: int = 5, warmup: int = 2):
     import torch
 
     from pytorch_distributedtraining_tpu_torch.benchmarks.profile_swinir import (
-        make_batches, make_facade, train_steps,
+        make_batches, train_steps,
     )
+    from pytorch_distributedtraining_tpu_torch.drivers import stoke_ddp
     from pytorch_distributedtraining_tpu_torch.ops import window_attn as twa
 
     batches = make_batches("cuda")
     results = {}
     for fp16 in (None, "bf16"):
-        s = make_facade(fp16)
+        s = stoke_ddp.build_stoke(stoke_ddp.build_model(), fp16=fp16, batch_size=BATCH)
         w0 = s.model_access.conv_first.weight.detach().clone()
         train_steps(s, batches, warmup)
         torch.cuda.synchronize()
@@ -315,7 +362,7 @@ def phase_bench(smi: str, steps: int = 5, warmup: int = 2):
             raise SystemExit(f"{name}: launches {launches}, expected 24 of each per micro-batch")
         if not np.isfinite(loss) or not moved > 0:
             raise SystemExit(f"{name}: loss {loss} or weights did not move")
-        results[name] = {"step_ms": step_ms, "images_per_s": ips}
+        results[name] = {"step_ms": step_ms, "images_per_s": ips, "launches": launches}
         del s
     return results
 
@@ -331,17 +378,31 @@ def main() -> int:
     t0 = time.perf_counter()
     smi = phase_device()
     phase_build()
-    main_case = phase_kernels(smi)
-    launches = phase_driver()
-    phase_bench(smi)
+    cases = phase_kernels(smi)
+    seen: set = set()
+    with record_launches(seen):
+        phase_driver()
+        bench = phase_bench(smi)
+    checked = set().union(*(c["checked"] for c in cases))
+    print(f"[shapes] phases 4-5 launched {len(seen)} kinds of (kernel, q shape, dtype, mask "
+          f"windows): {sorted(seen, key=str)}")
+    if seen - checked:
+        raise SystemExit(f"launched on a driven path but never held against the plain "
+                         f"version: {sorted(seen - checked, key=str)}")
+
+    # the kernels line: phase 5's f32 run, with phase 3's numbers at its
+    # shape (errors: worst of masked and unmasked; times: the masked case)
+    at_shape = [c for c in cases if c["dtype"] == "float32" and c["pack"] == 1
+                and c["shape"][0] == BATCH * (LR_SIZE // WINDOW) ** 2]
+    main_case = next(c for c in at_shape if c["mask"])
     t = main_case["times"]
+    launches = bench["fp32"]["launches"]
     kernels = []
-    errors = main_case["errors"]
-    for name, key, launched, abs_err in (
-        ("window_attn_fwd", "fwd", launches[0], errors["o"][0]),
-        ("window_attn_bwd", "bwd", launches[1],
-         max(errors[g][0] for g in ("dq", "dk", "dv", "dbias"))),
+    for name, key, launched, grads in (
+        ("window_attn_fwd", "fwd", launches[0], ("o",)),
+        ("window_attn_bwd", "bwd", launches[1], ("dq", "dk", "dv", "dbias")),
     ):
+        abs_err = max(c["errors"][g][0] for c in at_shape for g in grads)
         bound = main_case[f"{key}_bound"]
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCE, "replaces": REPLACES[name],

@@ -2,8 +2,8 @@
 
 Counterpart of ``benchmarks/profile_swinir.py`` (which ablates the step on
 a TPU). The step is the bench shape of ``bench.py``: SwinIR-S at full
-width and depth through the Stoke facade as
-``drivers/stoke_ddp.py`` builds it (``feat_loss``, AdamW, clip 0.1,
+width and depth through the Stoke facade, both built by the driver twin's
+``build_model`` and ``build_stoke`` (``feat_loss``, AdamW, clip 0.1,
 ``grad_accum_steps=2``), batch 18 at LR 64x64 -> HR 128x128, random
 weights and images from fixed seeds::
 
@@ -13,7 +13,6 @@ For f32 and bf16 it prints the step time with the profiler off, then
 traces a few steps with ``torch.profiler`` and prints the device time by
 kernel family (window attention, GEMM, convolution, ...), the device's
 busy and idle share of the traced window, and the profiler's overhead.
-``chip_smoke.py`` builds its bench-shape facade from :func:`make_facade`.
 """
 
 from __future__ import annotations
@@ -26,17 +25,8 @@ import time
 import numpy as np
 import torch
 
-from pytorch_distributedtraining_tpu_torch.losses import FeatLoss
-from pytorch_distributedtraining_tpu_torch.models import SwinIR
-from pytorch_distributedtraining_tpu_torch.stoke import (
-    AMPConfig,
-    ClipGradNormConfig,
-    DDPConfig,
-    DistributedOptions,
-    FairscaleOSSConfig,
-    Stoke,
-    StokeOptimizer,
-)
+from pytorch_distributedtraining_tpu_torch.drivers import stoke_ddp
+from pytorch_distributedtraining_tpu_torch.stoke import Stoke
 
 BATCH, LR_SIZE, ACCUM = 18, 64, 2
 
@@ -55,29 +45,13 @@ FAMILIES = (
 )
 
 
-def make_facade(fp16: str | None, device: str = "cuda", model: torch.nn.Module | None = None,
-                batch: int = BATCH) -> Stoke:
-    """The facade as the driver twin builds it, with SwinIR-S from seed 0."""
-    return Stoke(
-        model=model or SwinIR(generator=torch.Generator().manual_seed(0)),
-        optimizer=StokeOptimizer(optimizer="AdamW", optimizer_kwargs={
-            "lr": 1e-3, "betas": (0.9, 0.99), "eps": 1e-8, "weight_decay": 1e-4}),
-        loss=FeatLoss(), batch_size_per_device=batch, gpu=True, fp16=fp16,
-        distributed=DistributedOptions.ddp.value, fairscale_oss=True, fairscale_sddp=True,
-        grad_accum_steps=ACCUM,
-        configs=[AMPConfig(init_scale=2.0**14), DDPConfig(),
-                 FairscaleOSSConfig(broadcast_fp16=True)],
-        grad_clip=ClipGradNormConfig(max_norm=0.1, norm_type=2.0),
-        device=device,
-    )
-
-
-def make_batches(device, batch: int = BATCH, lr_size: int = LR_SIZE, count: int = ACCUM,
-                 seed: int = 0) -> list[tuple[torch.Tensor, torch.Tensor]]:
-    """``count`` (LR, HR) pairs on ``device``: random HR, box-downsampled LR."""
-    rng = np.random.default_rng(seed)
+def make_batches(device, batch: int = BATCH,
+                 lr_size: int = LR_SIZE) -> list[tuple[torch.Tensor, torch.Tensor]]:
+    """One optimizer step's (LR, HR) pairs on ``device``: random HR from
+    numpy seed 0, box-downsampled LR."""
+    rng = np.random.default_rng(0)
     out = []
-    for _ in range(count):
+    for _ in range(ACCUM):
         hr = rng.random((batch, 2 * lr_size, 2 * lr_size, 3), dtype=np.float32)
         lr = hr.reshape(batch, lr_size, 2, lr_size, 2, 3).mean(axis=(2, 4))
         out.append((torch.from_numpy(lr).to(device), torch.from_numpy(hr).to(device)))
@@ -140,13 +114,9 @@ def device_breakdown(trace_path: str) -> dict:
     }
 
 
-def profile(fp16: str | None, steps: int, warmup: int, trace_path: str,
-            device: str = "cuda", model: torch.nn.Module | None = None,
-            batch: int = BATCH, lr_size: int = LR_SIZE) -> dict:
+def profile(stoke: Stoke, batches, steps: int, warmup: int, trace_path: str) -> dict:
     """Step time with the profiler off, then a traced window of ``steps``."""
-    dev = torch.device(device)
-    stoke = make_facade(fp16, device, model=model, batch=batch)
-    batches = make_batches(stoke.device, batch=batch, lr_size=lr_size)
+    dev = stoke.device
     sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
     train_steps(stoke, batches, warmup)
     sync()
@@ -164,7 +134,7 @@ def profile(fp16: str | None, steps: int, warmup: int, trace_path: str,
         traced_ms = (time.perf_counter() - t0) / steps * 1e3
     prof.export_chrome_trace(trace_path)
     result = {
-        "precision": fp16 or "fp32", "step_ms": plain_ms,
+        "precision": stoke.fp16 or "fp32", "step_ms": plain_ms,
         "images_per_s": stoke.grad_accum_steps * stoke.batch_size_per_device / plain_ms * 1e3,
         "traced_step_ms": traced_ms, "loss": float(loss.detach()),
     }
@@ -191,8 +161,11 @@ def main(argv=None) -> int:
                          capture_output=True, text=True, timeout=60,
                          check=True).stdout.strip().splitlines()[0]
     print(f"card: {smi}; TF32 off for matmuls and cuDNN", flush=True)
+    batches = make_batches("cuda")
     for fp16 in (None, "bf16"):
-        r = profile(fp16, opt.steps, opt.warmup, f"{opt.trace_dir}/swinir_{fp16 or 'fp32'}.json")
+        stoke = stoke_ddp.build_stoke(stoke_ddp.build_model(), fp16=fp16)
+        r = profile(stoke, batches, opt.steps, opt.warmup,
+                    f"{opt.trace_dir}/swinir_{fp16 or 'fp32'}.json")
         r["card"] = smi
         print(json.dumps(r), flush=True)
     return 0

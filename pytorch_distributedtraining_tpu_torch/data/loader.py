@@ -3,10 +3,12 @@
 Counterpart of ``pytorch_distributedtraining_tpu/data/loader.py``. Index
 order is the JAX loader's: the sampler's order (dataset order without a
 sampler) is snapshotted per epoch and cut into batches, and the loader
-bumps the sampler's epoch after each snapshot. Fetching runs on
-``torch.utils.data`` worker processes (``num_workers``,
-``persistent_workers``, ``multiprocessing_context``); batches land in
-pinned host memory and reach the device by non-blocking copies.
+bumps the sampler's epoch after each snapshot. Batches go to the GPU
+unless the caller passes ``device="cpu"``; without a CUDA device the
+default raises. Fetching runs on ``torch.utils.data`` worker processes
+(``num_workers``, ``persistent_workers``, ``multiprocessing_context``);
+batches land in pinned host memory and reach the device by non-blocking
+copies.
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ import numpy as np
 import torch
 import torch.utils.data
 
+from ..runtime.dist import resolve_device
 from .sampler import DistributedSampler
 
 
@@ -38,13 +41,13 @@ def _collate(samples):
 class DataLoader:
     def __init__(self, dataset, batch_size: int = 1,
                  sampler: DistributedSampler | None = None, num_workers: int = 0,
-                 drop_last: bool = False, device: str | torch.device = "cpu",
+                 drop_last: bool = False, device: str | torch.device = "cuda",
                  persistent_workers: bool = False, multiprocessing_context=None):
         self.dataset = dataset
         self.batch_size = batch_size
         self.sampler = sampler
         self.drop_last = drop_last
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self._epoch = 0
         self._batches = _EpochBatches()
         workers = num_workers > 0

@@ -157,52 +157,63 @@ def build_parser():
     return parser
 
 
-def main(argv=None):
-    opt = build_parser().parse_args(argv)
-    epochs = opt.nEpochs
+def build_model(seed: int = 0) -> SwinIR:
+    """SwinIR-S x2 as the reference driver configures it, weights from ``seed``."""
+    return SwinIR(
+        upscale=2, in_chans=3, img_size=64, window_size=8,
+        img_range=1.0, depths=[6, 6, 6, 6], embed_dim=60,
+        num_heads=[6, 6, 6, 6], mlp_ratio=2,
+        upsampler="pixelshuffledirect", resi_connection="1conv",
+        generator=torch.Generator().manual_seed(seed),
+    )
 
-    amp_config = AMPConfig(init_scale=2.0**14)
+
+def build_stoke(model: torch.nn.Module, *, lr: float = 0.001, weight_decay: float = 1e-4,
+                grad_clip: float = 0.1, batch_size: int = 18, fp16: str | None = None,
+                device: str = "cuda", verbose: bool = True) -> Stoke:
+    """The driver's facade: ``feat_loss``, AdamW, global-norm clip,
+    ``grad_accum_steps=2``, DDP with OSS and SDDP (one device here)."""
     local_rank = os.getenv("LOCAL_RANK")
     ddp_config = DDPConfig(
         local_rank=int(local_rank) if local_rank not in (None, "None") else None,
         convert_to_sync_batch_norm=True,
     )
-    oss_config = FairscaleOSSConfig(broadcast_fp16=True)
-
-    print("===> Building model")
-    model = SwinIR(
-        upscale=2, in_chans=3, img_size=64, window_size=8,
-        img_range=1.0, depths=[6, 6, 6, 6], embed_dim=60,
-        num_heads=[6, 6, 6, 6], mlp_ratio=2,
-        upsampler="pixelshuffledirect", resi_connection="1conv",
-        generator=torch.Generator().manual_seed(0),
-    )
-
     optimizer = StokeOptimizer(
         optimizer="AdamW",
         optimizer_kwargs={
-            "lr": opt.lr,
+            "lr": lr,
             "betas": (0.9, 0.99),
             "eps": 1e-8,
-            "weight_decay": opt.weight_decay,
+            "weight_decay": weight_decay,
         },
     )
-
-    stoke_model = Stoke(
+    return Stoke(
         model=model,
-        verbose=True,
+        verbose=verbose,
         optimizer=optimizer,
         loss=feat_loss,
-        batch_size_per_device=opt.batchSize,
+        batch_size_per_device=batch_size,
         gpu=True,
-        fp16=opt.fp16,
+        fp16=fp16,
         distributed=DistributedOptions.ddp.value,
         fairscale_oss=True,
         fairscale_sddp=True,
         grad_accum_steps=2,
-        configs=[amp_config, ddp_config, oss_config],
-        grad_clip=ClipGradNormConfig(max_norm=opt.grad_clip, norm_type=2.0),
-        device=opt.device,
+        configs=[AMPConfig(init_scale=2.0**14), ddp_config,
+                 FairscaleOSSConfig(broadcast_fp16=True)],
+        grad_clip=ClipGradNormConfig(max_norm=grad_clip, norm_type=2.0),
+        device=device,
+    )
+
+
+def main(argv=None):
+    opt = build_parser().parse_args(argv)
+    epochs = opt.nEpochs
+
+    print("===> Building model")
+    stoke_model = build_stoke(
+        build_model(), lr=opt.lr, weight_decay=opt.weight_decay, grad_clip=opt.grad_clip,
+        batch_size=opt.batchSize, fp16=opt.fp16, device=opt.device,
     )
 
     print("===> Loading datasets")

@@ -9,15 +9,19 @@ import math
 import torch
 
 from pytorch_distributedtraining_tpu_torch.benchmarks import profile_swinir as ps
+from pytorch_distributedtraining_tpu_torch.drivers import stoke_ddp
 from pytorch_distributedtraining_tpu_torch.models import SwinIR
 
 
 def test_profile_runs_the_bench_step_on_cpu(tmp_path):
+    """The driver's facade around a toy SwinIR, as the profiler's main()
+    builds it around SwinIR-S."""
     model = SwinIR(img_size=8, window_size=4, depths=(2,), embed_dim=12, num_heads=(2,),
                    generator=torch.Generator().manual_seed(0))
+    stoke = stoke_ddp.build_stoke(model, fp16="bf16", batch_size=2, device="cpu")
     trace = tmp_path / "t.json"
-    r = ps.profile("bf16", steps=1, warmup=1, trace_path=str(trace), device="cpu",
-                   model=model, batch=2, lr_size=8)
+    r = ps.profile(stoke, ps.make_batches("cpu", batch=2, lr_size=8), steps=1, warmup=1,
+                   trace_path=str(trace))
     assert r["precision"] == "bf16" and r["step_ms"] > 0 and math.isfinite(r["loss"])
     assert r["images_per_s"] == ps.ACCUM * 2 / r["step_ms"] * 1e3
     assert "idle_share" not in r  # no device, no device metric

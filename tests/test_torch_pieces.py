@@ -142,7 +142,7 @@ def test_loader_batch_order_matches_jax_loader(workers):
     """Two epochs through each loader's auto set_epoch: same batches in the
     same order; the port's come out as tensors on the loader's device."""
     ds = SyntheticSRDataset(n=22, lr_size=4)
-    tl = DataLoader(ds, batch_size=4, sampler=DistributedSampler(ds, 1, 0),
+    tl = DataLoader(ds, batch_size=4, sampler=DistributedSampler(ds, 1, 0), device="cpu",
                     num_workers=workers, drop_last=True, persistent_workers=True,
                     multiprocessing_context="spawn" if workers else None)
     jl = JaxDataLoader(JaxSynthetic(n=22, lr_size=4), batch_size=4,
@@ -157,6 +157,13 @@ def test_loader_batch_order_matches_jax_loader(workers):
             np.testing.assert_array_equal(tx.numpy(), np.asarray(jx))
             np.testing.assert_array_equal(ty.numpy(), np.asarray(jy))
     tl.shutdown_workers()
+
+
+def test_loader_refuses_the_gpu_default_without_a_device(monkeypatch):
+    """The loader, like the facade, goes to the GPU unless asked for the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        DataLoader(SyntheticSRDataset(n=4, lr_size=4), batch_size=2)
 
 
 def test_checkpoint_strict_nested_load(tmp_path):
