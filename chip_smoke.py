@@ -8,11 +8,11 @@ Phases, each fatal on failure:
 1. device: the card's name and power limit, torch and CUDA versions; TF32
    is switched off for matmuls and cuDNN convolutions, so every f32 number
    below is full f32;
-2. build: the window-attention kernels from ``pytorch_distributedtraining_
-   tpu_torch/csrc`` with nvcc for sm_90a, with ptxas's register and spill
-   counts;
+2. build: both kernel libraries from ``pytorch_distributedtraining_
+   tpu_torch/csrc`` (window attention and flash attention), one nvcc each
+   for sm_90a, started together, with ptxas's register and spill counts;
 3. kernels: K1 (forward) and K2 (backward) against their plain PyTorch
-   versions at every shape the two driven paths below give them: the
+   versions at every shape the two SwinIR paths below give them: the
    bench shape (q/k/v [1152, 6, 64, 10]: batch 18 at LR 64x64) in f32 and
    bf16, with and without the shift mask, pack 1 and 2; the driver's
    training batches ([288, 6, 64, 10]: batch 18 at LR 32x32) and its
@@ -22,20 +22,36 @@ Phases, each fatal on failure:
    library call (``scaled_dot_product_attention`` with a float mask of
    bias + mask); then a toy SwinIR on the card against the same model on
    the CPU;
-4. driver: ``drivers.stoke_ddp.main`` (full-width SwinIR-S, one epoch of
+4. flash kernels: K3 (forward), K4 (dq) and K5 (dk/dv) against their
+   plain versions at the GPT-2 phase's shape, q/k/v [8, 512, 12, 64] as
+   views of one fused projection, causal in bf16 (the path) and f32, and
+   one non-causal bf16 case. Errors, median times of kernel, plain version
+   and library (``scaled_dot_product_attention(is_causal=...)`` for K3;
+   its autograd backward, one call, stands for K4 and K5 together), and
+   the bound from bytes and operations; then a tiny GPT-2 on the card
+   against the same model on the CPU;
+5. driver: ``drivers.stoke_ddp.main`` (full-width SwinIR-S, one epoch of
    synthetic data, two optimizer steps) in a scratch directory: finite
    losses, a checkpoint written, and the launch counts of both kernels;
-5. bench shape: the model and facade from the driver's ``build_model``
+6. bench shape: the model and facade from the driver's ``build_model``
    and ``build_stoke`` at batch 18, LR 64x64 -> HR 128x128, in f32 and
    bf16: a few optimizer steps, finite loss, moved weights, exactly 24 K1
    and 24 K2 launches per micro-batch, and step time and images/s beside
-   the card's name and power limit.
+   the card's name and power limit;
+7. GPT-2: the ladder twin's config 4 (``benchmarks.ladder.build_lm``):
+   GPT-2 125M at full width and depth, bf16, flash ``attn_fn``, batch 8 x
+   seq 512, AdamW: a first loss near ln(vocab), a few optimizer steps
+   after warm-up, finite loss, moved weights, exactly 12 K3, 12 K4 and 12
+   K5 launches per step, and tokens/s, step ms and peak memory beside the
+   card's name and power limit.
 
-Phases 4 and 5 note the shape, dtype and mask of every launch; the run
-fails if one of them was not held against the plain version in phase 3.
-The kernels' JSON describes phase 5's f32 run: its launch counts, and the
-errors and times of phase 3 at its shape. The last lines are that JSON,
-the ``nvidia-smi`` name and power limit, and ``{"ok": true, "device":
+Phases 5-7 note the shape, dtype and mask (or causality) of every launch;
+the run fails if one of them was not held against the plain version in
+phase 3 or 4. The kernels' JSON lists all five kernels: K1/K2 from phase
+6's f32 run (its launch counts, and the errors and times of phase 3 at
+its shape), K3-K5 from phase 7 (its launch counts, and phase 4's numbers
+for the causal bf16 case). The last lines are that JSON, the
+``nvidia-smi`` name and power limit, and ``{"ok": true, "device":
 {...}}``. Without a CUDA device, or without the rest of the repository
 beside it, it exits non-zero before printing a result.
 """
@@ -57,16 +73,24 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}  # CUDA-core f32; dense bf16
 TOL = {"float32": 2e-5, "bfloat16": 1e-2}  # max |err| / max(1, max |ref|)
-SOURCE = "pytorch_distributedtraining_tpu_torch/csrc/window_attn.cu"
+SOURCES = {
+    "window_attn": "pytorch_distributedtraining_tpu_torch/csrc/window_attn.cu",
+    "flash_attn": "pytorch_distributedtraining_tpu_torch/csrc/flash_attn.cu",
+}
 REPLACES = {
     "window_attn_fwd": "pytorch_distributedtraining_tpu/ops/pallas_window_attn.py:35",
     "window_attn_bwd": "pytorch_distributedtraining_tpu/ops/pallas_window_attn.py:58",
+    "flash_attn_fwd": "pytorch_distributedtraining_tpu/ops/pallas_attn.py:43",
+    "flash_attn_dq": "pytorch_distributedtraining_tpu/ops/pallas_attn.py:86",
+    "flash_attn_dkv": "pytorch_distributedtraining_tpu/ops/pallas_attn.py:127",
 }
 BATCH, LR_SIZE, HEADS, WINDOW, DIM = 18, 64, 6, 8, 60  # the bench shape
 # the driver run of phase 4: 100 synthetic images at LR 32x32 (the driver's
 # SyntheticSRDataset), split 90 / 10: five training batches of 18 and one
 # validation batch of 10
 DRIVER_N, DRIVER_LR, DRIVER_VAL = 100, 32, 10
+# the GPT-2 phase: GPT-2 125M, batch 8 x seq 512 (12 heads of 64)
+LM_BATCH, LM_SEQ, LM_HEADS, LM_HEAD_DIM, LM_LAYERS = 8, 512, 12, 64, 12
 
 
 def smi_line() -> str:
@@ -123,13 +147,48 @@ def phase_build():
     from pytorch_distributedtraining_tpu_torch import csrc
 
     t0 = time.perf_counter()
-    path = csrc.build()
-    csrc.load()
-    regs = [int(r) for r in re.findall(r"Used (\d+) registers", csrc.build_log)]
-    spills = [int(s) for s in re.findall(r"(\d+) bytes spill stores", csrc.build_log)]
-    print(f"[build] {path.name}: {time.perf_counter() - t0:.1f} s (nvcc {csrc.build_seconds:.1f} s), "
-          f"{len(regs)} kernels, registers max {max(regs, default=0)}, "
-          f"spill stores max {max(spills, default=0)} bytes")
+    paths = csrc.build_all()
+    for name in paths:
+        csrc.load(name)
+    print(f"[build] {len(paths)} libraries in {time.perf_counter() - t0:.1f} s")
+    for name, path in paths.items():
+        log = csrc.build_log.get(name, "")
+        regs = [int(r) for r in re.findall(r"Used (\d+) registers", log)]
+        spills = [int(s) for s in re.findall(r"(\d+) bytes spill stores", log)]
+        smem = [int(s) for s in re.findall(r"(\d+) bytes smem", log)]
+        print(f"[build] {path.name}: nvcc {csrc.build_seconds.get(name, 0.0):.1f} s, "
+              f"{len(regs)} kernels, registers {min(regs, default=0)}-{max(regs, default=0)}, "
+              f"spill stores max {max(spills, default=0)} bytes, static smem max "
+              f"{max(smem, default=0)} bytes")
+        if name == "flash_attn":  # per kernel at the GPT-2 head dim
+            for entry, (nregs, spill) in ptxas_entries(log).items():
+                if entry.endswith("D=64"):
+                    print(f"[build]   {entry}: {nregs} registers, {spill} bytes spill stores")
+
+
+PTX_TYPES = {"f": "f32", "6__half": "f16", "13__nv_bfloat16": "bf16"}  # mangled
+
+
+def ptxas_entries(log: str) -> dict:
+    """``{kernel (kind, type, head dim): (registers, spill store bytes)}``
+    from ptxas's -v report."""
+    out, entry, spill = {}, None, 0
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            entry, spill = m.group(1), 0
+            continue
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m:
+            spill = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and entry:
+            kind = re.search(r"flash_attn_(fwd|dq|dkv)_kernelI(f|6__half|13__nv_bfloat16)"
+                             r"Li(\d+)E", entry)
+            key = entry if kind is None else (
+                f"{kind.group(1)} {PTX_TYPES[kind.group(2)]} D={kind.group(3)}")
+            out[key] = (int(m.group(1)), spill)
+    return out
 
 
 def launch_signature(kernel: str, q, mask) -> tuple:
@@ -137,12 +196,19 @@ def launch_signature(kernel: str, q, mask) -> tuple:
     return kernel, tuple(q.shape), str(q.dtype), None if mask is None else mask.shape[0]
 
 
+def flash_signature(kernel: str, q, causal: bool) -> tuple:
+    """What a flash launch depends on: q's shape and dtype, causality."""
+    return kernel, tuple(q.shape), str(q.dtype), bool(causal)
+
+
 @contextlib.contextmanager
 def record_launches(seen: set):
-    """Add the signature of every K1 and K2 launch made inside to ``seen``."""
+    """Add the signature of every K1-K5 launch made inside to ``seen``."""
+    from pytorch_distributedtraining_tpu_torch.ops import flash_attn as tfa
     from pytorch_distributedtraining_tpu_torch.ops import window_attn as twa
 
     fwd, bwd = twa.kernel_forward, twa.kernel_backward
+    flash = tfa.kernel_forward, tfa.kernel_dq, tfa.kernel_dkv
 
     def forward(q, k, v, bias, mask):
         seen.add(launch_signature("fwd", q, mask))
@@ -152,11 +218,20 @@ def record_launches(seen: set):
         seen.add(launch_signature("bwd", q, mask))
         return bwd(q, k, v, bias, mask, do)
 
+    def recorded(name, fn):
+        def launch(q, *args):
+            seen.add(flash_signature(name, q, args[-1]))
+            return fn(q, *args)
+        return launch
+
     twa.kernel_forward, twa.kernel_backward = forward, backward
+    tfa.kernel_forward, tfa.kernel_dq, tfa.kernel_dkv = (
+        recorded(n, fn) for n, fn in zip(("flash_fwd", "flash_dq", "flash_dkv"), flash))
     try:
         yield
     finally:
         twa.kernel_forward, twa.kernel_backward = fwd, bwd
+        tfa.kernel_forward, tfa.kernel_dq, tfa.kernel_dkv = flash
 
 
 def _attention_inputs(dtype, with_mask: bool, batch: int, lr_size: int, seed: int):
@@ -286,6 +361,111 @@ def phase_kernels(smi: str) -> list[dict]:
     return cases
 
 
+def _flash_case(dtype, causal: bool, seed: int) -> dict:
+    """K3-K5 at the GPT-2 phase's shape: errors against the plain versions
+    (on the same lse and delta), and the times of kernel, plain version and
+    library call."""
+    import torch
+    import torch.nn.functional as F
+
+    from pytorch_distributedtraining_tpu_torch.ops import flash_attn as tfa
+
+    b, t, h, d = LM_BATCH, LM_SEQ, LM_HEADS, LM_HEAD_DIM
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    # q/k/v as the path gives them: views of one fused [B, T, 3*H*D] projection
+    qkv = torch.randn(b, t, 3 * h * d, generator=g, device="cuda").to(dtype)
+    q, k, v = (a.unflatten(-1, (h, d)) for a in qkv.split(h * d, dim=-1))
+    do = torch.randn(b, t, h, d, generator=g, device="cuda").to(dtype)
+    checked = {flash_signature(n, q, causal) for n in ("flash_fwd", "flash_dq", "flash_dkv")}
+
+    want = dict(zip(("o", "lse"), tfa.plain_forward(q, k, v, causal)))
+    grad_args = (do, want["lse"], tfa.delta_rows(want["o"], do), causal)
+    want["dq"] = tfa.plain_dq(q, k, v, *grad_args)
+    want["dk"], want["dv"] = tfa.plain_dkv(q, k, v, *grad_args)
+    got = dict(zip(("o", "lse"), tfa.kernel_forward(q, k, v, causal)))
+    got["dq"] = tfa.kernel_dq(q, k, v, *grad_args)
+    got["dk"], got["dv"] = tfa.kernel_dkv(q, k, v, *grad_args)
+    torch.cuda.synchronize()
+    errors = {n: err(got[n], want[n]) for n in want}
+
+    times = {
+        "fwd": median_ms(lambda: tfa.kernel_forward(q, k, v, causal)),
+        "dq": median_ms(lambda: tfa.kernel_dq(q, k, v, *grad_args)),
+        "dkv": median_ms(lambda: tfa.kernel_dkv(q, k, v, *grad_args)),
+        "plain_fwd": median_ms(lambda: tfa.plain_forward(q, k, v, causal)),
+        "plain_dq": median_ms(lambda: tfa.plain_dq(q, k, v, *grad_args)),
+        "plain_dkv": median_ms(lambda: tfa.plain_dkv(q, k, v, *grad_args)),
+    }
+    lq, lk, lv = (x.transpose(1, 2).contiguous().requires_grad_(True) for x in (q, k, v))
+    ldo = do.transpose(1, 2).contiguous()
+    with torch.no_grad():
+        times["lib_fwd"] = median_ms(
+            lambda: F.scaled_dot_product_attention(lq, lk, lv, is_causal=causal))
+    lout = F.scaled_dot_product_attention(lq, lk, lv, is_causal=causal)
+    times["lib_bwd"] = median_ms(
+        lambda: torch.autograd.grad(lout, (lq, lk, lv), ldo, retain_graph=True))
+
+    # each input read once, each output written once; the score pairs this
+    # run's mask keeps (T(T+1)/2 per row block when causal)
+    n, esize, stats = q.numel(), q.element_size(), b * h * t * 4
+    pairs = b * h * (t * (t + 1) // 2 if causal else t * t)
+    dt = str(dtype).split(".")[1]
+    bounds = {
+        "fwd": bound_ms(4 * n * esize + stats, 4 * pairs * d, dt),
+        "dq": bound_ms(5 * n * esize + 2 * stats, 6 * pairs * d, dt),
+        "dkv": bound_ms(6 * n * esize + 2 * stats, 8 * pairs * d, dt),
+    }
+    return {"dtype": dt, "causal": causal, "shape": tuple(q.shape), "errors": errors,
+            "times": times, "bounds": bounds, "checked": checked}
+
+
+def phase_flash_kernels(smi: str) -> list[dict]:
+    import numpy as np
+    import torch
+
+    from pytorch_distributedtraining_tpu_torch.models import GPT2, GPT2Config
+    from pytorch_distributedtraining_tpu_torch.ops import flash_attn as tfa
+
+    cases = []
+    for seed, (dtype, causal) in enumerate(
+            [(torch.bfloat16, True), (torch.float32, True), (torch.bfloat16, False)]):
+        c = _flash_case(dtype, causal, seed)
+        tol = TOL[c["dtype"]]
+        worst = max(rel for nm, (_, rel) in c["errors"].items() if nm != "lse")
+        errs = " ".join(f"{nm} {a:.2e}/{r:.2e}" for nm, (a, r) in c["errors"].items())
+        t, bd = c["times"], c["bounds"]
+        print(f"[flash] {c['dtype']:8s} q {list(c['shape'])} causal={int(causal)} abs/rel err: "
+              f"{errs} (tol rel {tol:g}; lse f32, tol rel {TOL['float32']:g})")
+        print(f"[flash]   ms fwd {t['fwd']:.4f} dq {t['dq']:.4f} dkv {t['dkv']:.4f} | plain fwd "
+              f"{t['plain_fwd']:.4f} dq {t['plain_dq']:.4f} dkv {t['plain_dkv']:.4f} | library "
+              f"fwd {t['lib_fwd']:.4f} bwd (dq+dkv) {t['lib_bwd']:.4f} | bound fwd "
+              f"{bd['fwd'][0]:.4f} ({bd['fwd'][1]}) dq {bd['dq'][0]:.4f} ({bd['dq'][1]}) dkv "
+              f"{bd['dkv'][0]:.4f} ({bd['dkv'][1]}) | {smi}")
+        if not (worst <= tol and c["errors"]["lse"][1] <= TOL["float32"]):
+            raise SystemExit(f"flash kernel disagrees with its plain version: {c['errors']}")
+        cases.append(c)
+
+    cfg = GPT2Config.tiny(n_embd=128, n_head=2, n_positions=128)
+    model = GPT2(cfg, attn_fn=tfa.make_flash_attn_fn(), generator=torch.Generator().manual_seed(0))
+    tok = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 128)))
+    want = model(tok)
+    want.square().mean().backward()
+    want_grads = {nm: p.grad.clone() for nm, p in model.named_parameters()}
+    model.zero_grad()
+    before = tfa.fwd_launches, tfa.dq_launches, tfa.dkv_launches
+    got = model.cuda()(tok.cuda())
+    got.square().mean().backward()
+    launched = tuple(a - b for a, b in zip((tfa.fwd_launches, tfa.dq_launches,
+                                           tfa.dkv_launches), before))
+    out_err = err(got.cpu(), want)[1]
+    grad_err = max(err(p.grad.cpu(), want_grads[nm])[1] for nm, p in model.named_parameters())
+    print(f"[flash] tiny GPT-2 card vs CPU: logits rel err {out_err:.2e}, worst grad rel err "
+          f"{grad_err:.2e}, launches {launched}")
+    if launched != (2, 2, 2) or out_err > 1e-4 or grad_err > 1e-4:
+        raise SystemExit("tiny GPT-2 on the card disagrees with the CPU")
+    return cases
+
+
 def phase_driver() -> None:
     from pytorch_distributedtraining_tpu_torch.drivers import stoke_ddp
     from pytorch_distributedtraining_tpu_torch.ops import window_attn as twa
@@ -367,6 +547,52 @@ def phase_bench(smi: str, steps: int = 5, warmup: int = 2):
     return results
 
 
+def phase_gpt2(smi: str, steps: int = 5, warmup: int = 2) -> dict:
+    import math
+
+    import torch
+
+    from pytorch_distributedtraining_tpu_torch.benchmarks import ladder
+    from pytorch_distributedtraining_tpu_torch.models import GPT2Config
+    from pytorch_distributedtraining_tpu_torch.ops import flash_attn as tfa
+
+    cfg = GPT2Config.gpt2_125m()
+    model, step, tokens = ladder.build_lm(cfg, LM_BATCH, LM_SEQ, torch.device("cuda"))
+    w = model.transformer.h[0].attn.c_attn.weight
+    w0 = w.detach().clone()
+    first = step(tokens)["loss"].item()
+    for _ in range(warmup - 1):
+        step(tokens)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    tfa.reset_launch_counts()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        metrics = step(tokens)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    launches = tfa.fwd_launches, tfa.dq_launches, tfa.dkv_launches
+    loss, gnorm = metrics["loss"].item(), metrics["grad_norm"].item()
+    moved = (w - w0).abs().max().item()
+    step_ms = elapsed / steps * 1e3
+    tps = LM_BATCH * LM_SEQ * steps / elapsed
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"[gpt2] GPT-2 125M ({n_params} parameters), bf16, flash attn_fn, batch {LM_BATCH} x "
+          f"seq {LM_SEQ}: step {step_ms:.2f} ms, {tps:.1f} tokens/s ({steps} steps after "
+          f"{warmup}), peak {peak:.2f} GiB, first loss {first:.4f} (ln vocab "
+          f"{math.log(cfg.vocab_size):.4f}), loss {loss:.4f}, grad norm {gnorm:.4f}, weights "
+          f"moved {moved:.2e}, launches K3 {launches[0]} K4 {launches[1]} K5 {launches[2]} "
+          f"| {smi}")
+    if abs(first - math.log(cfg.vocab_size)) > 0.5:
+        raise SystemExit(f"first loss {first} is not near ln(vocab): the model is wrong")
+    if launches != (LM_LAYERS * steps,) * 3:
+        raise SystemExit(f"launches {launches}, expected {LM_LAYERS} of each per step")
+    if not (math.isfinite(loss) and math.isfinite(gnorm)) or not moved > 0:
+        raise SystemExit(f"loss {loss}, grad norm {gnorm} or weights did not move")
+    return {"step_ms": step_ms, "tokens_per_s": tps, "launches": launches}
+
+
 def main() -> int:
     import torch
 
@@ -379,13 +605,15 @@ def main() -> int:
     smi = phase_device()
     phase_build()
     cases = phase_kernels(smi)
+    flash_cases = phase_flash_kernels(smi)
     seen: set = set()
     with record_launches(seen):
         phase_driver()
         bench = phase_bench(smi)
-    checked = set().union(*(c["checked"] for c in cases))
-    print(f"[shapes] phases 4-5 launched {len(seen)} kinds of (kernel, q shape, dtype, mask "
-          f"windows): {sorted(seen, key=str)}")
+        lm = phase_gpt2(smi)
+    checked = set().union(*(c["checked"] for c in cases + flash_cases))
+    print(f"[shapes] phases 5-7 launched {len(seen)} kinds of (kernel, q shape, dtype, mask "
+          f"windows or causal): {sorted(seen, key=str)}")
     if seen - checked:
         raise SystemExit(f"launched on a driven path but never held against the plain "
                          f"version: {sorted(seen - checked, key=str)}")
@@ -405,10 +633,27 @@ def main() -> int:
         abs_err = max(c["errors"][g][0] for c in at_shape for g in grads)
         bound = main_case[f"{key}_bound"]
         kernels.append({
-            "name": name, "route": "cuda", "source": SOURCE, "replaces": REPLACES[name],
-            "launches": launched, "max_abs_err": abs_err, "ms": t[key],
+            "name": name, "route": "cuda", "source": SOURCES["window_attn"],
+            "replaces": REPLACES[name], "launches": launched, "max_abs_err": abs_err,
+            "ms": t[key], "plain_ms": t[f"plain_{key}"], "bound_ms": bound[0],
+            "bound_by": bound[1], "library_ms": t[f"lib_{key}"],
+        })
+    # K3-K5: phase 7's launches, phase 4's causal bf16 case (the path's);
+    # one library call (SDPA's backward) stands for K4 and K5 together
+    path_case = flash_cases[0]
+    t = path_case["times"]
+    for name, key, launched, outs, lib in (
+        ("flash_attn_fwd", "fwd", lm["launches"][0], ("o", "lse"), "lib_fwd"),
+        ("flash_attn_dq", "dq", lm["launches"][1], ("dq",), "lib_bwd"),
+        ("flash_attn_dkv", "dkv", lm["launches"][2], ("dk", "dv"), "lib_bwd"),
+    ):
+        bound = path_case["bounds"][key]
+        kernels.append({
+            "name": name, "route": "cuda", "source": SOURCES["flash_attn"],
+            "replaces": REPLACES[name], "launches": launched,
+            "max_abs_err": max(path_case["errors"][o][0] for o in outs), "ms": t[key],
             "plain_ms": t[f"plain_{key}"], "bound_ms": bound[0], "bound_by": bound[1],
-            "library_ms": t[f"lib_{key}"],
+            "library_ms": t[lib],
         })
     print(f"[done] {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))

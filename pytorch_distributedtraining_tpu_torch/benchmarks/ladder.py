@@ -1,0 +1,218 @@
+"""The ladder's LM rung (config 4, GPT-2 125M) on one GPU.
+
+Counterpart of ``benchmarks/ladder.py``'s ``_run_lm`` and ``run_config(4)``:
+GPT-2 125M, batch 8 x seq 512 of random tokens from numpy seed 0, AdamW
+(lr 3e-4, clip by global norm 1.0), cross entropy of ``logits[:, :-1]``
+against ``tokens[:, 1:]``, timed as the best of three windows of
+``--steps`` optimizer steps after ``--warmup``. It prints the rung's one
+JSON line (``tokens_per_sec``, the step time and peak memory), under the
+same roofline guard (1 PFLOP/s per device over 6 x parameters FLOPs per
+token)::
+
+    python -m pytorch_distributedtraining_tpu_torch.benchmarks.ladder --config 4
+
+``--trace build/gpt2.json`` also traces the steps with ``torch.profiler``
+and adds the device time per step by kernel family, the device's idle
+share and the times of the tied head's GEMMs (vocab 50257, an odd width)
+to the line.
+
+It differs from the JAX rung in three places:
+
+- one GPU, so no ZeRO-3 (the JAX rung shards parameters, gradients and
+  optimizer state over its mesh);
+- no remat (the JAX rung rematerialises each block at full size);
+- attention through the flash ``attn_fn``, the CUDA kernels K3-K5 (the JAX
+  rung uses XLA's default attention), because that is the kernel path this
+  rung exists to drive.
+
+Weights are random, from ``torch.Generator`` seed 0. ``--tiny`` runs
+``GPT2Config.tiny()`` at seq 32 (with ``--device cpu``, as the tests do).
+Configs 1-3 and 5 (ResNet, ViT) are not ported yet and raise.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import math
+import time
+
+import numpy as np
+import torch
+
+from .. import optim
+from ..models.gpt2 import GPT2, GPT2Config, cross_entropy_loss
+from ..ops.flash_attn import make_flash_attn_fn
+from ..parallel import TrainStep
+from ..runtime.dist import resolve_device
+
+WINDOWS = 3  # best of N timed windows, as the JAX rung
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _timed_steps(step: TrainStep, batch, n_steps: int, warmup: int,
+                 windows: int = WINDOWS) -> tuple[float, dict]:
+    """Seconds of the best of ``windows`` windows of ``n_steps`` steps, and
+    the last step's metrics; the loss is checked finite after the clock."""
+    device = batch.device
+    metrics = None
+    for _ in range(warmup):
+        metrics = step(batch)
+    _sync(device)
+    best = float("inf")
+    for _ in range(max(1, windows)):
+        t0 = time.perf_counter()
+        for _ in range(n_steps):
+            metrics = step(batch)
+        _sync(device)
+        best = min(best, time.perf_counter() - t0)
+    loss = float(metrics["loss"])
+    if not math.isfinite(loss):
+        raise RuntimeError(f"non-finite loss after timing: {loss}")
+    return best, metrics
+
+
+def _roofline_guard(result: dict, model: torch.nn.Module) -> dict:
+    """Refuse to publish a rate above ``1 PFLOP/s / (6 x n_params)`` per
+    device: training costs at least 6 FLOPs per parameter per token, so a
+    rate above it is a broken timing loop, never a measurement."""
+    n_params = sum(p.numel() for p in model.parameters())
+    bound = 1e15 / (6.0 * n_params)
+    if result["value"] > bound:
+        raise RuntimeError(
+            f"ROOFLINE VIOLATION: {result['config']} {result['value']:.0f} {result['unit']} "
+            f"exceeds the {bound:.0f} bound (1 device x 1 PFLOP/s / 6x{n_params} FLOP/item)")
+    result["roofline"] = round(bound, 1)
+    return result
+
+
+def build_lm(cfg: GPT2Config, batch_size: int, seq: int, device: torch.device, seed: int = 0):
+    """The rung's model (flash ``attn_fn``), train step and token batch on
+    ``device``: ``(model, step, tokens)``."""
+    model = GPT2(cfg, attn_fn=make_flash_attn_fn(),
+                 generator=torch.Generator().manual_seed(seed)).to(device)
+    tx = optim.adamw(model.parameters(), lr=3e-4, clip_grad_norm=1.0)
+
+    def loss_fn(model, tokens):
+        logits = model(tokens)
+        return cross_entropy_loss(logits[:, :-1], tokens[:, 1:]), {}
+
+    tok = np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, size=(batch_size, seq)).astype(np.int32)
+    return model, TrainStep(model, loss_fn, tx), torch.from_numpy(tok).to(device)
+
+
+def _median_ms(fn, reps: int = 20, warmup: int = 3) -> float:
+    """Median time of ``fn`` on the card's stream, with CUDA events."""
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(reps):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return sorted(times)[len(times) // 2]
+
+
+def _head_gemm_ms(model: GPT2, tokens: int) -> dict:
+    """The tied head's GEMMs at the rung's shape, in the model's dtype:
+    ``logits = x @ wteᵀ`` ([tokens, n_embd] x [n_embd, vocab]) and the two
+    GEMMs of its backward (dx and dwte)."""
+    cfg, w = model.cfg, model.transformer.wte.weight
+    wd = w.detach().to(cfg.dtype)
+    x = torch.randn(tokens, cfg.n_embd, device=w.device, dtype=cfg.dtype)
+    g = torch.randn(tokens, cfg.vocab_size, device=w.device, dtype=cfg.dtype)
+    return {"fwd": _median_ms(lambda: x @ wd.t()),
+            "bwd": _median_ms(lambda: (g @ wd, g.t() @ x))}
+
+
+def _traced_steps(step: TrainStep, batch, n_steps: int, trace_path: str) -> dict:
+    """Device time per step by kernel family and the device's busy and idle
+    shares, from a ``torch.profiler`` trace of ``n_steps`` steps on a card."""
+    from .profile_swinir import device_breakdown
+
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n_steps):
+            step(batch)
+        _sync(batch.device)
+        traced_ms = (time.perf_counter() - t0) / n_steps * 1e3
+    prof.export_chrome_trace(trace_path)
+    r = device_breakdown(trace_path)
+    return {
+        "traced_step_ms": traced_ms,
+        "device_ms_by_family": {k: v / n_steps for k, v in r["device_ms_by_family"].items()},
+        "top_kernels_ms": [(k, v / n_steps) for k, v in r["top_kernels_ms"]],
+        "kernels_per_step": r["kernels"] / n_steps,
+        "busy_ms": r["busy_ms"] / n_steps,
+        "idle_share": r["idle_share"],
+    }
+
+
+def _run_lm(name: str, cfg: GPT2Config, batch_size: int, seq: int, steps: int, warmup: int,
+            device: torch.device, trace: str | None = None) -> dict:
+    model, step, tokens = build_lm(cfg, batch_size, seq, device)
+    dt, metrics = _timed_steps(step, tokens, steps, warmup)
+    extra = {}
+    if trace is not None:
+        if device.type != "cuda":
+            raise ValueError("--trace reads device time: it needs a card")
+        extra = _traced_steps(step, tokens, steps, trace)
+        extra["head_gemm_ms"] = _head_gemm_ms(model, batch_size * seq)
+    return _roofline_guard({
+        "config": name,
+        "metric": "tokens_per_sec",
+        "value": batch_size * seq * steps / dt,
+        "unit": "tokens/sec",
+        "device": torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu",
+        "steps": steps,
+        "step_ms": dt / steps * 1e3,
+        "loss": float(metrics["loss"]),
+        "peak_gib": (torch.cuda.max_memory_allocated(device) / 2**30
+                     if device.type == "cuda" else None),
+        **extra,
+    }, model)
+
+
+def run_config(i: int, tiny: bool, steps: int, warmup: int, device="cuda",
+               trace: str | None = None) -> dict:
+    device = resolve_device(device)
+    if i == 4:
+        cfg = GPT2Config.tiny() if tiny else GPT2Config.gpt2_125m()
+        return _run_lm("4_gpt2_125m_one_gpu_flash", cfg, 8, 32 if tiny else 512, steps,
+                       warmup, device, trace)
+    if i in (1, 2, 3, 5):
+        raise NotImplementedError(
+            f"ladder config {i} (ResNet/ViT) is not ported yet: the models wait for ROADMAP "
+            "A.11 and the DDP/ZeRO policies for A.4")
+    raise ValueError(f"config {i} not in 1..5")
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--config", type=int, default=4)
+    ap.add_argument("--tiny", action="store_true")
+    ap.add_argument("--steps", type=int, default=10)
+    ap.add_argument("--warmup", type=int, default=2)
+    ap.add_argument("--device", default="cuda", help="'cuda' (default) or 'cpu'")
+    ap.add_argument("--trace", default=None, metavar="PATH",
+                    help="also trace --steps steps into this Chrome trace and add the device "
+                         "time by kernel family and the idle share (needs a card)")
+    opt = ap.parse_args(argv)
+    if opt.device.startswith("cuda"):
+        torch.backends.cuda.matmul.allow_tf32 = False
+    print(json.dumps(run_config(opt.config, opt.tiny, opt.steps, opt.warmup, opt.device,
+                                opt.trace)), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

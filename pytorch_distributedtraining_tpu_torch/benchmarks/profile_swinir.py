@@ -29,14 +29,17 @@ from pytorch_distributedtraining_tpu_torch.drivers import stoke_ddp
 from pytorch_distributedtraining_tpu_torch.stoke import Stoke
 
 BATCH, LR_SIZE, ACCUM = 18, 64, 2
+TOP_KERNELS = 12  # kernels listed by name in a breakdown
 
 # kernel-name fragments -> family, first match wins
 # (cuDNN's implicit-GEMM convolutions carry "gemm" and "xmma" too, so
 # convolution is tested before GEMM)
 FAMILIES = (
     ("window attention (K1/K2)", ("window_attn", "dbias_reduce")),
+    ("flash attention (K3-K5)", ("flash_attn",)),
+    ("softmax / cross entropy", ("softmax", "nll_loss")),
     ("convolution", ("conv", "cudnn", "fprop", "dgrad", "wgrad")),
-    ("GEMM", ("gemm", "gemv", "xmma", "cutlass", "cublas")),
+    ("GEMM", ("gemm", "gemv", "xmma", "cutlass", "cublas", "nvjet")),
     ("LayerNorm", ("layer_norm",)),
     ("optimizer (foreach)", ("foreach", "multi_tensor")),
     ("reduction", ("reduce",)),
@@ -88,9 +91,9 @@ def _union_us(spans: list[tuple[float, float]]) -> float:
 
 
 def device_breakdown(trace_path: str) -> dict:
-    """Device time by kernel family, and busy/idle shares of the span from
-    the first kernel's start to the last kernel's end, from a Chrome trace
-    written by ``torch.profiler``."""
+    """Device time by kernel family and of the longest kernels by name, and
+    busy/idle shares of the span from the first kernel's start to the last
+    kernel's end, from a Chrome trace written by ``torch.profiler``."""
     with open(trace_path) as f:
         events = json.load(f)["traceEvents"]
     kernels = [e for e in events
@@ -98,9 +101,11 @@ def device_breakdown(trace_path: str) -> dict:
     if not kernels:
         raise RuntimeError("the trace holds no device activity (no CUPTI kernels)")
     by_family: dict[str, float] = {}
+    by_name: dict[str, float] = {}
     spans = []
     for e in kernels:
         by_family[family(e["name"])] = by_family.get(family(e["name"]), 0.0) + e["dur"]
+        by_name[e["name"]] = by_name.get(e["name"], 0.0) + e["dur"]
         spans.append((float(e["ts"]), float(e["ts"]) + float(e["dur"])))
     window = max(b for _, b in spans) - min(a for a, _ in spans)
     busy = _union_us(spans)
@@ -108,6 +113,8 @@ def device_breakdown(trace_path: str) -> dict:
         "kernels": len(kernels),
         "device_ms_by_family": {k: v / 1e3 for k, v in
                                 sorted(by_family.items(), key=lambda kv: -kv[1])},
+        "top_kernels_ms": [(k[:120], v / 1e3) for k, v in
+                           sorted(by_name.items(), key=lambda kv: -kv[1])[:TOP_KERNELS]],
         "busy_ms": busy / 1e3,
         "window_ms": window / 1e3,
         "idle_share": 1.0 - busy / window,

@@ -1,11 +1,12 @@
-"""Weight carry-over from the JAX package's SwinIR into the port's SwinIR.
+"""Weight carry-over from the JAX package's SwinIR and GPT-2 into the port's.
 
-Counterpart of the SwinIR part of ``pytorch_distributedtraining_tpu/
-interop.py`` (``torch_swinir_state_dict`` and the ``SWINIR_EXPORT_KEY_MAP``
-beside the JAX model): the same key rewrites, kept here as a copy so the
-port imports nothing of the JAX package. The input is the JAX model's
-``params`` as a nested dict of numpy arrays (``jax.device_get`` of the
-tree); the output strict-loads into ``models.swinir.SwinIR``.
+Counterpart of the SwinIR and GPT-2 parts of ``pytorch_distributedtraining_
+tpu/interop.py`` (``torch_swinir_state_dict``, ``torch_gpt2_state_dict`` and
+the ``SWINIR_EXPORT_KEY_MAP`` / ``GPT2_EXPORT_KEY_MAP`` beside the JAX
+models): the same key rewrites, kept here as a copy so the port imports
+nothing of the JAX package. The input is the JAX model's ``params`` as a
+nested dict of numpy arrays (``jax.device_get`` of the tree); the output
+strict-loads into ``models.swinir.SwinIR`` or ``models.gpt2.GPT2``.
 """
 
 from __future__ import annotations
@@ -26,6 +27,19 @@ SWINIR_KEY_RULES = [
     (r"^rstb_(\d+)/conv/", r"layers.\1.conv."),
     (r"^patch_norm/", "patch_embed.norm."),
     (r"^conv_up/", "upsample.0."),
+]
+
+
+# flat JAX key -> HF GPT2LMHeadModel name (the JAX GPT2_EXPORT_KEY_MAP)
+GPT2_KEY_RULES = [
+    (r"^h_(\d+)/c_attn/", r"transformer.h.\1.attn.c_attn."),
+    (r"^h_(\d+)/c_proj/", r"transformer.h.\1.attn.c_proj."),
+    (r"^h_(\d+)/mlp_fc/", r"transformer.h.\1.mlp.c_fc."),
+    (r"^h_(\d+)/mlp_proj/", r"transformer.h.\1.mlp.c_proj."),
+    (r"^h_(\d+)/ln_(1|2)/", r"transformer.h.\1.ln_\2."),
+    (r"^ln_f/", "transformer.ln_f."),
+    (r"^wte$", "transformer.wte.weight"),
+    (r"^wpe$", "transformer.wpe.weight"),
 ]
 
 
@@ -78,4 +92,25 @@ def swinir_state_dict_from_jax(params: dict, img_size: int = 64) -> dict[str, to
             sd[f"{base}.attn.relative_position_index"] = idx.clone()
             if j % 2 == 1:  # shifted blocks carry the trained-size mask
                 sd[f"{base}.attn_mask"] = mask.clone()
+    return sd
+
+
+def gpt2_state_dict_from_jax(params: dict) -> dict[str, torch.Tensor]:
+    """JAX GPT-2 ``params`` -> state dict of the port's ``GPT2``.
+
+    Dense kernels ``[in, out]`` -> ``nn.Linear`` ``[out, in]``, LayerNorm
+    ``scale`` -> ``weight``; the embeddings keep their ``[rows, n_embd]``
+    layout. ``params`` may be nested under ``"params"``.
+    """
+    if set(params) == {"params"}:
+        params = params["params"]
+    sd: dict[str, torch.Tensor] = {}
+    for key, a in _flatten(params).items():
+        if key.endswith("/kernel"):
+            a = a.T
+        name = key
+        for pat, repl in GPT2_KEY_RULES:
+            name = re.sub(pat, repl, name)
+        name = re.sub(r"[./](kernel|scale)$", ".weight", name)
+        sd[name] = torch.from_numpy(np.array(a, dtype=np.float32, copy=True))
     return sd

@@ -1,0 +1,205 @@
+"""GPT-2 causal LM, the training path — ladder config 4 ("GPT-2 125M").
+
+Counterpart of ``pytorch_distributedtraining_tpu/models/gpt2.py``:
+decoder-only, pre-LN (LayerNorm eps 1e-5), learned positions, fused QKV
+projection, tanh GELU, LM head tied to ``wte``, and a pluggable ``attn_fn``
+(``ops.flash_attn.make_flash_attn_fn`` routes it through the CUDA flash
+kernels). Module names are HF ``GPT2LMHeadModel``'s
+(``transformer.h.{i}.attn.c_attn``, ``transformer.wte``, ...), the names
+the JAX package's ``GPT2_EXPORT_KEY_MAP`` targets; linear weights are
+``nn.Linear``'s ``[out, in]``.
+
+Precision follows flax's cast points, not autocast: parameters are f32;
+with ``cfg.dtype`` bf16 the embedding sum is cast to bf16, so the residual
+stream is bf16 throughout; dense layers compute in bf16; LayerNorm takes
+its statistics in f32 and returns bf16; the logits are ``x @ wteᵀ`` in
+bf16, cast to f32.
+
+Not ported yet: KV-cache decode, the paged serving layout, quantized KV
+pages, fp8 dense layers, scan over layers, remat, dropout > 0 and an
+untied LM head. A config or argument that asks for one raises
+``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Callable
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+AttnFn = Callable[..., torch.Tensor]  # (q, k, v, *, causal) -> out
+
+
+@dataclass(frozen=True)
+class GPT2Config:
+    vocab_size: int = 50257
+    n_positions: int = 1024
+    n_embd: int = 768
+    n_layer: int = 12
+    n_head: int = 12
+    mlp_ratio: int = 4
+    dropout: float = 0.0
+    dtype: torch.dtype = torch.bfloat16
+    tie_word_embeddings: bool = True
+    remat: bool | str = False
+    scan_layers: bool = False
+    fp8: str | None = None
+
+    @staticmethod
+    def gpt2_125m() -> "GPT2Config":
+        return GPT2Config()  # the 125M point is the default config
+
+    @staticmethod
+    def gpt2_medium() -> "GPT2Config":  # 350M
+        return GPT2Config(n_embd=1024, n_layer=24, n_head=16)
+
+    @staticmethod
+    def gpt2_large() -> "GPT2Config":  # 774M
+        return GPT2Config(n_embd=1280, n_layer=36, n_head=20)
+
+    @staticmethod
+    def gpt2_xl() -> "GPT2Config":  # 1.5B
+        return GPT2Config(n_embd=1600, n_layer=48, n_head=25)
+
+    @staticmethod
+    def tiny(**kw) -> "GPT2Config":
+        base = dict(vocab_size=256, n_positions=64, n_embd=32, n_layer=2,
+                    n_head=2, dtype=torch.float32)
+        base.update(kw)
+        return GPT2Config(**base)
+
+
+def default_attention(q, k, v, *, causal: bool = True):
+    """Plain softmax attention, the XLA default's counterpart: scores in the
+    input dtype, softmax in f32. q/k/v: ``[B, T, H, Dh]`` -> ``[B, T, H, Dh]``."""
+    dh = q.shape[-1]
+    logits = torch.einsum("bqhd,bkhd->bhqk", q, k) / torch.tensor(
+        math.sqrt(dh), dtype=q.dtype, device=q.device)
+    if causal:
+        tq, tk = q.shape[1], k.shape[1]
+        keep = torch.ones(tq, tk, dtype=torch.bool, device=q.device).tril(tk - tq)
+        logits = logits.masked_fill(~keep, torch.finfo(logits.dtype).min)
+    probs = torch.softmax(logits.float(), dim=-1).to(q.dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", probs, v)
+
+
+def _dense(layer: nn.Linear, x, dtype):
+    """flax ``nn.Dense(dtype=...)``: input, kernel and bias in ``dtype``."""
+    bias = None if layer.bias is None else layer.bias.to(dtype)
+    return F.linear(x.to(dtype), layer.weight.to(dtype), bias)
+
+
+def _layer_norm(ln: nn.LayerNorm, x, dtype):
+    """flax ``nn.LayerNorm(dtype=...)``: f32 statistics, output in ``dtype``."""
+    return F.layer_norm(x.float(), ln.normalized_shape, ln.weight, ln.bias, ln.eps).to(dtype)
+
+
+class Attention(nn.Module):
+    def __init__(self, cfg: GPT2Config):
+        super().__init__()
+        self.c_attn = nn.Linear(cfg.n_embd, 3 * cfg.n_embd)
+        self.c_proj = nn.Linear(cfg.n_embd, cfg.n_embd)
+
+
+class MLP(nn.Module):
+    def __init__(self, cfg: GPT2Config):
+        super().__init__()
+        self.c_fc = nn.Linear(cfg.n_embd, cfg.mlp_ratio * cfg.n_embd)
+        self.c_proj = nn.Linear(cfg.mlp_ratio * cfg.n_embd, cfg.n_embd)
+
+
+class Block(nn.Module):
+    """Pre-LN transformer block: LN → attn → +res, LN → MLP → +res."""
+
+    def __init__(self, cfg: GPT2Config, attn_fn: AttnFn = default_attention):
+        super().__init__()
+        self.cfg = cfg
+        self.attn_fn = attn_fn
+        self.ln_1 = nn.LayerNorm(cfg.n_embd, eps=1e-5)
+        self.attn = Attention(cfg)
+        self.ln_2 = nn.LayerNorm(cfg.n_embd, eps=1e-5)
+        self.mlp = MLP(cfg)
+
+    def forward(self, x):
+        cfg, dt = self.cfg, self.cfg.dtype
+        b, t, d = x.shape
+        h = cfg.n_head
+        y = _layer_norm(self.ln_1, x, dt)
+        qkv = _dense(self.attn.c_attn, y, dt)
+        # views of the fused projection, [B, T, H, Dh]: the flash kernels
+        # read them through strides, without copies
+        q, k, v = (a.unflatten(-1, (h, d // h)) for a in qkv.split(d, dim=-1))
+        y = self.attn_fn(q, k, v, causal=True).reshape(b, t, d)
+        x = x + _dense(self.attn.c_proj, y, dt)
+
+        y = _layer_norm(self.ln_2, x, dt)
+        y = F.gelu(_dense(self.mlp.c_fc, y, dt), approximate="tanh")
+        return x + _dense(self.mlp.c_proj, y, dt)
+
+
+class GPT2(nn.Module):
+    """GPT-2 LM. ``forward(tokens [B, T]) -> logits [B, T, vocab]`` (f32).
+
+    ``generator`` seeds the initialisation, the JAX model's scheme: dense
+    kernels and ``wte`` normal(0.02), ``wpe`` normal(0.01), zero biases,
+    LayerNorms at one and zero.
+    """
+
+    def __init__(self, cfg: GPT2Config = GPT2Config(), attn_fn: AttnFn = default_attention,
+                 *, decode: bool = False, paged: tuple | None = None, kv_wire=None,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        waits = {
+            "decode": decode, "paged": paged is not None, "kv_wire": kv_wire is not None,
+            "fp8": cfg.fp8 is not None, "scan_layers": cfg.scan_layers,
+            "remat": bool(cfg.remat), "dropout > 0": cfg.dropout > 0,
+            "untied lm_head": not cfg.tie_word_embeddings,
+        }
+        asked = [name for name, on in waits.items() if on]
+        if asked:
+            raise NotImplementedError(
+                f"GPT2 {', '.join(asked)}: not ported yet (ROADMAP A.11); the port "
+                "has the training path only")
+        self.cfg = cfg
+        self.transformer = nn.ModuleDict(dict(
+            wte=nn.Embedding(cfg.vocab_size, cfg.n_embd),
+            wpe=nn.Embedding(cfg.n_positions, cfg.n_embd),
+            h=nn.ModuleList(Block(cfg, attn_fn) for _ in range(cfg.n_layer)),
+            ln_f=nn.LayerNorm(cfg.n_embd, eps=1e-5),
+        ))
+        self.init_weights(generator)
+
+    @torch.no_grad()
+    def init_weights(self, generator: torch.Generator | None = None) -> None:
+        for m in self.modules():
+            if isinstance(m, nn.Linear):
+                nn.init.normal_(m.weight, std=0.02, generator=generator)
+                if m.bias is not None:
+                    nn.init.zeros_(m.bias)
+            elif isinstance(m, nn.LayerNorm):
+                nn.init.ones_(m.weight)
+                nn.init.zeros_(m.bias)
+        nn.init.normal_(self.transformer.wte.weight, std=0.02, generator=generator)
+        nn.init.normal_(self.transformer.wpe.weight, std=0.01, generator=generator)
+
+    def forward(self, tokens):
+        dt, tr = self.cfg.dtype, self.transformer
+        t = tokens.shape[1]
+        x = tr.wte.weight[tokens.long()].to(dt) + tr.wpe.weight[:t].to(dt)
+        for block in tr.h:
+            x = block(x)
+        x = _layer_norm(tr.ln_f, x, dt)
+        return (x @ tr.wte.weight.to(dt).t()).float()  # the head is tied to wte
+
+
+def cross_entropy_loss(logits, targets, ignore_index: int = -100):
+    """Token-level CE with ignore mask; logits ``[B, T, V]``, targets ``[B, T]``."""
+    mask = (targets != ignore_index).float()
+    safe = torch.where(targets == ignore_index, 0, targets)
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    nll = -logp.gather(-1, safe[..., None].long())[..., 0]
+    return (nll * mask).sum() / mask.sum().clamp(min=1.0)

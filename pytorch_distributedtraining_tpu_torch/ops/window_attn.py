@@ -132,7 +132,7 @@ def kernel_forward(q, k, v, bias, mask):
     global fwd_launches
     _check(q, k, v, bias, mask)
     _check_cuda(q, k, v, bias, mask)
-    lib = csrc.load()
+    lib = csrc.load("window_attn")
     bn, h, n, d = q.shape
     o = torch.empty_like(q)
     nw = 1 if mask is None else mask.shape[0]
@@ -159,7 +159,7 @@ def kernel_backward(q, k, v, bias, mask, do):
     if do.shape != q.shape or do.dtype != q.dtype or do.device != q.device:
         raise ValueError("dO must match q in shape, dtype and device")
     _check_cuda(q, k, v, bias, mask, do)
-    lib = csrc.load()
+    lib = csrc.load("window_attn")
     bn, h, n, d = q.shape
     group = backward_group(bn, h, q.device)
     groups = math.ceil(bn / group)

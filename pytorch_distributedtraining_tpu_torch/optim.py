@@ -47,9 +47,12 @@ class AdamW:
         return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
 
     @torch.no_grad()
-    def step(self, grads: list[torch.Tensor], lr: float | None = None) -> None:
-        """Apply one update from ``grads`` (f32, already unscaled)."""
+    def step(self, grads: list[torch.Tensor], lr: float | None = None) -> torch.Tensor | None:
+        """Apply one update from ``grads`` (f32, already unscaled). Returns
+        the pre-clip global norm (a device scalar) when clipping is on, so a
+        caller need not compute it twice; else None."""
         lr = self.lr if lr is None else float(lr)
+        gnorm = None
         if self.clip_grad_norm is not None:
             gnorm = self.global_norm(grads)
             scale = torch.where(
@@ -73,6 +76,7 @@ class AdamW:
         if self.weight_decay:
             torch._foreach_add_(upd, self.params, alpha=self.weight_decay)
         torch._foreach_add_(self.params, upd, alpha=-lr)
+        return gnorm
 
     def state_dict(self) -> dict:
         return {"count": self.count, "mu": self.mu, "nu": self.nu}

@@ -1,11 +1,14 @@
-"""The port's step profiler (``benchmarks/profile_swinir.py``) on the CPU:
-the bench step it times runs end to end at a toy size, and its trace
-digest sorts kernels into families and computes busy and idle time from
-a Chrome trace. Device numbers come only from a GPU run."""
+"""The port's measurement scripts on the CPU. The step profiler
+(``benchmarks/profile_swinir.py``): the bench step it times runs end to end
+at a toy size, and its trace digest sorts kernels into families and
+computes busy and idle time from a Chrome trace. The ladder twin
+(``benchmarks/ladder.py``): its GPT-2 rung runs at tiny widths. Device
+numbers come only from a GPU run."""
 
 import json
 import math
 
+import pytest
 import torch
 
 from pytorch_distributedtraining_tpu_torch.benchmarks import profile_swinir as ps
@@ -65,3 +68,24 @@ def test_device_breakdown_families_and_idle_share(tmp_path):
     assert math.isclose(r["window_ms"], window / 1e3)
     assert math.isclose(r["busy_ms"], busy / 1e3)
     assert math.isclose(r["idle_share"], 1 - busy / window)
+
+
+def test_ladder_lm_rung_runs_tiny_on_cpu(capsys):
+    """The ladder twin's config 4 at ``GPT2Config.tiny`` on the CPU (flash
+    attention's plain versions): one JSON line with a positive rate."""
+    from pytorch_distributedtraining_tpu_torch.benchmarks import ladder
+
+    assert ladder.main(["--config", "4", "--tiny", "--device", "cpu", "--steps", "2",
+                        "--warmup", "1"]) == 0
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert len(lines) == 1
+    r = json.loads(lines[0])
+    assert r["metric"] == "tokens_per_sec" and r["value"] > 0 and r["device"] == "cpu"
+    assert r["value"] <= r["roofline"] and math.isfinite(r["loss"])
+
+
+def test_ladder_unported_rungs_raise():
+    from pytorch_distributedtraining_tpu_torch.benchmarks import ladder
+
+    with pytest.raises(NotImplementedError, match="ROADMAP A.11"):
+        ladder.main(["--config", "1", "--tiny", "--device", "cpu"])

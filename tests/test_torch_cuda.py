@@ -9,14 +9,17 @@ need not be installed (the suite's ``conftest.py`` imports it)::
 Tolerances: in f32 the kernel and the plain version differ only in sum
 order (~1e-6 relative); in bf16 and f16 both round the same f32 result, so
 outputs may differ by one step of the type (2^-8 relative in bf16, 2^-11
-in f16, held at 1e-2 and 2e-3).
+in f16, held at 1e-2 and 2e-3). lse is f32 in every case. The tiny GPT-2
+holds gradients at 1e-4 relative to their largest entry: f32 sums in
+another order through two blocks.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from pytorch_distributedtraining_tpu_torch.models import SwinIR
+from pytorch_distributedtraining_tpu_torch.models import GPT2, GPT2Config, SwinIR
+from pytorch_distributedtraining_tpu_torch.ops import flash_attn as tfa
 from pytorch_distributedtraining_tpu_torch.ops import window_attn as twa
 
 pytestmark = pytest.mark.cuda
@@ -73,3 +76,46 @@ def test_toy_swinir_on_the_card_matches_the_cpu(cuda):
     got = model.to(cuda)(x.to(cuda))
     assert twa.fwd_launches - before == 4
     _close(got.cpu(), want, 1e-5)
+
+
+@pytest.mark.parametrize("dtype,rel", [(torch.float32, 1e-5), (torch.bfloat16, 1e-2),
+                                        (torch.float16, 2e-3)])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("t,d", [(128, 64), (100, 32), (64, 16)])
+def test_flash_kernels_match_plain(cuda, dtype, rel, causal, t, d):
+    """K3, K4 and K5 on q/k/v that are strided views of one fused [B, T,
+    3*H*D] projection, as GPT-2 hands them over; T = 100 has a ragged tile."""
+    g = torch.Generator().manual_seed(0)
+    b, h = 2, 3
+    qkv = torch.randn(b, t, 3 * h * d, generator=g).to(cuda, dtype)
+    q, k, v = (a.unflatten(-1, (h, d)) for a in qkv.split(h * d, dim=-1))
+    do = torch.randn(b, t, h, d, generator=g).to(cuda, dtype)
+    out, lse = tfa.kernel_forward(q, k, v, causal)
+    want_out, want_lse = tfa.plain_forward(q, k, v, causal)
+    _close(out, want_out, rel)
+    _close(lse, want_lse, 1e-5)
+    delta = tfa.delta_rows(want_out, do)
+    _close(tfa.kernel_dq(q, k, v, do, want_lse, delta, causal),
+           tfa.plain_dq(q, k, v, do, want_lse, delta, causal), rel)
+    for a, w in zip(tfa.kernel_dkv(q, k, v, do, want_lse, delta, causal),
+                    tfa.plain_dkv(q, k, v, do, want_lse, delta, causal)):
+        _close(a, w, rel)
+
+
+def test_tiny_gpt2_on_the_card_matches_the_cpu(cuda):
+    cfg = GPT2Config.tiny(n_embd=128, n_head=2, n_positions=128)
+    model = GPT2(cfg, attn_fn=tfa.make_flash_attn_fn(),
+                 generator=torch.Generator().manual_seed(0))
+    tok = torch.from_numpy(np.random.default_rng(0).integers(0, 256, (2, 128)))
+    want = model(tok)
+    want.square().mean().backward()
+    want_grads = {n: p.grad.clone() for n, p in model.named_parameters()}
+    model.zero_grad()
+    before = tfa.fwd_launches, tfa.dq_launches, tfa.dkv_launches
+    got = model.to(cuda)(tok.to(cuda))
+    got.square().mean().backward()
+    after = tfa.fwd_launches, tfa.dq_launches, tfa.dkv_launches
+    assert [a - b for a, b in zip(after, before)] == [2, 2, 2]
+    _close(got.cpu(), want, 1e-5)
+    for n, p in model.named_parameters():
+        _close(p.grad.cpu(), want_grads[n], 1e-4)

@@ -1,0 +1,118 @@
+"""Port flash attention (plain versions) vs the JAX Pallas kernels.
+
+The JAX side runs ``ops/pallas_attn.py`` in interpret mode, as
+``tests/test_pallas_attn.py`` does; the port's CPU tensors take the plain
+versions of K3/K4/K5 through the same ``torch.autograd.Function`` that
+launches the kernels on a card. Same inputs from one numpy seed, same
+cotangent, B 2, T 128, H 2, Dh 16.
+
+Tolerances: both sides compute in f32 with different sum orders (and the
+conftest's ``jax_disable_most_optimizations``); outputs and lse agree to
+~1e-6 and gradients to ~1e-5, held at 1e-5 and 1e-4. In bf16 both round
+an f32 result to bf16 (one step is 2^-8 relative), held at 3e-2 as the
+JAX package's own bf16 test does.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from pytorch_distributedtraining_tpu.ops import pallas_attn as pa
+from pytorch_distributedtraining_tpu_torch import csrc
+from pytorch_distributedtraining_tpu_torch.models.gpt2 import default_attention
+from pytorch_distributedtraining_tpu_torch.ops import flash_attn as tfa
+
+B, T, H, DH = 2, 128, 2, 16
+FWD_ATOL = 1e-5
+GRAD_ATOL = 1e-4
+BLOCKS = [(32, 32), (64, 32), (128, 128)]
+
+
+def _inputs(seed=0, t=T, dh=DH):
+    r = np.random.default_rng(seed)
+    return [r.standard_normal((B, t, H, dh)).astype(np.float32) for _ in range(4)]
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("bq,bk", BLOCKS)
+def test_forward_and_lse_match_pallas(causal, bq, bk):
+    q, k, v, _ = _inputs()
+    want_out, want_lse = pa._flash_forward(*(jnp.asarray(a) for a in (q, k, v)), causal=causal,
+                                           bq=bq, bk=bk, interpret=True)
+    out = tfa.flash_attention(*(torch.tensor(a) for a in (q, k, v)), causal, bq, bk)
+    _, lse = tfa.plain_forward(*(torch.tensor(a) for a in (q, k, v)), causal)
+    np.testing.assert_allclose(out.numpy(), np.asarray(want_out), atol=FWD_ATOL)
+    assert lse.shape == (B, H, T) and lse.dtype == torch.float32
+    np.testing.assert_allclose(lse.numpy(), np.asarray(want_lse)[..., 0], atol=FWD_ATOL)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("bq,bk", [(32, 64), (64, 32), (128, 128)])
+def test_gradients_match_pallas(causal, bq, bk):
+    """dq, dk, dv through the autograd Function against ``jax.grad`` of the
+    Pallas custom_vjp, with a random cotangent so every row counts."""
+    q, k, v, g = _inputs(seed=1)
+
+    def f(q, k, v):
+        return jnp.sum(pa.flash_attention(q, k, v, causal, bq, bk, True) * g)
+
+    want = jax.grad(f, argnums=(0, 1, 2))(*(jnp.asarray(a) for a in (q, k, v)))
+    leaves = [torch.tensor(a, requires_grad=True) for a in (q, k, v)]
+    tfa.flash_attention(*leaves, causal, bq, bk).backward(torch.tensor(g))
+    for leaf, w, name in zip(leaves, want, ("dq", "dk", "dv")):
+        np.testing.assert_allclose(leaf.grad.numpy(), np.asarray(w), atol=GRAD_ATOL,
+                                   err_msg=name)
+
+
+def test_bf16_inputs_keep_their_dtype():
+    q, k, v, _ = _inputs(seed=2)
+    want = pa.flash_attention(*(jnp.asarray(a, jnp.bfloat16) for a in (q, k, v)),
+                              True, 64, 64, True)
+    out = tfa.flash_attention(*(torch.tensor(a).bfloat16() for a in (q, k, v)), True, 64, 64)
+    assert out.dtype == torch.bfloat16
+    np.testing.assert_allclose(out.float().numpy(), np.asarray(want, np.float32), atol=3e-2)
+
+
+def test_indivisible_seq_raises():
+    q, k, v, _ = (torch.tensor(a) for a in _inputs(t=100))
+    with pytest.raises(ValueError, match="must divide"):
+        tfa.flash_attention(q, k, v, True, 64, 64)
+
+
+def test_other_head_dims_raise():
+    q, k, v, _ = (torch.tensor(a) for a in _inputs(dh=24))
+    with pytest.raises(ValueError, match="head dim"):
+        tfa.flash_attention(q, k, v)
+
+
+def test_cpu_tensors_never_touch_csrc(monkeypatch):
+    def refuse(name):
+        raise AssertionError(f"csrc.load({name!r}) on a CPU tensor")
+
+    monkeypatch.setattr(csrc, "load", refuse)
+    tfa.reset_launch_counts()
+    leaves = [torch.tensor(a, requires_grad=True) for a in _inputs()[:3]]
+    tfa.flash_attention(*leaves).sum().backward()
+    assert all(leaf.grad is not None for leaf in leaves)
+    assert (tfa.fwd_launches, tfa.dq_launches, tfa.dkv_launches) == (0, 0, 0)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_plain_backward_is_the_gradient_of_plain_forward(causal):
+    """K4's and K5's plain versions against autograd through K3's, so the
+    explicit backward the kernels are held against on the card is itself
+    right; and the flash ``attn_fn`` against plain softmax attention."""
+    q, k, v, g = (torch.tensor(a) for a in _inputs(seed=3))
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    out, lse = tfa.plain_forward(*leaves, causal)
+    out.backward(g)
+    delta = tfa.delta_rows(out.detach(), g)
+    dq = tfa.plain_dq(q, k, v, g, lse.detach(), delta, causal)
+    dk, dv = tfa.plain_dkv(q, k, v, g, lse.detach(), delta, causal)
+    for got, leaf in zip((dq, dk, dv), leaves):
+        torch.testing.assert_close(got, leaf.grad, atol=1e-5, rtol=1e-5)
+    attn = tfa.make_flash_attn_fn(bq=64, bk=32)
+    torch.testing.assert_close(attn(q, k, v, causal=causal),
+                               default_attention(q, k, v, causal=causal), atol=1e-5, rtol=1e-5)

@@ -36,4 +36,6 @@ def test_scan_sees_the_whole_port():
     names = {p.relative_to(ROOT).as_posix() for p in FILES}
     assert "pytorch_distributedtraining_tpu_torch/stoke/facade.py" in names
     assert "pytorch_distributedtraining_tpu_torch/ops/window_attn.py" in names
+    assert "pytorch_distributedtraining_tpu_torch/ops/flash_attn.py" in names
+    assert "pytorch_distributedtraining_tpu_torch/models/gpt2.py" in names
     assert _imported_roots(ROOT / "tests" / "test_torch_stoke.py") & FORBIDDEN
