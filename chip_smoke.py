@@ -10,22 +10,26 @@ Phases, each fatal on failure:
    below is full f32;
 2. build: both kernel libraries from ``pytorch_distributedtraining_
    tpu_torch/csrc`` (window attention and flash attention), one nvcc each
-   for sm_90a, started together, with ptxas's register and spill counts;
+   for sm_90a, started together, with ptxas's register and spill counts
+   and, where the toolkit has ``cuobjdump``, the tensor-core (HMMA)
+   instructions in each flash kernel's SASS: K3 and K5 must hold some in
+   bf16 and f16, K4 and every f32 body none;
 3. kernels: K1 (forward) and K2 (backward) against their plain PyTorch
    versions at every shape the two SwinIR paths below give them: the
    bench shape (q/k/v [1152, 6, 64, 10]: batch 18 at LR 64x64) in f32 and
    bf16, with and without the shift mask, pack 1 and 2; the driver's
    training batches ([288, 6, 64, 10]: batch 18 at LR 32x32) and its
    validation batch ([160, 6, 64, 10]: 10 images) in f32, with and
-   without the mask. Errors against the stated tolerance and median
-   times (CUDA events) of the kernel, the plain version and one PyTorch
-   library call (``scaled_dot_product_attention`` with a float mask of
-   bias + mask); then a toy SwinIR on the card against the same model on
-   the CPU;
+   without the mask. Errors against the stated tolerance and device
+   times (CUDA events around ten calls queued behind a spin kernel, so
+   host-side launch cost is excluded) of the kernel, the plain version and
+   one PyTorch library call (``scaled_dot_product_attention`` with a float
+   mask of bias + mask); then a toy SwinIR on the card against the same
+   model on the CPU;
 4. flash kernels: K3 (forward), K4 (dq) and K5 (dk/dv) against their
    plain versions at the GPT-2 phase's shape, q/k/v [8, 512, 12, 64] as
-   views of one fused projection, causal in bf16 (the path) and f32, and
-   one non-causal bf16 case. Errors, median times of kernel, plain version
+   views of one fused projection, causal in bf16 (the path), f32 and f16,
+   and one non-causal bf16 case. Errors, device times of kernel, plain version
    and library (``scaled_dot_product_attention(is_causal=...)`` for K3;
    its autograd backward, one call, stands for K4 and K5 together), and
    the bound from bytes and operations; then a tiny GPT-2 on the card
@@ -62,6 +66,7 @@ import contextlib
 import json
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -71,8 +76,10 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
-PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}  # CUDA-core f32; dense bf16
-TOL = {"float32": 2e-5, "bfloat16": 1e-2}  # max |err| / max(1, max |ref|)
+PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12, "float16": 989e12}  # CUDA-core f32
+TOL = {"float32": 2e-5, "bfloat16": 1e-2, "float16": 2e-3}  # max |err| / max(1, max |ref|)
+CALLS_PER_EVENT = 10  # calls timed back to back between two CUDA events
+SPIN_HZ = 2.0e9  # above the H100's SM clock, so a spin of n cycles lasts at least n / SPIN_HZ s
 SOURCES = {
     "window_attn": "pytorch_distributedtraining_tpu_torch/csrc/window_attn.cu",
     "flash_attn": "pytorch_distributedtraining_tpu_torch/csrc/flash_attn.cu",
@@ -101,19 +108,34 @@ def smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def median_ms(fn, reps: int = 20, warmup: int = 3) -> float:
+def device_ms(fn, reps: int = 20, warmup: int = 3) -> float:
+    """Device time per call of ``fn``: the median over ``reps`` of
+    CALLS_PER_EVENT calls timed between two CUDA events. A spin kernel
+    (``torch.cuda._sleep``) goes first and lasts twice as long as queuing
+    those calls took, so the host has queued them all before the card
+    reaches the first event: a call's host-side cost (a wrapper's checks,
+    ``ctypes``, autograd's engine) does not count, and a hand kernel and a
+    library call are compared on the card's work alone."""
     import torch
 
     for _ in range(warmup):
         fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(CALLS_PER_EVENT):
+        fn()
+    torch.cuda.synchronize()
+    spin = int(2 * (time.perf_counter() - t0) * SPIN_HZ)
     times = []
     for _ in range(reps):
         a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(spin)
         a.record()
-        fn()
+        for _ in range(CALLS_PER_EVENT):
+            fn()
         b.record()
         b.synchronize()
-        times.append(a.elapsed_time(b))
+        times.append(a.elapsed_time(b) / CALLS_PER_EVENT)
     return statistics.median(times)
 
 
@@ -160,13 +182,20 @@ def phase_build():
               f"{len(regs)} kernels, registers {min(regs, default=0)}-{max(regs, default=0)}, "
               f"spill stores max {max(spills, default=0)} bytes, static smem max "
               f"{max(smem, default=0)} bytes")
-        if name == "flash_attn":  # per kernel at the GPT-2 head dim
-            for entry, (nregs, spill) in ptxas_entries(log).items():
-                if entry.endswith("D=64"):
-                    print(f"[build]   {entry}: {nregs} registers, {spill} bytes spill stores")
+        if name == "flash_attn":
+            check_flash_build(log, path)
 
 
 PTX_TYPES = {"f": "f32", "6__half": "f16", "13__nv_bfloat16": "bf16"}  # mangled
+
+
+def kernel_key(entry: str) -> str:
+    """``"fwd bf16 D=64"`` for a flash kernel's mangled name, else the name."""
+    kind = re.search(r"flash_attn_(fwd|dq|dkv)_kernelI(f|6__half|13__nv_bfloat16)Li(\d+)E",
+                     entry)
+    if kind is None:
+        return entry
+    return f"{kind.group(1)} {PTX_TYPES[kind.group(2)]} D={kind.group(3)}"
 
 
 def ptxas_entries(log: str) -> dict:
@@ -183,12 +212,47 @@ def ptxas_entries(log: str) -> dict:
             spill = int(m.group(1))
         m = re.search(r"Used (\d+) registers", line)
         if m and entry:
-            kind = re.search(r"flash_attn_(fwd|dq|dkv)_kernelI(f|6__half|13__nv_bfloat16)"
-                             r"Li(\d+)E", entry)
-            key = entry if kind is None else (
-                f"{kind.group(1)} {PTX_TYPES[kind.group(2)]} D={kind.group(3)}")
-            out[key] = (int(m.group(1)), spill)
+            out[kernel_key(entry)] = (int(m.group(1)), spill)
     return out
+
+
+def sass_hmma_counts(lib: Path) -> dict | None:
+    """``{kernel: HMMA instructions in its SASS}`` by ``cuobjdump -sass``,
+    or None where the toolkit has no ``cuobjdump``."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not Path(tool).exists():
+        return None
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True,
+                          timeout=300, check=True).stdout
+    out, entry = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            entry = kernel_key(m.group(1))
+            out[entry] = 0
+        elif entry is not None and re.search(r"\bHMMA\.", line):
+            out[entry] += 1
+    return out
+
+
+def check_flash_build(log: str, lib: Path) -> None:
+    """Print each flash kernel's registers, spills and HMMA count; fail
+    unless K3 and K5 run their products on the tensor cores in bf16 and
+    f16, and K4 and the f32 bodies on the CUDA cores."""
+    regs = ptxas_entries(log)
+    hmma = sass_hmma_counts(lib)
+    flash = sorted(k for k in regs if k.split()[0] in ("fwd", "dq", "dkv"))
+    for key in flash:
+        nregs, spill = regs[key]
+        count = "cuobjdump absent" if hmma is None else f"{hmma.get(key, 0)} HMMA"
+        print(f"[build]   {key}: {nregs} registers, {spill} bytes spill stores, {count}")
+    if hmma is None:
+        return
+    wrong = [k for k in flash if (hmma.get(k, 0) > 0) != (
+        k.split()[0] in ("fwd", "dkv") and k.split()[1] in ("bf16", "f16"))]
+    if wrong:
+        raise SystemExit(f"tensor-core use is not as designed (HMMA in SASS): "
+                         f"{[(k, hmma.get(k, 0)) for k in wrong]}")
 
 
 def launch_signature(kernel: str, q, mask) -> tuple:
@@ -285,19 +349,19 @@ def _kernel_case(dtype, with_mask: bool, pack: int, batch: int, lr_size: int,
     bn, h, n, d = q.shape
     args = (q, k, v, bias, mask)
     t = {
-        "fwd": median_ms(lambda: twa.kernel_forward(*args)),
-        "bwd": median_ms(lambda: twa.kernel_backward(*args, do)),
-        "plain_fwd": median_ms(lambda: twa.plain_forward(*args)),
-        "plain_bwd": median_ms(lambda: twa.plain_backward(*args, do)),
+        "fwd": device_ms(lambda: twa.kernel_forward(*args)),
+        "bwd": device_ms(lambda: twa.kernel_backward(*args, do)),
+        "plain_fwd": device_ms(lambda: twa.plain_forward(*args)),
+        "plain_bwd": device_ms(lambda: twa.plain_backward(*args, do)),
     }
     am = bias[None].expand(bn, h, n, n)
     if mask is not None:
         am = am + mask[torch.arange(bn, device="cuda") % mask.shape[0]][:, None]
     am = am.to(q.dtype).contiguous()
-    t["lib_fwd"] = median_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=am))
+    t["lib_fwd"] = device_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=am))
     lq, lk, lv, lm = (x.detach().clone().requires_grad_(True) for x in (q, k, v, am))
     lout = F.scaled_dot_product_attention(lq, lk, lv, attn_mask=lm)
-    t["lib_bwd"] = median_ms(
+    t["lib_bwd"] = device_ms(
         lambda: torch.autograd.grad(lout, (lq, lk, lv, lm), do, retain_graph=True))
 
     esize = q.element_size()
@@ -389,20 +453,20 @@ def _flash_case(dtype, causal: bool, seed: int) -> dict:
     errors = {n: err(got[n], want[n]) for n in want}
 
     times = {
-        "fwd": median_ms(lambda: tfa.kernel_forward(q, k, v, causal)),
-        "dq": median_ms(lambda: tfa.kernel_dq(q, k, v, *grad_args)),
-        "dkv": median_ms(lambda: tfa.kernel_dkv(q, k, v, *grad_args)),
-        "plain_fwd": median_ms(lambda: tfa.plain_forward(q, k, v, causal)),
-        "plain_dq": median_ms(lambda: tfa.plain_dq(q, k, v, *grad_args)),
-        "plain_dkv": median_ms(lambda: tfa.plain_dkv(q, k, v, *grad_args)),
+        "fwd": device_ms(lambda: tfa.kernel_forward(q, k, v, causal)),
+        "dq": device_ms(lambda: tfa.kernel_dq(q, k, v, *grad_args)),
+        "dkv": device_ms(lambda: tfa.kernel_dkv(q, k, v, *grad_args)),
+        "plain_fwd": device_ms(lambda: tfa.plain_forward(q, k, v, causal)),
+        "plain_dq": device_ms(lambda: tfa.plain_dq(q, k, v, *grad_args)),
+        "plain_dkv": device_ms(lambda: tfa.plain_dkv(q, k, v, *grad_args)),
     }
     lq, lk, lv = (x.transpose(1, 2).contiguous().requires_grad_(True) for x in (q, k, v))
     ldo = do.transpose(1, 2).contiguous()
     with torch.no_grad():
-        times["lib_fwd"] = median_ms(
+        times["lib_fwd"] = device_ms(
             lambda: F.scaled_dot_product_attention(lq, lk, lv, is_causal=causal))
     lout = F.scaled_dot_product_attention(lq, lk, lv, is_causal=causal)
-    times["lib_bwd"] = median_ms(
+    times["lib_bwd"] = device_ms(
         lambda: torch.autograd.grad(lout, (lq, lk, lv), ldo, retain_graph=True))
 
     # each input read once, each output written once; the score pairs this
@@ -428,7 +492,8 @@ def phase_flash_kernels(smi: str) -> list[dict]:
 
     cases = []
     for seed, (dtype, causal) in enumerate(
-            [(torch.bfloat16, True), (torch.float32, True), (torch.bfloat16, False)]):
+            [(torch.bfloat16, True), (torch.float32, True), (torch.float16, True),
+             (torch.bfloat16, False)]):
         c = _flash_case(dtype, causal, seed)
         tol = TOL[c["dtype"]]
         worst = max(rel for nm, (_, rel) in c["errors"].items() if nm != "lse")

@@ -12,9 +12,10 @@ token)::
     python -m pytorch_distributedtraining_tpu_torch.benchmarks.ladder --config 4
 
 ``--trace build/gpt2.json`` also traces the steps with ``torch.profiler``
-and adds the device time per step by kernel family, the device's idle
-share and the times of the tied head's GEMMs (vocab 50257, an odd width)
-to the line.
+and adds the device time per step by kernel family, each flash kernel's
+device time and launches per step (K3, K4, K5 by kernel name), the
+device's idle share and the times of the tied head's GEMMs (vocab 50257,
+an odd width) to the line.
 
 It differs from the JAX rung in three places:
 
@@ -133,6 +134,22 @@ def _head_gemm_ms(model: GPT2, tokens: int) -> dict:
             "bwd": _median_ms(lambda: (g @ wd, g.t() @ x))}
 
 
+FLASH_KERNELS = {"K3": "flash_attn_fwd_kernel", "K4": "flash_attn_dq_kernel",
+                 "K5": "flash_attn_dkv_kernel"}
+
+
+def flash_kernel_ms(trace_path: str, n_steps: int) -> dict:
+    """Device ms and launches per step of each flash kernel, by its name in
+    a Chrome trace written by ``torch.profiler``."""
+    with open(trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    out = {}
+    for kid, name in FLASH_KERNELS.items():
+        durs = [e["dur"] for e in events if e.get("cat") == "kernel" and name in e["name"]]
+        out[kid] = {"ms": sum(durs) / 1e3 / n_steps, "launches": len(durs) / n_steps}
+    return out
+
+
 def _traced_steps(step: TrainStep, batch, n_steps: int, trace_path: str) -> dict:
     """Device time per step by kernel family and the device's busy and idle
     shares, from a ``torch.profiler`` trace of ``n_steps`` steps on a card."""
@@ -151,6 +168,7 @@ def _traced_steps(step: TrainStep, batch, n_steps: int, trace_path: str) -> dict
         "traced_step_ms": traced_ms,
         "device_ms_by_family": {k: v / n_steps for k, v in r["device_ms_by_family"].items()},
         "top_kernels_ms": [(k, v / n_steps) for k, v in r["top_kernels_ms"]],
+        "flash_kernels": flash_kernel_ms(trace_path, n_steps),
         "kernels_per_step": r["kernels"] / n_steps,
         "busy_ms": r["busy_ms"] / n_steps,
         "idle_share": r["idle_share"],

@@ -23,38 +23,62 @@
 // bf16, causal): each q/k/v/o/dO tensor is 6.29 MB, so K3 moves ~25 MB
 // (~7.5 us at 3.35 TB/s), K4 ~32 MB and K5 ~38 MB; the causal products
 // are ~3.2 GFLOP (K3) to ~6.5 GFLOP (K5), ~3-7 us at the bf16 tensor-core
-// rate. These first kernels run their products on the FP32 CUDA cores
-// (67 TFLOP/s), where the FMAs alone need ~50-100 us; they measure several
-// times that (PERF.md). With 143-208 registers a thread only three blocks
-// of 128 threads fit on an SM, and each score waits on a shuffle and an
-// exp, so latency with few warps in flight is the likely limit.
+// rate. At T = 512 neither bound is what sets the pace: a block streams at
+// most eight 64-row tiles, so load latency, register pressure and the
+// warps in flight do.
 //
-// Design (simple and right first; tensor cores, TMA and larger tiles are
-// later work):
-// - One block per (query tile of 64 rows, head, batch) for K3 and K4, and
-//   per (key tile of 64 rows, head, batch) for K5. For D = 64 two threads
-//   share a row, each owning 32 columns (lanes l and l+16 of a warp, one
-//   shuffle to add the halves of a dot product); for D <= 32 one thread
-//   owns a row. A thread keeps its row of q (K3, K4) or k and v (K5) and
-//   its accumulators in registers.
-// - The streamed operand (K/V for K3 and K4, Q/dO with their lse and delta
-//   for K5) is staged 64 rows at a time in shared memory as f32. All lanes
-//   of a warp read the same streamed row at once, so the reads are
-//   broadcasts (float4, no bank conflicts), four FMAs per load.
-// - K3's online softmax rescales once per chunk of 16 keys, not per key.
-// - Causal skipping: K3 and K4 stop at the last key tile that reaches the
-//   block's last query row; K5 starts at the query tile of its first key.
-//   The TPU kernels run one masked tile past the diagonal; these do not.
-//   Inside a diagonal tile the mask is per element.
-// - Deterministic: K4 owns dq rows and K5 owns dk/dv rows, so no atomics.
-// - The wrapper keeps the JAX block rule (bq and bk must divide T); these
-//   kernels tile by their own 64-row tiles, which changes only the order
-//   of the f32 sums. Rows and keys past T are masked, so any T works.
+// Two bodies, chosen by the input's type inside this library (a type
+// always reaches the same body; nothing switches at run time):
 //
-// Resources at D = 64 (ptxas of CUDA 12.8, sm_90a, -O3; the same for f32,
-// bf16 and f16): K3 143, K4 166 and K5 208 registers a thread, no spills;
-// dynamic shared memory 32 KB (K3, K4) and 32.5 KB (K5) a block, under the
-// 48 KB that needs no opt-in. chip_smoke.py's build phase prints them.
+// - bf16 and f16, K3 and K5: tensor cores, FlashAttention-2 on
+//   `mma.sync.m16n8k16` (bf16/f16 in, f32 accumulate). A block holds 64
+//   rows (query rows for K3, key rows for K5) in 4 warps of 16 rows. The
+//   resident operand (Q for K3; K and V for K5) is loaded once into
+//   registers with `ldmatrix`. The streamed 64-row tiles (K/V for K3;
+//   Q/dO with their lse and delta for K5) are staged in the input's type
+//   by 16-byte `cp.async` copies, double-buffered, zero-filled past T, in
+//   rows padded by 16 bytes so that `ldmatrix` is free of bank conflicts.
+//   K3 keeps the online softmax in the accumulator fragments (a row's max
+//   and sum take two shuffles within its quad once per 64-key tile; exp2
+//   with log2(e) folded into the scale) and feeds P, converted to the
+//   input's type in registers, straight into P.V as the A operand, with V
+//   read by `ldmatrix.trans`. K5 computes S^T = K.Q^T and dP^T = V.dO^T,
+//   P^T and dS^T in registers, then dV += P^T.dO and dK += dS^T.Q with Q
+//   and dO read by `ldmatrix.trans`, 16 queries at a time to keep the
+//   registers in bounds; everything is warp-local.
+// - f32, all three kernels, and K4 in every type: the first, CUDA-core
+//   bodies. Tensor cores would mean TF32 for f32, which misses the f32
+//   tolerance; K4's redesign is later work. One block per 64-row tile;
+//   for D = 64 two threads share a row (one shuffle per dot product); the
+//   streamed operand is staged as f32 in shared memory and read as
+//   broadcast float4s; K3 rescales its online softmax once per 16 keys.
+//
+// Common to both: causal skipping (K3 and K4 stop at the last key tile
+// that reaches the block's last query row, K5 starts at the query tile of
+// its first key; the per-element mask runs only on the tile that crosses
+// the diagonal or T). The tensor-core bodies take their grid tile-major,
+// (heads * batch, tiles), with the tiles that have the most causal work
+// first (K3's last query tiles, K5's first key tiles): the card then starts
+// every (batch, head)'s longest block before any short one, and the short
+// ones fill the last wave; at GPT-2's shape that is faster than the
+// (tiles, heads, batch) order the CUDA-core bodies keep (PERF.md).
+// Deterministic: K4 owns dq rows and K5 owns dk/dv rows, no atomics. The
+// wrapper keeps the JAX block rule (bq and bk divide T); these kernels
+// tile by their own 64 rows, which changes only the order of the f32
+// sums. The tensor-core bodies need every q/k/v/dO row 16-byte aligned
+// (cp.async); the wrapper guarantees it and the library refuses
+// otherwise.
+//
+// Out of scope here, for a later PR: wgmma, TMA and warp specialisation
+// (at T = 512 these kernels are latency-bound, not FLOP-bound), and a
+// tensor-core K4.
+//
+// Resources at D = 64 (ptxas of CUDA 12.8, sm_90a, -O3), no spills
+// anywhere: tensor-core K3 128 and K5 166 registers a thread, with 36 KB
+// and 37 KB of dynamic shared memory a block (under the 48 KB that needs
+// no opt-in); the CUDA-core K3 143, K4 166 and K5 208. chip_smoke.py's
+// build phase prints them with the HMMA instructions in each kernel's SASS
+// (64 in K3 and 128 in K5, the unrolled m16n8k16 products; none in K4).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -62,11 +86,17 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
 constexpr int kRows = 64;   // query rows (K3, K4) or key rows (K5) per block
 constexpr int kTile = 64;   // streamed rows per shared-memory stage
-constexpr int kChunk = 16;  // K3: keys per online-softmax rescale
+constexpr int kChunk = 16;  // CUDA-core K3: keys per online-softmax rescale
+constexpr int kMmaThreads = 128;  // tensor-core bodies: 4 warps of 16 rows
+constexpr int kPad = 8;     // tensor-core bodies: elements of padding per smem row
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 template <typename T> __device__ __forceinline__ float to_f(T x);
 template <> __device__ __forceinline__ float to_f<float>(float x) { return x; }
@@ -82,6 +112,9 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float
 }
 template <> __device__ __forceinline__ __half from_f<__half>(float x) { return __float2half(x); }
 
+// ---------------------------------------------------------------------------
+// CUDA-core bodies (f32 K3/K5, and K4 in every type)
+
 // How the threads of a block split rows of width D.
 template <int D>
 struct Split {
@@ -89,6 +122,20 @@ struct Split {
   static constexpr int kCols = D / kParts;            // columns per thread
   static constexpr int kRowsPerWarp = 32 / kParts;
   static constexpr int kThreads = kRows * kParts;
+};
+
+// The body, block size and shared memory each (type, head dim) takes.
+template <typename T, int D>
+struct Body {
+  static constexpr bool kMma = !std::is_same<T, float>::value;  // tensor cores
+  static constexpr int kThreads = kMma ? kMmaThreads : Split<D>::kThreads;
+  static constexpr int kStride = D + kPad;           // tensor-core smem row, elements
+  static constexpr int kTileElems = kTile * kStride;  // one tensor-core stage tile
+  // two stages of two tiles (K/V for K3, Q/dO for K5); K5 adds lse/delta
+  static constexpr size_t kFwdSmem =
+      kMma ? 4 * kTileElems * sizeof(T) : 2 * kTile * D * sizeof(float);
+  static constexpr size_t kDkvSmem =
+      kMma ? kFwdSmem + 4 * kTile * sizeof(float) : kFwdSmem + 2 * kTile * sizeof(float);
 };
 
 // This thread's row in the block's tile and its first column.
@@ -169,14 +216,13 @@ __device__ __forceinline__ void load_tile(float* dst, const T* __restrict__ src,
 }
 
 template <typename T, int D>
-__global__ void __launch_bounds__(Split<D>::kThreads)
-    flash_attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                          const T* __restrict__ v, T* __restrict__ o, float* __restrict__ lse,
-                          int t_len, int heads, long long sb, long long st, long long sh,
-                          int causal, float scale) {
+__device__ __forceinline__ void fwd_simt(float* smem, const T* __restrict__ q,
+                                         const T* __restrict__ k, const T* __restrict__ v,
+                                         T* __restrict__ o, float* __restrict__ lse, int t_len,
+                                         int heads, long long sb, long long st, long long sh,
+                                         int causal, float scale) {
   using S = Split<D>;
-  extern __shared__ float4 smem4[];
-  float* sk = reinterpret_cast<float*>(smem4);
+  float* sk = smem;
   float* sv = sk + kTile * D;
 
   const int h = blockIdx.y;
@@ -293,15 +339,15 @@ __global__ void __launch_bounds__(Split<D>::kThreads)
 }
 
 template <typename T, int D>
-__global__ void __launch_bounds__(Split<D>::kThreads)
-    flash_attn_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                          const T* __restrict__ v, const T* __restrict__ dout,
-                          const float* __restrict__ lse, const float* __restrict__ delta,
-                          T* __restrict__ dk, T* __restrict__ dv, int t_len, int heads,
-                          long long sb, long long st, long long sh, int causal, float scale) {
+__device__ __forceinline__ void dkv_simt(float* smem, const T* __restrict__ q,
+                                         const T* __restrict__ k, const T* __restrict__ v,
+                                         const T* __restrict__ dout,
+                                         const float* __restrict__ lse,
+                                         const float* __restrict__ delta, T* __restrict__ dk,
+                                         T* __restrict__ dv, int t_len, int heads, long long sb,
+                                         long long st, long long sh, int causal, float scale) {
   using S = Split<D>;
-  extern __shared__ float4 smem4[];
-  float* sq = reinterpret_cast<float*>(smem4);
+  float* sq = smem;
   float* sdo = sq + kTile * D;
   float* slse = sdo + kTile * D;
   float* sdelta = slse + kTile;
@@ -361,6 +407,508 @@ __global__ void __launch_bounds__(Split<D>::kThreads)
   }
 }
 
+// ---------------------------------------------------------------------------
+// Tensor-core bodies (bf16/f16 K3 and K5)
+//
+// Fragments of mma.m16n8k16 for lane = 4*g + tq (g = lane/4, tq = lane%4):
+// A (16x16, row-major) a0 = (g, 2tq..2tq+1), a1 = (g+8, same), a2 = (g,
+// 2tq+8..), a3 = (g+8, 2tq+8..); B (16x8) b0 = (k 2tq..2tq+1, n g), b1 =
+// (k 2tq+8.., n g); C (16x8 f32) c0,c1 = (g, 2tq..2tq+1), c2,c3 = (g+8,
+// same). So a C fragment over 16 columns, converted pairwise to 16 bits,
+// is an A fragment over the same 16 columns.
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, or 16 zero bytes where !valid.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(valid ? 16 : 0));
+}
+
+// 4 bytes global -> shared, or 4 zero bytes where !valid.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(valid ? 4 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Four 8x8 16-bit matrices; lanes 8m..8m+7 give the row addresses of
+// matrix m, and register m receives its fragment (.trans: transposed).
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+// d += a . b on the tensor cores, f32 accumulate. Registers only, so not
+// volatile: the compiler may schedule it around the (volatile) loads.
+template <typename T>
+__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                    uint32_t b1);
+
+template <>
+__device__ __forceinline__ void mma<__nv_bfloat16>(float (&d)[4], const uint32_t (&a)[4],
+                                                   uint32_t b0, uint32_t b1) {
+  asm(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+template <>
+__device__ __forceinline__ void mma<__half>(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                            uint32_t b1) {
+  asm(
+      "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Two floats -> two 16-bit values in one register, lo in the low half.
+template <typename T> __device__ __forceinline__ uint32_t pack2(float lo, float hi);
+
+template <>
+__device__ __forceinline__ uint32_t pack2<__nv_bfloat16>(float lo, float hi) {
+  const __nv_bfloat162 x = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&x);
+}
+
+template <>
+__device__ __forceinline__ uint32_t pack2<__half>(float lo, float hi) {
+  const __half2 x = __floats2half2_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&x);
+}
+
+// The A fragment (16 rows x 16 columns) of C fragments c[0] (columns 0-7)
+// and c[1] (columns 8-15).
+template <typename T>
+__device__ __forceinline__ void to_a(uint32_t (&a)[4], const float (&c0)[4],
+                                     const float (&c1)[4]) {
+  a[0] = pack2<T>(c0[0], c0[1]);
+  a[1] = pack2<T>(c0[2], c0[3]);
+  a[2] = pack2<T>(c1[0], c1[1]);
+  a[3] = pack2<T>(c1[2], c1[3]);
+}
+
+// Rows r0 .. r0+kTile-1 of a [T, D] matrix whose row t starts at
+// src + t*stride -> shared [kTile][D + kPad] in T by cp.async; rows at or
+// past T are zero.
+template <typename T, int D>
+__device__ __forceinline__ void tile_async(T* dst, const T* __restrict__ src, long long stride,
+                                           int r0, int t_len) {
+  constexpr int kPieces = D * (int)sizeof(T) / 16;  // 16-byte pieces a row
+  constexpr int kPer = kTile * kPieces / kMmaThreads;
+  static_assert(kPer * kMmaThreads == kTile * kPieces, "pieces must split evenly");
+#pragma unroll
+  for (int u = 0; u < kPer; ++u) {
+    const int e = threadIdx.x + u * kMmaThreads;
+    const int r = e / kPieces;
+    const int c = e - r * kPieces;
+    const int t = r0 + r;
+    const bool ok = t < t_len;
+    cp_async16(dst + r * Body<T, D>::kStride + c * 8,
+               src + (long long)(ok ? t : 0) * stride + c * 8, ok);
+  }
+}
+
+// Row offset of lane's ldmatrix address for an A fragment (16x16 at row 0,
+// column 0): matrices (rows 0-7 | 8-15) x (columns 0-7 | 8-15), column-major.
+template <typename T, int D>
+__device__ __forceinline__ int a_offset(int lane) {
+  return (lane & 15) * Body<T, D>::kStride + (lane >> 4) * 8;
+}
+
+// ... for two B fragments (n-blocks 0-7 and 8-15 of 16 rows, k = columns
+// 0-15) of a matrix stored [n][k]: matrices (n 0-7, k 0-7), (n 0-7, k 8-15),
+// (n 8-15, k 0-7), (n 8-15, k 8-15).
+template <typename T, int D>
+__device__ __forceinline__ int b_offset(int lane) {
+  return ((lane & 7) + (lane >> 4) * 8) * Body<T, D>::kStride + ((lane >> 3) & 1) * 8;
+}
+
+// ... for two B fragments (n = columns 0-7 and 8-15, k = rows 0-15) of a
+// matrix stored [k][n], read with .trans: matrices (k 0-7, n 0-7), (k 8-15,
+// n 0-7), (k 0-7, n 8-15), (k 8-15, n 8-15).
+template <typename T, int D>
+__device__ __forceinline__ int bt_offset(int lane) {
+  return ((lane & 7) + ((lane >> 3) & 1) * 8) * Body<T, D>::kStride + (lane >> 4) * 8;
+}
+
+template <typename T, int D>
+__device__ __forceinline__ void fwd_mma(T* smem, const T* __restrict__ q,
+                                        const T* __restrict__ k, const T* __restrict__ v,
+                                        T* __restrict__ o, float* __restrict__ lse, int t_len,
+                                        int heads, long long sb, long long st, long long sh,
+                                        int causal, float scale) {
+  using B = Body<T, D>;
+  constexpr int kKS = D / 16;       // 16-wide steps over the head dim
+  constexpr int kNB = D / 8;        // 8-wide blocks of the head dim
+  constexpr int kKB = kTile / 8;    // 8-wide blocks of a key tile
+  // stage s holds K at smem + 2*s*kTileElems and V right after it
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int tq = lane & 3;
+  // grid (heads * batch, query tiles), tile-major; causal: the longest
+  // rows first, so the last wave is of short blocks
+  const int h = blockIdx.x % heads;
+  const int b = blockIdx.x / heads;
+  const int q0 = (causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y) * kRows;
+  const long long base = (long long)b * sb + (long long)h * sh;
+  const int kend = causal ? min(t_len, q0 + kRows) : t_len;
+  const int n_kt = (kend + kTile - 1) / kTile;
+  const int row0 = q0 + warp * 16 + g;  // this thread's rows: row0 and row0 + 8
+
+  // Q through stage 1 into registers; K/V tile 0 into stage 0
+  tile_async<T, D>(smem + 2 * B::kTileElems, q + base, st, q0, t_len);
+  tile_async<T, D>(smem, k + base, st, 0, t_len);
+  tile_async<T, D>(smem + B::kTileElems, v + base, st, 0, t_len);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+  uint32_t qf[kKS][4];
+  {
+    const T* qs = smem + 2 * B::kTileElems + warp * 16 * B::kStride + a_offset<T, D>(lane);
+#pragma unroll
+    for (int ks = 0; ks < kKS; ++ks) ldsm_x4(qf[ks], qs + ks * 16);
+  }
+  __syncthreads();  // stage 1 is free
+
+  float acc[kNB][4];
+#pragma unroll
+  for (int n = 0; n < kNB; ++n) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  }
+  float m[2] = {-INFINITY, -INFINITY};  // row max, log2 units
+  float l[2] = {0.f, 0.f};              // this thread's part of the row sum
+  const float sl2 = scale * kLog2e;
+
+  for (int jt = 0; jt < n_kt; ++jt) {
+    if (jt + 1 < n_kt) {
+      T* next = smem + 2 * ((jt + 1) & 1) * B::kTileElems;
+      tile_async<T, D>(next, k + base, st, (jt + 1) * kTile, t_len);
+      tile_async<T, D>(next + B::kTileElems, v + base, st, (jt + 1) * kTile, t_len);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();  // tile jt has landed
+    __syncthreads();
+    const T* ks_tile = smem + 2 * (jt & 1) * B::kTileElems;
+    const T* vs_tile = ks_tile + B::kTileElems;
+    const int j0 = jt * kTile;
+
+    // S = Q K^T: this warp's 16 rows x 64 keys
+    float s[kKB][4];
+#pragma unroll
+    for (int n = 0; n < kKB; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
+    }
+#pragma unroll
+    for (int ks = 0; ks < kKS; ++ks) {
+#pragma unroll
+      for (int kb = 0; kb < kKB / 2; ++kb) {
+        uint32_t kf[4];
+        ldsm_x4(kf, ks_tile + kb * 16 * B::kStride + b_offset<T, D>(lane) + ks * 16);
+        mma<T>(s[2 * kb], qf[ks], kf[0], kf[1]);
+        mma<T>(s[2 * kb + 1], qf[ks], kf[2], kf[3]);
+      }
+    }
+    // scores in log2 units; the per-element mask only on the tile that
+    // crosses the diagonal or T
+    const bool edge = j0 + kTile > t_len || (causal && j0 + kTile - 1 > q0);
+#pragma unroll
+    for (int n = 0; n < kKB; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = s[n][e] * sl2;
+        if (edge) {
+          const int j = j0 + n * 8 + 2 * tq + (e & 1);
+          const int i = row0 + (e >> 1) * 8;
+          if (j >= t_len || (causal && j > i)) x = -INFINITY;
+        }
+        s[n][e] = x;
+      }
+    }
+    // online softmax; a quad of lanes shares a row
+    float corr[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float mx = m[r];
+#pragma unroll
+      for (int n = 0; n < kKB; ++n) mx = fmaxf(mx, fmaxf(s[n][2 * r], s[n][2 * r + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      // mx = -inf only while a row has seen no key (acc and l are 0 then)
+      const float mu = mx == -INFINITY ? 0.f : mx;
+      corr[r] = exp2f(m[r] - mu);
+      m[r] = mx;
+      float sum = 0.f;
+#pragma unroll
+      for (int n = 0; n < kKB; ++n) {
+        s[n][2 * r] = exp2f(s[n][2 * r] - mu);
+        s[n][2 * r + 1] = exp2f(s[n][2 * r + 1] - mu);
+        sum += s[n][2 * r] + s[n][2 * r + 1];
+      }
+      l[r] = l[r] * corr[r] + sum;
+    }
+#pragma unroll
+    for (int n = 0; n < kNB; ++n) {
+      acc[n][0] *= corr[0];
+      acc[n][1] *= corr[0];
+      acc[n][2] *= corr[1];
+      acc[n][3] *= corr[1];
+    }
+    // O += P V, P straight from the score fragments
+#pragma unroll
+    for (int kk = 0; kk < kTile / 16; ++kk) {
+      uint32_t pa[4];
+      to_a<T>(pa, s[2 * kk], s[2 * kk + 1]);
+#pragma unroll
+      for (int nd = 0; nd < kNB / 2; ++nd) {
+        uint32_t vf[4];
+        ldsm_x4_t(vf, vs_tile + kk * 16 * B::kStride + bt_offset<T, D>(lane) + nd * 16);
+        mma<T>(acc[2 * nd], pa, vf[0], vf[1]);
+        mma<T>(acc[2 * nd + 1], pa, vf[2], vf[3]);
+      }
+    }
+    __syncthreads();  // stage jt & 1 is consumed
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float lr = l[r];
+    lr += __shfl_xor_sync(0xffffffffu, lr, 1);
+    lr += __shfl_xor_sync(0xffffffffu, lr, 2);
+    const int i = row0 + r * 8;
+    if (i < t_len) {
+      const float l_safe = fmaxf(lr, 1e-30f);
+      const float inv = 1.f / l_safe;
+      T* orow = o + (((long long)b * t_len + i) * heads + h) * D + 2 * tq;
+#pragma unroll
+      for (int n = 0; n < kNB; ++n) {
+        *reinterpret_cast<uint32_t*>(orow + n * 8) =
+            pack2<T>(acc[n][2 * r] * inv, acc[n][2 * r + 1] * inv);
+      }
+      if (tq == 0) lse[((long long)b * heads + h) * t_len + i] = (m[r] + log2f(l_safe)) * kLn2;
+    }
+  }
+}
+
+template <typename T, int D>
+__device__ __forceinline__ void dkv_mma(T* smem, const T* __restrict__ q,
+                                        const T* __restrict__ k, const T* __restrict__ v,
+                                        const T* __restrict__ dout,
+                                        const float* __restrict__ lse,
+                                        const float* __restrict__ delta, T* __restrict__ dk,
+                                        T* __restrict__ dv, int t_len, int heads, long long sb,
+                                        long long st, long long sh, int causal, float scale) {
+  using B = Body<T, D>;
+  constexpr int kKS = D / 16;
+  constexpr int kNB = D / 8;
+  // stage s holds Q at smem + 2*s*kTileElems and dO right after it; the
+  // stages' lse and delta follow, [stage][lse | delta][kTile] f32
+  float* stats = reinterpret_cast<float*>(smem + 4 * B::kTileElems);
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int tq = lane & 3;
+  // grid (heads * batch, key tiles), tile-major: the first key tiles,
+  // which see the most queries when causal, start first
+  const int h = blockIdx.x % heads;
+  const int b = blockIdx.x / heads;
+  const int k0 = blockIdx.y * kRows;
+  const long long base = (long long)b * sb + (long long)h * sh;
+  const T* dout_bh = dout + ((long long)b * t_len * heads + h) * D;
+  const long long stat0 = ((long long)b * heads + h) * t_len;
+  // causal: queries before this block's first key never attend it
+  const int i_first = causal ? k0 : 0;
+  const int n_it = (t_len - i_first + kTile - 1) / kTile;
+  const int key0 = k0 + warp * 16 + g;  // this thread's keys: key0 and key0 + 8
+
+  // Q/dO rows i0.. and their lse/delta into stage s. Rows past T are zero
+  // and so are their lse and delta: such a query then has p = 1 but dO = 0
+  // and dP = 0, so it adds exactly nothing to dV or dK.
+  auto load_stage = [&](int s, int i0) {
+    T* dst = smem + 2 * s * B::kTileElems;
+    tile_async<T, D>(dst, q + base, st, i0, t_len);
+    tile_async<T, D>(dst + B::kTileElems, dout_bh, (long long)heads * D, i0, t_len);
+    const int e = threadIdx.x & (kTile - 1);
+    const int t = i0 + e;
+    const float* src = (threadIdx.x < kTile ? lse : delta) + stat0;
+    cp_async4(stats + (2 * s + (threadIdx.x < kTile ? 0 : 1)) * kTile + e,
+              src + (t < t_len ? t : 0), t < t_len);
+  };
+
+  // K and V through stage 1 into registers; the first Q/dO tile into stage 0
+  tile_async<T, D>(smem + 2 * B::kTileElems, k + base, st, k0, t_len);
+  tile_async<T, D>(smem + 3 * B::kTileElems, v + base, st, k0, t_len);
+  load_stage(0, i_first);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+  uint32_t kf[kKS][4];
+  uint32_t vf[kKS][4];
+  {
+    const int off = warp * 16 * B::kStride + a_offset<T, D>(lane);
+#pragma unroll
+    for (int ks = 0; ks < kKS; ++ks) {
+      ldsm_x4(kf[ks], smem + 2 * B::kTileElems + off + ks * 16);
+      ldsm_x4(vf[ks], smem + 3 * B::kTileElems + off + ks * 16);
+    }
+  }
+  __syncthreads();  // stage 1 is free
+
+  float dka[kNB][4];
+  float dva[kNB][4];
+#pragma unroll
+  for (int n = 0; n < kNB; ++n) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      dka[n][e] = 0.f;
+      dva[n][e] = 0.f;
+    }
+  }
+  const float sl2 = scale * kLog2e;
+
+  for (int it = 0; it < n_it; ++it) {
+    const int i0 = i_first + it * kTile;
+    if (it + 1 < n_it) load_stage((it + 1) & 1, i0 + kTile);
+    cp_async_commit();
+    cp_async_wait<1>();  // tile it has landed
+    __syncthreads();
+    const T* qs = smem + 2 * (it & 1) * B::kTileElems;
+    const T* dos = qs + B::kTileElems;
+    const float* slse = stats + 2 * (it & 1) * kTile;
+    const float* sdelta = slse + kTile;
+    const bool diag = causal && i0 == k0;
+
+    // 16 queries at a time keeps S^T and dP^T at 8 registers each
+#pragma unroll
+    for (int c = 0; c < kTile / 16; ++c) {
+      // on the diagonal, chunks wholly before this warp's keys are masked
+      if (diag && c < warp) continue;
+      float s[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+      float dp[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+      const int boff = c * 16 * B::kStride + b_offset<T, D>(lane);
+#pragma unroll
+      for (int ks = 0; ks < kKS; ++ks) {
+        uint32_t f[4];
+        ldsm_x4(f, qs + boff + ks * 16);
+        mma<T>(s[0], kf[ks], f[0], f[1]);
+        mma<T>(s[1], kf[ks], f[2], f[3]);
+        ldsm_x4(f, dos + boff + ks * 16);
+        mma<T>(dp[0], vf[ks], f[0], f[1]);
+        mma<T>(dp[1], vf[ks], f[2], f[3]);
+      }
+      // P^T = exp(scale S^T - lse), dS^T = P^T (dP^T - delta); a column
+      // is a query
+#pragma unroll
+      for (int n = 0; n < 2; ++n) {
+#pragma unroll
+        for (int e2 = 0; e2 < 2; ++e2) {
+          const int col = c * 16 + n * 8 + 2 * tq + e2;
+          const float lse_l2 = slse[col] * kLog2e;
+          const float dl = sdelta[col];
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            const int e = 2 * r + e2;
+            float p = exp2f(fmaf(s[n][e], sl2, -lse_l2));
+            if (diag && key0 + 8 * r > i0 + col) p = 0.f;
+            s[n][e] = p;
+            dp[n][e] = p * (dp[n][e] - dl);
+          }
+        }
+      }
+      uint32_t pa[4];
+      uint32_t da[4];
+      to_a<T>(pa, s[0], s[1]);
+      to_a<T>(da, dp[0], dp[1]);
+      const int toff = c * 16 * B::kStride + bt_offset<T, D>(lane);
+#pragma unroll
+      for (int nd = 0; nd < kNB / 2; ++nd) {
+        uint32_t f[4];
+        ldsm_x4_t(f, dos + toff + nd * 16);
+        mma<T>(dva[2 * nd], pa, f[0], f[1]);
+        mma<T>(dva[2 * nd + 1], pa, f[2], f[3]);
+        ldsm_x4_t(f, qs + toff + nd * 16);
+        mma<T>(dka[2 * nd], da, f[0], f[1]);
+        mma<T>(dka[2 * nd + 1], da, f[2], f[3]);
+      }
+    }
+    __syncthreads();  // stage it & 1 is consumed
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int j = key0 + r * 8;
+    if (j < t_len) {
+      const long long row = (((long long)b * t_len + j) * heads + h) * D + 2 * tq;
+#pragma unroll
+      for (int n = 0; n < kNB; ++n) {
+        *reinterpret_cast<uint32_t*>(dk + row + n * 8) =
+            pack2<T>(dka[n][2 * r] * scale, dka[n][2 * r + 1] * scale);
+        *reinterpret_cast<uint32_t*>(dv + row + n * 8) =
+            pack2<T>(dva[n][2 * r], dva[n][2 * r + 1]);
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K3 and K5: one kernel each, whose body the type selects
+
+template <typename T, int D>
+__global__ void __launch_bounds__(Body<T, D>::kThreads)
+    flash_attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                          const T* __restrict__ v, T* __restrict__ o, float* __restrict__ lse,
+                          int t_len, int heads, long long sb, long long st, long long sh,
+                          int causal, float scale) {
+  extern __shared__ float4 smem4[];
+  if constexpr (Body<T, D>::kMma) {
+    fwd_mma<T, D>(reinterpret_cast<T*>(smem4), q, k, v, o, lse, t_len, heads, sb, st, sh,
+                  causal, scale);
+  } else {
+    fwd_simt<T, D>(reinterpret_cast<float*>(smem4), q, k, v, o, lse, t_len, heads, sb, st, sh,
+                   causal, scale);
+  }
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(Body<T, D>::kThreads)
+    flash_attn_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                          const T* __restrict__ v, const T* __restrict__ dout,
+                          const float* __restrict__ lse, const float* __restrict__ delta,
+                          T* __restrict__ dk, T* __restrict__ dv, int t_len, int heads,
+                          long long sb, long long st, long long sh, int causal, float scale) {
+  extern __shared__ float4 smem4[];
+  if constexpr (Body<T, D>::kMma) {
+    dkv_mma<T, D>(reinterpret_cast<T*>(smem4), q, k, v, dout, lse, delta, dk, dv, t_len, heads,
+                  sb, st, sh, causal, scale);
+  } else {
+    dkv_simt<T, D>(reinterpret_cast<float*>(smem4), q, k, v, dout, lse, delta, dk, dv, t_len,
+                   heads, sb, st, sh, causal, scale);
+  }
+}
+
 struct Args {
   const void* q;
   const void* k;
@@ -380,25 +928,41 @@ struct Args {
 
 enum Kernel { kFwd = 0, kDq = 1, kDkv = 2 };
 
+// The tensor-core bodies copy 16-byte pieces: every row they stage (q/k/v
+// through the shared strides, dO contiguous) must start on 16 bytes.
+template <typename T>
+bool rows_aligned(int which, const Args& a) {
+  const auto a16 = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; };
+  const long long e = sizeof(T);
+  bool ok = a16(a.q) && a16(a.k) && a16(a.v) && (a.sb * e) % 16 == 0 &&
+            (a.st * e) % 16 == 0 && (a.sh * e) % 16 == 0;
+  if (which == kDkv) ok = ok && a16(a.dout);
+  return ok;
+}
+
 template <typename T, int D>
 cudaError_t launch(int which, const Args& a) {
-  using S = Split<D>;
-  const dim3 grid((a.t_len + kRows - 1) / kRows, a.heads, a.batch);
-  const size_t tiles = 2 * kTile * D * sizeof(float);
+  using B = Body<T, D>;
+  const int tiles = (a.t_len + kRows - 1) / kRows;
+  const dim3 grid(tiles, a.heads, a.batch);
+  const dim3 mma_grid(a.heads * a.batch, tiles);  // the tensor-core bodies' order
   const T* q = static_cast<const T*>(a.q);
   const T* k = static_cast<const T*>(a.k);
   const T* v = static_cast<const T*>(a.v);
   const T* dout = static_cast<const T*>(a.dout);
+  if (B::kMma && which != kDq && !rows_aligned<T>(which, a)) return cudaErrorMisalignedAddress;
   if (which == kFwd) {
-    flash_attn_fwd_kernel<T, D><<<grid, S::kThreads, tiles, a.stream>>>(
+    flash_attn_fwd_kernel<T, D><<<B::kMma ? mma_grid : grid, B::kThreads, B::kFwdSmem,
+                                  a.stream>>>(
         q, k, v, static_cast<T*>(a.out0), a.lse_out, a.t_len, a.heads, a.sb, a.st, a.sh,
         a.causal, a.scale);
   } else if (which == kDq) {
-    flash_attn_dq_kernel<T, D><<<grid, S::kThreads, tiles, a.stream>>>(
+    flash_attn_dq_kernel<T, D><<<grid, Split<D>::kThreads, 2 * kTile * D * sizeof(float),
+                                 a.stream>>>(
         q, k, v, dout, a.lse_in, a.delta, static_cast<T*>(a.out0), a.t_len, a.heads, a.sb,
         a.st, a.sh, a.causal, a.scale);
   } else {
-    flash_attn_dkv_kernel<T, D><<<grid, S::kThreads, tiles + 2 * kTile * sizeof(float),
+    flash_attn_dkv_kernel<T, D><<<B::kMma ? mma_grid : grid, B::kThreads, B::kDkvSmem,
                                   a.stream>>>(
         q, k, v, dout, a.lse_in, a.delta, static_cast<T*>(a.out0), static_cast<T*>(a.out1),
         a.t_len, a.heads, a.sb, a.st, a.sh, a.causal, a.scale);
@@ -418,7 +982,9 @@ cudaError_t launch_d(int which, int d, const Args& a) {
 
 int dispatch(int which, int dtype, int d, const Args& a) {
   if (dtype < kF32 || dtype > kF16 || (d != 16 && d != 32 && d != 64) || a.batch <= 0 ||
-      a.t_len <= 0 || a.heads <= 0 || a.batch > 65535 || a.heads > 65535) {
+      a.t_len <= 0 || a.heads <= 0 || a.batch > 65535 || a.heads > 65535 ||
+      (long long)a.batch * a.heads > 0x7fffffffLL ||
+      a.t_len > 65535 * kRows) {  // grid limits of both orders
     return (int)cudaErrorInvalidValue;
   }
   if (dtype == kF32) return (int)launch_d<float>(which, d, a);

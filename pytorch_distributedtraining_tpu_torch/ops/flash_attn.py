@@ -12,6 +12,13 @@ takes the plain version. Nothing falls back from one to the other. The
 launch counts ``fwd_launches``, ``dq_launches`` and ``dkv_launches`` rise
 by one where a wrapper launches its kernel and nowhere else.
 
+The library picks each kernel's body by the input's type: K3 and K5 run
+on the tensor cores for bf16 and f16 (:func:`uses_tensor_cores`) and on
+the CUDA cores for f32; K4 runs on the CUDA cores in every type. The
+tensor-core bodies stage rows by 16-byte ``cp.async`` copies, so the
+wrappers hand them only rows that start on 16 bytes (:func:`rows_aligned`)
+and copy anything else to a fresh contiguous tensor first.
+
 Layouts follow the JAX package: q/k/v/o ``[B, T, H, Dh]``; the per-row
 logsumexp ``lse`` and ``delta = rowsum(dO*O)`` are ``[B, H, T]`` f32 (the
 JAX package's 8-lane broadcast of them is a TPU layout workaround and is
@@ -26,6 +33,7 @@ from .. import csrc
 
 HEAD_DIMS = (16, 32, 64)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+ROW_ALIGN = 16  # bytes: one cp.async copy
 
 fwd_launches = 0
 dq_launches = 0
@@ -128,13 +136,39 @@ def _check(q, k, v):
         raise ValueError(f"flash attention takes head dim {HEAD_DIMS}, got {q.shape[-1]}")
 
 
+def uses_tensor_cores(dtype) -> bool:
+    """Whether K3 and K5 run their tensor-core bodies for ``dtype`` (bf16,
+    f16). f32 keeps the CUDA-core bodies: tensor cores would mean TF32,
+    which misses the f32 tolerance. The library decides the same way, by
+    type alone."""
+    return dtype in (torch.bfloat16, torch.float16)
+
+
+def rows_aligned(t) -> bool:
+    """Whether every row ``t[b, i, h, :]`` of a ``[B, T, H, Dh]`` tensor
+    starts on :data:`ROW_ALIGN` bytes: its address and its batch, time and
+    head strides in bytes are multiples of it."""
+    e = t.element_size()
+    return t.data_ptr() % ROW_ALIGN == 0 and all(s * e % ROW_ALIGN == 0 for s in t.stride()[:3])
+
+
+def _aligned_copy(t):
+    """``t`` contiguous with aligned rows; a copy only where it is not."""
+    t = t.contiguous()
+    return t if rows_aligned(t) else t.clone()
+
+
 def _qkv_strides(q, k, v):
     """q/k/v as the kernels read them: one set of (batch, time, head)
-    strides, last dimension contiguous. Views of one fused projection
-    already are; anything else is made contiguous."""
-    if q.stride() == k.stride() == v.stride() and q.stride(-1) == 1:
-        return (q, k, v), q.stride()[:3]
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    strides, last dimension contiguous, and for the tensor-core bodies
+    every row on 16 bytes. Views of one fused projection already are (GPT-2's
+    sit 1536 and 3072 bytes in, 4608-byte time stride); anything else is
+    copied to fresh contiguous tensors."""
+    keep = q.stride() == k.stride() == v.stride() and q.stride(-1) == 1
+    if keep and uses_tensor_cores(q.dtype):
+        keep = all(rows_aligned(t) for t in (q, k, v))
+    if not keep:
+        q, k, v = (_aligned_copy(t) for t in (q, k, v))
     return (q, k, v), q.stride()[:3]
 
 
@@ -167,7 +201,7 @@ def _check_grad_inputs(q, do, lse, delta):
     for name, s in (("lse", lse), ("delta", delta)):
         if tuple(s.shape) != (b, h, t) or s.dtype != torch.float32 or s.device != q.device:
             raise ValueError(f"{name} must be [B, H, T] = {(b, h, t)} float32 on {q.device}")
-    return do.contiguous(), lse.contiguous(), delta.contiguous()
+    return _aligned_copy(do), lse.contiguous(), delta.contiguous()
 
 
 def kernel_dq(q, k, v, do, lse, delta, causal: bool = True):

@@ -89,3 +89,22 @@ def test_ladder_unported_rungs_raise():
 
     with pytest.raises(NotImplementedError, match="ROADMAP A.11"):
         ladder.main(["--config", "1", "--tiny", "--device", "cpu"])
+
+
+def test_flash_kernel_times_are_read_by_name(tmp_path):
+    """K3-K5's device time and launches per step from a trace: each kernel
+    by its name, other kernels and host events ignored."""
+    from pytorch_distributedtraining_tpu_torch.benchmarks import ladder
+
+    events = [{"cat": "kernel", "name": f"void (anonymous namespace)::{n}<__nv_bfloat16, 64>",
+               "ts": 0.0, "dur": dur}
+              for n, dur in (("flash_attn_fwd_kernel", 30.0), ("flash_attn_dkv_kernel", 90.0),
+                             ("flash_attn_fwd_kernel", 50.0), ("flash_attn_dq_kernel", 500.0))]
+    events += [{"cat": "kernel", "name": "void cutlass::Kernel2<gemm>(...)", "ts": 0.0,
+                "dur": 700.0},
+               {"cat": "cpu_op", "name": "flash_attn_fwd_kernel", "ts": 0.0, "dur": 900.0}]
+    path = tmp_path / "trace.json"
+    path.write_text(json.dumps({"traceEvents": events}))
+    r = ladder.flash_kernel_ms(str(path), n_steps=2)
+    assert r == {"K3": {"ms": 0.04, "launches": 1.0}, "K4": {"ms": 0.25, "launches": 0.5},
+                 "K5": {"ms": 0.045, "launches": 0.5}}

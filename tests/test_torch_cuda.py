@@ -9,9 +9,11 @@ need not be installed (the suite's ``conftest.py`` imports it)::
 Tolerances: in f32 the kernel and the plain version differ only in sum
 order (~1e-6 relative); in bf16 and f16 both round the same f32 result, so
 outputs may differ by one step of the type (2^-8 relative in bf16, 2^-11
-in f16, held at 1e-2 and 2e-3). lse is f32 in every case. The tiny GPT-2
-holds gradients at 1e-4 relative to their largest entry: f32 sums in
-another order through two blocks.
+in f16, held at 1e-2 and 2e-3), and the tensor-core bodies of K3 and K5
+also round P and dS to the input's type before their second products
+(the same step again, on terms that mostly cancel). lse is f32 in every
+case. The tiny GPT-2 holds gradients at 1e-4 relative to their largest
+entry: f32 sums in another order through two blocks.
 """
 
 import numpy as np
@@ -81,10 +83,14 @@ def test_toy_swinir_on_the_card_matches_the_cpu(cuda):
 @pytest.mark.parametrize("dtype,rel", [(torch.float32, 1e-5), (torch.bfloat16, 1e-2),
                                         (torch.float16, 2e-3)])
 @pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("t,d", [(128, 64), (100, 32), (64, 16)])
+@pytest.mark.parametrize("t,d", [(128, 64), (100, 32), (64, 16), (512, 64), (512, 16),
+                                 (200, 64), (200, 32)])
 def test_flash_kernels_match_plain(cuda, dtype, rel, causal, t, d):
     """K3, K4 and K5 on q/k/v that are strided views of one fused [B, T,
-    3*H*D] projection, as GPT-2 hands them over; T = 100 has a ragged tile."""
+    3*H*D] projection, as GPT-2 hands them over. T = 512 runs eight 64-row
+    tiles with the causal diagonal; T = 100 and 200 end on a ragged tile.
+    f32 goes through the CUDA-core bodies, bf16 and f16 through the
+    tensor-core ones."""
     g = torch.Generator().manual_seed(0)
     b, h = 2, 3
     qkv = torch.randn(b, t, 3 * h * d, generator=g).to(cuda, dtype)
@@ -100,6 +106,31 @@ def test_flash_kernels_match_plain(cuda, dtype, rel, causal, t, d):
     for a, w in zip(tfa.kernel_dkv(q, k, v, do, want_lse, delta, causal),
                     tfa.plain_dkv(q, k, v, do, want_lse, delta, causal)):
         _close(a, w, rel)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_kernels_on_unaligned_views_match_contiguous(cuda, dtype, causal):
+    """q/k/v as views of a buffer whose rows are one element wider and
+    start one element in: no row sits on 16 bytes, so the wrappers copy
+    them for the tensor-core bodies (the CUDA-core ones read them as they
+    are). Either way the results equal those on contiguous copies."""
+    g = torch.Generator().manual_seed(2)
+    b, t, h, d = 2, 200, 3, 64
+    flat = torch.randn(b * t * (3 * h * d + 1) + 1, generator=g).to(cuda, dtype)
+    qkv = flat[1:].view(b, t, 3 * h * d + 1)[..., : 3 * h * d]
+    views = [a.unflatten(-1, (h, d)) for a in qkv.split(h * d, dim=-1)]
+    assert not any(tfa.rows_aligned(x) for x in views)
+    dense = [x.contiguous() for x in views]
+    do = torch.randn(b, t, h, d, generator=g).to(cuda, dtype)
+    out, lse = tfa.kernel_forward(*views, causal)
+    want_out, want_lse = tfa.kernel_forward(*dense, causal)
+    assert torch.equal(out, want_out) and torch.equal(lse, want_lse)
+    delta = tfa.delta_rows(want_out, do)
+    args = (do, want_lse, delta, causal)
+    assert torch.equal(tfa.kernel_dq(*views, *args), tfa.kernel_dq(*dense, *args))
+    for a, w in zip(tfa.kernel_dkv(*views, *args), tfa.kernel_dkv(*dense, *args)):
+        assert torch.equal(a, w)
 
 
 def test_tiny_gpt2_on_the_card_matches_the_cpu(cuda):

@@ -4,7 +4,10 @@ The JAX side runs ``ops/pallas_attn.py`` in interpret mode, as
 ``tests/test_pallas_attn.py`` does; the port's CPU tensors take the plain
 versions of K3/K4/K5 through the same ``torch.autograd.Function`` that
 launches the kernels on a card. Same inputs from one numpy seed, same
-cotangent, B 2, T 128, H 2, Dh 16.
+cotangent, B 2, T 128, H 2, Dh 16; one case at B 1, T 512 with 128-row
+blocks (four tiles a side, causal skipping). The wrapper's host-side
+decisions (the kernel body by dtype, the row alignment the tensor-core
+bodies need) are plain functions, tested here without a card.
 
 Tolerances: both sides compute in f32 with different sum orders (and the
 conftest's ``jax_disable_most_optimizations``); outputs and lse agree to
@@ -66,6 +69,28 @@ def test_gradients_match_pallas(causal, bq, bk):
                                    err_msg=name)
 
 
+def test_four_tiles_with_causal_skipping_match_pallas():
+    """T = 512 with bq = bk = 128: the Pallas kernels skip the tiles past
+    the diagonal and mask the diagonal ones, as the CUDA kernels do with
+    their own 64-row tiles; forward, lse and all three gradients."""
+    r = np.random.default_rng(4)
+    q, k, v, g = (r.standard_normal((1, 512, H, DH)).astype(np.float32) for _ in range(4))
+    jq, jk, jv = (jnp.asarray(a) for a in (q, k, v))
+    want_out, want_lse = pa._flash_forward(jq, jk, jv, causal=True, bq=128, bk=128,
+                                           interpret=True)
+    want = jax.grad(lambda *a: jnp.sum(pa.flash_attention(*a, True, 128, 128, True) * g),
+                    argnums=(0, 1, 2))(jq, jk, jv)
+    leaves = [torch.tensor(a, requires_grad=True) for a in (q, k, v)]
+    out = tfa.flash_attention(*leaves, True, 128, 128)
+    out.backward(torch.tensor(g))
+    _, lse = tfa.plain_forward(*(torch.tensor(a) for a in (q, k, v)), True)
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(want_out), atol=FWD_ATOL)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(want_lse)[..., 0], atol=FWD_ATOL)
+    for leaf, w, name in zip(leaves, want, ("dq", "dk", "dv")):
+        np.testing.assert_allclose(leaf.grad.numpy(), np.asarray(w), atol=GRAD_ATOL,
+                                   err_msg=name)
+
+
 def test_bf16_inputs_keep_their_dtype():
     q, k, v, _ = _inputs(seed=2)
     want = pa.flash_attention(*(jnp.asarray(a, jnp.bfloat16) for a in (q, k, v)),
@@ -116,3 +141,58 @@ def test_plain_backward_is_the_gradient_of_plain_forward(causal):
     attn = tfa.make_flash_attn_fn(bq=64, bk=32)
     torch.testing.assert_close(attn(q, k, v, causal=causal),
                                default_attention(q, k, v, causal=causal), atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("dtype,tensor_cores", [(torch.bfloat16, True), (torch.float16, True),
+                                                (torch.float32, False)])
+def test_kernel_body_is_chosen_by_dtype(dtype, tensor_cores):
+    assert tfa.uses_tensor_cores(dtype) is tensor_cores
+
+
+def _fused_views(dtype, width_pad=0, offset=0, b=2, t=8, h=3, d=64):
+    """q/k/v as GPT-2 hands them over: views of one [B, T, 3*H*D] buffer,
+    optionally with extra columns per row and a start offset (elements)."""
+    flat = torch.arange(b * t * (3 * h * d + width_pad) + offset).to(dtype)
+    qkv = flat[offset:].view(b, t, 3 * h * d + width_pad)[..., : 3 * h * d]
+    return [a.unflatten(-1, (h, d)) for a in qkv.split(h * d, dim=-1)]
+
+
+@pytest.mark.parametrize("width_pad,offset,aligned", [(0, 0, True), (8, 8, True),
+                                                      (1, 0, False), (0, 1, False)])
+def test_rows_aligned_reads_address_and_strides(width_pad, offset, aligned):
+    """GPT-2's fused views start 1536 and 3072 bytes in with a 4608-byte
+    time stride, all multiples of 16; an odd row width or start is not."""
+    q, k, v = _fused_views(torch.bfloat16, width_pad, offset)
+    assert [tfa.rows_aligned(t) for t in (q, k, v)] == [aligned] * 3
+
+
+def test_qkv_strides_keeps_aligned_views_and_copies_the_rest():
+    q, k, v = _fused_views(torch.bfloat16)
+    (q2, k2, v2), strides = tfa._qkv_strides(q, k, v)
+    assert [t.data_ptr() for t in (q2, k2, v2)] == [t.data_ptr() for t in (q, k, v)]
+    assert strides == q.stride()[:3]
+
+    q, k, v = _fused_views(torch.bfloat16, width_pad=1)
+    (q2, k2, v2), strides = tfa._qkv_strides(q, k, v)
+    for got, want in zip((q2, k2, v2), (q, k, v)):
+        assert got.is_contiguous() and tfa.rows_aligned(got) and torch.equal(got, want)
+    assert strides == q2.stride()[:3]
+
+    # the CUDA-core (f32) bodies read any shared stride, aligned or not
+    q, k, v = _fused_views(torch.float32, width_pad=1, offset=1)
+    (q2, _, _), strides = tfa._qkv_strides(q, k, v)
+    assert q2.data_ptr() == q.data_ptr() and strides == q.stride()[:3]
+
+
+def test_unaligned_contiguous_grad_is_copied():
+    """A contiguous dO that starts off 16 bytes (a view into a larger
+    buffer) gets a fresh copy; an aligned one goes through untouched."""
+    b, t, h, d = 1, 4, 2, 16
+    flat = torch.randn(b * t * h * d + 1).bfloat16()
+    do = flat[1:].view(b, t, h, d)
+    q = torch.zeros(b, t, h, d, dtype=torch.bfloat16)
+    stats = torch.zeros(b, h, t)
+    got, _, _ = tfa._check_grad_inputs(q, do, stats, stats)
+    assert tfa.rows_aligned(got) and got.data_ptr() != do.data_ptr() and torch.equal(got, do)
+    aligned = do.clone()
+    assert tfa._check_grad_inputs(q, aligned, stats, stats)[0].data_ptr() == aligned.data_ptr()
