@@ -12,8 +12,8 @@ Phases, each fatal on failure:
    tpu_torch/csrc`` (window attention and flash attention), one nvcc each
    for sm_90a, started together, with ptxas's register and spill counts
    and, where the toolkit has ``cuobjdump``, the tensor-core (HMMA)
-   instructions in each flash kernel's SASS: K3 and K5 must hold some in
-   bf16 and f16, K4 and every f32 body none;
+   instructions in each flash kernel's SASS: K3, K4 and K5 must hold some
+   in bf16 and f16, every f32 body none, and no flash kernel may spill;
 3. kernels: K1 (forward) and K2 (backward) against their plain PyTorch
    versions at every shape the two SwinIR paths below give them: the
    bench shape (q/k/v [1152, 6, 64, 10]: batch 18 at LR 64x64) in f32 and
@@ -235,24 +235,39 @@ def sass_hmma_counts(lib: Path) -> dict | None:
     return out
 
 
+def flash_build_faults(regs: dict, hmma: dict | None) -> list[str]:
+    """What in the flash kernels' build (``{"dq bf16 D=64": (registers,
+    spill bytes)}``) is not as designed: a kernel that spills, and (where
+    ``hmma`` was counted) a body whose HMMA use disagrees with the
+    wrappers' ``uses_tensor_cores`` for its type: HMMA in every bf16/f16
+    body of K3-K5, none in f32."""
+    import torch
+
+    from pytorch_distributedtraining_tpu_torch.ops.flash_attn import uses_tensor_cores
+
+    dtypes = {"f32": torch.float32, "bf16": torch.bfloat16, "f16": torch.float16}
+    faults = [f"{k}: {spill} bytes spill stores" for k, (_, spill) in sorted(regs.items())
+              if spill]
+    if hmma is not None:
+        faults += [f"{k}: {hmma.get(k, 0)} HMMA" for k in sorted(regs)
+                   if (hmma.get(k, 0) > 0) != uses_tensor_cores(dtypes[k.split()[1]])]
+    return faults
+
+
 def check_flash_build(log: str, lib: Path) -> None:
-    """Print each flash kernel's registers, spills and HMMA count; fail
-    unless K3 and K5 run their products on the tensor cores in bf16 and
-    f16, and K4 and the f32 bodies on the CUDA cores."""
+    """Print each flash kernel's registers, spills and HMMA count; fail if
+    one spills, or unless every bf16/f16 body runs its products on the
+    tensor cores and every f32 body on the CUDA cores."""
     regs = ptxas_entries(log)
     hmma = sass_hmma_counts(lib)
-    flash = sorted(k for k in regs if k.split()[0] in ("fwd", "dq", "dkv"))
-    for key in flash:
-        nregs, spill = regs[key]
+    flash = {k: v for k, v in regs.items() if k.split()[0] in ("fwd", "dq", "dkv")}
+    for key in sorted(flash):
+        nregs, spill = flash[key]
         count = "cuobjdump absent" if hmma is None else f"{hmma.get(key, 0)} HMMA"
         print(f"[build]   {key}: {nregs} registers, {spill} bytes spill stores, {count}")
-    if hmma is None:
-        return
-    wrong = [k for k in flash if (hmma.get(k, 0) > 0) != (
-        k.split()[0] in ("fwd", "dkv") and k.split()[1] in ("bf16", "f16"))]
-    if wrong:
-        raise SystemExit(f"tensor-core use is not as designed (HMMA in SASS): "
-                         f"{[(k, hmma.get(k, 0)) for k in wrong]}")
+    faults = flash_build_faults(flash, hmma)
+    if faults:
+        raise SystemExit(f"flash kernels not built as designed: {faults}")
 
 
 def launch_signature(kernel: str, q, mask) -> tuple:

@@ -14,8 +14,10 @@ token)::
 ``--trace build/gpt2.json`` also traces the steps with ``torch.profiler``
 and adds the device time per step by kernel family, each flash kernel's
 device time and launches per step (K3, K4, K5 by kernel name), the
-device's idle share and the times of the tied head's GEMMs (vocab 50257,
-an odd width) to the line.
+device's busy time and idle share and the times of the tied head's GEMMs
+(vocab 50257, an odd width) to the line. ``idle_share`` is of the traced
+window, whose steps the profiler's host cost stretches; the card's idle
+share of an untraced step is one less ``busy_ms`` over ``step_ms``.
 
 It differs from the JAX rung in three places:
 

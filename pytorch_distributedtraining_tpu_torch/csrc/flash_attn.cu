@@ -30,55 +30,66 @@
 // Two bodies, chosen by the input's type inside this library (a type
 // always reaches the same body; nothing switches at run time):
 //
-// - bf16 and f16, K3 and K5: tensor cores, FlashAttention-2 on
+// - bf16 and f16, all three kernels: tensor cores, FlashAttention-2 on
 //   `mma.sync.m16n8k16` (bf16/f16 in, f32 accumulate). A block holds 64
-//   rows (query rows for K3, key rows for K5) in 4 warps of 16 rows. The
-//   resident operand (Q for K3; K and V for K5) is loaded once into
-//   registers with `ldmatrix`. The streamed 64-row tiles (K/V for K3;
-//   Q/dO with their lse and delta for K5) are staged in the input's type
-//   by 16-byte `cp.async` copies, double-buffered, zero-filled past T, in
-//   rows padded by 16 bytes so that `ldmatrix` is free of bank conflicts.
-//   K3 keeps the online softmax in the accumulator fragments (a row's max
-//   and sum take two shuffles within its quad once per 64-key tile; exp2
-//   with log2(e) folded into the scale) and feeds P, converted to the
-//   input's type in registers, straight into P.V as the A operand, with V
-//   read by `ldmatrix.trans`. K5 computes S^T = K.Q^T and dP^T = V.dO^T,
-//   P^T and dS^T in registers, then dV += P^T.dO and dK += dS^T.Q with Q
-//   and dO read by `ldmatrix.trans`, 16 queries at a time to keep the
-//   registers in bounds; everything is warp-local.
-// - f32, all three kernels, and K4 in every type: the first, CUDA-core
-//   bodies. Tensor cores would mean TF32 for f32, which misses the f32
-//   tolerance; K4's redesign is later work. One block per 64-row tile;
-//   for D = 64 two threads share a row (one shuffle per dot product); the
-//   streamed operand is staged as f32 in shared memory and read as
-//   broadcast float4s; K3 rescales its online softmax once per 16 keys.
+//   rows (query rows for K3 and K4, key rows for K5) in 4 warps of 16
+//   rows. The resident operands (Q for K3; Q and dO for K4; K and V for
+//   K5) are loaded once into registers with `ldmatrix`. The streamed
+//   64-row tiles (K/V for K3 and K4; Q/dO with their lse and delta for K5)
+//   are staged in the input's type by 16-byte `cp.async` copies,
+//   double-buffered, zero-filled past T, in rows padded by 16 bytes so
+//   that `ldmatrix` is free of bank conflicts. K3 keeps the online softmax
+//   in the accumulator fragments (a row's max and sum take two shuffles
+//   within its quad once per 64-key tile; exp2 with log2(e) folded into
+//   the scale) and feeds P, converted to the input's type in registers,
+//   straight into P.V as the A operand, with V read by `ldmatrix.trans`.
+//   K4 computes S = Q.K^T and dP = dO.V^T, 16 keys at a time, P and dS in
+//   the accumulator fragments (lse and delta of a thread's two rows in
+//   registers, log2(e) folded into lse and the scale), then dQ += dS.K
+//   with dS converted in registers to the A operand and K read by
+//   `ldmatrix.trans`. K5 computes S^T = K.Q^T and dP^T = V.dO^T, P^T and
+//   dS^T in registers, then dV += P^T.dO and dK += dS^T.Q with Q and dO
+//   read by `ldmatrix.trans`, 16 queries at a time to keep the registers
+//   in bounds. Everything after the staging is warp-local. P and dS are
+//   rounded to the input's type before their second product (the JAX
+//   kernels keep them in f32): one step of the type at the largest
+//   entries (PERF.md).
+// - f32, all three kernels: the first, CUDA-core bodies. Tensor cores
+//   would mean TF32, which misses the f32 tolerance. One block per 64-row
+//   tile; for D = 64 two threads share a row (one shuffle per dot
+//   product); the streamed operand is staged as f32 in shared memory and
+//   read as broadcast float4s; K3 rescales its online softmax once per 16
+//   keys.
 //
 // Common to both: causal skipping (K3 and K4 stop at the last key tile
 // that reaches the block's last query row, K5 starts at the query tile of
 // its first key; the per-element mask runs only on the tile that crosses
-// the diagonal or T). The tensor-core bodies take their grid tile-major,
-// (heads * batch, tiles), with the tiles that have the most causal work
-// first (K3's last query tiles, K5's first key tiles): the card then starts
-// every (batch, head)'s longest block before any short one, and the short
-// ones fill the last wave; at GPT-2's shape that is faster than the
-// (tiles, heads, batch) order the CUDA-core bodies keep (PERF.md).
-// Deterministic: K4 owns dq rows and K5 owns dk/dv rows, no atomics. The
-// wrapper keeps the JAX block rule (bq and bk divide T); these kernels
-// tile by their own 64 rows, which changes only the order of the f32
-// sums. The tensor-core bodies need every q/k/v/dO row 16-byte aligned
-// (cp.async); the wrapper guarantees it and the library refuses
-// otherwise.
+// the diagonal or T, and there the tensor-core K4 and K5 skip the 16-row
+// chunks that the mask covers whole). The tensor-core bodies take their
+// grid tile-major, (heads * batch, tiles), with the tiles that have the
+// most causal work first (K3's and K4's last query tiles, K5's first key
+// tiles): the card then starts every (batch, head)'s longest block before
+// any short one, and the short ones fill the last wave; at GPT-2's shape
+// that is faster than the (tiles, heads, batch) order the CUDA-core
+// bodies keep (PERF.md). Deterministic: K4 owns dq rows and K5 owns dk/dv
+// rows, no atomics. The wrapper keeps the JAX block rule (bq and bk
+// divide T); these kernels tile by their own 64 rows, which changes only
+// the order of the f32 sums. The tensor-core bodies need every q/k/v/dO
+// row 16-byte aligned (cp.async); the wrapper guarantees it and the
+// library refuses otherwise.
 //
 // Out of scope here, for a later PR: wgmma, TMA and warp specialisation
-// (at T = 512 these kernels are latency-bound, not FLOP-bound), and a
-// tensor-core K4.
+// (at T = 512 these kernels are latency-bound, not FLOP-bound).
 //
 // Resources at D = 64 (ptxas of CUDA 12.8, sm_90a, -O3), no spills
-// anywhere: tensor-core K3 128 and K5 166 registers a thread, with 36 KB
-// and 37 KB of dynamic shared memory a block (under the 48 KB that needs
-// no opt-in); the CUDA-core K3 143, K4 166 and K5 208. chip_smoke.py's
-// build phase prints them with the HMMA instructions in each kernel's SASS
-// (64 in K3 and 128 in K5, the unrolled m16n8k16 products; none in K4).
+// anywhere: tensor-core K3 128, K4 128 and K5 167 registers a thread, with
+// 36 KB (K3, K4) and 37 KB (K5) of dynamic shared memory a block (under
+// the 48 KB that needs no opt-in); the CUDA-core K3 143, K4 166 and K5
+// 208. chip_smoke.py's build phase prints every kernel's registers and
+// spills with the HMMA instructions in its SASS (at D = 64: 64 in K3, 96
+// in K4 and 128 in K5, the unrolled m16n8k16 products; none in an f32
+// body), and fails if a kernel spills or a body's HMMA use is not as
+// designed.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -113,7 +124,7 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float
 template <> __device__ __forceinline__ __half from_f<__half>(float x) { return __float2half(x); }
 
 // ---------------------------------------------------------------------------
-// CUDA-core bodies (f32 K3/K5, and K4 in every type)
+// CUDA-core bodies (f32 K3, K4 and K5)
 
 // How the threads of a block split rows of width D.
 template <int D>
@@ -131,7 +142,8 @@ struct Body {
   static constexpr int kThreads = kMma ? kMmaThreads : Split<D>::kThreads;
   static constexpr int kStride = D + kPad;           // tensor-core smem row, elements
   static constexpr int kTileElems = kTile * kStride;  // one tensor-core stage tile
-  // two stages of two tiles (K/V for K3, Q/dO for K5); K5 adds lse/delta
+  // two stages of two tiles (K/V for K3 and K4, Q/dO for K5); K5 adds
+  // lse/delta. The f32 K3 and K4 stage one K/V tile pair as f32.
   static constexpr size_t kFwdSmem =
       kMma ? 4 * kTileElems * sizeof(T) : 2 * kTile * D * sizeof(float);
   static constexpr size_t kDkvSmem =
@@ -286,15 +298,15 @@ __device__ __forceinline__ void fwd_simt(float* smem, const T* __restrict__ q,
 }
 
 template <typename T, int D>
-__global__ void __launch_bounds__(Split<D>::kThreads)
-    flash_attn_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                         const T* __restrict__ v, const T* __restrict__ dout,
-                         const float* __restrict__ lse, const float* __restrict__ delta,
-                         T* __restrict__ dq, int t_len, int heads, long long sb, long long st,
-                         long long sh, int causal, float scale) {
+__device__ __forceinline__ void dq_simt(float* smem, const T* __restrict__ q,
+                                        const T* __restrict__ k, const T* __restrict__ v,
+                                        const T* __restrict__ dout,
+                                        const float* __restrict__ lse,
+                                        const float* __restrict__ delta, T* __restrict__ dq,
+                                        int t_len, int heads, long long sb, long long st,
+                                        long long sh, int causal, float scale) {
   using S = Split<D>;
-  extern __shared__ float4 smem4[];
-  float* sk = reinterpret_cast<float*>(smem4);
+  float* sk = smem;
   float* sv = sk + kTile * D;
 
   const int h = blockIdx.y;
@@ -408,7 +420,7 @@ __device__ __forceinline__ void dkv_simt(float* smem, const T* __restrict__ q,
 }
 
 // ---------------------------------------------------------------------------
-// Tensor-core bodies (bf16/f16 K3 and K5)
+// Tensor-core bodies (bf16/f16 K3, K4 and K5)
 //
 // Fragments of mma.m16n8k16 for lane = 4*g + tq (g = lane/4, tq = lane%4):
 // A (16x16, row-major) a0 = (g, 2tq..2tq+1), a1 = (g+8, same), a2 = (g,
@@ -714,6 +726,151 @@ __device__ __forceinline__ void fwd_mma(T* smem, const T* __restrict__ q,
 }
 
 template <typename T, int D>
+__device__ __forceinline__ void dq_mma(T* smem, const T* __restrict__ q,
+                                       const T* __restrict__ k, const T* __restrict__ v,
+                                       const T* __restrict__ dout,
+                                       const float* __restrict__ lse,
+                                       const float* __restrict__ delta, T* __restrict__ dq,
+                                       int t_len, int heads, long long sb, long long st,
+                                       long long sh, int causal, float scale) {
+  using B = Body<T, D>;
+  constexpr int kKS = D / 16;
+  constexpr int kNB = D / 8;
+  // stage s holds K at smem + 2*s*kTileElems and V right after it, as in K3
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int tq = lane & 3;
+  // grid (heads * batch, query tiles), tile-major; causal: the longest
+  // rows first, as in K3
+  const int h = blockIdx.x % heads;
+  const int b = blockIdx.x / heads;
+  const int q0 = (causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y) * kRows;
+  const long long base = (long long)b * sb + (long long)h * sh;
+  const T* dout_bh = dout + ((long long)b * t_len * heads + h) * D;
+  const long long stat0 = ((long long)b * heads + h) * t_len;
+  const int kend = causal ? min(t_len, q0 + kRows) : t_len;
+  const int n_kt = (kend + kTile - 1) / kTile;
+  const int row0 = q0 + warp * 16 + g;  // this thread's rows: row0 and row0 + 8
+
+  // Q and dO through stage 1 into registers; K/V tile 0 into stage 0
+  tile_async<T, D>(smem + 2 * B::kTileElems, q + base, st, q0, t_len);
+  tile_async<T, D>(smem + 3 * B::kTileElems, dout_bh, (long long)heads * D, q0, t_len);
+  tile_async<T, D>(smem, k + base, st, 0, t_len);
+  tile_async<T, D>(smem + B::kTileElems, v + base, st, 0, t_len);
+  cp_async_commit();
+  // this thread's rows' lse (log2 units) and delta; a row past T takes 0
+  // and its dq is dropped
+  float lse_l2[2];
+  float dl[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int i = row0 + 8 * r;
+    lse_l2[r] = i < t_len ? lse[stat0 + i] * kLog2e : 0.f;
+    dl[r] = i < t_len ? delta[stat0 + i] : 0.f;
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+  uint32_t qf[kKS][4];
+  uint32_t dof[kKS][4];
+  {
+    const int off = warp * 16 * B::kStride + a_offset<T, D>(lane);
+#pragma unroll
+    for (int ks = 0; ks < kKS; ++ks) {
+      ldsm_x4(qf[ks], smem + 2 * B::kTileElems + off + ks * 16);
+      ldsm_x4(dof[ks], smem + 3 * B::kTileElems + off + ks * 16);
+    }
+  }
+  __syncthreads();  // stage 1 is free
+
+  float acc[kNB][4];
+#pragma unroll
+  for (int n = 0; n < kNB; ++n) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  }
+  const float sl2 = scale * kLog2e;
+
+  for (int jt = 0; jt < n_kt; ++jt) {
+    if (jt + 1 < n_kt) {
+      T* next = smem + 2 * ((jt + 1) & 1) * B::kTileElems;
+      tile_async<T, D>(next, k + base, st, (jt + 1) * kTile, t_len);
+      tile_async<T, D>(next + B::kTileElems, v + base, st, (jt + 1) * kTile, t_len);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();  // tile jt has landed
+    __syncthreads();
+    const T* ks_tile = smem + 2 * (jt & 1) * B::kTileElems;
+    const T* vs_tile = ks_tile + B::kTileElems;
+    const int j0 = jt * kTile;
+    // the per-element mask only on the tile that crosses the diagonal or T
+    const bool edge = j0 + kTile > t_len || (causal && j0 + kTile - 1 > q0);
+    const bool diag = causal && j0 == q0;
+
+    // 16 keys at a time keeps S and dP at 8 registers each
+#pragma unroll
+    for (int c = 0; c < kTile / 16; ++c) {
+      // keys wholly past T, or on the diagonal wholly after this warp's
+      // rows, add nothing
+      if (j0 + c * 16 >= t_len || (diag && c > warp)) continue;
+      float s[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+      float dp[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+      const int boff = c * 16 * B::kStride + b_offset<T, D>(lane);
+#pragma unroll
+      for (int ks = 0; ks < kKS; ++ks) {
+        uint32_t f[4];
+        ldsm_x4(f, ks_tile + boff + ks * 16);
+        mma<T>(s[0], qf[ks], f[0], f[1]);
+        mma<T>(s[1], qf[ks], f[2], f[3]);
+        ldsm_x4(f, vs_tile + boff + ks * 16);
+        mma<T>(dp[0], dof[ks], f[0], f[1]);
+        mma<T>(dp[1], dof[ks], f[2], f[3]);
+      }
+      // P = exp(scale S - lse), dS = P (dP - delta); element e of block n
+      // is row row0 + 8 (e >> 1), key j0 + 16 c + 8 n + 2 tq + (e & 1)
+#pragma unroll
+      for (int n = 0; n < 2; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = e >> 1;
+          float p = exp2f(fmaf(s[n][e], sl2, -lse_l2[r]));
+          if (edge) {
+            const int j = j0 + c * 16 + n * 8 + 2 * tq + (e & 1);
+            if (j >= t_len || (causal && j > row0 + 8 * r)) p = 0.f;
+          }
+          dp[n][e] = p * (dp[n][e] - dl[r]);
+        }
+      }
+      // dQ += dS K, dS straight from the fragments, K read by .trans
+      uint32_t da[4];
+      to_a<T>(da, dp[0], dp[1]);
+      const int toff = c * 16 * B::kStride + bt_offset<T, D>(lane);
+#pragma unroll
+      for (int nd = 0; nd < kNB / 2; ++nd) {
+        uint32_t f[4];
+        ldsm_x4_t(f, ks_tile + toff + nd * 16);
+        mma<T>(acc[2 * nd], da, f[0], f[1]);
+        mma<T>(acc[2 * nd + 1], da, f[2], f[3]);
+      }
+    }
+    __syncthreads();  // stage jt & 1 is consumed
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int i = row0 + r * 8;
+    if (i < t_len) {
+      T* row = dq + (((long long)b * t_len + i) * heads + h) * D + 2 * tq;
+#pragma unroll
+      for (int n = 0; n < kNB; ++n) {
+        *reinterpret_cast<uint32_t*>(row + n * 8) =
+            pack2<T>(acc[n][2 * r] * scale, acc[n][2 * r + 1] * scale);
+      }
+    }
+  }
+}
+
+template <typename T, int D>
 __device__ __forceinline__ void dkv_mma(T* smem, const T* __restrict__ q,
                                         const T* __restrict__ k, const T* __restrict__ v,
                                         const T* __restrict__ dout,
@@ -874,7 +1031,7 @@ __device__ __forceinline__ void dkv_mma(T* smem, const T* __restrict__ q,
 }
 
 // ---------------------------------------------------------------------------
-// K3 and K5: one kernel each, whose body the type selects
+// K3, K4 and K5: one kernel each, whose body the type selects
 
 template <typename T, int D>
 __global__ void __launch_bounds__(Body<T, D>::kThreads)
@@ -889,6 +1046,23 @@ __global__ void __launch_bounds__(Body<T, D>::kThreads)
   } else {
     fwd_simt<T, D>(reinterpret_cast<float*>(smem4), q, k, v, o, lse, t_len, heads, sb, st, sh,
                    causal, scale);
+  }
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(Body<T, D>::kThreads)
+    flash_attn_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                         const T* __restrict__ v, const T* __restrict__ dout,
+                         const float* __restrict__ lse, const float* __restrict__ delta,
+                         T* __restrict__ dq, int t_len, int heads, long long sb, long long st,
+                         long long sh, int causal, float scale) {
+  extern __shared__ float4 smem4[];
+  if constexpr (Body<T, D>::kMma) {
+    dq_mma<T, D>(reinterpret_cast<T*>(smem4), q, k, v, dout, lse, delta, dq, t_len, heads, sb,
+                 st, sh, causal, scale);
+  } else {
+    dq_simt<T, D>(reinterpret_cast<float*>(smem4), q, k, v, dout, lse, delta, dq, t_len, heads,
+                  sb, st, sh, causal, scale);
   }
 }
 
@@ -936,7 +1110,7 @@ bool rows_aligned(int which, const Args& a) {
   const long long e = sizeof(T);
   bool ok = a16(a.q) && a16(a.k) && a16(a.v) && (a.sb * e) % 16 == 0 &&
             (a.st * e) % 16 == 0 && (a.sh * e) % 16 == 0;
-  if (which == kDkv) ok = ok && a16(a.dout);
+  if (which != kFwd) ok = ok && a16(a.dout);
   return ok;
 }
 
@@ -950,14 +1124,14 @@ cudaError_t launch(int which, const Args& a) {
   const T* k = static_cast<const T*>(a.k);
   const T* v = static_cast<const T*>(a.v);
   const T* dout = static_cast<const T*>(a.dout);
-  if (B::kMma && which != kDq && !rows_aligned<T>(which, a)) return cudaErrorMisalignedAddress;
+  if (B::kMma && !rows_aligned<T>(which, a)) return cudaErrorMisalignedAddress;
   if (which == kFwd) {
     flash_attn_fwd_kernel<T, D><<<B::kMma ? mma_grid : grid, B::kThreads, B::kFwdSmem,
                                   a.stream>>>(
         q, k, v, static_cast<T*>(a.out0), a.lse_out, a.t_len, a.heads, a.sb, a.st, a.sh,
         a.causal, a.scale);
   } else if (which == kDq) {
-    flash_attn_dq_kernel<T, D><<<grid, Split<D>::kThreads, 2 * kTile * D * sizeof(float),
+    flash_attn_dq_kernel<T, D><<<B::kMma ? mma_grid : grid, B::kThreads, B::kFwdSmem,
                                  a.stream>>>(
         q, k, v, dout, a.lse_in, a.delta, static_cast<T*>(a.out0), a.t_len, a.heads, a.sb,
         a.st, a.sh, a.causal, a.scale);

@@ -12,12 +12,12 @@ takes the plain version. Nothing falls back from one to the other. The
 launch counts ``fwd_launches``, ``dq_launches`` and ``dkv_launches`` rise
 by one where a wrapper launches its kernel and nowhere else.
 
-The library picks each kernel's body by the input's type: K3 and K5 run
-on the tensor cores for bf16 and f16 (:func:`uses_tensor_cores`) and on
-the CUDA cores for f32; K4 runs on the CUDA cores in every type. The
-tensor-core bodies stage rows by 16-byte ``cp.async`` copies, so the
-wrappers hand them only rows that start on 16 bytes (:func:`rows_aligned`)
-and copy anything else to a fresh contiguous tensor first.
+The library picks each kernel's body by the input's type: K3, K4 and K5
+run on the tensor cores for bf16 and f16 (:func:`uses_tensor_cores`) and
+on the CUDA cores for f32. The tensor-core bodies stage rows (q/k/v, and
+dO for K4 and K5) by 16-byte ``cp.async`` copies, so the wrappers hand
+them only rows that start on 16 bytes (:func:`rows_aligned`) and copy
+anything else to a fresh contiguous tensor first.
 
 Layouts follow the JAX package: q/k/v/o ``[B, T, H, Dh]``; the per-row
 logsumexp ``lse`` and ``delta = rowsum(dO*O)`` are ``[B, H, T]`` f32 (the
@@ -137,10 +137,10 @@ def _check(q, k, v):
 
 
 def uses_tensor_cores(dtype) -> bool:
-    """Whether K3 and K5 run their tensor-core bodies for ``dtype`` (bf16,
-    f16). f32 keeps the CUDA-core bodies: tensor cores would mean TF32,
-    which misses the f32 tolerance. The library decides the same way, by
-    type alone."""
+    """Whether K3, K4 and K5 run their tensor-core bodies for ``dtype``
+    (bf16, f16). f32 keeps the CUDA-core bodies: tensor cores would mean
+    TF32, which misses the f32 tolerance. The library decides the same way,
+    by type alone."""
     return dtype in (torch.bfloat16, torch.float16)
 
 

@@ -7,6 +7,7 @@ numbers come only from a GPU run."""
 
 import json
 import math
+from pathlib import Path
 
 import pytest
 import torch
@@ -108,3 +109,39 @@ def test_flash_kernel_times_are_read_by_name(tmp_path):
     r = ladder.flash_kernel_ms(str(path), n_steps=2)
     assert r == {"K3": {"ms": 0.04, "launches": 1.0}, "K4": {"ms": 0.25, "launches": 0.5},
                  "K5": {"ms": 0.045, "launches": 0.5}}
+
+
+def test_ab_ladder_runs_both_trees_in_turns(capsys):
+    """Parent against change: base, change, change, base, each a fresh
+    ladder process from its tree (here both trees are this one, tiny, on
+    the CPU), and a summary of the step times per tree."""
+    from pytorch_distributedtraining_tpu_torch.benchmarks import ab_ladder
+
+    assert ab_ladder.order(2) == ["base", "change", "change", "base"] * 2
+    root = Path(__file__).resolve().parents[1]
+    assert ab_ladder.main(["--base", str(root), "--rounds", "1", "--", "--steps", "1",
+                           "--tiny", "--device", "cpu"]) == 0
+    lines = [json.loads(x) for x in capsys.readouterr().out.strip().splitlines()]
+    assert [x["tree"] for x in lines[:-1]] == ab_ladder.order(1)
+    summary = lines[-1]["ab_ladder"]
+    for tree in ("base", "change"):
+        s = summary[tree]
+        assert len(s["step_ms"]) == 2 and s["median_step_ms"] == sum(s["step_ms"]) / 2
+        assert s["tokens_per_s_at_median"] == 8 * 512 / s["median_step_ms"] * 1e3
+        assert all(math.isfinite(x) for x in s["loss"]) and "busy_ms" not in s
+
+
+def test_ab_ladder_summary_reads_traced_runs():
+    from pytorch_distributedtraining_tpu_torch.benchmarks import ab_ladder
+
+    def rec(step_ms, busy, k4):
+        return {"step_ms": step_ms, "loss": 3.0, "busy_ms": busy, "idle_share": 1 - busy / step_ms,
+                "flash_kernels": {"K4": {"ms": k4, "launches": 12.0}}}
+
+    runs = [("base", rec(40.0, 36.0, 6.8)), ("change", rec(30.0, 29.0, 0.5)),
+            ("change", rec(32.0, 29.0, 0.4)), ("base", rec(38.0, 36.0, 6.8))]
+    s = ab_ladder.summarize(runs)
+    assert s["base"]["step_ms"] == [40.0, 38.0] and s["base"]["median_step_ms"] == 39.0
+    assert s["change"]["flash_ms_per_step"] == {"K4": 0.45}
+    assert s["change"]["busy_ms"] == 29.0
+    assert s["base"]["step_idle_share"] == pytest.approx((4 / 40 + 2 / 38) / 2)

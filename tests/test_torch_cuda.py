@@ -9,8 +9,8 @@ need not be installed (the suite's ``conftest.py`` imports it)::
 Tolerances: in f32 the kernel and the plain version differ only in sum
 order (~1e-6 relative); in bf16 and f16 both round the same f32 result, so
 outputs may differ by one step of the type (2^-8 relative in bf16, 2^-11
-in f16, held at 1e-2 and 2e-3), and the tensor-core bodies of K3 and K5
-also round P and dS to the input's type before their second products
+in f16, held at 1e-2 and 2e-3), and the tensor-core bodies of K3, K4 and
+K5 also round P and dS to the input's type before their second products
 (the same step again, on terms that mostly cancel). lse is f32 in every
 case. The tiny GPT-2 holds gradients at 1e-4 relative to their largest
 entry: f32 sums in another order through two blocks.
@@ -20,6 +20,7 @@ import numpy as np
 import pytest
 import torch
 
+from pytorch_distributedtraining_tpu_torch import csrc
 from pytorch_distributedtraining_tpu_torch.models import GPT2, GPT2Config, SwinIR
 from pytorch_distributedtraining_tpu_torch.ops import flash_attn as tfa
 from pytorch_distributedtraining_tpu_torch.ops import window_attn as twa
@@ -131,6 +132,61 @@ def test_flash_kernels_on_unaligned_views_match_contiguous(cuda, dtype, causal):
     assert torch.equal(tfa.kernel_dq(*views, *args), tfa.kernel_dq(*dense, *args))
     for a, w in zip(tfa.kernel_dkv(*views, *args), tfa.kernel_dkv(*dense, *args)):
         assert torch.equal(a, w)
+
+
+def _fused_qkv(cuda, dtype, b, t, h, d, g):
+    """q/k/v as views of one fused [B, T, 3*H*D] projection, and dO."""
+    qkv = torch.randn(b, t, 3 * h * d, generator=g).to(cuda, dtype)
+    q, k, v = (a.unflatten(-1, (h, d)) for a in qkv.split(h * d, dim=-1))
+    return q, k, v, torch.randn(b, t, h, d, generator=g).to(cuda, dtype)
+
+
+@pytest.mark.parametrize("dtype,rel", [(torch.bfloat16, 1e-2), (torch.float16, 2e-3)])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", [16, 32, 64])
+@pytest.mark.parametrize("t", [1, 65, 200])
+def test_flash_dq_tensor_cores_on_ragged_lengths(cuda, dtype, rel, causal, d, t):
+    """K4's tensor-core body where T ends inside a key tile: T = 1 (one key;
+    63 of the block's rows lie past T), 65 (one key into the second tile,
+    which is also the causal diagonal of the second query tile) and 200
+    (eight keys into the fourth). Keys past T and, on the diagonal, keys
+    after a row must add nothing to its dq."""
+    q, k, v, do = _fused_qkv(cuda, dtype, 2, t, 3, d, torch.Generator().manual_seed(3))
+    out, lse = tfa.plain_forward(q, k, v, causal)
+    args = (do, lse, tfa.delta_rows(out, do), causal)
+    before = tfa.dq_launches
+    got = tfa.kernel_dq(q, k, v, *args)
+    assert tfa.dq_launches == before + 1
+    _close(got, tfa.plain_dq(q, k, v, *args), rel)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_flash_dq_copies_a_misaligned_grad_and_the_library_refuses_it(cuda, dtype):
+    """A contiguous dO that starts one element into its buffer: the wrapper
+    copies it, so K4 gives what it gives on an aligned copy; called
+    directly, the library refuses it rather than read it wrong."""
+    b, t, h, d = 2, 200, 3, 64
+    g = torch.Generator().manual_seed(4)
+    q, k, v, dense = _fused_qkv(cuda, dtype, b, t, h, d, g)
+    flat = torch.empty(dense.numel() + 1, dtype=dtype, device=cuda)
+    flat[1:] = dense.flatten()
+    do = flat[1:].view(b, t, h, d)
+    assert do.is_contiguous() and not tfa.rows_aligned(do) and tfa.rows_aligned(q)
+    out, lse = tfa.plain_forward(q, k, v, True)
+    delta = tfa.delta_rows(out, dense)
+    assert torch.equal(tfa.kernel_dq(q, k, v, do, lse, delta),
+                       tfa.kernel_dq(q, k, v, dense, lse, delta))
+
+    lib = csrc.load("flash_attn")
+    dq = torch.zeros_like(dense)
+    code = lib.flash_attn_dq(
+        tfa._DTYPE_CODES[dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), b, t, h, d, *q.stride()[:3], 1,
+        d**-0.5, torch.cuda.current_stream(cuda).cuda_stream,
+    )
+    torch.cuda.synchronize()
+    assert code != 0 and "misaligned" in lib.error_string(code).decode()
+    assert not dq.any()
 
 
 def test_tiny_gpt2_on_the_card_matches_the_cpu(cuda):
