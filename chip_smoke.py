@@ -12,15 +12,18 @@ Phases, each fatal on failure:
    tpu_torch/csrc`` (window attention and flash attention), one nvcc each
    for sm_90a, started together, with ptxas's register and spill counts
    and, where the toolkit has ``cuobjdump``, the tensor-core (HMMA)
-   instructions in each flash kernel's SASS: K3, K4 and K5 must hold some
-   in bf16 and f16, every f32 body none, and no flash kernel may spill;
+   instructions in each kernel's SASS: K2 must hold some in every type,
+   K3, K4 and K5 in bf16 and f16, every f32 body of K3-K5 and every body
+   of K1 none (as ``uses_tensor_cores`` of each module says); no kernel
+   may spill but K1's instantiations named in ``K1_SPILLS``;
 3. kernels: K1 (forward) and K2 (backward) against their plain PyTorch
    versions at every shape the two SwinIR paths below give them: the
    bench shape (q/k/v [1152, 6, 64, 10]: batch 18 at LR 64x64) in f32 and
    bf16, with and without the shift mask, pack 1 and 2; the driver's
    training batches ([288, 6, 64, 10]: batch 18 at LR 32x32) and its
    validation batch ([160, 6, 64, 10]: 10 images) in f32, with and
-   without the mask. Errors against the stated tolerance and device
+   without the mask. At pack 2 K2 must not be slower than its plain
+   version. Errors against the stated tolerance and device
    times (CUDA events around ten calls queued behind a spin kernel, so
    host-side launch cost is excluded) of the kernel, the plain version and
    one PyTorch library call (``scaled_dot_product_attention`` with a float
@@ -77,6 +80,12 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12, "float16": 989e12}  # CUDA-core f32
+# K2's products run on the tensor cores in every type, f32 as 3xTF32:
+# three TF32 products (495 TFLOP/s) per product
+K2_PEAK_FLOPS = {"float32": 495e12 / 3, "bfloat16": 989e12, "float16": 989e12}
+# K1 bodies whose spill ptxas reports (bytes): K1 is left as it is for its
+# own redesign; any other spill, or a larger one, fails the build check
+K1_SPILLS = {f"wfwd {t} J={j} D=16": 8 for t in ("f32", "bf16", "f16") for j in (2, 4)}
 TOL = {"float32": 2e-5, "bfloat16": 1e-2, "float16": 2e-3}  # max |err| / max(1, max |ref|)
 CALLS_PER_EVENT = 10  # calls timed back to back between two CUDA events
 SPIN_HZ = 2.0e9  # above the H100's SM clock, so a spin of n cycles lasts at least n / SPIN_HZ s
@@ -144,9 +153,10 @@ def err(got, want) -> tuple[float, float]:
     return diff, diff / max(1.0, want.float().abs().max().item())
 
 
-def bound_ms(bytes_moved: float, flops: float, dtype: str) -> tuple[float, str]:
+def bound_ms(bytes_moved: float, flops: float, dtype: str,
+             peak: dict = PEAK_FLOPS) -> tuple[float, str]:
     t_bytes = bytes_moved / HBM_BYTES_PER_S
-    t_ops = flops / PEAK_FLOPS[dtype]
+    t_ops = flops / peak[dtype]
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
@@ -182,20 +192,29 @@ def phase_build():
               f"{len(regs)} kernels, registers {min(regs, default=0)}-{max(regs, default=0)}, "
               f"spill stores max {max(spills, default=0)} bytes, static smem max "
               f"{max(smem, default=0)} bytes")
-        if name == "flash_attn":
-            check_flash_build(log, path)
+        check_build(name, log, path)
 
 
 PTX_TYPES = {"f": "f32", "6__half": "f16", "13__nv_bfloat16": "bf16"}  # mangled
 
 
 def kernel_key(entry: str) -> str:
-    """``"fwd bf16 D=64"`` for a flash kernel's mangled name, else the name."""
-    kind = re.search(r"flash_attn_(fwd|dq|dkv)_kernelI(f|6__half|13__nv_bfloat16)Li(\d+)E",
-                     entry)
-    if kind is None:
-        return entry
-    return f"{kind.group(1)} {PTX_TYPES[kind.group(2)]} D={kind.group(3)}"
+    """A kernel's key from its mangled name: ``"fwd bf16 D=64"`` for a flash
+    kernel (K3-K5), ``"wfwd f32 J=2 D=16"`` for K1 (keys per lane, head-dim
+    cap), ``"wbwd bf16 N=64 D=16"`` for K2 (padded keys and columns),
+    ``"dbias_reduce"``; else the name."""
+    types = "(f|6__half|13__nv_bfloat16)"
+    kind = re.search(rf"flash_attn_(fwd|dq|dkv)_kernelI{types}Li(\d+)E", entry)
+    if kind is not None:
+        return f"{kind.group(1)} {PTX_TYPES[kind.group(2)]} D={kind.group(3)}"
+    kind = re.search(rf"window_attn_(fwd|bwd)_kernelI{types}Li(\d+)ELi(\d+)E", entry)
+    if kind is not None:
+        size = "J" if kind.group(1) == "fwd" else "N"
+        return (f"w{kind.group(1)} {PTX_TYPES[kind.group(2)]} {size}={kind.group(3)} "
+                f"D={kind.group(4)}")
+    if "dbias_reduce_kernel" in entry:
+        return "dbias_reduce"
+    return entry
 
 
 def ptxas_entries(log: str) -> dict:
@@ -235,6 +254,21 @@ def sass_hmma_counts(lib: Path) -> dict | None:
     return out
 
 
+DTYPES = {"f32": "float32", "bf16": "bfloat16", "f16": "float16"}
+
+
+def _build_faults(regs: dict, hmma: dict | None, uses, spills: dict) -> list[str]:
+    """Kernels of ``regs`` (``{key: (registers, spill bytes)}``) that spill
+    more than ``spills`` allows them, or (where ``hmma`` was counted) whose
+    HMMA use disagrees with ``uses(key)``."""
+    faults = [f"{k}: {spill} bytes spill stores" for k, (_, spill) in sorted(regs.items())
+              if spill > spills.get(k, 0)]
+    if hmma is not None:
+        faults += [f"{k}: {hmma.get(k, 0)} HMMA" for k in sorted(regs)
+                   if (hmma.get(k, 0) > 0) != uses(k)]
+    return faults
+
+
 def flash_build_faults(regs: dict, hmma: dict | None) -> list[str]:
     """What in the flash kernels' build (``{"dq bf16 D=64": (registers,
     spill bytes)}``) is not as designed: a kernel that spills, and (where
@@ -245,29 +279,46 @@ def flash_build_faults(regs: dict, hmma: dict | None) -> list[str]:
 
     from pytorch_distributedtraining_tpu_torch.ops.flash_attn import uses_tensor_cores
 
-    dtypes = {"f32": torch.float32, "bf16": torch.bfloat16, "f16": torch.float16}
-    faults = [f"{k}: {spill} bytes spill stores" for k, (_, spill) in sorted(regs.items())
-              if spill]
-    if hmma is not None:
-        faults += [f"{k}: {hmma.get(k, 0)} HMMA" for k in sorted(regs)
-                   if (hmma.get(k, 0) > 0) != uses_tensor_cores(dtypes[k.split()[1]])]
-    return faults
+    return _build_faults(
+        regs, hmma, lambda k: uses_tensor_cores(getattr(torch, DTYPES[k.split()[1]])), {})
 
 
-def check_flash_build(log: str, lib: Path) -> None:
-    """Print each flash kernel's registers, spills and HMMA count; fail if
-    one spills, or unless every bf16/f16 body runs its products on the
-    tensor cores and every f32 body on the CUDA cores."""
-    regs = ptxas_entries(log)
+def window_build_faults(regs: dict, hmma: dict | None) -> list[str]:
+    """The same for the window-attention kernels (``{"wbwd bf16 N=64
+    D=16": ...}``): no spill but K1's in ``K1_SPILLS``, up to their bytes;
+    HMMA as ``ops.window_attn.uses_tensor_cores`` says: in every body of K2,
+    in none of K1 nor the dbias reduction."""
+    import torch
+
+    from pytorch_distributedtraining_tpu_torch.ops.window_attn import uses_tensor_cores
+
+    def uses(key: str) -> bool:
+        kind = key.split()[0]
+        return kind in ("wfwd", "wbwd") and uses_tensor_cores(
+            getattr(torch, DTYPES[key.split()[1]]), kind[1:])
+
+    return _build_faults(regs, hmma, uses, K1_SPILLS)
+
+
+FAMILIES = {  # library -> (its kernels' key prefixes, build-fault check)
+    "flash_attn": (("fwd", "dq", "dkv"), flash_build_faults),
+    "window_attn": (("wfwd", "wbwd", "dbias_reduce"), window_build_faults),
+}
+
+
+def check_build(name: str, log: str, lib: Path) -> None:
+    """Print each kernel's registers, spills and HMMA count; fail where the
+    library's build check finds a fault."""
+    prefixes, faults_of = FAMILIES[name]
+    regs = {k: v for k, v in ptxas_entries(log).items() if k.split()[0] in prefixes}
     hmma = sass_hmma_counts(lib)
-    flash = {k: v for k, v in regs.items() if k.split()[0] in ("fwd", "dq", "dkv")}
-    for key in sorted(flash):
-        nregs, spill = flash[key]
+    for key in sorted(regs):
+        nregs, spill = regs[key]
         count = "cuobjdump absent" if hmma is None else f"{hmma.get(key, 0)} HMMA"
         print(f"[build]   {key}: {nregs} registers, {spill} bytes spill stores, {count}")
-    faults = flash_build_faults(flash, hmma)
+    faults = faults_of(regs, hmma)
     if faults:
-        raise SystemExit(f"flash kernels not built as designed: {faults}")
+        raise SystemExit(f"{name} kernels not built as designed: {faults}")
 
 
 def launch_signature(kernel: str, q, mask) -> tuple:
@@ -384,7 +435,7 @@ def _kernel_case(dtype, with_mask: bool, pack: int, batch: int, lr_size: int,
     dt = str(q.dtype).split(".")[1]
     fwd_bound = bound_ms(4 * q.numel() * esize + side, 4 * bn * h * n * n * d, dt)
     bwd_bound = bound_ms(7 * q.numel() * esize + side + bias.numel() * 4,
-                         10 * bn * h * n * n * d, dt)
+                         10 * bn * h * n * n * d, dt, K2_PEAK_FLOPS)
     return {"dtype": dt, "mask": with_mask, "pack": pack, "shape": tuple(q.shape),
             "errors": errors, "times": t, "fwd_bound": fwd_bound, "bwd_bound": bwd_bound,
             "checked": checked}
@@ -416,6 +467,11 @@ def phase_kernels(smi: str) -> list[dict]:
               f"{c['bwd_bound'][0]:.4f} ({c['bwd_bound'][1]}) | {smi}")
         if not worst <= tol:
             raise SystemExit(f"kernel disagrees with its plain version: {c['errors']}")
+        if pack > 1 and t["bwd"] > t["plain_bwd"]:
+            raise SystemExit(f"K2 at pack {pack} ({t['bwd']:.4f} ms) is slower than its plain "
+                             f"version ({t['plain_bwd']:.4f} ms)")
+        if pack == 1:
+            print(f"[kernels]   K2 / SDPA's backward: {t['bwd'] / t['lib_bwd']:.3f}")
         cases.append(c)
 
     from pytorch_distributedtraining_tpu_torch.models import SwinIR

@@ -20,6 +20,7 @@ Layouts follow the JAX package: q/k/v/o ``[B*nW, heads, n, d]``, bias
 
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import torch
@@ -28,6 +29,8 @@ from .. import csrc
 
 MAX_N = 128  # pack=2 of SwinIR's 64-token windows
 MAX_D = 32
+ALIGN = 16  # bytes: K2's widest cp.async piece
+BWD_BLOCKS_PER_SM = 2  # K2's target; SwinIR-S's bench shape takes one block per (head, class)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 fwd_launches = 0
@@ -146,10 +149,68 @@ def kernel_forward(q, k, v, bias, mask):
     return o
 
 
-def backward_group(bn: int, heads: int, device) -> int:
-    """Windows per K2 block: about four blocks per SM, fewer partials."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    return max(1, math.ceil(bn * heads / (4 * sms)))
+@dataclasses.dataclass(frozen=True)
+class BackwardPlan:
+    """How K2 splits the windows over blocks. A block takes head ``h`` and
+    ``chunk`` windows of one mask class ``r`` (the windows ``w`` with
+    ``w % nw == r``, of which it takes the ``c``-th run), so it loads
+    ``bias[h] + mask[r]`` once; it writes one dbias partial, and the
+    partials are summed in their order. ``nw`` is the mask's window count
+    (1 without a mask)."""
+
+    bn: int
+    nw: int
+    chunk: int
+
+    @property
+    def classes(self) -> int:
+        return min(self.nw, self.bn)
+
+    @property
+    def chunks(self) -> int:
+        """Blocks per (head, class): class 0 has the most windows."""
+        return math.ceil(math.ceil(self.bn / self.nw) / self.chunk)
+
+    @property
+    def partials(self) -> int:
+        """dbias partials per head, one per (class, chunk)."""
+        return self.classes * self.chunks
+
+    def windows(self, slot: int) -> list[int]:
+        """The windows of partial ``slot`` (= class * chunks + chunk), in the
+        order the block takes them, as the kernel computes them."""
+        r, c = divmod(slot, self.chunks)
+        return [w for w in range(r + self.nw * c * self.chunk,
+                                 r + self.nw * (c + 1) * self.chunk, self.nw) if w < self.bn]
+
+
+def backward_plan(bn: int, heads: int, nw: int, sms: int) -> BackwardPlan:
+    """K2's split for ``bn`` windows, ``heads`` heads and ``nw`` mask windows
+    (1 without a mask) on a card of ``sms`` SMs: about
+    :data:`BWD_BLOCKS_PER_SM` blocks per SM, or one block per (head, class)
+    where that is already more. Fewer, longer blocks write fewer dbias
+    partials, and measured faster on the H100 than four blocks per SM."""
+    classes = min(nw, bn)
+    per_class = math.ceil(bn / nw)
+    chunks = min(per_class, max(1, math.ceil(BWD_BLOCKS_PER_SM * sms / (heads * classes))))
+    return BackwardPlan(bn, nw, math.ceil(per_class / chunks))
+
+
+def uses_tensor_cores(dtype, kernel: str = "bwd") -> bool:
+    """Whether a window-attention kernel runs tensor-core (HMMA)
+    instructions for ``dtype``: K2 (``"bwd"``) does in every type (bf16/f16
+    on ``mma.sync.m16n8k16``, f32 as 3xTF32 on ``m16n8k8``), K1
+    (``"fwd"``) in none. The library decides by kernel alone."""
+    if kernel not in ("fwd", "bwd"):
+        raise ValueError(f"kernel is 'fwd' or 'bwd', got {kernel!r}")
+    return kernel == "bwd" and dtype in _DTYPE_CODES
+
+
+def _aligned(t):
+    """``t`` (contiguous) on :data:`ALIGN` bytes; a copy only where it is not:
+    K2 copies its tiles in pieces of up to 16 bytes, and the library refuses
+    a tile pointer that is not aligned to its piece."""
+    return t if t.data_ptr() % ALIGN == 0 else t.clone()
 
 
 def kernel_backward(q, k, v, bias, mask, do):
@@ -159,19 +220,20 @@ def kernel_backward(q, k, v, bias, mask, do):
     if do.shape != q.shape or do.dtype != q.dtype or do.device != q.device:
         raise ValueError("dO must match q in shape, dtype and device")
     _check_cuda(q, k, v, bias, mask, do)
+    q, k, v, do = (_aligned(t) for t in (q, k, v, do))
     lib = csrc.load("window_attn")
     bn, h, n, d = q.shape
-    group = backward_group(bn, h, q.device)
-    groups = math.ceil(bn / group)
-    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    part = torch.empty((groups, h, n, n), dtype=torch.float32, device=q.device)
-    dbias = torch.empty((h, n, n), dtype=torch.float32, device=q.device)
     nw = 1 if mask is None else mask.shape[0]
+    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+    plan = backward_plan(bn, h, nw, sms)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    part = torch.empty((plan.partials, h, n, n), dtype=torch.float32, device=q.device)
+    dbias = torch.empty((h, n, n), dtype=torch.float32, device=q.device)
     code = lib.window_attn_backward(
         _DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
         bias.data_ptr(), _ptr(mask), do.data_ptr(), dq.data_ptr(),
         dk.data_ptr(), dv.data_ptr(), part.data_ptr(), dbias.data_ptr(),
-        bn, h, n, d, nw, group, d**-0.5, _stream(q.device),
+        bn, h, n, d, nw, plan.chunk, d**-0.5, _stream(q.device),
     )
     csrc.check(lib, code, "window_attn_backward")
     bwd_launches += 1

@@ -145,3 +145,59 @@ def test_ab_ladder_summary_reads_traced_runs():
     assert s["change"]["flash_ms_per_step"] == {"K4": 0.45}
     assert s["change"]["busy_ms"] == 29.0
     assert s["base"]["step_idle_share"] == pytest.approx((4 / 40 + 2 / 38) / 2)
+
+
+def _profile_record(precision, step_ms, busy_ms, window_ms):
+    """A line of ``profile_swinir`` as a traced run on the card prints it."""
+    return {"precision": precision, "step_ms": step_ms, "images_per_s": 36 / step_ms * 1e3,
+            "traced_step_ms": 2 * step_ms, "loss": 0.1, "busy_ms": busy_ms,
+            "device_ms_by_family": {"window attention (K1/K2)": window_ms, "GEMM": 30.0}}
+
+
+def test_ab_swinir_runs_both_trees_in_turns_and_summarizes(monkeypatch, capsys, tmp_path):
+    """Parent against change with faked profile runs: base, change, change,
+    base, each one fresh process from its tree, and per tree and precision
+    the median step, images/s at it, busy ms, the untraced step's idle share
+    and window attention's device ms."""
+    from pytorch_distributedtraining_tpu_torch.benchmarks import ab_swinir
+
+    fake = {"base": [(164.0, 154.0, 60.0, 186.0, 131.0, 61.0),
+                     (166.0, 154.0, 60.0, 190.0, 131.0, 61.0)],
+            "change": [(136.0, 126.0, 32.0, 160.0, 100.0, 25.0),
+                       (138.0, 126.0, 32.0, 158.0, 100.0, 25.0)]}
+    calls = []
+
+    def run(tree, args):
+        name = "change" if tree == ab_swinir.HERE else "base"
+        calls.append((name, args))
+        f32_step, f32_busy, f32_win, bf_step, bf_busy, bf_win = fake[name][
+            sum(1 for c in calls if c[0] == name) - 1]
+        return [_profile_record("fp32", f32_step, f32_busy, f32_win),
+                _profile_record("bf16", bf_step, bf_busy, bf_win)]
+
+    monkeypatch.setattr(ab_swinir, "run", run)
+    assert ab_swinir.main(["--base", str(tmp_path), "--", "--steps", "5"]) == 0
+    assert [c[0] for c in calls] == ["base", "change", "change", "base"]
+    assert all(c[1] == ["--steps", "5"] for c in calls)
+    lines = [json.loads(x) for x in capsys.readouterr().out.strip().splitlines()]
+    assert [x["tree"] for x in lines[:-1]] == ["base"] * 2 + ["change"] * 4 + ["base"] * 2
+    summary = lines[-1]["ab_swinir"]
+    base, change = summary["base"]["fp32"], summary["change"]["fp32"]
+    assert base["step_ms"] == [164.0, 166.0] and base["median_step_ms"] == 165.0
+    assert change["images_per_s_at_median"] == pytest.approx(36 / 137.0 * 1e3)
+    assert change["busy_ms"] == 126.0 and change["window_attn_ms"] == 32.0
+    assert change["step_idle_share"] == pytest.approx((10 / 136 + 12 / 138) / 2)
+    assert summary["base"]["bf16"]["window_attn_ms"] == 61.0
+    assert summary["change"]["bf16"]["median_step_ms"] == 159.0
+
+
+def test_ab_swinir_summary_of_untraced_runs():
+    """CPU profile runs carry no device numbers: the summary has step times
+    only."""
+    from pytorch_distributedtraining_tpu_torch.benchmarks import ab_swinir
+
+    rec = {"precision": "bf16", "step_ms": 50.0, "loss": 0.1}
+    s = ab_swinir.summarize([("change", rec), ("change", dict(rec, step_ms=70.0))])
+    assert set(s) == {"change"} and set(s["change"]) == {"bf16"}
+    assert s["change"]["bf16"] == {"step_ms": [50.0, 70.0], "median_step_ms": 60.0,
+                                   "images_per_s_at_median": 36 / 60.0 * 1e3}

@@ -7,13 +7,14 @@ need not be installed (the suite's ``conftest.py`` imports it)::
     python -m pytest tests/test_torch_cuda.py -q -m cuda --noconftest
 
 Tolerances: in f32 the kernel and the plain version differ only in sum
-order (~1e-6 relative); in bf16 and f16 both round the same f32 result, so
-outputs may differ by one step of the type (2^-8 relative in bf16, 2^-11
-in f16, held at 1e-2 and 2e-3), and the tensor-core bodies of K3, K4 and
-K5 also round P and dS to the input's type before their second products
-(the same step again, on terms that mostly cancel). lse is f32 in every
-case. The tiny GPT-2 holds gradients at 1e-4 relative to their largest
-entry: f32 sums in another order through two blocks.
+order (~1e-6 relative; K2's 3xTF32 products keep about f32's digits); in
+bf16 and f16 both round the same f32 result, so outputs may differ by one
+step of the type (2^-8 relative in bf16, 2^-11 in f16, held at 1e-2 and
+2e-3), and the tensor-core bodies of K2, K3, K4 and K5 also round P and dS
+to the input's type before their second products (the same step again, on
+terms that mostly cancel). lse and dbias are f32 in every case. The tiny
+GPT-2 holds gradients at 1e-4 relative to their largest entry: f32 sums
+in another order through two blocks.
 """
 
 import numpy as np
@@ -22,6 +23,7 @@ import torch
 
 from pytorch_distributedtraining_tpu_torch import csrc
 from pytorch_distributedtraining_tpu_torch.models import GPT2, GPT2Config, SwinIR
+from pytorch_distributedtraining_tpu_torch.models.swinir import _shift_attn_mask
 from pytorch_distributedtraining_tpu_torch.ops import flash_attn as tfa
 from pytorch_distributedtraining_tpu_torch.ops import window_attn as twa
 
@@ -45,8 +47,13 @@ def _close(got, want, rel):
 @pytest.mark.parametrize("dtype,rel", [(torch.float32, 1e-5), (torch.bfloat16, 1e-2),
                                         (torch.float16, 2e-3)])
 @pytest.mark.parametrize("with_mask", [False, True])
-@pytest.mark.parametrize("n,d", [(64, 10), (16, 6), (49, 32), (128, 32)])
+@pytest.mark.parametrize("n,d", [(64, 10), (16, 6), (49, 32), (128, 32), (49, 10), (49, 7),
+                                 (100, 17)])
 def test_kernels_match_plain(cuda, dtype, rel, with_mask, n, d):
+    """K1 and K2 at window sizes 8 (n = 64), 4 and 7 (49 keys, padded to
+    64 in K2) and 128 (pack 2), head dims padded to 16 or 32 in K2: d = 10
+    has rows of 20 or 40 bytes (4- or 8-byte copies), d = 7 and 17 rows of
+    an odd number of 2-byte elements (read element by element)."""
     g = torch.Generator().manual_seed(0)
     bn, h, nw = 24, 3, 4
     q, k, v, do = (torch.randn(bn, h, n, d, generator=g).to(cuda, dtype) for _ in range(4))
@@ -59,6 +66,77 @@ def test_kernels_match_plain(cuda, dtype, rel, with_mask, n, d):
     want = twa.plain_backward(q, k, v, bias, mask, do)
     for a, b in zip(got, want):
         _close(a, b, rel)
+
+
+SWINIR_DTYPES = [(torch.float32, 1e-5), (torch.bfloat16, 1e-2), (torch.float16, 2e-3)]
+
+
+def _swinir_case(cuda, dtype, bn, lr, seed=5):
+    """q/k/v/dO at SwinIR-S's shape [bn, 6, 64, 10] with the shift mask of
+    an LR x LR image in windows of 8 ((LR/8)^2 mask windows)."""
+    g = torch.Generator().manual_seed(seed)
+    q, k, v, do = (torch.randn(bn, 6, 64, 10, generator=g).to(cuda, dtype) for _ in range(4))
+    bias = (torch.randn(6, 64, 64, generator=g) * 0.5).to(cuda)
+    mask = torch.from_numpy(_shift_attn_mask(lr, lr, 8, 4)).to(cuda)
+    return q, k, v, bias, mask, do
+
+
+@pytest.mark.parametrize("dtype,rel", SWINIR_DTYPES)
+@pytest.mark.parametrize("bn,lr", [(1152, 64), (160, 32)])
+def test_kernels_match_plain_at_swinir_shapes(cuda, dtype, rel, bn, lr):
+    """The bench shape (batch 18 at LR 64: 64 mask windows) and the
+    driver's validation batch (10 images at LR 32: 16 mask windows)."""
+    q, k, v, bias, mask, do = _swinir_case(cuda, dtype, bn, lr)
+    _close(twa.kernel_forward(q, k, v, bias, mask), twa.plain_forward(q, k, v, bias, mask), rel)
+    for a, b in zip(twa.kernel_backward(q, k, v, bias, mask, do),
+                    twa.plain_backward(q, k, v, bias, mask, do)):
+        _close(a, b, rel)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+def test_backward_is_deterministic(cuda, dtype):
+    """K2 twice on the same inputs gives the same bits: the dbias partials
+    are summed in a fixed order, with no atomics."""
+    args = _swinir_case(cuda, dtype, 1152, 64)
+    first = twa.kernel_backward(*args)
+    second = twa.kernel_backward(*args)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+def test_backward_copies_a_misaligned_tile_and_the_library_refuses_it(cuda, dtype):
+    """Window 7 at d = 10: a tile row is 20 (bf16/f16) or 40 (f32) bytes, so
+    K2 copies 4- or 8-byte pieces. A contiguous dO that starts one element
+    into its buffer sits on no such piece: the wrapper copies it, so K2
+    gives what it gives on an aligned copy; called directly, the library
+    refuses it rather than read it wrong."""
+    g = torch.Generator().manual_seed(6)
+    bn, h, n, d = 24, 3, 49, 10
+    q, k, v, dense = (torch.randn(bn, h, n, d, generator=g).to(cuda, dtype) for _ in range(4))
+    bias = torch.randn(h, n, n, generator=g).to(cuda)
+    flat = torch.empty(dense.numel() + 1, dtype=dtype, device=cuda)
+    flat[1:] = dense.flatten()
+    do = flat[1:].view(bn, h, n, d)
+    assert do.is_contiguous() and do.data_ptr() % twa.ALIGN != 0
+    for a, b in zip(twa.kernel_backward(q, k, v, bias, None, do),
+                    twa.kernel_backward(q, k, v, bias, None, dense)):
+        assert torch.equal(a, b)
+
+    lib = csrc.load("window_attn")
+    plan = twa.backward_plan(bn, h, 1, torch.cuda.get_device_properties(cuda).multi_processor_count)
+    dq, dk, dv = (torch.zeros_like(dense) for _ in range(3))
+    part = torch.zeros(plan.partials, h, n, n, device=cuda)
+    dbias = torch.zeros(h, n, n, device=cuda)
+    code = lib.window_attn_backward(
+        twa._DTYPE_CODES[dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), None,
+        do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), part.data_ptr(),
+        dbias.data_ptr(), bn, h, n, d, 1, plan.chunk, d**-0.5,
+        torch.cuda.current_stream(cuda).cuda_stream,
+    )
+    torch.cuda.synchronize()
+    assert code != 0 and "misaligned" in lib.error_string(code).decode()
+    assert not dq.any() and not dbias.any()
 
 
 def test_packed_windows_match_unpacked(cuda):
