@@ -35,7 +35,7 @@ _p, _i, _f, _ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlo
 # a cudaError_t code), plus ``<library>_error_string``
 SIGNATURES = {
     "window_attn": {
-        "window_attn_forward": [_i, _p, _p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _f, _p],
+        "window_attn_forward": [_i, _p, _p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _i, _f, _p],
         "window_attn_backward": [
             _i, _p, _p, _p, _p, _p, _p, _p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _i, _f, _p,
         ],

@@ -2,8 +2,8 @@
 // backward, with a plain C interface loaded through ctypes.
 //
 // Replaces the TPU kernels of pytorch_distributedtraining_tpu/ops/
-// pallas_window_attn.py: `_fwd_kernel` (K1) and `_bwd_kernel` (K2, reached
-// through `_backward_impl`).
+// pallas_window_attn.py: `_fwd_kernel` (K1, reached through `_forward`) and
+// `_bwd_kernel` (K2, reached through `_backward_impl`).
 //
 //   K1: o = softmax(q.k^T * d^-1/2 + bias[h] + mask[w mod nW]) . v
 //   K2: recompute p; dv = p^T.dO; ds = p*(dO.v^T - rowsum(dO.v^T * p));
@@ -12,66 +12,68 @@
 // Shapes: q/k/v/o [bn, heads, n, d] (f32, bf16 or f16, contiguous), bias
 // [heads, n, n] f32, mask [nW, n, n] f32 or null, n <= 128, d <= 32.
 //
-// K1 runs on the FP32 CUDA cores: one block per (window, head), four warps,
-// q (pre-scaled), k and v in shared memory as f32 with an odd row stride;
-// one warp owns one query row at a time, each lane the scores of its keys,
-// with warp shuffles for the row max, sum and p.v. 16x above its bound at
-// SwinIR-S's shape; its redesign is a later change.
+// Both kernels run their products on the tensor cores in every type.
 //
-// K2 runs its products on the tensor cores in every type.
+// What bounds them on an H100 SXM at SwinIR-S's bench shape (q/k/v [1152,
+// 6, 64, 10], 64-window shift mask) is bytes:
+// - K1: q/k/v in, o out, bias and mask: 36.5 MB in bf16/f16, 0.0109 ms at
+//   3.35 TB/s; 71.9 MB in f32, 0.0215 ms. Its 1.13 GFLOP of products take
+//   0.0011 ms at 989 TFLOP/s (bf16), 0.0069 ms as 3xTF32 (f32, below).
+// - K2: q/k/v/dO in, dq/dk/dv out, bias, mask and dbias: 63 MB in
+//   bf16/f16, 0.0189 ms; 125 MB in f32, 0.0374 ms. Its 2.83 GFLOP take
+//   0.003 ms (bf16) and 0.0172 ms (f32 as 3xTF32: three TF32 products per
+//   product, 8.5 GFLOP at 495 TFLOP/s). On the FP32 CUDA cores (67
+//   TFLOP/s) the same work would be bound by operations at 0.0423 ms.
 //
-// What bounds K2 on an H100 SXM at SwinIR-S's bench shape (q/k/v [1152, 6,
-// 64, 10], 64-window shift mask; 2.83 GFLOP of products):
-// - bf16/f16: bytes. q/k/v/dO in, dq/dk/dv out, bias, mask and dbias:
-//   63 MB, 0.0189 ms at 3.35 TB/s (the products take 0.003 ms at 989 TFLOP/s).
-// - f32: bytes, 125 MB, 0.0374 ms. Its products run as 3xTF32 (below):
-//   three TF32 products per product, 8.5 GFLOP at 495 TFLOP/s, 0.0172 ms.
-//   On the FP32 CUDA cores (67 TFLOP/s) the same work would be bound by
-//   operations at 0.0423 ms.
-//
-// K2's design, one skeleton for every type:
+// One skeleton for both kernels and every type:
 // - A block is (head h, mask class r = w mod nW, a chunk of that class's
-//   windows), with NP/16 warps for the keys padded to NP = 64 or 128.
-//   bias[h] + mask[r] is loaded once per block into shared memory as f32
-//   (times log2 e), with -inf in the padded key columns: no score needs a
-//   bound check, and no bias or mask value is read from device memory per
-//   window. ops/window_attn.py's backward_plan picks the chunk.
-// - Tiles: q/k/v/dO of a (window, head) are n*d contiguous elements; their
-//   rows (20 or 40 bytes at d = 10) go by cp.async, in the widest pieces of
-//   16, 8 or 4 bytes that divide a row, straight into rows of DP = 16 or
-//   32 columns whose padding was zeroed once: d = 10 is below the MMA depth,
-//   and zero columns add nothing to any product. The next window's copies
-//   run while the current one computes (two buffers). The pointers must be
-//   aligned to the piece, or the library refuses with
+//   windows), with NP/16 warps for the keys padded to NP = 32 (K1 only),
+//   64 or 128. bias[h] + mask[r] is loaded once per block into shared
+//   memory as f32 (times log2 e), with -inf in the padded key columns: no
+//   score needs a bound check, and no bias or mask value is read from
+//   device memory per window. ops/window_attn.py's forward_plan and
+//   backward_plan pick the chunk from the card's SM count.
+// - Tiles: q/k/v (and dO) of a (window, head) are n*d contiguous elements;
+//   their rows (20 or 40 bytes at d = 10) go by cp.async, in the widest
+//   pieces of 16, 8 or 4 bytes that divide a row, straight into rows of DP
+//   = 16 or 32 columns whose padding was zeroed once: d = 10 is below the
+//   MMA depth, and zero columns add nothing to any product. The next
+//   window's copies run while the current one computes (two buffers). The
+//   pointers must be aligned to the piece, or the library refuses with
 //   cudaErrorMisalignedAddress. Rows of an odd number of 2-byte elements,
-//   and f32 at n > 64 with d > 16 (whose two buffers do not fit in shared
-//   memory), are read element by element into one buffer instead.
-// - Row pass: warp w owns query rows 16w..16w+15. S = Q.K^T on the tensor
-//   cores, the softmax per row across a quad of lanes (exp2 of scores in
-//   log2 units), lse into shared memory; dP = dO.V^T 16 keys at a time for
-//   delta = rowsum(P*dP), then dS = P*(dP - delta), dbias += dS (f32) and
-//   dQ += dS.K from dS in registers.
-// - Column pass, after one barrier: warp w owns keys 16w..16w+15 and, 16
-//   queries at a time, recomputes S^T = K.Q^T and dP^T = V.dO^T, with P^T =
-//   exp2(S^T - lse) and dS^T from the row pass's delta; dV += P^T.dO and
-//   dK += dS^T.Q from registers. So P and dS never pass through shared
+//   and K2's f32 at n > 64 with d > 16 (whose two buffers do not fit in
+//   shared memory), are read element by element into one buffer instead.
+// - Scores: warp w owns query rows 16w..16w+15. S = Q.K^T on the tensor
+//   cores plus the bias tile, the softmax per row across a quad of lanes
+//   (two shuffles for the max, two for the sum; exp2 of scores in log2
+//   units).
+// - K1, one pass: O = P.V on the tensor cores with P straight from the
+//   score registers (never through shared memory), then scaled by 1 / row
+//   sum and stored. No lse: K2 recomputes it.
+// - K2, row pass: lse into shared memory; dP = dO.V^T 16 keys at a time
+//   for delta = rowsum(P*dP), then dS = P*(dP - delta), dbias += dS (f32)
+//   and dQ += dS.K from dS in registers.
+// - K2, column pass, after one barrier: warp w owns keys 16w..16w+15 and,
+//   16 queries at a time, recomputes S^T = K.Q^T and dP^T = V.dO^T, with
+//   P^T = exp2(S^T - lse) and dS^T from the row pass's delta; dV += P^T.dO
+//   and dK += dS^T.Q from registers. So P and dS never pass through shared
 //   memory, and the pass holds no n-wide array.
-// - Registers: f32 at n <= 64, d <= 16 (SwinIR's f32 path) keeps the dbias
-//   sums and the row pass's dP in registers (168, three blocks a SM);
-//   elsewhere the dbias sums live in shared memory and dP is computed
+// - K2's registers: f32 at n <= 64, d <= 16 (SwinIR's f32 path) keeps the
+//   dbias sums and the row pass's dP in registers (168, three blocks a
+//   SM); elsewhere the dbias sums live in shared memory and dP is computed
 //   twice, so that no instantiation spills.
 // - bf16/f16: mma.sync.m16n8k16 with f32 accumulate; ldmatrix reads tiles
 //   whose rows are padded by 16 bytes (free of bank conflicts); a C
-//   fragment, packed pairwise, is an A fragment. P and dS are rounded to
-//   the input type before the products that take them (dQ, dK, dV), as in
-//   the flash-attention kernels; dbias sums them in f32.
+//   fragment, packed pairwise, is an A fragment. P (K1, K2) and dS (K2)
+//   are rounded to the input type before the products that take them, as
+//   in the flash-attention kernels; dbias sums them in f32.
 // - f32: mma.sync.m16n8k8.tf32 as 3xTF32: each operand x = hi + lo with
 //   hi = tf32(x), lo = tf32(x - hi), and a.b = hi.hi + hi.lo + lo.hi in
 //   f32, about 1e-6 relative: plain TF32 (about 1e-3) would miss the f32
 //   tolerance. Fragments come from f32 tiles by plain shared loads (row
 //   stride 4 x odd words: no bank conflicts); a C fragment becomes an A
 //   fragment by permuting the k index, which a sum over k does not see.
-// - dbias: each block writes one [n, n] partial for its head; a second
+// - dbias: each K2 block writes one [n, n] partial for its head; a second
 //   kernel sums the partials in a fixed order. Deterministic, no atomics.
 
 #include <cuda_runtime.h>
@@ -80,17 +82,12 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <initializer_list>
+
 namespace {
 
-constexpr int kFwdThreads = 128;
 constexpr int kReduceThreads = 256;
-
-template <typename T> __device__ __forceinline__ float to_f(T x);
-template <> __device__ __forceinline__ float to_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <> __device__ __forceinline__ float to_f<__half>(__half x) { return __half2float(x); }
+constexpr float kLog2e = 1.4426950408889634f;
 
 template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
@@ -99,155 +96,8 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float
 }
 template <> __device__ __forceinline__ __half from_f<__half>(float x) { return __float2half(x); }
 
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-
-// [n, d] rows of global memory -> f32 shared tile with row stride ld.
-template <typename T>
-__device__ __forceinline__ void load_tile(float* dst, const T* __restrict__ src, int n, int d,
-                                          int ld, float scale) {
-  for (int e = threadIdx.x; e < n * d; e += blockDim.x) {
-    const int r = e / d;
-    const int c = e - r * d;
-    dst[r * ld + c] = to_f<T>(src[e]) * scale;
-  }
-}
-
-// Scores of query row i against this lane's keys j = lane + 32*t, plus
-// bias and mask; keys past n get -inf. Returns the row max (warp-wide).
-template <int JPL, int DMAX>
-__device__ __forceinline__ float row_scores(float (&s)[JPL], const float (&qi)[DMAX],
-                                            const float* sk, const float* bias_row,
-                                            const float* mask_row, int n, int d, int ld,
-                                            int lane) {
-  float mx = -INFINITY;
-#pragma unroll
-  for (int t = 0; t < JPL; ++t) {
-    const int j = lane + 32 * t;
-    float acc = -INFINITY;
-    if (j < n) {
-      acc = 0.f;
-#pragma unroll
-      for (int c = 0; c < DMAX; ++c) {
-        if (c < d) acc = fmaf(qi[c], sk[j * ld + c], acc);
-      }
-      acc += bias_row[j];
-      if (mask_row != nullptr) acc += mask_row[j];
-    }
-    s[t] = acc;
-    mx = fmaxf(mx, acc);
-  }
-  return warp_max(mx);
-}
-
-// Softmax of the row in place (s becomes p); returns nothing, p sums to 1.
-template <int JPL>
-__device__ __forceinline__ void row_softmax(float (&s)[JPL], float mx) {
-  float sum = 0.f;
-#pragma unroll
-  for (int t = 0; t < JPL; ++t) {
-    const float e = expf(s[t] - mx);  // -inf -> 0 for keys past n
-    s[t] = e;
-    sum += e;
-  }
-  const float inv = 1.f / warp_sum(sum);
-#pragma unroll
-  for (int t = 0; t < JPL; ++t) s[t] *= inv;
-}
-
-// out[c] = sum_j w_j * tile[j][c] over the whole warp; every lane gets all d.
-template <int JPL, int DMAX>
-__device__ __forceinline__ void row_times_tile(float (&out)[DMAX], const float (&w)[JPL],
-                                               const float* tile, int n, int d, int ld,
-                                               int lane) {
-#pragma unroll
-  for (int c = 0; c < DMAX; ++c) out[c] = 0.f;
-#pragma unroll
-  for (int t = 0; t < JPL; ++t) {
-    const int j = lane + 32 * t;
-    if (j < n) {
-#pragma unroll
-      for (int c = 0; c < DMAX; ++c) {
-        if (c < d) out[c] = fmaf(w[t], tile[j * ld + c], out[c]);
-      }
-    }
-  }
-#pragma unroll
-  for (int c = 0; c < DMAX; ++c) {
-    if (c < d) out[c] = warp_sum(out[c]);
-  }
-}
-
-// Lane c (< d) writes out[c] * scale to dst[c].
-template <typename T, int DMAX>
-__device__ __forceinline__ void write_row(T* __restrict__ dst, const float (&out)[DMAX], int d,
-                                          float scale, int lane) {
-  float mine = 0.f;
-#pragma unroll
-  for (int c = 0; c < DMAX; ++c) {
-    if (c == lane) mine = out[c];
-  }
-  if (lane < d) dst[lane] = from_f<T>(mine * scale);
-}
-
-template <int DMAX>
-__device__ __forceinline__ void load_row(float (&r)[DMAX], const float* tile, int i, int d,
-                                         int ld) {
-#pragma unroll
-  for (int c = 0; c < DMAX; ++c) r[c] = c < d ? tile[i * ld + c] : 0.f;
-}
-
-template <typename T, int JPL, int DMAX>
-__global__ void __launch_bounds__(kFwdThreads)
-    window_attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                           const T* __restrict__ v, const float* __restrict__ bias,
-                           const float* __restrict__ mask, T* __restrict__ o, int heads, int n,
-                           int d, int nw_mask, float scale) {
-  extern __shared__ float smem[];
-  const int ld = d | 1;
-  float* sq = smem;
-  float* sk = sq + n * ld;
-  float* sv = sk + n * ld;
-
-  const int w = blockIdx.x / heads;
-  const int h = blockIdx.x - w * heads;
-  const size_t base = ((size_t)w * heads + h) * (size_t)n * d;
-  load_tile<T>(sq, q + base, n, d, ld, scale);
-  load_tile<T>(sk, k + base, n, d, ld, 1.f);
-  load_tile<T>(sv, v + base, n, d, ld, 1.f);
-  __syncthreads();
-
-  const float* bias_h = bias + (size_t)h * n * n;
-  const float* mask_w = mask != nullptr ? mask + (size_t)(w % nw_mask) * n * n : nullptr;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int nwarps = blockDim.x >> 5;
-
-  for (int i = warp; i < n; i += nwarps) {
-    float qi[DMAX];
-    load_row<DMAX>(qi, sq, i, d, ld);
-    float s[JPL];
-    const float mx = row_scores<JPL, DMAX>(s, qi, sk, bias_h + (size_t)i * n,
-                                           mask_w != nullptr ? mask_w + (size_t)i * n : nullptr,
-                                           n, d, ld, lane);
-    row_softmax<JPL>(s, mx);
-    float out[DMAX];
-    row_times_tile<JPL, DMAX>(out, s, sv, n, d, ld, lane);
-    write_row<T, DMAX>(o + base + (size_t)i * d, out, d, 1.f, lane);
-  }
-}
-
 // ---------------------------------------------------------------------------
-// K2 on the tensor cores
+// The products on the tensor cores
 //
 // Fragments for lane = 4*g + tq (g = lane/4, tq = lane%4). mma.m16n8k16
 // (16-bit): A (16x16, row-major) a0 = (g, 2tq..2tq+1), a1 = (g+8, same),
@@ -360,8 +210,8 @@ __device__ __forceinline__ void mma_3xtf32(float (&d)[4], const uint32_t (&ah)[4
   mma_tf32(d, ah, bh[0], bh[1]);
 }
 
-// The products of K2 on tiles in shared memory ([NP][kLd] of T, zero past
-// n rows and d columns), one warp, 16 rows of A:
+// The products of K1 and K2 on tiles in shared memory ([NP][kLd] of T,
+// zero past n rows and d columns), one warp, 16 rows of A:
 // - load_a: A fragments of tile rows row0..row0+15 over all DP columns;
 // - mma_nk: (acc0, acc1) += A . tile[n0..n0+15][:]^T, 16 output columns;
 // - mma_kn: acc += C(c0 | c1) . tile[k0..k0+15][:], where c0, c1 are the C
@@ -477,27 +327,73 @@ struct Ops<float, DP> {
   }
 };
 
-constexpr float kLog2e = 1.4426950408889634f;
+// ---------------------------------------------------------------------------
+// K1, and the tile copies K2 shares with it
 
-template <typename T, int NP, int DP>
-struct Bwd {
-  static constexpr int kThreads = NP * 2;  // NP / 16 warps
-  static constexpr int kLdb = NP + 8;      // bias rows: float2 reads of a fragment conflict-free
-  // f32 at n <= 64, d <= 16 (SwinIR's f32 path): the dbias sums and the row
-  // pass's dP stay in registers, where its 3xTF32 products would cost more
-  // to redo, in 168 registers, three blocks a SM. Elsewhere the dbias sums
-  // live in shared memory and dP is computed twice (for delta, then for
-  // dS): the registers go to the fragments, and nothing spills.
-  static constexpr bool kRegState = sizeof(T) == 4 && NP == 64 && DP == 16;
+// A block of NP / 16 warps takes head h and `count` windows of mask class
+// r: windows r + nw * m for m in [m0, m0 + count). Blocks are (slot, h)
+// with slot = r * chunks + c, c the chunk of class r.
+template <int NP>
+struct Block {
+  static constexpr int kThreads = NP * 2;
+  static constexpr int kLdb = NP + 8;  // bias rows: float2 reads of a fragment conflict-free
+  int h, r, m0, count, heads, nw;
+
+  __device__ __forceinline__ Block(int bn, int heads_, int nw_, int chunk, int chunks)
+      : heads(heads_), nw(nw_) {
+    h = blockIdx.x % heads;
+    const int slot = blockIdx.x / heads;
+    r = slot / chunks;
+    m0 = (slot - r * chunks) * chunk;
+    const int per_class = (bn - r + nw - 1) / nw;
+    count = max(0, min(chunk, per_class - m0));
+  }
+
+  // offset of the block's window i in q/k/v/o (tile_elems = n * d)
+  __device__ __forceinline__ size_t base(int i, size_t tile_elems) const {
+    return ((size_t)(r + nw * (m0 + i)) * heads + h) * tile_elems;
+  }
+
+  // bias[h] + mask[r], times log2 e -> sb [NP][kLdb]: -inf in the key
+  // columns past n, so no score needs a bound check; 0 in the query rows
+  // past n, whose (unstored) softmax then stays finite.
+  __device__ __forceinline__ void load_bias(float* sb, const float* __restrict__ bias,
+                                            const float* __restrict__ mask, int n) const {
+    const float* bh = bias + (size_t)h * n * n;
+    const float* mr = mask != nullptr ? mask + (size_t)r * n * n : nullptr;
+    if (n == NP && reinterpret_cast<uintptr_t>(bh) % 16 == 0 &&
+        reinterpret_cast<uintptr_t>(mr) % 16 == 0) {  // whole rows, by float4
+      for (int e = threadIdx.x; e < NP * NP / 4; e += kThreads) {
+        const int i = e / (NP / 4);
+        const int j = (e - i * (NP / 4)) * 4;
+        float4 x = *reinterpret_cast<const float4*>(bh + i * n + j);
+        if (mr != nullptr) {
+          const float4 m = *reinterpret_cast<const float4*>(mr + i * n + j);
+          x.x += m.x;
+          x.y += m.y;
+          x.z += m.z;
+          x.w += m.w;
+        }
+        *reinterpret_cast<float4*>(sb + i * kLdb + j) =
+            make_float4(x.x * kLog2e, x.y * kLog2e, x.z * kLog2e, x.w * kLog2e);
+      }
+      return;
+    }
+    for (int e = threadIdx.x; e < NP * NP; e += kThreads) {
+      const int i = e / NP;
+      const int j = e % NP;
+      float x = -INFINITY;
+      if (j < n && i < n) x = (bh[i * n + j] + (mr != nullptr ? mr[i * n + j] : 0.f)) * kLog2e;
+      else if (j < n) x = 0.f;
+      sb[i * kLdb + j] = x;
+    }
+  }
 };
 
-// Bytes of shared memory: bias (+ dbias sum), lse and delta, and `nbuf`
-// buffers of the four padded tiles.
-template <typename T, int NP, int DP>
-size_t bwd_smem_bytes(int nbuf) {
-  using B = Bwd<T, NP, DP>;
-  const size_t bias = (size_t)NP * B::kLdb * (B::kRegState ? 1 : 2);
-  return sizeof(float) * (bias + 2 * NP) + sizeof(T) * nbuf * 4 * NP * Ops<T, DP>::kLd;
+template <int NP>
+__device__ __forceinline__ void zero_smem(void* p, int bytes) {
+  uint4* t4 = reinterpret_cast<uint4*>(p);
+  for (int e = threadIdx.x; e < bytes / 16; e += Block<NP>::kThreads) t4[e] = make_uint4(0, 0, 0, 0);
 }
 
 // 16, 8 or 4 bytes global -> shared.
@@ -521,12 +417,222 @@ __device__ __forceinline__ void tile_async(T* dst, const T* src, int n, int d) {
   const float inv = 1.f / per_row;  // exact quotients: pieces < 2^12, per_row <= 32
   unsigned char* to = reinterpret_cast<unsigned char*>(dst);
   const unsigned char* from = reinterpret_cast<const unsigned char*>(src);
-  for (int p = threadIdx.x; p < n * per_row; p += Bwd<T, NP, DP>::kThreads) {
+  for (int p = threadIdx.x; p < n * per_row; p += Block<NP>::kThreads) {
     const int r = (int)((p + 0.5f) * inv);
     const int off = (p - r * per_row) * PIECE;
     cp_async<PIECE>(to + r * kRowBytes + off, from + r * row_bytes + off);
   }
 }
+
+// The NT tiles (q, k, v[, dO]) of the window at `base` -> NT padded tiles
+// at buf: by cp.async in `piece`-byte pieces, or element by element where
+// piece is 0 (the caller waits or syncs).
+template <typename T, int NP, int DP, int NT>
+__device__ __forceinline__ void load_window(T* buf, const T* const (&src)[NT], size_t base, int n,
+                                            int d, int piece) {
+  constexpr int kLd = Ops<T, DP>::kLd;
+#pragma unroll
+  for (int a = 0; a < NT; ++a) {
+    T* to = buf + a * NP * kLd;
+    const T* from = src[a] + base;
+    if (piece == 16) {
+      tile_async<T, NP, DP, 16>(to, from, n, d);
+    } else if (piece == 8) {
+      tile_async<T, NP, DP, 8>(to, from, n, d);
+    } else if (piece == 4) {
+      tile_async<T, NP, DP, 4>(to, from, n, d);
+    } else {
+      for (int e = threadIdx.x; e < NP * DP; e += Block<NP>::kThreads) {
+        const int rr = e / DP;
+        const int c = e % DP;
+        if (rr < n && c < d) to[rr * kLd + c] = from[rr * d + c];
+      }
+    }
+  }
+}
+
+// body(buf, base) for each of the block's windows in turn, with the
+// window's NT tiles at buf in shared memory (tile a at buf + a * NP * kLd)
+// and `base` its offset in q/k/v. With a piece (two buffers at tiles), the
+// next window's copies run while body computes; without, one buffer is
+// filled element by element. The tiles' padding must be zero: the barrier
+// at the start makes the caller's zeroing (and bias tile) visible first.
+template <typename T, int NP, int DP, int NT, typename Body>
+__device__ __forceinline__ void for_each_window(const Block<NP>& blk, T* tiles,
+                                                const T* const (&src)[NT], int n, int d,
+                                                int piece, Body&& body) {
+  constexpr int kBuf = NT * NP * Ops<T, DP>::kLd;
+  const size_t tile_elems = (size_t)n * d;
+  __syncthreads();
+  if (piece != 0) {
+    if (blk.count > 0) load_window<T, NP, DP, NT>(tiles, src, blk.base(0, tile_elems), n, d, piece);
+    cp_async_commit();
+  }
+  int stage = 0;  // i % 2: the buffer of window i
+  for (int i = 0; i < blk.count; ++i) {
+    const size_t base = blk.base(i, tile_elems);
+    T* buf = tiles + stage * kBuf;
+    if (piece != 0) {
+      cp_async_wait<0>();  // window i's tiles have landed ...
+      __syncthreads();     // ... for every thread, and window i - 1 is done with the other buffer
+      if (i + 1 < blk.count) {
+        load_window<T, NP, DP, NT>(tiles + (stage ^ 1) * kBuf, src, blk.base(i + 1, tile_elems),
+                                   n, d, piece);
+      }
+      cp_async_commit();
+      stage ^= 1;
+    } else {
+      __syncthreads();  // window i - 1 is done with the buffer
+      load_window<T, NP, DP, NT>(buf, src, base, n, d, 0);
+      __syncthreads();
+    }
+    body(static_cast<const T*>(buf), base);
+  }
+}
+
+// Softmax numerators of this lane's query rows i0 + g and i0 + g + 8 (of a
+// warp's 16) against all NP keys: S = Q.K^T from Q's A fragments fa on the
+// tensor cores, times sl2 (the scale in log2 units) plus the bias tile sb;
+// p = exp2(S - mx), mx and sum the rows' max and sum of p, each reduced
+// across the quad of lanes that holds a row (C fragment layout).
+template <typename T, int NP, int DP>
+__device__ __forceinline__ void softmax_rows(float (&p)[NP / 8][4], float (&mx)[2],
+                                             float (&sum)[2],
+                                             const typename Ops<T, DP>::AFrag& fa, const T* sk,
+                                             const float* sb, int i0, float sl2, int lane) {
+  constexpr int kNT = NP / 8;
+  constexpr int kLdb = Block<NP>::kLdb;
+  const int g = lane >> 2;
+  const int tq = lane & 3;
+#pragma unroll
+  for (int t = 0; t < kNT; ++t) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) p[t][e] = 0.f;
+  }
+#pragma unroll
+  for (int t = 0; t < kNT; t += 2) Ops<T, DP>::mma_nk(p[t], p[t + 1], fa, sk, 8 * t, lane);
+  mx[0] = mx[1] = -INFINITY;
+#pragma unroll
+  for (int t = 0; t < kNT; ++t) {
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const float2 b =
+          *reinterpret_cast<const float2*>(sb + (i0 + g + 8 * hr) * kLdb + 8 * t + 2 * tq);
+      p[t][2 * hr] = fmaf(p[t][2 * hr], sl2, b.x);
+      p[t][2 * hr + 1] = fmaf(p[t][2 * hr + 1], sl2, b.y);
+      mx[hr] = fmaxf(mx[hr], fmaxf(p[t][2 * hr], p[t][2 * hr + 1]));
+    }
+  }
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    mx[hr] = fmaxf(mx[hr], __shfl_xor_sync(0xffffffffu, mx[hr], 1));
+    mx[hr] = fmaxf(mx[hr], __shfl_xor_sync(0xffffffffu, mx[hr], 2));
+    sum[hr] = 0.f;
+#pragma unroll
+    for (int t = 0; t < kNT; ++t) {
+      p[t][2 * hr] = exp2f(p[t][2 * hr] - mx[hr]);
+      p[t][2 * hr + 1] = exp2f(p[t][2 * hr + 1] - mx[hr]);
+      sum[hr] += p[t][2 * hr] + p[t][2 * hr + 1];
+    }
+    sum[hr] += __shfl_xor_sync(0xffffffffu, sum[hr], 1);
+    sum[hr] += __shfl_xor_sync(0xffffffffu, sum[hr], 2);
+  }
+}
+
+// dst[0], dst[1] = a, b: one 8-byte (f32) or 4-byte (16-bit) store.
+template <typename T>
+__device__ __forceinline__ void store_pair(T* dst, float a, float b) {
+  if constexpr (sizeof(T) == 4) {
+    *reinterpret_cast<float2*>(dst) = make_float2(a, b);
+  } else {
+    *reinterpret_cast<uint32_t*>(dst) = pack2<T>(a, b);
+  }
+}
+
+// A minimum of one block a SM at NP = 128, whose shared memory allows one
+// or two anyway: without it ptxas held the f32 body at 128 registers and
+// spilled. None below, where ptxas's own choice measured fastest.
+template <typename T, int NP, int DP>
+__global__ void __launch_bounds__(Block<NP>::kThreads, NP == 128 ? 1 : 0)
+    window_attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                           const T* __restrict__ v, const float* __restrict__ bias,
+                           const float* __restrict__ mask, T* __restrict__ o, int bn, int heads,
+                           int n, int d, int nw, int chunk, int chunks, int piece, int pairs,
+                           float scale) {
+  using O = Ops<T, DP>;
+  constexpr int kNT = NP / 8;  // 8-wide blocks of keys
+  constexpr int kNB = DP / 8;  // 8-wide blocks of the head dim
+  constexpr int kTile = NP * O::kLd;
+  extern __shared__ __align__(16) unsigned char fwd_smem[];
+  float* sb = reinterpret_cast<float*>(fwd_smem);                  // [NP][kLdb]
+  T* tiles = reinterpret_cast<T*>(sb + NP * Block<NP>::kLdb);  // [1 or 2][q, k, v][NP][kLd]
+
+  const Block<NP> blk(bn, heads, nw, chunk, chunks);
+  blk.load_bias(sb, bias, mask, n);
+  zero_smem<NP>(tiles, (piece != 0 ? 2 : 1) * 3 * kTile * (int)sizeof(T));
+
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int tq = lane & 3;
+  const int i0 = warp * 16;  // this warp's query rows
+  const float sl2 = scale * kLog2e;
+  const T* src[3] = {q, k, v};
+  for_each_window<T, NP, DP, 3>(blk, tiles, src, n, d, piece, [&](const T* buf, size_t base) {
+    if (i0 >= n) return;  // every row of this warp is padding
+    typename O::AFrag fa;
+    O::load_a(fa, buf, i0, lane);
+    float p[kNT][4], mx[2], sum[2];
+    softmax_rows<T, NP, DP>(p, mx, sum, fa, buf + kTile, sb, i0, sl2, lane);
+    float acc[kNB][4];
+#pragma unroll
+    for (int nb = 0; nb < kNB; ++nb) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[nb][e] = 0.f;
+    }
+#pragma unroll
+    for (int t = 0; t < kNT; t += 2) O::mma_kn(acc, p[t], p[t + 1], buf + 2 * kTile, 8 * t, lane);
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const int row = i0 + g + 8 * hr;
+      if (row >= n) continue;
+      const float inv = 1.f / sum[hr];
+      T* out = o + base + (size_t)row * d;
+#pragma unroll
+      for (int nb = 0; nb < kNB; ++nb) {
+        const int c = 8 * nb + 2 * tq;
+        const float x0 = acc[nb][2 * hr] * inv;
+        const float x1 = acc[nb][2 * hr + 1] * inv;
+        if (pairs && c + 1 < d) {
+          store_pair<T>(out + c, x0, x1);
+        } else {
+          if (c < d) out[c] = from_f<T>(x0);
+          if (c + 1 < d) out[c + 1] = from_f<T>(x1);
+        }
+      }
+    }
+  });
+}
+
+// ---------------------------------------------------------------------------
+// K2
+//
+// Its block layout, bias tile and window loop are K1's, written out inline:
+// built on K1's helpers (Block, for_each_window, softmax_rows), ptxas
+// allocated its registers otherwise, spilled in the bf16 body at n = 64,
+// d <= 16, and K2 ran slower on the H100.
+
+template <typename T, int NP, int DP>
+struct Bwd {
+  static constexpr int kThreads = Block<NP>::kThreads;
+  static constexpr int kLdb = Block<NP>::kLdb;
+  // f32 at n <= 64, d <= 16 (SwinIR's f32 path): the dbias sums and the row
+  // pass's dP stay in registers, where its 3xTF32 products would cost more
+  // to redo, in 168 registers, three blocks a SM. Elsewhere the dbias sums
+  // live in shared memory and dP is computed twice (for delta, then for
+  // dS): the registers go to the fragments, and nothing spills.
+  static constexpr bool kRegState = sizeof(T) == 4 && NP == 64 && DP == 16;
+};
 
 template <typename T, int NP, int DP>
 __global__ void __launch_bounds__(Bwd<T, NP, DP>::kThreads)
@@ -859,22 +965,8 @@ __global__ void __launch_bounds__(kReduceThreads)
   dbias[e] = acc;
 }
 
-inline size_t fwd_smem_bytes(int n, int d) { return sizeof(float) * 3 * n * (d | 1); }
-
-template <typename T, int JPL, int DMAX>
-cudaError_t launch_fwd(const void* q, const void* k, const void* v, const float* bias,
-                       const float* mask, void* o, int bn, int heads, int n, int d, int nw_mask,
-                       float scale, cudaStream_t stream) {
-  auto kernel = window_attn_fwd_kernel<T, JPL, DMAX>;
-  const size_t smem = fwd_smem_bytes(n, d);
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
-  if (err != cudaSuccess) return err;
-  kernel<<<bn * heads, kFwdThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), bias, mask,
-      static_cast<T*>(o), heads, n, d, nw_mask, scale);
-  return cudaGetLastError();
-}
+// ---------------------------------------------------------------------------
+// Launches
 
 inline int max_dynamic_smem() {
   int dev = 0, bytes = 0;
@@ -883,35 +975,77 @@ inline int max_dynamic_smem() {
   return bytes;
 }
 
-// K2 at NP = 64 or 128 keys, DP = DMAX columns; `chunk` windows of one mask
-// class per block, as ops/window_attn.py's backward_plan picks it.
-template <typename T, int JPL, int DMAX>
+// Picks a kernel's tile path and sets its dynamic shared memory, `fixed`
+// bytes plus `per_buf` a tile buffer: cp.async in the widest piece of 16, 8
+// or 4 bytes that divides a row, into two buffers; element by element into
+// one (piece 0) for rows of an odd number of 2-byte elements or where two
+// buffers do not fit. Refuses a tile pointer that is off its piece.
+template <typename Kernel>
+cudaError_t prepare(Kernel kernel, std::initializer_list<const void*> tiles, int row_bytes,
+                    size_t fixed, size_t per_buf, int* piece, size_t* smem) {
+  *piece = row_bytes % 16 == 0 ? 16 : row_bytes % 8 == 0 ? 8 : row_bytes % 4 == 0 ? 4 : 0;
+  for (const void* p : tiles) {
+    if (*piece != 0 && reinterpret_cast<uintptr_t>(p) % *piece != 0) {
+      return cudaErrorMisalignedAddress;
+    }
+  }
+  *smem = fixed + (*piece != 0 ? 2 : 1) * per_buf;
+  if (*smem > (size_t)max_dynamic_smem()) {
+    *piece = 0;
+    *smem = fixed + per_buf;
+  }
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)*smem);
+}
+
+// Chunks of `chunk` windows in a mask class (class 0 has the most); a
+// head takes classes * chunks blocks.
+inline int chunks_per_class(int bn, int nw, int chunk) {
+  return ((bn + nw - 1) / nw + chunk - 1) / chunk;
+}
+
+// K1 at NP = 32, 64 or 128 keys, DP columns; `chunk` windows of one mask
+// class per block, as ops/window_attn.py's forward_plan picks it.
+template <typename T, int NP, int DP>
+cudaError_t launch_fwd(const void* q, const void* k, const void* v, const float* bias,
+                       const float* mask, void* o, int bn, int heads, int n, int d, int nw_mask,
+                       int chunk, float scale, cudaStream_t stream) {
+  auto kernel = window_attn_fwd_kernel<T, NP, DP>;
+  const int chunks = chunks_per_class(bn, nw_mask, chunk);
+  const int classes = nw_mask < bn ? nw_mask : bn;
+  int piece = 0;
+  size_t smem = 0;
+  cudaError_t err = prepare(kernel, {q, k, v}, d * (int)sizeof(T),
+                            sizeof(float) * NP * Block<NP>::kLdb,
+                            sizeof(T) * 3 * NP * Ops<T, DP>::kLd, &piece, &smem);
+  if (err != cudaSuccess) return err;
+  // o in pairs of elements where every pair (even offset) sits on its size
+  const int pairs = d % 2 == 0 && reinterpret_cast<uintptr_t>(o) % (2 * sizeof(T)) == 0;
+  kernel<<<heads * classes * chunks, Block<NP>::kThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), bias, mask,
+      static_cast<T*>(o), bn, heads, n, d, nw_mask, chunk, chunks, piece, pairs, scale);
+  return cudaGetLastError();
+}
+
+// K2 at NP = 64 or 128 keys (n <= 32 too: a 32-key body spilled), DP
+// columns; `chunk` windows of one mask class per block, as
+// ops/window_attn.py's backward_plan picks it.
+template <typename T, int NP, int DP>
 cudaError_t launch_bwd(const void* q, const void* k, const void* v, const float* bias,
                        const float* mask, const void* dout, void* dq, void* dk, void* dv,
                        float* dbias_part, float* dbias, int bn, int heads, int n, int d,
                        int nw_mask, int chunk, float scale, cudaStream_t stream) {
-  constexpr int NP = JPL == 4 ? 128 : 64;  // n <= 32 too: a 32-key body spilled
-  auto kernel = window_attn_bwd_kernel<T, NP, DMAX>;
-  const int classes = nw_mask < bn ? nw_mask : bn;
-  const int chunks = ((bn + nw_mask - 1) / nw_mask + chunk - 1) / chunk;
-  const int parts = classes * chunks;
-  const int row_bytes = d * (int)sizeof(T);
-  int piece = row_bytes % 16 == 0 ? 16 : row_bytes % 8 == 0 ? 8 : row_bytes % 4 == 0 ? 4 : 0;
-  const void* tiles[4] = {q, k, v, dout};
-  for (const void* p : tiles) {
-    if (piece != 0 && reinterpret_cast<uintptr_t>(p) % piece != 0) {
-      return cudaErrorMisalignedAddress;
-    }
-  }
-  size_t smem = bwd_smem_bytes<T, NP, DMAX>(piece != 0 ? 2 : 1);
-  if (smem > (size_t)max_dynamic_smem()) {
-    piece = 0;
-    smem = bwd_smem_bytes<T, NP, DMAX>(1);
-  }
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
+  constexpr int NPB = NP < 64 ? 64 : NP;
+  auto kernel = window_attn_bwd_kernel<T, NPB, DP>;
+  const int chunks = chunks_per_class(bn, nw_mask, chunk);
+  const int parts = (nw_mask < bn ? nw_mask : bn) * chunks;
+  const size_t bias_floats = (size_t)NPB * Block<NPB>::kLdb * (Bwd<T, NPB, DP>::kRegState ? 1 : 2);
+  int piece = 0;
+  size_t smem = 0;
+  cudaError_t err = prepare(kernel, {q, k, v, dout}, d * (int)sizeof(T),
+                            sizeof(float) * (bias_floats + 2 * NPB),
+                            sizeof(T) * 4 * NPB * Ops<T, DP>::kLd, &piece, &smem);
   if (err != cudaSuccess) return err;
-  kernel<<<heads * parts, Bwd<T, NP, DMAX>::kThreads, smem, stream>>>(
+  kernel<<<heads * parts, Block<NPB>::kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), bias, mask,
       static_cast<const T*>(dout), static_cast<T*>(dq), static_cast<T*>(dk),
       static_cast<T*>(dv), dbias_part, bn, heads, n, d, nw_mask, chunk, chunks, piece, scale);
@@ -926,23 +1060,23 @@ cudaError_t launch_bwd(const void* q, const void* k, const void* v, const float*
 // dtype codes shared with the Python wrapper
 enum DType { kF32 = 0, kBF16 = 1, kF16 = 2 };
 
-bool shape_ok(int dtype, int bn, int heads, int n, int d, int nw_mask) {
+bool shape_ok(int dtype, int bn, int heads, int n, int d, int nw_mask, int chunk) {
   return dtype >= kF32 && dtype <= kF16 && bn > 0 && heads > 0 && n > 0 && n <= 128 && d > 0 &&
-         d <= 32 && nw_mask > 0;
+         d <= 32 && nw_mask > 0 && chunk > 0;
 }
 
-// Picks the instantiation: n <= 32, 64, 128 (K1: keys per lane; K2: keys
-// padded to 32 * JPL) x head-dim cap (K2: columns padded to 16 or 32).
+// Picks the instantiation: keys padded to NP = 32, 64 or 128 x columns
+// padded to DP = 16 or 32.
 #define WINDOW_ATTN_SIZES(T, LAUNCH, ...)                                   \
   do {                                                                      \
     if (d <= 16) {                                                          \
-      if (n <= 32) return LAUNCH<T, 1, 16>(__VA_ARGS__);                    \
-      if (n <= 64) return LAUNCH<T, 2, 16>(__VA_ARGS__);                    \
-      return LAUNCH<T, 4, 16>(__VA_ARGS__);                                 \
+      if (n <= 32) return LAUNCH<T, 32, 16>(__VA_ARGS__);                   \
+      if (n <= 64) return LAUNCH<T, 64, 16>(__VA_ARGS__);                   \
+      return LAUNCH<T, 128, 16>(__VA_ARGS__);                               \
     }                                                                       \
-    if (n <= 32) return LAUNCH<T, 1, 32>(__VA_ARGS__);                      \
-    if (n <= 64) return LAUNCH<T, 2, 32>(__VA_ARGS__);                      \
-    return LAUNCH<T, 4, 32>(__VA_ARGS__);                                   \
+    if (n <= 32) return LAUNCH<T, 32, 32>(__VA_ARGS__);                     \
+    if (n <= 64) return LAUNCH<T, 64, 32>(__VA_ARGS__);                     \
+    return LAUNCH<T, 128, 32>(__VA_ARGS__);                                 \
   } while (0)
 
 #define WINDOW_ATTN_DISPATCH(LAUNCH, ...)                                   \
@@ -959,20 +1093,18 @@ extern "C" {
 // Returns a cudaError_t code; 0 means the launch was accepted.
 int window_attn_forward(int dtype, const void* q, const void* k, const void* v,
                         const float* bias, const float* mask, void* o, int bn, int heads, int n,
-                        int d, int nw_mask, float scale, void* stream) {
-  if (!shape_ok(dtype, bn, heads, n, d, nw_mask)) return (int)cudaErrorInvalidValue;
+                        int d, int nw_mask, int chunk, float scale, void* stream) {
+  if (!shape_ok(dtype, bn, heads, n, d, nw_mask, chunk)) return (int)cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  WINDOW_ATTN_DISPATCH((int)launch_fwd, q, k, v, bias, mask, o, bn, heads, n, d, nw_mask, scale,
-                       st);
+  WINDOW_ATTN_DISPATCH((int)launch_fwd, q, k, v, bias, mask, o, bn, heads, n, d, nw_mask, chunk,
+                       scale, st);
 }
 
 int window_attn_backward(int dtype, const void* q, const void* k, const void* v,
                          const float* bias, const float* mask, const void* dout, void* dq,
                          void* dk, void* dv, float* dbias_part, float* dbias, int bn, int heads,
                          int n, int d, int nw_mask, int chunk, float scale, void* stream) {
-  if (!shape_ok(dtype, bn, heads, n, d, nw_mask) || chunk <= 0) {
-    return (int)cudaErrorInvalidValue;
-  }
+  if (!shape_ok(dtype, bn, heads, n, d, nw_mask, chunk)) return (int)cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   WINDOW_ATTN_DISPATCH((int)launch_bwd, q, k, v, bias, mask, dout, dq, dk, dv, dbias_part,
                        dbias, bn, heads, n, d, nw_mask, chunk, scale, st);

@@ -29,7 +29,8 @@ from .. import csrc
 
 MAX_N = 128  # pack=2 of SwinIR's 64-token windows
 MAX_D = 32
-ALIGN = 16  # bytes: K2's widest cp.async piece
+ALIGN = 16  # bytes: the kernels' widest cp.async piece
+FWD_BLOCKS_PER_SM = 4  # K1 (no partials): more, shorter blocks; fastest of 1-64 measured
 BWD_BLOCKS_PER_SM = 2  # K2's target; SwinIR-S's bench shape takes one block per (head, class)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
@@ -135,13 +136,15 @@ def kernel_forward(q, k, v, bias, mask):
     global fwd_launches
     _check(q, k, v, bias, mask)
     _check_cuda(q, k, v, bias, mask)
+    q, k, v = (_aligned(t) for t in (q, k, v))
     lib = csrc.load("window_attn")
     bn, h, n, d = q.shape
     o = torch.empty_like(q)
     nw = 1 if mask is None else mask.shape[0]
+    plan = forward_plan(bn, h, nw, _sm_count(q.device))
     code = lib.window_attn_forward(
         _DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        bias.data_ptr(), _ptr(mask), o.data_ptr(), bn, h, n, d, nw,
+        bias.data_ptr(), _ptr(mask), o.data_ptr(), bn, h, n, d, nw, plan.chunk,
         d**-0.5, _stream(q.device),
     )
     csrc.check(lib, code, "window_attn_forward")
@@ -150,13 +153,13 @@ def kernel_forward(q, k, v, bias, mask):
 
 
 @dataclasses.dataclass(frozen=True)
-class BackwardPlan:
-    """How K2 splits the windows over blocks. A block takes head ``h`` and
-    ``chunk`` windows of one mask class ``r`` (the windows ``w`` with
-    ``w % nw == r``, of which it takes the ``c``-th run), so it loads
-    ``bias[h] + mask[r]`` once; it writes one dbias partial, and the
-    partials are summed in their order. ``nw`` is the mask's window count
-    (1 without a mask)."""
+class WindowPlan:
+    """How K1 and K2 split the windows over blocks. A block takes head
+    ``h`` and ``chunk`` windows of one mask class ``r`` (the windows ``w``
+    with ``w % nw == r``, of which it takes the ``c``-th run), so it loads
+    ``bias[h] + mask[r]`` once. A K2 block writes one dbias partial, and
+    the partials are summed in their order. ``nw`` is the mask's window
+    count (1 without a mask)."""
 
     bn: int
     nw: int
@@ -172,44 +175,62 @@ class BackwardPlan:
         return math.ceil(math.ceil(self.bn / self.nw) / self.chunk)
 
     @property
-    def partials(self) -> int:
-        """dbias partials per head, one per (class, chunk)."""
+    def blocks(self) -> int:
+        """Blocks per head, one per (class, chunk); K2 writes a dbias
+        partial for each."""
         return self.classes * self.chunks
 
     def windows(self, slot: int) -> list[int]:
-        """The windows of partial ``slot`` (= class * chunks + chunk), in the
-        order the block takes them, as the kernel computes them."""
+        """The windows of block ``slot`` (= class * chunks + chunk) of a
+        head, in the order the block takes them, as the kernels compute
+        them."""
         r, c = divmod(slot, self.chunks)
         return [w for w in range(r + self.nw * c * self.chunk,
                                  r + self.nw * (c + 1) * self.chunk, self.nw) if w < self.bn]
 
 
-def backward_plan(bn: int, heads: int, nw: int, sms: int) -> BackwardPlan:
-    """K2's split for ``bn`` windows, ``heads`` heads and ``nw`` mask windows
-    (1 without a mask) on a card of ``sms`` SMs: about
-    :data:`BWD_BLOCKS_PER_SM` blocks per SM, or one block per (head, class)
-    where that is already more. Fewer, longer blocks write fewer dbias
-    partials, and measured faster on the H100 than four blocks per SM."""
+def _plan(bn: int, heads: int, nw: int, sms: int, per_sm: int) -> WindowPlan:
+    """About ``per_sm`` blocks per SM, or one block per (head, class) where
+    that is already more."""
     classes = min(nw, bn)
     per_class = math.ceil(bn / nw)
-    chunks = min(per_class, max(1, math.ceil(BWD_BLOCKS_PER_SM * sms / (heads * classes))))
-    return BackwardPlan(bn, nw, math.ceil(per_class / chunks))
+    chunks = min(per_class, max(1, math.ceil(per_sm * sms / (heads * classes))))
+    return WindowPlan(bn, nw, math.ceil(per_class / chunks))
+
+
+def forward_plan(bn: int, heads: int, nw: int, sms: int) -> WindowPlan:
+    """K1's split for ``bn`` windows, ``heads`` heads and ``nw`` mask windows
+    (1 without a mask) on a card of ``sms`` SMs: about
+    :data:`FWD_BLOCKS_PER_SM` blocks per SM, or one block per (head, class)
+    where that is already more."""
+    return _plan(bn, heads, nw, sms, FWD_BLOCKS_PER_SM)
+
+
+def backward_plan(bn: int, heads: int, nw: int, sms: int) -> WindowPlan:
+    """K2's split, as :func:`forward_plan` with :data:`BWD_BLOCKS_PER_SM`.
+    Fewer, longer blocks write fewer dbias partials, and measured faster on
+    the H100 than four blocks per SM."""
+    return _plan(bn, heads, nw, sms, BWD_BLOCKS_PER_SM)
+
+
+def _sm_count(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def uses_tensor_cores(dtype, kernel: str = "bwd") -> bool:
     """Whether a window-attention kernel runs tensor-core (HMMA)
-    instructions for ``dtype``: K2 (``"bwd"``) does in every type (bf16/f16
-    on ``mma.sync.m16n8k16``, f32 as 3xTF32 on ``m16n8k8``), K1
-    (``"fwd"``) in none. The library decides by kernel alone."""
+    instructions for ``dtype``: K1 (``"fwd"``) and K2 (``"bwd"``) do in
+    every type, bf16/f16 on ``mma.sync.m16n8k16`` and f32 as 3xTF32 on
+    ``m16n8k8``."""
     if kernel not in ("fwd", "bwd"):
         raise ValueError(f"kernel is 'fwd' or 'bwd', got {kernel!r}")
-    return kernel == "bwd" and dtype in _DTYPE_CODES
+    return dtype in _DTYPE_CODES
 
 
 def _aligned(t):
     """``t`` (contiguous) on :data:`ALIGN` bytes; a copy only where it is not:
-    K2 copies its tiles in pieces of up to 16 bytes, and the library refuses
-    a tile pointer that is not aligned to its piece."""
+    K1 and K2 copy their tiles in pieces of up to 16 bytes, and the library
+    refuses a tile pointer that is not aligned to its piece."""
     return t if t.data_ptr() % ALIGN == 0 else t.clone()
 
 
@@ -224,10 +245,9 @@ def kernel_backward(q, k, v, bias, mask, do):
     lib = csrc.load("window_attn")
     bn, h, n, d = q.shape
     nw = 1 if mask is None else mask.shape[0]
-    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
-    plan = backward_plan(bn, h, nw, sms)
+    plan = backward_plan(bn, h, nw, _sm_count(q.device))
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    part = torch.empty((plan.partials, h, n, n), dtype=torch.float32, device=q.device)
+    part = torch.empty((plan.blocks, h, n, n), dtype=torch.float32, device=q.device)
     dbias = torch.empty((h, n, n), dtype=torch.float32, device=q.device)
     code = lib.window_attn_backward(
         _DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),

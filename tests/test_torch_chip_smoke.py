@@ -2,9 +2,9 @@
 the HMMA counts of the SASS, and fails unless every bf16/f16 flash body
 (K3, K4, K5) runs on the tensor cores and every f32 body on the CUDA
 cores, as ``ops.flash_attn.uses_tensor_cores`` says, and no flash kernel
-spills; and unless every body of K2 (window-attention backward) runs on
-the tensor cores and none of K1, as ``ops.window_attn.uses_tensor_cores``
-says, and no window kernel spills but K1's named exceptions."""
+spills; and unless every body of K1 and K2 (window-attention forward and
+backward) runs on the tensor cores, as ``ops.window_attn.uses_tensor_cores``
+says, and no window kernel spills."""
 
 import importlib.util
 from pathlib import Path
@@ -83,7 +83,7 @@ def test_build_faults_are_found(smoke, fault):
 
 # -- window attention (K1, K2 and the dbias reduction) ---------------------------
 
-WINDOW_KEYS = ([f"wfwd {t} J={j} D={d}" for t in ("f32", "bf16", "f16") for j in (1, 2, 4)
+WINDOW_KEYS = ([f"wfwd {t} N={n} D={d}" for t in ("f32", "bf16", "f16") for n in (32, 64, 128)
                 for d in (16, 32)]
                + [f"wbwd {t} N={n} D={d}" for t in ("f32", "bf16", "f16") for n in (64, 128)
                   for d in (16, 32)] + ["dbias_reduce"])
@@ -107,7 +107,7 @@ def test_kernel_key_reads_window_names(smoke, key, space):
 
 
 def test_ptxas_entries_read_window_kernels(smoke):
-    bwd, fwd = (_window_mangled(k, SPACES[1]) for k in ("wbwd f32 N=64 D=16", "wfwd bf16 J=2 D=16"))
+    bwd, fwd = (_window_mangled(k, SPACES[1]) for k in ("wbwd f32 N=64 D=16", "wfwd bf16 N=64 D=16"))
     log = "\n".join([
         f"ptxas info    : Compiling entry function '{bwd}' for 'sm_90a'",
         "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
@@ -117,55 +117,62 @@ def test_ptxas_entries_read_window_kernels(smoke):
         "ptxas info    : Used 48 registers, used 1 barriers, 8 bytes cumulative stack size",
     ])
     assert smoke.ptxas_entries(log) == {"wbwd f32 N=64 D=16": (168, 0),
-                                        "wfwd bf16 J=2 D=16": (48, 8)}
+                                        "wfwd bf16 N=64 D=16": (48, 8)}
 
 
-def _window_as_designed(smoke):
-    """K1's named instantiations spill what they are allowed; HMMA in K2."""
-    regs = {k: (128, smoke.K1_SPILLS.get(k, 0)) for k in WINDOW_KEYS}
-    hmma = {k: 64 if k.startswith("wbwd") else 0 for k in WINDOW_KEYS}
+def _window_as_designed():
+    """No spill; HMMA in every body of K1 and K2, none in the reduction."""
+    regs = {k: (128, 0) for k in WINDOW_KEYS}
+    hmma = {k: 0 if k == "dbias_reduce" else 64 for k in WINDOW_KEYS}
     return regs, hmma
 
 
 def test_window_build_as_designed_has_no_faults(smoke):
-    regs, hmma = _window_as_designed(smoke)
-    assert set(smoke.K1_SPILLS) <= set(regs) and any(s for _, s in regs.values())
+    regs, hmma = _window_as_designed()
+    assert not any(s for _, s in regs.values())
     assert smoke.window_build_faults(regs, hmma) == []
     assert smoke.window_build_faults(regs, None) == []
 
 
-@pytest.mark.parametrize("fault", ["k2 spill", "k1 spill grew", "k1 spill elsewhere",
+@pytest.mark.parametrize("fault", ["k2 spill", "k1 spill", "k1 spill at n=128",
                                    "reduce spill", "k2 f32 on cuda cores",
-                                   "k2 bf16 on cuda cores", "k1 on tensor cores"])
+                                   "k2 bf16 on cuda cores", "k1 f32 on cuda cores",
+                                   "k1 bf16 on cuda cores", "reduce on tensor cores"])
 def test_window_build_faults_are_found(smoke, fault):
-    regs, hmma = _window_as_designed(smoke)
+    """A spill of any size in any window kernel is a fault (K1's 8-byte
+    spills no longer excepted), and so is a K1 or K2 body without HMMA."""
+    regs, hmma = _window_as_designed()
     if fault == "k2 spill":
         regs["wbwd bf16 N=64 D=16"] = (168, 4)
         want = ["wbwd bf16 N=64 D=16: 4 bytes spill stores"]
-    elif fault == "k1 spill grew":
-        regs["wfwd f32 J=4 D=16"] = (56, 16)
-        want = ["wfwd f32 J=4 D=16: 16 bytes spill stores"]
-    elif fault == "k1 spill elsewhere":
-        regs["wfwd f16 J=1 D=32"] = (64, 8)
-        want = ["wfwd f16 J=1 D=32: 8 bytes spill stores"]
+    elif fault == "k1 spill":
+        regs["wfwd f32 N=64 D=16"] = (56, 8)
+        want = ["wfwd f32 N=64 D=16: 8 bytes spill stores"]
+    elif fault == "k1 spill at n=128":
+        regs["wfwd f16 N=128 D=32"] = (64, 4)
+        want = ["wfwd f16 N=128 D=32: 4 bytes spill stores"]
     elif fault == "reduce spill":
         regs["dbias_reduce"] = (32, 8)
         want = ["dbias_reduce: 8 bytes spill stores"]
-    elif fault.startswith("k2"):
-        key = f"wbwd {fault.split()[1]} N=64 D=16"
+    elif fault == "reduce on tensor cores":
+        hmma["dbias_reduce"] = 4
+        want = ["dbias_reduce: 4 HMMA"]
+    else:
+        kind = {"k1": "wfwd", "k2": "wbwd"}[fault.split()[0]]
+        key = f"{kind} {fault.split()[1]} N=64 D=16"
         hmma[key] = 0
         want = [f"{key}: 0 HMMA"]
-    else:
-        hmma["wfwd bf16 J=2 D=16"] = 16
-        want = ["wfwd bf16 J=2 D=16: 16 HMMA"]
     assert smoke.window_build_faults(regs, hmma) == want
 
 
 def test_k2_bound_takes_the_3xtf32_rate_in_f32(smoke):
-    """K2's f32 products run as three TF32 products each: its bound by
-    operations is at 495/3 TFLOP/s, not the CUDA cores' 67; bf16 at 989."""
+    """K1's and K2's f32 products run as three TF32 products each: their
+    bound by operations is at 495/3 TFLOP/s, not the CUDA cores' 67; bf16
+    at 989."""
     gflop = 2.83e9
-    assert smoke.bound_ms(0, gflop, "float32", smoke.K2_PEAK_FLOPS)[0] == pytest.approx(
+    assert smoke.bound_ms(0, gflop, "float32", smoke.WINDOW_PEAK_FLOPS)[0] == pytest.approx(
         gflop * 3 / 495e12 * 1e3)
     assert smoke.bound_ms(0, gflop, "float32")[0] == pytest.approx(gflop / 67e12 * 1e3)
-    assert smoke.bound_ms(125e6, gflop, "float32", smoke.K2_PEAK_FLOPS)[1] == "bytes"
+    assert smoke.bound_ms(125e6, gflop, "float32", smoke.WINDOW_PEAK_FLOPS)[1] == "bytes"
+    assert smoke.bound_ms(0, gflop, "bfloat16", smoke.WINDOW_PEAK_FLOPS)[0] == pytest.approx(
+        gflop / 989e12 * 1e3)

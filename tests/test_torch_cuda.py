@@ -10,9 +10,9 @@ Tolerances: in f32 the kernel and the plain version differ only in sum
 order (~1e-6 relative; K2's 3xTF32 products keep about f32's digits); in
 bf16 and f16 both round the same f32 result, so outputs may differ by one
 step of the type (2^-8 relative in bf16, 2^-11 in f16, held at 1e-2 and
-2e-3), and the tensor-core bodies of K2, K3, K4 and K5 also round P and dS
-to the input's type before their second products (the same step again, on
-terms that mostly cancel). lse and dbias are f32 in every case. The tiny
+2e-3), and the tensor-core bodies of K1-K5 also round P (and dS) to the
+input's type before their second products (the same step again, on terms
+that mostly cancel). lse and dbias are f32 in every case. The tiny
 GPT-2 holds gradients at 1e-4 relative to their largest entry: f32 sums
 in another order through two blocks.
 """
@@ -126,7 +126,7 @@ def test_backward_copies_a_misaligned_tile_and_the_library_refuses_it(cuda, dtyp
     lib = csrc.load("window_attn")
     plan = twa.backward_plan(bn, h, 1, torch.cuda.get_device_properties(cuda).multi_processor_count)
     dq, dk, dv = (torch.zeros_like(dense) for _ in range(3))
-    part = torch.zeros(plan.partials, h, n, n, device=cuda)
+    part = torch.zeros(plan.blocks, h, n, n, device=cuda)
     dbias = torch.zeros(h, n, n, device=cuda)
     code = lib.window_attn_backward(
         twa._DTYPE_CODES[dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), None,
@@ -137,6 +137,36 @@ def test_backward_copies_a_misaligned_tile_and_the_library_refuses_it(cuda, dtyp
     torch.cuda.synchronize()
     assert code != 0 and "misaligned" in lib.error_string(code).decode()
     assert not dq.any() and not dbias.any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+def test_forward_copies_a_misaligned_tile_and_the_library_refuses_it(cuda, dtype):
+    """K1 at window 7, d = 10 (4- or 8-byte copies of 20- or 40-byte rows):
+    a contiguous v that starts one element into its buffer is copied by
+    the wrapper, so K1 gives what it gives on an aligned copy; called
+    directly, the library refuses it rather than read it wrong."""
+    g = torch.Generator().manual_seed(7)
+    bn, h, n, d = 24, 3, 49, 10
+    q, k, dense = (torch.randn(bn, h, n, d, generator=g).to(cuda, dtype) for _ in range(3))
+    bias = torch.randn(h, n, n, generator=g).to(cuda)
+    flat = torch.empty(dense.numel() + 1, dtype=dtype, device=cuda)
+    flat[1:] = dense.flatten()
+    v = flat[1:].view(bn, h, n, d)
+    assert v.is_contiguous() and v.data_ptr() % twa.ALIGN != 0
+    assert torch.equal(twa.kernel_forward(q, k, v, bias, None),
+                       twa.kernel_forward(q, k, dense, bias, None))
+
+    lib = csrc.load("window_attn")
+    plan = twa.forward_plan(bn, h, 1, torch.cuda.get_device_properties(cuda).multi_processor_count)
+    o = torch.zeros_like(dense)
+    code = lib.window_attn_forward(
+        twa._DTYPE_CODES[dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), None,
+        o.data_ptr(), bn, h, n, d, 1, plan.chunk, d**-0.5,
+        torch.cuda.current_stream(cuda).cuda_stream,
+    )
+    torch.cuda.synchronize()
+    assert code != 0 and "misaligned" in lib.error_string(code).decode()
+    assert not o.any()
 
 
 def test_packed_windows_match_unpacked(cuda):

@@ -1,7 +1,8 @@
-"""K2's plan on the CPU: how ``ops.window_attn.backward_plan`` splits the
-windows over blocks, what ``kernel_backward`` hands the library for it,
-and which bodies use the tensor cores. The kernel itself runs only on the
-card (``tests/test_torch_cuda.py``)."""
+"""K1's and K2's plans on the CPU: how ``ops.window_attn.forward_plan`` and
+``backward_plan`` split the windows over blocks, what ``kernel_forward``
+and ``kernel_backward`` hand the library for them, and which bodies use
+the tensor cores. The kernels themselves run only on the card
+(``tests/test_torch_cuda.py``)."""
 
 import math
 import types
@@ -23,10 +24,21 @@ SHAPES = [(1152, 6, 64), (1152, 6, 1), (288, 6, 16), (160, 6, 16), (576, 6, 32),
 @pytest.mark.parametrize("sms", [132, 114, 1])
 @pytest.mark.parametrize("bn,heads,nw", SHAPES)
 def test_plan_covers_every_window_once_in_one_class_per_block(bn, heads, nw, sms):
-    plan = twa.backward_plan(bn, heads, nw, sms)
+    _assert_covers(twa.backward_plan(bn, heads, nw, sms), bn, nw)
+
+
+@pytest.mark.parametrize("sms", [132, 114, 1])
+@pytest.mark.parametrize("bn,heads,nw", SHAPES)
+def test_forward_plan_covers_every_window_once_in_one_class_per_block(bn, heads, nw, sms):
+    _assert_covers(twa.forward_plan(bn, heads, nw, sms), bn, nw)
+
+
+def _assert_covers(plan, bn, nw):
+    """Every window in exactly one block, each block within one mask class
+    and no longer than the chunk."""
     assert plan.classes == min(nw, bn) and plan.chunk >= 1
     seen = []
-    for slot in range(plan.partials):
+    for slot in range(plan.blocks):
         windows = plan.windows(slot)
         assert len(windows) <= plan.chunk
         assert len({w % nw for w in windows}) <= 1  # one mask class a block
@@ -45,9 +57,22 @@ def test_plan_fills_the_card_with_few_partials(bn, heads, nw):
     per_class = math.ceil(bn / nw)
     assert plan.chunks == math.ceil(per_class / plan.chunk) <= per_class
     if plan.chunk > 1:
-        assert heads * plan.partials < 2 * 132 * 2
+        assert heads * plan.blocks < 2 * 132 * 2
     if (bn, heads, nw) == (1152, 6, 64):
-        assert (plan.chunk, plan.partials) == (18, 64)
+        assert (plan.chunk, plan.blocks) == (18, 64)
+
+
+@pytest.mark.parametrize("bn,heads,nw", SHAPES)
+def test_forward_plan_takes_more_shorter_blocks(bn, heads, nw):
+    """K1 writes no partials: about FWD_BLOCKS_PER_SM blocks a SM, or one
+    block per (head, class) where that is already more, and never fewer
+    blocks than K2."""
+    fwd, bwd = twa.forward_plan(bn, heads, nw, 132), twa.backward_plan(bn, heads, nw, 132)
+    per_class = math.ceil(bn / nw)
+    assert fwd.chunks == math.ceil(per_class / fwd.chunk) <= per_class
+    assert fwd.chunk <= bwd.chunk and fwd.blocks >= bwd.blocks
+    if fwd.chunk > 1:
+        assert heads * fwd.blocks < 2 * 132 * twa.FWD_BLOCKS_PER_SM
 
 
 class _FakeLib:
@@ -60,17 +85,27 @@ class _FakeLib:
         self.calls.append(args)
         return 0
 
+    def window_attn_forward(self, *args):
+        self.calls.append(args)
+        return 0
+
+
+def _fake_card(monkeypatch):
+    """A fake library and a card of 132 SMs; returns the library."""
+    lib = _FakeLib()
+    monkeypatch.setattr(twa.csrc, "load", lambda name: lib)
+    monkeypatch.setattr(twa, "_stream", lambda device: 0)
+    monkeypatch.setattr(torch.cuda, "get_device_properties",
+                        lambda device: types.SimpleNamespace(multi_processor_count=132))
+    return lib
+
 
 @pytest.mark.parametrize("bn,heads,nw", [(1152, 6, 64), (160, 6, 16), (1000, 6, 1)])
 def test_kernel_backward_allocates_the_plans_partials(monkeypatch, bn, heads, nw):
     """What ``kernel_backward`` passes the library: the plan's chunk, and a
     dbias partial buffer of the plan's partial count (CPU tensors here, a
     fake library, 132 SMs)."""
-    lib = _FakeLib()
-    monkeypatch.setattr(twa.csrc, "load", lambda name: lib)
-    monkeypatch.setattr(twa, "_stream", lambda device: 0)
-    monkeypatch.setattr(torch.cuda, "get_device_properties",
-                        lambda device: types.SimpleNamespace(multi_processor_count=132))
+    lib = _fake_card(monkeypatch)
     allocated = []
     empty = torch.empty
 
@@ -90,14 +125,32 @@ def test_kernel_backward_allocates_the_plans_partials(monkeypatch, bn, heads, nw
     plan = twa.backward_plan(bn, heads, nw, 132)
     (args,) = lib.calls
     assert args[12:18] == (bn, heads, n, d, nw, plan.chunk)
-    assert (plan.partials, heads, n, n) in allocated
+    assert (plan.blocks, heads, n, n) in allocated
+
+
+@pytest.mark.parametrize("bn,heads,nw", [(1152, 6, 64), (160, 6, 16), (1000, 6, 1)])
+def test_kernel_forward_passes_the_plans_chunk(monkeypatch, bn, heads, nw):
+    """What ``kernel_forward`` passes the library: the shape, the mask's
+    window count and the forward plan's chunk (CPU tensors here, a fake
+    library, 132 SMs)."""
+    lib = _fake_card(monkeypatch)
+    n, d = 4, 2
+    q = torch.zeros(bn, heads, n, d)
+    bias = torch.zeros(heads, n, n)
+    mask = torch.zeros(nw, n, n) if nw > 1 else None
+    before = twa.fwd_launches
+    o = twa.kernel_forward(q, q, q, bias, mask)
+    assert twa.fwd_launches == before + 1 and o.shape == q.shape
+    (args,) = lib.calls
+    assert args[7:13] == (bn, heads, n, d, nw, twa.forward_plan(bn, heads, nw, 132).chunk)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
-def test_uses_tensor_cores_k2_in_every_type_k1_in_none(dtype):
+def test_uses_tensor_cores_k1_and_k2_in_every_type(dtype):
     assert twa.uses_tensor_cores(dtype)
     assert twa.uses_tensor_cores(dtype, "bwd")
-    assert not twa.uses_tensor_cores(dtype, "fwd")
+    assert twa.uses_tensor_cores(dtype, "fwd")
     assert not twa.uses_tensor_cores(torch.float64)
+    assert not twa.uses_tensor_cores(torch.float64, "fwd")
     with pytest.raises(ValueError):
         twa.uses_tensor_cores(dtype, "dq")
