@@ -12,9 +12,10 @@ Phases, each fatal on failure:
    tpu_torch/csrc`` (window attention and flash attention), one nvcc each
    for sm_90a, started together, with ptxas's register and spill counts
    and, where the toolkit has ``cuobjdump``, the tensor-core (HMMA)
-   instructions in each kernel's SASS: K1 and K2 must hold some in every
-   type, K3, K4 and K5 in bf16 and f16, every f32 body of K3-K5 none (as
-   ``uses_tensor_cores`` of each module says); no kernel may spill;
+   instructions in each kernel's SASS: K1, K2 and K3 must hold some in
+   every type (f32 as 3xTF32), K4 and K5 in bf16 and f16, the f32 bodies
+   of K4 and K5 none (as ``uses_tensor_cores(dtype, kernel)`` of each
+   module says); no kernel may spill;
 3. kernels: K1 (forward) and K2 (backward) against their plain PyTorch
    versions at every shape the two SwinIR paths below give them: the
    bench shape (q/k/v [1152, 6, 64, 10]: batch 18 at LR 64x64) in f32 and
@@ -34,7 +35,9 @@ Phases, each fatal on failure:
    and one non-causal bf16 case. Errors, device times of kernel, plain version
    and library (``scaled_dot_product_attention(is_causal=...)`` for K3;
    its autograd backward, one call, stands for K4 and K5 together), and
-   the bound from bytes and operations; then a tiny GPT-2 on the card
+   the bound from bytes and operations at the rate of the body each kernel
+   runs (``flash_bounds``). No kernel may be slower than its plain
+   version (``flash_speed_faults``); then a tiny f32 GPT-2 on the card
    against the same model on the CPU;
 5. driver: ``drivers.stoke_ddp.main`` (full-width SwinIR-S, one epoch of
    synthetic data, two optimizer steps) in a scratch directory: finite
@@ -79,9 +82,10 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12, "float16": 989e12}  # CUDA-core f32
-# K1's and K2's products run on the tensor cores in every type, f32 as
-# 3xTF32: three TF32 products (495 TFLOP/s) per product
-WINDOW_PEAK_FLOPS = {"float32": 495e12 / 3, "bfloat16": 989e12, "float16": 989e12}
+# a tensor-core body's rate (K1, K2 and K3 in every type, K4 and K5 in
+# bf16/f16): f32 runs as 3xTF32, three TF32 products (495 TFLOP/s) per product
+TENSOR_PEAK_FLOPS = {"float32": 495e12 / 3, "bfloat16": 989e12, "float16": 989e12}
+ELEMENT_BYTES = {"float32": 4, "bfloat16": 2, "float16": 2}
 TOL = {"float32": 2e-5, "bfloat16": 1e-2, "float16": 2e-3}  # max |err| / max(1, max |ref|)
 CALLS_PER_EVENT = 10  # calls timed back to back between two CUDA events
 SPIN_HZ = 2.0e9  # above the H100's SM clock, so a spin of n cycles lasts at least n / SPIN_HZ s
@@ -268,14 +272,17 @@ def flash_build_faults(regs: dict, hmma: dict | None) -> list[str]:
     """What in the flash kernels' build (``{"dq bf16 D=64": (registers,
     spill bytes)}``) is not as designed: a kernel that spills, and (where
     ``hmma`` was counted) a body whose HMMA use disagrees with the
-    wrappers' ``uses_tensor_cores`` for its type: HMMA in every bf16/f16
-    body of K3-K5, none in f32."""
+    wrappers' ``uses_tensor_cores`` for its kernel and type: HMMA in every
+    body of K3 and in bf16/f16 K4 and K5, none in f32 K4 and K5."""
     import torch
 
     from pytorch_distributedtraining_tpu_torch.ops.flash_attn import uses_tensor_cores
 
-    return _build_faults(
-        regs, hmma, lambda k: uses_tensor_cores(getattr(torch, DTYPES[k.split()[1]])))
+    def uses(key: str) -> bool:
+        kind, dtype = key.split()[:2]
+        return uses_tensor_cores(getattr(torch, DTYPES[dtype]), kind)
+
+    return _build_faults(regs, hmma, uses)
 
 
 def window_build_faults(regs: dict, hmma: dict | None) -> list[str]:
@@ -429,9 +436,9 @@ def _kernel_case(dtype, with_mask: bool, pack: int, batch: int, lr_size: int,
     side = bias.numel() * 4 + (0 if mask is None else mask.numel() * 4)
     dt = str(q.dtype).split(".")[1]
     fwd_bound = bound_ms(4 * q.numel() * esize + side, 4 * bn * h * n * n * d, dt,
-                         WINDOW_PEAK_FLOPS)
+                         TENSOR_PEAK_FLOPS)
     bwd_bound = bound_ms(7 * q.numel() * esize + side + bias.numel() * 4,
-                         10 * bn * h * n * n * d, dt, WINDOW_PEAK_FLOPS)
+                         10 * bn * h * n * n * d, dt, TENSOR_PEAK_FLOPS)
     return {"dtype": dt, "mask": with_mask, "pack": pack, "shape": tuple(q.shape),
             "errors": errors, "times": t, "fwd_bound": fwd_bound, "bwd_bound": bwd_bound,
             "checked": checked}
@@ -494,6 +501,34 @@ def phase_kernels(smi: str) -> list[dict]:
     return cases
 
 
+def flash_bounds(shape: tuple, dtype: str, causal: bool) -> dict:
+    """K3-K5's bounds at q/k/v ``shape`` [B, T, H, D] in ``dtype``: each
+    input read once, each output written once (lse and delta f32), and the
+    score pairs the mask keeps (T(T+1)/2 a row block when causal) at the
+    rate of the body each kernel runs (``uses_tensor_cores``)."""
+    import torch
+
+    from pytorch_distributedtraining_tpu_torch.ops.flash_attn import uses_tensor_cores
+
+    b, t, h, d = shape
+    tensor, stats = b * t * h * d * ELEMENT_BYTES[dtype], b * h * t * 4
+    pairs = b * h * (t * (t + 1) // 2 if causal else t * t)
+    work = {"fwd": (4 * tensor + stats, 4 * pairs * d),
+            "dq": (5 * tensor + 2 * stats, 6 * pairs * d),
+            "dkv": (6 * tensor + 2 * stats, 8 * pairs * d)}
+    return {kernel: bound_ms(moved, flops, dtype,
+                             TENSOR_PEAK_FLOPS if uses_tensor_cores(getattr(torch, dtype), kernel)
+                             else PEAK_FLOPS)
+            for kernel, (moved, flops) in work.items()}
+
+
+def flash_speed_faults(times: dict) -> list[str]:
+    """The kernels of one phase-4 case (``times`` as ``_flash_case`` gives
+    them) that are slower than their plain version."""
+    return [f"{kernel} {times[kernel]:.4f} ms > plain {times['plain_' + kernel]:.4f} ms"
+            for kernel in ("fwd", "dq", "dkv") if times[kernel] > times["plain_" + kernel]]
+
+
 def _flash_case(dtype, causal: bool, seed: int) -> dict:
     """K3-K5 at the GPT-2 phase's shape: errors against the plain versions
     (on the same lse and delta), and the times of kernel, plain version and
@@ -538,18 +573,10 @@ def _flash_case(dtype, causal: bool, seed: int) -> dict:
     times["lib_bwd"] = device_ms(
         lambda: torch.autograd.grad(lout, (lq, lk, lv), ldo, retain_graph=True))
 
-    # each input read once, each output written once; the score pairs this
-    # run's mask keeps (T(T+1)/2 per row block when causal)
-    n, esize, stats = q.numel(), q.element_size(), b * h * t * 4
-    pairs = b * h * (t * (t + 1) // 2 if causal else t * t)
     dt = str(dtype).split(".")[1]
-    bounds = {
-        "fwd": bound_ms(4 * n * esize + stats, 4 * pairs * d, dt),
-        "dq": bound_ms(5 * n * esize + 2 * stats, 6 * pairs * d, dt),
-        "dkv": bound_ms(6 * n * esize + 2 * stats, 8 * pairs * d, dt),
-    }
     return {"dtype": dt, "causal": causal, "shape": tuple(q.shape), "errors": errors,
-            "times": times, "bounds": bounds, "checked": checked}
+            "times": times, "bounds": flash_bounds(tuple(q.shape), dt, causal),
+            "checked": checked}
 
 
 def phase_flash_kernels(smi: str) -> list[dict]:
@@ -577,6 +604,12 @@ def phase_flash_kernels(smi: str) -> list[dict]:
               f"{bd['dkv'][0]:.4f} ({bd['dkv'][1]}) | {smi}")
         if not (worst <= tol and c["errors"]["lse"][1] <= TOL["float32"]):
             raise SystemExit(f"flash kernel disagrees with its plain version: {c['errors']}")
+        print(f"[flash]   K3 / SDPA's forward: {t['fwd'] / t['lib_fwd']:.3f}, K3 / its bound: "
+              f"{t['fwd'] / bd['fwd'][0]:.3f}")
+        slow = flash_speed_faults(t)
+        if slow:
+            raise SystemExit(f"{c['dtype']} causal={int(causal)}: slower than the plain "
+                             f"version: {slow}")
         cases.append(c)
 
     cfg = GPT2Config.tiny(n_embd=128, n_head=2, n_positions=128)

@@ -23,43 +23,51 @@
 // bf16, causal): each q/k/v/o/dO tensor is 6.29 MB, so K3 moves ~25 MB
 // (~7.5 us at 3.35 TB/s), K4 ~32 MB and K5 ~38 MB; the causal products
 // are ~3.2 GFLOP (K3) to ~6.5 GFLOP (K5), ~3-7 us at the bf16 tensor-core
-// rate. At T = 512 neither bound is what sets the pace: a block streams at
-// most eight 64-row tiles, so load latency, register pressure and the
+// rate. In f32, K3's 3.2 GFLOP take 19.6 us as 3xTF32 (three TF32
+// products per product at 495 TFLOP/s) and its 50.5 MB 15.1 us. At T =
+// 512 neither bound is what sets the pace: a block streams at most eight
+// 64-row tiles, so load latency, register pressure, instruction throughput and the
 // warps in flight do.
 //
-// Two bodies, chosen by the input's type inside this library (a type
-// always reaches the same body; nothing switches at run time):
+// Two kinds of body, chosen per kernel and type inside this library (a
+// kernel and type always reach the same body; nothing switches at run
+// time):
 //
-// - bf16 and f16, all three kernels: tensor cores, FlashAttention-2 on
-//   `mma.sync.m16n8k16` (bf16/f16 in, f32 accumulate). A block holds 64
-//   rows (query rows for K3 and K4, key rows for K5) in 4 warps of 16
-//   rows. The resident operands (Q for K3; Q and dO for K4; K and V for
-//   K5) are loaded once into registers with `ldmatrix`. The streamed
-//   64-row tiles (K/V for K3 and K4; Q/dO with their lse and delta for K5)
-//   are staged in the input's type by 16-byte `cp.async` copies,
-//   double-buffered, zero-filled past T, in rows padded by 16 bytes so
-//   that `ldmatrix` is free of bank conflicts. K3 keeps the online softmax
-//   in the accumulator fragments (a row's max and sum take two shuffles
-//   within its quad once per 64-key tile; exp2 with log2(e) folded into
-//   the scale) and feeds P, converted to the input's type in registers,
-//   straight into P.V as the A operand, with V read by `ldmatrix.trans`.
-//   K4 computes S = Q.K^T and dP = dO.V^T, 16 keys at a time, P and dS in
-//   the accumulator fragments (lse and delta of a thread's two rows in
-//   registers, log2(e) folded into lse and the scale), then dQ += dS.K
-//   with dS converted in registers to the A operand and K read by
+// - Tensor cores: K3 in every type, K4 and K5 in bf16 and f16.
+//   FlashAttention-2 on `mma.sync` with f32 accumulate: m16n8k16 for
+//   bf16/f16, 3xTF32 on m16n8k8 for f32. A block holds 64 rows (query
+//   rows for K3 and K4, key rows for K5) in 4 warps of 16 rows. The
+//   resident operands (Q for K3; Q and dO for K4; K and V for K5) are
+//   loaded once into registers (`ldmatrix` in bf16/f16; f32 Q is split
+//   into tf32 hi/lo fragments once a block). The streamed 64-row tiles
+//   (K/V for K3 and K4; Q/dO with their lse and delta for K5) are staged
+//   in the input's type by 16-byte `cp.async` copies, double-buffered,
+//   zero-filled past T, in rows padded by 16 bytes (a row stride of 4 x
+//   odd words) so that `ldmatrix` and the tf32 fragment loads are free of
+//   bank conflicts. K3 keeps the online softmax in the accumulator
+//   fragments (a row's max and sum take two shuffles within its quad once
+//   per 64-key tile; exp2 with log2(e) folded into the scale) and feeds P
+//   straight from the score fragments into P.V as the A operand: in
+//   bf16/f16 converted pairwise, with V read by `ldmatrix.trans`; in f32
+//   under a permuted k index (slot tq is key 2tq, slot tq+4 key 2tq+1,
+//   which the sum over keys does not see), with V's rows read in that
+//   order. K4 computes S = Q.K^T and dP = dO.V^T, 16 keys at a time, P
+//   and dS in the accumulator fragments (lse and delta of a thread's two
+//   rows in registers, log2(e) folded into lse and the scale), then dQ +=
+//   dS.K with dS converted in registers to the A operand and K read by
 //   `ldmatrix.trans`. K5 computes S^T = K.Q^T and dP^T = V.dO^T, P^T and
 //   dS^T in registers, then dV += P^T.dO and dK += dS^T.Q with Q and dO
 //   read by `ldmatrix.trans`, 16 queries at a time to keep the registers
-//   in bounds. Everything after the staging is warp-local. P and dS are
-//   rounded to the input's type before their second product (the JAX
-//   kernels keep them in f32): one step of the type at the largest
-//   entries (PERF.md).
-// - f32, all three kernels: the first, CUDA-core bodies. Tensor cores
-//   would mean TF32, which misses the f32 tolerance. One block per 64-row
+//   in bounds. Everything after the staging is warp-local. In bf16/f16 P
+//   and dS are rounded to the input's type before their second product
+//   (the JAX kernels keep them in f32): one step of the type at the
+//   largest entries (PERF.md). In f32 every operand, P included, enters
+//   as x = hi + lo in tf32 and a.b = hi.hi + hi.lo + lo.hi in f32, about
+//   1e-6 relative: plain TF32 (about 1e-3) would miss the f32 tolerance.
+// - CUDA cores: f32 K4 and K5, the first bodies. One block per 64-row
 //   tile; for D = 64 two threads share a row (one shuffle per dot
 //   product); the streamed operand is staged as f32 in shared memory and
-//   read as broadcast float4s; K3 rescales its online softmax once per 16
-//   keys.
+//   read as broadcast float4s.
 //
 // Common to both: causal skipping (K3 and K4 stop at the last key tile
 // that reaches the block's last query row, K5 starts at the query tile of
@@ -82,13 +90,15 @@
 // (at T = 512 these kernels are latency-bound, not FLOP-bound).
 //
 // Resources at D = 64 (ptxas of CUDA 12.8, sm_90a, -O3), no spills
-// anywhere: tensor-core K3 128, K4 128 and K5 167 registers a thread, with
-// 36 KB (K3, K4) and 37 KB (K5) of dynamic shared memory a block (under
-// the 48 KB that needs no opt-in); the CUDA-core K3 143, K4 166 and K5
-// 208. chip_smoke.py's build phase prints every kernel's registers and
-// spills with the HMMA instructions in its SASS (at D = 64: 64 in K3, 96
-// in K4 and 128 in K5, the unrolled m16n8k16 products; none in an f32
-// body), and fails if a kernel spills or a body's HMMA use is not as
+// anywhere: tensor-core K3 128 registers a thread in bf16/f16 and 227 in
+// f32, K4 128 and K5 167, with 36 KB (K3, K4) and 37 KB (K5) of dynamic
+// shared memory a block in bf16/f16 and 68 KB for f32 K3 (above the 48
+// KB that needs no opt-in: the launch opts in); the CUDA-core K4 166 and
+// K5 208. chip_smoke.py's build phase prints every kernel's registers and
+// spills with the HMMA instructions in its SASS (at D = 64: 64 in bf16/f16
+// K3, 96 in K4 and 128 in K5, the unrolled m16n8k16 products; 384 in f32
+// K3, three m16n8k8 products for each of S's 64 and P.V's 64; none in f32
+// K4 or K5), and fails if a kernel spills or a body's HMMA use is not as
 // designed.
 
 #include <cuda_runtime.h>
@@ -103,9 +113,9 @@ namespace {
 
 constexpr int kRows = 64;   // query rows (K3, K4) or key rows (K5) per block
 constexpr int kTile = 64;   // streamed rows per shared-memory stage
-constexpr int kChunk = 16;  // CUDA-core K3: keys per online-softmax rescale
 constexpr int kMmaThreads = 128;  // tensor-core bodies: 4 warps of 16 rows
-constexpr int kPad = 8;     // tensor-core bodies: elements of padding per smem row
+constexpr int kPadBytes = 16;     // tensor-core bodies: padding per smem row
+constexpr size_t kNoOptInSmem = 48 * 1024;  // dynamic smem a block gets without opting in
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
@@ -123,8 +133,10 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float
 }
 template <> __device__ __forceinline__ __half from_f<__half>(float x) { return __float2half(x); }
 
+enum Kernel { kFwd = 0, kDq = 1, kDkv = 2 };
+
 // ---------------------------------------------------------------------------
-// CUDA-core bodies (f32 K3, K4 and K5)
+// CUDA-core bodies (f32 K4 and K5)
 
 // How the threads of a block split rows of width D.
 template <int D>
@@ -135,19 +147,29 @@ struct Split {
   static constexpr int kThreads = kRows * kParts;
 };
 
-// The body, block size and shared memory each (type, head dim) takes.
+// A tensor-core body's stage tile: kTile rows of D elements in T, padded
+// by 16 bytes (8 bf16/f16 or 4 f32 elements: a row stride of 4 x odd
+// words, so that ldmatrix and the tf32 fragment loads are free of bank
+// conflicts).
 template <typename T, int D>
+struct Tiles {
+  static constexpr int kStride = D + kPadBytes / (int)sizeof(T);  // elements
+  static constexpr int kTileElems = kTile * kStride;
+};
+
+// The body, block size and shared memory that kernel K takes at (type,
+// head dim): K3 on the tensor cores in every type, K4 and K5 in bf16/f16;
+// f32 K4 and K5 on the CUDA cores.
+template <typename T, int D, int K>
 struct Body {
-  static constexpr bool kMma = !std::is_same<T, float>::value;  // tensor cores
+  static constexpr bool kMma = K == kFwd || !std::is_same<T, float>::value;
   static constexpr int kThreads = kMma ? kMmaThreads : Split<D>::kThreads;
-  static constexpr int kStride = D + kPad;           // tensor-core smem row, elements
-  static constexpr int kTileElems = kTile * kStride;  // one tensor-core stage tile
-  // two stages of two tiles (K/V for K3 and K4, Q/dO for K5); K5 adds
-  // lse/delta. The f32 K3 and K4 stage one K/V tile pair as f32.
-  static constexpr size_t kFwdSmem =
-      kMma ? 4 * kTileElems * sizeof(T) : 2 * kTile * D * sizeof(float);
-  static constexpr size_t kDkvSmem =
-      kMma ? kFwdSmem + 4 * kTile * sizeof(float) : kFwdSmem + 2 * kTile * sizeof(float);
+  // tensor cores: two stages of two tiles (K/V for K3 and K4, Q/dO for
+  // K5), K5 adding the stages' lse/delta; CUDA cores: one K/V (K4) or
+  // Q/dO (K5) tile pair as f32, K5 adding lse/delta.
+  static constexpr size_t kSmem =
+      kMma ? 4 * Tiles<T, D>::kTileElems * sizeof(T) + (K == kDkv ? 4 * kTile * sizeof(float) : 0)
+           : 2 * kTile * D * sizeof(float) + (K == kDkv ? 2 * kTile * sizeof(float) : 0);
 };
 
 // This thread's row in the block's tile and its first column.
@@ -224,76 +246,6 @@ __device__ __forceinline__ void load_tile(float* dst, const T* __restrict__ src,
     const int c = e - r * D;
     const int t = r0 + r;
     dst[e] = t < t_len ? to_f<T>(src[(long long)t * stride + c]) : 0.f;
-  }
-}
-
-template <typename T, int D>
-__device__ __forceinline__ void fwd_simt(float* smem, const T* __restrict__ q,
-                                         const T* __restrict__ k, const T* __restrict__ v,
-                                         T* __restrict__ o, float* __restrict__ lse, int t_len,
-                                         int heads, long long sb, long long st, long long sh,
-                                         int causal, float scale) {
-  using S = Split<D>;
-  float* sk = smem;
-  float* sv = sk + kTile * D;
-
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int q0 = blockIdx.x * kRows;
-  int r, c0;
-  my_row<D>(r, c0);
-  const int i = q0 + r;                // this thread's query row
-  const int ic = min(i, t_len - 1);    // rows past T compute on and are dropped
-  const long long base = (long long)b * sb + (long long)h * sh;
-
-  float qr[S::kCols];
-  load_row<T, S::kCols>(qr, q + base + (long long)ic * st + c0, scale);
-  float acc[S::kCols];
-#pragma unroll
-  for (int c = 0; c < S::kCols; ++c) acc[c] = 0.f;
-  float m = -INFINITY;
-  float l = 0.f;
-
-  const int kend = causal ? min(t_len, q0 + kRows) : t_len;
-  for (int j0 = 0; j0 < kend; j0 += kTile) {
-    __syncthreads();  // the previous tile is consumed
-    load_tile<T, D>(sk, k + base, st, j0, t_len);
-    load_tile<T, D>(sv, v + base, st, j0, t_len);
-    __syncthreads();
-    const int jn = min(kTile, kend - j0);
-    for (int jc = 0; jc < jn; jc += kChunk) {
-      float s[kChunk];
-      float cmax = -INFINITY;
-#pragma unroll
-      for (int u = 0; u < kChunk; ++u) {
-        const int j = jc + u;
-        const float x = row_sum<D>(dot<S::kCols>(qr, sk + j * D + c0));
-        const bool ok = j < jn && (!causal || j0 + j <= i);
-        s[u] = ok ? x : -INFINITY;
-        cmax = fmaxf(cmax, s[u]);
-      }
-      const float m_new = fmaxf(m, cmax);
-      // m = -inf only before the row's first key: acc and l are 0 then
-      const float corr = m == -INFINITY ? 0.f : expf(m - m_new);
-      l *= corr;
-#pragma unroll
-      for (int c = 0; c < S::kCols; ++c) acc[c] *= corr;
-#pragma unroll
-      for (int u = 0; u < kChunk; ++u) {
-        const float p = s[u] == -INFINITY ? 0.f : expf(s[u] - m_new);
-        l += p;
-        axpy<S::kCols>(acc, p, sv + (jc + u) * D + c0);
-      }
-      m = m_new;
-    }
-  }
-
-  if (i < t_len) {
-    const float l_safe = fmaxf(l, 1e-30f);
-    T* orow = o + (((long long)b * t_len + i) * heads + h) * D + c0;
-#pragma unroll
-    for (int c = 0; c < S::kCols; ++c) orow[c] = from_f<T>(acc[c] / l_safe);
-    if (c0 == 0) lse[((long long)b * heads + h) * t_len + i] = m + logf(l_safe);
   }
 }
 
@@ -520,13 +472,44 @@ __device__ __forceinline__ void to_a(uint32_t (&a)[4], const float (&c0)[4],
   a[3] = pack2<T>(c1[2], c1[3]);
 }
 
+// d += a . b in tf32, f32 accumulate (m16n8k8: A 16x8, B 8x8).
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// x = hi + lo: hi is x rounded to tf32, to nearest with ties away (half a
+// tf32 step added to the bits, the 13 low bits cleared: what `cvt.rna.
+// tf32.f32` gives for finite x, in two integer instructions where cvt.rna
+// compiles to a compare-and-select chain on sm_90); lo = x - hi, exact in
+// f32, which the tensor core reads truncated to tf32 (as CUTLASS's
+// fast-accurate 3xTF32 rounds its small part toward zero).
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
+// d += a . b as 3xTF32: the small terms first, then hi . hi.
+__device__ __forceinline__ void mma_3xtf32(float (&d)[4], const uint32_t (&ah)[4],
+                                           const uint32_t (&al)[4], const uint32_t (&bh)[2],
+                                           const uint32_t (&bl)[2]) {
+  mma_tf32(d, al, bh[0], bh[1]);
+  mma_tf32(d, ah, bl[0], bl[1]);
+  mma_tf32(d, ah, bh[0], bh[1]);
+}
+
 // Rows r0 .. r0+kTile-1 of a [T, D] matrix whose row t starts at
-// src + t*stride -> shared [kTile][D + kPad] in T by cp.async; rows at or
-// past T are zero.
+// src + t*stride -> shared [kTile][Tiles::kStride] in T by cp.async; rows
+// at or past T are zero.
 template <typename T, int D>
 __device__ __forceinline__ void tile_async(T* dst, const T* __restrict__ src, long long stride,
                                            int r0, int t_len) {
-  constexpr int kPieces = D * (int)sizeof(T) / 16;  // 16-byte pieces a row
+  constexpr int kElems = 16 / (int)sizeof(T);  // elements a 16-byte piece
+  constexpr int kPieces = D / kElems;           // pieces a row
   constexpr int kPer = kTile * kPieces / kMmaThreads;
   static_assert(kPer * kMmaThreads == kTile * kPieces, "pieces must split evenly");
 #pragma unroll
@@ -536,8 +519,8 @@ __device__ __forceinline__ void tile_async(T* dst, const T* __restrict__ src, lo
     const int c = e - r * kPieces;
     const int t = r0 + r;
     const bool ok = t < t_len;
-    cp_async16(dst + r * Body<T, D>::kStride + c * 8,
-               src + (long long)(ok ? t : 0) * stride + c * 8, ok);
+    cp_async16(dst + r * Tiles<T, D>::kStride + c * kElems,
+               src + (long long)(ok ? t : 0) * stride + c * kElems, ok);
   }
 }
 
@@ -545,7 +528,7 @@ __device__ __forceinline__ void tile_async(T* dst, const T* __restrict__ src, lo
 // column 0): matrices (rows 0-7 | 8-15) x (columns 0-7 | 8-15), column-major.
 template <typename T, int D>
 __device__ __forceinline__ int a_offset(int lane) {
-  return (lane & 15) * Body<T, D>::kStride + (lane >> 4) * 8;
+  return (lane & 15) * Tiles<T, D>::kStride + (lane >> 4) * 8;
 }
 
 // ... for two B fragments (n-blocks 0-7 and 8-15 of 16 rows, k = columns
@@ -553,7 +536,7 @@ __device__ __forceinline__ int a_offset(int lane) {
 // (n 8-15, k 0-7), (n 8-15, k 8-15).
 template <typename T, int D>
 __device__ __forceinline__ int b_offset(int lane) {
-  return ((lane & 7) + (lane >> 4) * 8) * Body<T, D>::kStride + ((lane >> 3) & 1) * 8;
+  return ((lane & 7) + (lane >> 4) * 8) * Tiles<T, D>::kStride + ((lane >> 3) & 1) * 8;
 }
 
 // ... for two B fragments (n = columns 0-7 and 8-15, k = rows 0-15) of a
@@ -561,8 +544,136 @@ __device__ __forceinline__ int b_offset(int lane) {
 // n 0-7), (k 0-7, n 8-15), (k 8-15, n 8-15).
 template <typename T, int D>
 __device__ __forceinline__ int bt_offset(int lane) {
-  return ((lane & 7) + ((lane >> 3) & 1) * 8) * Body<T, D>::kStride + (lane >> 4) * 8;
+  return ((lane & 7) + ((lane >> 3) & 1) * 8) * Tiles<T, D>::kStride + (lane >> 4) * 8;
 }
+
+// K3's products for one warp's 16 query rows against one 64-key tile:
+// - load_q: Q's A fragments from the stage tile at the warp's first row;
+// - scores: s[kb] += Q . K[8kb .. 8kb+7]^T, the tile's 8-key blocks;
+// - pv: acc += P . V with P straight from the C fragments s.
+// 16-bit types: m16n8k16 from ldmatrix, P converted pairwise in registers.
+template <typename T, int D>
+struct Fwd {
+  using B = Tiles<T, D>;
+  static constexpr int kKS = D / 16;  // 16-wide steps over the head dim
+  static constexpr int kNB = D / 8;   // 8-wide blocks of the head dim
+  struct QFrag {
+    uint32_t r[kKS][4];
+  };
+
+  static __device__ __forceinline__ void load_q(QFrag& f, const T* qs, int lane) {
+    const T* p = qs + a_offset<T, D>(lane);
+#pragma unroll
+    for (int ks = 0; ks < kKS; ++ks) ldsm_x4(f.r[ks], p + ks * 16);
+  }
+
+  static __device__ __forceinline__ void scores(float (&s)[kTile / 8][4], const QFrag& f,
+                                                const T* ks_tile, int lane) {
+#pragma unroll
+    for (int ks = 0; ks < kKS; ++ks) {
+#pragma unroll
+      for (int kb = 0; kb < kTile / 16; ++kb) {
+        uint32_t kf[4];
+        ldsm_x4(kf, ks_tile + kb * 16 * B::kStride + b_offset<T, D>(lane) + ks * 16);
+        mma<T>(s[2 * kb], f.r[ks], kf[0], kf[1]);
+        mma<T>(s[2 * kb + 1], f.r[ks], kf[2], kf[3]);
+      }
+    }
+  }
+
+  static __device__ __forceinline__ void pv(float (&acc)[kNB][4], const float (&s)[kTile / 8][4],
+                                            const T* vs_tile, int lane) {
+#pragma unroll
+    for (int kk = 0; kk < kTile / 16; ++kk) {
+      uint32_t pa[4];
+      to_a<T>(pa, s[2 * kk], s[2 * kk + 1]);
+#pragma unroll
+      for (int nd = 0; nd < kNB / 2; ++nd) {
+        uint32_t vf[4];
+        ldsm_x4_t(vf, vs_tile + kk * 16 * B::kStride + bt_offset<T, D>(lane) + nd * 16);
+        mma<T>(acc[2 * nd], pa, vf[0], vf[1]);
+        mma<T>(acc[2 * nd + 1], pa, vf[2], vf[3]);
+      }
+    }
+  }
+
+  static __device__ __forceinline__ void store2(T* dst, float a, float b) {
+    *reinterpret_cast<uint32_t*>(dst) = pack2<T>(a, b);
+  }
+};
+
+// f32: 3xTF32 on m16n8k8 from plain 32-bit shared loads (the padded row
+// stride keeps each fragment's loads on 32 distinct banks). Q is split
+// into hi/lo once a block and kept; K, V and P are split where they are
+// read. P is not rounded: it enters P.V as hi + lo like any f32 operand.
+template <int D>
+struct Fwd<float, D> {
+  static constexpr int kLd = Tiles<float, D>::kStride;
+  static constexpr int kKS = D / 8;  // 8-wide steps over the head dim
+  static constexpr int kNB = D / 8;  // 8-wide blocks of the head dim
+  struct QFrag {
+    uint32_t hi[kKS][4], lo[kKS][4];
+  };
+
+  // a0 = (g, tq), a1 = (g+8, tq), a2 = (g, tq+4), a3 = (g+8, tq+4)
+  static __device__ __forceinline__ void load_q(QFrag& f, const float* qs, int lane) {
+    const float* p = qs + (lane >> 2) * kLd + (lane & 3);
+#pragma unroll
+    for (int ks = 0; ks < kKS; ++ks) {
+      split_tf32(p[ks * 8], f.hi[ks][0], f.lo[ks][0]);
+      split_tf32(p[8 * kLd + ks * 8], f.hi[ks][1], f.lo[ks][1]);
+      split_tf32(p[ks * 8 + 4], f.hi[ks][2], f.lo[ks][2]);
+      split_tf32(p[8 * kLd + ks * 8 + 4], f.hi[ks][3], f.lo[ks][3]);
+    }
+  }
+
+  // B = K^T: b0 = (k = column tq, n = key g), b1 = (column tq+4, key g)
+  static __device__ __forceinline__ void scores(float (&s)[kTile / 8][4], const QFrag& f,
+                                                const float* ks_tile, int lane) {
+    const float* p = ks_tile + (lane >> 2) * kLd + (lane & 3);
+#pragma unroll
+    for (int ks = 0; ks < kKS; ++ks) {
+#pragma unroll
+      for (int kb = 0; kb < kTile / 8; ++kb) {
+        uint32_t bh[2], bl[2];
+        split_tf32(p[kb * 8 * kLd + ks * 8], bh[0], bl[0]);
+        split_tf32(p[kb * 8 * kLd + ks * 8 + 4], bh[1], bl[1]);
+        mma_3xtf32(s[kb], f.hi[ks], f.lo[ks], bh, bl);
+      }
+    }
+  }
+
+  // The C fragment of keys 8kb.. holds keys 2tq and 2tq+1 of rows g and
+  // g+8; as an A fragment, k slot tq is key 2tq and slot tq+4 key 2tq+1
+  // (a sum over k does not see the order), so B reads V's rows 2tq and
+  // 2tq+1 in the same order.
+  static __device__ __forceinline__ void pv(float (&acc)[kNB][4],
+                                            const float (&s)[kTile / 8][4],
+                                            const float* vs_tile, int lane) {
+    const int g = lane >> 2;
+    const int tq = lane & 3;
+#pragma unroll
+    for (int kb = 0; kb < kTile / 8; ++kb) {
+      uint32_t ah[4], al[4];
+      split_tf32(s[kb][0], ah[0], al[0]);
+      split_tf32(s[kb][2], ah[1], al[1]);
+      split_tf32(s[kb][1], ah[2], al[2]);
+      split_tf32(s[kb][3], ah[3], al[3]);
+      const float* p = vs_tile + (kb * 8 + 2 * tq) * kLd + g;
+#pragma unroll
+      for (int nb = 0; nb < kNB; ++nb) {
+        uint32_t bh[2], bl[2];
+        split_tf32(p[nb * 8], bh[0], bl[0]);
+        split_tf32(p[kLd + nb * 8], bh[1], bl[1]);
+        mma_3xtf32(acc[nb], ah, al, bh, bl);
+      }
+    }
+  }
+
+  static __device__ __forceinline__ void store2(float* dst, float a, float b) {
+    *reinterpret_cast<float2*>(dst) = make_float2(a, b);
+  }
+};
 
 template <typename T, int D>
 __device__ __forceinline__ void fwd_mma(T* smem, const T* __restrict__ q,
@@ -570,8 +681,8 @@ __device__ __forceinline__ void fwd_mma(T* smem, const T* __restrict__ q,
                                         T* __restrict__ o, float* __restrict__ lse, int t_len,
                                         int heads, long long sb, long long st, long long sh,
                                         int causal, float scale) {
-  using B = Body<T, D>;
-  constexpr int kKS = D / 16;       // 16-wide steps over the head dim
+  using B = Tiles<T, D>;
+  using F = Fwd<T, D>;
   constexpr int kNB = D / 8;        // 8-wide blocks of the head dim
   constexpr int kKB = kTile / 8;    // 8-wide blocks of a key tile
   // stage s holds K at smem + 2*s*kTileElems and V right after it
@@ -596,12 +707,8 @@ __device__ __forceinline__ void fwd_mma(T* smem, const T* __restrict__ q,
   cp_async_commit();
   cp_async_wait<0>();
   __syncthreads();
-  uint32_t qf[kKS][4];
-  {
-    const T* qs = smem + 2 * B::kTileElems + warp * 16 * B::kStride + a_offset<T, D>(lane);
-#pragma unroll
-    for (int ks = 0; ks < kKS; ++ks) ldsm_x4(qf[ks], qs + ks * 16);
-  }
+  typename F::QFrag qf;
+  F::load_q(qf, smem + 2 * B::kTileElems + warp * 16 * B::kStride, lane);
   __syncthreads();  // stage 1 is free
 
   float acc[kNB][4];
@@ -634,16 +741,7 @@ __device__ __forceinline__ void fwd_mma(T* smem, const T* __restrict__ q,
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
     }
-#pragma unroll
-    for (int ks = 0; ks < kKS; ++ks) {
-#pragma unroll
-      for (int kb = 0; kb < kKB / 2; ++kb) {
-        uint32_t kf[4];
-        ldsm_x4(kf, ks_tile + kb * 16 * B::kStride + b_offset<T, D>(lane) + ks * 16);
-        mma<T>(s[2 * kb], qf[ks], kf[0], kf[1]);
-        mma<T>(s[2 * kb + 1], qf[ks], kf[2], kf[3]);
-      }
-    }
+    F::scores(s, qf, ks_tile, lane);
     // scores in log2 units; the per-element mask only on the tile that
     // crosses the diagonal or T
     const bool edge = j0 + kTile > t_len || (causal && j0 + kTile - 1 > q0);
@@ -690,18 +788,7 @@ __device__ __forceinline__ void fwd_mma(T* smem, const T* __restrict__ q,
       acc[n][3] *= corr[1];
     }
     // O += P V, P straight from the score fragments
-#pragma unroll
-    for (int kk = 0; kk < kTile / 16; ++kk) {
-      uint32_t pa[4];
-      to_a<T>(pa, s[2 * kk], s[2 * kk + 1]);
-#pragma unroll
-      for (int nd = 0; nd < kNB / 2; ++nd) {
-        uint32_t vf[4];
-        ldsm_x4_t(vf, vs_tile + kk * 16 * B::kStride + bt_offset<T, D>(lane) + nd * 16);
-        mma<T>(acc[2 * nd], pa, vf[0], vf[1]);
-        mma<T>(acc[2 * nd + 1], pa, vf[2], vf[3]);
-      }
-    }
+    F::pv(acc, s, vs_tile, lane);
     __syncthreads();  // stage jt & 1 is consumed
   }
 
@@ -717,8 +804,7 @@ __device__ __forceinline__ void fwd_mma(T* smem, const T* __restrict__ q,
       T* orow = o + (((long long)b * t_len + i) * heads + h) * D + 2 * tq;
 #pragma unroll
       for (int n = 0; n < kNB; ++n) {
-        *reinterpret_cast<uint32_t*>(orow + n * 8) =
-            pack2<T>(acc[n][2 * r] * inv, acc[n][2 * r + 1] * inv);
+        F::store2(orow + n * 8, acc[n][2 * r] * inv, acc[n][2 * r + 1] * inv);
       }
       if (tq == 0) lse[((long long)b * heads + h) * t_len + i] = (m[r] + log2f(l_safe)) * kLn2;
     }
@@ -733,7 +819,7 @@ __device__ __forceinline__ void dq_mma(T* smem, const T* __restrict__ q,
                                        const float* __restrict__ delta, T* __restrict__ dq,
                                        int t_len, int heads, long long sb, long long st,
                                        long long sh, int causal, float scale) {
-  using B = Body<T, D>;
+  using B = Tiles<T, D>;
   constexpr int kKS = D / 16;
   constexpr int kNB = D / 8;
   // stage s holds K at smem + 2*s*kTileElems and V right after it, as in K3
@@ -878,7 +964,7 @@ __device__ __forceinline__ void dkv_mma(T* smem, const T* __restrict__ q,
                                         const float* __restrict__ delta, T* __restrict__ dk,
                                         T* __restrict__ dv, int t_len, int heads, long long sb,
                                         long long st, long long sh, int causal, float scale) {
-  using B = Body<T, D>;
+  using B = Tiles<T, D>;
   constexpr int kKS = D / 16;
   constexpr int kNB = D / 8;
   // stage s holds Q at smem + 2*s*kTileElems and dO right after it; the
@@ -1031,33 +1117,28 @@ __device__ __forceinline__ void dkv_mma(T* smem, const T* __restrict__ q,
 }
 
 // ---------------------------------------------------------------------------
-// K3, K4 and K5: one kernel each, whose body the type selects
+// K3, K4 and K5: one kernel each; K4's and K5's bodies the type selects
 
 template <typename T, int D>
-__global__ void __launch_bounds__(Body<T, D>::kThreads)
+__global__ void __launch_bounds__(Body<T, D, kFwd>::kThreads)
     flash_attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                           const T* __restrict__ v, T* __restrict__ o, float* __restrict__ lse,
                           int t_len, int heads, long long sb, long long st, long long sh,
                           int causal, float scale) {
   extern __shared__ float4 smem4[];
-  if constexpr (Body<T, D>::kMma) {
-    fwd_mma<T, D>(reinterpret_cast<T*>(smem4), q, k, v, o, lse, t_len, heads, sb, st, sh,
-                  causal, scale);
-  } else {
-    fwd_simt<T, D>(reinterpret_cast<float*>(smem4), q, k, v, o, lse, t_len, heads, sb, st, sh,
-                   causal, scale);
-  }
+  fwd_mma<T, D>(reinterpret_cast<T*>(smem4), q, k, v, o, lse, t_len, heads, sb, st, sh, causal,
+                scale);
 }
 
 template <typename T, int D>
-__global__ void __launch_bounds__(Body<T, D>::kThreads)
+__global__ void __launch_bounds__(Body<T, D, kDq>::kThreads)
     flash_attn_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                          const T* __restrict__ v, const T* __restrict__ dout,
                          const float* __restrict__ lse, const float* __restrict__ delta,
                          T* __restrict__ dq, int t_len, int heads, long long sb, long long st,
                          long long sh, int causal, float scale) {
   extern __shared__ float4 smem4[];
-  if constexpr (Body<T, D>::kMma) {
+  if constexpr (Body<T, D, kDq>::kMma) {
     dq_mma<T, D>(reinterpret_cast<T*>(smem4), q, k, v, dout, lse, delta, dq, t_len, heads, sb,
                  st, sh, causal, scale);
   } else {
@@ -1067,14 +1148,14 @@ __global__ void __launch_bounds__(Body<T, D>::kThreads)
 }
 
 template <typename T, int D>
-__global__ void __launch_bounds__(Body<T, D>::kThreads)
+__global__ void __launch_bounds__(Body<T, D, kDkv>::kThreads)
     flash_attn_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                           const T* __restrict__ v, const T* __restrict__ dout,
                           const float* __restrict__ lse, const float* __restrict__ delta,
                           T* __restrict__ dk, T* __restrict__ dv, int t_len, int heads,
                           long long sb, long long st, long long sh, int causal, float scale) {
   extern __shared__ float4 smem4[];
-  if constexpr (Body<T, D>::kMma) {
+  if constexpr (Body<T, D, kDkv>::kMma) {
     dkv_mma<T, D>(reinterpret_cast<T*>(smem4), q, k, v, dout, lse, delta, dk, dv, t_len, heads,
                   sb, st, sh, causal, scale);
   } else {
@@ -1100,8 +1181,6 @@ struct Args {
   cudaStream_t stream;
 };
 
-enum Kernel { kFwd = 0, kDq = 1, kDkv = 2 };
-
 // The tensor-core bodies copy 16-byte pieces: every row they stage (q/k/v
 // through the shared strides, dO contiguous) must start on 16 bytes.
 template <typename T>
@@ -1114,34 +1193,43 @@ bool rows_aligned(int which, const Args& a) {
   return ok;
 }
 
+// Launches kernel K at (T, D) with its body's grid, block and shared
+// memory: a tensor-core body takes the tile-major grid, refuses rows off 16
+// bytes and, above 48 KB of shared memory (f32 K3 at D = 64), opts in to
+// it first; a CUDA-core body takes (tiles, heads, batch).
+template <typename T, int D, int K, typename Kern, typename... A>
+cudaError_t start(Kern kernel, const Args& a, A... args) {
+  using B = Body<T, D, K>;
+  const int tiles = (a.t_len + kRows - 1) / kRows;
+  const dim3 grid = B::kMma ? dim3(a.heads * a.batch, tiles) : dim3(tiles, a.heads, a.batch);
+  if (B::kMma && !rows_aligned<T>(K, a)) return cudaErrorMisalignedAddress;
+  if (B::kSmem > kNoOptInSmem) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)B::kSmem);
+    if (err != cudaSuccess) return err;
+  }
+  kernel<<<grid, B::kThreads, B::kSmem, a.stream>>>(args...);
+  return cudaGetLastError();
+}
+
 template <typename T, int D>
 cudaError_t launch(int which, const Args& a) {
-  using B = Body<T, D>;
-  const int tiles = (a.t_len + kRows - 1) / kRows;
-  const dim3 grid(tiles, a.heads, a.batch);
-  const dim3 mma_grid(a.heads * a.batch, tiles);  // the tensor-core bodies' order
   const T* q = static_cast<const T*>(a.q);
   const T* k = static_cast<const T*>(a.k);
   const T* v = static_cast<const T*>(a.v);
   const T* dout = static_cast<const T*>(a.dout);
-  if (B::kMma && !rows_aligned<T>(which, a)) return cudaErrorMisalignedAddress;
   if (which == kFwd) {
-    flash_attn_fwd_kernel<T, D><<<B::kMma ? mma_grid : grid, B::kThreads, B::kFwdSmem,
-                                  a.stream>>>(
-        q, k, v, static_cast<T*>(a.out0), a.lse_out, a.t_len, a.heads, a.sb, a.st, a.sh,
-        a.causal, a.scale);
-  } else if (which == kDq) {
-    flash_attn_dq_kernel<T, D><<<B::kMma ? mma_grid : grid, B::kThreads, B::kFwdSmem,
-                                 a.stream>>>(
-        q, k, v, dout, a.lse_in, a.delta, static_cast<T*>(a.out0), a.t_len, a.heads, a.sb,
-        a.st, a.sh, a.causal, a.scale);
-  } else {
-    flash_attn_dkv_kernel<T, D><<<B::kMma ? mma_grid : grid, B::kThreads, B::kDkvSmem,
-                                  a.stream>>>(
-        q, k, v, dout, a.lse_in, a.delta, static_cast<T*>(a.out0), static_cast<T*>(a.out1),
-        a.t_len, a.heads, a.sb, a.st, a.sh, a.causal, a.scale);
+    return start<T, D, kFwd>(flash_attn_fwd_kernel<T, D>, a, q, k, v, static_cast<T*>(a.out0),
+                             a.lse_out, a.t_len, a.heads, a.sb, a.st, a.sh, a.causal, a.scale);
   }
-  return cudaGetLastError();
+  if (which == kDq) {
+    return start<T, D, kDq>(flash_attn_dq_kernel<T, D>, a, q, k, v, dout, a.lse_in, a.delta,
+                            static_cast<T*>(a.out0), a.t_len, a.heads, a.sb, a.st, a.sh,
+                            a.causal, a.scale);
+  }
+  return start<T, D, kDkv>(flash_attn_dkv_kernel<T, D>, a, q, k, v, dout, a.lse_in, a.delta,
+                           static_cast<T*>(a.out0), static_cast<T*>(a.out1), a.t_len, a.heads,
+                           a.sb, a.st, a.sh, a.causal, a.scale);
 }
 
 // dtype codes shared with the Python wrapper

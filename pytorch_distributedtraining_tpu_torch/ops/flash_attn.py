@@ -12,12 +12,14 @@ takes the plain version. Nothing falls back from one to the other. The
 launch counts ``fwd_launches``, ``dq_launches`` and ``dkv_launches`` rise
 by one where a wrapper launches its kernel and nowhere else.
 
-The library picks each kernel's body by the input's type: K3, K4 and K5
-run on the tensor cores for bf16 and f16 (:func:`uses_tensor_cores`) and
-on the CUDA cores for f32. The tensor-core bodies stage rows (q/k/v, and
-dO for K4 and K5) by 16-byte ``cp.async`` copies, so the wrappers hand
-them only rows that start on 16 bytes (:func:`rows_aligned`) and copy
-anything else to a fresh contiguous tensor first.
+The library picks each kernel's body by kernel and type
+(:func:`uses_tensor_cores`): K3 runs on the tensor cores in every type
+(f32 as 3xTF32: plain TF32 would miss the f32 tolerance), K4 and K5 for
+bf16 and f16 and on the CUDA cores for f32. The tensor-core bodies stage
+rows (q/k/v, and dO for K4 and K5) by 16-byte ``cp.async`` copies, so the
+wrappers hand them only rows that start on 16 bytes
+(:func:`rows_aligned`) and copy anything else to a fresh contiguous
+tensor first.
 
 Layouts follow the JAX package: q/k/v/o ``[B, T, H, Dh]``; the per-row
 logsumexp ``lse`` and ``delta = rowsum(dO*O)`` are ``[B, H, T]`` f32 (the
@@ -136,12 +138,20 @@ def _check(q, k, v):
         raise ValueError(f"flash attention takes head dim {HEAD_DIMS}, got {q.shape[-1]}")
 
 
-def uses_tensor_cores(dtype) -> bool:
-    """Whether K3, K4 and K5 run their tensor-core bodies for ``dtype``
-    (bf16, f16). f32 keeps the CUDA-core bodies: tensor cores would mean
-    TF32, which misses the f32 tolerance. The library decides the same way,
-    by type alone."""
-    return dtype in (torch.bfloat16, torch.float16)
+KERNELS = ("fwd", "dq", "dkv")  # K3, K4, K5
+
+
+def uses_tensor_cores(dtype, kernel: str) -> bool:
+    """Whether K3 (``"fwd"``), K4 (``"dq"``) or K5 (``"dkv"``) runs its
+    tensor-core body for ``dtype``: all three for bf16 and f16 on
+    ``mma.sync.m16n8k16``; K3 for f32 too, as 3xTF32 on ``m16n8k8`` (plain
+    TF32 would miss the f32 tolerance). f32 K4 and K5 keep their CUDA-core
+    bodies. The library decides the same way."""
+    if kernel not in KERNELS:
+        raise ValueError(f"kernel is one of {KERNELS}, got {kernel!r}")
+    if dtype in (torch.bfloat16, torch.float16):
+        return True
+    return dtype == torch.float32 and kernel == "fwd"
 
 
 def rows_aligned(t) -> bool:
@@ -158,14 +168,14 @@ def _aligned_copy(t):
     return t if rows_aligned(t) else t.clone()
 
 
-def _qkv_strides(q, k, v):
-    """q/k/v as the kernels read them: one set of (batch, time, head)
-    strides, last dimension contiguous, and for the tensor-core bodies
-    every row on 16 bytes. Views of one fused projection already are (GPT-2's
+def _qkv_strides(q, k, v, kernel: str):
+    """q/k/v as ``kernel`` reads them: one set of (batch, time, head)
+    strides, last dimension contiguous, and for a tensor-core body every
+    row on 16 bytes. Views of one fused projection already are (GPT-2's
     sit 1536 and 3072 bytes in, 4608-byte time stride); anything else is
     copied to fresh contiguous tensors."""
     keep = q.stride() == k.stride() == v.stride() and q.stride(-1) == 1
-    if keep and uses_tensor_cores(q.dtype):
+    if keep and uses_tensor_cores(q.dtype, kernel):
         keep = all(rows_aligned(t) for t in (q, k, v))
     if not keep:
         q, k, v = (_aligned_copy(t) for t in (q, k, v))
@@ -180,7 +190,7 @@ def kernel_forward(q, k, v, causal: bool = True):
     """Launch K3 on CUDA tensors; returns ``(out [B, T, H, Dh], lse [B, H, T])``."""
     global fwd_launches
     _check(q, k, v)
-    (q, k, v), (sb, st, sh) = _qkv_strides(q, k, v)
+    (q, k, v), (sb, st, sh) = _qkv_strides(q, k, v, "fwd")
     lib = csrc.load("flash_attn")
     b, t, h, d = q.shape
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
@@ -209,7 +219,7 @@ def kernel_dq(q, k, v, do, lse, delta, causal: bool = True):
     global dq_launches
     _check(q, k, v)
     do, lse, delta = _check_grad_inputs(q, do, lse, delta)
-    (q, k, v), (sb, st, sh) = _qkv_strides(q, k, v)
+    (q, k, v), (sb, st, sh) = _qkv_strides(q, k, v, "dq")
     lib = csrc.load("flash_attn")
     b, t, h, d = q.shape
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
@@ -228,7 +238,7 @@ def kernel_dkv(q, k, v, do, lse, delta, causal: bool = True):
     global dkv_launches
     _check(q, k, v)
     do, lse, delta = _check_grad_inputs(q, do, lse, delta)
-    (q, k, v), (sb, st, sh) = _qkv_strides(q, k, v)
+    (q, k, v), (sb, st, sh) = _qkv_strides(q, k, v, "dkv")
     lib = csrc.load("flash_attn")
     b, t, h, d = q.shape
     dk = torch.empty(q.shape, dtype=q.dtype, device=q.device)

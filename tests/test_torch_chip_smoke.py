@@ -1,10 +1,13 @@
-"""``chip_smoke.py``'s build check, on the CPU: it reads ptxas's report and
-the HMMA counts of the SASS, and fails unless every bf16/f16 flash body
-(K3, K4, K5) runs on the tensor cores and every f32 body on the CUDA
+"""``chip_smoke.py``'s checks that need no card, on the CPU. The build
+check reads ptxas's report and the HMMA counts of the SASS, and fails
+unless every body of K3 (flash forward) and every bf16/f16 body of K4 and
+K5 runs on the tensor cores and the f32 bodies of K4 and K5 on the CUDA
 cores, as ``ops.flash_attn.uses_tensor_cores`` says, and no flash kernel
 spills; and unless every body of K1 and K2 (window-attention forward and
 backward) runs on the tensor cores, as ``ops.window_attn.uses_tensor_cores``
-says, and no window kernel spills."""
+says, and no window kernel spills. The flash bounds take each kernel's
+body's rate, and phase 4 fails on a kernel slower than its plain
+version."""
 
 import importlib.util
 from pathlib import Path
@@ -51,8 +54,9 @@ def test_ptxas_entries_pairs_registers_with_spills(smoke):
 
 
 def _as_designed():
+    """No spill; HMMA in every K3 body and in bf16/f16 K4 and K5."""
     regs = {k: (128, 0) for k in KEYS}
-    hmma = {k: 64 if k.split()[1] != "f32" else 0 for k in KEYS}
+    hmma = {k: 64 if k.split()[1] != "f32" or k.startswith("fwd") else 0 for k in KEYS}
     return regs, hmma
 
 
@@ -63,7 +67,8 @@ def test_build_as_designed_has_no_faults(smoke):
 
 @pytest.mark.parametrize("fault", ["dq bf16 on cuda cores", "dq f16 on cuda cores",
                                    "fwd bf16 on cuda cores", "f32 on tensor cores", "spill",
-                                   "spill without cuobjdump"])
+                                   "spill without cuobjdump", "fwd f32 on cuda cores",
+                                   "dq f32 on tensor cores"])
 def test_build_faults_are_found(smoke, fault):
     regs, hmma = _as_designed()
     if fault.endswith("on cuda cores"):
@@ -73,6 +78,9 @@ def test_build_faults_are_found(smoke, fault):
     elif fault == "f32 on tensor cores":
         hmma["dkv f32 D=32"] = 16
         want = ["dkv f32 D=32: 16 HMMA"]
+    elif fault == "dq f32 on tensor cores":
+        hmma["dq f32 D=64"] = 384
+        want = ["dq f32 D=64: 384 HMMA"]
     else:
         regs["dq f16 D=64"] = (255, 24)
         want = ["dq f16 D=64: 24 bytes spill stores"]
@@ -170,9 +178,51 @@ def test_k2_bound_takes_the_3xtf32_rate_in_f32(smoke):
     bound by operations is at 495/3 TFLOP/s, not the CUDA cores' 67; bf16
     at 989."""
     gflop = 2.83e9
-    assert smoke.bound_ms(0, gflop, "float32", smoke.WINDOW_PEAK_FLOPS)[0] == pytest.approx(
+    assert smoke.bound_ms(0, gflop, "float32", smoke.TENSOR_PEAK_FLOPS)[0] == pytest.approx(
         gflop * 3 / 495e12 * 1e3)
     assert smoke.bound_ms(0, gflop, "float32")[0] == pytest.approx(gflop / 67e12 * 1e3)
-    assert smoke.bound_ms(125e6, gflop, "float32", smoke.WINDOW_PEAK_FLOPS)[1] == "bytes"
-    assert smoke.bound_ms(0, gflop, "bfloat16", smoke.WINDOW_PEAK_FLOPS)[0] == pytest.approx(
+    assert smoke.bound_ms(125e6, gflop, "float32", smoke.TENSOR_PEAK_FLOPS)[1] == "bytes"
+    assert smoke.bound_ms(0, gflop, "bfloat16", smoke.TENSOR_PEAK_FLOPS)[0] == pytest.approx(
         gflop / 989e12 * 1e3)
+
+
+GPT2_SHAPE = (8, 512, 12, 64)  # the GPT-2 phase's q/k/v: batch 8, seq 512, 12 heads of 64
+CAUSAL_FLOP = 4 * 8 * 12 * (512 * 513 // 2) * 64  # K3's products, 3.23 GFLOP
+
+
+@pytest.mark.parametrize("kernel,factor,rate", [("fwd", 1, 495e12 / 3), ("dq", 1.5, 67e12),
+                                                ("dkv", 2, 67e12)])
+def test_flash_bound_takes_each_kernels_body_rate_in_f32(smoke, kernel, factor, rate):
+    """f32 K3 runs as 3xTF32 (495/3 TFLOP/s: 0.0196 ms at GPT-2's shape),
+    f32 K4 and K5 on the CUDA cores (67 TFLOP/s); all three bound by
+    operations."""
+    ms, by = smoke.flash_bounds(GPT2_SHAPE, "float32", True)[kernel]
+    assert by == "operations" and ms == pytest.approx(factor * CAUSAL_FLOP / rate * 1e3)
+
+
+def test_flash_bound_in_bf16_is_by_bytes(smoke):
+    """In bf16 every body is on the tensor cores and K3 moves q/k/v/o (2
+    bytes each) and lse (f32) once: 0.0076 ms at 3.35 TB/s."""
+    bounds = smoke.flash_bounds(GPT2_SHAPE, "bfloat16", True)
+    moved = 4 * 2 * 8 * 512 * 12 * 64 + 4 * 8 * 12 * 512
+    assert bounds["fwd"] == pytest.approx((moved / 3.35e12 * 1e3, "bytes"))
+    assert {by for _, by in bounds.values()} == {"bytes"}
+    causal, full = (smoke.flash_bounds((1, 1024, 1, 64), "float32", c)["fwd"][0]
+                    for c in (True, False))
+    assert full == pytest.approx(causal * 1024 / 512.5)
+
+
+def _flash_times(**slow):
+    times = {"fwd": 0.06, "dq": 0.5, "dkv": 0.6, "plain_fwd": 0.84, "plain_dq": 0.9,
+             "plain_dkv": 1.0}
+    times.update(slow)
+    return times
+
+
+@pytest.mark.parametrize("slow,want", [({}, []),
+                                       ({"fwd": 0.9}, ["fwd 0.9000 ms > plain 0.8400 ms"]),
+                                       ({"dkv": 1.2, "plain_dq": 0.4},
+                                        ["dq 0.5000 ms > plain 0.4000 ms",
+                                         "dkv 1.2000 ms > plain 1.0000 ms"])])
+def test_flash_speed_faults_name_kernels_slower_than_plain(smoke, slow, want):
+    assert smoke.flash_speed_faults(_flash_times(**slow)) == want

@@ -7,7 +7,8 @@ need not be installed (the suite's ``conftest.py`` imports it)::
     python -m pytest tests/test_torch_cuda.py -q -m cuda --noconftest
 
 Tolerances: in f32 the kernel and the plain version differ only in sum
-order (~1e-6 relative; K2's 3xTF32 products keep about f32's digits); in
+order (~1e-6 relative; the 3xTF32 products of K1, K2 and f32 K3 keep
+about f32's digits); in
 bf16 and f16 both round the same f32 result, so outputs may differ by one
 step of the type (2^-8 relative in bf16, 2^-11 in f16, held at 1e-2 and
 2e-3), and the tensor-core bodies of K1-K5 also round P (and dS) to the
@@ -198,8 +199,8 @@ def test_flash_kernels_match_plain(cuda, dtype, rel, causal, t, d):
     """K3, K4 and K5 on q/k/v that are strided views of one fused [B, T,
     3*H*D] projection, as GPT-2 hands them over. T = 512 runs eight 64-row
     tiles with the causal diagonal; T = 100 and 200 end on a ragged tile.
-    f32 goes through the CUDA-core bodies, bf16 and f16 through the
-    tensor-core ones."""
+    K3 runs on the tensor cores in every type (f32 as 3xTF32), K4 and K5
+    in bf16 and f16; f32 K4 and K5 go through the CUDA-core bodies."""
     g = torch.Generator().manual_seed(0)
     b, h = 2, 3
     qkv = torch.randn(b, t, 3 * h * d, generator=g).to(cuda, dtype)
@@ -295,6 +296,55 @@ def test_flash_dq_copies_a_misaligned_grad_and_the_library_refuses_it(cuda, dtyp
     torch.cuda.synchronize()
     assert code != 0 and "misaligned" in lib.error_string(code).decode()
     assert not dq.any()
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", [16, 32, 64])
+@pytest.mark.parametrize("t", [1, 65, 100, 200])
+def test_flash_fwd_f32_tensor_cores_on_ragged_lengths(cuda, causal, d, t):
+    """f32 K3 (3xTF32) where T ends inside a key tile: T = 1 (63 of the
+    block's rows past T), 65 (one key into the second tile, the causal
+    diagonal of the second query tile), 100 and 200. Keys past T and, on
+    the diagonal, keys after a row must add nothing; o and lse hold f32's
+    tolerance. Two launches give the same bits."""
+    q, k, v, _ = _fused_qkv(cuda, torch.float32, 2, t, 3, d, torch.Generator().manual_seed(5))
+    before = tfa.fwd_launches
+    out, lse = tfa.kernel_forward(q, k, v, causal)
+    assert tfa.fwd_launches == before + 1
+    want_out, want_lse = tfa.plain_forward(q, k, v, causal)
+    _close(out, want_out, 1e-5)
+    _close(lse, want_lse, 1e-5)
+    again = tfa.kernel_forward(q, k, v, causal)
+    assert torch.equal(again[0], out) and torch.equal(again[1], lse)
+
+
+def test_flash_fwd_f32_copies_a_misaligned_view_and_the_library_refuses_it(cuda):
+    """f32 q/k/v as views of a buffer whose rows start one float off 16
+    bytes: the wrapper copies them for K3's tensor-core body, which then
+    gives what it gives on contiguous copies; called directly on the
+    views, the library refuses them rather than read them wrong."""
+    b, t, h, d = 2, 200, 3, 64
+    g = torch.Generator().manual_seed(6)
+    flat = torch.randn(b * t * (3 * h * d + 1) + 1, generator=g).to(cuda)
+    qkv = flat[1:].view(b, t, 3 * h * d + 1)[..., : 3 * h * d]
+    q, k, v = (a.unflatten(-1, (h, d)) for a in qkv.split(h * d, dim=-1))
+    assert not any(tfa.rows_aligned(x) for x in (q, k, v))
+    dense = [x.contiguous() for x in (q, k, v)]
+    out, lse = tfa.kernel_forward(q, k, v, True)
+    want_out, want_lse = tfa.kernel_forward(*dense, True)
+    assert torch.equal(out, want_out) and torch.equal(lse, want_lse)
+
+    lib = csrc.load("flash_attn")
+    o = torch.zeros_like(dense[0])
+    stats = torch.zeros(b, h, t, device=cuda)
+    code = lib.flash_attn_forward(
+        tfa._DTYPE_CODES[torch.float32], q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        stats.data_ptr(), b, t, h, d, *q.stride()[:3], 1, d**-0.5,
+        torch.cuda.current_stream(cuda).cuda_stream,
+    )
+    torch.cuda.synchronize()
+    assert code != 0 and "misaligned" in lib.error_string(code).decode()
+    assert not o.any() and not stats.any()
 
 
 def test_tiny_gpt2_on_the_card_matches_the_cpu(cuda):

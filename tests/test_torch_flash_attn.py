@@ -143,10 +143,19 @@ def test_plain_backward_is_the_gradient_of_plain_forward(causal):
                                default_attention(q, k, v, causal=causal), atol=1e-5, rtol=1e-5)
 
 
-@pytest.mark.parametrize("dtype,tensor_cores", [(torch.bfloat16, True), (torch.float16, True),
-                                                (torch.float32, False)])
-def test_kernel_body_is_chosen_by_dtype(dtype, tensor_cores):
-    assert tfa.uses_tensor_cores(dtype) is tensor_cores
+@pytest.mark.parametrize("kernel", tfa.KERNELS)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float32])
+def test_kernel_body_is_chosen_by_dtype(dtype, kernel):
+    """Tensor cores for every bf16/f16 body and for f32 K3 (3xTF32); the
+    CUDA cores for f32 K4 and K5."""
+    want = dtype != torch.float32 or kernel == "fwd"
+    assert tfa.uses_tensor_cores(dtype, kernel) is want
+
+
+def test_uses_tensor_cores_names_a_kernel():
+    assert not tfa.uses_tensor_cores(torch.float64, "fwd")
+    with pytest.raises(ValueError, match="kernel"):
+        tfa.uses_tensor_cores(torch.float32, "bwd")
 
 
 def _fused_views(dtype, width_pad=0, offset=0, b=2, t=8, h=3, d=64):
@@ -167,21 +176,38 @@ def test_rows_aligned_reads_address_and_strides(width_pad, offset, aligned):
 
 
 def test_qkv_strides_keeps_aligned_views_and_copies_the_rest():
-    q, k, v = _fused_views(torch.bfloat16)
-    (q2, k2, v2), strides = tfa._qkv_strides(q, k, v)
-    assert [t.data_ptr() for t in (q2, k2, v2)] == [t.data_ptr() for t in (q, k, v)]
-    assert strides == q.stride()[:3]
+    for kernel in tfa.KERNELS:
+        q, k, v = _fused_views(torch.bfloat16)
+        (q2, k2, v2), strides = tfa._qkv_strides(q, k, v, kernel)
+        assert [t.data_ptr() for t in (q2, k2, v2)] == [t.data_ptr() for t in (q, k, v)]
+        assert strides == q.stride()[:3]
 
-    q, k, v = _fused_views(torch.bfloat16, width_pad=1)
-    (q2, k2, v2), strides = tfa._qkv_strides(q, k, v)
-    for got, want in zip((q2, k2, v2), (q, k, v)):
-        assert got.is_contiguous() and tfa.rows_aligned(got) and torch.equal(got, want)
-    assert strides == q2.stride()[:3]
+        q, k, v = _fused_views(torch.bfloat16, width_pad=1)
+        (q2, k2, v2), strides = tfa._qkv_strides(q, k, v, kernel)
+        for got, want in zip((q2, k2, v2), (q, k, v)):
+            assert got.is_contiguous() and tfa.rows_aligned(got) and torch.equal(got, want)
+        assert strides == q2.stride()[:3]
 
-    # the CUDA-core (f32) bodies read any shared stride, aligned or not
+    # the CUDA-core bodies (f32 K4 and K5) read any shared stride, aligned or not
     q, k, v = _fused_views(torch.float32, width_pad=1, offset=1)
-    (q2, _, _), strides = tfa._qkv_strides(q, k, v)
-    assert q2.data_ptr() == q.data_ptr() and strides == q.stride()[:3]
+    for kernel in ("dq", "dkv"):
+        (q2, _, _), strides = tfa._qkv_strides(q, k, v, kernel)
+        assert q2.data_ptr() == q.data_ptr() and strides == q.stride()[:3]
+
+
+@pytest.mark.parametrize("width_pad,offset,copied", [(0, 0, False), (4, 4, False),
+                                                     (1, 0, True), (0, 1, True)])
+def test_qkv_strides_copies_unaligned_f32_views_for_k3_only(width_pad, offset, copied):
+    """f32 K3 stages its rows by 16-byte ``cp.async`` like the bf16 bodies:
+    a view off 16 bytes is copied for it, and read as it is by f32 K4 and
+    K5 (CUDA cores)."""
+    q, k, v = _fused_views(torch.float32, width_pad, offset)
+    (q2, k2, v2), strides = tfa._qkv_strides(q, k, v, "fwd")
+    assert (q2.data_ptr() != q.data_ptr()) is copied
+    assert all(tfa.rows_aligned(t) and torch.equal(t, w) for t, w in zip((q2, k2, v2), (q, k, v)))
+    assert strides == q2.stride()[:3]
+    for kernel in ("dq", "dkv"):
+        assert tfa._qkv_strides(q, k, v, kernel)[0][0].data_ptr() == q.data_ptr()
 
 
 def test_unaligned_contiguous_grad_is_copied():
