@@ -12,10 +12,10 @@ Phases, each fatal on failure:
    tpu_torch/csrc`` (window attention and flash attention), one nvcc each
    for sm_90a, started together, with ptxas's register and spill counts
    and, where the toolkit has ``cuobjdump``, the tensor-core (HMMA)
-   instructions in each kernel's SASS: K1, K2 and K3 must hold some in
-   every type (f32 as 3xTF32), K4 and K5 in bf16 and f16, the f32 bodies
-   of K4 and K5 none (as ``uses_tensor_cores(dtype, kernel)`` of each
-   module says); no kernel may spill;
+   instructions in each kernel's SASS: K1, K2, K3 and K5 must hold some
+   in every type (f32 as 3xTF32), K4 in bf16 and f16, the f32 body of K4
+   none (as ``uses_tensor_cores(dtype, kernel)`` of each module says); no
+   kernel may spill;
 3. kernels: K1 (forward) and K2 (backward) against their plain PyTorch
    versions at every shape the two SwinIR paths below give them: the
    bench shape (q/k/v [1152, 6, 64, 10]: batch 18 at LR 64x64) in f32 and
@@ -32,7 +32,9 @@ Phases, each fatal on failure:
 4. flash kernels: K3 (forward), K4 (dq) and K5 (dk/dv) against their
    plain versions at the GPT-2 phase's shape, q/k/v [8, 512, 12, 64] as
    views of one fused projection, causal in bf16 (the path), f32 and f16,
-   and one non-causal bf16 case. Errors, device times of kernel, plain version
+   one non-causal bf16 case, and K5 alone in a non-causal f32 case (f32 K4
+   is still the CUDA-core body, which runs slower than its plain version
+   without the causal skip). Errors, device times of kernel, plain version
    and library (``scaled_dot_product_attention(is_causal=...)`` for K3;
    its autograd backward, one call, stands for K4 and K5 together), and
    the bound from bytes and operations at the rate of the body each kernel
@@ -82,7 +84,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12, "float16": 989e12}  # CUDA-core f32
-# a tensor-core body's rate (K1, K2 and K3 in every type, K4 and K5 in
+# a tensor-core body's rate (K1, K2, K3 and K5 in every type, K4 in
 # bf16/f16): f32 runs as 3xTF32, three TF32 products (495 TFLOP/s) per product
 TENSOR_PEAK_FLOPS = {"float32": 495e12 / 3, "bfloat16": 989e12, "float16": 989e12}
 ELEMENT_BYTES = {"float32": 4, "bfloat16": 2, "float16": 2}
@@ -273,7 +275,7 @@ def flash_build_faults(regs: dict, hmma: dict | None) -> list[str]:
     spill bytes)}``) is not as designed: a kernel that spills, and (where
     ``hmma`` was counted) a body whose HMMA use disagrees with the
     wrappers' ``uses_tensor_cores`` for its kernel and type: HMMA in every
-    body of K3 and in bf16/f16 K4 and K5, none in f32 K4 and K5."""
+    body of K3 and K5 and in bf16/f16 K4, none in f32 K4."""
     import torch
 
     from pytorch_distributedtraining_tpu_torch.ops.flash_attn import uses_tensor_cores
@@ -522,17 +524,21 @@ def flash_bounds(shape: tuple, dtype: str, causal: bool) -> dict:
             for kernel, (moved, flops) in work.items()}
 
 
+FLASH_OUTPUTS = {"fwd": ("o", "lse"), "dq": ("dq",), "dkv": ("dk", "dv")}  # K3, K4, K5
+
+
 def flash_speed_faults(times: dict) -> list[str]:
     """The kernels of one phase-4 case (``times`` as ``_flash_case`` gives
-    them) that are slower than their plain version."""
+    them, for the kernels it ran) that are slower than their plain version."""
     return [f"{kernel} {times[kernel]:.4f} ms > plain {times['plain_' + kernel]:.4f} ms"
-            for kernel in ("fwd", "dq", "dkv") if times[kernel] > times["plain_" + kernel]]
+            for kernel in FLASH_OUTPUTS
+            if kernel in times and times[kernel] > times["plain_" + kernel]]
 
 
-def _flash_case(dtype, causal: bool, seed: int) -> dict:
-    """K3-K5 at the GPT-2 phase's shape: errors against the plain versions
-    (on the same lse and delta), and the times of kernel, plain version and
-    library call."""
+def _flash_case(dtype, causal: bool, seed: int, kernels=tuple(FLASH_OUTPUTS)) -> dict:
+    """K3-K5 (or those of ``kernels``) at the GPT-2 phase's shape: errors
+    against the plain versions (on the same lse and delta), and the times
+    of kernel, plain version and library call."""
     import torch
     import torch.nn.functional as F
 
@@ -544,31 +550,30 @@ def _flash_case(dtype, causal: bool, seed: int) -> dict:
     qkv = torch.randn(b, t, 3 * h * d, generator=g, device="cuda").to(dtype)
     q, k, v = (a.unflatten(-1, (h, d)) for a in qkv.split(h * d, dim=-1))
     do = torch.randn(b, t, h, d, generator=g, device="cuda").to(dtype)
-    checked = {flash_signature(n, q, causal) for n in ("flash_fwd", "flash_dq", "flash_dkv")}
+    checked = {flash_signature(f"flash_{kernel}", q, causal) for kernel in kernels}
 
-    want = dict(zip(("o", "lse"), tfa.plain_forward(q, k, v, causal)))
-    grad_args = (do, want["lse"], tfa.delta_rows(want["o"], do), causal)
-    want["dq"] = tfa.plain_dq(q, k, v, *grad_args)
-    want["dk"], want["dv"] = tfa.plain_dkv(q, k, v, *grad_args)
-    got = dict(zip(("o", "lse"), tfa.kernel_forward(q, k, v, causal)))
-    got["dq"] = tfa.kernel_dq(q, k, v, *grad_args)
-    got["dk"], got["dv"] = tfa.kernel_dkv(q, k, v, *grad_args)
-    torch.cuda.synchronize()
-    errors = {n: err(got[n], want[n]) for n in want}
-
-    times = {
-        "fwd": device_ms(lambda: tfa.kernel_forward(q, k, v, causal)),
-        "dq": device_ms(lambda: tfa.kernel_dq(q, k, v, *grad_args)),
-        "dkv": device_ms(lambda: tfa.kernel_dkv(q, k, v, *grad_args)),
-        "plain_fwd": device_ms(lambda: tfa.plain_forward(q, k, v, causal)),
-        "plain_dq": device_ms(lambda: tfa.plain_dq(q, k, v, *grad_args)),
-        "plain_dkv": device_ms(lambda: tfa.plain_dkv(q, k, v, *grad_args)),
+    o, lse = tfa.plain_forward(q, k, v, causal)
+    grad_args = (do, lse, tfa.delta_rows(o, do), causal)
+    runs = {  # kernel: (its launch, its plain version), each giving FLASH_OUTPUTS[kernel]
+        "fwd": (lambda: tfa.kernel_forward(q, k, v, causal),
+                lambda: tfa.plain_forward(q, k, v, causal)),
+        "dq": (lambda: (tfa.kernel_dq(q, k, v, *grad_args),),
+               lambda: (tfa.plain_dq(q, k, v, *grad_args),)),
+        "dkv": (lambda: tfa.kernel_dkv(q, k, v, *grad_args),
+                lambda: tfa.plain_dkv(q, k, v, *grad_args)),
     }
+    errors, times = {}, {}
+    for kernel in kernels:
+        launch, plain = runs[kernel]
+        errors.update(zip(FLASH_OUTPUTS[kernel], map(err, launch(), plain())))
+        times[kernel] = device_ms(launch)
+        times["plain_" + kernel] = device_ms(plain)
     lq, lk, lv = (x.transpose(1, 2).contiguous().requires_grad_(True) for x in (q, k, v))
     ldo = do.transpose(1, 2).contiguous()
-    with torch.no_grad():
-        times["lib_fwd"] = device_ms(
-            lambda: F.scaled_dot_product_attention(lq, lk, lv, is_causal=causal))
+    if "fwd" in kernels:
+        with torch.no_grad():
+            times["lib_fwd"] = device_ms(
+                lambda: F.scaled_dot_product_attention(lq, lk, lv, is_causal=causal))
     lout = F.scaled_dot_product_attention(lq, lk, lv, is_causal=causal)
     times["lib_bwd"] = device_ms(
         lambda: torch.autograd.grad(lout, (lq, lk, lv), ldo, retain_graph=True))
@@ -587,25 +592,31 @@ def phase_flash_kernels(smi: str) -> list[dict]:
     from pytorch_distributedtraining_tpu_torch.ops import flash_attn as tfa
 
     cases = []
-    for seed, (dtype, causal) in enumerate(
-            [(torch.bfloat16, True), (torch.float32, True), (torch.float16, True),
-             (torch.bfloat16, False)]):
-        c = _flash_case(dtype, causal, seed)
+    all3 = tuple(FLASH_OUTPUTS)
+    for seed, (dtype, causal, kernels) in enumerate(
+            [(torch.bfloat16, True, all3), (torch.float32, True, all3),
+             (torch.float16, True, all3), (torch.bfloat16, False, all3),
+             (torch.float32, False, ("dkv",))]):
+        c = _flash_case(dtype, causal, seed, kernels)
         tol = TOL[c["dtype"]]
         worst = max(rel for nm, (_, rel) in c["errors"].items() if nm != "lse")
         errs = " ".join(f"{nm} {a:.2e}/{r:.2e}" for nm, (a, r) in c["errors"].items())
         t, bd = c["times"], c["bounds"]
+        ms = " ".join(f"{kn} {t[kn]:.4f}" for kn in kernels)
+        plain = " ".join(f"{kn} {t['plain_' + kn]:.4f}" for kn in kernels)
+        lib = " ".join(f"{nm} {t[key]:.4f}" for nm, key in
+                       (("fwd", "lib_fwd"), ("bwd (dq+dkv)", "lib_bwd")) if key in t)
+        bound = " ".join(f"{kn} {bd[kn][0]:.4f} ({bd[kn][1]})" for kn in kernels)
         print(f"[flash] {c['dtype']:8s} q {list(c['shape'])} causal={int(causal)} abs/rel err: "
               f"{errs} (tol rel {tol:g}; lse f32, tol rel {TOL['float32']:g})")
-        print(f"[flash]   ms fwd {t['fwd']:.4f} dq {t['dq']:.4f} dkv {t['dkv']:.4f} | plain fwd "
-              f"{t['plain_fwd']:.4f} dq {t['plain_dq']:.4f} dkv {t['plain_dkv']:.4f} | library "
-              f"fwd {t['lib_fwd']:.4f} bwd (dq+dkv) {t['lib_bwd']:.4f} | bound fwd "
-              f"{bd['fwd'][0]:.4f} ({bd['fwd'][1]}) dq {bd['dq'][0]:.4f} ({bd['dq'][1]}) dkv "
-              f"{bd['dkv'][0]:.4f} ({bd['dkv'][1]}) | {smi}")
-        if not (worst <= tol and c["errors"]["lse"][1] <= TOL["float32"]):
+        print(f"[flash]   ms {ms} | plain {plain} | library {lib} | bound {bound} | {smi}")
+        if not (worst <= tol and c["errors"].get("lse", (0, 0))[1] <= TOL["float32"]):
             raise SystemExit(f"flash kernel disagrees with its plain version: {c['errors']}")
-        print(f"[flash]   K3 / SDPA's forward: {t['fwd'] / t['lib_fwd']:.3f}, K3 / its bound: "
-              f"{t['fwd'] / bd['fwd'][0]:.3f}")
+        if "fwd" in kernels:
+            print(f"[flash]   K3 / SDPA's forward: {t['fwd'] / t['lib_fwd']:.3f}, K3 / its "
+                  f"bound: {t['fwd'] / bd['fwd'][0]:.3f}")
+        print(f"[flash]   K5 / SDPA's backward: {t['dkv'] / t['lib_bwd']:.3f}, K5 / its bound: "
+              f"{t['dkv'] / bd['dkv'][0]:.3f}")
         slow = flash_speed_faults(t)
         if slow:
             raise SystemExit(f"{c['dtype']} causal={int(causal)}: slower than the plain "

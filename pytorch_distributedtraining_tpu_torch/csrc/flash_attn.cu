@@ -24,7 +24,8 @@
 // (~7.5 us at 3.35 TB/s), K4 ~32 MB and K5 ~38 MB; the causal products
 // are ~3.2 GFLOP (K3) to ~6.5 GFLOP (K5), ~3-7 us at the bf16 tensor-core
 // rate. In f32, K3's 3.2 GFLOP take 19.6 us as 3xTF32 (three TF32
-// products per product at 495 TFLOP/s) and its 50.5 MB 15.1 us. At T =
+// products per product at 495 TFLOP/s) and its 50.5 MB 15.1 us; K5's 6.5
+// GFLOP take 39.1 us and its 75.9 MB 22.7 us. At T =
 // 512 neither bound is what sets the pace: a block streams at most eight
 // 64-row tiles, so load latency, register pressure, instruction throughput and the
 // warps in flight do.
@@ -33,13 +34,14 @@
 // kernel and type always reach the same body; nothing switches at run
 // time):
 //
-// - Tensor cores: K3 in every type, K4 and K5 in bf16 and f16.
+// - Tensor cores: K3 and K5 in every type, K4 in bf16 and f16.
 //   FlashAttention-2 on `mma.sync` with f32 accumulate: m16n8k16 for
 //   bf16/f16, 3xTF32 on m16n8k8 for f32. A block holds 64 rows (query
 //   rows for K3 and K4, key rows for K5) in 4 warps of 16 rows. The
 //   resident operands (Q for K3; Q and dO for K4; K and V for K5) are
 //   loaded once into registers (`ldmatrix` in bf16/f16; f32 Q is split
-//   into tf32 hi/lo fragments once a block). The streamed 64-row tiles
+//   into tf32 hi/lo fragments once a block, f32 K and V are kept raw and
+//   split at each use). The streamed 64-row tiles
 //   (K/V for K3 and K4; Q/dO with their lse and delta for K5) are staged
 //   in the input's type by 16-byte `cp.async` copies, double-buffered,
 //   zero-filled past T, in rows padded by 16 bytes (a row stride of 4 x
@@ -56,18 +58,23 @@
 //   rows in registers, log2(e) folded into lse and the scale), then dQ +=
 //   dS.K with dS converted in registers to the A operand and K read by
 //   `ldmatrix.trans`. K5 computes S^T = K.Q^T and dP^T = V.dO^T, P^T and
-//   dS^T in registers, then dV += P^T.dO and dK += dS^T.Q with Q and dO
-//   read by `ldmatrix.trans`, 16 queries at a time to keep the registers
-//   in bounds. Everything after the staging is warp-local. In bf16/f16 P
+//   dS^T in registers, then dV += P^T.dO and dK += dS^T.Q with P^T and
+//   dS^T from the C fragments (in f32 under K3's permuted k index, a
+//   chunk's terms summed in a fresh fragment and added in f32) and Q and
+//   dO read by `ldmatrix.trans` (in f32 at rows 2tq and 2tq+1), 16
+//   queries at a time to keep the registers in bounds. The products of
+//   K3 and K5 live in `Fwd<T, D>` and `Dkv<T, D>`, so that each kernel
+//   has one skeleton for every type. Everything after the staging is
+//   warp-local. In bf16/f16 P
 //   and dS are rounded to the input's type before their second product
 //   (the JAX kernels keep them in f32): one step of the type at the
 //   largest entries (PERF.md). In f32 every operand, P included, enters
 //   as x = hi + lo in tf32 and a.b = hi.hi + hi.lo + lo.hi in f32, about
 //   1e-6 relative: plain TF32 (about 1e-3) would miss the f32 tolerance.
-// - CUDA cores: f32 K4 and K5, the first bodies. One block per 64-row
-//   tile; for D = 64 two threads share a row (one shuffle per dot
-//   product); the streamed operand is staged as f32 in shared memory and
-//   read as broadcast float4s.
+// - CUDA cores: f32 K4, the last of the first bodies. One block per
+//   64-row tile; for D = 64 two threads share a row (one shuffle per dot
+//   product); K and V are staged as f32 in shared memory and read as
+//   broadcast float4s.
 //
 // Common to both: causal skipping (K3 and K4 stop at the last key tile
 // that reaches the block's last query row, K5 starts at the query tile of
@@ -78,8 +85,8 @@
 // most causal work first (K3's and K4's last query tiles, K5's first key
 // tiles): the card then starts every (batch, head)'s longest block before
 // any short one, and the short ones fill the last wave; at GPT-2's shape
-// that is faster than the (tiles, heads, batch) order the CUDA-core
-// bodies keep (PERF.md). Deterministic: K4 owns dq rows and K5 owns dk/dv
+// that is faster than the (tiles, heads, batch) order the CUDA-core body
+// keeps (PERF.md). Deterministic: K4 owns dq rows and K5 owns dk/dv
 // rows, no atomics. The wrapper keeps the JAX block rule (bq and bk
 // divide T); these kernels tile by their own 64 rows, which changes only
 // the order of the f32 sums. The tensor-core bodies need every q/k/v/dO
@@ -91,15 +98,18 @@
 //
 // Resources at D = 64 (ptxas of CUDA 12.8, sm_90a, -O3), no spills
 // anywhere: tensor-core K3 128 registers a thread in bf16/f16 and 227 in
-// f32, K4 128 and K5 167, with 36 KB (K3, K4) and 37 KB (K5) of dynamic
-// shared memory a block in bf16/f16 and 68 KB for f32 K3 (above the 48
-// KB that needs no opt-in: the launch opts in); the CUDA-core K4 166 and
-// K5 208. chip_smoke.py's build phase prints every kernel's registers and
-// spills with the HMMA instructions in its SASS (at D = 64: 64 in bf16/f16
-// K3, 96 in K4 and 128 in K5, the unrolled m16n8k16 products; 384 in f32
-// K3, three m16n8k8 products for each of S's 64 and P.V's 64; none in f32
-// K4 or K5), and fails if a kernel spills or a body's HMMA use is not as
-// designed.
+// f32, K4 128, K5 167 in bf16/f16 and 255 in f32 (93 and 128 at D = 16
+// and 32), with 36 KB (K3, K4) and 37 KB (K5) of dynamic shared memory a
+// block in bf16/f16, 68 KB for f32 K3 and 70 656 B for f32 K5 (above the
+// 48 KB that needs no opt-in: the launch opts in); the CUDA-core K4 166.
+// Two blocks a SM for f32 K3 and K5 (registers). chip_smoke.py's build
+// phase prints every kernel's registers and spills with the HMMA
+// instructions in its SASS (at D = 64: 64 in bf16/f16 K3, 96 in K4 and
+// 128 in K5, the unrolled m16n8k16 products; 384 in f32 K3, three m16n8k8
+// products for each of S's 64 and P.V's 64; 768 in f32 K5, three for each
+// of the 64 of S^T, dP^T, dV and dK a 64-query tile, 192 and 384 at D =
+// 16 and 32; none in f32 K4), and fails if a kernel spills or a body's
+// HMMA use is not as designed.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -136,7 +146,7 @@ template <> __device__ __forceinline__ __half from_f<__half>(float x) { return _
 enum Kernel { kFwd = 0, kDq = 1, kDkv = 2 };
 
 // ---------------------------------------------------------------------------
-// CUDA-core bodies (f32 K4 and K5)
+// CUDA-core body (f32 K4)
 
 // How the threads of a block split rows of width D.
 template <int D>
@@ -158,18 +168,20 @@ struct Tiles {
 };
 
 // The body, block size and shared memory that kernel K takes at (type,
-// head dim): K3 on the tensor cores in every type, K4 and K5 in bf16/f16;
-// f32 K4 and K5 on the CUDA cores.
+// head dim): K3 and K5 on the tensor cores in every type, K4 in bf16/f16;
+// f32 K4 on the CUDA cores.
 template <typename T, int D, int K>
 struct Body {
-  static constexpr bool kMma = K == kFwd || !std::is_same<T, float>::value;
+  static constexpr bool kMma = K != kDq || !std::is_same<T, float>::value;
   static constexpr int kThreads = kMma ? kMmaThreads : Split<D>::kThreads;
   // tensor cores: two stages of two tiles (K/V for K3 and K4, Q/dO for
-  // K5), K5 adding the stages' lse/delta; CUDA cores: one K/V (K4) or
-  // Q/dO (K5) tile pair as f32, K5 adding lse/delta.
+  // K5), K5 adding the stages' lse/delta; at D = 64, 36 KB (K3, K4) and
+  // 37 KB (K5) in bf16/f16, 69 632 B (f32 K3) and 70 656 B (f32 K5) in
+  // f32, above the 48 KB a launch gets without opting in. CUDA cores: one
+  // K/V tile pair as f32.
   static constexpr size_t kSmem =
       kMma ? 4 * Tiles<T, D>::kTileElems * sizeof(T) + (K == kDkv ? 4 * kTile * sizeof(float) : 0)
-           : 2 * kTile * D * sizeof(float) + (K == kDkv ? 2 * kTile * sizeof(float) : 0);
+           : 2 * kTile * D * sizeof(float);
 };
 
 // This thread's row in the block's tile and its first column.
@@ -302,77 +314,8 @@ __device__ __forceinline__ void dq_simt(float* smem, const T* __restrict__ q,
   if (i < t_len) store_row<T, S::kCols>(dq + row * D + c0, acc, scale);
 }
 
-template <typename T, int D>
-__device__ __forceinline__ void dkv_simt(float* smem, const T* __restrict__ q,
-                                         const T* __restrict__ k, const T* __restrict__ v,
-                                         const T* __restrict__ dout,
-                                         const float* __restrict__ lse,
-                                         const float* __restrict__ delta, T* __restrict__ dk,
-                                         T* __restrict__ dv, int t_len, int heads, long long sb,
-                                         long long st, long long sh, int causal, float scale) {
-  using S = Split<D>;
-  float* sq = smem;
-  float* sdo = sq + kTile * D;
-  float* slse = sdo + kTile * D;
-  float* sdelta = slse + kTile;
-
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int k0 = blockIdx.x * kRows;
-  int r, c0;
-  my_row<D>(r, c0);
-  const int j = k0 + r;  // this thread's key row
-  const int jc = min(j, t_len - 1);
-  const long long base = (long long)b * sb + (long long)h * sh;
-  const T* dout_bh = dout + ((long long)b * t_len * heads + h) * D;
-  const float* lse_bh = lse + ((long long)b * heads + h) * t_len;
-  const float* delta_bh = delta + ((long long)b * heads + h) * t_len;
-
-  float kr[S::kCols];
-  float vr[S::kCols];
-  load_row<T, S::kCols>(kr, k + base + (long long)jc * st + c0, 1.f);
-  load_row<T, S::kCols>(vr, v + base + (long long)jc * st + c0, 1.f);
-  float dk_acc[S::kCols];
-  float dv_acc[S::kCols];
-#pragma unroll
-  for (int c = 0; c < S::kCols; ++c) {
-    dk_acc[c] = 0.f;
-    dv_acc[c] = 0.f;
-  }
-
-  // causal: queries before this tile's first key never attend it
-  for (int i0 = causal ? k0 : 0; i0 < t_len; i0 += kTile) {
-    __syncthreads();
-    load_tile<T, D>(sq, q + base, st, i0, t_len);
-    load_tile<T, D>(sdo, dout_bh, (long long)heads * D, i0, t_len);
-    for (int e = threadIdx.x; e < kTile; e += blockDim.x) {
-      const int t = i0 + e;
-      slse[e] = t < t_len ? lse_bh[t] : 0.f;
-      sdelta[e] = t < t_len ? delta_bh[t] : 0.f;
-    }
-    __syncthreads();
-    const int in = min(kTile, t_len - i0);
-    for (int ii = 0; ii < in; ++ii) {
-      const float* qi = sq + ii * D + c0;
-      const float* doi = sdo + ii * D + c0;
-      const float s = row_sum<D>(dot<S::kCols>(kr, qi));
-      const float dp = row_sum<D>(dot<S::kCols>(vr, doi));
-      const bool ok = !causal || j <= i0 + ii;
-      const float p = ok ? expf(scale * s - slse[ii]) : 0.f;
-      axpy<S::kCols>(dv_acc, p, doi);
-      axpy<S::kCols>(dk_acc, p * (dp - sdelta[ii]), qi);
-    }
-  }
-
-  if (j < t_len) {
-    const long long row = (((long long)b * t_len + j) * heads + h) * D + c0;
-    store_row<T, S::kCols>(dk + row, dk_acc, scale);
-    store_row<T, S::kCols>(dv + row, dv_acc, 1.f);
-  }
-}
-
 // ---------------------------------------------------------------------------
-// Tensor-core bodies (bf16/f16 K3, K4 and K5)
+// Tensor-core bodies (K3 and K5 in every type, K4 in bf16/f16)
 //
 // Fragments of mma.m16n8k16 for lane = 4*g + tq (g = lane/4, tq = lane%4):
 // A (16x16, row-major) a0 = (g, 2tq..2tq+1), a1 = (g+8, same), a2 = (g,
@@ -470,6 +413,17 @@ __device__ __forceinline__ void to_a(uint32_t (&a)[4], const float (&c0)[4],
   a[1] = pack2<T>(c0[2], c0[3]);
   a[2] = pack2<T>(c1[0], c1[1]);
   a[3] = pack2<T>(c1[2], c1[3]);
+}
+
+// Two floats -> dst[0], dst[1] in T, one store.
+template <typename T>
+__device__ __forceinline__ void store2(T* dst, float a, float b) {
+  *reinterpret_cast<uint32_t*>(dst) = pack2<T>(a, b);
+}
+
+template <>
+__device__ __forceinline__ void store2<float>(float* dst, float a, float b) {
+  *reinterpret_cast<float2*>(dst) = make_float2(a, b);
 }
 
 // d += a . b in tf32, f32 accumulate (m16n8k8: A 16x8, B 8x8).
@@ -596,10 +550,6 @@ struct Fwd {
       }
     }
   }
-
-  static __device__ __forceinline__ void store2(T* dst, float a, float b) {
-    *reinterpret_cast<uint32_t*>(dst) = pack2<T>(a, b);
-  }
 };
 
 // f32: 3xTF32 on m16n8k8 from plain 32-bit shared loads (the padded row
@@ -668,10 +618,6 @@ struct Fwd<float, D> {
         mma_3xtf32(acc[nb], ah, al, bh, bl);
       }
     }
-  }
-
-  static __device__ __forceinline__ void store2(float* dst, float a, float b) {
-    *reinterpret_cast<float2*>(dst) = make_float2(a, b);
   }
 };
 
@@ -804,7 +750,7 @@ __device__ __forceinline__ void fwd_mma(T* smem, const T* __restrict__ q,
       T* orow = o + (((long long)b * t_len + i) * heads + h) * D + 2 * tq;
 #pragma unroll
       for (int n = 0; n < kNB; ++n) {
-        F::store2(orow + n * 8, acc[n][2 * r] * inv, acc[n][2 * r + 1] * inv);
+        store2<T>(orow + n * 8, acc[n][2 * r] * inv, acc[n][2 * r + 1] * inv);
       }
       if (tq == 0) lse[((long long)b * heads + h) * t_len + i] = (m[r] + log2f(l_safe)) * kLn2;
     }
@@ -956,6 +902,180 @@ __device__ __forceinline__ void dq_mma(T* smem, const T* __restrict__ q,
   }
 }
 
+// K5's products for one warp's 16 key rows against a chunk of 16 queries
+// (qs, dos: the chunk's first Q and dO rows in the stage):
+// - load_kv: K's and V's A fragments from the warp's first rows;
+// - scores: s[n] += K . Q[8n .. 8n+7]^T and dp[n] += V . dO[8n ..]^T;
+// - grads: dv += P^T . dO and dk += dS^T . Q, P^T and dS^T straight from
+//   the C fragments p and ds.
+// 16-bit types: m16n8k16 from ldmatrix (Q and dO by .trans in grads), P^T
+// and dS^T converted pairwise in registers.
+template <typename T, int D>
+struct Dkv {
+  static constexpr int kKS = D / 16;  // 16-wide steps over the head dim
+  static constexpr int kNB = D / 8;   // 8-wide blocks of the head dim
+  struct KV {
+    uint32_t k[kKS][4], v[kKS][4];
+  };
+
+  static __device__ __forceinline__ void load_kv(KV& f, const T* kt, const T* vt, int lane) {
+    const int off = a_offset<T, D>(lane);
+#pragma unroll
+    for (int ks = 0; ks < kKS; ++ks) {
+      ldsm_x4(f.k[ks], kt + off + ks * 16);
+      ldsm_x4(f.v[ks], vt + off + ks * 16);
+    }
+  }
+
+  static __device__ __forceinline__ void scores(float (&s)[2][4], float (&dp)[2][4], const KV& f,
+                                                const T* qs, const T* dos, int lane) {
+    const int off = b_offset<T, D>(lane);
+#pragma unroll
+    for (int ks = 0; ks < kKS; ++ks) {
+      uint32_t b[4];
+      ldsm_x4(b, qs + off + ks * 16);
+      mma<T>(s[0], f.k[ks], b[0], b[1]);
+      mma<T>(s[1], f.k[ks], b[2], b[3]);
+      ldsm_x4(b, dos + off + ks * 16);
+      mma<T>(dp[0], f.v[ks], b[0], b[1]);
+      mma<T>(dp[1], f.v[ks], b[2], b[3]);
+    }
+  }
+
+  static __device__ __forceinline__ void grads(float (&dv)[kNB][4], float (&dk)[kNB][4],
+                                               const float (&p)[2][4], const float (&ds)[2][4],
+                                               const T* qs, const T* dos, int lane) {
+    uint32_t pa[4];
+    uint32_t da[4];
+    to_a<T>(pa, p[0], p[1]);
+    to_a<T>(da, ds[0], ds[1]);
+    const int off = bt_offset<T, D>(lane);
+#pragma unroll
+    for (int nd = 0; nd < kNB / 2; ++nd) {
+      uint32_t b[4];
+      ldsm_x4_t(b, dos + off + nd * 16);
+      mma<T>(dv[2 * nd], pa, b[0], b[1]);
+      mma<T>(dv[2 * nd + 1], pa, b[2], b[3]);
+      ldsm_x4_t(b, qs + off + nd * 16);
+      mma<T>(dk[2 * nd], da, b[0], b[1]);
+      mma<T>(dk[2 * nd + 1], da, b[2], b[3]);
+    }
+  }
+};
+
+// Keeps x as it is in a register: the compiler may neither reuse what an
+// earlier use computed from it nor hoist that out of a loop.
+__device__ __forceinline__ float opaque(float x) {
+  asm volatile("" : "+f"(x));
+  return x;
+}
+
+// f32: 3xTF32 on m16n8k8 from plain 32-bit shared loads, on K3's f32
+// fragment layouts (the padded row stride keeps every load on 32 banks):
+// - K and V are the A operands, held raw (a0 = (g, tq), a1 = (g+8, tq),
+//   a2 = (g, tq+4), a3 = (g+8, tq+4)) and split into hi/lo at each use,
+//   behind `opaque`. Held split they take 128 registers beside the 64 of
+//   the dK/dV accumulators, and ptxas spills at D = 64; without `opaque`
+//   the compiler hoists the splits out of the loop and does the same.
+// - Q and dO are the B operands of S^T and dP^T, read as K3 reads K:
+//   b0 = (column tq, query g), bank 4g + tq at stride D + 4.
+// - P^T and dS^T enter dV's and dK's products as A fragments straight
+//   from the C fragments, under K3's permuted k index (slot tq is query
+//   2tq, slot tq+4 query 2tq+1), so dO and Q are read at rows 2tq and
+//   2tq+1 (bank 8tq + g). P and dS are split into hi/lo like any f32
+//   operand, not rounded.
+// - A chunk's dV and dK terms are summed in a fresh fragment and added to
+//   the accumulators in f32 (round to nearest): the tensor core truncates
+//   each sum it accumulates, and over a block's up to 32 chunks, three
+//   products each, that biased dk and dv toward zero (PERF.md).
+template <int D>
+struct Dkv<float, D> {
+  static constexpr int kLd = Tiles<float, D>::kStride;
+  static constexpr int kKS = D / 8;  // 8-wide steps over the head dim
+  static constexpr int kNB = D / 8;  // 8-wide blocks of the head dim
+  struct KV {
+    float k[kKS][4], v[kKS][4];
+  };
+
+  static __device__ __forceinline__ void load_a(float (&a)[kKS][4], const float* t, int lane) {
+    const float* p = t + (lane >> 2) * kLd + (lane & 3);
+#pragma unroll
+    for (int ks = 0; ks < kKS; ++ks) {
+      a[ks][0] = p[ks * 8];
+      a[ks][1] = p[8 * kLd + ks * 8];
+      a[ks][2] = p[ks * 8 + 4];
+      a[ks][3] = p[8 * kLd + ks * 8 + 4];
+    }
+  }
+
+  static __device__ __forceinline__ void load_kv(KV& f, const float* kt, const float* vt,
+                                                 int lane) {
+    load_a(f.k, kt, lane);
+    load_a(f.v, vt, lane);
+  }
+
+  // s[n] += A . B[8n .. 8n+7]^T for the chunk's 16 rows at bt
+  static __device__ __forceinline__ void product(float (&s)[2][4], const float (&a)[kKS][4],
+                                                 const float* bt, int lane) {
+    const float* p = bt + (lane >> 2) * kLd + (lane & 3);
+#pragma unroll
+    for (int ks = 0; ks < kKS; ++ks) {
+      uint32_t ah[4], al[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) split_tf32(opaque(a[ks][i]), ah[i], al[i]);
+#pragma unroll
+      for (int n = 0; n < 2; ++n) {
+        uint32_t bh[2], bl[2];
+        split_tf32(p[n * 8 * kLd + ks * 8], bh[0], bl[0]);
+        split_tf32(p[n * 8 * kLd + ks * 8 + 4], bh[1], bl[1]);
+        mma_3xtf32(s[n], ah, al, bh, bl);
+      }
+    }
+  }
+
+  static __device__ __forceinline__ void scores(float (&s)[2][4], float (&dp)[2][4], const KV& f,
+                                                const float* qs, const float* dos, int lane) {
+    product(s, f.k, qs, lane);
+    product(dp, f.v, dos, lane);
+  }
+
+  // acc += c^T . B over the chunk's 16 rows at bt, c as C fragments
+  static __device__ __forceinline__ void grad(float (&acc)[kNB][4], const float (&c)[2][4],
+                                              const float* bt, int lane) {
+    const int g = lane >> 2;
+    const int tq = lane & 3;
+    uint32_t ah[2][4], al[2][4];
+#pragma unroll
+    for (int kb = 0; kb < 2; ++kb) {
+      split_tf32(c[kb][0], ah[kb][0], al[kb][0]);
+      split_tf32(c[kb][2], ah[kb][1], al[kb][1]);
+      split_tf32(c[kb][1], ah[kb][2], al[kb][2]);
+      split_tf32(c[kb][3], ah[kb][3], al[kb][3]);
+    }
+#pragma unroll
+    for (int nb = 0; nb < kNB; ++nb) {
+      float sum[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int kb = 0; kb < 2; ++kb) {
+        const float* p = bt + (kb * 8 + 2 * tq) * kLd + nb * 8 + g;
+        uint32_t bh[2], bl[2];
+        split_tf32(p[0], bh[0], bl[0]);
+        split_tf32(p[kLd], bh[1], bl[1]);
+        mma_3xtf32(sum, ah[kb], al[kb], bh, bl);
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[nb][e] += sum[e];
+    }
+  }
+
+  static __device__ __forceinline__ void grads(float (&dv)[kNB][4], float (&dk)[kNB][4],
+                                               const float (&p)[2][4], const float (&ds)[2][4],
+                                               const float* qs, const float* dos, int lane) {
+    grad(dv, p, dos, lane);
+    grad(dk, ds, qs, lane);
+  }
+};
+
 template <typename T, int D>
 __device__ __forceinline__ void dkv_mma(T* smem, const T* __restrict__ q,
                                         const T* __restrict__ k, const T* __restrict__ v,
@@ -965,7 +1085,7 @@ __device__ __forceinline__ void dkv_mma(T* smem, const T* __restrict__ q,
                                         T* __restrict__ dv, int t_len, int heads, long long sb,
                                         long long st, long long sh, int causal, float scale) {
   using B = Tiles<T, D>;
-  constexpr int kKS = D / 16;
+  using P = Dkv<T, D>;
   constexpr int kNB = D / 8;
   // stage s holds Q at smem + 2*s*kTileElems and dO right after it; the
   // stages' lse and delta follow, [stage][lse | delta][kTile] f32
@@ -1008,16 +1128,9 @@ __device__ __forceinline__ void dkv_mma(T* smem, const T* __restrict__ q,
   cp_async_commit();
   cp_async_wait<0>();
   __syncthreads();
-  uint32_t kf[kKS][4];
-  uint32_t vf[kKS][4];
-  {
-    const int off = warp * 16 * B::kStride + a_offset<T, D>(lane);
-#pragma unroll
-    for (int ks = 0; ks < kKS; ++ks) {
-      ldsm_x4(kf[ks], smem + 2 * B::kTileElems + off + ks * 16);
-      ldsm_x4(vf[ks], smem + 3 * B::kTileElems + off + ks * 16);
-    }
-  }
+  typename P::KV kv;
+  P::load_kv(kv, smem + 2 * B::kTileElems + warp * 16 * B::kStride,
+             smem + 3 * B::kTileElems + warp * 16 * B::kStride, lane);
   __syncthreads();  // stage 1 is free
 
   float dka[kNB][4];
@@ -1051,17 +1164,9 @@ __device__ __forceinline__ void dkv_mma(T* smem, const T* __restrict__ q,
       if (diag && c < warp) continue;
       float s[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
       float dp[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
-      const int boff = c * 16 * B::kStride + b_offset<T, D>(lane);
-#pragma unroll
-      for (int ks = 0; ks < kKS; ++ks) {
-        uint32_t f[4];
-        ldsm_x4(f, qs + boff + ks * 16);
-        mma<T>(s[0], kf[ks], f[0], f[1]);
-        mma<T>(s[1], kf[ks], f[2], f[3]);
-        ldsm_x4(f, dos + boff + ks * 16);
-        mma<T>(dp[0], vf[ks], f[0], f[1]);
-        mma<T>(dp[1], vf[ks], f[2], f[3]);
-      }
+      const T* qc = qs + c * 16 * B::kStride;
+      const T* doc = dos + c * 16 * B::kStride;
+      P::scores(s, dp, kv, qc, doc, lane);
       // P^T = exp(scale S^T - lse), dS^T = P^T (dP^T - delta); a column
       // is a query
 #pragma unroll
@@ -1081,21 +1186,7 @@ __device__ __forceinline__ void dkv_mma(T* smem, const T* __restrict__ q,
           }
         }
       }
-      uint32_t pa[4];
-      uint32_t da[4];
-      to_a<T>(pa, s[0], s[1]);
-      to_a<T>(da, dp[0], dp[1]);
-      const int toff = c * 16 * B::kStride + bt_offset<T, D>(lane);
-#pragma unroll
-      for (int nd = 0; nd < kNB / 2; ++nd) {
-        uint32_t f[4];
-        ldsm_x4_t(f, dos + toff + nd * 16);
-        mma<T>(dva[2 * nd], pa, f[0], f[1]);
-        mma<T>(dva[2 * nd + 1], pa, f[2], f[3]);
-        ldsm_x4_t(f, qs + toff + nd * 16);
-        mma<T>(dka[2 * nd], da, f[0], f[1]);
-        mma<T>(dka[2 * nd + 1], da, f[2], f[3]);
-      }
+      P::grads(dva, dka, s, dp, qc, doc, lane);
     }
     __syncthreads();  // stage it & 1 is consumed
   }
@@ -1107,10 +1198,8 @@ __device__ __forceinline__ void dkv_mma(T* smem, const T* __restrict__ q,
       const long long row = (((long long)b * t_len + j) * heads + h) * D + 2 * tq;
 #pragma unroll
       for (int n = 0; n < kNB; ++n) {
-        *reinterpret_cast<uint32_t*>(dk + row + n * 8) =
-            pack2<T>(dka[n][2 * r] * scale, dka[n][2 * r + 1] * scale);
-        *reinterpret_cast<uint32_t*>(dv + row + n * 8) =
-            pack2<T>(dva[n][2 * r], dva[n][2 * r + 1]);
+        store2<T>(dk + row + n * 8, dka[n][2 * r] * scale, dka[n][2 * r + 1] * scale);
+        store2<T>(dv + row + n * 8, dva[n][2 * r], dva[n][2 * r + 1]);
       }
     }
   }
@@ -1155,13 +1244,8 @@ __global__ void __launch_bounds__(Body<T, D, kDkv>::kThreads)
                           T* __restrict__ dk, T* __restrict__ dv, int t_len, int heads,
                           long long sb, long long st, long long sh, int causal, float scale) {
   extern __shared__ float4 smem4[];
-  if constexpr (Body<T, D, kDkv>::kMma) {
-    dkv_mma<T, D>(reinterpret_cast<T*>(smem4), q, k, v, dout, lse, delta, dk, dv, t_len, heads,
-                  sb, st, sh, causal, scale);
-  } else {
-    dkv_simt<T, D>(reinterpret_cast<float*>(smem4), q, k, v, dout, lse, delta, dk, dv, t_len,
-                   heads, sb, st, sh, causal, scale);
-  }
+  dkv_mma<T, D>(reinterpret_cast<T*>(smem4), q, k, v, dout, lse, delta, dk, dv, t_len, heads, sb,
+                st, sh, causal, scale);
 }
 
 struct Args {
@@ -1195,8 +1279,8 @@ bool rows_aligned(int which, const Args& a) {
 
 // Launches kernel K at (T, D) with its body's grid, block and shared
 // memory: a tensor-core body takes the tile-major grid, refuses rows off 16
-// bytes and, above 48 KB of shared memory (f32 K3 at D = 64), opts in to
-// it first; a CUDA-core body takes (tiles, heads, batch).
+// bytes and, above 48 KB of shared memory (f32 K3 and K5 at D = 64), opts
+// in to it first; a CUDA-core body takes (tiles, heads, batch).
 template <typename T, int D, int K, typename Kern, typename... A>
 cudaError_t start(Kern kernel, const Args& a, A... args) {
   using B = Body<T, D, K>;

@@ -13,8 +13,8 @@ launch counts ``fwd_launches``, ``dq_launches`` and ``dkv_launches`` rise
 by one where a wrapper launches its kernel and nowhere else.
 
 The library picks each kernel's body by kernel and type
-(:func:`uses_tensor_cores`): K3 runs on the tensor cores in every type
-(f32 as 3xTF32: plain TF32 would miss the f32 tolerance), K4 and K5 for
+(:func:`uses_tensor_cores`): K3 and K5 run on the tensor cores in every
+type (f32 as 3xTF32: plain TF32 would miss the f32 tolerance), K4 for
 bf16 and f16 and on the CUDA cores for f32. The tensor-core bodies stage
 rows (q/k/v, and dO for K4 and K5) by 16-byte ``cp.async`` copies, so the
 wrappers hand them only rows that start on 16 bytes
@@ -144,14 +144,14 @@ KERNELS = ("fwd", "dq", "dkv")  # K3, K4, K5
 def uses_tensor_cores(dtype, kernel: str) -> bool:
     """Whether K3 (``"fwd"``), K4 (``"dq"``) or K5 (``"dkv"``) runs its
     tensor-core body for ``dtype``: all three for bf16 and f16 on
-    ``mma.sync.m16n8k16``; K3 for f32 too, as 3xTF32 on ``m16n8k8`` (plain
-    TF32 would miss the f32 tolerance). f32 K4 and K5 keep their CUDA-core
-    bodies. The library decides the same way."""
+    ``mma.sync.m16n8k16``; K3 and K5 for f32 too, as 3xTF32 on ``m16n8k8``
+    (plain TF32 would miss the f32 tolerance). f32 K4 keeps its CUDA-core
+    body. The library decides the same way."""
     if kernel not in KERNELS:
         raise ValueError(f"kernel is one of {KERNELS}, got {kernel!r}")
     if dtype in (torch.bfloat16, torch.float16):
         return True
-    return dtype == torch.float32 and kernel == "fwd"
+    return dtype == torch.float32 and kernel != "dq"
 
 
 def rows_aligned(t) -> bool:

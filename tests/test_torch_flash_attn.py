@@ -146,9 +146,9 @@ def test_plain_backward_is_the_gradient_of_plain_forward(causal):
 @pytest.mark.parametrize("kernel", tfa.KERNELS)
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float32])
 def test_kernel_body_is_chosen_by_dtype(dtype, kernel):
-    """Tensor cores for every bf16/f16 body and for f32 K3 (3xTF32); the
-    CUDA cores for f32 K4 and K5."""
-    want = dtype != torch.float32 or kernel == "fwd"
+    """Tensor cores for every bf16/f16 body and for f32 K3 and K5
+    (3xTF32); the CUDA cores for f32 K4 alone."""
+    want = dtype != torch.float32 or kernel != "dq"
     assert tfa.uses_tensor_cores(dtype, kernel) is want
 
 
@@ -188,26 +188,26 @@ def test_qkv_strides_keeps_aligned_views_and_copies_the_rest():
             assert got.is_contiguous() and tfa.rows_aligned(got) and torch.equal(got, want)
         assert strides == q2.stride()[:3]
 
-    # the CUDA-core bodies (f32 K4 and K5) read any shared stride, aligned or not
+    # the CUDA-core body (f32 K4) reads any shared stride, aligned or not
     q, k, v = _fused_views(torch.float32, width_pad=1, offset=1)
-    for kernel in ("dq", "dkv"):
-        (q2, _, _), strides = tfa._qkv_strides(q, k, v, kernel)
-        assert q2.data_ptr() == q.data_ptr() and strides == q.stride()[:3]
+    (q2, _, _), strides = tfa._qkv_strides(q, k, v, "dq")
+    assert q2.data_ptr() == q.data_ptr() and strides == q.stride()[:3]
 
 
 @pytest.mark.parametrize("width_pad,offset,copied", [(0, 0, False), (4, 4, False),
                                                      (1, 0, True), (0, 1, True)])
 def test_qkv_strides_copies_unaligned_f32_views_for_k3_only(width_pad, offset, copied):
-    """f32 K3 stages its rows by 16-byte ``cp.async`` like the bf16 bodies:
-    a view off 16 bytes is copied for it, and read as it is by f32 K4 and
-    K5 (CUDA cores)."""
+    """f32 K3 and K5 stage their rows by 16-byte ``cp.async`` like the
+    bf16 bodies: a view off 16 bytes is copied for them, and read as it is
+    by f32 K4 alone (CUDA cores)."""
     q, k, v = _fused_views(torch.float32, width_pad, offset)
-    (q2, k2, v2), strides = tfa._qkv_strides(q, k, v, "fwd")
-    assert (q2.data_ptr() != q.data_ptr()) is copied
-    assert all(tfa.rows_aligned(t) and torch.equal(t, w) for t, w in zip((q2, k2, v2), (q, k, v)))
-    assert strides == q2.stride()[:3]
-    for kernel in ("dq", "dkv"):
-        assert tfa._qkv_strides(q, k, v, kernel)[0][0].data_ptr() == q.data_ptr()
+    for kernel in ("fwd", "dkv"):
+        (q2, k2, v2), strides = tfa._qkv_strides(q, k, v, kernel)
+        assert (q2.data_ptr() != q.data_ptr()) is copied
+        assert all(tfa.rows_aligned(t) and torch.equal(t, w)
+                   for t, w in zip((q2, k2, v2), (q, k, v)))
+        assert strides == q2.stride()[:3]
+    assert tfa._qkv_strides(q, k, v, "dq")[0][0].data_ptr() == q.data_ptr()
 
 
 def test_unaligned_contiguous_grad_is_copied():
