@@ -12,10 +12,9 @@ Phases, each fatal on failure:
    tpu_torch/csrc`` (window attention and flash attention), one nvcc each
    for sm_90a, started together, with ptxas's register and spill counts
    and, where the toolkit has ``cuobjdump``, the tensor-core (HMMA)
-   instructions in each kernel's SASS: K1, K2, K3 and K5 must hold some
-   in every type (f32 as 3xTF32), K4 in bf16 and f16, the f32 body of K4
-   none (as ``uses_tensor_cores(dtype, kernel)`` of each module says); no
-   kernel may spill;
+   instructions in each kernel's SASS: every body of K1-K5 must hold some
+   in every type (f32 as 3xTF32), as ``uses_tensor_cores(dtype, kernel)``
+   of each module says; no kernel may spill;
 3. kernels: K1 (forward) and K2 (backward) against their plain PyTorch
    versions at every shape the two SwinIR paths below give them: the
    bench shape (q/k/v [1152, 6, 64, 10]: batch 18 at LR 64x64) in f32 and
@@ -32,13 +31,13 @@ Phases, each fatal on failure:
 4. flash kernels: K3 (forward), K4 (dq) and K5 (dk/dv) against their
    plain versions at the GPT-2 phase's shape, q/k/v [8, 512, 12, 64] as
    views of one fused projection, causal in bf16 (the path), f32 and f16,
-   one non-causal bf16 case, and K5 alone in a non-causal f32 case (f32 K4
-   is still the CUDA-core body, which runs slower than its plain version
-   without the causal skip). Errors, device times of kernel, plain version
-   and library (``scaled_dot_product_attention(is_causal=...)`` for K3;
-   its autograd backward, one call, stands for K4 and K5 together), and
-   the bound from bytes and operations at the rate of the body each kernel
-   runs (``flash_bounds``). No kernel may be slower than its plain
+   one non-causal bf16 case, and K4 and K5 in a non-causal f32 case.
+   Errors, device times of kernel, plain version and library
+   (``scaled_dot_product_attention(is_causal=...)`` for K3; its autograd
+   backward, one call, stands for K4 and K5 together), the bound from
+   bytes and operations at the tensor cores' rate (``flash_bounds``), and
+   the ratios of K3 to SDPA's forward and of K4, K5 and K4 + K5 to its
+   backward. No kernel may be slower than its plain
    version (``flash_speed_faults``); then a tiny f32 GPT-2 on the card
    against the same model on the CPU;
 5. driver: ``drivers.stoke_ddp.main`` (full-width SwinIR-S, one epoch of
@@ -83,9 +82,11 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
-PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12, "float16": 989e12}  # CUDA-core f32
-# a tensor-core body's rate (K1, K2, K3 and K5 in every type, K4 in
-# bf16/f16): f32 runs as 3xTF32, three TF32 products (495 TFLOP/s) per product
+# the card's peaks outside the tensor cores for f32 (bound_ms's default);
+# no kernel body of the port runs at this rate
+PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12, "float16": 989e12}
+# a tensor-core body's rate (every body of K1-K5): f32 runs as 3xTF32,
+# three TF32 products (495 TFLOP/s) per product
 TENSOR_PEAK_FLOPS = {"float32": 495e12 / 3, "bfloat16": 989e12, "float16": 989e12}
 ELEMENT_BYTES = {"float32": 4, "bfloat16": 2, "float16": 2}
 TOL = {"float32": 2e-5, "bfloat16": 1e-2, "float16": 2e-3}  # max |err| / max(1, max |ref|)
@@ -275,7 +276,7 @@ def flash_build_faults(regs: dict, hmma: dict | None) -> list[str]:
     spill bytes)}``) is not as designed: a kernel that spills, and (where
     ``hmma`` was counted) a body whose HMMA use disagrees with the
     wrappers' ``uses_tensor_cores`` for its kernel and type: HMMA in every
-    body of K3 and K5 and in bf16/f16 K4, none in f32 K4."""
+    body of K3, K4 and K5."""
     import torch
 
     from pytorch_distributedtraining_tpu_torch.ops.flash_attn import uses_tensor_cores
@@ -507,20 +508,14 @@ def flash_bounds(shape: tuple, dtype: str, causal: bool) -> dict:
     """K3-K5's bounds at q/k/v ``shape`` [B, T, H, D] in ``dtype``: each
     input read once, each output written once (lse and delta f32), and the
     score pairs the mask keeps (T(T+1)/2 a row block when causal) at the
-    rate of the body each kernel runs (``uses_tensor_cores``)."""
-    import torch
-
-    from pytorch_distributedtraining_tpu_torch.ops.flash_attn import uses_tensor_cores
-
+    tensor cores' rate, where every body runs."""
     b, t, h, d = shape
     tensor, stats = b * t * h * d * ELEMENT_BYTES[dtype], b * h * t * 4
     pairs = b * h * (t * (t + 1) // 2 if causal else t * t)
     work = {"fwd": (4 * tensor + stats, 4 * pairs * d),
             "dq": (5 * tensor + 2 * stats, 6 * pairs * d),
             "dkv": (6 * tensor + 2 * stats, 8 * pairs * d)}
-    return {kernel: bound_ms(moved, flops, dtype,
-                             TENSOR_PEAK_FLOPS if uses_tensor_cores(getattr(torch, dtype), kernel)
-                             else PEAK_FLOPS)
+    return {kernel: bound_ms(moved, flops, dtype, TENSOR_PEAK_FLOPS)
             for kernel, (moved, flops) in work.items()}
 
 
@@ -596,7 +591,7 @@ def phase_flash_kernels(smi: str) -> list[dict]:
     for seed, (dtype, causal, kernels) in enumerate(
             [(torch.bfloat16, True, all3), (torch.float32, True, all3),
              (torch.float16, True, all3), (torch.bfloat16, False, all3),
-             (torch.float32, False, ("dkv",))]):
+             (torch.float32, False, ("dq", "dkv"))]):
         c = _flash_case(dtype, causal, seed, kernels)
         tol = TOL[c["dtype"]]
         worst = max(rel for nm, (_, rel) in c["errors"].items() if nm != "lse")
@@ -615,8 +610,11 @@ def phase_flash_kernels(smi: str) -> list[dict]:
         if "fwd" in kernels:
             print(f"[flash]   K3 / SDPA's forward: {t['fwd'] / t['lib_fwd']:.3f}, K3 / its "
                   f"bound: {t['fwd'] / bd['fwd'][0]:.3f}")
-        print(f"[flash]   K5 / SDPA's backward: {t['dkv'] / t['lib_bwd']:.3f}, K5 / its bound: "
-              f"{t['dkv'] / bd['dkv'][0]:.3f}")
+        for kn, name in (("dq", "K4"), ("dkv", "K5")):
+            print(f"[flash]   {name} / SDPA's backward: {t[kn] / t['lib_bwd']:.3f}, {name} / its "
+                  f"bound: {t[kn] / bd[kn][0]:.3f}")
+        print(f"[flash]   (K4 + K5) / SDPA's backward: "
+              f"{(t['dq'] + t['dkv']) / t['lib_bwd']:.3f}")
         slow = flash_speed_faults(t)
         if slow:
             raise SystemExit(f"{c['dtype']} causal={int(causal)}: slower than the plain "

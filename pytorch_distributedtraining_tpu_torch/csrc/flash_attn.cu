@@ -24,92 +24,86 @@
 // (~7.5 us at 3.35 TB/s), K4 ~32 MB and K5 ~38 MB; the causal products
 // are ~3.2 GFLOP (K3) to ~6.5 GFLOP (K5), ~3-7 us at the bf16 tensor-core
 // rate. In f32, K3's 3.2 GFLOP take 19.6 us as 3xTF32 (three TF32
-// products per product at 495 TFLOP/s) and its 50.5 MB 15.1 us; K5's 6.5
-// GFLOP take 39.1 us and its 75.9 MB 22.7 us. At T =
-// 512 neither bound is what sets the pace: a block streams at most eight
-// 64-row tiles, so load latency, register pressure, instruction throughput and the
-// warps in flight do.
+// products per product at 495 TFLOP/s) and its 50.5 MB 15.1 us; K4's 4.8
+// GFLOP 29.3 us and its 63.3 MB 18.9 us; K5's 6.5 GFLOP 39.1 us and its
+// 75.9 MB 22.7 us. At T = 512 neither bound is what sets the pace: a
+// block streams at most eight 64-row tiles, so load latency, register
+// pressure, instruction throughput and the warps in flight do.
 //
-// Two kinds of body, chosen per kernel and type inside this library (a
-// kernel and type always reach the same body; nothing switches at run
-// time):
+// One kind of body for every kernel and type: FlashAttention-2 on the
+// tensor cores, `mma.sync` with f32 accumulate, m16n8k16 for bf16/f16 and
+// 3xTF32 on m16n8k8 for f32. A block holds 64 rows (query rows for K3 and
+// K4, key rows for K5) in 4 warps of 16 rows. The resident operands (Q
+// for K3; Q and dO for K4; K and V for K5) are loaded once into registers
+// (`ldmatrix` in bf16/f16; in f32 K3's Q and K4's dO are split into tf32
+// hi/lo fragments once a block, K4's Q and K5's K and V are kept raw and
+// split at each use, which keeps their registers in bounds). The streamed
+// 64-row tiles (K/V for K3 and K4; Q/dO with their lse and delta for K5)
+// are staged in the input's type by 16-byte `cp.async` copies,
+// double-buffered, zero-filled past T, in rows padded by 16 bytes (a row
+// stride of 4 x odd words) so that `ldmatrix` and the tf32 fragment loads
+// are free of bank conflicts. K3 keeps the online softmax in the
+// accumulator fragments (a row's max and sum take two shuffles within its
+// quad once per 64-key tile; exp2 with log2(e) folded into the scale) and
+// feeds P straight from the score fragments into P.V as the A operand: in
+// bf16/f16 converted pairwise, with V read by `ldmatrix.trans`; in f32
+// under a permuted k index (slot tq is key 2tq, slot tq+4 key 2tq+1,
+// which the sum over keys does not see), with V's rows read in that
+// order. K4 computes S = Q.K^T and dP = dO.V^T, 16 keys at a time, P and
+// dS in the accumulator fragments (lse and delta of a thread's two rows
+// in registers, log2(e) folded into lse and the scale), then dQ += dS.K
+// with dS from the C fragments as the A operand and K read by
+// `ldmatrix.trans` (in f32 under K3's permuted k index, at rows 2tq and
+// 2tq+1). K5 computes S^T = K.Q^T and dP^T = V.dO^T, P^T and dS^T in
+// registers, then dV += P^T.dO and dK += dS^T.Q with P^T and dS^T from
+// the C fragments and Q and dO read as K4 reads K, 16 queries at a time
+// to keep the registers in bounds. In f32, K4 and K5 sum each 16-row
+// chunk's terms of their long sums (dQ over keys; dK and dV over queries)
+// in a fresh fragment added in f32, because the tensor core truncates
+// each sum it accumulates. The products live in `Fwd<T, D>`, `Dq<T, D>`
+// and `Dkv<T, D>` (the f32 ones of K4 and K5 share `Tf32<D>`), so that
+// each kernel has one skeleton for every type. Everything after the
+// staging is warp-local. In bf16/f16 P and dS are rounded to the input's
+// type before their second product (the JAX kernels keep them in f32):
+// one step of the type at the largest entries (PERF.md). In f32 every
+// operand, P and dS included, enters as x = hi + lo in tf32 and a.b =
+// hi.hi + hi.lo + lo.hi in f32, about 1e-6 relative: plain TF32 (about
+// 1e-3) would miss the f32 tolerance.
 //
-// - Tensor cores: K3 and K5 in every type, K4 in bf16 and f16.
-//   FlashAttention-2 on `mma.sync` with f32 accumulate: m16n8k16 for
-//   bf16/f16, 3xTF32 on m16n8k8 for f32. A block holds 64 rows (query
-//   rows for K3 and K4, key rows for K5) in 4 warps of 16 rows. The
-//   resident operands (Q for K3; Q and dO for K4; K and V for K5) are
-//   loaded once into registers (`ldmatrix` in bf16/f16; f32 Q is split
-//   into tf32 hi/lo fragments once a block, f32 K and V are kept raw and
-//   split at each use). The streamed 64-row tiles
-//   (K/V for K3 and K4; Q/dO with their lse and delta for K5) are staged
-//   in the input's type by 16-byte `cp.async` copies, double-buffered,
-//   zero-filled past T, in rows padded by 16 bytes (a row stride of 4 x
-//   odd words) so that `ldmatrix` and the tf32 fragment loads are free of
-//   bank conflicts. K3 keeps the online softmax in the accumulator
-//   fragments (a row's max and sum take two shuffles within its quad once
-//   per 64-key tile; exp2 with log2(e) folded into the scale) and feeds P
-//   straight from the score fragments into P.V as the A operand: in
-//   bf16/f16 converted pairwise, with V read by `ldmatrix.trans`; in f32
-//   under a permuted k index (slot tq is key 2tq, slot tq+4 key 2tq+1,
-//   which the sum over keys does not see), with V's rows read in that
-//   order. K4 computes S = Q.K^T and dP = dO.V^T, 16 keys at a time, P
-//   and dS in the accumulator fragments (lse and delta of a thread's two
-//   rows in registers, log2(e) folded into lse and the scale), then dQ +=
-//   dS.K with dS converted in registers to the A operand and K read by
-//   `ldmatrix.trans`. K5 computes S^T = K.Q^T and dP^T = V.dO^T, P^T and
-//   dS^T in registers, then dV += P^T.dO and dK += dS^T.Q with P^T and
-//   dS^T from the C fragments (in f32 under K3's permuted k index, a
-//   chunk's terms summed in a fresh fragment and added in f32) and Q and
-//   dO read by `ldmatrix.trans` (in f32 at rows 2tq and 2tq+1), 16
-//   queries at a time to keep the registers in bounds. The products of
-//   K3 and K5 live in `Fwd<T, D>` and `Dkv<T, D>`, so that each kernel
-//   has one skeleton for every type. Everything after the staging is
-//   warp-local. In bf16/f16 P
-//   and dS are rounded to the input's type before their second product
-//   (the JAX kernels keep them in f32): one step of the type at the
-//   largest entries (PERF.md). In f32 every operand, P included, enters
-//   as x = hi + lo in tf32 and a.b = hi.hi + hi.lo + lo.hi in f32, about
-//   1e-6 relative: plain TF32 (about 1e-3) would miss the f32 tolerance.
-// - CUDA cores: f32 K4, the last of the first bodies. One block per
-//   64-row tile; for D = 64 two threads share a row (one shuffle per dot
-//   product); K and V are staged as f32 in shared memory and read as
-//   broadcast float4s.
-//
-// Common to both: causal skipping (K3 and K4 stop at the last key tile
-// that reaches the block's last query row, K5 starts at the query tile of
-// its first key; the per-element mask runs only on the tile that crosses
-// the diagonal or T, and there the tensor-core K4 and K5 skip the 16-row
-// chunks that the mask covers whole). The tensor-core bodies take their
-// grid tile-major, (heads * batch, tiles), with the tiles that have the
-// most causal work first (K3's and K4's last query tiles, K5's first key
-// tiles): the card then starts every (batch, head)'s longest block before
-// any short one, and the short ones fill the last wave; at GPT-2's shape
-// that is faster than the (tiles, heads, batch) order the CUDA-core body
-// keeps (PERF.md). Deterministic: K4 owns dq rows and K5 owns dk/dv
-// rows, no atomics. The wrapper keeps the JAX block rule (bq and bk
-// divide T); these kernels tile by their own 64 rows, which changes only
-// the order of the f32 sums. The tensor-core bodies need every q/k/v/dO
-// row 16-byte aligned (cp.async); the wrapper guarantees it and the
-// library refuses otherwise.
+// Causal skipping: K3 and K4 stop at the last key tile that reaches the
+// block's last query row, K5 starts at the query tile of its first key;
+// the per-element mask runs only on the tile that crosses the diagonal or
+// T, and there K4 and K5 skip the 16-row chunks that the mask covers
+// whole. The grid is tile-major, (heads * batch, tiles), with the tiles
+// that have the most causal work first (K3's and K4's last query tiles,
+// K5's first key tiles): the card then starts every (batch, head)'s
+// longest block before any short one, and the short ones fill the last
+// wave; at GPT-2's shape that is faster than the (tiles, heads, batch)
+// order of the first CUDA-core bodies (PERF.md). Deterministic: K4 owns dq
+// rows and K5 owns dk/dv rows, no atomics. The wrapper keeps the JAX
+// block rule (bq and bk divide T); these kernels tile by their own 64
+// rows, which changes only the order of the f32 sums. Every q/k/v/dO row
+// must be 16-byte aligned (cp.async); the wrapper guarantees it and the
+// library refuses otherwise. Nothing falls back: a launch runs its body
+// or returns the CUDA error.
 //
 // Out of scope here, for a later PR: wgmma, TMA and warp specialisation
 // (at T = 512 these kernels are latency-bound, not FLOP-bound).
 //
 // Resources at D = 64 (ptxas of CUDA 12.8, sm_90a, -O3), no spills
-// anywhere: tensor-core K3 128 registers a thread in bf16/f16 and 227 in
-// f32, K4 128, K5 167 in bf16/f16 and 255 in f32 (93 and 128 at D = 16
-// and 32), with 36 KB (K3, K4) and 37 KB (K5) of dynamic shared memory a
-// block in bf16/f16, 68 KB for f32 K3 and 70 656 B for f32 K5 (above the
-// 48 KB that needs no opt-in: the launch opts in); the CUDA-core K4 166.
-// Two blocks a SM for f32 K3 and K5 (registers). chip_smoke.py's build
-// phase prints every kernel's registers and spills with the HMMA
-// instructions in its SASS (at D = 64: 64 in bf16/f16 K3, 96 in K4 and
-// 128 in K5, the unrolled m16n8k16 products; 384 in f32 K3, three m16n8k8
-// products for each of S's 64 and P.V's 64; 768 in f32 K5, three for each
-// of the 64 of S^T, dP^T, dV and dK a 64-query tile, 192 and 384 at D =
-// 16 and 32; none in f32 K4), and fails if a kernel spills or a body's
-// HMMA use is not as designed.
+// anywhere: K3 128 registers a thread in bf16/f16 and 227 in f32, K4 128
+// and 249 (96 and 128 at D = 16 and 32), K5 167 and 255 (93 and 128),
+// with 36 KB (K3, K4) and 37 KB (K5) of dynamic shared memory a block in
+// bf16/f16, 69 632 B (K3, K4) and 70 656 B (K5) in f32 (above the 48 KB
+// that needs no opt-in: the launch opts in). Two blocks a SM for every f32
+// body (registers). chip_smoke.py's build phase prints every kernel's
+// registers and spills with the HMMA instructions in its SASS (at D = 64:
+// 64 in bf16/f16 K3, 96 in K4 and 128 in K5, the unrolled m16n8k16
+// products; in f32 three m16n8k8 products for each product: 384 in K3
+// (S's 64 and P.V's 64), 576 in K4 (the 64 of S, dP and dQ a 64-key tile;
+// 144 and 288 at D = 16 and 32), 768 in K5 (the 64 of S^T, dP^T, dV and
+// dK a 64-query tile; 192 and 384 at D = 16 and 32)), and fails if a
+// kernel spills or a body has no HMMA.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -117,206 +111,37 @@
 #include <math.h>
 #include <stdint.h>
 
-#include <type_traits>
-
 namespace {
 
-constexpr int kRows = 64;   // query rows (K3, K4) or key rows (K5) per block
-constexpr int kTile = 64;   // streamed rows per shared-memory stage
-constexpr int kMmaThreads = 128;  // tensor-core bodies: 4 warps of 16 rows
-constexpr int kPadBytes = 16;     // tensor-core bodies: padding per smem row
+constexpr int kRows = 64;      // query rows (K3, K4) or key rows (K5) per block
+constexpr int kTile = 64;      // streamed rows per shared-memory stage
+constexpr int kThreads = 128;  // 4 warps of 16 rows
+constexpr int kPadBytes = 16;  // padding per shared-memory row
 constexpr size_t kNoOptInSmem = 48 * 1024;  // dynamic smem a block gets without opting in
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
-template <typename T> __device__ __forceinline__ float to_f(T x);
-template <> __device__ __forceinline__ float to_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <> __device__ __forceinline__ float to_f<__half>(__half x) { return __half2float(x); }
-
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-template <> __device__ __forceinline__ __half from_f<__half>(float x) { return __float2half(x); }
-
 enum Kernel { kFwd = 0, kDq = 1, kDkv = 2 };
 
-// ---------------------------------------------------------------------------
-// CUDA-core body (f32 K4)
-
-// How the threads of a block split rows of width D.
-template <int D>
-struct Split {
-  static constexpr int kParts = D > 32 ? D / 32 : 1;  // threads per row
-  static constexpr int kCols = D / kParts;            // columns per thread
-  static constexpr int kRowsPerWarp = 32 / kParts;
-  static constexpr int kThreads = kRows * kParts;
-};
-
-// A tensor-core body's stage tile: kTile rows of D elements in T, padded
-// by 16 bytes (8 bf16/f16 or 4 f32 elements: a row stride of 4 x odd
-// words, so that ldmatrix and the tf32 fragment loads are free of bank
-// conflicts).
+// A stage tile: kTile rows of D elements in T, padded by 16 bytes (8
+// bf16/f16 or 4 f32 elements: a row stride of 4 x odd words, so that
+// ldmatrix and the tf32 fragment loads are free of bank conflicts).
 template <typename T, int D>
 struct Tiles {
   static constexpr int kStride = D + kPadBytes / (int)sizeof(T);  // elements
   static constexpr int kTileElems = kTile * kStride;
 };
 
-// The body, block size and shared memory that kernel K takes at (type,
-// head dim): K3 and K5 on the tensor cores in every type, K4 in bf16/f16;
-// f32 K4 on the CUDA cores.
+// The dynamic shared memory kernel K takes at (type, head dim): two stages
+// of two tiles (K/V for K3 and K4, Q/dO for K5), K5 adding the stages'
+// lse/delta. At D = 64, 36 KB (K3, K4) and 37 KB (K5) in bf16/f16, 69 632
+// B (K3, K4) and 70 656 B (K5) in f32, above the 48 KB a launch gets
+// without opting in.
 template <typename T, int D, int K>
-struct Body {
-  static constexpr bool kMma = K != kDq || !std::is_same<T, float>::value;
-  static constexpr int kThreads = kMma ? kMmaThreads : Split<D>::kThreads;
-  // tensor cores: two stages of two tiles (K/V for K3 and K4, Q/dO for
-  // K5), K5 adding the stages' lse/delta; at D = 64, 36 KB (K3, K4) and
-  // 37 KB (K5) in bf16/f16, 69 632 B (f32 K3) and 70 656 B (f32 K5) in
-  // f32, above the 48 KB a launch gets without opting in. CUDA cores: one
-  // K/V tile pair as f32.
-  static constexpr size_t kSmem =
-      kMma ? 4 * Tiles<T, D>::kTileElems * sizeof(T) + (K == kDkv ? 4 * kTile * sizeof(float) : 0)
-           : 2 * kTile * D * sizeof(float);
-};
-
-// This thread's row in the block's tile and its first column.
-template <int D>
-__device__ __forceinline__ void my_row(int& row, int& col0) {
-  using S = Split<D>;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  row = warp * S::kRowsPerWarp + lane % S::kRowsPerWarp;
-  col0 = (lane / S::kRowsPerWarp) * S::kCols;
-}
-
-// Adds the partial sums of the threads that share a row (lanes l, l+16).
-template <int D>
-__device__ __forceinline__ float row_sum(float x) {
-#pragma unroll
-  for (int o = Split<D>::kRowsPerWarp; o < 32; o <<= 1) {
-    x += __shfl_xor_sync(0xffffffffu, x, o);
-  }
-  return x;
-}
-
-// a . b over N columns; b is 16-byte aligned shared memory.
-template <int N>
-__device__ __forceinline__ float dot(const float (&a)[N], const float* b) {
-  const float4* b4 = reinterpret_cast<const float4*>(b);
-  float s0 = 0.f, s1 = 0.f, s2 = 0.f, s3 = 0.f;
-#pragma unroll
-  for (int i = 0; i < N / 4; ++i) {
-    const float4 x = b4[i];
-    s0 = fmaf(a[4 * i], x.x, s0);
-    s1 = fmaf(a[4 * i + 1], x.y, s1);
-    s2 = fmaf(a[4 * i + 2], x.z, s2);
-    s3 = fmaf(a[4 * i + 3], x.w, s3);
-  }
-  return (s0 + s1) + (s2 + s3);
-}
-
-// acc += w * b over N columns; b as in dot.
-template <int N>
-__device__ __forceinline__ void axpy(float (&acc)[N], float w, const float* b) {
-  const float4* b4 = reinterpret_cast<const float4*>(b);
-#pragma unroll
-  for (int i = 0; i < N / 4; ++i) {
-    const float4 x = b4[i];
-    acc[4 * i] = fmaf(w, x.x, acc[4 * i]);
-    acc[4 * i + 1] = fmaf(w, x.y, acc[4 * i + 1]);
-    acc[4 * i + 2] = fmaf(w, x.z, acc[4 * i + 2]);
-    acc[4 * i + 3] = fmaf(w, x.w, acc[4 * i + 3]);
-  }
-}
-
-template <typename T, int N>
-__device__ __forceinline__ void load_row(float (&dst)[N], const T* __restrict__ src,
-                                         float scale) {
-#pragma unroll
-  for (int c = 0; c < N; ++c) dst[c] = to_f<T>(src[c]) * scale;
-}
-
-template <typename T, int N>
-__device__ __forceinline__ void store_row(T* __restrict__ dst, const float (&src)[N],
-                                          float scale) {
-#pragma unroll
-  for (int c = 0; c < N; ++c) dst[c] = from_f<T>(src[c] * scale);
-}
-
-// Rows r0 .. r0+kTile-1 of a [T, D] matrix whose row t starts at
-// src + t*stride -> f32 shared [kTile][D]; rows at or past T are zero.
-template <typename T, int D>
-__device__ __forceinline__ void load_tile(float* dst, const T* __restrict__ src,
-                                          long long stride, int r0, int t_len) {
-  for (int e = threadIdx.x; e < kTile * D; e += blockDim.x) {
-    const int r = e / D;
-    const int c = e - r * D;
-    const int t = r0 + r;
-    dst[e] = t < t_len ? to_f<T>(src[(long long)t * stride + c]) : 0.f;
-  }
-}
-
-template <typename T, int D>
-__device__ __forceinline__ void dq_simt(float* smem, const T* __restrict__ q,
-                                        const T* __restrict__ k, const T* __restrict__ v,
-                                        const T* __restrict__ dout,
-                                        const float* __restrict__ lse,
-                                        const float* __restrict__ delta, T* __restrict__ dq,
-                                        int t_len, int heads, long long sb, long long st,
-                                        long long sh, int causal, float scale) {
-  using S = Split<D>;
-  float* sk = smem;
-  float* sv = sk + kTile * D;
-
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int q0 = blockIdx.x * kRows;
-  int r, c0;
-  my_row<D>(r, c0);
-  const int i = q0 + r;
-  const int ic = min(i, t_len - 1);
-  const long long base = (long long)b * sb + (long long)h * sh;
-  const long long row = ((long long)b * t_len + ic) * heads + h;  // [B, T, H] index
-  const long long stat = ((long long)b * heads + h) * t_len + ic;  // [B, H, T] index
-
-  float qr[S::kCols];
-  float dor[S::kCols];
-  load_row<T, S::kCols>(qr, q + base + (long long)ic * st + c0, 1.f);
-  load_row<T, S::kCols>(dor, dout + row * D + c0, 1.f);
-  const float lse_i = lse[stat];
-  const float delta_i = delta[stat];
-  float acc[S::kCols];
-#pragma unroll
-  for (int c = 0; c < S::kCols; ++c) acc[c] = 0.f;
-
-  const int kend = causal ? min(t_len, q0 + kRows) : t_len;
-  for (int j0 = 0; j0 < kend; j0 += kTile) {
-    __syncthreads();
-    load_tile<T, D>(sk, k + base, st, j0, t_len);
-    load_tile<T, D>(sv, v + base, st, j0, t_len);
-    __syncthreads();
-    const int jn = min(kTile, kend - j0);
-    for (int j = 0; j < jn; ++j) {
-      const float* kj = sk + j * D + c0;
-      const float s = row_sum<D>(dot<S::kCols>(qr, kj));
-      const float dp = row_sum<D>(dot<S::kCols>(dor, sv + j * D + c0));
-      const bool ok = !causal || j0 + j <= i;
-      const float p = ok ? expf(scale * s - lse_i) : 0.f;
-      axpy<S::kCols>(acc, p * (dp - delta_i), kj);
-    }
-  }
-
-  if (i < t_len) store_row<T, S::kCols>(dq + row * D + c0, acc, scale);
-}
+constexpr size_t kSmemBytes =
+    4 * Tiles<T, D>::kTileElems * sizeof(T) + (K == kDkv ? 4 * kTile * sizeof(float) : 0);
 
 // ---------------------------------------------------------------------------
-// Tensor-core bodies (K3 and K5 in every type, K4 in bf16/f16)
-//
 // Fragments of mma.m16n8k16 for lane = 4*g + tq (g = lane/4, tq = lane%4):
 // A (16x16, row-major) a0 = (g, 2tq..2tq+1), a1 = (g+8, same), a2 = (g,
 // 2tq+8..), a3 = (g+8, 2tq+8..); B (16x8) b0 = (k 2tq..2tq+1, n g), b1 =
@@ -464,11 +289,11 @@ __device__ __forceinline__ void tile_async(T* dst, const T* __restrict__ src, lo
                                            int r0, int t_len) {
   constexpr int kElems = 16 / (int)sizeof(T);  // elements a 16-byte piece
   constexpr int kPieces = D / kElems;           // pieces a row
-  constexpr int kPer = kTile * kPieces / kMmaThreads;
-  static_assert(kPer * kMmaThreads == kTile * kPieces, "pieces must split evenly");
+  constexpr int kPer = kTile * kPieces / kThreads;
+  static_assert(kPer * kThreads == kTile * kPieces, "pieces must split evenly");
 #pragma unroll
   for (int u = 0; u < kPer; ++u) {
-    const int e = threadIdx.x + u * kMmaThreads;
+    const int e = threadIdx.x + u * kThreads;
     const int r = e / kPieces;
     const int c = e - r * kPieces;
     const int t = r0 + r;
@@ -757,6 +582,225 @@ __device__ __forceinline__ void fwd_mma(T* smem, const T* __restrict__ q,
   }
 }
 
+// Keeps x as it is in a register: the compiler may neither reuse what an
+// earlier use computed from it nor hoist that out of a loop.
+__device__ __forceinline__ float opaque(float x) {
+  asm volatile("" : "+f"(x));
+  return x;
+}
+
+// f32 products of one warp's 16 rows against a chunk of 16 rows of a stage
+// tile, as 3xTF32 on m16n8k8 from plain 32-bit shared loads, on K3's f32
+// fragment layouts (the padded row stride keeps every load on 32 banks).
+// K4 and K5 share them:
+// - the warp's rows are the A operand (Q and dO for K4, K and V for K5):
+//   a0 = (g, tq), a1 = (g+8, tq), a2 = (g, tq+4), a3 = (g+8, tq+4);
+// - step: s[n] += A . B[8n .. 8n+7]^T, the chunk's rows read as K3 reads
+//   K: b0 = (column tq, row g), bank 4g + tq at stride D + 4;
+// - grad: acc += C . B over the chunk's rows, C (dS for K4, P^T and dS^T
+//   for K5) straight from the C fragments under K3's permuted k index
+//   (slot tq is row 2tq of the chunk, slot tq+4 row 2tq+1), so B is read
+//   at rows 2tq and 2tq+1 (bank 8tq + g). C is split into hi/lo like any
+//   f32 operand, not rounded.
+// - A chunk's grad terms are summed in a fresh fragment and added to the
+//   accumulators in f32 (round to nearest): the tensor core truncates each
+//   sum it accumulates, and over a block's up to 32 chunks, three products
+//   each, that biases the result toward zero (PERF.md).
+template <int D>
+struct Tf32 {
+  static constexpr int kLd = Tiles<float, D>::kStride;
+  static constexpr int kKS = D / 8;  // 8-wide steps over the head dim
+  static constexpr int kNB = D / 8;  // 8-wide blocks of the head dim
+
+  // the A fragments of the 16 rows at t, raw
+  static __device__ __forceinline__ void load_a(float (&a)[kKS][4], const float* t, int lane) {
+    const float* p = t + (lane >> 2) * kLd + (lane & 3);
+#pragma unroll
+    for (int ks = 0; ks < kKS; ++ks) {
+      a[ks][0] = p[ks * 8];
+      a[ks][1] = p[8 * kLd + ks * 8];
+      a[ks][2] = p[ks * 8 + 4];
+      a[ks][3] = p[8 * kLd + ks * 8 + 4];
+    }
+  }
+
+  // s[n] += A . B[8n .. 8n+7]^T over the head dim's 8-wide step ks, A as
+  // hi/lo fragments; p = bt + g*kLd + tq for the chunk's rows at bt
+  static __device__ __forceinline__ void step(float (&s)[2][4], const uint32_t (&ah)[4],
+                                              const uint32_t (&al)[4], const float* p, int ks) {
+#pragma unroll
+    for (int n = 0; n < 2; ++n) {
+      uint32_t bh[2], bl[2];
+      split_tf32(p[n * 8 * kLd + ks * 8], bh[0], bl[0]);
+      split_tf32(p[n * 8 * kLd + ks * 8 + 4], bh[1], bl[1]);
+      mma_3xtf32(s[n], ah, al, bh, bl);
+    }
+  }
+
+  // acc += c . B over the chunk's 16 rows at bt, c as C fragments
+  static __device__ __forceinline__ void grad(float (&acc)[kNB][4], const float (&c)[2][4],
+                                              const float* bt, int lane) {
+    const int g = lane >> 2;
+    const int tq = lane & 3;
+    uint32_t ah[2][4], al[2][4];
+#pragma unroll
+    for (int kb = 0; kb < 2; ++kb) {
+      split_tf32(c[kb][0], ah[kb][0], al[kb][0]);
+      split_tf32(c[kb][2], ah[kb][1], al[kb][1]);
+      split_tf32(c[kb][1], ah[kb][2], al[kb][2]);
+      split_tf32(c[kb][3], ah[kb][3], al[kb][3]);
+    }
+#pragma unroll
+    for (int nb = 0; nb < kNB; ++nb) {
+      float sum[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int kb = 0; kb < 2; ++kb) {
+        const float* p = bt + (kb * 8 + 2 * tq) * kLd + nb * 8 + g;
+        uint32_t bh[2], bl[2];
+        split_tf32(p[0], bh[0], bl[0]);
+        split_tf32(p[kLd], bh[1], bl[1]);
+        mma_3xtf32(sum, ah[kb], al[kb], bh, bl);
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[nb][e] += sum[e];
+    }
+  }
+};
+
+// One warp's 16 rows as a resident A operand of Tf32's products, s[n] +=
+// A . B[8n .. 8n+7]^T for the chunk's 16 rows at bt: split into hi/lo once
+// (kSplit), or held raw and split at each use behind `opaque` (without it
+// the compiler hoists the splits out of the loop, as if held split).
+template <int D, bool kSplit>
+struct Resident;
+
+template <int D>
+struct Resident<D, true> {
+  using M = Tf32<D>;
+  uint32_t hi[M::kKS][4], lo[M::kKS][4];
+
+  __device__ __forceinline__ void load(const float* t, int lane) {
+    float a[M::kKS][4];
+    M::load_a(a, t, lane);
+#pragma unroll
+    for (int ks = 0; ks < M::kKS; ++ks) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) split_tf32(a[ks][i], hi[ks][i], lo[ks][i]);
+    }
+  }
+
+  __device__ __forceinline__ void product(float (&s)[2][4], const float* bt, int lane) const {
+    const float* p = bt + (lane >> 2) * M::kLd + (lane & 3);
+#pragma unroll
+    for (int ks = 0; ks < M::kKS; ++ks) M::step(s, hi[ks], lo[ks], p, ks);
+  }
+};
+
+template <int D>
+struct Resident<D, false> {
+  using M = Tf32<D>;
+  float a[M::kKS][4];
+
+  __device__ __forceinline__ void load(const float* t, int lane) { M::load_a(a, t, lane); }
+
+  __device__ __forceinline__ void product(float (&s)[2][4], const float* bt, int lane) const {
+    const float* p = bt + (lane >> 2) * M::kLd + (lane & 3);
+#pragma unroll
+    for (int ks = 0; ks < M::kKS; ++ks) {
+      uint32_t ah[4], al[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) split_tf32(opaque(a[ks][i]), ah[i], al[i]);
+      M::step(s, ah, al, p, ks);
+    }
+  }
+};
+
+// K4's products for one warp's 16 query rows against a chunk of 16 keys
+// (kc, vc: the chunk's first K and V rows in the stage):
+// - load_qdo: Q's and dO's A fragments from the warp's first rows;
+// - scores: s[n] += Q . K[8n .. 8n+7]^T and dp[n] += dO . V[8n ..]^T;
+// - grad: acc += dS . K, dS straight from the C fragments ds.
+// 16-bit types: m16n8k16 from ldmatrix (K by .trans in grad), dS converted
+// pairwise in registers.
+template <typename T, int D>
+struct Dq {
+  static constexpr int kKS = D / 16;  // 16-wide steps over the head dim
+  static constexpr int kNB = D / 8;   // 8-wide blocks of the head dim
+  struct QdO {
+    uint32_t q[kKS][4], dout[kKS][4];
+  };
+
+  static __device__ __forceinline__ void load_qdo(QdO& f, const T* qt, const T* dot, int lane) {
+    const int off = a_offset<T, D>(lane);
+#pragma unroll
+    for (int ks = 0; ks < kKS; ++ks) {
+      ldsm_x4(f.q[ks], qt + off + ks * 16);
+      ldsm_x4(f.dout[ks], dot + off + ks * 16);
+    }
+  }
+
+  static __device__ __forceinline__ void scores(float (&s)[2][4], float (&dp)[2][4], const QdO& f,
+                                                const T* kc, const T* vc, int lane) {
+    const int off = b_offset<T, D>(lane);
+#pragma unroll
+    for (int ks = 0; ks < kKS; ++ks) {
+      uint32_t b[4];
+      ldsm_x4(b, kc + off + ks * 16);
+      mma<T>(s[0], f.q[ks], b[0], b[1]);
+      mma<T>(s[1], f.q[ks], b[2], b[3]);
+      ldsm_x4(b, vc + off + ks * 16);
+      mma<T>(dp[0], f.dout[ks], b[0], b[1]);
+      mma<T>(dp[1], f.dout[ks], b[2], b[3]);
+    }
+  }
+
+  static __device__ __forceinline__ void grad(float (&acc)[kNB][4], const float (&ds)[2][4],
+                                              const T* kc, int lane) {
+    uint32_t da[4];
+    to_a<T>(da, ds[0], ds[1]);
+    const int off = bt_offset<T, D>(lane);
+#pragma unroll
+    for (int nd = 0; nd < kNB / 2; ++nd) {
+      uint32_t b[4];
+      ldsm_x4_t(b, kc + off + nd * 16);
+      mma<T>(acc[2 * nd], da, b[0], b[1]);
+      mma<T>(acc[2 * nd + 1], da, b[2], b[3]);
+    }
+  }
+};
+
+// f32: Tf32's products, Q and dO the resident A operands. Both held split
+// take 128 registers at D = 64 beside dQ's 32, and ptxas spills there;
+// both held raw, it spills at D = 16, and every value is split again each
+// chunk. So dO is held split and Q raw: 249 registers at D = 64, no spill
+// at any D, and faster than either (PERF.md).
+template <int D>
+struct Dq<float, D> {
+  using M = Tf32<D>;
+  static constexpr int kNB = M::kNB;
+  struct QdO {
+    Resident<D, false> q;
+    Resident<D, true> dout;
+  };
+
+  static __device__ __forceinline__ void load_qdo(QdO& f, const float* qt, const float* dot,
+                                                  int lane) {
+    f.q.load(qt, lane);
+    f.dout.load(dot, lane);
+  }
+
+  static __device__ __forceinline__ void scores(float (&s)[2][4], float (&dp)[2][4], const QdO& f,
+                                                const float* kc, const float* vc, int lane) {
+    f.q.product(s, kc, lane);
+    f.dout.product(dp, vc, lane);
+  }
+
+  static __device__ __forceinline__ void grad(float (&acc)[kNB][4], const float (&ds)[2][4],
+                                              const float* kc, int lane) {
+    M::grad(acc, ds, kc, lane);
+  }
+};
+
 template <typename T, int D>
 __device__ __forceinline__ void dq_mma(T* smem, const T* __restrict__ q,
                                        const T* __restrict__ k, const T* __restrict__ v,
@@ -766,7 +810,7 @@ __device__ __forceinline__ void dq_mma(T* smem, const T* __restrict__ q,
                                        int t_len, int heads, long long sb, long long st,
                                        long long sh, int causal, float scale) {
   using B = Tiles<T, D>;
-  constexpr int kKS = D / 16;
+  using P = Dq<T, D>;
   constexpr int kNB = D / 8;
   // stage s holds K at smem + 2*s*kTileElems and V right after it, as in K3
   const int warp = threadIdx.x >> 5;
@@ -803,16 +847,9 @@ __device__ __forceinline__ void dq_mma(T* smem, const T* __restrict__ q,
   }
   cp_async_wait<0>();
   __syncthreads();
-  uint32_t qf[kKS][4];
-  uint32_t dof[kKS][4];
-  {
-    const int off = warp * 16 * B::kStride + a_offset<T, D>(lane);
-#pragma unroll
-    for (int ks = 0; ks < kKS; ++ks) {
-      ldsm_x4(qf[ks], smem + 2 * B::kTileElems + off + ks * 16);
-      ldsm_x4(dof[ks], smem + 3 * B::kTileElems + off + ks * 16);
-    }
-  }
+  typename P::QdO qd;
+  P::load_qdo(qd, smem + 2 * B::kTileElems + warp * 16 * B::kStride,
+              smem + 3 * B::kTileElems + warp * 16 * B::kStride, lane);
   __syncthreads();  // stage 1 is free
 
   float acc[kNB][4];
@@ -847,17 +884,8 @@ __device__ __forceinline__ void dq_mma(T* smem, const T* __restrict__ q,
       if (j0 + c * 16 >= t_len || (diag && c > warp)) continue;
       float s[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
       float dp[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
-      const int boff = c * 16 * B::kStride + b_offset<T, D>(lane);
-#pragma unroll
-      for (int ks = 0; ks < kKS; ++ks) {
-        uint32_t f[4];
-        ldsm_x4(f, ks_tile + boff + ks * 16);
-        mma<T>(s[0], qf[ks], f[0], f[1]);
-        mma<T>(s[1], qf[ks], f[2], f[3]);
-        ldsm_x4(f, vs_tile + boff + ks * 16);
-        mma<T>(dp[0], dof[ks], f[0], f[1]);
-        mma<T>(dp[1], dof[ks], f[2], f[3]);
-      }
+      const T* kc = ks_tile + c * 16 * B::kStride;
+      P::scores(s, dp, qd, kc, vs_tile + c * 16 * B::kStride, lane);
       // P = exp(scale S - lse), dS = P (dP - delta); element e of block n
       // is row row0 + 8 (e >> 1), key j0 + 16 c + 8 n + 2 tq + (e & 1)
 #pragma unroll
@@ -873,17 +901,8 @@ __device__ __forceinline__ void dq_mma(T* smem, const T* __restrict__ q,
           dp[n][e] = p * (dp[n][e] - dl[r]);
         }
       }
-      // dQ += dS K, dS straight from the fragments, K read by .trans
-      uint32_t da[4];
-      to_a<T>(da, dp[0], dp[1]);
-      const int toff = c * 16 * B::kStride + bt_offset<T, D>(lane);
-#pragma unroll
-      for (int nd = 0; nd < kNB / 2; ++nd) {
-        uint32_t f[4];
-        ldsm_x4_t(f, ks_tile + toff + nd * 16);
-        mma<T>(acc[2 * nd], da, f[0], f[1]);
-        mma<T>(acc[2 * nd + 1], da, f[2], f[3]);
-      }
+      // dQ += dS K, dS straight from the fragments
+      P::grad(acc, dp, kc, lane);
     }
     __syncthreads();  // stage jt & 1 is consumed
   }
@@ -895,8 +914,7 @@ __device__ __forceinline__ void dq_mma(T* smem, const T* __restrict__ q,
       T* row = dq + (((long long)b * t_len + i) * heads + h) * D + 2 * tq;
 #pragma unroll
       for (int n = 0; n < kNB; ++n) {
-        *reinterpret_cast<uint32_t*>(row + n * 8) =
-            pack2<T>(acc[n][2 * r] * scale, acc[n][2 * r + 1] * scale);
+        store2<T>(row + n * 8, acc[n][2 * r] * scale, acc[n][2 * r + 1] * scale);
       }
     }
   }
@@ -963,116 +981,34 @@ struct Dkv {
   }
 };
 
-// Keeps x as it is in a register: the compiler may neither reuse what an
-// earlier use computed from it nor hoist that out of a loop.
-__device__ __forceinline__ float opaque(float x) {
-  asm volatile("" : "+f"(x));
-  return x;
-}
-
-// f32: 3xTF32 on m16n8k8 from plain 32-bit shared loads, on K3's f32
-// fragment layouts (the padded row stride keeps every load on 32 banks):
-// - K and V are the A operands, held raw (a0 = (g, tq), a1 = (g+8, tq),
-//   a2 = (g, tq+4), a3 = (g+8, tq+4)) and split into hi/lo at each use,
-//   behind `opaque`. Held split they take 128 registers beside the 64 of
-//   the dK/dV accumulators, and ptxas spills at D = 64; without `opaque`
-//   the compiler hoists the splits out of the loop and does the same.
-// - Q and dO are the B operands of S^T and dP^T, read as K3 reads K:
-//   b0 = (column tq, query g), bank 4g + tq at stride D + 4.
-// - P^T and dS^T enter dV's and dK's products as A fragments straight
-//   from the C fragments, under K3's permuted k index (slot tq is query
-//   2tq, slot tq+4 query 2tq+1), so dO and Q are read at rows 2tq and
-//   2tq+1 (bank 8tq + g). P and dS are split into hi/lo like any f32
-//   operand, not rounded.
-// - A chunk's dV and dK terms are summed in a fresh fragment and added to
-//   the accumulators in f32 (round to nearest): the tensor core truncates
-//   each sum it accumulates, and over a block's up to 32 chunks, three
-//   products each, that biased dk and dv toward zero (PERF.md).
+// f32: Tf32's products, K and V the resident A operands, held raw and
+// split at each use. Held split they take 128 registers beside the 64 of
+// the dK/dV accumulators, and ptxas spills at D = 64.
 template <int D>
 struct Dkv<float, D> {
-  static constexpr int kLd = Tiles<float, D>::kStride;
-  static constexpr int kKS = D / 8;  // 8-wide steps over the head dim
-  static constexpr int kNB = D / 8;  // 8-wide blocks of the head dim
+  using M = Tf32<D>;
+  static constexpr int kNB = M::kNB;
   struct KV {
-    float k[kKS][4], v[kKS][4];
+    Resident<D, false> k, v;
   };
-
-  static __device__ __forceinline__ void load_a(float (&a)[kKS][4], const float* t, int lane) {
-    const float* p = t + (lane >> 2) * kLd + (lane & 3);
-#pragma unroll
-    for (int ks = 0; ks < kKS; ++ks) {
-      a[ks][0] = p[ks * 8];
-      a[ks][1] = p[8 * kLd + ks * 8];
-      a[ks][2] = p[ks * 8 + 4];
-      a[ks][3] = p[8 * kLd + ks * 8 + 4];
-    }
-  }
 
   static __device__ __forceinline__ void load_kv(KV& f, const float* kt, const float* vt,
                                                  int lane) {
-    load_a(f.k, kt, lane);
-    load_a(f.v, vt, lane);
-  }
-
-  // s[n] += A . B[8n .. 8n+7]^T for the chunk's 16 rows at bt
-  static __device__ __forceinline__ void product(float (&s)[2][4], const float (&a)[kKS][4],
-                                                 const float* bt, int lane) {
-    const float* p = bt + (lane >> 2) * kLd + (lane & 3);
-#pragma unroll
-    for (int ks = 0; ks < kKS; ++ks) {
-      uint32_t ah[4], al[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) split_tf32(opaque(a[ks][i]), ah[i], al[i]);
-#pragma unroll
-      for (int n = 0; n < 2; ++n) {
-        uint32_t bh[2], bl[2];
-        split_tf32(p[n * 8 * kLd + ks * 8], bh[0], bl[0]);
-        split_tf32(p[n * 8 * kLd + ks * 8 + 4], bh[1], bl[1]);
-        mma_3xtf32(s[n], ah, al, bh, bl);
-      }
-    }
+    f.k.load(kt, lane);
+    f.v.load(vt, lane);
   }
 
   static __device__ __forceinline__ void scores(float (&s)[2][4], float (&dp)[2][4], const KV& f,
                                                 const float* qs, const float* dos, int lane) {
-    product(s, f.k, qs, lane);
-    product(dp, f.v, dos, lane);
-  }
-
-  // acc += c^T . B over the chunk's 16 rows at bt, c as C fragments
-  static __device__ __forceinline__ void grad(float (&acc)[kNB][4], const float (&c)[2][4],
-                                              const float* bt, int lane) {
-    const int g = lane >> 2;
-    const int tq = lane & 3;
-    uint32_t ah[2][4], al[2][4];
-#pragma unroll
-    for (int kb = 0; kb < 2; ++kb) {
-      split_tf32(c[kb][0], ah[kb][0], al[kb][0]);
-      split_tf32(c[kb][2], ah[kb][1], al[kb][1]);
-      split_tf32(c[kb][1], ah[kb][2], al[kb][2]);
-      split_tf32(c[kb][3], ah[kb][3], al[kb][3]);
-    }
-#pragma unroll
-    for (int nb = 0; nb < kNB; ++nb) {
-      float sum[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-      for (int kb = 0; kb < 2; ++kb) {
-        const float* p = bt + (kb * 8 + 2 * tq) * kLd + nb * 8 + g;
-        uint32_t bh[2], bl[2];
-        split_tf32(p[0], bh[0], bl[0]);
-        split_tf32(p[kLd], bh[1], bl[1]);
-        mma_3xtf32(sum, ah[kb], al[kb], bh, bl);
-      }
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[nb][e] += sum[e];
-    }
+    f.k.product(s, qs, lane);
+    f.v.product(dp, dos, lane);
   }
 
   static __device__ __forceinline__ void grads(float (&dv)[kNB][4], float (&dk)[kNB][4],
                                                const float (&p)[2][4], const float (&ds)[2][4],
                                                const float* qs, const float* dos, int lane) {
-    grad(dv, p, dos, lane);
-    grad(dk, ds, qs, lane);
+    M::grad(dv, p, dos, lane);
+    M::grad(dk, ds, qs, lane);
   }
 };
 
@@ -1206,10 +1142,10 @@ __device__ __forceinline__ void dkv_mma(T* smem, const T* __restrict__ q,
 }
 
 // ---------------------------------------------------------------------------
-// K3, K4 and K5: one kernel each; K4's and K5's bodies the type selects
+// K3, K4 and K5: one kernel each
 
 template <typename T, int D>
-__global__ void __launch_bounds__(Body<T, D, kFwd>::kThreads)
+__global__ void __launch_bounds__(kThreads)
     flash_attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                           const T* __restrict__ v, T* __restrict__ o, float* __restrict__ lse,
                           int t_len, int heads, long long sb, long long st, long long sh,
@@ -1220,24 +1156,19 @@ __global__ void __launch_bounds__(Body<T, D, kFwd>::kThreads)
 }
 
 template <typename T, int D>
-__global__ void __launch_bounds__(Body<T, D, kDq>::kThreads)
+__global__ void __launch_bounds__(kThreads)
     flash_attn_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                          const T* __restrict__ v, const T* __restrict__ dout,
                          const float* __restrict__ lse, const float* __restrict__ delta,
                          T* __restrict__ dq, int t_len, int heads, long long sb, long long st,
                          long long sh, int causal, float scale) {
   extern __shared__ float4 smem4[];
-  if constexpr (Body<T, D, kDq>::kMma) {
-    dq_mma<T, D>(reinterpret_cast<T*>(smem4), q, k, v, dout, lse, delta, dq, t_len, heads, sb,
-                 st, sh, causal, scale);
-  } else {
-    dq_simt<T, D>(reinterpret_cast<float*>(smem4), q, k, v, dout, lse, delta, dq, t_len, heads,
-                  sb, st, sh, causal, scale);
-  }
+  dq_mma<T, D>(reinterpret_cast<T*>(smem4), q, k, v, dout, lse, delta, dq, t_len, heads, sb, st,
+               sh, causal, scale);
 }
 
 template <typename T, int D>
-__global__ void __launch_bounds__(Body<T, D, kDkv>::kThreads)
+__global__ void __launch_bounds__(kThreads)
     flash_attn_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                           const T* __restrict__ v, const T* __restrict__ dout,
                           const float* __restrict__ lse, const float* __restrict__ delta,
@@ -1265,8 +1196,8 @@ struct Args {
   cudaStream_t stream;
 };
 
-// The tensor-core bodies copy 16-byte pieces: every row they stage (q/k/v
-// through the shared strides, dO contiguous) must start on 16 bytes.
+// The bodies copy 16-byte pieces: every row they stage (q/k/v through the
+// shared strides, dO contiguous) must start on 16 bytes.
 template <typename T>
 bool rows_aligned(int which, const Args& a) {
   const auto a16 = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; };
@@ -1277,22 +1208,20 @@ bool rows_aligned(int which, const Args& a) {
   return ok;
 }
 
-// Launches kernel K at (T, D) with its body's grid, block and shared
-// memory: a tensor-core body takes the tile-major grid, refuses rows off 16
-// bytes and, above 48 KB of shared memory (f32 K3 and K5 at D = 64), opts
-// in to it first; a CUDA-core body takes (tiles, heads, batch).
+// Launches kernel K at (T, D) on the tile-major grid (heads * batch,
+// tiles): refuses rows off 16 bytes and, above 48 KB of shared memory (f32
+// at D = 64), opts in to it first, returning the error if either fails.
 template <typename T, int D, int K, typename Kern, typename... A>
 cudaError_t start(Kern kernel, const Args& a, A... args) {
-  using B = Body<T, D, K>;
-  const int tiles = (a.t_len + kRows - 1) / kRows;
-  const dim3 grid = B::kMma ? dim3(a.heads * a.batch, tiles) : dim3(tiles, a.heads, a.batch);
-  if (B::kMma && !rows_aligned<T>(K, a)) return cudaErrorMisalignedAddress;
-  if (B::kSmem > kNoOptInSmem) {
+  constexpr size_t smem = kSmemBytes<T, D, K>;
+  if (!rows_aligned<T>(K, a)) return cudaErrorMisalignedAddress;
+  if (smem > kNoOptInSmem) {
     const cudaError_t err =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)B::kSmem);
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
   }
-  kernel<<<grid, B::kThreads, B::kSmem, a.stream>>>(args...);
+  const dim3 grid(a.heads * a.batch, (a.t_len + kRows - 1) / kRows);
+  kernel<<<grid, kThreads, smem, a.stream>>>(args...);
   return cudaGetLastError();
 }
 
@@ -1328,9 +1257,8 @@ cudaError_t launch_d(int which, int d, const Args& a) {
 
 int dispatch(int which, int dtype, int d, const Args& a) {
   if (dtype < kF32 || dtype > kF16 || (d != 16 && d != 32 && d != 64) || a.batch <= 0 ||
-      a.t_len <= 0 || a.heads <= 0 || a.batch > 65535 || a.heads > 65535 ||
-      (long long)a.batch * a.heads > 0x7fffffffLL ||
-      a.t_len > 65535 * kRows) {  // grid limits of both orders
+      a.t_len <= 0 || a.heads <= 0 || (long long)a.batch * a.heads > 0x7fffffffLL ||
+      a.t_len > 65535 * kRows) {  // the grid's limits
     return (int)cudaErrorInvalidValue;
   }
   if (dtype == kF32) return (int)launch_d<float>(which, d, a);

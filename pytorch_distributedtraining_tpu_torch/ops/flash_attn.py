@@ -12,12 +12,11 @@ takes the plain version. Nothing falls back from one to the other. The
 launch counts ``fwd_launches``, ``dq_launches`` and ``dkv_launches`` rise
 by one where a wrapper launches its kernel and nowhere else.
 
-The library picks each kernel's body by kernel and type
-(:func:`uses_tensor_cores`): K3 and K5 run on the tensor cores in every
-type (f32 as 3xTF32: plain TF32 would miss the f32 tolerance), K4 for
-bf16 and f16 and on the CUDA cores for f32. The tensor-core bodies stage
-rows (q/k/v, and dO for K4 and K5) by 16-byte ``cp.async`` copies, so the
-wrappers hand them only rows that start on 16 bytes
+All three kernels run on the tensor cores in every type
+(:func:`uses_tensor_cores`): bf16 and f16 on ``mma.sync.m16n8k16``, f32 as
+3xTF32 on ``mma.sync.m16n8k8`` (plain TF32 would miss the f32 tolerance).
+They stage rows (q/k/v, and dO for K4 and K5) by 16-byte ``cp.async``
+copies, so the wrappers hand them only rows that start on 16 bytes
 (:func:`rows_aligned`) and copy anything else to a fresh contiguous
 tensor first.
 
@@ -142,16 +141,13 @@ KERNELS = ("fwd", "dq", "dkv")  # K3, K4, K5
 
 
 def uses_tensor_cores(dtype, kernel: str) -> bool:
-    """Whether K3 (``"fwd"``), K4 (``"dq"``) or K5 (``"dkv"``) runs its
-    tensor-core body for ``dtype``: all three for bf16 and f16 on
-    ``mma.sync.m16n8k16``; K3 and K5 for f32 too, as 3xTF32 on ``m16n8k8``
-    (plain TF32 would miss the f32 tolerance). f32 K4 keeps its CUDA-core
-    body. The library decides the same way."""
+    """Whether K3 (``"fwd"``), K4 (``"dq"``) or K5 (``"dkv"``) runs on the
+    tensor cores for ``dtype``: every kernel does in every type the library
+    takes, bf16 and f16 on ``mma.sync.m16n8k16`` and f32 as 3xTF32 on
+    ``m16n8k8``."""
     if kernel not in KERNELS:
         raise ValueError(f"kernel is one of {KERNELS}, got {kernel!r}")
-    if dtype in (torch.bfloat16, torch.float16):
-        return True
-    return dtype == torch.float32 and kernel != "dq"
+    return dtype in _DTYPE_CODES
 
 
 def rows_aligned(t) -> bool:
@@ -168,15 +164,14 @@ def _aligned_copy(t):
     return t if rows_aligned(t) else t.clone()
 
 
-def _qkv_strides(q, k, v, kernel: str):
-    """q/k/v as ``kernel`` reads them: one set of (batch, time, head)
-    strides, last dimension contiguous, and for a tensor-core body every
-    row on 16 bytes. Views of one fused projection already are (GPT-2's
-    sit 1536 and 3072 bytes in, 4608-byte time stride); anything else is
-    copied to fresh contiguous tensors."""
+def _qkv_strides(q, k, v):
+    """q/k/v as the kernels read them: one set of (batch, time, head)
+    strides, last dimension contiguous, every row on 16 bytes. Views of one
+    fused projection already are (GPT-2's sit 1536 and 3072 bytes in,
+    4608-byte time stride); anything else is copied to fresh contiguous
+    tensors."""
     keep = q.stride() == k.stride() == v.stride() and q.stride(-1) == 1
-    if keep and uses_tensor_cores(q.dtype, kernel):
-        keep = all(rows_aligned(t) for t in (q, k, v))
+    keep = keep and all(rows_aligned(t) for t in (q, k, v))
     if not keep:
         q, k, v = (_aligned_copy(t) for t in (q, k, v))
     return (q, k, v), q.stride()[:3]
@@ -190,7 +185,7 @@ def kernel_forward(q, k, v, causal: bool = True):
     """Launch K3 on CUDA tensors; returns ``(out [B, T, H, Dh], lse [B, H, T])``."""
     global fwd_launches
     _check(q, k, v)
-    (q, k, v), (sb, st, sh) = _qkv_strides(q, k, v, "fwd")
+    (q, k, v), (sb, st, sh) = _qkv_strides(q, k, v)
     lib = csrc.load("flash_attn")
     b, t, h, d = q.shape
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
@@ -219,7 +214,7 @@ def kernel_dq(q, k, v, do, lse, delta, causal: bool = True):
     global dq_launches
     _check(q, k, v)
     do, lse, delta = _check_grad_inputs(q, do, lse, delta)
-    (q, k, v), (sb, st, sh) = _qkv_strides(q, k, v, "dq")
+    (q, k, v), (sb, st, sh) = _qkv_strides(q, k, v)
     lib = csrc.load("flash_attn")
     b, t, h, d = q.shape
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
@@ -238,7 +233,7 @@ def kernel_dkv(q, k, v, do, lse, delta, causal: bool = True):
     global dkv_launches
     _check(q, k, v)
     do, lse, delta = _check_grad_inputs(q, do, lse, delta)
-    (q, k, v), (sb, st, sh) = _qkv_strides(q, k, v, "dkv")
+    (q, k, v), (sb, st, sh) = _qkv_strides(q, k, v)
     lib = csrc.load("flash_attn")
     b, t, h, d = q.shape
     dk = torch.empty(q.shape, dtype=q.dtype, device=q.device)

@@ -1,13 +1,12 @@
 """``chip_smoke.py``'s checks that need no card, on the CPU. The build
 check reads ptxas's report and the HMMA counts of the SASS, and fails
-unless every body of K3 (flash forward) and K5 (flash dk/dv) and every
-bf16/f16 body of K4 runs on the tensor cores and the f32 body of K4 on
-the CUDA cores, as ``ops.flash_attn.uses_tensor_cores`` says, and no flash kernel
-spills; and unless every body of K1 and K2 (window-attention forward and
-backward) runs on the tensor cores, as ``ops.window_attn.uses_tensor_cores``
-says, and no window kernel spills. The flash bounds take each kernel's
-body's rate, and phase 4 fails on a kernel slower than its plain
-version."""
+unless every body of K3 (flash forward), K4 (flash dq) and K5 (flash
+dk/dv) runs on the tensor cores, as ``ops.flash_attn.uses_tensor_cores``
+says, and no flash kernel spills; and unless every body of K1 and K2
+(window-attention forward and backward) runs on the tensor cores, as
+``ops.window_attn.uses_tensor_cores`` says, and no window kernel spills.
+The flash bounds take each kernel's body's rate, and phase 4 fails on a
+kernel slower than its plain version."""
 
 import importlib.util
 from pathlib import Path
@@ -54,9 +53,9 @@ def test_ptxas_entries_pairs_registers_with_spills(smoke):
 
 
 def _as_designed():
-    """No spill; HMMA in every K3 and K5 body and in bf16/f16 K4."""
+    """No spill; HMMA in every K3, K4 and K5 body."""
     regs = {k: (128, 0) for k in KEYS}
-    hmma = {k: 64 if k.split()[1] != "f32" or not k.startswith("dq") else 0 for k in KEYS}
+    hmma = {k: 64 for k in KEYS}
     return regs, hmma
 
 
@@ -66,21 +65,18 @@ def test_build_as_designed_has_no_faults(smoke):
 
 
 @pytest.mark.parametrize("fault", ["dq bf16 on cuda cores", "dq f16 on cuda cores",
-                                   "fwd bf16 on cuda cores", "f32 on tensor cores", "spill",
+                                   "fwd bf16 on cuda cores", "dq f32 spill", "spill",
                                    "spill without cuobjdump", "fwd f32 on cuda cores",
-                                   "dq f32 on tensor cores", "dkv f32 on cuda cores"])
+                                   "dq f32 on cuda cores", "dkv f32 on cuda cores"])
 def test_build_faults_are_found(smoke, fault):
     regs, hmma = _as_designed()
     if fault.endswith("on cuda cores"):
         key = fault.split(" on")[0] + " D=64"
         hmma[key] = 0
         want = [f"{key}: 0 HMMA"]
-    elif fault == "f32 on tensor cores":
-        hmma["dq f32 D=32"] = 16
-        want = ["dq f32 D=32: 16 HMMA"]
-    elif fault == "dq f32 on tensor cores":
-        hmma["dq f32 D=64"] = 384
-        want = ["dq f32 D=64: 384 HMMA"]
+    elif fault == "dq f32 spill":
+        regs["dq f32 D=64"] = (255, 16)
+        want = ["dq f32 D=64: 16 bytes spill stores"]
     else:
         regs["dq f16 D=64"] = (255, 24)
         want = ["dq f16 D=64: 24 bytes spill stores"]
@@ -190,12 +186,11 @@ GPT2_SHAPE = (8, 512, 12, 64)  # the GPT-2 phase's q/k/v: batch 8, seq 512, 12 h
 CAUSAL_FLOP = 4 * 8 * 12 * (512 * 513 // 2) * 64  # K3's products, 3.23 GFLOP
 
 
-@pytest.mark.parametrize("kernel,factor,rate", [("fwd", 1, 495e12 / 3), ("dq", 1.5, 67e12),
+@pytest.mark.parametrize("kernel,factor,rate", [("fwd", 1, 495e12 / 3), ("dq", 1.5, 495e12 / 3),
                                                 ("dkv", 2, 495e12 / 3)])
 def test_flash_bound_takes_each_kernels_body_rate_in_f32(smoke, kernel, factor, rate):
-    """f32 K3 and K5 run as 3xTF32 (495/3 TFLOP/s: 0.0196 and 0.0391 ms at
-    GPT-2's shape), f32 K4 on the CUDA cores (67 TFLOP/s); all three bound
-    by operations."""
+    """f32 K3, K4 and K5 run as 3xTF32 (495/3 TFLOP/s: 0.0196, 0.0293 and
+    0.0391 ms at GPT-2's shape); all three bound by operations."""
     ms, by = smoke.flash_bounds(GPT2_SHAPE, "float32", True)[kernel]
     assert by == "operations" and ms == pytest.approx(factor * CAUSAL_FLOP / rate * 1e3)
 
@@ -229,8 +224,10 @@ def test_flash_speed_faults_name_kernels_slower_than_plain(smoke, slow, want):
 
 
 def test_flash_speed_faults_read_only_the_kernels_a_case_ran(smoke):
-    """Phase 4's f32 non-causal case runs K5 alone: its times hold no K3 or
-    K4 entry, and only K5 is held against its plain version."""
-    assert smoke.flash_speed_faults({"dkv": 0.3, "plain_dkv": 1.9}) == []
-    assert smoke.flash_speed_faults({"dkv": 2.0, "plain_dkv": 1.9}) == [
-        "dkv 2.0000 ms > plain 1.9000 ms"]
+    """Phase 4's f32 non-causal case runs K4 and K5: its times hold no K3
+    entry, and only K4 and K5 are held against their plain versions."""
+    assert smoke.flash_speed_faults({"dq": 0.2, "plain_dq": 1.7, "dkv": 0.3,
+                                     "plain_dkv": 1.9}) == []
+    assert smoke.flash_speed_faults({"dq": 1.8, "plain_dq": 1.7, "dkv": 2.0,
+                                     "plain_dkv": 1.9}) == [
+        "dq 1.8000 ms > plain 1.7000 ms", "dkv 2.0000 ms > plain 1.9000 ms"]

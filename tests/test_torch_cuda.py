@@ -7,8 +7,8 @@ need not be installed (the suite's ``conftest.py`` imports it)::
     python -m pytest tests/test_torch_cuda.py -q -m cuda --noconftest
 
 Tolerances: in f32 the kernel and the plain version differ only in sum
-order (~1e-6 relative; the 3xTF32 products of K1, K2, f32 K3 and f32 K5
-keep about f32's digits); in
+order (~1e-6 relative; the 3xTF32 products of K1-K5 keep about f32's
+digits); in
 bf16 and f16 both round the same f32 result, so outputs may differ by one
 step of the type (2^-8 relative in bf16, 2^-11 in f16, held at 1e-2 and
 2e-3), and the tensor-core bodies of K1-K5 also round P (and dS) to the
@@ -199,8 +199,7 @@ def test_flash_kernels_match_plain(cuda, dtype, rel, causal, t, d):
     """K3, K4 and K5 on q/k/v that are strided views of one fused [B, T,
     3*H*D] projection, as GPT-2 hands them over. T = 512 runs eight 64-row
     tiles with the causal diagonal; T = 100 and 200 end on a ragged tile.
-    K3 and K5 run on the tensor cores in every type (f32 as 3xTF32), K4 in
-    bf16 and f16; f32 K4 goes through the CUDA-core body."""
+    K3, K4 and K5 run on the tensor cores in every type (f32 as 3xTF32)."""
     g = torch.Generator().manual_seed(0)
     b, h = 2, 3
     qkv = torch.randn(b, t, 3 * h * d, generator=g).to(cuda, dtype)
@@ -223,8 +222,8 @@ def test_flash_kernels_match_plain(cuda, dtype, rel, causal, t, d):
 def test_flash_kernels_on_unaligned_views_match_contiguous(cuda, dtype, causal):
     """q/k/v as views of a buffer whose rows are one element wider and
     start one element in: no row sits on 16 bytes, so the wrappers copy
-    them for the tensor-core bodies (the CUDA-core one, f32 K4, reads them
-    as they are). Either way the results equal those on contiguous copies."""
+    them for every body (all on the tensor cores, f32 K4 included). The
+    results equal those on contiguous copies."""
     g = torch.Generator().manual_seed(2)
     b, t, h, d = 2, 200, 3, 64
     flat = torch.randn(b * t * (3 * h * d + 1) + 1, generator=g).to(cuda, dtype)
@@ -398,6 +397,54 @@ def test_flash_dkv_f32_copies_a_misaligned_view_and_the_library_refuses_it(cuda)
     torch.cuda.synchronize()
     assert code != 0 and "misaligned" in lib.error_string(code).decode()
     assert not dk.any() and not dv.any()
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", [16, 32, 64])
+@pytest.mark.parametrize("t", [1, 65, 100, 200])
+def test_flash_dq_f32_tensor_cores_on_ragged_lengths(cuda, causal, d, t):
+    """f32 K4 (3xTF32) where T ends inside a key tile: T = 1 (one key; 63
+    of the block's rows past T), 65 (one key into the second tile, the
+    causal diagonal of the second query tile), 100 and 200. Keys past T
+    and, on the diagonal, keys after a row must add nothing to its dq,
+    which holds f32's tolerance. Two launches give the same bits."""
+    q, k, v, do = _fused_qkv(cuda, torch.float32, 2, t, 3, d, torch.Generator().manual_seed(9))
+    out, lse = tfa.plain_forward(q, k, v, causal)
+    args = (do, lse, tfa.delta_rows(out, do), causal)
+    before = tfa.dq_launches
+    dq = tfa.kernel_dq(q, k, v, *args)
+    assert tfa.dq_launches == before + 1
+    _close(dq, tfa.plain_dq(q, k, v, *args), 1e-5)
+    assert torch.equal(tfa.kernel_dq(q, k, v, *args), dq)
+
+
+def test_flash_dq_f32_copies_a_misaligned_view_and_the_library_refuses_it(cuda):
+    """f32 q/k/v as views of a buffer whose rows start one float off 16
+    bytes: the wrapper copies them for K4's tensor-core body, which then
+    gives what it gives on contiguous copies; called directly on the
+    views, the library refuses them rather than read them wrong."""
+    b, t, h, d = 2, 200, 3, 64
+    g = torch.Generator().manual_seed(10)
+    flat = torch.randn(b * t * (3 * h * d + 1) + 1, generator=g).to(cuda)
+    qkv = flat[1:].view(b, t, 3 * h * d + 1)[..., : 3 * h * d]
+    q, k, v = (a.unflatten(-1, (h, d)) for a in qkv.split(h * d, dim=-1))
+    assert not any(tfa.rows_aligned(x) for x in (q, k, v))
+    dense = [x.contiguous() for x in (q, k, v)]
+    do = torch.randn(b, t, h, d, generator=g).to(cuda)
+    out, lse = tfa.plain_forward(*dense, True)
+    args = (do, lse, tfa.delta_rows(out, do), True)
+    assert torch.equal(tfa.kernel_dq(q, k, v, *args), tfa.kernel_dq(*dense, *args))
+
+    lib = csrc.load("flash_attn")
+    dq = torch.zeros_like(do)
+    code = lib.flash_attn_dq(
+        tfa._DTYPE_CODES[torch.float32], q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), args[2].data_ptr(), dq.data_ptr(), b, t, h, d, *q.stride()[:3], 1,
+        d**-0.5, torch.cuda.current_stream(cuda).cuda_stream,
+    )
+    torch.cuda.synchronize()
+    assert code != 0 and "misaligned" in lib.error_string(code).decode()
+    assert not dq.any()
 
 
 def test_tiny_gpt2_on_the_card_matches_the_cpu(cuda):

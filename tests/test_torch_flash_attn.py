@@ -6,8 +6,8 @@ versions of K3/K4/K5 through the same ``torch.autograd.Function`` that
 launches the kernels on a card. Same inputs from one numpy seed, same
 cotangent, B 2, T 128, H 2, Dh 16; one case at B 1, T 512 with 128-row
 blocks (four tiles a side, causal skipping). The wrapper's host-side
-decisions (the kernel body by dtype, the row alignment the tensor-core
-bodies need) are plain functions, tested here without a card.
+decisions (the tensor-core bodies by dtype, the row alignment they need)
+are plain functions, tested here without a card.
 
 Tolerances: both sides compute in f32 with different sum orders (and the
 conftest's ``jax_disable_most_optimizations``); outputs and lse agree to
@@ -146,10 +146,8 @@ def test_plain_backward_is_the_gradient_of_plain_forward(causal):
 @pytest.mark.parametrize("kernel", tfa.KERNELS)
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float32])
 def test_kernel_body_is_chosen_by_dtype(dtype, kernel):
-    """Tensor cores for every bf16/f16 body and for f32 K3 and K5
-    (3xTF32); the CUDA cores for f32 K4 alone."""
-    want = dtype != torch.float32 or kernel != "dq"
-    assert tfa.uses_tensor_cores(dtype, kernel) is want
+    """Tensor cores for every body: bf16/f16 on m16n8k16, f32 as 3xTF32."""
+    assert tfa.uses_tensor_cores(dtype, kernel) is True
 
 
 def test_uses_tensor_cores_names_a_kernel():
@@ -176,38 +174,40 @@ def test_rows_aligned_reads_address_and_strides(width_pad, offset, aligned):
 
 
 def test_qkv_strides_keeps_aligned_views_and_copies_the_rest():
-    for kernel in tfa.KERNELS:
-        q, k, v = _fused_views(torch.bfloat16)
-        (q2, k2, v2), strides = tfa._qkv_strides(q, k, v, kernel)
+    """One rule for K3, K4 and K5 in every type: aligned views of the fused
+    projection go through as they are, anything else is copied."""
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v = _fused_views(dtype)
+        (q2, k2, v2), strides = tfa._qkv_strides(q, k, v)
         assert [t.data_ptr() for t in (q2, k2, v2)] == [t.data_ptr() for t in (q, k, v)]
         assert strides == q.stride()[:3]
 
-        q, k, v = _fused_views(torch.bfloat16, width_pad=1)
-        (q2, k2, v2), strides = tfa._qkv_strides(q, k, v, kernel)
+        q, k, v = _fused_views(dtype, width_pad=1)
+        (q2, k2, v2), strides = tfa._qkv_strides(q, k, v)
         for got, want in zip((q2, k2, v2), (q, k, v)):
             assert got.is_contiguous() and tfa.rows_aligned(got) and torch.equal(got, want)
         assert strides == q2.stride()[:3]
 
-    # the CUDA-core body (f32 K4) reads any shared stride, aligned or not
+    # f32 K4 stages rows by cp.async too: an unaligned f32 view is copied
     q, k, v = _fused_views(torch.float32, width_pad=1, offset=1)
-    (q2, _, _), strides = tfa._qkv_strides(q, k, v, "dq")
-    assert q2.data_ptr() == q.data_ptr() and strides == q.stride()[:3]
+    (q2, _, _), strides = tfa._qkv_strides(q, k, v)
+    assert q2.data_ptr() != q.data_ptr() and tfa.rows_aligned(q2) and torch.equal(q2, q)
+    assert strides == q2.stride()[:3]
 
 
 @pytest.mark.parametrize("width_pad,offset,copied", [(0, 0, False), (4, 4, False),
                                                      (1, 0, True), (0, 1, True)])
 def test_qkv_strides_copies_unaligned_f32_views_for_k3_only(width_pad, offset, copied):
-    """f32 K3 and K5 stage their rows by 16-byte ``cp.async`` like the
-    bf16 bodies: a view off 16 bytes is copied for them, and read as it is
-    by f32 K4 alone (CUDA cores)."""
+    """Every f32 body (K3, K4 and K5, all on the tensor cores now) stages
+    its rows by 16-byte ``cp.async`` like the bf16 bodies: the one stride
+    rule of the three wrappers copies a view off 16 bytes and keeps an
+    aligned one. (The name is from when f32 K4 read views as they were.)"""
+    assert all(tfa.uses_tensor_cores(torch.float32, kernel) for kernel in tfa.KERNELS)
     q, k, v = _fused_views(torch.float32, width_pad, offset)
-    for kernel in ("fwd", "dkv"):
-        (q2, k2, v2), strides = tfa._qkv_strides(q, k, v, kernel)
-        assert (q2.data_ptr() != q.data_ptr()) is copied
-        assert all(tfa.rows_aligned(t) and torch.equal(t, w)
-                   for t, w in zip((q2, k2, v2), (q, k, v)))
-        assert strides == q2.stride()[:3]
-    assert tfa._qkv_strides(q, k, v, "dq")[0][0].data_ptr() == q.data_ptr()
+    (q2, k2, v2), strides = tfa._qkv_strides(q, k, v)
+    assert (q2.data_ptr() != q.data_ptr()) is copied
+    assert all(tfa.rows_aligned(t) and torch.equal(t, w) for t, w in zip((q2, k2, v2), (q, k, v)))
+    assert strides == q2.stride()[:3]
 
 
 def test_unaligned_contiguous_grad_is_copied():
