@@ -53,11 +53,35 @@ Phases, each fatal on failure:
    seq 512, AdamW: a first loss near ln(vocab), a few optimizer steps
    after warm-up, finite loss, moved weights, exactly 12 K3, 12 K4 and 12
    K5 launches per step, and tokens/s, step ms and peak memory beside the
-   card's name and power limit.
+   card's name and power limit;
+8. bench configuration: SwinIR-S through ``TrainStep`` and
+   ``FusedAdamW(lr=5e-4, clip_grad_norm=0.1)``, the optimizer ``bench.py``
+   builds, MSE, batch 18 a micro-batch at LR 64x64, ``grad_accum_steps=2``,
+   in f32 and bf16 autocast: finite loss, moved weights, exactly 24 K1 and
+   24 K2 launches per micro-batch, step ms and images/s beside the card's
+   name and power limit;
+9. ESPCN driver: ``drivers.fairscale_ddp.main`` (``Net`` + MSE, per-leaf
+   AdamW, one epoch of 1024 synthetic images, two loader workers): a
+   finite loss, moved weights and the run's seconds;
+10. optimizer: ``optim.FusedAdamW`` against the per-leaf ``optim.AdamW`` on
+   the card, over two parameter lists (SwinIR-S from the driver's
+   ``build_model``, 910 152 parameters in 330 tensors; GPT-2 125M from
+   ``benchmarks.ladder.build_lm``, 124 439 808 in 148), five steps of the
+   same seeded gradients with clip 1.0: the parameters within 1e-6 of the
+   per-leaf run's and of the same fused code's run on the CPU (``err``'s
+   relative value), and a step on an ``inf`` gradient, gated by the
+   scaler's finite flag with no read on the host (CUDA's sync debug mode
+   set to error), leaves parameters, moments and count bitwise as they
+   were (``gated_step_faults``). Device times of one step of each and of
+   ``torch._fused_adamw_`` on the same flat tensor (the library reference,
+   without a clip), device activities a step from a ``torch.profiler``
+   trace, and the bytes bound (``optimizer_bound_ms``). It runs after
+   every timed step, since it holds GPT-2-sized buffers on the card and
+   runs the same update on the CPU.
 
-Phases 5-7 note the shape, dtype and mask (or causality) of every launch;
-the run fails if one of them was not held against the plain version in
-phase 3 or 4. The kernels' JSON lists all five kernels: K1/K2 from phase
+Phases 5-8 note the shape, dtype and mask (or causality) of every
+launch; the run fails if one of them was not held against the plain
+version in phase 3 or 4. The kernels' JSON lists all five kernels: K1/K2 from phase
 6's f32 run (its launch counts, and the errors and times of phase 3 at
 its shape), K3-K5 from phase 7 (its launch counts, and phase 4's numbers
 for the causal bf16 case). The last lines are that JSON, the
@@ -110,6 +134,13 @@ BATCH, LR_SIZE, HEADS, WINDOW, DIM = 18, 64, 6, 8, 60  # the bench shape
 DRIVER_N, DRIVER_LR, DRIVER_VAL = 100, 32, 10
 # the GPT-2 phase: GPT-2 125M, batch 8 x seq 512 (12 heads of 64)
 LM_BATCH, LM_SEQ, LM_HEADS, LM_HEAD_DIM, LM_LAYERS = 8, 512, 12, 64, 12
+# the optimizer phase: five steps of seeded gradients, clip 1.0
+OPT_STEPS, OPT_CLIP, OPT_TOL = 5, 1.0, 1e-6
+# one AdamW step an element: f32 reads of p, g, mu, nu and writes of p, mu,
+# nu (EMA: one more read and write), and ~20 operations (norm, clip, the
+# moments, bias correction, sqrt, divide, decay, lr, add)
+OPT_BYTES, OPT_EMA_BYTES, OPT_FLOPS = 28, 36, 20
+ESPCN_N = 1024  # 1013 training images: 25 batches of 40, one loss print
 
 
 def smi_line() -> str:
@@ -769,6 +800,219 @@ def phase_gpt2(smi: str, steps: int = 5, warmup: int = 2) -> dict:
     return {"step_ms": step_ms, "tokens_per_s": tps, "launches": launches}
 
 
+def optimizer_bound_ms(n_params: int, ema: bool = False) -> tuple[float, str]:
+    """The least time one AdamW step over ``n_params`` f32 parameters can
+    take: each of p, g, mu, nu (and the EMA) read once and p, mu, nu (and
+    the EMA) written once at the memory rate, beside its operations at the
+    f32 rate outside the tensor cores."""
+    per = OPT_EMA_BYTES if ema else OPT_BYTES
+    return bound_ms(per * n_params, OPT_FLOPS * n_params, "float32")
+
+
+def gated_step_faults(before: dict, after: dict) -> list[str]:
+    """The buffers (``{"params": ..., "mu": ..., "count": ...}``) that a
+    gated-off step changed; a skipped step must leave each bitwise as it was."""
+    import torch
+
+    return [name for name in before if not torch.equal(before[name], after[name])]
+
+
+def kernels_per_call(fn) -> int:
+    """Device activities (kernels, copies, sets) of one call of ``fn``, from
+    a ``torch.profiler`` trace."""
+    import torch
+
+    from pytorch_distributedtraining_tpu_torch.benchmarks.profile_swinir import device_breakdown
+
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as d:
+        path = os.path.join(d, "trace.json")
+        prof.export_chrome_trace(path)
+        return device_breakdown(path)["kernels"]
+
+
+def _optimizer_case(name: str, named: list, smi: str) -> dict:
+    """FusedAdamW against AdamW on the card and against itself on the CPU,
+    over the parameters ``named`` (``(name, CPU tensor)`` pairs)."""
+    import torch
+
+    from pytorch_distributedtraining_tpu_torch import optim
+    from pytorch_distributedtraining_tpu_torch.precision import DynamicLossScaler
+
+    def params(device):
+        return [(nm, p.detach().to(device).clone().requires_grad_(True)) for nm, p in named]
+
+    kw = dict(lr=1e-3, betas=(0.9, 0.999), eps=1e-8, weight_decay=0.01, clip_grad_norm=OPT_CLIP)
+    fused = optim.FusedAdamW(params("cuda"), **kw)
+    on_cpu = optim.FusedAdamW(params("cpu"), **kw)
+    leaf = optim.AdamW(params("cuda"), **kw)
+    n = fused.numel
+    sizes = [p.numel() for p in leaf.params]
+
+    def packed(ps):
+        return torch.cat([p.detach().reshape(-1) for p in ps])
+
+    def set_grads(opt, g):  # into the views of the flat grad buffer
+        for p, a in zip(opt.params, g.split(sizes)):
+            p.grad.copy_(a.view_as(p))
+
+    for step in range(OPT_STEPS):
+        # grad norms near 1 for SwinIR-S: the clip fires from the second step
+        g = torch.randn(n, generator=torch.Generator().manual_seed(step)) * (1e-3 * (step + 1))
+        set_grads(on_cpu, g)
+        on_cpu.apply_tree()
+        g = g.cuda()
+        set_grads(fused, g)
+        fused.apply_tree()
+        grads = [a.view_as(p) for a, p in zip(g.split(sizes), leaf.params)]
+        leaf.step(grads)
+    vs_leaf = err(packed(fused.params), packed(leaf.params))
+    vs_cpu = max(err(getattr(fused.state, b).cpu(), getattr(on_cpu.state, b))[1]
+                 for b in ("mu", "nu"))
+    vs_cpu = max(vs_cpu, err(fused.flat_param.cpu(), on_cpu.flat_param)[1])
+    count_ok = int(fused.state.count) == int(on_cpu.state.count) == OPT_STEPS
+
+    # an inf gradient under the scaler's gate: nothing moves, nothing is read
+    fused.flat_grad[0] = float("inf")
+    before = {"params": fused.flat_param.clone(), **{k: v.clone() for k, v in
+                                                       fused.state._asdict().items()
+                                                       if v is not None}}
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        _, finite = fused.apply_tree(scaler=DynamicLossScaler(init_scale=2.0**14))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    after = {"params": fused.flat_param, **fused.state._asdict()}
+    gate_faults = gated_step_faults(before, after) + ([] if not bool(finite) else ["finite"])
+    set_grads(fused, g)
+
+    lib = [packed(fused.params), g.clone(), torch.zeros_like(g), torch.zeros_like(g),
+           torch.zeros((), device="cuda")]
+
+    def library():  # torch/optim/adam.py's fused path: the step count first
+        torch._foreach_add_([lib[4]], 1)
+        torch._fused_adamw_([lib[0]], [lib[1]], [lib[2]], [lib[3]], [], [lib[4]], lr=1e-3,
+                            beta1=0.9, beta2=0.999, weight_decay=0.01, eps=1e-8,
+                            amsgrad=False, maximize=False)
+
+    runs = {"fused": lambda: fused.apply_tree(), "per_leaf": lambda: leaf.step(grads),
+            "library": library}
+    times = {k: device_ms(fn) for k, fn in runs.items()}
+    launches = {k: kernels_per_call(fn) for k, fn in runs.items()}
+    bound = optimizer_bound_ms(n)
+    print(f"[optim] {name}: {n} parameters in {len(sizes)} tensors; after {OPT_STEPS} steps "
+          f"FusedAdamW vs AdamW abs/rel {vs_leaf[0]:.2e}/{vs_leaf[1]:.2e}, vs its CPU run rel "
+          f"{vs_cpu:.2e} (tol {OPT_TOL:g}); gated inf step moved {gate_faults or 'nothing'}")
+    print(f"[optim]   ms a step: FusedAdamW {times['fused']:.4f} | AdamW {times['per_leaf']:.4f} "
+          f"| torch._fused_adamw_ {times['library']:.4f} | bound {bound[0]:.4f} ({bound[1]}) | "
+          f"device activities a step {launches['fused']} / {launches['per_leaf']} / "
+          f"{launches['library']} | {smi}")
+    if not (vs_leaf[1] <= OPT_TOL and vs_cpu <= OPT_TOL and count_ok):
+        raise SystemExit(f"{name}: FusedAdamW disagrees (vs AdamW {vs_leaf}, vs CPU {vs_cpu}, "
+                         f"count {int(fused.state.count)})")
+    if gate_faults:
+        raise SystemExit(f"{name}: a gated-off step changed {gate_faults}")
+    return {"params": n, "tensors": len(sizes), "times": times, "launches": launches,
+            "bound": bound, "vs_leaf": vs_leaf, "vs_cpu": vs_cpu}
+
+
+def phase_optimizer(smi: str) -> dict:
+    import torch
+
+    from pytorch_distributedtraining_tpu_torch.benchmarks import ladder
+    from pytorch_distributedtraining_tpu_torch.drivers import stoke_ddp
+    from pytorch_distributedtraining_tpu_torch.models import GPT2Config
+
+    out = {"swinir_s": _optimizer_case(
+        "SwinIR-S", list(stoke_ddp.build_model().named_parameters()), smi)}
+    gpt2 = ladder.build_lm(GPT2Config.gpt2_125m(), LM_BATCH, LM_SEQ, torch.device("cpu"))[0]
+    out["gpt2_125m"] = _optimizer_case("GPT-2 125M", list(gpt2.named_parameters()), smi)
+    return out
+
+
+def phase_bench_config(smi: str, steps: int = 5, warmup: int = 2) -> dict:
+    import numpy as np
+    import torch
+
+    from pytorch_distributedtraining_tpu_torch import optim
+    from pytorch_distributedtraining_tpu_torch.benchmarks.profile_swinir import make_batches
+    from pytorch_distributedtraining_tpu_torch.drivers import stoke_ddp
+    from pytorch_distributedtraining_tpu_torch.losses import mse_loss
+    from pytorch_distributedtraining_tpu_torch.ops import window_attn as twa
+    from pytorch_distributedtraining_tpu_torch.parallel import TrainStep
+    from pytorch_distributedtraining_tpu_torch.precision import Policy
+
+    accum = 2
+    batch = tuple(torch.cat(parts) for parts in zip(*make_batches("cuda")))  # 2 x 18 images
+    results = {}
+    for fp16 in (None, "bf16"):
+        model = stoke_ddp.build_model().cuda()
+        policy = Policy.from_name(fp16)
+
+        def loss_fn(m, b):
+            with policy.autocast(b[0].device):
+                out = m(b[0])
+            return mse_loss(out.float(), b[1]), {}
+
+        tx = optim.FusedAdamW(model.named_parameters(), lr=5e-4, clip_grad_norm=0.1)
+        step = TrainStep(model, loss_fn, tx, grad_accum_steps=accum)
+        w0 = model.conv_first.weight.detach().clone()
+        for _ in range(warmup):
+            step(batch)
+        torch.cuda.synchronize()
+        twa.reset_launch_counts()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            metrics = step(batch)
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+        launches = twa.fwd_launches, twa.bwd_launches
+        loss = metrics["loss"].item()
+        moved = (model.conv_first.weight - w0).abs().max().item()
+        name = fp16 or "fp32"
+        step_ms = elapsed / steps * 1e3
+        ips = BATCH * accum * steps / elapsed
+        print(f"[bench-config] {name}: TrainStep + FusedAdamW(lr=5e-4, clip 0.1), MSE: step "
+              f"{step_ms:.2f} ms, {ips:.1f} images/s (batch {BATCH} x accum {accum}, LR "
+              f"{LR_SIZE} -> HR {2 * LR_SIZE}, {steps} steps after {warmup}), loss {loss:.5f}, "
+              f"weights moved {moved:.2e}, launches fwd {launches[0]} bwd {launches[1]} | {smi}")
+        if launches != (24 * accum * steps,) * 2:
+            raise SystemExit(f"{name}: launches {launches}, expected 24 of each per micro-batch")
+        if not np.isfinite(loss) or not moved > 0:
+            raise SystemExit(f"{name}: loss {loss} or weights did not move")
+        results[name] = {"step_ms": step_ms, "images_per_s": ips, "launches": launches}
+        del model, step, tx
+    return results
+
+
+def phase_espcn() -> dict:
+    import math
+
+    from pytorch_distributedtraining_tpu_torch.drivers import fairscale_ddp
+
+    model = fairscale_ddp.build_model()
+    w0 = model.conv1.weight.detach().clone()
+    t0 = time.perf_counter()
+    loss = fairscale_ddp.main(["--synthetic", "--synthetic-n", str(ESPCN_N), "--epochs", "1",
+                               "--workers", "2"], model=model)
+    seconds = time.perf_counter() - t0
+    moved = (model.conv1.weight.detach().cpu() - w0).abs().max().item()
+    print(f"[espcn] drivers.fairscale_ddp: one epoch of {ESPCN_N} synthetic images at batch "
+          f"{fairscale_ddp.BATCH_SIZE} in {seconds:.1f} s (data, probe batch and model set-up "
+          f"included), last loss {loss}, weights moved {moved:.2e}, on "
+          f"{model.conv1.weight.device}")
+    if loss is None or not math.isfinite(loss) or not moved > 0:
+        raise SystemExit(f"ESPCN driver: loss {loss} or weights did not move")
+    if model.conv1.weight.device.type != "cuda":
+        raise SystemExit("ESPCN driver did not train on the card")
+    return {"seconds": seconds, "loss": loss}
+
+
 def main() -> int:
     import torch
 
@@ -787,8 +1031,11 @@ def main() -> int:
         phase_driver()
         bench = phase_bench(smi)
         lm = phase_gpt2(smi)
+        phase_bench_config(smi)
+        phase_espcn()
+    phase_optimizer(smi)
     checked = set().union(*(c["checked"] for c in cases + flash_cases))
-    print(f"[shapes] phases 5-7 launched {len(seen)} kinds of (kernel, q shape, dtype, mask "
+    print(f"[shapes] phases 5-8 launched {len(seen)} kinds of (kernel, q shape, dtype, mask "
           f"windows or causal): {sorted(seen, key=str)}")
     if seen - checked:
         raise SystemExit(f"launched on a driven path but never held against the plain "

@@ -8,8 +8,17 @@ package. Its Pallas kernels become hand-written CUDA kernels under
 ``csrc/``, built at first use; every kernel has a plain PyTorch version
 that CPU tensors take.
 
-This slice covers the SwinIR-S x2 training path of ``drivers/stoke_ddp.py``
-on one GPU: ``ops``, ``models``, ``interop``, ``losses``, ``metrics``,
-``optim``, ``precision``, ``runtime``, ``data``, ``checkpoint``,
-``observe``, ``stoke`` and ``drivers.stoke_ddp``.
+The port covers, on one GPU, the two reference drivers and the ladder's
+GPT-2 rung: SwinIR-S x2 through the Stoke facade (``drivers.stoke_ddp``),
+ESPCN through ``parallel.TrainStep`` (``drivers.fairscale_ddp``) and
+GPT-2 125M (``benchmarks.ladder``), with ``ops``, ``models``, ``interop``,
+``losses``, ``metrics``, ``optim`` (per-leaf AdamW and SGD, the flat
+``FusedAdamW``, the schedules), ``precision``, ``runtime``, ``data``,
+``checkpoint``, ``observe`` and ``stoke``.
+
+On the CPU, ``python -m pytest tests/test_torch_*.py -q`` holds each part
+against the JAX package (the optimizers in ``tests/test_torch_optim.py``,
+the ESPCN driver in ``tests/test_torch_fairscale_driver.py``). On a GPU,
+``python3 chip_smoke.py`` at the repository root builds the kernels,
+holds them against their plain versions and drives every path above.
 """

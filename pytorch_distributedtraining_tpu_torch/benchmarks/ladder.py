@@ -211,8 +211,8 @@ def run_config(i: int, tiny: bool, steps: int, warmup: int, device="cuda",
                        warmup, device, trace)
     if i in (1, 2, 3, 5):
         raise NotImplementedError(
-            f"ladder config {i} (ResNet/ViT) is not ported yet: the models wait for ROADMAP "
-            "A.11 and the DDP/ZeRO policies for A.4")
+            f"ladder config {i} (ResNet/ViT) is not ported yet: the models wait for the "
+            "ladder-models slice and the DDP/ZeRO policies for the distributed-runtime slice")
     raise ValueError(f"config {i} not in 1..5")
 
 

@@ -1,0 +1,158 @@
+"""ESPCN super-resolution training under the ZeRO-2 layout, on one GPU.
+
+Counterpart of ``drivers/fairscale_ddp.py`` (the reference's
+``Fairscale-DDP.py``), structure for structure: datasets, a 0.99 split,
+``DistributedSampler``s with ``num_replicas`` and rank from
+``runtime.dist``, loaders, the probe batch, ``Net(upscale_factor=2)`` with
+MSE, the one-device ``TrainStep`` with the per-leaf AdamW (lr 1e-3, betas
+(0.9, 0.99), eps 1e-8, weight decay 1e-4), a loss print every 25
+iterations and one line per epoch::
+
+    python -m pytorch_distributedtraining_tpu_torch.drivers.fairscale_ddp \\
+        --synthetic --epochs 1 --workers 2
+
+On one rank ZeRO-2 (OSS + ShardedDDP) is the plain update, and ZeRO-2 is
+not a layout for the flat ``FusedAdamW``, so the update is the per-leaf
+chain, as in the JAX driver. The reference bugs that the JAX driver fixes
+stay fixed: ``num_replicas`` is not hard-coded to 4, the sampler's epoch
+advances (the loader sets it), and the computed rank is used.
+
+It runs on the GPU (``--device cuda``, the default) and refuses to start
+without one unless ``--device cpu`` is given. When the data folders are
+absent it trains on synthetic data. The JAX driver's flags whose modules
+are not ported (``--remat``, ``--pp``, ``--pp-schedule``, ``--wire``,
+``--hier``, ``--plan``, ``--analyze``, ``--ckpt``, ``--ckpt-async``,
+``--save-every``, ``--trace``, ``--numerics``, ``--opcost``,
+``--capture``, ``--device-prefetch``) are not defined.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+
+import torch
+
+from pytorch_distributedtraining_tpu_torch import optim
+from pytorch_distributedtraining_tpu_torch.data import (
+    CustomDataset,
+    DataLoader,
+    DistributedSampler,
+    SyntheticSRDataset,
+    random_split,
+)
+from pytorch_distributedtraining_tpu_torch.losses import mse_loss
+from pytorch_distributedtraining_tpu_torch.models import Net
+from pytorch_distributedtraining_tpu_torch.parallel import TrainStep
+from pytorch_distributedtraining_tpu_torch.runtime import dist
+
+# reference constants (Fairscale-DDP.py:57,118)
+BATCH_SIZE = 40
+EPOCHS = 2
+
+# the reference's Flickr2K patch folders (Fairscale-DDP.py:32-33), relative
+# to the working directory rather than on the reference authors' share
+INPUT_PATH = "Dataset/Flickr2K/Patches/LRPatch_256/"
+TARGET_PATH = "Dataset/Flickr2K/Patches/512/"
+
+
+def build_model(seed: int = 0) -> Net:
+    """``Net(upscale_factor=2)`` with weights from ``seed`` (the global RNG
+    is left as it was)."""
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        return Net(upscale_factor=2)
+
+
+def loss_fn(model: Net, batch):
+    inputs, targets = batch
+    return mse_loss(model(inputs), targets), {}
+
+
+def train(opt: argparse.Namespace, model: Net | None = None) -> float | None:
+    """Train ``model`` (default: ``build_model()``) for ``opt.epochs`` epochs
+    on ``opt.device``; returns the last step's loss."""
+    device = dist.resolve_device(opt.device)
+    if dist.world_size() > 1:
+        raise NotImplementedError(
+            f"WORLD_SIZE={dist.world_size()}: the port trains on one GPU so far; ZeRO-2 across "
+            "GPUs is the distributed-runtime slice")
+
+    print("===> Loading datasets")
+    print("--Input Directory--", opt.input_dir)
+    if opt.synthetic or not os.path.isdir(opt.input_dir):
+        if not opt.synthetic:
+            print("(dataset dirs absent -> synthetic SR data)")
+        full_dataset = SyntheticSRDataset(n=opt.synthetic_n, lr_size=32, scale=2)
+    else:
+        full_dataset = CustomDataset(opt.input_dir, opt.target_dir)
+
+    train_size = int(0.99 * len(full_dataset))
+    test_size = len(full_dataset) - train_size
+    train_dataset, val_dataset = random_split(full_dataset, [train_size, test_size])
+
+    # fixed: num_replicas and rank from the runtime, not hardcoded 4 (:47,53)
+    train_sampler = DistributedSampler(train_dataset, num_replicas=dist.world_size(),
+                                       rank=dist.rank())
+    val_sampler = DistributedSampler(val_dataset, num_replicas=dist.world_size(),
+                                     rank=dist.rank())
+
+    # persistent workers: the probe batch's half-read epoch is reset, not
+    # torn down mid-flight, and the epochs reuse the same processes
+    context = "spawn" if opt.workers > 0 else None
+    training_dataloader = DataLoader(
+        train_dataset, batch_size=opt.batch_size, sampler=train_sampler,
+        num_workers=opt.workers, drop_last=True, device=device,
+        persistent_workers=True, multiprocessing_context=context,
+    )
+    # built as the reference builds it; the loop below never reads it
+    DataLoader(val_dataset, batch_size=opt.batch_size, sampler=val_sampler,
+               num_workers=min(8, opt.workers), drop_last=True, device=device,
+               multiprocessing_context=context)
+
+    try:
+        # probe batch (Fairscale-DDP.py:67-71)
+        x, y = next(iter(training_dataloader))
+        print("Length of Training dataset - ", len(train_dataset))
+        print("--Shape--", tuple(x.shape), tuple(y.shape))
+
+        print("===> Building model")
+        model = (build_model() if model is None else model).to(device)
+        # OSS(AdamW) + ShardedDDP (:78-89): on one rank, the per-leaf update
+        tx = optim.adamw(model.named_parameters(), lr=1e-3, betas=(0.9, 0.99), eps=1e-8,
+                         weight_decay=1e-4)
+        step = TrainStep(model, loss_fn, tx)
+
+        loss = None
+        for e in range(opt.epochs):
+            for iteration, batch in enumerate(training_dataloader, 1):
+                loss = step(batch)["loss"]
+                if iteration % 25 == 0:
+                    print(float(loss))
+            print("For Epoch {}, loss: {:.2f}".format(e, float(loss)))
+    finally:
+        training_dataloader.shutdown_workers()
+    return None if loss is None else float(loss)
+
+
+def build_parser() -> argparse.ArgumentParser:
+    parser = argparse.ArgumentParser(description="ZeRO-2 SR training (one GPU)")
+    parser.add_argument("--epochs", type=int, default=EPOCHS)
+    parser.add_argument("--batch-size", type=int, default=BATCH_SIZE)
+    parser.add_argument("--input-dir", type=str, default=INPUT_PATH)
+    parser.add_argument("--target-dir", type=str, default=TARGET_PATH)
+    parser.add_argument("--workers", type=int, default=16)
+    parser.add_argument("--synthetic", action="store_true",
+                        help="train on synthetic SR data (no dataset needed)")
+    parser.add_argument("--synthetic-n", type=int, default=512)
+    parser.add_argument("--device", type=str, default="cuda", choices=["cuda", "cpu"],
+                        help="train on the GPU (default; fails without one) or the CPU")
+    return parser
+
+
+def main(argv=None, model: Net | None = None) -> float | None:
+    return train(build_parser().parse_args(argv), model)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,4 +1,4 @@
-"""Weight carry-over from the JAX package's SwinIR and GPT-2 into the port's.
+"""Weight carry-over from the JAX package's SwinIR, GPT-2 and ESPCN into the port's.
 
 Counterpart of the SwinIR and GPT-2 parts of ``pytorch_distributedtraining_
 tpu/interop.py`` (``torch_swinir_state_dict``, ``torch_gpt2_state_dict`` and
@@ -6,7 +6,8 @@ the ``SWINIR_EXPORT_KEY_MAP`` / ``GPT2_EXPORT_KEY_MAP`` beside the JAX
 models): the same key rewrites, kept here as a copy so the port imports
 nothing of the JAX package. The input is the JAX model's ``params`` as a
 nested dict of numpy arrays (``jax.device_get`` of the tree); the output
-strict-loads into ``models.swinir.SwinIR`` or ``models.gpt2.GPT2``.
+strict-loads into ``models.swinir.SwinIR``, ``models.gpt2.GPT2`` or
+``models.sr_espcn.Net``.
 """
 
 from __future__ import annotations
@@ -112,5 +113,26 @@ def gpt2_state_dict_from_jax(params: dict) -> dict[str, torch.Tensor]:
         for pat, repl in GPT2_KEY_RULES:
             name = re.sub(pat, repl, name)
         name = re.sub(r"[./](kernel|scale)$", ".weight", name)
+        sd[name] = torch.from_numpy(np.array(a, dtype=np.float32, copy=True))
+    return sd
+
+
+def espcn_state_dict_from_jax(params: dict) -> dict[str, torch.Tensor]:
+    """JAX ESPCN ``Net`` ``params`` -> state dict of the port's ``Net``.
+
+    flax names the three convolutions ``Conv_0``..``Conv_2`` in call order;
+    they become ``conv1``..``conv3``, kernels HWIO -> OIHW. ``params`` may be
+    nested under ``"params"``.
+    """
+    if set(params) == {"params"}:
+        params = params["params"]
+    sd: dict[str, torch.Tensor] = {}
+    for key, a in _flatten(params).items():
+        m = re.fullmatch(r"Conv_(\d+)/(kernel|bias)", key)
+        if m is None:
+            raise ValueError(f"not an ESPCN parameter: {key!r}")
+        if m.group(2) == "kernel":
+            a = np.transpose(a, (3, 2, 0, 1))
+        name = f"conv{int(m.group(1)) + 1}.{'weight' if m.group(2) == 'kernel' else 'bias'}"
         sd[name] = torch.from_numpy(np.array(a, dtype=np.float32, copy=True))
     return sd

@@ -162,8 +162,8 @@ class GPT2(nn.Module):
         asked = [name for name, on in waits.items() if on]
         if asked:
             raise NotImplementedError(
-                f"GPT2 {', '.join(asked)}: not ported yet (ROADMAP A.11); the port "
-                "has the training path only")
+                f"GPT2 {', '.join(asked)}: not ported yet (the ladder-models and GPT-2 "
+                "slice); the port has the training path only")
         self.cfg = cfg
         self.transformer = nn.ModuleDict(dict(
             wte=nn.Embedding(cfg.vocab_size, cfg.n_embd),

@@ -1,66 +1,143 @@
-"""AdamW with global-norm clipping, and the LR schedules the driver steps.
+"""Optimizers and LR schedules: AdamW, SGD, the flat ``FusedAdamW``,
+OneCycleLR and ReduceLROnPlateau.
 
-Counterpart of ``pytorch_distributedtraining_tpu/optim.py``: the ``adamw``
-chain (clip by global norm, Adam, decoupled weight decay on every
-parameter; ``optim.py:224``) as the facade drives it, with the learning
-rate applied after the chain from an :class:`OptimizerHandle`. The update
-runs on ``torch._foreach`` ops, a few launches per step for the whole
-parameter list, and reads nothing back to the host.
+Counterpart of ``pytorch_distributedtraining_tpu/optim.py``:
 
-``OneCycleLR`` and ``ReduceLROnPlateau`` stay pure-Python closed forms, not
-``torch.optim.lr_scheduler``, so their values match the JAX twins step for
-step. ``FusedAdamW`` is not ported yet.
+- ``adamw`` and ``sgd`` are the per-leaf optax chains (recorded global-norm
+  clip, value clip, Adam or momentum SGD, decoupled weight decay, params
+  EMA; ``optim.py:224-276``) on ``torch._foreach`` ops, a few launches per
+  step for the whole parameter list. The lr is applied after the chain,
+  from a float, a schedule of the step count, or the caller's
+  :class:`OptimizerHandle`.
+- ``FusedAdamW`` is the flat update (``optim.py:279-479``): parameters and
+  gradients are views into one flat f32 buffer each, padded to a multiple
+  of 1024, so the update is the JAX ``apply``'s arithmetic as full-width
+  tensor ops on the same code path on the CPU and the card, with no ravel
+  or unravel copy.
+- ``onecycle`` and ``cosine_with_warmup`` are schedules, functions of a
+  step (an int or a 0-d tensor). ``OneCycleLR`` and ``ReduceLROnPlateau``
+  stay pure-Python closed forms, not ``torch.optim.lr_scheduler``, so their
+  values match the JAX twins step for step.
+
+Nothing here reads a value back to the host.
 """
 
 from __future__ import annotations
 
 import math
+from typing import Callable, NamedTuple
 
+import numpy as np
 import torch
 
 
-class AdamW:
-    """``clip_by_global_norm -> adam -> add_decayed_weights``, then ``* -lr``.
+def _named(params) -> list[tuple[str, torch.Tensor]]:
+    """``(name, parameter)`` pairs of the trainable parameters, each once:
+    from ``module.named_parameters()`` or, named by position, from tensors."""
+    out, seen = [], set()
+    for i, item in enumerate(params):
+        name, p = item if isinstance(item, tuple) else (str(i), item)
+        if p.requires_grad and id(p) not in seen:
+            seen.add(id(p))
+            out.append((name, p))
+    return out
 
-    The optax chain's arithmetic: ``u = m̂/(√v̂ + eps) + wd·p`` with bias
-    correction by step count, scaled by ``min(1, max_norm/‖g‖)`` first when
-    clipping is on; ``p -= lr·u``.
-    """
 
-    def __init__(self, params, lr: float = 1e-3, betas=(0.9, 0.999), eps: float = 1e-8,
-                 weight_decay: float = 0.01, clip_grad_norm: float | None = None):
-        self.params = [p for p in params if p.requires_grad]
-        self.lr = float(lr)
-        self.b1, self.b2 = (float(b) for b in betas)
-        self.eps = float(eps)
-        self.weight_decay = float(weight_decay)
+def _lr_at(lr, count):
+    """The lr at ``count`` (the step count before this update, optax's
+    ``scale_by_schedule``): a float as it is, a schedule evaluated."""
+    return lr(count) if callable(lr) else lr
+
+
+class RecordedClip(NamedTuple):
+    """The pre-clip global norm and whether the clip fired this step
+    (JAX ``RecordedClipState``), both device scalars."""
+
+    gnorm: torch.Tensor  # f32
+    clipped: torch.Tensor  # bool: the scale was < 1
+
+
+class _LeafOptimizer:
+    """What the per-leaf chains share: the parameter list, its grads, the
+    recorded clip and the params EMA."""
+
+    def __init__(self, params, lr, clip_grad_norm, clip_grad_value, ema_decay=None):
+        named = _named(params)
+        self.names = [n for n, _ in named]
+        self.params = [p for _, p in named]
+        self.lr = lr
         self.clip_grad_norm = None if clip_grad_norm is None else float(clip_grad_norm)
+        self.clip_grad_value = None if clip_grad_value is None else float(clip_grad_value)
+        self.ema_decay = None if ema_decay is None else float(ema_decay)
         self.count = 0
-        self.mu = [torch.zeros_like(p) for p in self.params]
-        self.nu = [torch.zeros_like(p) for p in self.params]
+        self.clip: RecordedClip | None = None
+        self.ema = None
+        if self.ema_decay is not None:
+            self.ema = [p.detach().float().clone() for p in self.params]
 
     def grads(self) -> list[torch.Tensor]:
         return [p.grad if p.grad is not None else torch.zeros_like(p) for p in self.params]
+
+    def zero_grad(self) -> None:
+        """Drop the grads; the next backward writes fresh ones."""
+        for p in self.params:
+            p.grad = None
 
     @staticmethod
     def global_norm(grads) -> torch.Tensor:
         return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
 
-    @torch.no_grad()
-    def step(self, grads: list[torch.Tensor], lr: float | None = None) -> torch.Tensor | None:
-        """Apply one update from ``grads`` (f32, already unscaled). Returns
-        the pre-clip global norm (a device scalar) when clipping is on, so a
-        caller need not compute it twice; else None."""
-        lr = self.lr if lr is None else float(lr)
-        gnorm = None
+    def _clip(self, grads: list[torch.Tensor]) -> list[torch.Tensor]:
+        """Clip by global norm (recorded in :attr:`clip`), then by value."""
         if self.clip_grad_norm is not None:
             gnorm = self.global_norm(grads)
-            scale = torch.where(
-                gnorm > self.clip_grad_norm,
-                self.clip_grad_norm / torch.clamp(gnorm, min=1e-38),
-                torch.ones_like(gnorm),
-            )
+            trigger = gnorm > self.clip_grad_norm
+            scale = torch.where(trigger, self.clip_grad_norm / torch.clamp(gnorm, min=1e-38),
+                                torch.ones_like(gnorm))
             grads = torch._foreach_mul(grads, scale)
+            self.clip = RecordedClip(gnorm, trigger)
+        if self.clip_grad_value is not None:
+            v = self.clip_grad_value
+            grads = torch._foreach_clamp_max(torch._foreach_clamp_min(grads, -v), v)
+        return grads
+
+    def _lr(self, lr, lr_factor) -> float:
+        return float((_lr_at(self.lr, self.count) if lr is None else lr) * lr_factor)
+
+    def _update_ema(self) -> None:
+        """EMA of the new parameters (JAX ``refresh_params_ema``)."""
+        if self.ema is not None:
+            torch._foreach_mul_(self.ema, self.ema_decay)
+            torch._foreach_add_(self.ema, self.params, alpha=1.0 - self.ema_decay)
+
+
+class AdamW(_LeafOptimizer):
+    """``clip_by_global_norm -> clip -> adam -> add_decayed_weights``, then
+    ``* -lr``, then the params EMA.
+
+    The optax chain's arithmetic: ``u = m̂/(√v̂ + eps) + wd·p`` with bias
+    correction by step count (in Python doubles), scaled by ``min(1,
+    max_norm/‖g‖)`` first when clipping is on; ``p -= lr·u``.
+    """
+
+    def __init__(self, params, lr=1e-3, betas=(0.9, 0.999), eps: float = 1e-8,
+                 weight_decay: float = 0.01, clip_grad_norm: float | None = None,
+                 clip_grad_value: float | None = None, ema_decay: float | None = None):
+        super().__init__(params, lr, clip_grad_norm, clip_grad_value, ema_decay)
+        self.b1, self.b2 = (float(b) for b in betas)
+        self.eps = float(eps)
+        self.weight_decay = float(weight_decay)
+        self.mu = [torch.zeros_like(p) for p in self.params]
+        self.nu = [torch.zeros_like(p) for p in self.params]
+
+    @torch.no_grad()
+    def step(self, grads: list[torch.Tensor], lr=None, lr_factor=1.0) -> torch.Tensor | None:
+        """Apply one update from ``grads`` (f32, already unscaled) at ``lr``
+        (default: :attr:`lr` at the step count) times ``lr_factor``. Returns
+        the pre-clip global norm (a device scalar) when clipping is on, so a
+        caller need not compute it twice; else None."""
+        lr = self._lr(lr, lr_factor)
+        grads = self._clip(grads)
         self.count += 1
         torch._foreach_mul_(self.mu, self.b1)
         torch._foreach_add_(self.mu, grads, alpha=1.0 - self.b1)
@@ -76,19 +153,342 @@ class AdamW:
         if self.weight_decay:
             torch._foreach_add_(upd, self.params, alpha=self.weight_decay)
         torch._foreach_add_(self.params, upd, alpha=-lr)
-        return gnorm
+        self._update_ema()
+        return None if self.clip is None else self.clip.gnorm
 
     def state_dict(self) -> dict:
-        return {"count": self.count, "mu": self.mu, "nu": self.nu}
+        return {"count": self.count, "mu": self.mu, "nu": self.nu, "ema": self.ema}
 
 
-def adamw(params, lr: float = 1e-3, betas=(0.9, 0.999), eps: float = 1e-8,
-          weight_decay: float = 0.01, clip_grad_norm: float | None = None) -> AdamW:
+class SGD(_LeafOptimizer):
+    """``clip_by_global_norm -> clip -> add_decayed_weights -> trace``, then
+    ``* -lr``: optax's ``sgd`` with momentum as a trace ``t = g + m·t``
+    (Nesterov: the update is ``g + m·t``), no dampening."""
+
+    def __init__(self, params, lr=1e-2, momentum: float = 0.0, weight_decay: float = 0.0,
+                 nesterov: bool = False, clip_grad_norm: float | None = None,
+                 clip_grad_value: float | None = None):
+        super().__init__(params, lr, clip_grad_norm, clip_grad_value)
+        self.momentum = float(momentum)
+        self.weight_decay = float(weight_decay)
+        self.nesterov = bool(nesterov)
+        self.trace = [torch.zeros_like(p) for p in self.params] if self.momentum else None
+
+    @torch.no_grad()
+    def step(self, grads: list[torch.Tensor], lr=None, lr_factor=1.0) -> torch.Tensor | None:
+        """As :meth:`AdamW.step`."""
+        lr = self._lr(lr, lr_factor)
+        grads = self._clip(grads)
+        if self.weight_decay:
+            grads = torch._foreach_add(grads, self.params, alpha=self.weight_decay)
+        if self.trace is not None:
+            torch._foreach_mul_(self.trace, self.momentum)
+            torch._foreach_add_(self.trace, grads)
+            grads = (torch._foreach_add(grads, self.trace, alpha=self.momentum)
+                     if self.nesterov else self.trace)
+        self.count += 1
+        torch._foreach_add_(self.params, grads, alpha=-lr)
+        return None if self.clip is None else self.clip.gnorm
+
+    def state_dict(self) -> dict:
+        return {"count": self.count, "trace": self.trace}
+
+
+def adamw(params, lr=1e-3, betas=(0.9, 0.999), eps: float = 1e-8, weight_decay: float = 0.01,
+          clip_grad_norm: float | None = None, clip_grad_value: float | None = None,
+          ema_decay: float | None = None) -> AdamW:
     """AdamW with torch-parity argument names (the JAX ``adamw`` factory)."""
-    return AdamW(params, lr, betas, eps, weight_decay, clip_grad_norm)
+    return AdamW(params, lr, betas, eps, weight_decay, clip_grad_norm, clip_grad_value,
+                 ema_decay)
 
 
-OPTIMIZERS = {"adamw": adamw}
+def sgd(params, lr=1e-2, momentum: float = 0.0, weight_decay: float = 0.0,
+        nesterov: bool = False, clip_grad_norm: float | None = None,
+        clip_grad_value: float | None = None) -> SGD:
+    """SGD with torch-parity argument names (the JAX ``sgd`` factory)."""
+    return SGD(params, lr, momentum, weight_decay, nesterov, clip_grad_norm, clip_grad_value)
+
+
+class FusedAdamWState(NamedTuple):
+    count: torch.Tensor  # int32 scalar
+    mu: torch.Tensor  # f32 [N_pad] first moment, flat
+    nu: torch.Tensor  # f32 [N_pad] second moment, flat
+    ema: torch.Tensor | None = None  # f32 [N_pad] params EMA (ema_decay set)
+
+
+class FusedAdamW:
+    """Flat AdamW + clipping: the whole update as ~15 full-width tensor ops.
+
+    At construction every parameter's ``.data`` and ``.grad`` become views
+    into :attr:`flat_param` and :attr:`flat_grad` (DDP's
+    ``gradient_as_bucket_view`` idea): backward accumulates into the flat
+    gradient in place, and the update writes the flat parameters in place,
+    so no step copies a parameter or gradient to ravel or unravel it. Each
+    parameter starts at a multiple of ``_ALIGN = 64`` elements (256 bytes):
+    cuBLAS, cuDNN and the vectorised elementwise kernels fall back to
+    slower code on a pointer off 16 bytes, and packed views left most
+    parameters there. The buffers are ``[N_pad]`` f32, the end rounded up
+    to a multiple of ``_PAD = 1024`` so that a ZeRO-1 layout can shard
+    them; every padding lane holds zeros throughout (zero grad, zero
+    moments, zero update).
+
+    Whatever rebinds a parameter's ``.data`` or ``.grad`` afterwards
+    (``p.grad = None``, ``module.to(...)`` to another device or dtype,
+    ``load_state_dict(assign=True)``) detaches it from the buffers; use
+    :meth:`zero_grad`, which zeroes the flat gradient in place.
+
+    Numerics are the JAX ``FusedAdamW``'s: the pre-clip norm is one
+    reduction over the flat gradient, the clip is ``g · where(‖g‖ < c, 1,
+    c/‖g‖)``, bias correction runs in f32 on the device at the incremented
+    count, and a schedule ``lr`` is read at the count before it.
+
+    ``lr`` may be a float or a schedule ``f(count) -> lr``; ``lr_factor``
+    multiplies it (the facade feeds its whole lr that way, with ``lr=1``).
+    ``update_wire_dtype`` casts the step vector (fairscale OSS's
+    ``broadcast_fp16``), ``ema_decay`` keeps an EMA of the new parameters.
+    """
+
+    _PAD = 1024
+    _ALIGN = 64
+
+    def __init__(self, params, lr=1e-3, betas=(0.9, 0.999), eps: float = 1e-8,
+                 weight_decay: float = 0.01, clip_grad_norm: float | None = None,
+                 clip_grad_value: float | None = None, update_wire_dtype=None,
+                 ema_decay: float | None = None):
+        named = _named(params)
+        if not named:
+            raise ValueError("FusedAdamW got no trainable parameters")
+        self.names = [n for n, _ in named]
+        self.params = [p for _, p in named]
+        device = self.params[0].device
+        for name, p in named:
+            if p.dtype != torch.float32 or p.device != device:
+                raise ValueError(
+                    f"FusedAdamW keeps one flat f32 buffer on one device: parameter {name!r} is "
+                    f"{p.dtype} on {p.device}, the first is torch.float32 on {device}")
+        self.lr = lr
+        self.b1, self.b2 = (float(b) for b in betas)
+        self.eps = float(eps)
+        self.weight_decay = float(weight_decay)
+        self.clip_grad_norm = None if clip_grad_norm is None else float(clip_grad_norm)
+        self.clip_grad_value = None if clip_grad_value is None else float(clip_grad_value)
+        self.update_wire_dtype = update_wire_dtype
+        # f32 values: 1 - d is then exact in a double, as in JAX's f32 arithmetic
+        self.ema_decay = None if ema_decay is None else float(np.float32(ema_decay))
+
+        self.numel = sum(p.numel() for p in self.params)
+        self.offsets, end = [], 0
+        for p in self.params:
+            self.offsets.append(end)
+            end = -(-(end + p.numel()) // self._ALIGN) * self._ALIGN
+        n_pad = -(-end // self._PAD) * self._PAD
+        self.flat_param = torch.zeros(n_pad, dtype=torch.float32, device=device)
+        self.flat_grad = torch.zeros_like(self.flat_param)
+        with torch.no_grad():
+            for off, p in zip(self.offsets, self.params):
+                k = p.numel()
+                self.flat_param[off:off + k].copy_(p.reshape(-1))
+                if p.grad is not None:
+                    self.flat_grad[off:off + k].copy_(p.grad.reshape(-1))
+                p.data = self.flat_param[off:off + k].view_as(p)
+                p.grad = self.flat_grad[off:off + k].view_as(p)
+        self.state = self.init()
+        self.clip: RecordedClip | None = None
+
+    def init(self) -> FusedAdamWState:
+        """A fresh state for the current parameters."""
+        z = torch.zeros_like(self.flat_param)
+        return FusedAdamWState(
+            count=torch.zeros((), dtype=torch.int32, device=z.device),
+            mu=z, nu=z.clone(),
+            ema=None if self.ema_decay is None else self.flat_param.clone(),
+        )
+
+    def zero_grad(self) -> None:
+        """Zero the flat gradient in place (the views stay bound)."""
+        self.flat_grad.zero_()
+
+    @torch.no_grad()
+    def apply(self, gflat: torch.Tensor, state: FusedAdamWState, pflat: torch.Tensor,
+              lr_factor=1.0, gate: torch.Tensor | None = None):
+        """One update on flat f32 grads ``gflat`` and params ``pflat``
+        (``[N_pad]``), out of place.
+
+        Returns ``(new_pflat, new_state, grad_norm)``; ``grad_norm`` is the
+        pre-clip global norm (with a norm clip also recorded in
+        :attr:`clip`). ``gate`` (a device bool, optional) keeps
+        params, moments, count and EMA as they were when False: the
+        GradScaler overflow skip, with no read on the host.
+        """
+        # JAX's apply with each expression as one op where torch has one
+        # (a * x + b * y as a mul and an in-place add): fewer passes over
+        # [N_pad], rounding apart only where an op fuses a multiply-add
+        g = gflat
+        # pre-clip, the metric's contract; vector_norm's CPU reduction is
+        # ~1e-5 off for a million elements, a sum of squares is not
+        gnorm = torch.sqrt(torch.sum(g * g))
+        if self.clip_grad_norm is not None:
+            c = self.clip_grad_norm
+            # optax.clip_by_global_norm formula: rescale only above the cap
+            g = g * torch.where(gnorm < c, 1.0, c / gnorm)
+            self.clip = RecordedClip(gnorm, gnorm > c)
+        if self.clip_grad_value is not None:  # chain order: norm clip first
+            g = torch.clamp(g, -self.clip_grad_value, self.clip_grad_value)
+        count = state.count + 1
+        mu = torch.mul(state.mu, self.b1).add_(g, alpha=1.0 - self.b1)
+        nu = torch.mul(state.nu, self.b2).addcmul_(g, g, value=1.0 - self.b2)
+        t = count.float()
+        lr_t = _lr_at(self.lr, state.count)
+        if isinstance(lr_t, torch.Tensor) or isinstance(lr_factor, torch.Tensor):
+            lr_t = torch.as_tensor(lr_t, dtype=torch.float32) * lr_factor
+        else:  # f32 on the host: a tensor made from it would copy to the device
+            lr_t = float(np.float32(np.float32(lr_t) * np.float32(lr_factor)))
+        # upd = m̂ / (√v̂ + eps) + wd·p, then the step -lr·upd, in one buffer
+        upd = torch.div(mu, 1.0 - self.b1**t)
+        upd.div_(torch.div(nu, 1.0 - self.b2**t).sqrt_().add_(self.eps))
+        if self.weight_decay:
+            upd.add_(pflat, alpha=self.weight_decay)
+        step_vec = upd.mul_(-lr_t)
+        if self.update_wire_dtype is not None:
+            # narrow the update's fan-out wire; the add upcasts back
+            step_vec = step_vec.to(self.update_wire_dtype)
+        new_p = pflat + step_vec.float()
+        ema = state.ema
+        if self.ema_decay is not None:
+            if ema is None:
+                raise ValueError(
+                    "ema_decay is set but the state has no ema buffer: re-init the state "
+                    "with this optimizer (or restore one written with ema_decay enabled)")
+            d = self.ema_decay
+            ema = d * ema + (1.0 - d) * new_p
+        elif ema is not None:
+            raise ValueError(
+                "the state carries an ema buffer but this optimizer has ema_decay=None: "
+                "construct FusedAdamW(ema_decay=...) to keep maintaining it (or re-init "
+                "the state without EMA)")
+        if gate is not None:
+            new_p = torch.where(gate, new_p, pflat)
+            mu = torch.where(gate, mu, state.mu)
+            nu = torch.where(gate, nu, state.nu)
+            count = torch.where(gate, count, state.count)
+            if ema is not None:
+                ema = torch.where(gate, ema, state.ema)
+        return new_p, FusedAdamWState(count, mu, nu, ema), gnorm
+
+    @torch.no_grad()
+    def apply_tree(self, lr_factor=1.0, scaler=None):
+        """One update from the parameters' grads, in place: the shared hot
+        path of ``TrainStep`` and the facade.
+
+        The grads already lie in :attr:`flat_grad`, so the ravel costs
+        nothing. With ``scaler`` (a ``DynamicLossScaler``), the flat grads
+        are unscaled and their finiteness gates the whole update. Returns
+        ``(grad_norm, finite)``: the pre-clip norm and, with a scaler, the
+        finite flag as a device bool for the scaler's own update (None
+        without one). Nothing is read back to the host here.
+        """
+        gflat, gate = self.flat_grad, None
+        if scaler is not None:
+            gflat = gflat * (1.0 / scaler.scale)
+            gate = torch.isfinite(gflat).all()
+        new_p, self.state, gnorm = self.apply(gflat, self.state, self.flat_param, lr_factor,
+                                              gate)
+        self.flat_param.copy_(new_p)
+        return gnorm, gate
+
+    def ema_params(self, state: FusedAdamWState | None = None) -> list[torch.Tensor] | None:
+        """The EMA of each parameter, shaped like it (views of the flat EMA);
+        None when ``ema_decay`` was not set."""
+        ema = (self.state if state is None else state).ema
+        if ema is None:
+            return None
+        return [ema[o:o + p.numel()].view_as(p) for o, p in zip(self.offsets, self.params)]
+
+    def state_dict(self) -> dict:
+        """The state and the flat layout: each parameter's name, offset and
+        shape in :attr:`flat_param`, in buffer order (the module's
+        registration order, not JAX's ``ravel_pytree`` order)."""
+        return {
+            **self.state._asdict(),
+            "layout": {"names": list(self.names), "offsets": list(self.offsets),
+                       "shapes": [tuple(p.shape) for p in self.params],
+                       "numel": self.numel, "padded": self.flat_param.numel()},
+        }
+
+
+def fused_adamw_eligible(fairscale_sddp: bool = False, fairscale_fsdp: bool = False) -> bool:
+    """Can :class:`FusedAdamW` replace the per-leaf chain under the facade's
+    layout flags? DDP and ZeRO-1/OSS qualify (flat moments shard over the
+    data axis); ZeRO-2 (``fairscale_sddp``) and ZeRO-3 (``fairscale_fsdp``)
+    shard grads or params per leaf, which a flat vector cannot express."""
+    return not (fairscale_sddp or fairscale_fsdp)
+
+
+def clip_stats(opt) -> RecordedClip | None:
+    """The recorded clip of the last step (None without a norm clip)."""
+    return opt.clip
+
+
+def has_ema(opt) -> bool:
+    """Is an EMA of the parameters being kept?"""
+    if isinstance(opt, FusedAdamW):
+        return opt.state.ema is not None
+    return getattr(opt, "ema", None) is not None
+
+
+def ema_params(opt, params=None) -> list[torch.Tensor] | None:
+    """The EMA of each of ``opt``'s parameters, in its order, cast to the
+    dtype of each of ``params`` when given (eval-ready), else f32. None when
+    no EMA is kept."""
+    ema = opt.ema_params() if isinstance(opt, FusedAdamW) else getattr(opt, "ema", None)
+    if ema is None:
+        return None
+    if params is not None:
+        ema = [e.to(p.dtype) for e, p in zip(ema, params)]
+    return ema
+
+
+OPTIMIZERS = {"adamw": adamw, "sgd": sgd}
+
+
+# -- schedules (functions of the step) ----------------------------------------
+
+
+def onecycle(max_lr: float, total_steps: int, pct_start: float = 0.3, div_factor: float = 25.0,
+             final_div_factor: float = 1e4) -> Callable:
+    """OneCycleLR twin (cosine annealing strategy, torch defaults): warm up
+    from ``max_lr/div_factor`` to ``max_lr`` over ``pct_start`` of training,
+    then anneal to ``max_lr/final_div_factor``. The schedule takes an int or
+    a 0-d tensor and returns a 0-d f32 tensor on its device."""
+    initial = max_lr / div_factor
+    final = initial / final_div_factor
+    warm = max(1, int(total_steps * pct_start))
+
+    def schedule(step):
+        step = torch.clamp(torch.as_tensor(step), max=total_steps).float()
+        up = 0.5 * (1 + torch.cos(math.pi * (1 - step / warm)))  # 0 -> 1
+        lr_up = initial + (max_lr - initial) * up
+        t = torch.clamp((step - warm) / max(1, total_steps - warm), 0.0, 1.0)
+        down = 0.5 * (1 + torch.cos(math.pi * t))  # 1 -> 0
+        lr_down = final + (max_lr - final) * down
+        return torch.where(step < warm, lr_up, lr_down)
+
+    return schedule
+
+
+def cosine_with_warmup(max_lr: float, total_steps: int, warmup_steps: int = 0,
+                       final_lr: float = 0.0) -> Callable:
+    """Linear warm-up to ``max_lr`` over ``warmup_steps``, then a cosine
+    down to ``final_lr`` at ``total_steps``; as :func:`onecycle`, of a step."""
+
+    def schedule(step):
+        step = torch.as_tensor(step).float()
+        warm = torch.clamp(step / max(1, warmup_steps), 0.0, 1.0)
+        t = torch.clamp((step - warmup_steps) / max(1, total_steps - warmup_steps), 0.0, 1.0)
+        cos = final_lr + (max_lr - final_lr) * 0.5 * (1 + torch.cos(math.pi * t))
+        return torch.where(step < warmup_steps, max_lr * warm, cos)
+
+    return schedule
 
 
 class OptimizerHandle:
@@ -144,6 +544,14 @@ class OneCycleLR:
         self.optimizer.lr = self._lr_at(self._t)
         return self.optimizer.lr
 
+    def state_dict(self) -> dict:
+        return {"t": self._t, "lr_scale": self.lr_scale}
+
+    def load_state_dict(self, d: dict) -> None:
+        self._t = int(d["t"])
+        self.lr_scale = float(d.get("lr_scale", 1.0))
+        self.optimizer.lr = self._lr_at(self._t)
+
 
 class ReduceLROnPlateau:
     """Plateau scheduler on the host, in two modes: with a handle, a cut
@@ -196,9 +604,21 @@ class ReduceLROnPlateau:
                 self._cool = self.cooldown
         return self.current
 
+    @property
+    def factor_value(self) -> float:
+        return self.current
+
     def state_dict(self) -> dict:
         return {
             "current": self.current, "best": self._best, "bad": self._bad,
             "cool": self._cool,
             "lr": None if self.optimizer is None else self.optimizer.lr,
         }
+
+    def load_state_dict(self, d: dict) -> None:
+        self.current = d["current"]
+        self._best = d["best"]
+        self._bad = d["bad"]
+        self._cool = d["cool"]
+        if self.optimizer is not None and d.get("lr") is not None:
+            self.optimizer.lr = d["lr"]

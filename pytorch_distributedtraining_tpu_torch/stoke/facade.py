@@ -21,6 +21,12 @@ One device: the facade runs on ``device`` (``"cuda"`` by default; it raises
 when no CUDA device exists unless ``device="cpu"`` was asked for). At world
 size 1, ``distributed="ddp"`` with ``fairscale_oss``/``fairscale_sddp`` is
 exactly a single-device update; at ``WORLD_SIZE > 1`` it raises.
+
+The optimizer follows the JAX facade's rule (``facade.py:889-930`` there):
+AdamW on a layout where a flat update fits (DDP, or ZeRO-1/OSS:
+``fairscale_oss`` without ``fairscale_sddp`` or ``fairscale_fsdp``) runs as
+``optim.FusedAdamW`` unless ``fused_optimizer=False``; ZeRO-2/3 layouts keep
+the per-leaf chain, and ``fused_optimizer=True`` on one of them raises.
 """
 
 from __future__ import annotations
@@ -62,13 +68,14 @@ class Stoke:
         grad_accum_steps: int = 1,
         configs: list | None = None,
         grad_clip: ClipGradNormConfig | None = None,
+        fused_optimizer: bool | None = None,
         *,
         device: str | torch.device = "cuda",
     ):
         if dist.world_size() > 1:
             raise NotImplementedError(
                 f"WORLD_SIZE={dist.world_size()}: the port trains on one GPU so far; "
-                "DDP/ZeRO across GPUs is the runtime slice (ROADMAP queue A.4)"
+                "DDP/ZeRO across GPUs is the distributed-runtime slice"
             )
         distributed = distributed.value if isinstance(distributed, DistributedOptions) else distributed
         if distributed not in (None, "ddp"):
@@ -109,7 +116,19 @@ class Stoke:
             raise TypeError(
                 f"grad_clip must be a ClipGradNormConfig, got {type(grad_clip).__name__}"
             )
-        self._opt = factory(self._module.parameters(), lr=base_lr, **kwargs)
+        fused_eligible = factory is optim_mod.adamw and optim_mod.fused_adamw_eligible(
+            fairscale_sddp=fairscale_sddp, fairscale_fsdp=fairscale_fsdp)
+        if fused_optimizer is True and not fused_eligible:
+            raise ValueError(
+                "fused_optimizer=True needs AdamW on a replicated (DDP) or ZeRO-1/OSS "
+                "layout; ZeRO-2/3 (fairscale_sddp, fairscale_fsdp) shard grads or params "
+                "per leaf and keep the per-leaf chain"
+            )
+        if fused_eligible and fused_optimizer is not False:
+            # lr=1: the handle's lr enters each step as the lr factor
+            self._opt = optim_mod.FusedAdamW(self._module.named_parameters(), lr=1.0, **kwargs)
+        else:
+            self._opt = factory(self._module.named_parameters(), lr=base_lr, **kwargs)
         self._opt_handle = optim_mod.OptimizerHandle(base_lr)
 
         self._backward_count = 0
@@ -164,19 +183,26 @@ class Stoke:
         return loss
 
     def step(self):
-        """Optimizer step on every ``grad_accum_steps``-th call."""
+        """Optimizer step on every ``grad_accum_steps``-th call. Under
+        ``fp16='amp'`` a non-finite gradient skips the update; the scaler's
+        host-side scale costs one read of the finite flag a step."""
         if self._backward_count == 0 or self._backward_count % self.grad_accum_steps:
             return
-        grads = self._opt.grads()
-        finite = True
-        if self.loss_scaler is not None:
-            grads = self.loss_scaler.unscale(grads)
-            finite = self.loss_scaler.grads_finite(grads)
-            self.loss_scaler.update(finite)
-        if finite:
-            self._opt.step(grads, lr=self._opt_handle.lr)
-        for p in self._module.parameters():
-            p.grad = None
+        if isinstance(self._opt, optim_mod.FusedAdamW):
+            # the flag gates the update on the device; the host reads it after
+            _, finite = self._opt.apply_tree(self._opt_handle.lr, scaler=self.loss_scaler)
+            if finite is not None:
+                self.loss_scaler.update(bool(finite))
+        else:
+            grads = self._opt.grads()
+            finite = True
+            if self.loss_scaler is not None:
+                grads = self.loss_scaler.unscale(grads)
+                finite = self.loss_scaler.grads_finite(grads)
+                self.loss_scaler.update(finite)
+            if finite:
+                self._opt.step(grads, lr=self._opt_handle.lr)
+        self._opt.zero_grad()
         self._backward_count = 0
         self._step_count += 1
 
@@ -255,7 +281,8 @@ class Stoke:
 
     def save(self, path: str = "./", name: str = "checkpoint", extras: dict | None = None):
         """Write ``{path}/{name}.pt`` -> ``(full_path, tag)``: params,
-        optimizer state and the step/lr/scaler metadata."""
+        optimizer state (``FusedAdamW``'s with its flat layout) and the
+        step/lr/scaler metadata."""
         meta = {
             "step": self._step_count,
             "lr": self._opt_handle.lr,

@@ -3,7 +3,8 @@
 Counterpart of ``pytorch_distributedtraining_tpu/stoke/optimizer.py``:
 ``StokeOptimizer(optimizer="AdamW", optimizer_kwargs={"lr": ..., ...})``.
 ``optimizer`` may be a name, a factory of ``..optim`` or a class whose
-``__name__`` names one (``torch.optim.AdamW`` maps to the port's AdamW).
+``__name__`` names one (``torch.optim.AdamW`` maps to the port's AdamW,
+``"SGD"`` or ``torch.optim.SGD`` to its SGD).
 """
 
 from __future__ import annotations

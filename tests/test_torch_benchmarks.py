@@ -88,7 +88,7 @@ def test_ladder_lm_rung_runs_tiny_on_cpu(capsys):
 def test_ladder_unported_rungs_raise():
     from pytorch_distributedtraining_tpu_torch.benchmarks import ladder
 
-    with pytest.raises(NotImplementedError, match="ROADMAP A.11"):
+    with pytest.raises(NotImplementedError, match="ladder-models slice"):
         ladder.main(["--config", "1", "--tiny", "--device", "cpu"])
 
 

@@ -6,7 +6,9 @@ says, and no flash kernel spills; and unless every body of K1 and K2
 (window-attention forward and backward) runs on the tensor cores, as
 ``ops.window_attn.uses_tensor_cores`` says, and no window kernel spills.
 The flash bounds take each kernel's body's rate, and phase 4 fails on a
-kernel slower than its plain version."""
+kernel slower than its plain version. The optimizer phase's bound is the
+bytes of one pass over p, g and the moments, and its gate check names each
+buffer a skipped step changed."""
 
 import importlib.util
 from pathlib import Path
@@ -231,3 +233,25 @@ def test_flash_speed_faults_read_only_the_kernels_a_case_ran(smoke):
     assert smoke.flash_speed_faults({"dq": 1.8, "plain_dq": 1.7, "dkv": 2.0,
                                      "plain_dkv": 1.9}) == [
         "dq 1.8000 ms > plain 1.7000 ms", "dkv 2.0000 ms > plain 1.9000 ms"]
+
+
+@pytest.mark.parametrize("ema,per", [(False, 28), (True, 36)])
+def test_optimizer_bound_is_the_bytes_of_one_pass(smoke, ema, per):
+    """GPT-2 125M: 28 B a parameter (read p, g, mu, nu; write p, mu, nu) at
+    3.35 TB/s is 1.04 ms; the EMA adds a read and a write."""
+    n = 124_439_808
+    ms, by = smoke.optimizer_bound_ms(n, ema=ema)
+    assert by == "bytes" and ms == pytest.approx(per * n / 3.35e12 * 1e3)
+    assert smoke.optimizer_bound_ms(n)[0] == pytest.approx(1.0401, abs=1e-4)
+
+
+@pytest.mark.parametrize("moved", [None, "params", "mu", "nu", "count"])
+def test_gated_step_faults_find_a_buffer_that_moved(smoke, moved):
+    import torch
+
+    before = {"params": torch.arange(5.0), "mu": torch.zeros(5), "nu": torch.ones(5),
+              "count": torch.tensor(3, dtype=torch.int32)}
+    after = {k: v.clone() for k, v in before.items()}
+    if moved is not None:
+        after[moved].view(-1)[0] += 1
+    assert smoke.gated_step_faults(before, after) == ([] if moved is None else [moved])

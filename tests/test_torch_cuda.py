@@ -15,7 +15,9 @@ step of the type (2^-8 relative in bf16, 2^-11 in f16, held at 1e-2 and
 input's type before their second products (the same step again, on terms
 that mostly cancel). lse and dbias are f32 in every case. The tiny
 GPT-2 holds gradients at 1e-4 relative to their largest entry: f32 sums
-in another order through two blocks.
+in another order through two blocks. ``FusedAdamW`` on the card is held
+at 1e-6 of the largest parameter against its own CPU run and the per-leaf
+``AdamW`` (an ulp or two of f32 a step apart).
 """
 
 import numpy as np
@@ -464,3 +466,76 @@ def test_tiny_gpt2_on_the_card_matches_the_cpu(cuda):
     _close(got.cpu(), want, 1e-5)
     for n, p in model.named_parameters():
         _close(p.grad.cpu(), want_grads[n], 1e-4)
+
+
+# a ragged parameter list: 2601 elements, not a multiple of the 1024 padding
+RAGGED = [(37, 11), (5,), (3, 7, 9), (2000,)]
+
+
+@pytest.mark.parametrize("kw", [dict(clip_grad_norm=0.5), dict(clip_grad_norm=0.5, ema_decay=0.9),
+                                dict(weight_decay=0.0, clip_grad_value=0.05)],
+                         ids=["clip", "ema", "value-clip"])
+def test_fused_adamw_on_the_card_matches_its_cpu_run_and_adamw(cuda, kw):
+    """Five steps of seeded grads: FusedAdamW on the card against the same
+    code on the CPU and against the per-leaf AdamW on the card, within 1e-6
+    relative to the largest parameter (an ulp or two of f32 a step: the
+    per-leaf chain's bias correction is in doubles, the fused one's in f32)."""
+    from pytorch_distributedtraining_tpu_torch import optim
+
+    g0 = torch.Generator().manual_seed(3)
+    init = [torch.randn(s, generator=g0) for s in RAGGED]
+
+    def params(device):
+        return [t.to(device).clone().requires_grad_(True) for t in init]
+
+    kw = dict(lr=1e-3, **kw)
+    fused, on_cpu = optim.FusedAdamW(params(cuda), **kw), optim.FusedAdamW(params("cpu"), **kw)
+    leaf = optim.AdamW(params(cuda), **kw)
+    n, sizes = fused.numel, [t.numel() for t in init]
+    assert n == 2601 and fused.offsets == [0, 448, 512, 704] and fused.flat_param.numel() == 3072
+    for step in range(5):
+        g = torch.randn(n, generator=torch.Generator().manual_seed(step)) * 0.01 * (step + 1)
+        for p, a in zip(leaf.params, g.split(sizes)):
+            p.grad = a.view_as(p).to(cuda)
+        for opt in (on_cpu, fused):  # into the views of the flat grad buffer
+            for p, a in zip(opt.params, g.split(sizes)):
+                p.grad.copy_(a.view_as(p))
+        on_cpu.apply_tree()
+        fused.apply_tree()
+        leaf.step(leaf.grads())
+    _close(fused.flat_param.cpu(), on_cpu.flat_param, 1e-6)
+    for buf in ("mu", "nu") + (("ema",) if "ema_decay" in kw else ()):
+        _close(getattr(fused.state, buf).cpu(), getattr(on_cpu.state, buf), 1e-6)
+    assert int(fused.state.count) == 5
+    for a, b in zip(fused.params, leaf.params):
+        _close(a.detach(), b.detach(), 1e-6)
+    if "ema_decay" in kw:
+        for a, b in zip(optim.ema_params(fused), optim.ema_params(leaf)):
+            _close(a, b, 1e-6)
+    pads = torch.ones(fused.flat_param.numel(), dtype=torch.bool)
+    for o, t in zip(fused.offsets, init):
+        pads[o:o + t.numel()] = False
+    assert fused.flat_param.cpu()[pads].abs().max().item() == 0.0
+
+
+def test_fused_adamw_gate_skips_without_a_host_read(cuda):
+    from pytorch_distributedtraining_tpu_torch import optim
+    from pytorch_distributedtraining_tpu_torch.precision import DynamicLossScaler
+
+    fused = optim.FusedAdamW([torch.randn(s, device=cuda).requires_grad_(True) for s in RAGGED],
+                             lr=1e-3, clip_grad_norm=0.5)
+    fused.flat_grad.normal_()
+    fused.apply_tree()
+    fused.flat_grad[17] = float("inf")
+    before = {"params": fused.flat_param.clone(), "mu": fused.state.mu.clone(),
+              "nu": fused.state.nu.clone(), "count": fused.state.count.clone()}
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        _, finite = fused.apply_tree(scaler=DynamicLossScaler())
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert not bool(finite)
+    assert torch.equal(fused.flat_param, before["params"])
+    for name in ("mu", "nu", "count"):
+        assert torch.equal(getattr(fused.state, name), before[name]), name

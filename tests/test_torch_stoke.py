@@ -2,7 +2,9 @@
 
 Both facades are built the way ``drivers/stoke_ddp.py`` builds them (AdamW,
 betas (0.9, 0.99), clip 0.1, ``grad_accum_steps=2``, ddp + OSS + SDDP),
-the port's with ``device="cpu"``. They start from the same toy SwinIR
+the port's with ``device="cpu"``, and on the two layouts where both
+facades pick the flat ``FusedAdamW`` instead of the per-leaf chain: OSS
+alone (ZeRO-1) and plain DDP. They start from the same toy SwinIR
 weights (carried over with ``swinir_state_dict_from_jax``) and take the
 same ``SyntheticSRDataset`` batches through ``DistributedSampler`` for two
 optimizer steps, with the lr handle changed between them.
@@ -12,6 +14,8 @@ relative (held at 1e-5) and parameters after two AdamW steps at lr 1e-3 to
 ~1e-7 absolute, except the key part of ``qkv.bias``: its exact gradient is
 zero (softmax is shift-invariant), so Adam steps it from each side's own
 rounding noise, ~3e-6 apart. Parameters are held at 1e-5, 1% of a step.
+The fused update's flat norm and f32 bias correction move nothing past
+that.
 Also here: the driver twin end to end on the CPU, and the facade's
 refusals (no CUDA device without ``device="cpu"``, ``WORLD_SIZE > 1``).
 """
@@ -22,12 +26,14 @@ import pytest
 import torch
 
 from pytorch_distributedtraining_tpu import losses as jlosses
+from pytorch_distributedtraining_tpu import optim as joptim
 from pytorch_distributedtraining_tpu import stoke as jstoke
 from pytorch_distributedtraining_tpu.data import DistributedSampler as JaxSampler
 from pytorch_distributedtraining_tpu.data import SyntheticSRDataset as JaxSynthetic
 from pytorch_distributedtraining_tpu.models.swinir import SwinIR as JaxSwinIR
 from pytorch_distributedtraining_tpu.runtime.mesh import MeshSpec, make_mesh
 from pytorch_distributedtraining_tpu_torch import losses as tlosses
+from pytorch_distributedtraining_tpu_torch import optim as toptim
 from pytorch_distributedtraining_tpu_torch import stoke as tstoke
 from pytorch_distributedtraining_tpu_torch.data import DistributedSampler, SyntheticSRDataset
 from pytorch_distributedtraining_tpu_torch.drivers import stoke_ddp
@@ -39,7 +45,7 @@ TOY = dict(upscale=2, in_chans=3, img_size=8, window_size=4, depths=(2, 2),
 BATCH = 8
 
 
-def _facade(mod, model, loss, **extra):
+def _facade(mod, model, loss, oss=True, sddp=True, **extra):
     return mod.Stoke(
         model=model,
         optimizer=mod.StokeOptimizer(
@@ -51,8 +57,8 @@ def _facade(mod, model, loss, **extra):
         batch_size_per_device=BATCH,
         gpu=True,
         distributed=mod.DistributedOptions.ddp.value,
-        fairscale_oss=True,
-        fairscale_sddp=True,
+        fairscale_oss=oss,
+        fairscale_sddp=sddp,
         grad_accum_steps=2,
         configs=[mod.AMPConfig(init_scale=2.0**14), mod.DDPConfig(local_rank=None),
                  mod.FairscaleOSSConfig(broadcast_fp16=True)],
@@ -72,14 +78,19 @@ def _run(s, loader, lrs):
     return [float(np.asarray(v.detach() if hasattr(v, "detach") else v)) for v in losses]
 
 
-def test_two_step_trajectory_matches_jax_facade():
+@pytest.mark.parametrize("oss,sddp,fused", [(True, True, False), (True, False, True),
+                                             (False, False, True)],
+                         ids=["zero2-per-leaf", "oss-fused", "ddp-fused"])
+def test_two_step_trajectory_matches_jax_facade(oss, sddp, fused):
     # world size 1 on both sides: a one-device mesh, on which the JAX
     # facade's OSS broadcast_fp16 wire has no fan-out to narrow either
     mesh = make_mesh(MeshSpec.zero(1), devices=jax.devices()[:1])
-    js = _facade(jstoke, JaxSwinIR(**TOY), jlosses.FeatLoss(), mesh=mesh,
+    js = _facade(jstoke, JaxSwinIR(**TOY), jlosses.FeatLoss(), oss, sddp, mesh=mesh,
                  sample_input=np.zeros((BATCH, 8, 8, 3), np.float32))
     params = jax.device_get(js.state.params)
-    ts = _facade(tstoke, SwinIR(**TOY), tlosses.FeatLoss(), device="cpu")
+    ts = _facade(tstoke, SwinIR(**TOY), tlosses.FeatLoss(), oss, sddp, device="cpu")
+    assert isinstance(js._tx, joptim.FusedAdamW) == fused
+    assert isinstance(ts._opt, toptim.FusedAdamW) == fused
     ts.load_model_state(swinir_state_dict_from_jax(params, img_size=TOY["img_size"]))
 
     jds = JaxSynthetic(n=4 * BATCH, lr_size=8)
@@ -126,5 +137,16 @@ def test_facade_refuses_cuda_without_a_device(monkeypatch):
 
 def test_facade_refuses_more_than_one_process(monkeypatch):
     monkeypatch.setenv("WORLD_SIZE", "2")
-    with pytest.raises(NotImplementedError, match="A.4"):
+    with pytest.raises(NotImplementedError, match="distributed-runtime slice"):
         _facade(tstoke, SwinIR(**TOY), tlosses.FeatLoss(), device="cpu")
+
+
+def test_facade_refuses_a_fused_optimizer_on_zero2():
+    with pytest.raises(ValueError, match="ZeRO-1/OSS"):
+        _facade(tstoke, SwinIR(**TOY), tlosses.FeatLoss(), fused_optimizer=True, device="cpu")
+    s = _facade(tstoke, SwinIR(**TOY), tlosses.FeatLoss(), sddp=False, fused_optimizer=False,
+                device="cpu")
+    assert isinstance(s._opt, toptim.AdamW)
+    sgd = tstoke.Stoke(model=SwinIR(**TOY), loss=tlosses.FeatLoss(), device="cpu",
+                       optimizer=tstoke.StokeOptimizer("SGD", {"lr": 0.1, "momentum": 0.9}))
+    assert isinstance(sgd._opt, toptim.SGD) and sgd.optimizer.lr == 0.1

@@ -30,7 +30,10 @@ from pytorch_distributedtraining_tpu import losses as jlosses
 from pytorch_distributedtraining_tpu.models.sr_espcn import pixel_shuffle as jax_pixel_shuffle
 from pytorch_distributedtraining_tpu.models.swinir import SwinIR as JaxSwinIR
 from pytorch_distributedtraining_tpu_torch import losses as tlosses
-from pytorch_distributedtraining_tpu_torch.interop import swinir_state_dict_from_jax
+from pytorch_distributedtraining_tpu_torch.interop import (
+    espcn_state_dict_from_jax,
+    swinir_state_dict_from_jax,
+)
 from pytorch_distributedtraining_tpu_torch.models import Net, SwinIR, pixel_shuffle
 from pytorch_distributedtraining_tpu_torch.models.swinir import LN_EPS, Mlp
 
@@ -146,11 +149,7 @@ def test_espcn_net_matches_jax():
     jnet = JaxNet(upscale_factor=2)
     params = jax.device_get(jnet.init(jax.random.PRNGKey(0), jnp.asarray(x))["params"])
     net = Net(upscale_factor=2)
-    with torch.no_grad():
-        for i, conv in enumerate((net.conv1, net.conv2, net.conv3)):
-            p = params[f"Conv_{i}"]
-            conv.weight.copy_(torch.from_numpy(np.transpose(p["kernel"], (3, 2, 0, 1)).copy()))
-            conv.bias.copy_(torch.from_numpy(np.array(p["bias"])))
+    net.load_state_dict(espcn_state_dict_from_jax(params))
     want = np.asarray(jnet.apply({"params": params}, jnp.asarray(x)))
     got = net(torch.from_numpy(x)).detach().numpy()
     np.testing.assert_allclose(got, want, atol=1e-5, rtol=1e-5)
