@@ -77,9 +77,32 @@ Phases, each fatal on failure:
    without a clip), device activities a step from a ``torch.profiler``
    trace, and the bytes bound (``optimizer_bound_ms``). It runs after
    every timed step, since it holds GPT-2-sized buffers on the card and
-   runs the same update on the CPU.
+   runs the same update on the CPU;
+11. distributed: a process group of one rank over NCCL
+   (``runtime.dist.initialize`` with ``MASTER_ADDR``/``MASTER_PORT``,
+   ``RANK=0``, ``WORLD_SIZE=1``), through which the sharded code runs as
+   on many GPUs: a shard of one is the whole leaf, and every all-reduce,
+   reduce-scatter and all-gather still goes through NCCL. SwinIR-S from
+   the driver's ``build_model``/``build_stoke`` at the bench shape under
+   four layouts (DDP + ``FusedAdamW``; OSS + ``FusedAdamW``; OSS + SDDP
+   with the per-leaf chain and ``broadcast_fp16``, the driver's; FSDP),
+   in f32 with cuDNN deterministic, and the driver's layout in bf16: each
+   loss trajectory against the same facade without a group (f32 within
+   ``DIST_F32_TOL`` relative, bf16 within ``DIST_BF16_TOL``), step ms
+   and, from a traced step, device busy ms and activities against the
+   group-less run's, NCCL kernels a step, peak memory, 24 K1 and 24 K2
+   launches a micro-batch, and a checkpoint saved through the group
+   (gathered, written by rank 0, a barrier) that loads strictly. Then
+   GPT-2 125M under
+   ``ZeRO3(remat="full")``, the JAX rung's layout (``benchmarks.ladder.
+   build_lm(..., policy="zero3", remat="full")``): a first loss near
+   ln(vocab), moved weights, the loss after the same seven steps as phase
+   7's within ``DIST_BF16_TOL`` of phase 7's, tokens/s, and K3 twice a
+   layer a step (the recompute), K4 and K5 once. Then the ESPCN driver
+   for one epoch under ``python -m torch.distributed.run --standalone
+   --nproc_per_node 1``, whose exit code must be 0.
 
-Phases 5-8 note the shape, dtype and mask (or causality) of every
+Phases 5-9 and 11 note the shape, dtype and mask (or causality) of every
 launch; the run fails if one of them was not held against the plain
 version in phase 3 or 4. The kernels' JSON lists all five kernels: K1/K2 from phase
 6's f32 run (its launch counts, and the errors and times of phase 3 at
@@ -141,6 +164,16 @@ OPT_STEPS, OPT_CLIP, OPT_TOL = 5, 1.0, 1e-6
 # moments, bias correction, sqrt, divide, decay, lr, add)
 OPT_BYTES, OPT_EMA_BYTES, OPT_FLOPS = 28, 36, 20
 ESPCN_N = 1024  # 1013 training images: 25 batches of 40, one loss print
+# phase 11: loss trajectories with a group of one against none; bf16 at
+# the noise ROADMAP.md C.1 records between the bf16 and f32 losses
+DIST_F32_TOL, DIST_BF16_TOL = 1e-6, 1.6e-3
+DIST_LAYOUTS = (  # name, build_stoke flags, precision
+    ("ddp+fused", dict(oss=False, sddp=False), None),
+    ("oss+fused", dict(oss=True, sddp=False), None),
+    ("oss+sddp (driver)", dict(oss=True, sddp=True), None),
+    ("fsdp", dict(oss=True, sddp=True, fsdp=True), None),
+    ("oss+sddp (driver)", dict(oss=True, sddp=True), "bf16"),
+)
 
 
 def smi_line() -> str:
@@ -797,7 +830,7 @@ def phase_gpt2(smi: str, steps: int = 5, warmup: int = 2) -> dict:
         raise SystemExit(f"launches {launches}, expected {LM_LAYERS} of each per step")
     if not (math.isfinite(loss) and math.isfinite(gnorm)) or not moved > 0:
         raise SystemExit(f"loss {loss}, grad norm {gnorm} or weights did not move")
-    return {"step_ms": step_ms, "tokens_per_s": tps, "launches": launches}
+    return {"step_ms": step_ms, "tokens_per_s": tps, "launches": launches, "loss": loss}
 
 
 def optimizer_bound_ms(n_params: int, ema: bool = False) -> tuple[float, str]:
@@ -817,9 +850,11 @@ def gated_step_faults(before: dict, after: dict) -> list[str]:
     return [name for name in before if not torch.equal(before[name], after[name])]
 
 
-def kernels_per_call(fn) -> int:
-    """Device activities (kernels, copies, sets) of one call of ``fn``, from
-    a ``torch.profiler`` trace."""
+def traced_call(fn) -> dict:
+    """One call of ``fn`` under ``torch.profiler``: its device activities
+    (kernels, copies, sets), the device's busy ms, the NCCL kernels among
+    them (names beginning ``nccl``) and the host's ms in blocking CUDA
+    calls."""
     import torch
 
     from pytorch_distributedtraining_tpu_torch.benchmarks.profile_swinir import device_breakdown
@@ -832,7 +867,19 @@ def kernels_per_call(fn) -> int:
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as d:
         path = os.path.join(d, "trace.json")
         prof.export_chrome_trace(path)
-        return device_breakdown(path)["kernels"]
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+        r = device_breakdown(path)
+    nccl = sum(1 for e in events
+               if e.get("cat") == "kernel" and e.get("name", "").lower().startswith("nccl"))
+    return {"activities": r["kernels"], "busy_ms": r["busy_ms"], "nccl": nccl,
+            "wait_ms": sum(r["host_wait_ms"].values())}
+
+
+def kernels_per_call(fn) -> int:
+    """Device activities (kernels, copies, sets) of one call of ``fn``, from
+    a ``torch.profiler`` trace."""
+    return traced_call(fn)["activities"]
 
 
 def _optimizer_case(name: str, named: list, smi: str) -> dict:
@@ -1013,6 +1060,180 @@ def phase_espcn() -> dict:
     return {"seconds": seconds, "loss": loss}
 
 
+def _swinir_run(flags: dict, fp16, batches, steps: int, warmup: int,
+                save_dir: str | None = None) -> dict:
+    """The driver's facade under ``flags`` at the bench shape: per-micro-batch
+    losses of every step, the median step ms of the timed steps, peak
+    memory, the K1/K2 launches of the timed steps, and a traced step after
+    them (device activities, busy ms and NCCL kernels). With ``save_dir``
+    it then saves a checkpoint there (gathered, rank 0 writes, a barrier)
+    and loads it back strictly into a fresh SwinIR-S."""
+    import torch
+
+    from pytorch_distributedtraining_tpu_torch.benchmarks.profile_swinir import train_steps
+    from pytorch_distributedtraining_tpu_torch.drivers import stoke_ddp
+    from pytorch_distributedtraining_tpu_torch.ops import window_attn as twa
+
+    s = stoke_ddp.build_stoke(stoke_ddp.build_model(), fp16=fp16, batch_size=BATCH,
+                              verbose=False, **flags)
+    losses = []
+
+    def one_step():
+        for i in range(s.grad_accum_steps):
+            x, y = batches[i % len(batches)]
+            loss = s.loss(s.model(x), y)
+            s.backward(loss)
+            s.step()
+            losses.append(loss.detach())
+
+    for _ in range(warmup):
+        one_step()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    twa.reset_launch_counts()
+    times = []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        one_step()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    launches = twa.fwd_launches, twa.bwd_launches
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    out = {"losses": [v.item() for v in losses], "step_ms": statistics.median(times),
+           "peak_gib": peak, "launches": launches, "opt": type(s._opt).__name__,
+           "micro": s.grad_accum_steps * steps,
+           **traced_call(lambda: train_steps(s, batches, 1))}
+    if save_dir is not None:
+        from pytorch_distributedtraining_tpu_torch import checkpoint
+
+        path, _ = s.save(save_dir, "dist")
+        checkpoint.load_params_dict(checkpoint.load_file(path),
+                                    stoke_ddp.build_model().state_dict(), strict=True)
+    return out
+
+
+def phase_distributed(smi: str, lm: dict, steps: int = 5, warmup: int = 2) -> dict:
+    import math
+
+    import torch
+
+    from pytorch_distributedtraining_tpu_torch.benchmarks import ladder
+    from pytorch_distributedtraining_tpu_torch.benchmarks.profile_swinir import make_batches
+    from pytorch_distributedtraining_tpu_torch.models import GPT2Config
+    from pytorch_distributedtraining_tpu_torch.ops import flash_attn as tfa
+    from pytorch_distributedtraining_tpu_torch.runtime import dist
+
+    t_phase = time.perf_counter()
+    batches = make_batches("cuda")
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True  # the trajectories are compared at 1e-6
+    try:
+        alone = [_swinir_run(flags, fp16, batches, steps, warmup)
+                 for _, flags, fp16 in DIST_LAYOUTS]
+        os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(dist.find_free_port()),
+                          RANK="0", WORLD_SIZE="1", LOCAL_RANK="0")
+        dist.initialize()
+        print(f"[dist] process group: backend {dist.backend()}, world {dist.world_size()}, "
+              f"rank {dist.rank()}, torch {torch.__version__}")
+        if dist.backend() != "nccl":
+            raise SystemExit(f"the group came up on {dist.backend()}, not NCCL")
+        (ROOT / "build").mkdir(exist_ok=True)
+        with tempfile.TemporaryDirectory(dir=ROOT / "build") as ckpt_dir:
+            grouped = [_swinir_run(flags, fp16, batches, steps, warmup, ckpt_dir)
+                       for _, flags, fp16 in DIST_LAYOUTS]
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    out = {}
+    try:
+        for (name, _, fp16), a, g in zip(DIST_LAYOUTS, alone, grouped):
+            tol = DIST_BF16_TOL if fp16 else DIST_F32_TOL
+            rel = max(abs(x - y) / max(abs(y), 1e-30) for x, y in zip(g["losses"], a["losses"]))
+            label = f"{name} {fp16 or 'f32'}"
+            print(f"[dist] SwinIR-S {label}, {g['opt']}: step {g['step_ms']:.2f} ms (no group "
+                  f"{a['step_ms']:.2f} ms), {BATCH * 2 * 1e3 / g['step_ms']:.1f} images/s; a "
+                  f"traced step: device busy {g['busy_ms']:.2f} ms (no group "
+                  f"{a['busy_ms']:.2f}), device activities {g['activities']} (no group "
+                  f"{a['activities']}), host blocked {g['wait_ms']:.2f} ms (no group "
+                  f"{a['wait_ms']:.2f}), NCCL kernels {g['nccl']}; peak {g['peak_gib']:.2f} GiB "
+                  f"(no group {a['peak_gib']:.2f}), losses vs no group max rel {rel:.2e} (tol "
+                  f"{tol:g}), last loss {g['losses'][-1]:.6f}, launches fwd {g['launches'][0]} "
+                  f"bwd {g['launches'][1]} | {smi}")
+            if not rel <= tol:
+                raise SystemExit(f"{label}: the trajectory with a group departs from the one "
+                                 f"without: {g['losses']} vs {a['losses']}")
+            if g["launches"] != (24 * g["micro"],) * 2:
+                raise SystemExit(f"{label}: launches {g['launches']}, expected 24 of each per "
+                                 "micro-batch")
+            out[label] = {"step_ms": g["step_ms"], "alone_ms": a["step_ms"], "rel": rel,
+                          "busy_ms": g["busy_ms"], "nccl": g["nccl"], "peak_gib": g["peak_gib"]}
+
+        cfg = GPT2Config.gpt2_125m()
+        model, step, tokens = ladder.build_lm(cfg, LM_BATCH, LM_SEQ, torch.device("cuda"),
+                                              policy="zero3", remat="full")
+        w = model.transformer.h[0].attn.c_attn.weight
+        w0 = w.full_tensor().detach().clone()
+        first = step(tokens)["loss"].item()
+        for _ in range(warmup - 1):
+            step(tokens)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        tfa.reset_launch_counts()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            metrics = step(tokens)
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+        launches = tfa.fwd_launches, tfa.dq_launches, tfa.dkv_launches
+        loss = metrics["loss"].item()
+        moved = (w.full_tensor() - w0).abs().max().item()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        traced = traced_call(lambda: step(tokens))
+        rel = abs(loss - lm["loss"]) / abs(lm["loss"])
+        per = tuple(n / steps for n in launches)
+        print(f"[dist] GPT-2 125M ZeRO3(remat='full'), FSDP2 over 12 blocks and the root: step "
+              f"{elapsed / steps * 1e3:.2f} ms (unsharded, phase 7: {lm['step_ms']:.2f} ms), "
+              f"{LM_BATCH * LM_SEQ * steps / elapsed:.1f} tokens/s, peak {peak:.2f} GiB; a "
+              f"traced step: device busy {traced['busy_ms']:.2f} ms, device activities "
+              f"{traced['activities']}, host blocked {traced['wait_ms']:.2f} ms, NCCL kernels "
+              f"{traced['nccl']}; first loss {first:.4f} "
+              f"(ln vocab "
+              f"{math.log(cfg.vocab_size):.4f}), loss after {warmup + steps} steps {loss:.7f} "
+              f"(unsharded {lm['loss']:.7f}, rel {rel:.2e}, tol {DIST_BF16_TOL:g}), weights "
+              f"moved {moved:.2e}, launches a step K3 {per[0]:g} K4 {per[1]:g} K5 {per[2]:g} "
+              f"| {smi}")
+        if abs(first - math.log(cfg.vocab_size)) > 0.5:
+            raise SystemExit(f"ZeRO-3 first loss {first} is not near ln(vocab)")
+        if not (math.isfinite(loss) and moved > 0 and rel <= DIST_BF16_TOL):
+            raise SystemExit(f"ZeRO-3 loss {loss} (unsharded {lm['loss']}) or weights moved "
+                             f"{moved}")
+        if launches != (2 * LM_LAYERS * steps, LM_LAYERS * steps, LM_LAYERS * steps):
+            raise SystemExit(f"ZeRO-3 with full remat launched {launches}, expected K3 twice a "
+                             "layer and K4, K5 once")
+        out["gpt2_zero3"] = {"step_ms": elapsed / steps * 1e3, "loss": loss, "rel": rel,
+                             "launches": per, "peak_gib": peak, **traced}
+        del model, step
+    finally:
+        dist.shutdown()
+
+    t0 = time.perf_counter()
+    run = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node", "1",
+         "-m", "pytorch_distributedtraining_tpu_torch.drivers.fairscale_ddp", "--synthetic",
+         "--synthetic-n", str(ESPCN_N), "--epochs", "1", "--workers", "2"],
+        cwd=ROOT, capture_output=True, text=True, timeout=600,
+        env={**os.environ, "PYTHONPATH": str(ROOT)})
+    seconds = time.perf_counter() - t0
+    last = [ln for ln in run.stdout.splitlines() if ln.startswith("For Epoch")]
+    print(f"[dist] torch.distributed.run --nproc_per_node 1 drivers.fairscale_ddp: exit "
+          f"{run.returncode} in {seconds:.1f} s, {last[-1] if last else 'no epoch line'}")
+    if run.returncode != 0:
+        raise SystemExit(f"the ESPCN driver under torch.distributed.run failed:\n"
+                         f"{run.stdout[-2000:]}\n{run.stderr[-4000:]}")
+    out["espcn_launch_s"] = seconds
+    print(f"[dist] phase {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1034,8 +1255,10 @@ def main() -> int:
         phase_bench_config(smi)
         phase_espcn()
     phase_optimizer(smi)
+    with record_launches(seen):
+        phase_distributed(smi, lm)
     checked = set().union(*(c["checked"] for c in cases + flash_cases))
-    print(f"[shapes] phases 5-8 launched {len(seen)} kinds of (kernel, q shape, dtype, mask "
+    print(f"[shapes] phases 5-9 and 11 launched {len(seen)} kinds of (kernel, q shape, dtype, mask "
           f"windows or causal): {sorted(seen, key=str)}")
     if seen - checked:
         raise SystemExit(f"launched on a driven path but never held against the plain "

@@ -1,4 +1,4 @@
-"""The ladder's LM rung (config 4, GPT-2 125M) on one GPU.
+"""The ladder's LM rung (config 4, GPT-2 125M).
 
 Counterpart of ``benchmarks/ladder.py``'s ``_run_lm`` and ``run_config(4)``:
 GPT-2 125M, batch 8 x seq 512 of random tokens from numpy seed 0, AdamW
@@ -19,14 +19,21 @@ device's busy time and idle share and the times of the tied head's GEMMs
 window, whose steps the profiler's host cost stretches; the card's idle
 share of an untraced step is one less ``busy_ms`` over ``step_ms``.
 
-It differs from the JAX rung in three places:
+``--policy`` and ``--remat`` pick the layout: by default (``none``, no
+remat) the plain one-device step, the series ``PERF.md`` keeps;
+``--policy zero3 --remat full`` is the JAX rung's layout (FSDP2 over the
+blocks and the root, the whole loss recomputed in backward), and ``ddp``,
+``zero1`` and ``zero2`` the others. A policy joins the process group
+(one of its own, of one rank, when started by hand), and each rank trains
+on its own batch of ``--batch`` sequences (tokens from numpy seed 0 plus
+its rank)::
 
-- one GPU, so no ZeRO-3 (the JAX rung shards parameters, gradients and
-  optimizer state over its mesh);
-- no remat (the JAX rung rematerialises each block at full size);
-- attention through the flash ``attn_fn``, the CUDA kernels K3-K5 (the JAX
-  rung uses XLA's default attention), because that is the kernel path this
-  rung exists to drive.
+    python -m pytorch_distributedtraining_tpu_torch.benchmarks.ladder --config 4 \\
+        --policy zero3 --remat full
+
+It differs from the JAX rung in the attention: the flash ``attn_fn``, the
+CUDA kernels K3-K5 (the JAX rung uses XLA's default attention), because
+that is the kernel path this rung exists to drive.
 
 Weights are random, from ``torch.Generator`` seed 0. ``--tiny`` runs
 ``GPT2Config.tiny()`` at seq 32 (with ``--device cpu``, as the tests do).
@@ -43,11 +50,16 @@ import time
 import numpy as np
 import torch
 
-from .. import optim
+import functools
+import os
+
+from .. import optim, parallel
 from ..models.gpt2 import GPT2, GPT2Config, cross_entropy_loss
 from ..ops.flash_attn import make_flash_attn_fn
 from ..parallel import TrainStep
+from ..runtime import dist
 from ..runtime.dist import resolve_device
+from ..runtime.mesh import MeshSpec, make_mesh
 
 WINDOWS = 3  # best of N timed windows, as the JAX rung
 
@@ -93,20 +105,42 @@ def _roofline_guard(result: dict, model: torch.nn.Module) -> dict:
     return result
 
 
-def build_lm(cfg: GPT2Config, batch_size: int, seq: int, device: torch.device, seed: int = 0):
+POLICIES = {"none": None, "ddp": parallel.DDP, "zero1": parallel.ZeRO1,
+            "zero2": parallel.ZeRO2, "zero3": parallel.ZeRO3}
+
+
+def join_group(device: torch.device) -> None:
+    """Join the launcher's process group, or form one of a single rank when
+    started by hand, so that a policy has a mesh to run on."""
+    if "WORLD_SIZE" in os.environ:
+        dist.initialize(device=device.type)
+    else:
+        dist.initialize(f"127.0.0.1:{dist.find_free_port()}", 1, 0, device=device.type)
+
+
+def _lm_loss(model, tokens):
+    logits = model(tokens)
+    return cross_entropy_loss(logits[:, :-1], tokens[:, 1:]), {}
+
+
+def build_lm(cfg: GPT2Config, batch_size: int, seq: int, device: torch.device, seed: int = 0,
+             policy: str = "none", remat: str | None = None):
     """The rung's model (flash ``attn_fn``), train step and token batch on
-    ``device``: ``(model, step, tokens)``."""
+    ``device``: ``(model, step, tokens)``. ``policy`` other than ``"none"``
+    needs the process group (:func:`join_group`) and lays the model and
+    optimizer out on a mesh of the whole world."""
     model = GPT2(cfg, attn_fn=make_flash_attn_fn(),
-                 generator=torch.Generator().manual_seed(seed)).to(device)
-    tx = optim.adamw(model.parameters(), lr=3e-4, clip_grad_norm=1.0)
-
-    def loss_fn(model, tokens):
-        logits = model(tokens)
-        return cross_entropy_loss(logits[:, :-1], tokens[:, 1:]), {}
-
-    tok = np.random.default_rng(seed).integers(
+                 generator=torch.Generator().manual_seed(seed))
+    tx = functools.partial(optim.adamw, lr=3e-4, clip_grad_norm=1.0)
+    pol = POLICIES[policy]() if POLICIES[policy] is not None else None
+    mesh = None
+    if pol is not None:
+        mesh = make_mesh(MeshSpec.zero() if pol.shard_opt_state else MeshSpec.ddp())
+    state = parallel.create_train_state(model, tx, mesh, pol, device=device)
+    tok = np.random.default_rng(seed + dist.rank()).integers(
         0, cfg.vocab_size, size=(batch_size, seq)).astype(np.int32)
-    return model, TrainStep(model, loss_fn, tx), torch.from_numpy(tok).to(device)
+    step = TrainStep(state.model, _lm_loss, state.tx, mesh, pol, remat=remat)
+    return state.module, step, torch.from_numpy(tok).to(device)
 
 
 def _median_ms(fn, reps: int = 20, warmup: int = 3) -> float:
@@ -174,19 +208,23 @@ def _traced_steps(step: TrainStep, batch, n_steps: int, trace_path: str) -> dict
         "kernels_per_step": r["kernels"] / n_steps,
         "busy_ms": r["busy_ms"] / n_steps,
         "idle_share": r["idle_share"],
+        "host_wait_ms": {k: v / n_steps for k, v in r["host_wait_ms"].items()},
+        "top_host_ops_ms": [(k, v / n_steps) for k, v in r["top_host_ops_ms"]],
     }
 
 
 def _run_lm(name: str, cfg: GPT2Config, batch_size: int, seq: int, steps: int, warmup: int,
-            device: torch.device, trace: str | None = None) -> dict:
-    model, step, tokens = build_lm(cfg, batch_size, seq, device)
+            device: torch.device, trace: str | None = None, policy: str = "none",
+            remat: str | None = None) -> dict:
+    model, step, tokens = build_lm(cfg, batch_size, seq, device, policy=policy, remat=remat)
     dt, metrics = _timed_steps(step, tokens, steps, warmup)
     extra = {}
     if trace is not None:
         if device.type != "cuda":
             raise ValueError("--trace reads device time: it needs a card")
         extra = _traced_steps(step, tokens, steps, trace)
-        extra["head_gemm_ms"] = _head_gemm_ms(model, batch_size * seq)
+        if policy == "none":  # the head's weight whole on the card (not an FSDP2 shard)
+            extra["head_gemm_ms"] = _head_gemm_ms(model, batch_size * seq)
     return _roofline_guard({
         "config": name,
         "metric": "tokens_per_sec",
@@ -196,6 +234,9 @@ def _run_lm(name: str, cfg: GPT2Config, batch_size: int, seq: int, steps: int, w
         "steps": steps,
         "step_ms": dt / steps * 1e3,
         "loss": float(metrics["loss"]),
+        "policy": policy,
+        "remat": remat or "none",
+        "world_size": dist.world_size(),
         "peak_gib": (torch.cuda.max_memory_allocated(device) / 2**30
                      if device.type == "cuda" else None),
         **extra,
@@ -203,16 +244,19 @@ def _run_lm(name: str, cfg: GPT2Config, batch_size: int, seq: int, steps: int, w
 
 
 def run_config(i: int, tiny: bool, steps: int, warmup: int, device="cuda",
-               trace: str | None = None) -> dict:
+               trace: str | None = None, policy: str = "none", remat: str | None = None) -> dict:
     device = resolve_device(device)
     if i == 4:
         cfg = GPT2Config.tiny() if tiny else GPT2Config.gpt2_125m()
-        return _run_lm("4_gpt2_125m_one_gpu_flash", cfg, 8, 32 if tiny else 512, steps,
-                       warmup, device, trace)
+        if policy != "none":
+            join_group(device)
+        name = "4_gpt2_125m_one_gpu_flash" if policy == "none" else f"4_gpt2_125m_{policy}_flash"
+        return _run_lm(name, cfg, 8, 32 if tiny else 512, steps, warmup, device, trace,
+                       policy, remat)
     if i in (1, 2, 3, 5):
         raise NotImplementedError(
             f"ladder config {i} (ResNet/ViT) is not ported yet: the models wait for the "
-            "ladder-models slice and the DDP/ZeRO policies for the distributed-runtime slice")
+            "ladder-models slice")
     raise ValueError(f"config {i} not in 1..5")
 
 
@@ -223,14 +267,24 @@ def main(argv=None) -> int:
     ap.add_argument("--steps", type=int, default=10)
     ap.add_argument("--warmup", type=int, default=2)
     ap.add_argument("--device", default="cuda", help="'cuda' (default) or 'cpu'")
+    ap.add_argument("--policy", default="none", choices=sorted(POLICIES),
+                    help="the sharding policy (default none: the plain one-device step); "
+                         "zero3 with --remat full is the JAX rung's layout")
+    ap.add_argument("--remat", default="none", choices=["none", "full", "dots", "offload"],
+                    help="activation rematerialisation of the loss (parallel.remat)")
     ap.add_argument("--trace", default=None, metavar="PATH",
                     help="also trace --steps steps into this Chrome trace and add the device "
                          "time by kernel family and the idle share (needs a card)")
     opt = ap.parse_args(argv)
     if opt.device.startswith("cuda"):
         torch.backends.cuda.matmul.allow_tf32 = False
-    print(json.dumps(run_config(opt.config, opt.tiny, opt.steps, opt.warmup, opt.device,
-                                opt.trace)), flush=True)
+    try:
+        result = run_config(opt.config, opt.tiny, opt.steps, opt.warmup, opt.device, opt.trace,
+                            opt.policy, opt.remat)
+    finally:
+        dist.shutdown()
+    if dist.rank() == 0:
+        print(json.dumps(result), flush=True)
     return 0
 
 

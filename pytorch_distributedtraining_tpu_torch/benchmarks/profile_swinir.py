@@ -90,10 +90,18 @@ def _union_us(spans: list[tuple[float, float]]) -> float:
     return busy
 
 
+# CUDA runtime calls in which the host waits for the device
+HOST_WAITS = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaEventSynchronize",
+              "cudaMemcpy", "cudaMemcpy2D", "cudaMemset", "cudaStreamQuery")
+
+
 def device_breakdown(trace_path: str) -> dict:
     """Device time by kernel family and of the longest kernels by name, and
     busy/idle shares of the span from the first kernel's start to the last
-    kernel's end, from a Chrome trace written by ``torch.profiler``."""
+    kernel's end, from a Chrome trace written by ``torch.profiler``; also the
+    host's time in each blocking CUDA runtime call (``host_wait_ms``) and
+    in the longest host ops and annotations by name, each counted with the
+    ops it calls (``top_host_ops_ms``)."""
     with open(trace_path) as f:
         events = json.load(f)["traceEvents"]
     kernels = [e for e in events
@@ -109,8 +117,17 @@ def device_breakdown(trace_path: str) -> dict:
         spans.append((float(e["ts"]), float(e["ts"]) + float(e["dur"])))
     window = max(b for _, b in spans) - min(a for a, _ in spans)
     busy = _union_us(spans)
+    waits: dict[str, float] = {}
+    host_ops: dict[str, float] = {}
+    for e in events:
+        if e.get("cat") in ("cuda_runtime", "cuda_driver") and e.get("name") in HOST_WAITS:
+            waits[e["name"]] = waits.get(e["name"], 0.0) + e.get("dur", 0.0) / 1e3
+        elif e.get("cat") in ("cpu_op", "user_annotation") and "dur" in e:
+            host_ops[e["name"]] = host_ops.get(e["name"], 0.0) + e["dur"] / 1e3
     return {
         "kernels": len(kernels),
+        "host_wait_ms": waits,
+        "top_host_ops_ms": sorted(host_ops.items(), key=lambda kv: -kv[1])[:TOP_KERNELS],
         "device_ms_by_family": {k: v / 1e3 for k, v in
                                 sorted(by_family.items(), key=lambda kv: -kv[1])},
         "top_kernels_ms": [(k[:120], v / 1e3) for k, v in

@@ -1,20 +1,26 @@
-"""ESPCN super-resolution training under the ZeRO-2 layout, on one GPU.
+"""ESPCN super-resolution training under the ZeRO-2 layout, on one GPU or many.
 
 Counterpart of ``drivers/fairscale_ddp.py`` (the reference's
 ``Fairscale-DDP.py``), structure for structure: datasets, a 0.99 split,
 ``DistributedSampler``s with ``num_replicas`` and rank from
 ``runtime.dist``, loaders, the probe batch, ``Net(upscale_factor=2)`` with
-MSE, the one-device ``TrainStep`` with the per-leaf AdamW (lr 1e-3, betas
-(0.9, 0.99), eps 1e-8, weight decay 1e-4), a loss print every 25
-iterations and one line per epoch::
+MSE, ``TrainStep`` under ``ZeRO2`` (Fairscale OSS + ShardedDDP) with the
+per-leaf AdamW (lr 1e-3, betas (0.9, 0.99), eps 1e-8, weight decay 1e-4),
+a loss print every 25 iterations and one line per epoch::
 
     python -m pytorch_distributedtraining_tpu_torch.drivers.fairscale_ddp \\
         --synthetic --epochs 1 --workers 2
 
-On one rank ZeRO-2 (OSS + ShardedDDP) is the plain update, and ZeRO-2 is
-not a layout for the flat ``FusedAdamW``, so the update is the per-leaf
-chain, as in the JAX driver. The reference bugs that the JAX driver fixes
-stay fixed: ``num_replicas`` is not hard-coded to 4, the sampler's epoch
+    python -m torch.distributed.run --standalone --nproc_per_node N \\
+        -m pytorch_distributedtraining_tpu_torch.drivers.fairscale_ddp --synthetic
+
+Under the launcher it joins the process group (NCCL on the GPU, gloo with
+``--device cpu``) and shards optimizer state and gradients over the
+launcher's world (the JAX driver's ``WORLD_SIZE = 4`` becomes it); started
+by hand it trains one process, with the same update. ZeRO-2 is not a
+layout for the flat ``FusedAdamW``, so the update is the per-leaf chain,
+as in the JAX driver. The reference bugs that the JAX driver fixes stay
+fixed: ``num_replicas`` is not hard-coded to 4, the sampler's epoch
 advances (the loader sets it), and the computed rank is used.
 
 It runs on the GPU (``--device cuda``, the default) and refuses to start
@@ -29,6 +35,7 @@ are not ported (``--remat``, ``--pp``, ``--pp-schedule``, ``--wire``,
 from __future__ import annotations
 
 import argparse
+import functools
 import os
 
 import torch
@@ -43,8 +50,9 @@ from pytorch_distributedtraining_tpu_torch.data import (
 )
 from pytorch_distributedtraining_tpu_torch.losses import mse_loss
 from pytorch_distributedtraining_tpu_torch.models import Net
-from pytorch_distributedtraining_tpu_torch.parallel import TrainStep
+from pytorch_distributedtraining_tpu_torch.parallel import TrainStep, ZeRO2, create_train_state
 from pytorch_distributedtraining_tpu_torch.runtime import dist
+from pytorch_distributedtraining_tpu_torch.runtime.mesh import MeshSpec, make_mesh
 
 # reference constants (Fairscale-DDP.py:57,118)
 BATCH_SIZE = 40
@@ -71,12 +79,19 @@ def loss_fn(model: Net, batch):
 
 def train(opt: argparse.Namespace, model: Net | None = None) -> float | None:
     """Train ``model`` (default: ``build_model()``) for ``opt.epochs`` epochs
-    on ``opt.device``; returns the last step's loss."""
+    on ``opt.device``, over the launcher's world when there is one; returns
+    the last step's loss."""
     device = dist.resolve_device(opt.device)
-    if dist.world_size() > 1:
-        raise NotImplementedError(
-            f"WORLD_SIZE={dist.world_size()}: the port trains on one GPU so far; ZeRO-2 across "
-            "GPUs is the distributed-runtime slice")
+    joined = not dist.is_initialized()
+    dist.initialize(device=device.type)  # a no-op when started by hand on one device
+    try:
+        return _train(opt, device, model)
+    finally:
+        if joined:
+            dist.shutdown()
+
+
+def _train(opt: argparse.Namespace, device: torch.device, model: Net | None) -> float | None:
 
     print("===> Loading datasets")
     print("--Input Directory--", opt.input_dir)
@@ -117,11 +132,14 @@ def train(opt: argparse.Namespace, model: Net | None = None) -> float | None:
         print("--Shape--", tuple(x.shape), tuple(y.shape))
 
         print("===> Building model")
-        model = (build_model() if model is None else model).to(device)
-        # OSS(AdamW) + ShardedDDP (:78-89): on one rank, the per-leaf update
-        tx = optim.adamw(model.named_parameters(), lr=1e-3, betas=(0.9, 0.99), eps=1e-8,
-                         weight_decay=1e-4)
-        step = TrainStep(model, loss_fn, tx)
+        # OSS(AdamW) + ShardedDDP (:78-89): ZeRO-2 over the world's ranks
+        policy = ZeRO2()
+        mesh = make_mesh(MeshSpec.zero()) if dist.is_initialized() else None
+        tx = functools.partial(optim.adamw, lr=1e-3, betas=(0.9, 0.99), eps=1e-8,
+                               weight_decay=1e-4)
+        state = create_train_state(build_model() if model is None else model, tx, mesh,
+                                   policy, device=device)
+        step = TrainStep(state.model, loss_fn, state.tx, mesh, policy)
 
         loss = None
         for e in range(opt.epochs):
@@ -136,7 +154,7 @@ def train(opt: argparse.Namespace, model: Net | None = None) -> float | None:
 
 
 def build_parser() -> argparse.ArgumentParser:
-    parser = argparse.ArgumentParser(description="ZeRO-2 SR training (one GPU)")
+    parser = argparse.ArgumentParser(description="ZeRO-2 SR training")
     parser.add_argument("--epochs", type=int, default=EPOCHS)
     parser.add_argument("--batch-size", type=int, default=BATCH_SIZE)
     parser.add_argument("--input-dir", type=str, default=INPUT_PATH)

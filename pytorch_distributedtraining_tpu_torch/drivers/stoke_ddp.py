@@ -1,4 +1,4 @@
-"""SwinIR-S x2 training through the Stoke facade on one GPU.
+"""SwinIR-S x2 training through the Stoke facade, on one GPU or many.
 
 Counterpart of ``drivers/stoke_ddp.py``: the same functions (``train_log``,
 ``val_log``, ``train``, ``validate``, ``save_checkpoint``, ``main``) and the
@@ -7,6 +7,15 @@ reference CLI flag for flag, plus ``--synthetic``, ``--synthetic-n``,
 
     python -m pytorch_distributedtraining_tpu_torch.drivers.stoke_ddp \\
         --synthetic --nEpochs 1 --batchSize 18 --threads 2
+
+On N GPUs, one process each (NCCL; ``--device cpu`` for gloo ranks)::
+
+    python -m torch.distributed.run --standalone --nproc_per_node N \\
+        -m pytorch_distributedtraining_tpu_torch.drivers.stoke_ddp --synthetic
+
+The facade's flags are the reference's, DDP with Fairscale OSS and
+ShardedDDP (ZeRO-2) and ``broadcast_fp16``; each rank trains on its own
+shard of the data, and rank 0 writes the checkpoints.
 
 It runs on the GPU (``--device cuda``, the default) and refuses to start
 without one unless ``--device cpu`` is given. The TPU-only flags of the
@@ -33,6 +42,7 @@ from pytorch_distributedtraining_tpu_torch.losses import feat_loss
 from pytorch_distributedtraining_tpu_torch.models import SwinIR
 from pytorch_distributedtraining_tpu_torch.observe import wandb
 from pytorch_distributedtraining_tpu_torch.optim import OneCycleLR, ReduceLROnPlateau
+from pytorch_distributedtraining_tpu_torch.runtime import dist
 from pytorch_distributedtraining_tpu_torch.stoke import (
     AMPConfig,
     ClipGradNormConfig,
@@ -170,9 +180,12 @@ def build_model(seed: int = 0) -> SwinIR:
 
 def build_stoke(model: torch.nn.Module, *, lr: float = 0.001, weight_decay: float = 1e-4,
                 grad_clip: float = 0.1, batch_size: int = 18, fp16: str | None = None,
-                device: str = "cuda", verbose: bool = True) -> Stoke:
+                device: str = "cuda", verbose: bool = True, oss: bool = True,
+                sddp: bool = True, fsdp: bool = False) -> Stoke:
     """The driver's facade: ``feat_loss``, AdamW, global-norm clip,
-    ``grad_accum_steps=2``, DDP with OSS and SDDP (one device here)."""
+    ``grad_accum_steps=2``, DDP with OSS and SDDP (ZeRO-2) and
+    ``broadcast_fp16``, over the process group when there is one.
+    ``oss``/``sddp``/``fsdp`` set the Fairscale flags for another layout."""
     local_rank = os.getenv("LOCAL_RANK")
     ddp_config = DDPConfig(
         local_rank=int(local_rank) if local_rank not in (None, "None") else None,
@@ -196,8 +209,9 @@ def build_stoke(model: torch.nn.Module, *, lr: float = 0.001, weight_decay: floa
         gpu=True,
         fp16=fp16,
         distributed=DistributedOptions.ddp.value,
-        fairscale_oss=True,
-        fairscale_sddp=True,
+        fairscale_oss=oss,
+        fairscale_sddp=sddp,
+        fairscale_fsdp=fsdp,
         grad_accum_steps=2,
         configs=[AMPConfig(init_scale=2.0**14), ddp_config,
                  FairscaleOSSConfig(broadcast_fp16=True)],
@@ -208,6 +222,16 @@ def build_stoke(model: torch.nn.Module, *, lr: float = 0.001, weight_decay: floa
 
 def main(argv=None):
     opt = build_parser().parse_args(argv)
+    joined = not dist.is_initialized()
+    dist.initialize(device=opt.device)  # a no-op when started by hand on one device
+    try:
+        return _main(opt)
+    finally:
+        if joined:
+            dist.shutdown()
+
+
+def _main(opt):
     epochs = opt.nEpochs
 
     print("===> Building model")

@@ -186,6 +186,12 @@ class GPT2(nn.Module):
         nn.init.normal_(self.transformer.wte.weight, std=0.02, generator=generator)
         nn.init.normal_(self.transformer.wpe.weight, std=0.01, generator=generator)
 
+    def fsdp_blocks(self) -> list[nn.Module]:
+        """The units ZeRO-3 shards one by one (FSDP2, before the root): the
+        transformer blocks. ``wte`` stays in the root's unit with the head
+        that shares it."""
+        return list(self.transformer.h)
+
     def forward(self, tokens):
         dt, tr = self.cfg.dtype, self.transformer
         t = tokens.shape[1]

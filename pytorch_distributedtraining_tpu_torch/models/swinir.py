@@ -254,6 +254,11 @@ class SwinIR(nn.Module):
                 nn.init.trunc_normal_(m.relative_position_bias_table, std=0.02,
                                       generator=generator)
 
+    def fsdp_blocks(self) -> list[nn.Module]:
+        """The units ZeRO-3 shards one by one (FSDP2, before the root): the
+        residual Swin blocks."""
+        return list(self.layers)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:  # [B, H, W, C] in [0, img_range]
         b, h, w, c = x.shape
         ws = self.window_size

@@ -14,6 +14,17 @@ Counterpart of ``pytorch_distributedtraining_tpu/optim.py``:
   of 1024, so the update is the JAX ``apply``'s arithmetic as full-width
   tensor ops on the same code path on the CPU and the card, with no ravel
   or unravel copy.
+- Under a ZeRO policy both keep optimizer state for this rank's share
+  only. The per-leaf chains take a ``parallel.spec.ShardPlan`` (``shard=``):
+  moments, EMA and the update live on each leaf's shard (ZeRO-1/2, by the
+  ``leaf_spec`` rule) or on each FSDP2 ``DTensor``'s local tensor (ZeRO-3),
+  the global norm sums squares over shards with one all-reduce, and the
+  updated shards are all-gathered. ``FusedAdamW(shard_group=...)`` updates
+  this rank's slice of the flat buffer and all-gathers the flat
+  parameters (ZeRO-1). ``update_wire_dtype`` (Fairscale OSS's
+  ``broadcast_fp16``, bf16 as in JAX) casts the lr-scaled update before it
+  is gathered and added. ``full_state_dict()`` gathers the state into the
+  layout of a run on one rank.
 - ``onecycle`` and ``cosine_with_warmup`` are schedules, functions of a
   step (an int or a 0-d tensor). ``OneCycleLR`` and ``ReduceLROnPlateau``
   stay pure-Python closed forms, not ``torch.optim.lr_scheduler``, so their
@@ -59,23 +70,29 @@ class RecordedClip(NamedTuple):
 
 class _LeafOptimizer:
     """What the per-leaf chains share: the parameter list, its grads, the
-    recorded clip and the params EMA."""
+    recorded clip, the params EMA and, with a ``shard`` plan, this rank's
+    shard of each (:attr:`local`), where the state and the update live."""
 
-    def __init__(self, params, lr, clip_grad_norm, clip_grad_value, ema_decay=None):
+    def __init__(self, params, lr, clip_grad_norm, clip_grad_value, ema_decay=None,
+                 shard=None, update_wire_dtype=None):
         named = _named(params)
         self.names = [n for n, _ in named]
         self.params = [p for _, p in named]
+        self.shard = shard
+        self.local = self.params if shard is None else shard.local(self.params)
         self.lr = lr
         self.clip_grad_norm = None if clip_grad_norm is None else float(clip_grad_norm)
         self.clip_grad_value = None if clip_grad_value is None else float(clip_grad_value)
         self.ema_decay = None if ema_decay is None else float(ema_decay)
+        self.update_wire_dtype = update_wire_dtype
         self.count = 0
         self.clip: RecordedClip | None = None
         self.ema = None
         if self.ema_decay is not None:
-            self.ema = [p.detach().float().clone() for p in self.params]
+            self.ema = [p.detach().float().clone() for p in self.local]
 
     def grads(self) -> list[torch.Tensor]:
+        """The parameters' grads as they lie (whole, or FSDP2 ``DTensor``s)."""
         return [p.grad if p.grad is not None else torch.zeros_like(p) for p in self.params]
 
     def zero_grad(self) -> None:
@@ -87,10 +104,19 @@ class _LeafOptimizer:
     def global_norm(grads) -> torch.Tensor:
         return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
 
+    def norm(self, grads) -> torch.Tensor:
+        """The global norm of this rank's share of the grads (``local``
+        layout): over every rank's shards at once, by one all-reduce, when
+        sharded."""
+        if self.shard is None:
+            return self.global_norm(grads)
+        sq = torch.stack(torch._foreach_norm(grads)).square()
+        return torch.sqrt(self.shard.norm_sq(sq))
+
     def _clip(self, grads: list[torch.Tensor]) -> list[torch.Tensor]:
         """Clip by global norm (recorded in :attr:`clip`), then by value."""
         if self.clip_grad_norm is not None:
-            gnorm = self.global_norm(grads)
+            gnorm = self.norm(grads)
             trigger = gnorm > self.clip_grad_norm
             scale = torch.where(trigger, self.clip_grad_norm / torch.clamp(gnorm, min=1e-38),
                                 torch.ones_like(gnorm))
@@ -108,7 +134,33 @@ class _LeafOptimizer:
         """EMA of the new parameters (JAX ``refresh_params_ema``)."""
         if self.ema is not None:
             torch._foreach_mul_(self.ema, self.ema_decay)
-            torch._foreach_add_(self.ema, self.params, alpha=1.0 - self.ema_decay)
+            torch._foreach_add_(self.ema, self.local, alpha=1.0 - self.ema_decay)
+
+    def _apply(self, upd: list[torch.Tensor], lr: float) -> None:
+        """``p -= lr·u`` on this rank's share, then the sharded leaves
+        gathered back whole. With :attr:`update_wire_dtype` the step
+        ``-lr·u`` is cast to it first and it is the steps that are gathered
+        (the narrow fan-out wire), then added, upcast."""
+        if self.update_wire_dtype is None:
+            torch._foreach_add_(self.local, upd, alpha=-lr)
+            if self.shard is not None:
+                self.shard.gather_(self.params)
+            return
+        steps = [u.to(self.update_wire_dtype) for u in torch._foreach_mul(upd, -lr)]
+        if self.shard is not None:
+            self.shard.gather_(self.params, steps)
+        else:
+            torch._foreach_add_(self.params, [s.to(p.dtype) for s, p in zip(steps, self.params)])
+
+    def full_state_dict(self) -> dict:
+        """:meth:`state_dict` with every sharded buffer gathered whole, the
+        layout of a run on one rank (a collective when sharded: every rank
+        calls it)."""
+        sd = self.state_dict()
+        if self.shard is None:
+            return sd
+        return {k: (self.shard.gather_state(self.params, v) if isinstance(v, list) else v)
+                for k, v in sd.items()}
 
 
 class AdamW(_LeafOptimizer):
@@ -122,18 +174,21 @@ class AdamW(_LeafOptimizer):
 
     def __init__(self, params, lr=1e-3, betas=(0.9, 0.999), eps: float = 1e-8,
                  weight_decay: float = 0.01, clip_grad_norm: float | None = None,
-                 clip_grad_value: float | None = None, ema_decay: float | None = None):
-        super().__init__(params, lr, clip_grad_norm, clip_grad_value, ema_decay)
+                 clip_grad_value: float | None = None, ema_decay: float | None = None,
+                 shard=None, update_wire_dtype=None):
+        super().__init__(params, lr, clip_grad_norm, clip_grad_value, ema_decay, shard,
+                         update_wire_dtype)
         self.b1, self.b2 = (float(b) for b in betas)
         self.eps = float(eps)
         self.weight_decay = float(weight_decay)
-        self.mu = [torch.zeros_like(p) for p in self.params]
-        self.nu = [torch.zeros_like(p) for p in self.params]
+        self.mu = [torch.zeros_like(p) for p in self.local]
+        self.nu = [torch.zeros_like(p) for p in self.local]
 
     @torch.no_grad()
     def step(self, grads: list[torch.Tensor], lr=None, lr_factor=1.0) -> torch.Tensor | None:
-        """Apply one update from ``grads`` (f32, already unscaled) at ``lr``
-        (default: :attr:`lr` at the step count) times ``lr_factor``. Returns
+        """Apply one update from ``grads`` (f32, already unscaled; this
+        rank's share, as :attr:`local`) at ``lr`` (default: :attr:`lr` at
+        the step count) times ``lr_factor``. Returns
         the pre-clip global norm (a device scalar) when clipping is on, so a
         caller need not compute it twice; else None."""
         lr = self._lr(lr, lr_factor)
@@ -151,8 +206,8 @@ class AdamW(_LeafOptimizer):
         upd = torch._foreach_div(self.mu, bc1)
         torch._foreach_div_(upd, denom)
         if self.weight_decay:
-            torch._foreach_add_(upd, self.params, alpha=self.weight_decay)
-        torch._foreach_add_(self.params, upd, alpha=-lr)
+            torch._foreach_add_(upd, self.local, alpha=self.weight_decay)
+        self._apply(upd, lr)
         self._update_ema()
         return None if self.clip is None else self.clip.gnorm
 
@@ -167,12 +222,13 @@ class SGD(_LeafOptimizer):
 
     def __init__(self, params, lr=1e-2, momentum: float = 0.0, weight_decay: float = 0.0,
                  nesterov: bool = False, clip_grad_norm: float | None = None,
-                 clip_grad_value: float | None = None):
-        super().__init__(params, lr, clip_grad_norm, clip_grad_value)
+                 clip_grad_value: float | None = None, shard=None, update_wire_dtype=None):
+        super().__init__(params, lr, clip_grad_norm, clip_grad_value, None, shard,
+                         update_wire_dtype)
         self.momentum = float(momentum)
         self.weight_decay = float(weight_decay)
         self.nesterov = bool(nesterov)
-        self.trace = [torch.zeros_like(p) for p in self.params] if self.momentum else None
+        self.trace = [torch.zeros_like(p) for p in self.local] if self.momentum else None
 
     @torch.no_grad()
     def step(self, grads: list[torch.Tensor], lr=None, lr_factor=1.0) -> torch.Tensor | None:
@@ -180,14 +236,14 @@ class SGD(_LeafOptimizer):
         lr = self._lr(lr, lr_factor)
         grads = self._clip(grads)
         if self.weight_decay:
-            grads = torch._foreach_add(grads, self.params, alpha=self.weight_decay)
+            grads = torch._foreach_add(grads, self.local, alpha=self.weight_decay)
         if self.trace is not None:
             torch._foreach_mul_(self.trace, self.momentum)
             torch._foreach_add_(self.trace, grads)
             grads = (torch._foreach_add(grads, self.trace, alpha=self.momentum)
                      if self.nesterov else self.trace)
         self.count += 1
-        torch._foreach_add_(self.params, grads, alpha=-lr)
+        self._apply(grads, lr)
         return None if self.clip is None else self.clip.gnorm
 
     def state_dict(self) -> dict:
@@ -196,17 +252,18 @@ class SGD(_LeafOptimizer):
 
 def adamw(params, lr=1e-3, betas=(0.9, 0.999), eps: float = 1e-8, weight_decay: float = 0.01,
           clip_grad_norm: float | None = None, clip_grad_value: float | None = None,
-          ema_decay: float | None = None) -> AdamW:
+          ema_decay: float | None = None, shard=None, update_wire_dtype=None) -> AdamW:
     """AdamW with torch-parity argument names (the JAX ``adamw`` factory)."""
     return AdamW(params, lr, betas, eps, weight_decay, clip_grad_norm, clip_grad_value,
-                 ema_decay)
+                 ema_decay, shard, update_wire_dtype)
 
 
 def sgd(params, lr=1e-2, momentum: float = 0.0, weight_decay: float = 0.0,
         nesterov: bool = False, clip_grad_norm: float | None = None,
-        clip_grad_value: float | None = None) -> SGD:
+        clip_grad_value: float | None = None, shard=None, update_wire_dtype=None) -> SGD:
     """SGD with torch-parity argument names (the JAX ``sgd`` factory)."""
-    return SGD(params, lr, momentum, weight_decay, nesterov, clip_grad_norm, clip_grad_value)
+    return SGD(params, lr, momentum, weight_decay, nesterov, clip_grad_norm, clip_grad_value,
+               shard, update_wire_dtype)
 
 
 class FusedAdamWState(NamedTuple):
@@ -254,7 +311,7 @@ class FusedAdamW:
     def __init__(self, params, lr=1e-3, betas=(0.9, 0.999), eps: float = 1e-8,
                  weight_decay: float = 0.01, clip_grad_norm: float | None = None,
                  clip_grad_value: float | None = None, update_wire_dtype=None,
-                 ema_decay: float | None = None):
+                 ema_decay: float | None = None, shard_group=None):
         named = _named(params)
         if not named:
             raise ValueError("FusedAdamW got no trainable parameters")
@@ -282,6 +339,19 @@ class FusedAdamW:
             self.offsets.append(end)
             end = -(-(end + p.numel()) // self._ALIGN) * self._ALIGN
         n_pad = -(-end // self._PAD) * self._PAD
+        self.shard_group = shard_group
+        self.slice = slice(0, n_pad)
+        if shard_group is not None:
+            import torch.distributed as tdist
+
+            world, rank = tdist.get_world_size(shard_group), tdist.get_rank(shard_group)
+            if n_pad % world:
+                raise ValueError(
+                    f"FusedAdamW under ZeRO-1: the padded flat length {n_pad} does not divide "
+                    f"over {world} ranks, so the flat moments cannot shard; use a world size "
+                    "that divides it, or the per-leaf optim.adamw")
+            k = n_pad // world
+            self.slice = slice(rank * k, (rank + 1) * k)
         self.flat_param = torch.zeros(n_pad, dtype=torch.float32, device=device)
         self.flat_grad = torch.zeros_like(self.flat_param)
         with torch.no_grad():
@@ -296,37 +366,31 @@ class FusedAdamW:
         self.clip: RecordedClip | None = None
 
     def init(self) -> FusedAdamWState:
-        """A fresh state for the current parameters."""
-        z = torch.zeros_like(self.flat_param)
+        """A fresh state for the current parameters (this rank's slice of
+        the flat buffer under ZeRO-1)."""
+        own = self.flat_param[self.slice]
+        z = torch.zeros_like(own)
         return FusedAdamWState(
             count=torch.zeros((), dtype=torch.int32, device=z.device),
             mu=z, nu=z.clone(),
-            ema=None if self.ema_decay is None else self.flat_param.clone(),
+            ema=None if self.ema_decay is None else own.clone(),
         )
 
     def zero_grad(self) -> None:
         """Zero the flat gradient in place (the views stay bound)."""
         self.flat_grad.zero_()
 
-    @torch.no_grad()
-    def apply(self, gflat: torch.Tensor, state: FusedAdamWState, pflat: torch.Tensor,
-              lr_factor=1.0, gate: torch.Tensor | None = None):
-        """One update on flat f32 grads ``gflat`` and params ``pflat``
-        (``[N_pad]``), out of place.
-
-        Returns ``(new_pflat, new_state, grad_norm)``; ``grad_norm`` is the
-        pre-clip global norm (with a norm clip also recorded in
-        :attr:`clip`). ``gate`` (a device bool, optional) keeps
-        params, moments, count and EMA as they were when False: the
-        GradScaler overflow skip, with no read on the host.
-        """
+    def _moments(self, g, state: FusedAdamWState, pflat, lr_factor, gnorm=None):
+        """The clip, the moments and the step ``-lr·u`` (in
+        :attr:`update_wire_dtype` when set) from flat grads ``g``; ``gnorm``,
+        the pre-clip norm, is computed from ``g`` unless given."""
         # JAX's apply with each expression as one op where torch has one
         # (a * x + b * y as a mul and an in-place add): fewer passes over
         # [N_pad], rounding apart only where an op fuses a multiply-add
-        g = gflat
-        # pre-clip, the metric's contract; vector_norm's CPU reduction is
-        # ~1e-5 off for a million elements, a sum of squares is not
-        gnorm = torch.sqrt(torch.sum(g * g))
+        if gnorm is None:
+            # pre-clip, the metric's contract; vector_norm's CPU reduction is
+            # ~1e-5 off for a million elements, a sum of squares is not
+            gnorm = torch.sqrt(torch.sum(g * g))
         if self.clip_grad_norm is not None:
             c = self.clip_grad_norm
             # optax.clip_by_global_norm formula: rescale only above the cap
@@ -352,7 +416,10 @@ class FusedAdamW:
         if self.update_wire_dtype is not None:
             # narrow the update's fan-out wire; the add upcasts back
             step_vec = step_vec.to(self.update_wire_dtype)
-        new_p = pflat + step_vec.float()
+        return step_vec, count, mu, nu, gnorm
+
+    def _finish(self, new_p, pflat, state: FusedAdamWState, count, mu, nu, gate):
+        """The EMA of ``new_p`` and the gate: ``(new_p, new_state)``."""
         ema = state.ema
         if self.ema_decay is not None:
             if ema is None:
@@ -373,7 +440,24 @@ class FusedAdamW:
             count = torch.where(gate, count, state.count)
             if ema is not None:
                 ema = torch.where(gate, ema, state.ema)
-        return new_p, FusedAdamWState(count, mu, nu, ema), gnorm
+        return new_p, FusedAdamWState(count, mu, nu, ema)
+
+    @torch.no_grad()
+    def apply(self, gflat: torch.Tensor, state: FusedAdamWState, pflat: torch.Tensor,
+              lr_factor=1.0, gate: torch.Tensor | None = None):
+        """One update on flat f32 grads ``gflat`` and params ``pflat``
+        (``[N_pad]``), out of place.
+
+        Returns ``(new_pflat, new_state, grad_norm)``; ``grad_norm`` is the
+        pre-clip global norm (with a norm clip also recorded in
+        :attr:`clip`). ``gate`` (a device bool, optional) keeps
+        params, moments, count and EMA as they were when False: the
+        GradScaler overflow skip, with no read on the host.
+        """
+        step_vec, count, mu, nu, gnorm = self._moments(gflat, state, pflat, lr_factor)
+        new_p, new_state = self._finish(pflat + step_vec.float(), pflat, state, count, mu, nu,
+                                        gate)
+        return new_p, new_state, gnorm
 
     @torch.no_grad()
     def apply_tree(self, lr_factor=1.0, scaler=None):
@@ -386,34 +470,87 @@ class FusedAdamW:
         ``(grad_norm, finite)``: the pre-clip norm and, with a scaler, the
         finite flag as a device bool for the scaler's own update (None
         without one). Nothing is read back to the host here.
+
+        Under ZeRO-1 (``shard_group``) the grads are the same on every rank
+        (reduced by the step): the norm is taken over all of them, the
+        moments and the update over this rank's slice, and then the flat
+        parameters (or, with :attr:`update_wire_dtype`, the steps) are
+        all-gathered.
         """
         gflat, gate = self.flat_grad, None
         if scaler is not None:
             gflat = gflat * (1.0 / scaler.scale)
             gate = torch.isfinite(gflat).all()
-        new_p, self.state, gnorm = self.apply(gflat, self.state, self.flat_param, lr_factor,
-                                              gate)
+        if self.shard_group is None:
+            new_p, self.state, gnorm = self.apply(gflat, self.state, self.flat_param,
+                                                  lr_factor, gate)
+            self.flat_param.copy_(new_p)
+            return gnorm, gate
+        from .parallel.spec import all_gather_flat
+
+        own = self.flat_param[self.slice]
+        step_vec, count, mu, nu, gnorm = self._moments(
+            gflat[self.slice], self.state, own, lr_factor, torch.sqrt(torch.sum(gflat * gflat)))
+        if self.update_wire_dtype is None:
+            new_own, self.state = self._finish(own + step_vec, own, self.state, count, mu, nu,
+                                               gate)
+            all_gather_flat(self.flat_param, new_own, self.shard_group)
+            return gnorm, gate
+        if gate is not None:
+            step_vec = torch.where(gate, step_vec, torch.zeros_like(step_vec))
+        steps = torch.empty(self.flat_param.numel(), dtype=step_vec.dtype,
+                            device=step_vec.device)
+        all_gather_flat(steps, step_vec, self.shard_group)
+        new_p = self.flat_param + steps.float()
+        if gate is not None:
+            new_p = torch.where(gate, new_p, self.flat_param)
+        _, self.state = self._finish(new_p[self.slice], own, self.state, count, mu, nu, gate)
         self.flat_param.copy_(new_p)
         return gnorm, gate
 
     def ema_params(self, state: FusedAdamWState | None = None) -> list[torch.Tensor] | None:
         """The EMA of each parameter, shaped like it (views of the flat EMA);
-        None when ``ema_decay`` was not set."""
+        None when ``ema_decay`` was not set. Under ZeRO-1 the slices are
+        gathered first, a collective: every rank calls it."""
         ema = (self.state if state is None else state).ema
         if ema is None:
             return None
+        ema = self._gathered(ema)
         return [ema[o:o + p.numel()].view_as(p) for o, p in zip(self.offsets, self.params)]
+
+    def _gathered(self, own: torch.Tensor) -> torch.Tensor:
+        """A flat buffer from every rank's slice (``own`` as it is without
+        a shard group)."""
+        if self.shard_group is None:
+            return own
+        from .parallel.spec import all_gather_flat
+
+        out = torch.empty_like(self.flat_param)
+        all_gather_flat(out, own.contiguous(), self.shard_group)
+        return out
 
     def state_dict(self) -> dict:
         """The state and the flat layout: each parameter's name, offset and
         shape in :attr:`flat_param`, in buffer order (the module's
-        registration order, not JAX's ``ravel_pytree`` order)."""
+        registration order, not JAX's ``ravel_pytree`` order). Under ZeRO-1
+        the moments are this rank's slice (``layout["slice"]``)."""
         return {
             **self.state._asdict(),
             "layout": {"names": list(self.names), "offsets": list(self.offsets),
                        "shapes": [tuple(p.shape) for p in self.params],
-                       "numel": self.numel, "padded": self.flat_param.numel()},
+                       "numel": self.numel, "padded": self.flat_param.numel(),
+                       "slice": (self.slice.start, self.slice.stop)},
         }
+
+    def full_state_dict(self) -> dict:
+        """:meth:`state_dict` with the moments gathered whole, the layout of
+        a run on one rank (a collective under ZeRO-1)."""
+        sd = self.state_dict()
+        for k in ("mu", "nu", "ema"):
+            if sd[k] is not None:
+                sd[k] = self._gathered(sd[k])
+        sd["layout"]["slice"] = (0, self.flat_param.numel())
+        return sd
 
 
 def fused_adamw_eligible(fairscale_sddp: bool = False, fairscale_fsdp: bool = False) -> bool:

@@ -1,5 +1,5 @@
-"""Runtime: device resolution and the process's rank and world size."""
+"""Runtime: device resolution, the process group and the device mesh."""
 
-from . import dist
+from . import dist, mesh
 
-__all__ = ["dist"]
+__all__ = ["dist", "mesh"]

@@ -1,9 +1,12 @@
 """Config dataclasses and option enums of the Stoke surface.
 
 Counterpart of ``pytorch_distributedtraining_tpu/stoke/config.py`` for the
-configs ``drivers/stoke_ddp.py`` passes. On one GPU the DDP and OSS knobs
-have nothing to act on and are recorded only; several GPUs are a later
-slice.
+configs ``drivers/stoke_ddp.py`` passes. The facade reads
+``DDPConfig.find_unused_parameters`` (for the DDP wrapper) and
+``FairscaleOSSConfig.broadcast_fp16`` (the bf16 update wire over more
+than one rank); ``local_rank``, ``convert_to_sync_batch_norm`` (no model
+of the port has batch norm) and ``backend`` (NCCL on the card, gloo on the
+CPU, by ``runtime.dist``) are recorded only.
 """
 
 from __future__ import annotations

@@ -17,10 +17,22 @@ in the JAX package), with the lr read from :attr:`optimizer` at that
 moment. Nothing in the hot loop waits for the device except an explicit
 read of a loss.
 
-One device: the facade runs on ``device`` (``"cuda"`` by default; it raises
-when no CUDA device exists unless ``device="cpu"`` was asked for). At world
-size 1, ``distributed="ddp"`` with ``fairscale_oss``/``fairscale_sddp`` is
-exactly a single-device update; at ``WORLD_SIZE > 1`` it raises.
+Device and ranks: the facade runs on ``device`` (``"cuda"`` by default,
+the process's card under a launcher; it raises when no CUDA device exists
+unless ``device="cpu"`` was asked for). The flags map onto a policy
+through ``parallel.policy_from_flags``, as in JAX: ``fairscale_fsdp`` is
+ZeRO-3, ``fairscale_sddp`` ZeRO-2, ``fairscale_oss`` ZeRO-1, else DDP.
+With a process group (``runtime.dist.initialize()``, which the drivers
+call) or a ``mesh=``, ``parallel.create_train_state`` replicates or shards
+the model and optimizer and :meth:`step` syncs the gradients as the
+policy says; every rank runs its own shard of the data. Without a group
+the facade trains one process, and ``WORLD_SIZE > 1`` then raises.
+``FairscaleOSSConfig(broadcast_fp16=True)`` narrows the update to bf16
+before it is gathered, on a sharded-optimizer policy over more than one
+rank (JAX's rule: at one rank there is no fan-out to narrow). Losses and
+eval metrics are averaged over ranks; prints come from rank 0 by default,
+as Stoke's; :meth:`save` gathers the sharded state and writes on rank 0
+alone, in the layout of a one-rank run.
 
 The optimizer follows the JAX facade's rule (``facade.py:889-930`` there):
 AdamW on a layout where a flat update fits (DDP, or ZeRO-1/OSS:
@@ -31,6 +43,8 @@ the per-leaf chain, and ``fused_optimizer=True`` on one of them raises.
 
 from __future__ import annotations
 
+import functools
+import os
 from typing import Callable
 
 import numpy as np
@@ -39,9 +53,15 @@ import torch
 from .. import checkpoint as ckpt
 from .. import optim as optim_mod
 from ..data import DataLoader as _DataLoader
+from ..parallel.policy import policy_from_flags
+from ..parallel.spec import all_reduce_sum_, is_dtensor, shard_axis
+from ..parallel.state import create_train_state
+from ..parallel.step import mean_over_ranks, reduce_gradients
 from ..precision import DynamicLossScaler, Policy
 from ..runtime import dist
-from .config import AMPConfig, ClipGradNormConfig, DistributedOptions
+from ..runtime.mesh import MeshSpec, data_group, make_mesh
+from .config import (AMPConfig, ClipGradNormConfig, DDPConfig, DistributedOptions,
+                     FairscaleOSSConfig)
 from .optimizer import StokeOptimizer
 
 
@@ -71,19 +91,25 @@ class Stoke:
         fused_optimizer: bool | None = None,
         *,
         device: str | torch.device = "cuda",
+        mesh=None,
     ):
-        if dist.world_size() > 1:
-            raise NotImplementedError(
-                f"WORLD_SIZE={dist.world_size()}: the port trains on one GPU so far; "
-                "DDP/ZeRO across GPUs is the distributed-runtime slice"
-            )
         distributed = distributed.value if isinstance(distributed, DistributedOptions) else distributed
         if distributed not in (None, "ddp"):
-            raise NotImplementedError(f"distributed={distributed!r} is not ported; use 'ddp'")
-        # fairscale_oss/sddp/fsdp shard state across ranks; with one rank
-        # there is nothing to shard and the update is the plain one
+            raise NotImplementedError(
+                f"distributed={distributed!r} is not ported (DeepSpeed and Horovod have no "
+                "counterpart in the port); use 'ddp'")
+        self.policy = policy_from_flags(distributed, fairscale_oss, fairscale_sddp,
+                                        fairscale_fsdp)
+        zero = fairscale_oss or fairscale_sddp or fairscale_fsdp
+        if mesh is None and dist.is_initialized():
+            mesh = make_mesh(MeshSpec.zero() if zero else MeshSpec.ddp())
+        if mesh is None and dist.world_size() > 1:
+            raise RuntimeError(
+                f"WORLD_SIZE={dist.world_size()} but no process group: call "
+                "runtime.dist.initialize() before building the facade (the drivers do)")
+        self.mesh = mesh
+        self._group = None if mesh is None else data_group(mesh)
         self.device = dist.resolve_device(device)
-        self._module = model.to(self.device)
         self._loss_callable = loss
         self.batch_size_per_device = int(batch_size_per_device)
         self.verbose = bool(verbose)
@@ -126,9 +152,19 @@ class Stoke:
             )
         if fused_eligible and fused_optimizer is not False:
             # lr=1: the handle's lr enters each step as the lr factor
-            self._opt = optim_mod.FusedAdamW(self._module.named_parameters(), lr=1.0, **kwargs)
+            tx = functools.partial(optim_mod.FusedAdamW, lr=1.0, **kwargs)
         else:
-            self._opt = factory(self._module.named_parameters(), lr=base_lr, **kwargs)
+            tx = functools.partial(factory, lr=base_lr, **kwargs)
+        ddp_config = self._find_config(DDPConfig) or DDPConfig()
+        state = create_train_state(model, tx, mesh, self.policy, device=self.device,
+                                   find_unused_parameters=ddp_config.find_unused_parameters)
+        self._module, self._wrapped, self._opt = state.module, state.model, state.tx
+        oss_config = self._find_config(FairscaleOSSConfig) or FairscaleOSSConfig()
+        if (oss_config.broadcast_fp16 and self.policy.shard_opt_state
+                and shard_axis(mesh) is not None):
+            # OSS broadcast_fp16 (JAX facade._update_wire_dtype): the
+            # sharded update fans out to every rank in bf16
+            self._opt.update_wire_dtype = torch.bfloat16
         self._opt_handle = optim_mod.OptimizerHandle(base_lr)
 
         self._backward_count = 0
@@ -161,9 +197,14 @@ class Stoke:
         """Forward pass under the precision policy; f32 outputs. In eval
         mode (``model_access.eval()``) no graph is kept."""
         x = _as_tensor(inputs, self.device)
-        grad = torch.enable_grad() if self._module.training else torch.no_grad()
+        training = self._module.training
+        if training and hasattr(self._wrapped, "require_backward_grad_sync"):
+            # DDP's no_sync for all but the last micro-batch of a step
+            last = (self._backward_count + 1) % self.grad_accum_steps == 0
+            self._wrapped.require_backward_grad_sync = last
+        grad = torch.enable_grad() if training else torch.no_grad()
         with grad, self._autocast():
-            out = self._module(x)
+            out = self._wrapped(x)
         return out.float()
 
     def loss(self, outputs, targets):
@@ -188,17 +229,18 @@ class Stoke:
         host-side scale costs one read of the finite flag a step."""
         if self._backward_count == 0 or self._backward_count % self.grad_accum_steps:
             return
+        # the global batch's gradient (backward already divided by accum)
+        grads = reduce_gradients(self._opt, self.policy, self._group)
         if isinstance(self._opt, optim_mod.FusedAdamW):
             # the flag gates the update on the device; the host reads it after
             _, finite = self._opt.apply_tree(self._opt_handle.lr, scaler=self.loss_scaler)
             if finite is not None:
                 self.loss_scaler.update(bool(finite))
         else:
-            grads = self._opt.grads()
             finite = True
             if self.loss_scaler is not None:
                 grads = self.loss_scaler.unscale(grads)
-                finite = self.loss_scaler.grads_finite(grads)
+                finite = self._all_ranks(self.loss_scaler.grads_finite(grads))
                 self.loss_scaler.update(finite)
             if finite:
                 self._opt.step(grads, lr=self._opt_handle.lr)
@@ -206,27 +248,36 @@ class Stoke:
         self._backward_count = 0
         self._step_count += 1
 
+    def _all_ranks(self, flag: bool) -> bool:
+        """``flag`` on every rank (one all-reduce with a group): a shard's
+        overflow skips the step everywhere."""
+        if self._group is None:
+            return flag
+        bad = torch.tensor(0.0 if flag else 1.0, device=self.device)
+        return float(all_reduce_sum_(bad, self._group)) == 0.0
+
     def detach_and_sync_loss(self, loss):
-        """The loss as a detached device scalar (mean over ranks: one rank)."""
+        """The loss as a detached device scalar, averaged over ranks."""
         loss = loss.detach()
-        return loss.mean() if loss.dim() else loss
+        loss = loss.mean() if loss.dim() else loss
+        return mean_over_ranks({"loss": loss}, self._group)["loss"]
 
     def eval_step(self, metric_fns: dict | None = None) -> Callable:
         """``step(inputs, targets) -> {"loss": ..., **metrics}`` of device
-        scalars, computed without a graph; sum them across batches and read
-        once per epoch."""
+        scalars, computed without a graph and averaged over ranks; sum
+        them across batches and read once per epoch."""
         metric_fns = dict(metric_fns or {})
 
         def step(inputs, targets):
             y = _as_tensor(targets, self.device)
             with torch.no_grad():
                 with self._autocast():
-                    out = self._module(_as_tensor(inputs, self.device))
+                    out = self._wrapped(_as_tensor(inputs, self.device))
                 out = out.float()
                 result = {"loss": self._loss_callable(out, y)}
                 for name, fn in metric_fns.items():
                     result[name] = fn(out, y)
-            return result
+            return mean_over_ranks(result, self._group)
 
         return step
 
@@ -257,8 +308,10 @@ class Stoke:
             self._ema_shown = float(self._ema_host)
         return self._ema_shown
 
-    def print_ema_loss(self, prepend_msg: str = "EMA Loss"):
-        if self._ema is not None and self.verbose:
+    def print_ema_loss(self, prepend_msg: str = "EMA Loss", rank: int | list | None = 0):
+        """This rank's smoothed loss, printed on ``rank`` (Stoke's default,
+        rank 0; a list of ranks, or None for all)."""
+        if self._ema is not None and self.verbose and self._prints(rank):
             print(f"{prepend_msg}: {self._ema_value():.6f}", flush=True)
 
     # -- data ----------------------------------------------------------------
@@ -282,7 +335,10 @@ class Stoke:
     def save(self, path: str = "./", name: str = "checkpoint", extras: dict | None = None):
         """Write ``{path}/{name}.pt`` -> ``(full_path, tag)``: params,
         optimizer state (``FusedAdamW``'s with its flat layout) and the
-        step/lr/scaler metadata."""
+        step/lr/scaler metadata. Every rank calls it: sharded parameters
+        and state are gathered into the layout of a one-rank run, rank 0
+        writes, and all wait for the file at a barrier, so a checkpoint
+        loads at any world size."""
         meta = {
             "step": self._step_count,
             "lr": self._opt_handle.lr,
@@ -290,21 +346,37 @@ class Stoke:
             "scaler": None if self.loss_scaler is None else self.loss_scaler.state_dict(),
             **(extras or {}),
         }
-        return ckpt.save_checkpoint(path, name, {
-            "params": self._module.state_dict(),
-            "opt_state": self._opt.state_dict(),
-            "meta": meta,
-        })
+        params = {k: v.full_tensor() if is_dtensor(v) else v
+                  for k, v in self._module.state_dict().items()}
+        trees = {"params": params, "opt_state": self._opt.full_state_dict(), "meta": meta}
+        if self.rank == 0:
+            out = ckpt.save_checkpoint(path, name, trees)
+        else:
+            out = os.path.join(path, f"{name}.pt"), f"{name}.pt"
+        dist.coordination_barrier(f"save {name}")
+        return out
 
     def load_model_state(self, source, strict: bool = True, param_key: str = "params"):
         """Load weights from a ``.pt``/``.pth`` path or a state dict,
         optionally nested under ``param_key``; strict matching by default."""
         if isinstance(source, str):
             source = ckpt.load_file(source)
-        matched, _ = ckpt.load_params_dict(
-            source, self._module.state_dict(), strict=strict, param_key=param_key
-        )
-        self._module.load_state_dict(matched, strict=strict)
+        template = self._module.state_dict()
+        matched, _ = ckpt.load_params_dict(source, template, strict=strict, param_key=param_key)
+        if not any(is_dtensor(v) for v in template.values()):
+            self._module.load_state_dict(matched, strict=strict)
+            return
+        # FSDP2: each rank copies its own first-dimension chunk into its shard
+        with torch.no_grad():
+            for k, v in matched.items():
+                t = template[k]
+                if is_dtensor(t):
+                    local = t.to_local()
+                    chunks = v.chunk(dist.world_size(), dim=0)
+                    piece = chunks[self.rank] if self.rank < len(chunks) else v[:0]
+                    local.copy_(piece.to(local.dtype))
+                else:
+                    t.copy_(v)
 
     # -- introspection and rank I/O ---------------------------------------------
 
@@ -328,6 +400,12 @@ class Stoke:
     def step_count(self) -> int:
         return self._step_count
 
-    def print_on_devices(self, msg: str = ""):
-        print(f"[rank {self.rank}/{self.world_size}] {msg}", flush=True)
+    def _prints(self, rank) -> bool:
+        return rank is None or self.rank in (rank if isinstance(rank, (list, tuple)) else [rank])
+
+    def print_on_devices(self, msg: str = "", rank: int | list | None = 0):
+        """Rank-stamped print on ``rank`` (Stoke's default, rank 0; a list
+        of ranks, or None for all)."""
+        if self._prints(rank):
+            print(f"[rank {self.rank}/{self.world_size}] {msg}", flush=True)
 

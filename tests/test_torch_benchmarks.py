@@ -55,6 +55,9 @@ def test_device_breakdown_families_and_idle_share(tmp_path):
         events.append({"cat": "kernel", "name": name, "ts": t, "dur": 10.0})
         t += 10.0
     events.append({"cat": "cpu_op", "name": "aten::mm", "ts": 0.0, "dur": 500.0})
+    events += [{"cat": "cuda_runtime", "name": n, "ts": 0.0, "dur": d}
+               for n, d in (("cudaStreamSynchronize", 40.0), ("cudaLaunchKernel", 3.0),
+                            ("cudaStreamSynchronize", 20.0), ("cudaMemcpyAsync", 5.0))]
     path = tmp_path / "trace.json"
     path.write_text(json.dumps({"traceEvents": events}))
     r = ps.device_breakdown(str(path))
@@ -69,6 +72,8 @@ def test_device_breakdown_families_and_idle_share(tmp_path):
     assert math.isclose(r["window_ms"], window / 1e3)
     assert math.isclose(r["busy_ms"], busy / 1e3)
     assert math.isclose(r["idle_share"], 1 - busy / window)
+    assert r["host_wait_ms"] == {"cudaStreamSynchronize": 0.06}  # async calls do not wait
+    assert r["top_host_ops_ms"] == [("aten::mm", 0.5)]
 
 
 def test_ladder_lm_rung_runs_tiny_on_cpu(capsys):

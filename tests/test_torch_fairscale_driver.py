@@ -7,7 +7,8 @@ one-device mesh, from the same weights (carried with
 f32 on both sides; the convolutions' gradients differ in sum order only,
 so losses agree to 2.4e-6 relative (held at 1e-5) and parameters to
 6e-8 (held at 1e-5, as the facade's trajectory test). Also: the twin's ``main`` end to end on the CPU and
-its refusals.
+its refusals (no card without ``--device cpu``; a world of more than one
+rank with no rendezvous to join).
 """
 
 import jax
@@ -79,6 +80,10 @@ def test_driver_twin_refuses_without_a_card_or_with_more_ranks(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         fairscale_ddp.main(["--synthetic", "--workers", "0"])
+    # more ranks train now (tests/test_torch_dist_launch.py), but only with a
+    # rendezvous to join: a world of 2 without MASTER_ADDR/MASTER_PORT refuses
     monkeypatch.setenv("WORLD_SIZE", "2")
-    with pytest.raises(NotImplementedError, match="distributed-runtime slice"):
+    monkeypatch.delenv("MASTER_ADDR", raising=False)
+    monkeypatch.delenv("MASTER_PORT", raising=False)
+    with pytest.raises(ValueError, match="MASTER_ADDR and MASTER_PORT"):
         fairscale_ddp.main(["--synthetic", "--workers", "0", "--device", "cpu"])

@@ -17,7 +17,8 @@ rounding noise, ~3e-6 apart. Parameters are held at 1e-5, 1% of a step.
 The fused update's flat norm and f32 bias correction move nothing past
 that.
 Also here: the driver twin end to end on the CPU, and the facade's
-refusals (no CUDA device without ``device="cpu"``, ``WORLD_SIZE > 1``).
+refusals (no CUDA device without ``device="cpu"``, ``WORLD_SIZE > 1``
+without a process group, a ``distributed`` backend the port lacks).
 """
 
 import jax
@@ -136,9 +137,19 @@ def test_facade_refuses_cuda_without_a_device(monkeypatch):
 
 
 def test_facade_refuses_more_than_one_process(monkeypatch):
+    # more than one process trains through a process group
+    # (tests/test_torch_dist_facade.py); without one, WORLD_SIZE=2 refuses
     monkeypatch.setenv("WORLD_SIZE", "2")
-    with pytest.raises(NotImplementedError, match="distributed-runtime slice"):
+    with pytest.raises(RuntimeError, match="no process group"):
         _facade(tstoke, SwinIR(**TOY), tlosses.FeatLoss(), device="cpu")
+
+
+@pytest.mark.parametrize("distributed", ["deepspeed", "horovod"])
+def test_facade_refuses_a_distributed_value_it_lacks(distributed):
+    with pytest.raises(NotImplementedError, match="is not ported"):
+        tstoke.Stoke(model=SwinIR(**TOY), loss=tlosses.FeatLoss(), device="cpu",
+                     optimizer=tstoke.StokeOptimizer("AdamW", {"lr": 1e-3}),
+                     distributed=distributed)
 
 
 def test_facade_refuses_a_fused_optimizer_on_zero2():
