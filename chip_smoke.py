@@ -21,8 +21,11 @@ Phases, each fatal on failure:
    bf16, with and without the shift mask, pack 1 and 2; the driver's
    training batches ([288, 6, 64, 10]: batch 18 at LR 32x32) and its
    validation batch ([160, 6, 64, 10]: 10 images) in f32, with and
-   without the mask. At pack 2 neither K1 nor K2 may be slower than its
-   plain version. Errors against the stated tolerance and device
+   without the mask; phase 12's SwinIR-M shapes (head dim 30: [576, 6, 64,
+   30], batch 16 at LR 48x48, and [288, 6, 128, 30] at pack 2) in f32 and
+   bf16, with and without the mask. At pack 2 at SwinIR-S's shape neither
+   K1 nor K2 may be slower than its plain version (at SwinIR-M's a slower
+   one is printed). Errors against the stated tolerance and device
    times (CUDA events around ten calls queued behind a spin kernel, so
    host-side launch cost is excluded) of the kernel, the plain version and
    one PyTorch library call (``scaled_dot_product_attention`` with a float
@@ -100,14 +103,32 @@ Phases, each fatal on failure:
    7's within ``DIST_BF16_TOL`` of phase 7's, tokens/s, and K3 twice a
    layer a step (the recompute), K4 and K5 once. Then the ESPCN driver
    for one epoch under ``python -m torch.distributed.run --standalone
-   --nproc_per_node 1``, whose exit code must be 0.
+   --nproc_per_node 1``, whose exit code must be 0;
+12. SwinIR-M: classical SwinIR-M x2 at full width (official
+   ``001_classicalSR_DIV2K_s48w8_SwinIR-M_x2``: depths 6x6, embed 180, 6
+   heads, window 8, the ``'pixelshuffle'`` tail; weights from seed 0)
+   through the driver's facade (AdamW, clip 0.1, one micro-batch a step)
+   and ``VGGFeatLoss()`` (seed 0), on batches of 16 LR 48x48 crops from a
+   ``PatchStore`` of 512 seeded uint8 patches (written with ``np.save``)
+   through ``PairedRandomAug`` and the facade's loader (four spawned
+   workers, the ``fastpipe`` collate, which must build, device prefetch
+   2): f32 and bf16 at ``attn_pack=1``, bf16 at ``attn_pack=2`` (5 steps
+   after 2 each), and one step under ``remat="full"`` for its peak, every
+   run on epoch 0's batches. Finite losses, moved weights, exactly 36 K1
+   and 36 K2 launches a step (72 K1 under full remat), and the losses of
+   full remat and of pack 2 against the run without (``M_SAME_LOSSES``); step ms, images/s, peak GiB, first and last
+   loss, a traced step's device busy ms and idle share, the prefetcher's
+   ``staged`` and ``overlap_fraction`` and the batch wait a step, beside
+   the card's name and power limit.
 
-Phases 5-9 and 11 note the shape, dtype and mask (or causality) of every
-launch; the run fails if one of them was not held against the plain
+Phases 5-9, 11 and 12 note the shape, dtype and mask (or causality) of
+every launch; the run fails if one of them was not held against the plain
 version in phase 3 or 4. The kernels' JSON lists all five kernels: K1/K2 from phase
 6's f32 run (its launch counts, and the errors and times of phase 3 at
 its shape), K3-K5 from phase 7 (its launch counts, and phase 4's numbers
-for the causal bf16 case). The last lines are that JSON, the
+for the causal bf16 case). The line before it, ``{"swinir_m_kernels":
+[...]}``, holds K1/K2 at phase 12's shapes (each type and pack: phase 3's
+errors and times, phase 12's launches a step). The last lines are that JSON, the
 ``nvidia-smi`` name and power limit, and ``{"ok": true, "device":
 {...}}``. Without a CUDA device, or without the rest of the repository
 beside it, it exits non-zero before printing a result.
@@ -151,6 +172,25 @@ REPLACES = {
     "flash_attn_dkv": "pytorch_distributedtraining_tpu/ops/pallas_attn.py:127",
 }
 BATCH, LR_SIZE, HEADS, WINDOW, DIM = 18, 64, 6, 8, 60  # the bench shape
+# phase 12: classical SwinIR-M x2 (official 001_classicalSR_DIV2K_s48w8_SwinIR-M_x2),
+# batch 16 of LR 48x48 crops (36 windows an image) from a PatchStore of 512 LR
+# 64x64 / HR 128x128 patches
+M_BATCH, M_LR, M_DIM, M_STORE_N, M_STORE_LR = 16, 48, 180, 512, 64
+SWINIR_M = dict(upscale=2, in_chans=3, img_size=M_LR, window_size=WINDOW, img_range=1.0,
+                depths=[6] * 6, embed_dim=M_DIM, num_heads=[HEADS] * 6, mlp_ratio=2,
+                upsampler="pixelshuffle", resi_connection="1conv")
+M_LAYERS = 36
+# runs that take the same batches (epoch 0) and the same math, so their
+# losses agree: full remat recomputes the f32 forward (sums in the same
+# order); pack 2 changes only the kernels' tiles, and in bf16 the rounding
+# of P (ROADMAP.md C.1). (run, run it follows, max relative difference)
+M_SAME_LOSSES = (("f32 remat full", "f32", 1e-4), ("bf16 pack 2", "bf16", 1e-2))
+M_RUNS = (  # name, precision, attn_pack, remat, timed steps, warm-up steps
+    ("f32", None, 1, "none", 5, 2),
+    ("bf16", "bf16", 1, "none", 5, 2),
+    ("bf16 pack 2", "bf16", 2, "none", 5, 2),
+    ("f32 remat full", None, 1, "full", 1, 1),
+)
 # the driver run of phase 4: 100 synthetic images at LR 32x32 (the driver's
 # SyntheticSRDataset), split 90 / 10: five training batches of 18 and one
 # validation batch of 10
@@ -433,13 +473,14 @@ def record_launches(seen: set):
         tfa.kernel_forward, tfa.kernel_dq, tfa.kernel_dkv = flash
 
 
-def _attention_inputs(dtype, with_mask: bool, batch: int, lr_size: int, seed: int):
+def _attention_inputs(dtype, with_mask: bool, batch: int, lr_size: int, seed: int,
+                      dim: int = DIM):
     import torch
 
     from pytorch_distributedtraining_tpu_torch.models.swinir import _shift_attn_mask
 
     g = torch.Generator(device="cuda").manual_seed(seed)
-    n, d = WINDOW * WINDOW, DIM // HEADS
+    n, d = WINDOW * WINDOW, dim // HEADS
     nw = (lr_size // WINDOW) ** 2
     bn = batch * nw
     q, k, v, do = (torch.randn(bn, HEADS, n, d, generator=g, device="cuda").to(dtype)
@@ -452,16 +493,17 @@ def _attention_inputs(dtype, with_mask: bool, batch: int, lr_size: int, seed: in
 
 
 def _kernel_case(dtype, with_mask: bool, pack: int, batch: int, lr_size: int,
-                 seed: int) -> dict:
+                 seed: int, dim: int = DIM) -> dict:
     """One configuration: errors of both kernels and the times of kernel,
-    plain version and library call, forward and backward."""
+    plain version and library call, forward and backward. ``checked`` holds
+    the launch signatures the errors cover (at pack > 1, the packed shape
+    the kernels see)."""
     import torch
     import torch.nn.functional as F
 
     from pytorch_distributedtraining_tpu_torch.ops import window_attn as twa
 
-    q, k, v, do, bias, mask = _attention_inputs(dtype, with_mask, batch, lr_size, seed)
-    checked = {launch_signature(kind, q, mask) for kind in ("fwd", "bwd")} if pack == 1 else set()
+    q, k, v, do, bias, mask = _attention_inputs(dtype, with_mask, batch, lr_size, seed, dim)
     want = [twa.plain_forward(q, k, v, bias, mask),
             *twa.plain_backward(q, k, v, bias, mask, do)]
     if pack == 1:
@@ -481,6 +523,7 @@ def _kernel_case(dtype, with_mask: bool, pack: int, batch: int, lr_size: int,
         do = do.reshape(-1, pack, h, n, d).transpose(1, 2).reshape(-1, h, pack * n, d)
         q, k, v, bias, mask = twa.pack_windows(q, k, v, bias, mask, pack)
         do = do.contiguous()
+    checked = {launch_signature(kind, q, mask) for kind in ("fwd", "bwd")}
     bn, h, n, d = q.shape
     args = (q, k, v, bias, mask)
     t = {
@@ -507,6 +550,7 @@ def _kernel_case(dtype, with_mask: bool, pack: int, batch: int, lr_size: int,
     bwd_bound = bound_ms(7 * q.numel() * esize + side + bias.numel() * 4,
                          10 * bn * h * n * n * d, dt, TENSOR_PEAK_FLOPS)
     return {"dtype": dt, "mask": with_mask, "pack": pack, "shape": tuple(q.shape),
+            "model": "SwinIR-M" if dim == M_DIM else "SwinIR-S",
             "errors": errors, "times": t, "fwd_bound": fwd_bound, "bwd_bound": bwd_bound,
             "checked": checked}
 
@@ -516,19 +560,24 @@ def phase_kernels(smi: str) -> list[dict]:
 
     from pytorch_distributedtraining_tpu_torch.ops import window_attn as twa
 
-    configs = [(dtype, with_mask, pack, BATCH, LR_SIZE)
+    configs = [(dtype, with_mask, pack, BATCH, LR_SIZE, DIM)
                for dtype in (torch.float32, torch.bfloat16)
                for with_mask in (False, True) for pack in (1, 2)]
-    configs += [(torch.float32, with_mask, 1, batch, DRIVER_LR)
+    configs += [(torch.float32, with_mask, 1, batch, DRIVER_LR, DIM)
                 for batch in (BATCH, DRIVER_VAL) for with_mask in (False, True)]
+    # phase 12's SwinIR-M x2: head dim 30, the kernels' DP = 32 instantiations
+    configs += [(dtype, with_mask, pack, M_BATCH, M_LR, M_DIM)
+                for dtype in (torch.float32, torch.bfloat16)
+                for with_mask in (False, True) for pack in (1, 2)]
     cases = []
-    for seed, (dtype, with_mask, pack, batch, lr_size) in enumerate(configs):
-        c = _kernel_case(dtype, with_mask, pack, batch, lr_size, seed)
+    for seed, (dtype, with_mask, pack, batch, lr_size, dim) in enumerate(configs):
+        c = _kernel_case(dtype, with_mask, pack, batch, lr_size, seed, dim)
         tol = TOL[c["dtype"]]
         worst = max(rel for _, rel in c["errors"].values())
         errs = " ".join(f"{nm} {a:.2e}/{r:.2e}" for nm, (a, r) in c["errors"].items())
         t = c["times"]
-        print(f"[kernels] {c['dtype']:8s} q {list(c['shape'])} (batch {batch}, LR {lr_size}) "
+        print(f"[kernels] {c['model']} {c['dtype']:8s} q {list(c['shape'])} (batch {batch}, "
+              f"LR {lr_size}) "
               f"mask={int(with_mask)} pack={pack} abs/rel err: {errs} (tol rel {tol:g})")
         print(f"[kernels]   ms fwd {t['fwd']:.4f} bwd {t['bwd']:.4f} | plain fwd "
               f"{t['plain_fwd']:.4f} bwd {t['plain_bwd']:.4f} | library fwd "
@@ -539,8 +588,11 @@ def phase_kernels(smi: str) -> list[dict]:
             raise SystemExit(f"kernel disagrees with its plain version: {c['errors']}")
         for kind, name in (("fwd", "K1"), ("bwd", "K2")):
             if pack > 1 and t[kind] > t[f"plain_{kind}"]:
-                raise SystemExit(f"{name} at pack {pack} ({t[kind]:.4f} ms) is slower than its "
-                                 f"plain version ({t[f'plain_{kind}']:.4f} ms)")
+                msg = (f"{name} at pack {pack} ({t[kind]:.4f} ms) is slower than its plain "
+                       f"version ({t[f'plain_{kind}']:.4f} ms)")
+                if c["model"] == "SwinIR-S":  # the shapes K1/K2 were tuned for
+                    raise SystemExit(msg)
+                print(f"[kernels]   {c['model']}: {msg}")
         if pack == 1:
             print(f"[kernels]   K1 / SDPA's forward: {t['fwd'] / t['lib_fwd']:.3f}, "
                   f"K2 / SDPA's backward: {t['bwd'] / t['lib_bwd']:.3f}")
@@ -853,8 +905,8 @@ def gated_step_faults(before: dict, after: dict) -> list[str]:
 def traced_call(fn) -> dict:
     """One call of ``fn`` under ``torch.profiler``: its device activities
     (kernels, copies, sets), the device's busy ms, the NCCL kernels among
-    them (names beginning ``nccl``) and the host's ms in blocking CUDA
-    calls."""
+    them (names beginning ``nccl``), the host's ms in blocking CUDA calls
+    and the device ms by kernel family."""
     import torch
 
     from pytorch_distributedtraining_tpu_torch.benchmarks.profile_swinir import device_breakdown
@@ -873,7 +925,7 @@ def traced_call(fn) -> dict:
     nccl = sum(1 for e in events
                if e.get("cat") == "kernel" and e.get("name", "").lower().startswith("nccl"))
     return {"activities": r["kernels"], "busy_ms": r["busy_ms"], "nccl": nccl,
-            "wait_ms": sum(r["host_wait_ms"].values())}
+            "wait_ms": sum(r["host_wait_ms"].values()), "families": r["device_ms_by_family"]}
 
 
 def kernels_per_call(fn) -> int:
@@ -1234,6 +1286,181 @@ def phase_distributed(smi: str, lm: dict, steps: int = 5, warmup: int = 2) -> di
     return out
 
 
+def _write_patch_store(path: Path, seed: int = 0) -> None:
+    """A PatchStore of M_STORE_N seeded uint8 patches, LR M_STORE_LR and HR
+    twice that, written with np.save (PatchStore.build decodes images, and
+    the card's machine has no PIL)."""
+    import numpy as np
+
+    g = np.random.default_rng(seed)
+    path.mkdir(parents=True, exist_ok=True)
+    lr = M_STORE_LR
+    np.save(path / "lr.npy", g.integers(0, 256, (M_STORE_N, lr, lr, 3), dtype=np.uint8))
+    np.save(path / "hr.npy", g.integers(0, 256, (M_STORE_N, 2 * lr, 2 * lr, 3), dtype=np.uint8))
+
+
+def _swinir_m_run(ds, loader, loss, fp16, pack: int, remat: str, steps: int,
+                  warmup: int) -> tuple[dict, object]:
+    """SwinIR-M x2 at full width through the driver's facade (AdamW, clip
+    0.1, one micro-batch a step) on batches of ``loader``, or, when it is
+    None, of a new facade loader over ``ds`` (four spawned persistent
+    workers, prefetching 2): step ms, images/s, peak GiB, losses, weights
+    moved, K1/K2 launches of the timed steps, the batch wait, and a traced
+    step's device busy ms; and the loader, for the next run."""
+    import torch
+
+    from pytorch_distributedtraining_tpu_torch.drivers import stoke_ddp
+    from pytorch_distributedtraining_tpu_torch.models import SwinIR
+    from pytorch_distributedtraining_tpu_torch.ops import window_attn as twa
+
+    model = SwinIR(**SWINIR_M, attn_impl="pallas", attn_pack=pack, remat=remat,
+                   generator=torch.Generator().manual_seed(0))
+    s = stoke_ddp.build_stoke(model, fp16=fp16, batch_size=M_BATCH, grad_clip=0.1, loss=loss,
+                              grad_accum_steps=1, verbose=False)
+    if loader is None:
+        loader = s.DataLoader(ds, num_workers=4, multiprocessing_context="spawn",
+                              persistent_workers=True, device_prefetch=2)
+    w0 = s.model_access.conv_first.weight.detach().clone()
+    t_iter = time.perf_counter()
+    loader.set_epoch(0)  # every run takes the same batches, so their losses compare
+    it = iter(loader)
+    losses, waits = [], []
+
+    def one_step():
+        t0 = time.perf_counter()
+        x, y = next(it)
+        waits.append(time.perf_counter() - t0)
+        loss_ = s.loss(s.model(x), y)
+        s.backward(loss_)
+        s.step()
+        losses.append(loss_.detach())
+
+    for _ in range(warmup):
+        one_step()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    twa.reset_launch_counts()
+    timed_from, waited = len(waits), it.wait_s
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        one_step()
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    timed_wait = it.wait_s - waited
+    launches = twa.fwd_launches, twa.bwd_launches
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    traced = traced_call(one_step)
+    out = {
+        "step_ms": elapsed / steps * 1e3, "images_per_s": M_BATCH * steps / elapsed,
+        "peak_gib": peak, "losses": [v.item() for v in losses], "launches": launches,
+        "moved": (s.model_access.conv_first.weight - w0).abs().max().item(),
+        "wait_ms": sum(waits[timed_from:timed_from + steps]) / steps * 1e3,
+        "staged": it.staged, "overlap": it.overlap_fraction(time.perf_counter() - t_iter),
+        "timed_overlap": 1 - timed_wait / elapsed,
+        "busy_ms": traced["busy_ms"], "activities": traced["activities"], "steps": steps,
+        "families": traced["families"],
+        "params": sum(p.numel() for p in model.parameters()), "pack": pack, "remat": remat,
+        "dtype": "bfloat16" if fp16 == "bf16" else "float32",
+    }
+    it.close()
+    return out, loader
+
+
+def phase_swinir_m(smi: str) -> dict:
+    """Phase 12: classical SwinIR-M x2 at full width, trained through the
+    facade from a PatchStore with PairedRandomAug, the facade's loader
+    (four spawned workers, fastpipe collate, device prefetch 2) and
+    VGGFeatLoss, in f32 and bf16 at pack 1, bf16 at pack 2, and one step
+    under full remat for its peak."""
+    import math
+
+    import torch
+
+    from pytorch_distributedtraining_tpu_torch.csrc import fastpipe
+    from pytorch_distributedtraining_tpu_torch.data import PairedRandomAug, PatchStore
+    from pytorch_distributedtraining_tpu_torch.losses import VGGFeatLoss
+
+    t_phase = time.perf_counter()
+    if not fastpipe.available():
+        fastpipe.build()  # raises with g++'s output
+    (ROOT / "build").mkdir(exist_ok=True)
+    results = {}
+    loader = None
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as store_dir:
+        _write_patch_store(Path(store_dir))
+        ds = PatchStore(store_dir, PairedRandomAug(scale=2, crop_lr=M_LR))
+        loss = VGGFeatLoss(seed=0)
+        try:
+            for name, fp16, pack, remat, steps, warmup in M_RUNS:
+                r, loader = _swinir_m_run(ds, loader, loss, fp16, pack, remat, steps, warmup)
+                torch.cuda.empty_cache()
+                per = tuple(n / steps for n in r["launches"])
+                idle = 1 - r["busy_ms"] / r["step_ms"]
+                print(f"[swinir-m] {name}: {r['params']} parameters, step {r['step_ms']:.2f} ms, "
+                      f"{r['images_per_s']:.1f} images/s (batch {M_BATCH}, LR {M_LR} -> HR "
+                      f"{2 * M_LR}, {steps} steps after {warmup}), peak {r['peak_gib']:.2f} GiB, "
+                      f"loss first {r['losses'][0]:.6f} last {r['losses'][-1]:.6f}, weights "
+                      f"moved {r['moved']:.2e}; a traced step: device busy {r['busy_ms']:.2f} "
+                      f"ms, {r['activities']} device activities, idle share {idle:.3f}; "
+                      f"launches a step K1 {per[0]:g} K2 {per[1]:g}; prefetcher staged "
+                      f"{r['staged']}, overlap_fraction {r['overlap']:.3f} since its first batch "
+                      f"was asked for ({r['timed_overlap']:.3f} over the timed steps), batch "
+                      f"wait {r['wait_ms']:.3f} ms a step | {smi}")
+                top = ", ".join(f"{k} {v:.2f}" for k, v in list(r["families"].items())[:6])
+                print(f"[swinir-m]   {name}: device ms of the traced step by family: {top}")
+                if not all(math.isfinite(v) for v in r["losses"]) or not r["moved"] > 0:
+                    raise SystemExit(f"SwinIR-M {name}: losses {r['losses']} or weights moved "
+                                     f"{r['moved']}")
+                # one K1 and one K2 per Swin layer a step (one micro-batch);
+                # full remat runs each forward twice
+                want = ((2 if remat == "full" else 1) * M_LAYERS * steps, M_LAYERS * steps)
+                if r["launches"] != want:
+                    raise SystemExit(f"SwinIR-M {name}: launches {r['launches']}, expected {want}")
+                results[name] = {**r, "idle": idle}
+        finally:
+            if loader is not None:
+                loader.shutdown_workers()
+    for name, ref, tol in M_SAME_LOSSES:
+        got = results[name]["losses"]
+        want = results[ref]["losses"][:len(got)]
+        rel = max(abs(a - b) / abs(b) for a, b in zip(got, want))
+        print(f"[swinir-m] {name} against {ref} on the same batches: losses max rel {rel:.2e} "
+              f"(tol {tol:g})")
+        if not rel <= tol:
+            raise SystemExit(f"SwinIR-M {name} departs from {ref}: {got} vs {want}")
+    print(f"[swinir-m] phase {time.perf_counter() - t_phase:.1f} s")
+    return results
+
+
+def swinir_m_kernels(cases: list[dict], runs: dict) -> list[dict]:
+    """The kernels line's entries at phase 12's shapes, one per (kernel,
+    type, pack): phase 3's errors (worst of masked and unmasked) and times
+    (the masked case), and the launches a step of the phase-12 run at that
+    type and pack (0 where none ran)."""
+    out = []
+    for c in cases:
+        if c["model"] != "SwinIR-M" or not c["mask"]:
+            continue
+        pair = [d for d in cases if d["model"] == "SwinIR-M" and d["dtype"] == c["dtype"]
+                and d["pack"] == c["pack"]]
+        run = next((r for r in runs.values() if r["dtype"] == c["dtype"]
+                    and r["pack"] == c["pack"] and r["remat"] == "none"), None)
+        t = c["times"]
+        for name, key, grads, i in (("window_attn_fwd", "fwd", ("o",), 0),
+                                    ("window_attn_bwd", "bwd", ("dq", "dk", "dv", "dbias"), 1)):
+            bound = c[f"{key}_bound"]
+            out.append({
+                "name": name, "route": "cuda", "source": SOURCES["window_attn"],
+                "replaces": REPLACES[name], "dtype": c["dtype"], "pack": c["pack"],
+                "shape": list(c["shape"]),
+                "launches": 0 if run is None else run["launches"][i] / run["steps"],
+                "max_abs_err": max(d["errors"][g][0] for d in pair for g in grads),
+                "ms": t[key], "plain_ms": t[f"plain_{key}"], "bound_ms": bound[0],
+                "bound_by": bound[1], "library_ms": t[f"lib_{key}"],
+            })
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1257,8 +1484,9 @@ def main() -> int:
     phase_optimizer(smi)
     with record_launches(seen):
         phase_distributed(smi, lm)
+        m_runs = phase_swinir_m(smi)
     checked = set().union(*(c["checked"] for c in cases + flash_cases))
-    print(f"[shapes] phases 5-9 and 11 launched {len(seen)} kinds of (kernel, q shape, dtype, mask "
+    print(f"[shapes] phases 5-9, 11 and 12 launched {len(seen)} kinds of (kernel, q shape, dtype, mask "
           f"windows or causal): {sorted(seen, key=str)}")
     if seen - checked:
         raise SystemExit(f"launched on a driven path but never held against the plain "
@@ -1302,6 +1530,7 @@ def main() -> int:
             "library_ms": t[lib],
         })
     print(f"[done] {time.perf_counter() - t0:.1f} s")
+    print(json.dumps({"swinir_m_kernels": swinir_m_kernels(cases, m_runs)}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -10,14 +10,16 @@ that CPU tensors take.
 
 The port covers the two reference drivers and the ladder's GPT-2 rung,
 on one GPU or, one process each, on many: SwinIR-S x2 through the Stoke
-facade (``drivers.stoke_ddp``), ESPCN through ``parallel.TrainStep``
+facade (``drivers.stoke_ddp``; SwinIR's classical and real-SR tails and
+the VGG-16 perceptual loss too), ESPCN through ``parallel.TrainStep``
 (``drivers.fairscale_ddp``) and GPT-2 125M (``benchmarks.ladder``), with
 ``ops``, ``models``, ``interop``, ``losses``, ``metrics``, ``optim``
 (per-leaf AdamW and SGD, the flat ``FusedAdamW``, the schedules, all
 shardable), ``precision``, ``runtime`` (the process group and the device
 mesh), ``parallel`` (the DDP and ZeRO-1/2/3 policies, remat, the train
-state and the steps), ``data``, ``checkpoint``, ``observe`` and
-``stoke``. ``python -m torch.distributed.run --standalone
+state and the steps), ``data`` (patch stores, paired augmentation,
+device prefetch; the host collate of ``csrc/fastpipe.cpp``, built with
+``g++``), ``checkpoint``, ``observe`` and ``stoke``. ``python -m torch.distributed.run --standalone
 --nproc_per_node N -m pytorch_distributedtraining_tpu_torch.drivers.
 stoke_ddp`` trains on N GPUs over NCCL (``--device cpu``: gloo ranks).
 

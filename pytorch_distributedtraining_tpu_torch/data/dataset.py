@@ -1,9 +1,10 @@
-"""Datasets: paired-image SR data, synthetic pairs, random_split.
+"""Datasets: paired-image SR data, patch stores, synthetic pairs, random_split.
 
 Counterpart of ``pytorch_distributedtraining_tpu/data/dataset.py``; numpy
-only, so samples, splits and synthetic images are the JAX package's, value
-for value. Samples are ``(lr, hr)`` NHWC-style ``(H, W, 3)`` float32 arrays
-in [0, 1]. ``PatchStore`` is not ported yet.
+only (``PatchStore`` normalises through the host kernel of
+``csrc.fastpipe``), so samples, splits and synthetic images are the JAX
+package's, value for value. Samples are ``(lr, hr)`` NHWC-style
+``(H, W, 3)`` float32 arrays in [0, 1].
 """
 
 from __future__ import annotations
@@ -102,6 +103,88 @@ class CustomDataset(Dataset):
     def __getitem__(self, idx):
         lr = _load_image(self.input_files[idx])
         hr = _load_image(self.target_files[idx])
+        if self.transform is not None:
+            lr, hr = self.transform(lr, hr, idx)
+        return lr, hr
+
+
+class PatchStore(Dataset):
+    """Decode-free paired dataset over pre-extracted ``.npy`` patch stores.
+
+    ``PatchStore.build`` decodes an image-folder pair once into uint8
+    ``lr.npy``/``hr.npy`` arrays; training then reads patches through
+    read-only memmaps (no page-in of the whole store) and normalises them
+    to f32 in [0, 1] with ``csrc.fastpipe.normalize_u8``. Samples come out
+    ``(lr_HWC, hr_HWC)`` as from :class:`CustomDataset`, through
+    ``transform`` (e.g. ``transforms.PairedRandomAug``) when one is set.
+    A pickled store (a loader's worker process) reopens its memmaps
+    rather than carrying the arrays.
+    """
+
+    LR_NAME, HR_NAME = "lr.npy", "hr.npy"
+
+    def __init__(self, store_dir: str, transform=None):
+        self.transform = transform
+        self.store_dir = store_dir
+        lr_path = os.path.join(store_dir, self.LR_NAME)
+        hr_path = os.path.join(store_dir, self.HR_NAME)
+        if not (os.path.exists(lr_path) and os.path.exists(hr_path)):
+            raise FileNotFoundError(
+                f"no patch store under {store_dir}: create one with "
+                "PatchStore.build(input_path, target_path, store_dir)"
+            )
+        self._open()
+
+    def _open(self) -> None:
+        self._lr = np.load(os.path.join(self.store_dir, self.LR_NAME), mmap_mode="r")
+        self._hr = np.load(os.path.join(self.store_dir, self.HR_NAME), mmap_mode="r")
+        if len(self._lr) != len(self._hr):
+            raise ValueError(f"corrupt store: {len(self._lr)} lr vs {len(self._hr)} hr")
+
+    def __getstate__(self):
+        state = dict(self.__dict__)
+        del state["_lr"], state["_hr"]
+        return state
+
+    def __setstate__(self, state):
+        self.__dict__.update(state)
+        self._open()
+
+    @classmethod
+    def build(cls, input_path: str, target_path: str, store_dir: str) -> "PatchStore":
+        """One-time extraction: decode a :class:`CustomDataset` image-folder
+        pair into uint8 ``.npy`` stores (all patches must share a shape),
+        written straight to disk-backed arrays."""
+        src = CustomDataset(input_path, target_path)
+        os.makedirs(store_dir, exist_ok=True)
+        lr0, hr0 = src[0]
+        lr = np.lib.format.open_memmap(os.path.join(store_dir, cls.LR_NAME), mode="w+",
+                                       shape=(len(src), *lr0.shape), dtype=np.uint8)
+        hr = np.lib.format.open_memmap(os.path.join(store_dir, cls.HR_NAME), mode="w+",
+                                       shape=(len(src), *hr0.shape), dtype=np.uint8)
+        for i in range(len(src)):
+            a, b = src[i]
+            if a.shape != lr0.shape or b.shape != hr0.shape:
+                raise ValueError(
+                    f"patch {i} shape {a.shape}/{b.shape} differs from "
+                    f"{lr0.shape}/{hr0.shape}; PatchStore needs uniform patches (pre-crop first)"
+                )
+            lr[i] = np.round(a * 255.0)
+            hr[i] = np.round(b * 255.0)
+        lr.flush()
+        hr.flush()
+        del lr, hr
+        return cls(store_dir)
+
+    def __len__(self):
+        return len(self._lr)
+
+    def __getitem__(self, idx):
+        from ..csrc import fastpipe
+
+        # one thread: the loader's workers already spread samples over cores
+        lr = fastpipe.normalize_u8(np.asarray(self._lr[idx]), mean=0.0, std=1.0, n_threads=1)
+        hr = fastpipe.normalize_u8(np.asarray(self._hr[idx]), mean=0.0, std=1.0, n_threads=1)
         if self.transform is not None:
             lr, hr = self.transform(lr, hr, idx)
         return lr, hr

@@ -37,6 +37,7 @@ from __future__ import annotations
 import argparse
 import functools
 import os
+import sys
 
 import torch
 
@@ -63,6 +64,13 @@ EPOCHS = 2
 INPUT_PATH = "Dataset/Flickr2K/Patches/LRPatch_256/"
 TARGET_PATH = "Dataset/Flickr2K/Patches/512/"
 
+
+
+def _line(*parts) -> None:
+    """``print(*parts)`` as one write: under a launcher every rank shares the
+    output, and a line written in pieces can interleave with another rank's."""
+    sys.stdout.write(" ".join(str(p) for p in parts) + "\n")
+    sys.stdout.flush()
 
 def build_model(seed: int = 0) -> Net:
     """``Net(upscale_factor=2)`` with weights from ``seed`` (the global RNG
@@ -128,8 +136,8 @@ def _train(opt: argparse.Namespace, device: torch.device, model: Net | None) -> 
     try:
         # probe batch (Fairscale-DDP.py:67-71)
         x, y = next(iter(training_dataloader))
-        print("Length of Training dataset - ", len(train_dataset))
-        print("--Shape--", tuple(x.shape), tuple(y.shape))
+        _line("Length of Training dataset - ", len(train_dataset))
+        _line("--Shape--", tuple(x.shape), tuple(y.shape))
 
         print("===> Building model")
         # OSS(AdamW) + ShardedDDP (:78-89): ZeRO-2 over the world's ranks
@@ -147,7 +155,7 @@ def _train(opt: argparse.Namespace, device: torch.device, model: Net | None) -> 
                 loss = step(batch)["loss"]
                 if iteration % 25 == 0:
                     print(float(loss))
-            print("For Epoch {}, loss: {:.2f}".format(e, float(loss)))
+            _line("For Epoch {}, loss: {:.2f}".format(e, float(loss)))
     finally:
         training_dataloader.shutdown_workers()
     return None if loss is None else float(loss)

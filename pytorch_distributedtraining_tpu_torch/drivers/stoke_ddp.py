@@ -15,11 +15,14 @@ On N GPUs, one process each (NCCL; ``--device cpu`` for gloo ranks)::
 
 The facade's flags are the reference's, DDP with Fairscale OSS and
 ShardedDDP (ZeRO-2) and ``broadcast_fp16``; each rank trains on its own
-shard of the data, and rank 0 writes the checkpoints.
+shard of the data, the facade's loader copies two batches ahead to the
+device (``$GRAFT_DEVICE_PREFETCH``), and rank 0 writes the checkpoints.
+``--remat`` checkpoints each Swin layer under a named policy, as the JAX
+driver's does.
 
 It runs on the GPU (``--device cuda``, the default) and refuses to start
 without one unless ``--device cpu`` is given. The TPU-only flags of the
-JAX driver (``--scan-layers``, ``--remat``, ``--pp``, ``--wire``,
+JAX driver (``--scan-layers``, ``--pp``, ``--wire``,
 ``--fp8``, ``--plan``, ``--analyze``, ``--trace``, ``--numerics``,
 ``--opcost``, ``--capture``, ``--portable-ckpt``) are not ported.
 """
@@ -42,6 +45,7 @@ from pytorch_distributedtraining_tpu_torch.losses import feat_loss
 from pytorch_distributedtraining_tpu_torch.models import SwinIR
 from pytorch_distributedtraining_tpu_torch.observe import wandb
 from pytorch_distributedtraining_tpu_torch.optim import OneCycleLR, ReduceLROnPlateau
+from pytorch_distributedtraining_tpu_torch.parallel.remat import resolve_remat
 from pytorch_distributedtraining_tpu_torch.runtime import dist
 from pytorch_distributedtraining_tpu_torch.stoke import (
     AMPConfig,
@@ -164,16 +168,20 @@ def build_parser():
                         help="precision: amp (fp16+scaler) or bf16")
     parser.add_argument("--device", type=str, default="cuda", choices=["cuda", "cpu"],
                         help="train on the GPU (default; fails without one) or the CPU")
+    parser.add_argument("--remat", type=str, default=None,
+                        help="activation remat policy per Swin layer: none/full/dots/offload "
+                             "(default: $GRAFT_REMAT or none)")
     return parser
 
 
-def build_model(seed: int = 0) -> SwinIR:
-    """SwinIR-S x2 as the reference driver configures it, weights from ``seed``."""
+def build_model(seed: int = 0, remat: str | None = None) -> SwinIR:
+    """SwinIR-S x2 as the reference driver configures it, weights from
+    ``seed``, each Swin layer under the ``remat`` policy."""
     return SwinIR(
         upscale=2, in_chans=3, img_size=64, window_size=8,
         img_range=1.0, depths=[6, 6, 6, 6], embed_dim=60,
         num_heads=[6, 6, 6, 6], mlp_ratio=2,
-        upsampler="pixelshuffledirect", resi_connection="1conv",
+        upsampler="pixelshuffledirect", resi_connection="1conv", remat=remat,
         generator=torch.Generator().manual_seed(seed),
     )
 
@@ -181,11 +189,13 @@ def build_model(seed: int = 0) -> SwinIR:
 def build_stoke(model: torch.nn.Module, *, lr: float = 0.001, weight_decay: float = 1e-4,
                 grad_clip: float = 0.1, batch_size: int = 18, fp16: str | None = None,
                 device: str = "cuda", verbose: bool = True, oss: bool = True,
-                sddp: bool = True, fsdp: bool = False) -> Stoke:
+                sddp: bool = True, fsdp: bool = False, loss=feat_loss,
+                grad_accum_steps: int = 2) -> Stoke:
     """The driver's facade: ``feat_loss``, AdamW, global-norm clip,
     ``grad_accum_steps=2``, DDP with OSS and SDDP (ZeRO-2) and
     ``broadcast_fp16``, over the process group when there is one.
-    ``oss``/``sddp``/``fsdp`` set the Fairscale flags for another layout."""
+    ``oss``/``sddp``/``fsdp`` set the Fairscale flags for another layout,
+    ``loss`` and ``grad_accum_steps`` another objective and accumulation."""
     local_rank = os.getenv("LOCAL_RANK")
     ddp_config = DDPConfig(
         local_rank=int(local_rank) if local_rank not in (None, "None") else None,
@@ -204,7 +214,7 @@ def build_stoke(model: torch.nn.Module, *, lr: float = 0.001, weight_decay: floa
         model=model,
         verbose=verbose,
         optimizer=optimizer,
-        loss=feat_loss,
+        loss=loss,
         batch_size_per_device=batch_size,
         gpu=True,
         fp16=fp16,
@@ -212,7 +222,7 @@ def build_stoke(model: torch.nn.Module, *, lr: float = 0.001, weight_decay: floa
         fairscale_oss=oss,
         fairscale_sddp=sddp,
         fairscale_fsdp=fsdp,
-        grad_accum_steps=2,
+        grad_accum_steps=grad_accum_steps,
         configs=[AMPConfig(init_scale=2.0**14), ddp_config,
                  FairscaleOSSConfig(broadcast_fp16=True)],
         grad_clip=ClipGradNormConfig(max_norm=grad_clip, norm_type=2.0),
@@ -235,8 +245,12 @@ def _main(opt):
     epochs = opt.nEpochs
 
     print("===> Building model")
+    remat = resolve_remat(opt.remat if opt.remat is not None
+                          else os.environ.get("GRAFT_REMAT", "none"))
+    if remat != "none":
+        print(f"===> remat={remat}")
     stoke_model = build_stoke(
-        build_model(), lr=opt.lr, weight_decay=opt.weight_decay, grad_clip=opt.grad_clip,
+        build_model(remat=remat), lr=opt.lr, weight_decay=opt.weight_decay, grad_clip=opt.grad_clip,
         batch_size=opt.batchSize, fp16=opt.fp16, device=opt.device,
     )
 

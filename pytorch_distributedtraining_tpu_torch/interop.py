@@ -1,13 +1,16 @@
-"""Weight carry-over from the JAX package's SwinIR, GPT-2 and ESPCN into the port's.
+"""Weight carry-over from the JAX package's models into the port's, and
+torch checkpoint files.
 
-Counterpart of the SwinIR and GPT-2 parts of ``pytorch_distributedtraining_
-tpu/interop.py`` (``torch_swinir_state_dict``, ``torch_gpt2_state_dict`` and
-the ``SWINIR_EXPORT_KEY_MAP`` / ``GPT2_EXPORT_KEY_MAP`` beside the JAX
-models): the same key rewrites, kept here as a copy so the port imports
-nothing of the JAX package. The input is the JAX model's ``params`` as a
-nested dict of numpy arrays (``jax.device_get`` of the tree); the output
-strict-loads into ``models.swinir.SwinIR``, ``models.gpt2.GPT2`` or
-``models.sr_espcn.Net``.
+Counterpart of the SwinIR, GPT-2 and VGG-16 parts of ``pytorch_distributed
+training_tpu/interop.py`` (``torch_swinir_state_dict``,
+``torch_gpt2_state_dict``, ``load_torch_checkpoint`` and the
+``SWINIR_EXPORT_KEY_MAP`` / ``GPT2_EXPORT_KEY_MAP`` / VGG ``TORCH_KEY_MAP``
+beside the JAX models): the same key rewrites, kept here as a copy so the
+port imports nothing of the JAX package. The input is the JAX model's
+``params`` as a nested dict of numpy arrays (``jax.device_get`` of the
+tree); the output strict-loads into ``models.swinir.SwinIR`` (any of its
+three tails, from the per-layer or the ``scan_layers=True`` layout),
+``models.gpt2.GPT2``, ``models.sr_espcn.Net`` or ``models.vgg.VGG16Features``.
 """
 
 from __future__ import annotations
@@ -17,6 +20,7 @@ import re
 import numpy as np
 import torch
 
+from .models.scan_utils import unstack_swinir_layer_params
 from .models.swinir import _relative_position_index, _shift_attn_mask
 
 # flat JAX key -> official torch-SwinIR name; leaf-module renames first,
@@ -28,6 +32,10 @@ SWINIR_KEY_RULES = [
     (r"^rstb_(\d+)/conv/", r"layers.\1.conv."),
     (r"^patch_norm/", "patch_embed.norm."),
     (r"^conv_up/", "upsample.0."),
+    # classical 'pixelshuffle' and real-SR 'nearest+conv' tails; conv_up1,
+    # conv_up2, conv_hr and conv_last keep their names
+    (r"^conv_before_up/", "conv_before_upsample.0."),
+    (r"^up_conv_(\d+)/", lambda m: f"upsample.{2 * int(m.group(1))}."),
 ]
 
 
@@ -69,10 +77,13 @@ def swinir_state_dict_from_jax(params: dict, img_size: int = 64) -> dict[str, to
     in]``, LayerNorm ``scale`` -> ``weight``. The buffers the port registers
     (``relative_position_index`` on every block, ``attn_mask`` on shifted
     blocks at ``img_size``) are generated, with the window size read from
-    the bias tables' shape. ``params`` may be nested under ``"params"``.
+    the bias tables' shape. ``params`` may be nested under ``"params"``, and
+    may come from a ``scan_layers=True`` model (stacked ``layers/{a,b}``
+    pairs), which is unstacked first.
     """
     if set(params) == {"params"}:
         params = params["params"]
+    params = unstack_swinir_layer_params(params)
     sd: dict[str, torch.Tensor] = {}
     window = None
     blocks = []
@@ -136,3 +147,48 @@ def espcn_state_dict_from_jax(params: dict) -> dict[str, torch.Tensor]:
         name = f"conv{int(m.group(1)) + 1}.{'weight' if m.group(2) == 'kernel' else 'bias'}"
         sd[name] = torch.from_numpy(np.array(a, dtype=np.float32, copy=True))
     return sd
+
+
+def vgg16_state_dict_from_jax(params: dict) -> dict[str, torch.Tensor]:
+    """JAX ``VGG16Features`` ``params`` -> state dict of the port's
+    ``VGG16Features``: ``conv_N`` becomes ``features.N`` (torchvision's
+    index), kernels HWIO -> OIHW. ``params`` may be nested under
+    ``"params"``."""
+    if set(params) == {"params"}:
+        params = params["params"]
+    sd: dict[str, torch.Tensor] = {}
+    for key, a in _flatten(params).items():
+        m = re.fullmatch(r"conv_(\d+)/(kernel|bias)", key)
+        if m is None:
+            raise ValueError(f"not a VGG16Features parameter: {key!r}")
+        if m.group(2) == "kernel":
+            a = np.transpose(a, (3, 2, 0, 1))
+        name = f"features.{m.group(1)}.{'weight' if m.group(2) == 'kernel' else 'bias'}"
+        sd[name] = torch.from_numpy(np.array(a, dtype=np.float32, copy=True))
+    return sd
+
+
+CHECKPOINT_WRAPPERS = ("params", "state_dict", "model")
+
+
+def load_torch_checkpoint(path: str, key: str | None = None) -> dict[str, torch.Tensor]:
+    """A ``.pth``/``.pt`` file -> its flat state dict, read with
+    ``torch.load(weights_only=True)`` on the CPU.
+
+    The file may hold the state dict itself or a wrapper around it: under
+    ``key`` when given and present (official real-SR SwinIR files nest
+    under ``'params_ema'``), else under the first of
+    :data:`CHECKPOINT_WRAPPERS` it holds (official classical SwinIR files
+    nest under ``'params'``; torchvision's are bare).
+    """
+    obj = torch.load(path, map_location="cpu", weights_only=True)
+    if not isinstance(obj, dict):
+        raise ValueError(f"{path}: expected a state dict or a wrapper dict, got {type(obj)}")
+    for k in ((key,) if key is not None and key in obj else CHECKPOINT_WRAPPERS):
+        if isinstance(obj.get(k), dict):
+            obj = obj[k]
+            break
+    bad = [k for k, v in obj.items() if not isinstance(v, torch.Tensor)]
+    if bad:
+        raise ValueError(f"{path}: not a state dict; non-tensor entries {bad[:5]}")
+    return obj

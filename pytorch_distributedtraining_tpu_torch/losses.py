@@ -1,4 +1,4 @@
-"""Losses: MSE, L1 and the perceptual ``feat_loss``.
+"""Losses: MSE, L1, the perceptual ``feat_loss`` and ``VGGFeatLoss``.
 
 Counterpart of ``pytorch_distributedtraining_tpu/losses.py``. ``FeatLoss``
 builds the same fixed random filters from the same host-numpy seed path, so
@@ -7,7 +7,11 @@ the port's loss is the JAX loss, value for value. Images are NHWC.
 The filters are 3x3 stride-2 convs with XLA's ``SAME`` padding. On an even
 size XLA pads 0 before and 1 after; ``padding=1`` in torch would pad 1 on
 both sides and shift the sampling grid. ``same_pad`` computes XLA's split
-explicitly. ``VGGFeatLoss`` is not ported yet.
+explicitly.
+
+``VGGFeatLoss`` compares VGG-16 activations (``models.vgg``) at five ReLU
+taps with L1 and mixes in pixel L1, as the JAX ``VGGFeatLoss``. Its VGG
+parameters are frozen: they take no gradient and belong to no optimizer.
 """
 
 from __future__ import annotations
@@ -79,6 +83,52 @@ class FeatLoss:
         ft = _feature_pyramid(targets, filters)
         feat = sum(torch.mean(torch.abs(a - b)) for a, b in zip(fo, ft))
         return feat / len(fo) + self.pixel_weight * l1_loss(outputs, targets)
+
+
+class VGGFeatLoss:
+    """VGG-16 perceptual loss: ``feat_weight`` x the mean over the taps of
+    the L1 between the feature maps of outputs and targets, plus
+    ``pixel_weight`` x the pixel L1. Images are NHWC in [0, 1].
+
+    ``params`` is a state dict of :class:`~.models.vgg.VGG16Features`
+    (``interop.vgg16_state_dict_from_jax`` carries the JAX model's over);
+    without one the column is initialised from ``torch.Generator`` seed
+    ``seed`` (the JAX loss's no-argument form initialises from
+    ``jax.random.PRNGKey(seed)``: same distribution, other values).
+    :meth:`from_torch` loads a torchvision ``vgg16`` file. The column lives
+    on ``device`` (the GPU unless ``"cpu"`` is asked for).
+    """
+
+    def __init__(self, params: dict | None = None, feat_weight: float = 1.0,
+                 pixel_weight: float = 1.0, seed: int = 0,
+                 device: str | torch.device = "cuda"):
+        from .models.vgg import VGG16Features
+        from .runtime.dist import resolve_device
+
+        self.net = VGG16Features(generator=torch.Generator().manual_seed(seed))
+        if params is not None:
+            self.net.load_state_dict(params, strict=True)
+        self.net.requires_grad_(False).eval()
+        self.net.to(resolve_device(device))
+        self.feat_weight = feat_weight
+        self.pixel_weight = pixel_weight
+
+    @classmethod
+    def from_torch(cls, path: str, **kw) -> "VGGFeatLoss":
+        """Load torchvision ``vgg16`` weights (a bare state dict or one
+        wrapped as ``interop.load_torch_checkpoint`` reads it); strict on
+        the conv leaves, the ``classifier.*`` head dropped."""
+        from .interop import load_torch_checkpoint
+
+        sd = {k: v for k, v in load_torch_checkpoint(path).items()
+              if not k.startswith("classifier.")}
+        return cls(params=sd, **kw)
+
+    def __call__(self, outputs, targets):
+        fo = self.net(outputs)
+        ft = self.net(targets)
+        feat = sum(torch.mean(torch.abs(a - b)) for a, b in zip(fo, ft)) / len(fo)
+        return self.feat_weight * feat + self.pixel_weight * l1_loss(outputs, targets)
 
 
 def __getattr__(name):

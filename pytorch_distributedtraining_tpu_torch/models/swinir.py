@@ -1,24 +1,59 @@
 """SwinIR: shifted-window attention super-resolution transformer.
 
-Counterpart of ``pytorch_distributedtraining_tpu/models/swinir.py`` with the
-``pixelshuffledirect`` tail (SwinIR-S, the reference's configuration)::
+Counterpart of ``pytorch_distributedtraining_tpu/models/swinir.py`` with its
+three tails:
 
-    SwinIR(upscale=2, in_chans=3, img_size=64, window_size=8, img_range=1.,
-           depths=[6,6,6,6], embed_dim=60, num_heads=[6,6,6,6], mlp_ratio=2,
-           upsampler='pixelshuffledirect', resi_connection='1conv')
+- ``'pixelshuffledirect'``, SwinIR-S (the reference's configuration)::
+
+      SwinIR(upscale=2, in_chans=3, img_size=64, window_size=8, img_range=1.,
+             depths=[6,6,6,6], embed_dim=60, num_heads=[6,6,6,6], mlp_ratio=2,
+             upsampler='pixelshuffledirect', resi_connection='1conv')
+
+- ``'pixelshuffle'``, classical SwinIR-M (``conv_before_upsample.0`` and a
+  LeakyReLU at 0.01, ``upsample.{2s}`` convs to 4·64 channels each followed
+  by a x2 shuffle, or one conv to 9·64 and a x3 shuffle, then
+  ``conv_last``)::
+
+      SwinIR(upscale=2, in_chans=3, img_size=48, window_size=8, img_range=1.,
+             depths=[6]*6, embed_dim=180, num_heads=[6]*6, mlp_ratio=2,
+             upsampler='pixelshuffle', resi_connection='1conv')
+
+- ``'nearest+conv'``, real-world SR at x2 and x4 (``conv_before_upsample.0``
+  with LeakyReLU 0.01, then ``conv_up1`` [and ``conv_up2``] after nearest
+  x2 repeats and ``conv_hr``, each with LeakyReLU 0.2, then ``conv_last``;
+  the slopes differ on purpose, as in official SwinIR).
 
 The public layout is NHWC ``[B, H, W, C]`` as in the JAX model; only the
 ``nn.Conv2d``\\ s see NCHW (a channels-last view, no copy). Module names
 follow the official torch-SwinIR tree (``layers.N.residual_group.blocks.M``,
-``patch_embed.norm``, ``conv_after_body``, ``upsample.0``), and the
-``relative_position_index`` / ``attn_mask`` buffers are registered, so the
-official key inventory strict-loads.
+``patch_embed.norm``, ``conv_after_body``, ``upsample.0``,
+``conv_before_upsample.0``, ``conv_last``), and the
+``relative_position_index`` / ``attn_mask`` buffers are registered, so an
+official file of any of the three families strict-loads.
 
 Numerics follow the JAX model, not official SwinIR, where the two differ:
 LayerNorm epsilon 1e-6 (flax's default), tanh-approximated GELU
-(``flax.linen.gelu``), and the JAX ``pixel_shuffle`` channel order.
-Attention always goes through ``ops.window_attn``: the CUDA kernels for
-CUDA tensors, the plain version for CPU tensors.
+(``flax.linen.gelu``), and the JAX ``pixel_shuffle`` channel order in every
+tail. Attention always goes through ``ops.window_attn``: the CUDA kernels
+(K1 forward, K2 backward) for CUDA tensors, the plain version for CPU
+tensors. ``attn_impl`` names how the JAX model lays the attention out; all
+four choices have the same parameters and the same math, and here each
+maps onto the kernels:
+
+- ``'xla'`` and ``'blockdiag'`` (XLA layouts of one function): the kernel
+  at pack 1;
+- ``'paired'``: the packed kernel at pack 2 (``window_attention_packed``),
+  or pack 1 where the window count or the mask's window count is odd;
+- ``'pallas'``: the packed kernel at ``attn_pack``, or pack 1 where the
+  window counts do not divide by it.
+
+The kernels accumulate the softmax in f32, so ``softmax_dtype`` other than
+f32 raises, as the JAX ``'pallas'`` path does. ``norm_dtype`` rounds each
+LayerNorm's output to that type and casts it back to the input's type,
+where the JAX model casts (``patch_norm``, ``norm1``, ``norm2``, ``norm``).
+``remat`` checkpoints each Swin layer under a ``parallel.remat`` policy
+(``none``, ``full``, ``dots``, ``offload``; ``names`` raises), the unit the
+JAX model's ``remat_block`` wraps.
 """
 
 from __future__ import annotations
@@ -31,6 +66,7 @@ from torch import nn
 import torch.nn.functional as F
 
 from ..ops import window_attn
+from ..parallel.remat import apply_remat, resolve_remat
 from .sr_espcn import conv_nhwc, pixel_shuffle
 
 LN_EPS = 1e-6  # flax.linen.LayerNorm's default, which the JAX model keeps
@@ -77,11 +113,34 @@ def _shift_attn_mask(h: int, w: int, ws: int, shift: int) -> np.ndarray:
     return np.where(diff != 0, -100.0, 0.0).astype(np.float32)
 
 
+ATTN_IMPLS = ("xla", "pallas", "paired", "blockdiag")
+UPSAMPLERS = ("pixelshuffledirect", "pixelshuffle", "nearest+conv")
+NUM_FEAT = 64  # the classical and real-SR tails' width, as in official SwinIR
+
+
+def attention_pack(attn_impl: str, attn_pack: int, bn: int, mask_windows: int | None) -> int:
+    """Windows per attention tile for ``attn_impl`` at ``bn`` windows and a
+    mask of ``mask_windows`` windows (None without a mask): 2 for
+    ``'paired'`` and ``attn_pack`` for ``'pallas'`` where both counts divide
+    by it, else 1 (odd window counts are legal SwinIR inputs)."""
+    pk = 2 if attn_impl == "paired" else max(1, attn_pack) if attn_impl == "pallas" else 1
+    if bn % pk or (mask_windows is not None and mask_windows % pk):
+        return 1
+    return pk
+
+
 class WindowAttention(nn.Module):
-    def __init__(self, dim: int, num_heads: int, window_size: int):
+    def __init__(self, dim: int, num_heads: int, window_size: int, attn_impl: str = "xla",
+                 attn_pack: int = 1):
         super().__init__()
+        if attn_impl not in ATTN_IMPLS:
+            raise ValueError(
+                "attn_impl must be one of 'xla'/'pallas'/'paired'/"
+                f"'blockdiag', got {attn_impl!r}")
         self.num_heads = num_heads
         self.window_size = window_size
+        self.attn_impl = attn_impl
+        self.attn_pack = attn_pack
         self.relative_position_bias_table = nn.Parameter(
             torch.zeros((2 * window_size - 1) ** 2, num_heads)
         )
@@ -99,7 +158,9 @@ class WindowAttention(nn.Module):
         q, k, v = (t.contiguous() for t in qkv.unbind(0))  # [bn, h, n, d]
         bias = self.relative_position_bias_table[self.relative_position_index.reshape(-1)]
         bias = bias.reshape(n, n, h).permute(2, 0, 1).float().contiguous()
-        out = window_attn.window_attention(q, k, v, bias, mask)
+        pack = attention_pack(self.attn_impl, self.attn_pack, bn,
+                              None if mask is None else mask.shape[0])
+        out = window_attn.window_attention_packed(q, k, v, bias, mask, pack)
         return self.proj(out.transpose(1, 2).reshape(bn, n, c))
 
 
@@ -113,16 +174,29 @@ class Mlp(nn.Module):
         return self.fc2(F.gelu(self.fc1(x), approximate="tanh"))
 
 
+def layer_norm(ln: nn.LayerNorm, x: torch.Tensor, norm_dtype: torch.dtype | None) -> torch.Tensor:
+    """``ln(x)`` rounded to ``norm_dtype`` (where one is set and it is not
+    the output's type) and cast back to ``x``'s type: the JAX model's
+    ``LayerNorm(dtype=norm_dtype)`` computes in f32 and returns
+    ``norm_dtype``, which its callers cast to the model's type."""
+    y = ln(x)
+    if norm_dtype is None or y.dtype == norm_dtype:
+        return y
+    return y.to(norm_dtype).to(x.dtype)
+
+
 class SwinLayer(nn.Module):
     """One STL: (shifted-)window attention + MLP, pre-norm residuals."""
 
     def __init__(self, dim: int, num_heads: int, window_size: int, shift: int,
-                 mlp_ratio: float, img_size: int):
+                 mlp_ratio: float, img_size: int, attn_impl: str = "xla", attn_pack: int = 1,
+                 norm_dtype: torch.dtype | None = None):
         super().__init__()
         self.window_size = window_size
         self.shift = shift
+        self.norm_dtype = norm_dtype
         self.norm1 = nn.LayerNorm(dim, eps=LN_EPS)
-        self.attn = WindowAttention(dim, num_heads, window_size)
+        self.attn = WindowAttention(dim, num_heads, window_size, attn_impl, attn_pack)
         self.norm2 = nn.LayerNorm(dim, eps=LN_EPS)
         self.mlp = Mlp(dim, int(dim * mlp_ratio))
         self.img_size = img_size
@@ -145,7 +219,7 @@ class SwinLayer(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:  # [B, H, W, C]
         b, hgt, wid, c = x.shape
         ws = self.window_size
-        y = self.norm1(x)
+        y = layer_norm(self.norm1, x, self.norm_dtype)
         mask = None
         if self.shift > 0:
             y = torch.roll(y, (-self.shift, -self.shift), dims=(1, 2))
@@ -155,17 +229,18 @@ class SwinLayer(nn.Module):
         if self.shift > 0:
             y = torch.roll(y, (self.shift, self.shift), dims=(1, 2))
         x = x + y
-        return x + self.mlp(self.norm2(x))
+        return x + self.mlp(layer_norm(self.norm2, x, self.norm_dtype))
 
 
 class ResidualGroup(nn.Module):
-    def __init__(self, blocks: Sequence[SwinLayer]):
+    def __init__(self, blocks: Sequence[SwinLayer], remat: str = "none"):
         super().__init__()
         self.blocks = nn.ModuleList(blocks)
+        self.remat = remat
 
     def forward(self, x):
         for blk in self.blocks:
-            x = blk(x)
+            x = apply_remat(blk.__call__, self.remat)(x)  # the module call: hooks fire
         return x
 
 
@@ -173,13 +248,13 @@ class RSTB(nn.Module):
     """Residual Swin Transformer Block: depth STLs + conv + residual."""
 
     def __init__(self, dim: int, depth: int, num_heads: int, window_size: int,
-                 mlp_ratio: float, img_size: int):
+                 mlp_ratio: float, img_size: int, remat: str = "none", **layer_kw):
         super().__init__()
         self.residual_group = ResidualGroup([
             SwinLayer(dim, num_heads, window_size,
-                      0 if i % 2 == 0 else window_size // 2, mlp_ratio, img_size)
+                      0 if i % 2 == 0 else window_size // 2, mlp_ratio, img_size, **layer_kw)
             for i in range(depth)
-        ])
+        ], remat)
         self.conv = nn.Conv2d(dim, dim, 3, padding=1)  # resi_connection='1conv'
 
     def forward(self, x):
@@ -191,12 +266,53 @@ class PatchEmbed(nn.Module):
         super().__init__()
         self.norm = nn.LayerNorm(dim, eps=LN_EPS)
 
+    def forward(self, x, norm_dtype: torch.dtype | None = None):
+        return layer_norm(self.norm, x, norm_dtype)
+
+
+class PixelShuffle(nn.Module):
+    """NHWC depth-to-space in the JAX channel order (``pixel_shuffle``)."""
+
+    def __init__(self, r: int):
+        super().__init__()
+        self.r = r
+
     def forward(self, x):
-        return self.norm(x)
+        return pixel_shuffle(x, self.r)
+
+
+class Upsample(nn.Sequential):
+    """The classical tail's staged upsampler, indexed as official SwinIR's
+    ``Upsample`` (convs at even indices, shuffles between): log2(r) convs
+    to 4·nf channels each followed by a x2 shuffle, or at r = 3 one conv
+    to 9·nf and a x3 shuffle."""
+
+    def __init__(self, r: int, nf: int):
+        if r & (r - 1) == 0:
+            stages = [(4 * nf, 2)] * (r.bit_length() - 1)
+        elif r == 3:
+            stages = [(9 * nf, 3)]
+        else:
+            raise NotImplementedError(
+                f"pixelshuffle upsampler supports scales 2^n and 3, got {r}")
+        mods = []
+        for width, s in stages:
+            mods += [nn.Conv2d(nf, width, 3, padding=1), PixelShuffle(s)]
+        super().__init__(*mods)
+
+    def forward(self, x):  # NHWC
+        for m in self:
+            x = conv_nhwc(m, x) if isinstance(m, nn.Conv2d) else m(x)
+        return x
+
+
+def _nearest2(x: torch.Tensor) -> torch.Tensor:
+    """NHWC nearest-neighbour x2 (each pixel repeated 2x2)."""
+    return x.repeat_interleave(2, dim=1).repeat_interleave(2, dim=2)
 
 
 class SwinIR(nn.Module):
-    """SwinIR-S with the reference's constructor surface (NHWC in and out).
+    """SwinIR with the JAX model's constructor surface (NHWC in and out).
 
     ``generator`` seeds the initialisation (official SwinIR's scheme:
     truncated normal 0.02 for linears and the bias tables, unit LayerNorms,
@@ -208,33 +324,63 @@ class SwinIR(nn.Module):
                  depths: Sequence[int] = (6, 6, 6, 6), embed_dim: int = 60,
                  num_heads: Sequence[int] = (6, 6, 6, 6), mlp_ratio: float = 2.0,
                  upsampler: str = "pixelshuffledirect", resi_connection: str = "1conv",
+                 attn_impl: str = "xla", attn_pack: int = 1,
+                 norm_dtype: torch.dtype | None = None,
+                 softmax_dtype: torch.dtype = torch.float32,
+                 remat: bool | str | None = None,
                  generator: torch.Generator | None = None):
         super().__init__()
-        if upsampler != "pixelshuffledirect" or resi_connection != "1conv":
+        if upsampler not in UPSAMPLERS:
             raise NotImplementedError(
-                "the port has SwinIR-S's tail: upsampler='pixelshuffledirect', "
-                "resi_connection='1conv'"
-            )
+                "upsampler must be 'pixelshuffledirect' (SwinIR-S), "
+                "'pixelshuffle' (classical SwinIR-M) or 'nearest+conv' (real-SR)")
+        if resi_connection != "1conv":
+            raise NotImplementedError(
+                f"resi_connection={resi_connection!r}: the JAX SwinIR builds the "
+                "1-conv residual only")
+        if upsampler == "nearest+conv" and upscale not in (2, 4):
+            raise NotImplementedError(f"nearest+conv supports scales 2 and 4, got {upscale}")
+        if softmax_dtype != torch.float32:
+            raise ValueError(
+                "the window-attention kernels compute softmax in f32; "
+                f"softmax_dtype={softmax_dtype} is not honored")
+        self.remat = resolve_remat(remat)
+        apply_remat(self.forward, self.remat)  # 'names' raises here, as everywhere in the port
         self.upscale = upscale
         self.in_chans = in_chans
         self.img_size = img_size
         self.window_size = window_size
         self.img_range = img_range
         self.depths = tuple(depths)
+        self.upsampler = upsampler
+        self.norm_dtype = norm_dtype
         self.register_buffer(
             "mean", torch.tensor([0.4488, 0.4371, 0.4040]) * img_range, persistent=False
         )
         self.conv_first = nn.Conv2d(in_chans, embed_dim, 3, padding=1)
         self.patch_embed = PatchEmbed(embed_dim)
         self.layers = nn.ModuleList([
-            RSTB(embed_dim, depth, heads, window_size, mlp_ratio, img_size)
+            RSTB(embed_dim, depth, heads, window_size, mlp_ratio, img_size, self.remat,
+                 attn_impl=attn_impl, attn_pack=attn_pack, norm_dtype=norm_dtype)
             for depth, heads in zip(depths, num_heads)
         ])
         self.norm = nn.LayerNorm(embed_dim, eps=LN_EPS)
         self.conv_after_body = nn.Conv2d(embed_dim, embed_dim, 3, padding=1)
-        self.upsample = nn.ModuleList([
-            nn.Conv2d(embed_dim, in_chans * upscale * upscale, 3, padding=1)
-        ])
+        if upsampler == "pixelshuffledirect":
+            self.upsample = nn.ModuleList([
+                nn.Conv2d(embed_dim, in_chans * upscale * upscale, 3, padding=1)
+            ])
+        else:
+            self.conv_before_upsample = nn.Sequential(
+                nn.Conv2d(embed_dim, NUM_FEAT, 3, padding=1), nn.LeakyReLU(0.01))
+            if upsampler == "pixelshuffle":
+                self.upsample = Upsample(upscale, NUM_FEAT)
+            else:
+                self.conv_up1 = nn.Conv2d(NUM_FEAT, NUM_FEAT, 3, padding=1)
+                if upscale == 4:
+                    self.conv_up2 = nn.Conv2d(NUM_FEAT, NUM_FEAT, 3, padding=1)
+                self.conv_hr = nn.Conv2d(NUM_FEAT, NUM_FEAT, 3, padding=1)
+            self.conv_last = nn.Conv2d(NUM_FEAT, in_chans, 3, padding=1)
         self.init_weights(generator)
 
     @torch.no_grad()
@@ -269,14 +415,28 @@ class SwinIR(nn.Module):
             x = F.pad(x.permute(0, 3, 1, 2), (0, pad_w, 0, pad_h), mode="reflect")
             x = x.permute(0, 2, 3, 1)
         feat = conv_nhwc(self.conv_first, x)
-        y = self.patch_embed(feat)
+        y = self.patch_embed(feat, self.norm_dtype)
         for layer in self.layers:
             y = layer(y)
-        y = conv_nhwc(self.conv_after_body, self.norm(y))
+        y = conv_nhwc(self.conv_after_body, layer_norm(self.norm, y, self.norm_dtype))
         feat = feat + y
-        r = self.upscale
-        out = pixel_shuffle(conv_nhwc(self.upsample[0], feat), r)
+        out = self._tail(feat)
         out = out.float() * self.img_range + mean.float()
         if pad_h or pad_w:
+            r = self.upscale
             out = out[:, : h * r, : w * r, :]
         return out
+
+    def _tail(self, feat: torch.Tensor) -> torch.Tensor:
+        """The upsampler: NHWC features -> NHWC image at ``upscale``."""
+        if self.upsampler == "pixelshuffledirect":
+            return pixel_shuffle(conv_nhwc(self.upsample[0], feat), self.upscale)
+        act = self.conv_before_upsample[1]
+        y = act(conv_nhwc(self.conv_before_upsample[0], feat))
+        if self.upsampler == "pixelshuffle":
+            return conv_nhwc(self.conv_last, self.upsample(y))
+        y = F.leaky_relu(conv_nhwc(self.conv_up1, _nearest2(y)), 0.2)
+        if self.upscale == 4:
+            y = F.leaky_relu(conv_nhwc(self.conv_up2, _nearest2(y)), 0.2)
+        y = F.leaky_relu(conv_nhwc(self.conv_hr, y), 0.2)
+        return conv_nhwc(self.conv_last, y)

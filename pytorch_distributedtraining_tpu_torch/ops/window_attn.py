@@ -318,11 +318,12 @@ def pack_windows(q, k, v, bias, mask, pack: int):
     same = blk[:, None] == blk[None, :]
     bias_p = torch.where(same[None], bias.repeat(1, p, p), torch.full((), -1e9, device=q.device))
     mask_p = None
-    if mask is not None:
+    if mask is not None:  # copied block by block: no product that autocast would narrow
         nw = mask.shape[0]
         m = mask.reshape(nw // p, p, n, n)
-        eye = torch.eye(p, dtype=m.dtype, device=m.device)
-        mask_p = torch.einsum("ab,wanm->wanbm", eye, m).reshape(nw // p, pn, pn).contiguous()
+        mask_p = mask.new_zeros(nw // p, pn, pn)
+        for a in range(p):
+            mask_p[:, a * n:(a + 1) * n, a * n:(a + 1) * n] = m[:, a]
     return (packed(q).contiguous(), packed(k).contiguous(), packed(v).contiguous(),
             bias_p.contiguous(), mask_p)
 

@@ -317,9 +317,15 @@ class Stoke:
     # -- data ----------------------------------------------------------------
 
     def DataLoader(self, dataset, batch_size: int | None = None, sampler=None,
-                   num_workers: int = 0, drop_last: bool = True, **kwargs):
+                   num_workers: int = 0, drop_last: bool = True,
+                   device_prefetch: int | None = None, **kwargs):
         """Loader bound to the facade's batch size and device; ``drop_last``
-        defaults True like the JAX facade's."""
+        defaults True like the JAX facade's. ``device_prefetch`` batches are
+        copied to the device ahead of the step on a side stream (default:
+        ``$GRAFT_DEVICE_PREFETCH``, else 2, as in the JAX facade; 0 copies
+        each batch when it is taken)."""
+        if device_prefetch is None:
+            device_prefetch = int(os.environ.get("GRAFT_DEVICE_PREFETCH", "2") or 0)
         return _DataLoader(
             dataset,
             batch_size=batch_size or self.batch_size_per_device,
@@ -327,6 +333,7 @@ class Stoke:
             num_workers=num_workers,
             drop_last=drop_last,
             device=self.device,
+            device_prefetch=device_prefetch,
             **kwargs,
         )
 
@@ -358,9 +365,18 @@ class Stoke:
 
     def load_model_state(self, source, strict: bool = True, param_key: str = "params"):
         """Load weights from a ``.pt``/``.pth`` path or a state dict,
-        optionally nested under ``param_key``; strict matching by default."""
+        optionally nested under ``param_key``; strict matching by default.
+        A ``.pth`` file is read as ``interop.load_torch_checkpoint`` reads
+        it (a state dict, or one under ``param_key`` or a usual wrapper
+        key), so official SwinIR files of all three tails load as they
+        are: the port's module names are the official ones."""
         if isinstance(source, str):
-            source = ckpt.load_file(source)
+            if source.endswith(".pth"):
+                from ..interop import load_torch_checkpoint
+
+                source = load_torch_checkpoint(source, key=param_key)
+            else:
+                source = ckpt.load_file(source)
         template = self._module.state_dict()
         matched, _ = ckpt.load_params_dict(source, template, strict=strict, param_key=param_key)
         if not any(is_dtensor(v) for v in template.values()):
