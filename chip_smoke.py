@@ -23,9 +23,8 @@ Phases, each fatal on failure:
    validation batch ([160, 6, 64, 10]: 10 images) in f32, with and
    without the mask; phase 12's SwinIR-M shapes (head dim 30: [576, 6, 64,
    30], batch 16 at LR 48x48, and [288, 6, 128, 30] at pack 2) in f32 and
-   bf16, with and without the mask. At pack 2 at SwinIR-S's shape neither
-   K1 nor K2 may be slower than its plain version (at SwinIR-M's a slower
-   one is printed). Errors against the stated tolerance and device
+   bf16, with and without the mask. At pack 2 neither K1 nor K2 may be
+   slower than its plain version. Errors against the stated tolerance and device
    times (CUDA events around ten calls queued behind a spin kernel, so
    host-side launch cost is excluded) of the kernel, the plain version and
    one PyTorch library call (``scaled_dot_product_attention`` with a float
@@ -110,14 +109,14 @@ Phases, each fatal on failure:
    through the driver's facade (AdamW, clip 0.1, one micro-batch a step)
    and ``VGGFeatLoss()`` (seed 0), on batches of 16 LR 48x48 crops from a
    ``PatchStore`` of 512 seeded uint8 patches (written with ``np.save``)
-   through ``PairedRandomAug`` and the facade's loader (four spawned
-   workers, the ``fastpipe`` collate, which must build, device prefetch
-   2): f32 and bf16 at ``attn_pack=1``, bf16 at ``attn_pack=2`` (5 steps
-   after 2 each), and one step under ``remat="full"`` for its peak, every
-   run on epoch 0's batches. Finite losses, moved weights, exactly 36 K1
-   and 36 K2 launches a step (72 K1 under full remat), and the losses of
-   full remat and of pack 2 against the run without (``M_SAME_LOSSES``); step ms, images/s, peak GiB, first and last
-   loss, a traced step's device busy ms and idle share, the prefetcher's
+   through ``PairedRandomAug`` (the store's ``fastpipe`` normalisation,
+   which must build) and the facade's loader (four spawned workers,
+   device prefetch 2): f32 and bf16 (5 steps after 2 each), and one step
+   under ``remat="full"`` for its peak, every run on epoch 0's batches.
+   Finite losses, moved weights, exactly 36 K1 and 36 K2 launches a step
+   (72 K1 under full remat), and the losses of full remat against the run
+   without (``M_SAME_LOSSES``); step ms, images/s, peak GiB, first and
+   last loss, a traced step's device busy ms and idle share, the prefetcher's
    ``staged`` and ``overlap_fraction`` and the batch wait a step, beside
    the card's name and power limit.
 
@@ -127,8 +126,9 @@ version in phase 3 or 4. The kernels' JSON lists all five kernels: K1/K2 from ph
 6's f32 run (its launch counts, and the errors and times of phase 3 at
 its shape), K3-K5 from phase 7 (its launch counts, and phase 4's numbers
 for the causal bf16 case). The line before it, ``{"swinir_m_kernels":
-[...]}``, holds K1/K2 at phase 12's shapes (each type and pack: phase 3's
-errors and times, phase 12's launches a step). The last lines are that JSON, the
+[...]}``, holds K1/K2 at phase 12's shapes (each type, and pack 2, which
+phase 12 does not launch: phase 3's errors and times, phase 12's launches
+a step). The last lines are that JSON, the
 ``nvidia-smi`` name and power limit, and ``{"ok": true, "device":
 {...}}``. Without a CUDA device, or without the rest of the repository
 beside it, it exits non-zero before printing a result.
@@ -182,14 +182,12 @@ SWINIR_M = dict(upscale=2, in_chans=3, img_size=M_LR, window_size=WINDOW, img_ra
 M_LAYERS = 36
 # runs that take the same batches (epoch 0) and the same math, so their
 # losses agree: full remat recomputes the f32 forward (sums in the same
-# order); pack 2 changes only the kernels' tiles, and in bf16 the rounding
-# of P (ROADMAP.md C.1). (run, run it follows, max relative difference)
-M_SAME_LOSSES = (("f32 remat full", "f32", 1e-4), ("bf16 pack 2", "bf16", 1e-2))
-M_RUNS = (  # name, precision, attn_pack, remat, timed steps, warm-up steps
-    ("f32", None, 1, "none", 5, 2),
-    ("bf16", "bf16", 1, "none", 5, 2),
-    ("bf16 pack 2", "bf16", 2, "none", 5, 2),
-    ("f32 remat full", None, 1, "full", 1, 1),
+# order). (run, run it follows, max relative difference)
+M_SAME_LOSSES = (("f32 remat full", "f32", 1e-4),)
+M_RUNS = (  # name, precision, remat, timed steps, warm-up steps
+    ("f32", None, "none", 5, 2),
+    ("bf16", "bf16", "none", 5, 2),
+    ("f32 remat full", None, "full", 1, 1),
 )
 # the driver run of phase 4: 100 synthetic images at LR 32x32 (the driver's
 # SyntheticSRDataset), split 90 / 10: five training batches of 18 and one
@@ -588,11 +586,8 @@ def phase_kernels(smi: str) -> list[dict]:
             raise SystemExit(f"kernel disagrees with its plain version: {c['errors']}")
         for kind, name in (("fwd", "K1"), ("bwd", "K2")):
             if pack > 1 and t[kind] > t[f"plain_{kind}"]:
-                msg = (f"{name} at pack {pack} ({t[kind]:.4f} ms) is slower than its plain "
-                       f"version ({t[f'plain_{kind}']:.4f} ms)")
-                if c["model"] == "SwinIR-S":  # the shapes K1/K2 were tuned for
-                    raise SystemExit(msg)
-                print(f"[kernels]   {c['model']}: {msg}")
+                raise SystemExit(f"{name} at pack {pack} ({t[kind]:.4f} ms) is slower than its "
+                                 f"plain version ({t[f'plain_{kind}']:.4f} ms)")
         if pack == 1:
             print(f"[kernels]   K1 / SDPA's forward: {t['fwd'] / t['lib_fwd']:.3f}, "
                   f"K2 / SDPA's backward: {t['bwd'] / t['lib_bwd']:.3f}")
@@ -1299,10 +1294,10 @@ def _write_patch_store(path: Path, seed: int = 0) -> None:
     np.save(path / "hr.npy", g.integers(0, 256, (M_STORE_N, 2 * lr, 2 * lr, 3), dtype=np.uint8))
 
 
-def _swinir_m_run(ds, loader, loss, fp16, pack: int, remat: str, steps: int,
+def _swinir_m_run(ds, loader, loss, fp16, remat: str, steps: int,
                   warmup: int) -> tuple[dict, object]:
     """SwinIR-M x2 at full width through the driver's facade (AdamW, clip
-    0.1, one micro-batch a step) on batches of ``loader``, or, when it is
+    0.1, one micro-batch a step) under ``loss`` on batches of ``loader``, or, when it is
     None, of a new facade loader over ``ds`` (four spawned persistent
     workers, prefetching 2): step ms, images/s, peak GiB, losses, weights
     moved, K1/K2 launches of the timed steps, the batch wait, and a traced
@@ -1313,10 +1308,10 @@ def _swinir_m_run(ds, loader, loss, fp16, pack: int, remat: str, steps: int,
     from pytorch_distributedtraining_tpu_torch.models import SwinIR
     from pytorch_distributedtraining_tpu_torch.ops import window_attn as twa
 
-    model = SwinIR(**SWINIR_M, attn_impl="pallas", attn_pack=pack, remat=remat,
-                   generator=torch.Generator().manual_seed(0))
-    s = stoke_ddp.build_stoke(model, fp16=fp16, batch_size=M_BATCH, grad_clip=0.1, loss=loss,
-                              grad_accum_steps=1, verbose=False)
+    model = SwinIR(**SWINIR_M, remat=remat, generator=torch.Generator().manual_seed(0))
+    s = stoke_ddp.build_stoke(model, fp16=fp16, batch_size=M_BATCH, grad_clip=0.1,
+                              verbose=False)
+    s.grad_accum_steps = 1  # the driver accumulates two; a step here is one batch
     if loader is None:
         loader = s.DataLoader(ds, num_workers=4, multiprocessing_context="spawn",
                               persistent_workers=True, device_prefetch=2)
@@ -1330,7 +1325,7 @@ def _swinir_m_run(ds, loader, loss, fp16, pack: int, remat: str, steps: int,
         t0 = time.perf_counter()
         x, y = next(it)
         waits.append(time.perf_counter() - t0)
-        loss_ = s.loss(s.model(x), y)
+        loss_ = loss(s.model(x), y)  # the driver's feat_loss gives way to VGGFeatLoss
         s.backward(loss_)
         s.step()
         losses.append(loss_.detach())
@@ -1359,7 +1354,7 @@ def _swinir_m_run(ds, loader, loss, fp16, pack: int, remat: str, steps: int,
         "timed_overlap": 1 - timed_wait / elapsed,
         "busy_ms": traced["busy_ms"], "activities": traced["activities"], "steps": steps,
         "families": traced["families"],
-        "params": sum(p.numel() for p in model.parameters()), "pack": pack, "remat": remat,
+        "params": sum(p.numel() for p in model.parameters()), "remat": remat,
         "dtype": "bfloat16" if fp16 == "bf16" else "float32",
     }
     it.close()
@@ -1369,9 +1364,9 @@ def _swinir_m_run(ds, loader, loss, fp16, pack: int, remat: str, steps: int,
 def phase_swinir_m(smi: str) -> dict:
     """Phase 12: classical SwinIR-M x2 at full width, trained through the
     facade from a PatchStore with PairedRandomAug, the facade's loader
-    (four spawned workers, fastpipe collate, device prefetch 2) and
-    VGGFeatLoss, in f32 and bf16 at pack 1, bf16 at pack 2, and one step
-    under full remat for its peak."""
+    (four spawned workers, device prefetch 2) and
+    VGGFeatLoss, in f32 and bf16, and one step under full remat for its
+    peak."""
     import math
 
     import torch
@@ -1391,8 +1386,8 @@ def phase_swinir_m(smi: str) -> dict:
         ds = PatchStore(store_dir, PairedRandomAug(scale=2, crop_lr=M_LR))
         loss = VGGFeatLoss(seed=0)
         try:
-            for name, fp16, pack, remat, steps, warmup in M_RUNS:
-                r, loader = _swinir_m_run(ds, loader, loss, fp16, pack, remat, steps, warmup)
+            for name, fp16, remat, steps, warmup in M_RUNS:
+                r, loader = _swinir_m_run(ds, loader, loss, fp16, remat, steps, warmup)
                 torch.cuda.empty_cache()
                 per = tuple(n / steps for n in r["launches"])
                 idle = 1 - r["busy_ms"] / r["step_ms"]
@@ -1435,8 +1430,8 @@ def phase_swinir_m(smi: str) -> dict:
 def swinir_m_kernels(cases: list[dict], runs: dict) -> list[dict]:
     """The kernels line's entries at phase 12's shapes, one per (kernel,
     type, pack): phase 3's errors (worst of masked and unmasked) and times
-    (the masked case), and the launches a step of the phase-12 run at that
-    type and pack (0 where none ran)."""
+    (the masked case), and the launches a step of the phase-12 run of that
+    type (0 at pack 2, which the model does not run)."""
     out = []
     for c in cases:
         if c["model"] != "SwinIR-M" or not c["mask"]:
@@ -1444,7 +1439,7 @@ def swinir_m_kernels(cases: list[dict], runs: dict) -> list[dict]:
         pair = [d for d in cases if d["model"] == "SwinIR-M" and d["dtype"] == c["dtype"]
                 and d["pack"] == c["pack"]]
         run = next((r for r in runs.values() if r["dtype"] == c["dtype"]
-                    and r["pack"] == c["pack"] and r["remat"] == "none"), None)
+                    and c["pack"] == 1 and r["remat"] == "none"), None)
         t = c["times"]
         for name, key, grads, i in (("window_attn_fwd", "fwd", ("o",), 0),
                                     ("window_attn_bwd", "bwd", ("dq", "dk", "dv", "dbias"), 1)):

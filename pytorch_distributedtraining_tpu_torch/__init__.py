@@ -18,8 +18,9 @@ the VGG-16 perceptual loss too), ESPCN through ``parallel.TrainStep``
 shardable), ``precision``, ``runtime`` (the process group and the device
 mesh), ``parallel`` (the DDP and ZeRO-1/2/3 policies, remat, the train
 state and the steps), ``data`` (patch stores, paired augmentation,
-device prefetch; the host collate of ``csrc/fastpipe.cpp``, built with
-``g++``), ``checkpoint``, ``observe`` and ``stoke``. ``python -m torch.distributed.run --standalone
+device prefetch; the patch store's u8 normalisation in
+``csrc/fastpipe.cpp``, built with ``g++``), ``checkpoint``, ``observe``
+and ``stoke``. ``python -m torch.distributed.run --standalone
 --nproc_per_node N -m pytorch_distributedtraining_tpu_torch.drivers.
 stoke_ddp`` trains on N GPUs over NCCL (``--device cpu``: gloo ranks).
 

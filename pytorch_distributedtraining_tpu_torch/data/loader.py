@@ -7,7 +7,8 @@ bumps the epoch after each snapshot. Batches go to the GPU unless the
 caller passes ``device="cpu"``; without a CUDA device the default raises.
 Fetching runs on ``torch.utils.data`` worker processes (``num_workers``,
 ``persistent_workers``, ``multiprocessing_context``); samples are collated
-by the host kernel ``csrc.fastpipe.fast_stack``, land in pinned host memory
+by ``np.stack`` (the JAX loader's ``csrc.fast_stack`` took longer at the SR
+paths' batches: ``benchmarks/collate.py``), land in pinned host memory
 and reach the device by non-blocking copies, or, with ``device_prefetch``
 (``device_iter``), through a :class:`~.prefetch.DevicePrefetcher` that
 copies that many batches ahead on a side stream.
@@ -23,10 +24,10 @@ epoch's augmentation, not epoch 0's again.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.utils.data
 
-from ..csrc.fastpipe import fast_stack
 from ..runtime.dist import resolve_device
 from .prefetch import DevicePrefetcher
 from .sampler import DistributedSampler
@@ -70,7 +71,7 @@ class _EpochDataset(torch.utils.data.Dataset):
 
 
 def _collate(samples):
-    return tuple(torch.from_numpy(fast_stack(field)) for field in zip(*samples))
+    return tuple(torch.from_numpy(np.stack(field)) for field in zip(*samples))
 
 
 class DataLoader:

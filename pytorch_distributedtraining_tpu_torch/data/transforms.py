@@ -102,6 +102,6 @@ class PairedRandomAug:
                     RuntimeWarning,
                     stacklevel=2,
                 )
-        # contiguous copies: the collate's memcpy (fastpipe.fast_stack) and
-        # the pinned host batch want dense buffers, not reversed-stride views
+        # contiguous copies: the collate's stack and the pinned host batch
+        # want dense buffers, not reversed-stride views
         return np.ascontiguousarray(lr), np.ascontiguousarray(hr)

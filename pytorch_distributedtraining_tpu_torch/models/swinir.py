@@ -36,24 +36,22 @@ LayerNorm epsilon 1e-6 (flax's default), tanh-approximated GELU
 (``flax.linen.gelu``), and the JAX ``pixel_shuffle`` channel order in every
 tail. Attention always goes through ``ops.window_attn``: the CUDA kernels
 (K1 forward, K2 backward) for CUDA tensors, the plain version for CPU
-tensors. ``attn_impl`` names how the JAX model lays the attention out; all
-four choices have the same parameters and the same math, and here each
-maps onto the kernels:
-
-- ``'xla'`` and ``'blockdiag'`` (XLA layouts of one function): the kernel
-  at pack 1;
-- ``'paired'``: the packed kernel at pack 2 (``window_attention_packed``),
-  or pack 1 where the window count or the mask's window count is odd;
-- ``'pallas'``: the packed kernel at ``attn_pack``, or pack 1 where the
-  window counts do not divide by it.
+tensors. ``attn_impl`` (``'xla' | 'pallas' | 'paired' | 'blockdiag'``)
+and ``attn_pack`` name how the JAX model lays the attention out on a TPU;
+all of them have the same parameters and the same math, and here every
+choice runs K1/K2 at one window a tile. Packing two windows into one
+tile (``'paired'``, ``'pallas'`` at ``attn_pack=2``) fills a TPU matrix
+unit's 128 rows at 64 tokens a window; on Hopper the packed kernel was
+slower than pack 1 at every SwinIR-M shape measured (``PERF.md`` §6), so
+the constructor takes the choices and the kernels do not pack.
 
 The kernels accumulate the softmax in f32, so ``softmax_dtype`` other than
 f32 raises, as the JAX ``'pallas'`` path does. ``norm_dtype`` rounds each
 LayerNorm's output to that type and casts it back to the input's type,
 where the JAX model casts (``patch_norm``, ``norm1``, ``norm2``, ``norm``).
 ``remat`` checkpoints each Swin layer under a ``parallel.remat`` policy
-(``none``, ``full``, ``dots``, ``offload``; ``names`` raises), the unit the
-JAX model's ``remat_block`` wraps.
+(``none``, ``full``, ``dots``, ``offload``; ``names`` raises, as
+``apply_remat`` does), the unit the JAX model's ``remat_block`` wraps.
 """
 
 from __future__ import annotations
@@ -66,7 +64,7 @@ from torch import nn
 import torch.nn.functional as F
 
 from ..ops import window_attn
-from ..parallel.remat import apply_remat, resolve_remat
+from ..parallel.remat import NAMES_UNSUPPORTED, apply_remat, resolve_remat
 from .sr_espcn import conv_nhwc, pixel_shuffle
 
 LN_EPS = 1e-6  # flax.linen.LayerNorm's default, which the JAX model keeps
@@ -118,29 +116,11 @@ UPSAMPLERS = ("pixelshuffledirect", "pixelshuffle", "nearest+conv")
 NUM_FEAT = 64  # the classical and real-SR tails' width, as in official SwinIR
 
 
-def attention_pack(attn_impl: str, attn_pack: int, bn: int, mask_windows: int | None) -> int:
-    """Windows per attention tile for ``attn_impl`` at ``bn`` windows and a
-    mask of ``mask_windows`` windows (None without a mask): 2 for
-    ``'paired'`` and ``attn_pack`` for ``'pallas'`` where both counts divide
-    by it, else 1 (odd window counts are legal SwinIR inputs)."""
-    pk = 2 if attn_impl == "paired" else max(1, attn_pack) if attn_impl == "pallas" else 1
-    if bn % pk or (mask_windows is not None and mask_windows % pk):
-        return 1
-    return pk
-
-
 class WindowAttention(nn.Module):
-    def __init__(self, dim: int, num_heads: int, window_size: int, attn_impl: str = "xla",
-                 attn_pack: int = 1):
+    def __init__(self, dim: int, num_heads: int, window_size: int):
         super().__init__()
-        if attn_impl not in ATTN_IMPLS:
-            raise ValueError(
-                "attn_impl must be one of 'xla'/'pallas'/'paired'/"
-                f"'blockdiag', got {attn_impl!r}")
         self.num_heads = num_heads
         self.window_size = window_size
-        self.attn_impl = attn_impl
-        self.attn_pack = attn_pack
         self.relative_position_bias_table = nn.Parameter(
             torch.zeros((2 * window_size - 1) ** 2, num_heads)
         )
@@ -158,9 +138,7 @@ class WindowAttention(nn.Module):
         q, k, v = (t.contiguous() for t in qkv.unbind(0))  # [bn, h, n, d]
         bias = self.relative_position_bias_table[self.relative_position_index.reshape(-1)]
         bias = bias.reshape(n, n, h).permute(2, 0, 1).float().contiguous()
-        pack = attention_pack(self.attn_impl, self.attn_pack, bn,
-                              None if mask is None else mask.shape[0])
-        out = window_attn.window_attention_packed(q, k, v, bias, mask, pack)
+        out = window_attn.window_attention(q, k, v, bias, mask)
         return self.proj(out.transpose(1, 2).reshape(bn, n, c))
 
 
@@ -189,14 +167,13 @@ class SwinLayer(nn.Module):
     """One STL: (shifted-)window attention + MLP, pre-norm residuals."""
 
     def __init__(self, dim: int, num_heads: int, window_size: int, shift: int,
-                 mlp_ratio: float, img_size: int, attn_impl: str = "xla", attn_pack: int = 1,
-                 norm_dtype: torch.dtype | None = None):
+                 mlp_ratio: float, img_size: int, norm_dtype: torch.dtype | None = None):
         super().__init__()
         self.window_size = window_size
         self.shift = shift
         self.norm_dtype = norm_dtype
         self.norm1 = nn.LayerNorm(dim, eps=LN_EPS)
-        self.attn = WindowAttention(dim, num_heads, window_size, attn_impl, attn_pack)
+        self.attn = WindowAttention(dim, num_heads, window_size)
         self.norm2 = nn.LayerNorm(dim, eps=LN_EPS)
         self.mlp = Mlp(dim, int(dim * mlp_ratio))
         self.img_size = img_size
@@ -248,11 +225,12 @@ class RSTB(nn.Module):
     """Residual Swin Transformer Block: depth STLs + conv + residual."""
 
     def __init__(self, dim: int, depth: int, num_heads: int, window_size: int,
-                 mlp_ratio: float, img_size: int, remat: str = "none", **layer_kw):
+                 mlp_ratio: float, img_size: int, remat: str = "none",
+                 norm_dtype: torch.dtype | None = None):
         super().__init__()
         self.residual_group = ResidualGroup([
             SwinLayer(dim, num_heads, window_size,
-                      0 if i % 2 == 0 else window_size // 2, mlp_ratio, img_size, **layer_kw)
+                      0 if i % 2 == 0 else window_size // 2, mlp_ratio, img_size, norm_dtype)
             for i in range(depth)
         ], remat)
         self.conv = nn.Conv2d(dim, dim, 3, padding=1)  # resi_connection='1conv'
@@ -340,12 +318,17 @@ class SwinIR(nn.Module):
                 "1-conv residual only")
         if upsampler == "nearest+conv" and upscale not in (2, 4):
             raise NotImplementedError(f"nearest+conv supports scales 2 and 4, got {upscale}")
+        if attn_impl not in ATTN_IMPLS:
+            raise ValueError(
+                "attn_impl must be one of 'xla'/'pallas'/'paired'/"
+                f"'blockdiag', got {attn_impl!r}")
         if softmax_dtype != torch.float32:
             raise ValueError(
                 "the window-attention kernels compute softmax in f32; "
                 f"softmax_dtype={softmax_dtype} is not honored")
         self.remat = resolve_remat(remat)
-        apply_remat(self.forward, self.remat)  # 'names' raises here, as everywhere in the port
+        if self.remat == "names":
+            raise NotImplementedError(NAMES_UNSUPPORTED)
         self.upscale = upscale
         self.in_chans = in_chans
         self.img_size = img_size
@@ -361,7 +344,7 @@ class SwinIR(nn.Module):
         self.patch_embed = PatchEmbed(embed_dim)
         self.layers = nn.ModuleList([
             RSTB(embed_dim, depth, heads, window_size, mlp_ratio, img_size, self.remat,
-                 attn_impl=attn_impl, attn_pack=attn_pack, norm_dtype=norm_dtype)
+                 norm_dtype)
             for depth, heads in zip(depths, num_heads)
         ])
         self.norm = nn.LayerNorm(embed_dim, eps=LN_EPS)

@@ -32,6 +32,10 @@ import torch
 
 CHECKPOINT_SAVED_NAMES = ("attn_out",)
 REMAT_POLICIES = ("none", "full", "dots", "names", "offload")
+NAMES_UNSUPPORTED = (
+    "remat='names' saves the activations the JAX models tag with checkpoint_name; "
+    "torch has no such tags, and they wait for the named-activation checkpointing "
+    "slice: use 'full', 'dots' or 'offload'")
 
 
 def resolve_remat(remat: bool | str | None) -> str:
@@ -73,10 +77,7 @@ def apply_remat(fn: Callable, remat: bool | str | None) -> Callable:
     if name == "none":
         return fn
     if name == "names":
-        raise NotImplementedError(
-            "remat='names' saves the activations the JAX models tag with checkpoint_name; "
-            "torch has no such tags, and they wait for the named-activation checkpointing "
-            "slice: use 'full', 'dots' or 'offload'")
+        raise NotImplementedError(NAMES_UNSUPPORTED)
     from torch.utils.checkpoint import checkpoint
 
     if name == "full":

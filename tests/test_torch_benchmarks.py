@@ -2,8 +2,9 @@
 (``benchmarks/profile_swinir.py``): the bench step it times runs end to end
 at a toy size, and its trace digest sorts kernels into families and
 computes busy and idle time from a Chrome trace. The ladder twin
-(``benchmarks/ladder.py``): its GPT-2 rung runs at tiny widths. Device
-numbers come only from a GPU run."""
+(``benchmarks/ladder.py``): its GPT-2 rung runs at tiny widths. The
+collate timer (``benchmarks/collate.py``) times both ways at a toy batch.
+Device numbers come only from a GPU run."""
 
 import json
 import math
@@ -206,3 +207,14 @@ def test_ab_swinir_summary_of_untraced_runs():
     assert set(s) == {"change"} and set(s["change"]) == {"bf16"}
     assert s["change"]["bf16"] == {"step_ms": [50.0, 70.0], "median_step_ms": 60.0,
                                    "images_per_s_at_median": 36 / 60.0 * 1e3}
+
+
+def test_collate_timer_times_both_ways_at_a_toy_batch(capsys):
+    from pytorch_distributedtraining_tpu_torch.benchmarks import collate
+
+    r = collate.time_case((3, 8, 2, 4))
+    assert set(r) == {"np_stack_ms", "fast_stack_ms"} and min(r.values()) > 0
+    assert collate.main(["--reps", "2", "--procs", "1"]) == 0
+    lines = [json.loads(x) for x in capsys.readouterr().out.splitlines()]
+    assert [x["path"] for x in lines] == [c[0] for c in collate.CASES]
+    assert all(x["procs"] == 1 and x["np_stack_ms"] > 0 and x["fast_stack_ms"] > 0 for x in lines)

@@ -64,7 +64,7 @@ def test_window_kernels_at_swinir_m_shapes(cuda, dtype, rel, with_mask, pack):
 
 @pytest.mark.parametrize("pack", [1, 2])
 def test_packed_attention_under_bf16_autocast_keeps_its_mask_f32(cuda, pack):
-    """The model calls the packed kernel inside the facade's bf16 autocast:
+    """Called inside a bf16 autocast region, as the facade's forward runs,
     packing the shift mask must not narrow it (the kernels take an f32
     mask)."""
     g = torch.Generator().manual_seed(7)
@@ -117,19 +117,20 @@ def test_swinir_m_toy_two_steps_on_card_match_cpu(cuda):
     the driver's facade, VGGFeatLoss and two AdamW steps, on the card and on
     the CPU from the same weights and batches."""
     kw = dict(upscale=2, img_size=16, window_size=8, depths=(2,), embed_dim=60,
-              num_heads=(2,), upsampler="pixelshuffle", attn_impl="pallas", attn_pack=2)
+              num_heads=(2,), upsampler="pixelshuffle")
     g = np.random.default_rng(0)
     batches = [(g.random((2, 16, 16, 3)).astype(np.float32),
                 g.random((2, 32, 32, 3)).astype(np.float32)) for _ in range(2)]
     losses = {}
     for device in ("cpu", "cuda"):
         model = SwinIR(**kw, generator=torch.Generator().manual_seed(0))
-        s = stoke_ddp.build_stoke(model, batch_size=2, loss=VGGFeatLoss(device=device),
-                                  grad_accum_steps=1, device=device, verbose=False)
+        s = stoke_ddp.build_stoke(model, batch_size=2, device=device, verbose=False)
+        s.grad_accum_steps = 1
+        vgg = VGGFeatLoss(device=device)
         before = twa.fwd_launches, twa.bwd_launches
         run = []
         for x, y in batches:
-            loss = s.loss(s.model(x), y)
+            loss = vgg(s.model(x), torch.from_numpy(y).to(device))
             s.backward(loss)
             s.step()
             run.append(loss.item())

@@ -9,9 +9,11 @@ every parameter of the tail.
 - Tails: classical ``'pixelshuffle'`` at x2, x3 and x4 and real-SR
   ``'nearest+conv'`` at x2 and x4, forward and gradients.
 - Options: each ``attn_impl`` (the JAX side runs the same choice; its
-  ``'pallas'`` in interpret mode), ``attn_pack=2`` against pack 1, the
-  fall-back to pack 1 at odd window counts, ``norm_dtype=bfloat16``, the
-  ``softmax_dtype`` error, and ``remat`` full / dots / offload against none.
+  ``'pallas'`` in interpret mode), ``attn_pack=2`` against pack 1 (the
+  port's kernels run one window a tile whatever the choice: JAX's packed
+  layouts at even and odd window counts give the port's output),
+  ``norm_dtype=bfloat16``, the ``softmax_dtype`` error, and ``remat``
+  full / dots / offload against none.
 - Loading: a JAX ``scan_layers=True`` checkpoint, and official-layout
   ``.pth`` files of the three tails through the facade.
 
@@ -201,22 +203,25 @@ def test_attn_pack_2_matches_jax_and_pack_1():
 
 @pytest.mark.parametrize("attn_impl,attn_pack", [("paired", 1), ("pallas", 2)])
 @pytest.mark.parametrize("lr,batch,want", [
-    (12, 1, {(9, None): 1, (9, 9): 1}),  # 9 windows: both counts odd
-    (12, 2, {(18, None): 2, (18, 9): 1}),  # the shift mask's 9 windows are odd
-    (8, 2, {(8, None): 2, (8, 4): 2}),
+    (12, 1, {(9, None), (9, 9)}),  # 9 windows: JAX falls back to pack 1
+    (12, 2, {(18, None), (18, 9)}),  # JAX packs the unmasked layers only
+    (8, 2, {(8, None), (8, 4)}),  # JAX packs every layer
 ])
 def test_odd_window_counts_fall_back_to_pack_1(monkeypatch, attn_impl, attn_pack, lr, batch,
                                                 want):
-    """Pack 2 where the window count and the mask's divide by 2, pack 1
-    elsewhere, as the JAX model falls back; the output is JAX's either way."""
-    seen = {}
-    packed = window_attn.window_attention_packed
+    """The JAX model packs two windows a tile where the window count and
+    the mask's divide by 2 and falls back to pack 1 elsewhere; the port
+    runs every layer at pack 1 (q of ``ws*ws`` tokens), and its output is
+    JAX's either way."""
+    seen = set()
+    plain = window_attn.window_attention
 
-    def spy(q, k, v, bias, mask=None, pack=2):
-        seen[(q.shape[0], None if mask is None else mask.shape[0])] = pack
-        return packed(q, k, v, bias, mask, pack)
+    def spy(q, k, v, bias, mask=None):
+        assert q.shape[2] == 16  # one 4x4 window a tile
+        seen.add((q.shape[0], None if mask is None else mask.shape[0]))
+        return plain(q, k, v, bias, mask)
 
-    monkeypatch.setattr(window_attn, "window_attention_packed", spy)
+    monkeypatch.setattr(window_attn, "window_attention", spy)
     jmodel, params, tmodel = _pair(lr=lr, upsampler="pixelshuffle", attn_impl=attn_impl,
                                    attn_pack=attn_pack)
     x, _ = _data(lr, 2, batch=batch)
