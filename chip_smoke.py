@@ -118,7 +118,22 @@ Phases, each fatal on failure:
    without (``M_SAME_LOSSES``); step ms, images/s, peak GiB, first and
    last loss, a traced step's device busy ms and idle share, the prefetcher's
    ``staged`` and ``overlap_fraction`` and the batch wait a step, beside
-   the card's name and power limit.
+   the card's name and power limit;
+13. image rungs: tiny ResNets (the CIFAR and the ImageNet stem, Basic and
+   Bottleneck blocks) and the tiny ViT in f32 and bf16 on the card
+   against the CPU (outputs, gradients and running statistics within
+   ``IMAGE_CARD_TOL``); then the ladder twin's image rungs at full width
+   through its own builder (``benchmarks.ladder.build_image``) in a
+   process group of one over NCCL: ``1_resnet18_cifar10_single``
+   (ResNet-18, CIFAR stem, batch 128 of 32x32, no group, ``FusedAdamW``),
+   ``2_resnet50_ddp`` (ResNet-50, batch 64 of 224x224, DDP,
+   ``FusedAdamW``), ``3_resnet50_oss_sddp`` (ZeRO-2, per-leaf AdamW) and
+   ``5_vitb16_bf16_fsdp`` (ViT-B/16 in bf16, ZeRO-3 over FSDP2, per-leaf
+   AdamW), each 2 warm-up and 5 timed steps: images/s, step ms, peak GiB,
+   the first loss against ln(classes), a finite last loss, moved weights,
+   moved BatchNorm running statistics (ResNets), a traced step's device
+   busy ms and ms by kernel family, and no launch of K1-K5 (no kernel of
+   the port lies on these paths), beside the card's name and power limit.
 
 Phases 5-9, 11 and 12 note the shape, dtype and mask (or causality) of
 every launch; the run fails if one of them was not held against the plain
@@ -202,6 +217,11 @@ OPT_STEPS, OPT_CLIP, OPT_TOL = 5, 1.0, 1e-6
 # moments, bias correction, sqrt, divide, decay, lr, add)
 OPT_BYTES, OPT_EMA_BYTES, OPT_FLOPS = 28, 36, 20
 ESPCN_N = 1024  # 1013 training images: 25 batches of 40, one loss print
+# phase 13: the ladder's image rungs (benchmarks.ladder.IMAGE_RUNGS); the tiny
+# models' card-against-CPU tolerances (output, grads: relative to the largest
+# CPU value), f32 a sum order apart, bf16 a few steps of the type
+IMAGE_CONFIGS = (1, 2, 3, 5)
+IMAGE_CARD_TOL = {"float32": (1e-5, 1e-4), "bfloat16": (3e-2, 5e-2)}
 # phase 11: loss trajectories with a group of one against none; bf16 at
 # the noise ROADMAP.md C.1 records between the bf16 and f32 losses
 DIST_F32_TOL, DIST_BF16_TOL = 1e-6, 1.6e-3
@@ -1456,6 +1476,157 @@ def swinir_m_kernels(cases: list[dict], runs: dict) -> list[dict]:
     return out
 
 
+def _card_against_cpu(model, x, out_rel: float, grad_rel: float) -> tuple[float, float, float]:
+    """Forward and parameter gradients of ``model`` (training mode) on the
+    card against the same model on the CPU, from the same running
+    statistics: (output error, gradient error, statistics error), each
+    relative to the largest CPU value of its kind; raises past the
+    tolerances."""
+    import torch
+
+    start = [b.clone() for b in model.buffers()]
+    want = model(x)
+    want.square().mean().backward()
+    want_grads = {n: p.grad.clone() for n, p in model.named_parameters()}
+    cpu_buffers = {n: b.clone() for n, b in model.named_buffers()}
+    model.zero_grad()
+    with torch.no_grad():
+        for b, v in zip(model.buffers(), start):
+            b.copy_(v)
+    got = model.to("cuda")(x.to("cuda"))
+    got.square().mean().backward()
+    out_err = err(got.cpu(), want)[1]
+    scale = max(g.abs().max().item() for g in want_grads.values())
+    grad_err = max((p.grad.cpu() - want_grads[n]).abs().max().item()
+                   for n, p in model.named_parameters()) / scale
+    stats_err = max([(b.cpu() - cpu_buffers[n]).abs().max().item()
+                     for n, b in model.named_buffers() if b.is_floating_point()], default=0.0)
+    if not (out_err <= out_rel and grad_err <= grad_rel and stats_err <= 1e-5):
+        raise SystemExit(f"{type(model).__name__} on the card departs from the CPU: output "
+                         f"{out_err:.2e} (tol {out_rel:g}), grads {grad_err:.2e} (tol "
+                         f"{grad_rel:g}), statistics {stats_err:.2e} (tol 1e-05)")
+    return out_err, grad_err, stats_err
+
+
+def image_card_checks() -> None:
+    """Tiny ResNets (both stems, Basic and Bottleneck; every last BatchNorm
+    scale moved off zero) and the tiny ViT in f32 and bf16 on the card
+    against the CPU, within ``IMAGE_CARD_TOL``."""
+    import numpy as np
+    import torch
+
+    from pytorch_distributedtraining_tpu_torch.models import ViT, ViTConfig, resnet
+
+    x = torch.from_numpy(np.random.default_rng(0).normal(size=(4, 32, 32, 3)).astype(np.float32))
+    for small in (True, False):
+        for block in (resnet.BasicBlock, resnet.BottleneckBlock):
+            model = resnet.ResNet((1, 1), block, num_classes=10, num_filters=8,
+                                  small_inputs=small, generator=torch.Generator().manual_seed(0))
+            with torch.no_grad():
+                for m in model.modules():
+                    if isinstance(m, resnet.BatchNorm):
+                        m.weight.normal_(1.0, 0.1, generator=torch.Generator().manual_seed(1))
+            errs = _card_against_cpu(model, x, *IMAGE_CARD_TOL["float32"])
+            print(f"[images] tiny ResNet ({'cifar' if small else 'imagenet'} stem, "
+                  f"{block.__name__}) card vs CPU, f32: output {errs[0]:.2e}, grads "
+                  f"{errs[1]:.2e}, running statistics {errs[2]:.2e} (tol "
+                  f"{IMAGE_CARD_TOL['float32']}, 1e-05)")
+    for dtype in (torch.float32, torch.bfloat16):
+        model = ViT(ViTConfig.tiny(dtype=dtype), generator=torch.Generator().manual_seed(0))
+        with torch.no_grad():  # the init zeroes the head
+            model.heads.head.weight.normal_(0.0, 0.2, generator=torch.Generator().manual_seed(1))
+        tol = IMAGE_CARD_TOL[str(dtype).split(".")[1]]
+        errs = _card_against_cpu(model, x[:3], *tol)
+        print(f"[images] tiny ViT card vs CPU, {dtype}: output {errs[0]:.2e}, grads "
+              f"{errs[1]:.2e} (tol {tol})")
+
+
+def phase_image_rungs(smi: str, steps: int = 5, warmup: int = 2) -> dict:
+    """The ladder twin's image rungs at full width through its own
+    builder (``benchmarks.ladder.build_image``), in a process group of one
+    over NCCL."""
+    import math
+
+    import torch
+
+    from pytorch_distributedtraining_tpu_torch.benchmarks import ladder
+    from pytorch_distributedtraining_tpu_torch.models.resnet import batch_norm_state
+    from pytorch_distributedtraining_tpu_torch.ops import flash_attn as tfa
+    from pytorch_distributedtraining_tpu_torch.ops import window_attn as twa
+    from pytorch_distributedtraining_tpu_torch.runtime import dist
+
+    t_phase = time.perf_counter()
+    image_card_checks()
+    os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(dist.find_free_port()),
+                      RANK="0", WORLD_SIZE="1", LOCAL_RANK="0")
+    dist.initialize()
+    out = {}
+    try:
+        for i in IMAGE_CONFIGS:
+            name, policy, _, _, classes = ladder.IMAGE_RUNGS[i]
+            twa.reset_launch_counts()
+            tfa.reset_launch_counts()
+            model, step, batch = ladder.build_image(i, False, torch.device("cuda"))
+            batch_size, img = batch[0].shape[:2]
+            w = next(model.parameters())
+            w0 = (w.full_tensor() if hasattr(w, "full_tensor") else w).detach().clone()
+            stats = [t for t in batch_norm_state(model) if t.is_floating_point()]
+            stats0 = [t.clone() for t in stats]
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            first = step(batch)["loss"].item()
+            for _ in range(warmup - 1):
+                step(batch)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                metrics = step(batch)
+            torch.cuda.synchronize()
+            elapsed = time.perf_counter() - t0
+            loss = metrics["loss"].item()
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            moved = ((w.full_tensor() if hasattr(w, "full_tensor") else w) - w0).abs().max().item()
+            stats_moved = max([(a - b).abs().max().item() for a, b in zip(stats, stats0)],
+                              default=None)
+            traced = traced_call(lambda: step(batch))
+            launches = (twa.fwd_launches, twa.bwd_launches, tfa.fwd_launches, tfa.dq_launches,
+                        tfa.dkv_launches)
+            step_ms = elapsed / steps * 1e3
+            ips = batch_size * steps / elapsed
+            families = sorted(traced["families"].items(), key=lambda kv: -kv[1])
+            print(f"[images] {name}: {type(model).__name__} "
+                  f"({sum(p.numel() for p in model.parameters())} parameters), batch "
+                  f"{batch_size} x {img}x{img}x3, {classes} classes, policy {policy}, "
+                  f"{type(step.tx).__name__}: step {step_ms:.2f} ms, {ips:.1f} images/s ({steps} "
+                  f"steps after {warmup}), peak {peak:.2f} GiB, first loss {first:.4f} (ln "
+                  f"classes {math.log(classes):.4f}), loss after {warmup + steps} steps "
+                  f"{loss:.4f}, weights moved {moved:.2e}, running statistics moved "
+                  f"{'n/a (no BatchNorm)' if stats_moved is None else f'{stats_moved:.2e}'}; "
+                  f"a traced step: device busy {traced['busy_ms']:.2f} ms, activities "
+                  f"{traced['activities']}, NCCL kernels {traced['nccl']}, by family "
+                  f"{[(k, round(v, 3)) for k, v in families]}; launches K1-K5 {launches} "
+                  f"| {smi}")
+            if abs(first - math.log(classes)) > 1.0 or not math.isfinite(loss):
+                raise SystemExit(f"{name}: first loss {first} (ln classes "
+                                 f"{math.log(classes)}) or last loss {loss}")
+            if not moved > 0 or (stats_moved is not None and not stats_moved > 0):
+                raise SystemExit(f"{name}: weights moved {moved}, statistics moved {stats_moved}")
+            if stats_moved is None and i != 5:
+                raise SystemExit(f"{name}: a ResNet without BatchNorm statistics")
+            if any(launches):
+                raise SystemExit(f"{name}: launched window or flash kernels {launches}; no "
+                                 "kernel of the port lies on the image rungs")
+            out[name] = {"step_ms": step_ms, "images_per_s": ips, "peak_gib": peak,
+                         "first_loss": first, "loss": loss, "busy_ms": traced["busy_ms"],
+                         "families": traced["families"]}
+            del model, step, batch, w, w0, stats, stats0
+            torch.cuda.empty_cache()
+    finally:
+        dist.shutdown()
+    print(f"[images] phase {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1480,6 +1651,7 @@ def main() -> int:
     with record_launches(seen):
         phase_distributed(smi, lm)
         m_runs = phase_swinir_m(smi)
+    phase_image_rungs(smi)
     checked = set().union(*(c["checked"] for c in cases + flash_cases))
     print(f"[shapes] phases 5-9, 11 and 12 launched {len(seen)} kinds of (kernel, q shape, dtype, mask "
           f"windows or causal): {sorted(seen, key=str)}")

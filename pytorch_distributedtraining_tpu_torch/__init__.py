@@ -8,11 +8,13 @@ package. Its Pallas kernels become hand-written CUDA kernels under
 ``csrc/``, built at first use; every kernel has a plain PyTorch version
 that CPU tensors take.
 
-The port covers the two reference drivers and the ladder's GPT-2 rung,
-on one GPU or, one process each, on many: SwinIR-S x2 through the Stoke
+The port covers the two reference drivers and all five ladder rungs, on
+one GPU or, one process each, on many: SwinIR-S x2 through the Stoke
 facade (``drivers.stoke_ddp``; SwinIR's classical and real-SR tails and
 the VGG-16 perceptual loss too), ESPCN through ``parallel.TrainStep``
-(``drivers.fairscale_ddp``) and GPT-2 125M (``benchmarks.ladder``), with
+(``drivers.fairscale_ddp``), and through ``benchmarks.ladder`` ResNet-18
+on CIFAR-10, ResNet-50 under DDP and ZeRO-2 (BatchNorm synchronous over
+the data group), GPT-2 125M and ViT-B/16 in bf16 under ZeRO-3, with
 ``ops``, ``models``, ``interop``, ``losses``, ``metrics``, ``optim``
 (per-leaf AdamW and SGD, the flat ``FusedAdamW``, the schedules, all
 shardable), ``precision``, ``runtime`` (the process group and the device

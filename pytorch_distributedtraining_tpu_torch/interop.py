@@ -1,16 +1,18 @@
 """Weight carry-over from the JAX package's models into the port's, and
 torch checkpoint files.
 
-Counterpart of the SwinIR, GPT-2 and VGG-16 parts of ``pytorch_distributed
-training_tpu/interop.py`` (``torch_swinir_state_dict``,
+Counterpart of the SwinIR, GPT-2, VGG-16, ResNet and ViT parts of
+``pytorch_distributedtraining_tpu/interop.py`` (``torch_swinir_state_dict``,
 ``torch_gpt2_state_dict``, ``load_torch_checkpoint`` and the
 ``SWINIR_EXPORT_KEY_MAP`` / ``GPT2_EXPORT_KEY_MAP`` / VGG ``TORCH_KEY_MAP``
-beside the JAX models): the same key rewrites, kept here as a copy so the
-port imports nothing of the JAX package. The input is the JAX model's
-``params`` as a nested dict of numpy arrays (``jax.device_get`` of the
-tree); the output strict-loads into ``models.swinir.SwinIR`` (any of its
-three tails, from the per-layer or the ``scan_layers=True`` layout),
-``models.gpt2.GPT2``, ``models.sr_espcn.Net`` or ``models.vgg.VGG16Features``.
+/ ``RESNET*_KEY_MAP`` / ``VIT_KEY_MAP`` beside the JAX models): the same
+key rewrites, kept here as a copy so the port imports nothing of the JAX
+package. The input is the JAX model's ``params`` (and ResNet's
+``batch_stats``) as a nested dict of numpy arrays (``jax.device_get`` of
+the tree); the output strict-loads into ``models.swinir.SwinIR`` (any of
+its three tails, from the per-layer or the ``scan_layers=True`` layout),
+``models.gpt2.GPT2``, ``models.sr_espcn.Net``, ``models.vgg.VGG16Features``,
+``models.resnet.ResNet`` or ``models.vit.ViT``.
 """
 
 from __future__ import annotations
@@ -165,6 +167,105 @@ def vgg16_state_dict_from_jax(params: dict) -> dict[str, torch.Tensor]:
             a = np.transpose(a, (3, 2, 0, 1))
         name = f"features.{m.group(1)}.{'weight' if m.group(2) == 'kernel' else 'bias'}"
         sd[name] = torch.from_numpy(np.array(a, dtype=np.float32, copy=True))
+    return sd
+
+
+def _tensor(a) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, dtype=np.float32, copy=True))
+
+
+def _resnet_blocks(params: dict) -> list[str]:
+    """flax's global block instances (``BasicBlock_{g}`` or
+    ``BottleneckBlock_{g}``) in call order."""
+    blocks = [k for k in params if re.fullmatch(r"(Basic|Bottleneck)Block_\d+", k)]
+    return sorted(blocks, key=lambda k: int(k.rsplit("_", 1)[1]))
+
+
+def resnet_state_dict_from_jax(params: dict, batch_stats: dict,
+                               stage_sizes: tuple | None = None) -> dict[str, torch.Tensor]:
+    """JAX ResNet ``params`` and ``batch_stats`` -> state dict of the port's
+    ``ResNet`` (torchvision's names).
+
+    flax numbers block instances globally (``BasicBlock_{g}``, inside it
+    ``Conv_{c}`` / ``BatchNorm_{c}`` and the projection ``conv_proj`` /
+    ``norm_proj``); torchvision per stage (``layer{i}.{j}.conv{c+1}`` /
+    ``bn{c+1}``, ``downsample.0`` / ``.1``). JAX's ``torchvision_key_map`` is
+    this table read the other way. ``stage_sizes`` defaults to what the
+    tree shows: a stage starts at the first block and at every block with a
+    projection. Conv kernels go HWIO -> OIHW, the head's ``[in, out]`` ->
+    ``[out, in]``, BatchNorm ``scale`` -> ``weight``, ``mean`` / ``var`` ->
+    ``running_mean`` / ``running_var``; ``num_batches_tracked``, which flax
+    does not keep, is 0. ``params`` may be nested under ``"params"``.
+    """
+    if set(params) == {"params"}:
+        params = params["params"]
+    if set(batch_stats) == {"batch_stats"}:
+        batch_stats = batch_stats["batch_stats"]
+    blocks = _resnet_blocks(params)
+    if stage_sizes is None:
+        starts = [g for g, b in enumerate(blocks) if g == 0 or "conv_proj" in params[b]]
+        stage_sizes = tuple(e - s for s, e in zip(starts, starts[1:] + [len(blocks)]))
+    names = {"conv_init": "conv1", "bn_init": "bn1", "head": "fc"}
+    g = 0
+    for i, n in enumerate(stage_sizes):
+        for j in range(n):
+            base = f"layer{i + 1}.{j}"
+            names[f"{blocks[g]}/conv_proj"] = f"{base}.downsample.0"
+            names[f"{blocks[g]}/norm_proj"] = f"{base}.downsample.1"
+            for c in range(3):
+                names[f"{blocks[g]}/Conv_{c}"] = f"{base}.conv{c + 1}"
+                names[f"{blocks[g]}/BatchNorm_{c}"] = f"{base}.bn{c + 1}"
+            g += 1
+    leaf = {"kernel": "weight", "scale": "weight", "bias": "bias", "mean": "running_mean",
+            "var": "running_var"}
+    sd: dict[str, torch.Tensor] = {}
+    for key, a in {**_flatten(params), **_flatten(batch_stats)}.items():
+        module, name = key.rsplit("/", 1)
+        if name == "kernel":
+            a = np.transpose(a, (3, 2, 0, 1)) if a.ndim == 4 else a.T
+        sd[f"{names[module]}.{leaf[name]}"] = _tensor(a)
+        if name == "var":
+            sd[f"{names[module]}.num_batches_tracked"] = torch.tensor(0, dtype=torch.long)
+    return sd
+
+
+# flat JAX key -> torchvision vit_b_16 name (the JAX VIT_KEY_MAP read backwards)
+VIT_KEY_RULES = [
+    (r"^cls$", "class_token"),
+    (r"^patch_embed/", "conv_proj/"),
+    (r"^pos_embed$", "encoder/pos_embedding"),
+    (r"^encoder_(\d+)/", r"encoder/layers/encoder_layer_\1/"),
+    (r"/c_attn/kernel$", "/self_attention/in_proj_weight"),
+    (r"/c_attn/bias$", "/self_attention/in_proj_bias"),
+    (r"/c_proj/", "/self_attention/out_proj/"),
+    (r"/mlp_fc/", "/mlp/0/"),
+    (r"/mlp_proj/", "/mlp/3/"),
+    (r"^ln_f/", "encoder/ln/"),
+    (r"^head/", "heads/head/"),
+]
+
+
+def vit_state_dict_from_jax(params: dict) -> dict[str, torch.Tensor]:
+    """JAX ViT ``params`` (the per-layer layout) -> state dict of the port's
+    ``ViT`` (torchvision's ``vit_b_16`` names).
+
+    ``c_attn``'s ``[d, 3d]`` kernel (columns ``[q | k | v]``) becomes
+    ``in_proj_weight`` ``[3d, d]`` (rows ``[q; k; v]``), dense kernels
+    ``[in, out]`` -> ``[out, in]``, the patch convolution HWIO -> OIHW,
+    LayerNorm ``scale`` -> ``weight``; ``cls`` and ``pos_embed`` keep their
+    ``[1, T, d]`` shapes. ``params`` may be nested under ``"params"``.
+    """
+    if set(params) == {"params"}:
+        params = params["params"]
+    sd: dict[str, torch.Tensor] = {}
+    for key, a in _flatten(params).items():
+        if key.endswith("/kernel"):
+            a = np.transpose(a, (3, 2, 0, 1)) if a.ndim == 4 else a.T
+        name = key
+        for pat, repl in VIT_KEY_RULES:
+            name = re.sub(pat, repl, name)
+        name = re.sub(r"/(kernel|scale)$", "/weight", name).replace("/", ".")
+        sd[name] = _tensor(a)
     return sd
 
 

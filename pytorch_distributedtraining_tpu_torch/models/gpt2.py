@@ -162,7 +162,7 @@ class GPT2(nn.Module):
         asked = [name for name, on in waits.items() if on]
         if asked:
             raise NotImplementedError(
-                f"GPT2 {', '.join(asked)}: not ported yet (the ladder-models and GPT-2 "
+                f"GPT2 {', '.join(asked)}: not ported yet (the GPT-2 remainder "
                 "slice); the port has the training path only")
         self.cfg = cfg
         self.transformer = nn.ModuleDict(dict(

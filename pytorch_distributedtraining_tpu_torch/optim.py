@@ -553,12 +553,13 @@ class FusedAdamW:
         return sd
 
 
-def fused_adamw_eligible(fairscale_sddp: bool = False, fairscale_fsdp: bool = False) -> bool:
-    """Can :class:`FusedAdamW` replace the per-leaf chain under the facade's
-    layout flags? DDP and ZeRO-1/OSS qualify (flat moments shard over the
-    data axis); ZeRO-2 (``fairscale_sddp``) and ZeRO-3 (``fairscale_fsdp``)
-    shard grads or params per leaf, which a flat vector cannot express."""
-    return not (fairscale_sddp or fairscale_fsdp)
+def fused_adamw_eligible(policy) -> bool:
+    """Can :class:`FusedAdamW` replace the per-leaf chain under this
+    ``parallel`` policy? (JAX ``optim.fused_adamw_eligible``.) DDP and
+    ZeRO-1/OSS qualify (flat moments shard over the data axis); ZeRO-2
+    and ZeRO-3 shard grads or params per leaf, which a flat vector cannot
+    express. The facade and the ladder both pick by it."""
+    return not (policy.shard_params or policy.shard_grads)
 
 
 def clip_stats(opt) -> RecordedClip | None:

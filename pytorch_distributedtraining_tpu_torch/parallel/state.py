@@ -8,7 +8,9 @@ sharded layout; PyTorch builds the module first, so
 
 1. put the model on the rank's device (``cuda:LOCAL_RANK`` by default);
 2. make its parameters and buffers equal on every rank: the caller builds
-   it from a seed, and rank 0's values are broadcast, as DDP does;
+   it from a seed, and rank 0's values are broadcast, as DDP does; and
+   hand the mesh's data group to every ``models.resnet.BatchNorm``, whose
+   statistics are then the global batch's, as under JAX's ``jit``;
 3. wrap it as the policy asks: ``DistributedDataParallel`` for ``DDP``
    with a per-leaf optimizer; FSDP2 ``fully_shard`` (parameters sharded
    along their first dimension, ``reshard_after_forward=True``, no mixed
@@ -101,6 +103,9 @@ def create_train_state(model: torch.nn.Module, tx: Callable, mesh=None,
         check_fused(policy)
     group = data_group(mesh)
     broadcast_module(model, group)
+    from ..models.resnet import sync_batch_norm  # models import parallel.remat
+
+    sync_batch_norm(model, group)
 
     if policy.shard_params:
         axis = "dp" if mesh_axis_size(mesh, "dp") > 1 else "fsdp"
@@ -122,8 +127,10 @@ def create_train_state(model: torch.nn.Module, tx: Callable, mesh=None,
         return TrainState(model, model, opt, mesh, policy)
     from torch.nn.parallel import DistributedDataParallel
 
-    # buffers are derived constants (index tables, masks), equal from the
-    # broadcast above: no sync a forward
+    # no buffer sync a forward: the buffers are equal from the broadcast
+    # above and stay so, being either derived constants (index tables,
+    # masks) or BatchNorm running statistics, which every rank updates
+    # from the same global-batch statistics (sync_batch_norm)
     quiet = ("forward_sync_buffers" if "forward_sync_buffers" in
              inspect.signature(DistributedDataParallel).parameters else "broadcast_buffers")
     wrapped = DistributedDataParallel(

@@ -28,6 +28,14 @@ In every policy the numbers are the one-device step's on the global
 batch, as in JAX, up to summation order. ``remat`` (default: the
 policy's) checkpoints ``loss_fn`` (:mod:`.remat`).
 
+Model state (BatchNorm running statistics, updated in place by a
+training forward) follows JAX's step, which keeps it in
+``TrainState.model_state``: every micro-batch runs from the step's
+starting state and the last micro-batch's update is kept (JAX's "state:
+keep last"), so ``grad_accum_steps`` micro-batches update it once, not n
+times in a row. A forward that ``remat`` recomputes in backward does not
+update it twice.
+
 Not ported yet: ``MultiStep`` (a CUDA-graph twin, the CUDA-graph step
 slice), the numerics probe and ``detect_anomaly`` (the numerics slice),
 host offload (the offload slice) and the loss scaler inside the step
@@ -45,7 +53,7 @@ import torch.distributed as tdist
 from ..optim import FusedAdamW
 from ..runtime.mesh import data_group
 from .policy import Policy
-from .remat import apply_remat
+from .remat import apply_remat, resolve_remat
 from .spec import all_reduce_sum_, all_reduce_tensors
 from .state import check_fused
 
@@ -140,8 +148,13 @@ class TrainStep:
         self.mesh = mesh
         check_layout(model, tx, mesh, self.policy)
         self.group = None if mesh is None else data_group(mesh)
-        self.loss_fn = apply_remat(loss_fn, self.policy.remat if remat is None else remat)
+        remat = self.policy.remat if remat is None else remat
+        self.loss_fn = apply_remat(loss_fn, remat)
         self.tx = tx
+        from ..models.resnet import batch_norm_state  # models import parallel.remat
+
+        self.model_state = batch_norm_state(model)
+        self._recomputes = resolve_remat(remat) in ("full", "dots")
         self.fused = tx if isinstance(tx, FusedAdamW) else None
         self.grad_accum_steps = int(grad_accum_steps)
 
@@ -150,11 +163,18 @@ class TrainStep:
         self.tx.zero_grad()
         losses, auxs = [], []
         micro = _split_microbatches(batch, n) if n > 1 else [batch]
+        start = [t.clone() for t in self.model_state] if self.model_state and n > 1 else None
         for i, mb in enumerate(micro):
+            if start is not None and i > 0:  # every micro-batch from the step's state
+                torch._foreach_copy_(self.model_state, start)
             quiet = _is_ddp(self.model) and i < n - 1
             with self.model.no_sync() if quiet else contextlib.nullcontext():
                 loss, aux = self.loss_fn(self.model, mb)
+                kept = ([t.clone() for t in self.model_state]
+                        if self.model_state and self._recomputes else None)
                 loss.backward()
+            if kept is not None:  # the forward's update, not the recompute's
+                torch._foreach_copy_(self.model_state, kept)
             losses.append(loss.detach())
             auxs.append(aux)
         grads = reduce_gradients(self.tx, self.policy, self.group, n)

@@ -4,9 +4,12 @@ Counterpart of ``pytorch_distributedtraining_tpu/stoke/config.py`` for the
 configs ``drivers/stoke_ddp.py`` passes. The facade reads
 ``DDPConfig.find_unused_parameters`` (for the DDP wrapper) and
 ``FairscaleOSSConfig.broadcast_fp16`` (the bf16 update wire over more
-than one rank); ``local_rank``, ``convert_to_sync_batch_norm`` (no model
-of the port has batch norm) and ``backend`` (NCCL on the card, gloo on the
-CPU, by ``runtime.dist``) are recorded only.
+than one rank); ``local_rank``, ``convert_to_sync_batch_norm`` and
+``backend`` (NCCL on the card, gloo on the CPU, by ``runtime.dist``) are
+recorded only. ``convert_to_sync_batch_norm`` has nothing to convert: the
+port's BatchNorm (``models.resnet.BatchNorm``) is synchronous over the
+data group whenever there is one, as JAX's always is (its ``jit`` sees the
+global batch).
 """
 
 from __future__ import annotations
@@ -46,6 +49,9 @@ class ClipGradNormConfig:
 
 @dataclass
 class DDPConfig:
+    """DDP knobs. ``convert_to_sync_batch_norm`` is recorded only: BatchNorm
+    is synchronous over the data group whenever there is one."""
+
     local_rank: int | None = None
     convert_to_sync_batch_norm: bool = False
     find_unused_parameters: bool = False

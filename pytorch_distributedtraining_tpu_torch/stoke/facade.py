@@ -15,7 +15,11 @@ grad_accum_steps`` into ``.grad``, and ``.step`` fires the optimizer on
 every ``grad_accum_steps``-th call (Stoke semantics; ``facade.py:1399-1435``
 in the JAX package), with the lr read from :attr:`optimizer` at that
 moment. Nothing in the hot loop waits for the device except an explicit
-read of a loss.
+read of a loss. ``.model`` runs in the module's mode: a BatchNorm model
+trains on batch statistics and updates its running statistics in place
+from one micro-batch to the next, as the JAX facade threads
+``model_state``; after ``model_access.eval()``, and always in
+:meth:`eval_step`, it reads the running statistics.
 
 Device and ranks: the facade runs on ``device`` (``"cuda"`` by default,
 the process's card under a launcher; it raises when no CUDA device exists
@@ -143,7 +147,7 @@ class Stoke:
                 f"grad_clip must be a ClipGradNormConfig, got {type(grad_clip).__name__}"
             )
         fused_eligible = factory is optim_mod.adamw and optim_mod.fused_adamw_eligible(
-            fairscale_sddp=fairscale_sddp, fairscale_fsdp=fairscale_fsdp)
+            self.policy)
         if fused_optimizer is True and not fused_eligible:
             raise ValueError(
                 "fused_optimizer=True needs AdamW on a replicated (DDP) or ZeRO-1/OSS "
@@ -264,19 +268,25 @@ class Stoke:
 
     def eval_step(self, metric_fns: dict | None = None) -> Callable:
         """``step(inputs, targets) -> {"loss": ..., **metrics}`` of device
-        scalars, computed without a graph and averaged over ranks; sum
-        them across batches and read once per epoch."""
+        scalars, computed in eval mode (BatchNorm reads its running
+        statistics) without a graph and averaged over ranks; sum them
+        across batches and read once per epoch."""
         metric_fns = dict(metric_fns or {})
 
         def step(inputs, targets):
             y = _as_tensor(targets, self.device)
-            with torch.no_grad():
-                with self._autocast():
-                    out = self._wrapped(_as_tensor(inputs, self.device))
-                out = out.float()
-                result = {"loss": self._loss_callable(out, y)}
-                for name, fn in metric_fns.items():
-                    result[name] = fn(out, y)
+            training = self._module.training
+            self._module.eval()  # JAX's eval step runs train=False: running statistics
+            try:
+                with torch.no_grad():
+                    with self._autocast():
+                        out = self._wrapped(_as_tensor(inputs, self.device))
+                    out = out.float()
+                    result = {"loss": self._loss_callable(out, y)}
+                    for name, fn in metric_fns.items():
+                        result[name] = fn(out, y)
+            finally:
+                self._module.train(training)
             return mean_over_ranks(result, self._group)
 
         return step

@@ -2,7 +2,9 @@
 (``benchmarks/profile_swinir.py``): the bench step it times runs end to end
 at a toy size, and its trace digest sorts kernels into families and
 computes busy and idle time from a Chrome trace. The ladder twin
-(``benchmarks/ladder.py``): its GPT-2 rung runs at tiny widths. The
+(``benchmarks/ladder.py``): its GPT-2 rung and its image rungs (ResNet-18,
+ResNet-50 under DDP and ZeRO-2, ViT-B/16 under ZeRO-3) run at the JAX
+ladder's tiny sizes. The
 collate timer (``benchmarks/collate.py``) times both ways at a toy batch.
 Device numbers come only from a GPU run."""
 
@@ -91,11 +93,30 @@ def test_ladder_lm_rung_runs_tiny_on_cpu(capsys):
     assert r["value"] <= r["roofline"] and math.isfinite(r["loss"])
 
 
-def test_ladder_unported_rungs_raise():
+@pytest.mark.parametrize("config,name,policy,optimizer", [
+    (1, "1_resnet18_cifar10_single", "none", "FusedAdamW"),
+    (2, "2_resnet50_ddp", "ddp", "FusedAdamW"),
+    (3, "3_resnet50_oss_sddp", "zero2", "AdamW"),
+    (5, "5_vitb16_bf16_fsdp", "zero3", "AdamW"),
+])
+def test_ladder_image_rung_runs_tiny_on_cpu(capsys, config, name, policy, optimizer):
+    """The ladder twin's image rungs at the JAX ladder's tiny sizes on the
+    CPU, each under its own policy (a process group of one, over gloo,
+    where it has one) and with the optimizer ``fused_adamw_eligible``
+    picks: one JSON line under the JAX config's name with a positive rate
+    under the roofline and a finite loss."""
     from pytorch_distributedtraining_tpu_torch.benchmarks import ladder
 
-    with pytest.raises(NotImplementedError, match="ladder-models slice"):
-        ladder.main(["--config", "1", "--tiny", "--device", "cpu"])
+    assert ladder.main(["--config", str(config), "--tiny", "--device", "cpu", "--steps", "2",
+                        "--warmup", "1"]) == 0
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert len(lines) == 1
+    r = json.loads(lines[0])
+    assert r["config"] == name and r["policy"] == policy and r["optimizer"] == optimizer
+    assert r["metric"] == "images_per_sec" and r["unit"] == "images/sec"
+    assert 0 < r["value"] <= r["roofline"] and math.isfinite(r["loss"])
+    assert r["batch"] == 8 and r["image"] == [32, 32, 3] and r["device"] == "cpu"
+    assert set(r["tf32"]) == {"matmul", "cudnn"}
 
 
 def test_flash_kernel_times_are_read_by_name(tmp_path):

@@ -468,6 +468,62 @@ def test_tiny_gpt2_on_the_card_matches_the_cpu(cuda):
         _close(p.grad.cpu(), want_grads[n], 1e-4)
 
 
+def _card_against_cpu(model, x, out_rel, grad_rel, cuda):
+    """Forward and parameter gradients of ``model`` (training mode) on the
+    card against the same model on the CPU; the ResNets' running
+    statistics too."""
+    start = [b.clone() for b in model.buffers()]
+    want = model(x)
+    want.square().mean().backward()
+    want_grads = {n: p.grad.clone() for n, p in model.named_parameters()}
+    cpu_buffers = {n: b.clone() for n, b in model.named_buffers()}
+    model.zero_grad()
+    for b, v in zip(model.buffers(), start):  # the card's forward from the same statistics
+        b.copy_(v)
+    got = model.to(cuda)(x.to(cuda))
+    got.square().mean().backward()
+    _close(got.cpu(), want, out_rel)
+    scale = max(g.abs().max().item() for g in want_grads.values())
+    for n, p in model.named_parameters():
+        assert (p.grad.cpu() - want_grads[n]).abs().max().item() <= grad_rel * scale, n
+    for n, b in model.named_buffers():
+        if b.is_floating_point():
+            assert (b.cpu() - cpu_buffers[n]).abs().max().item() <= 1e-5, n
+
+
+@pytest.mark.parametrize("small_inputs", [True, False], ids=["cifar-stem", "imagenet-stem"])
+@pytest.mark.parametrize("block", ["basic", "bottleneck"])
+def test_tiny_resnet_on_the_card_matches_the_cpu(cuda, small_inputs, block):
+    """cuDNN's convolutions on the channels_last view against the CPU's
+    NCHW, with the asymmetric pads and the port's BatchNorm; f32 without
+    TF32: outputs within 1e-5, gradients within 1e-4 of the largest."""
+    from pytorch_distributedtraining_tpu_torch.models import resnet
+
+    block_cls = resnet.BasicBlock if block == "basic" else resnet.BottleneckBlock
+    model = resnet.ResNet((1, 1), block_cls, num_classes=10, num_filters=8,
+                          small_inputs=small_inputs, generator=torch.Generator().manual_seed(0))
+    with torch.no_grad():  # the zero-initialised last BatchNorms would carry no signal
+        for m in model.modules():
+            if isinstance(m, resnet.BatchNorm):
+                m.weight.normal_(1.0, 0.1, generator=torch.Generator().manual_seed(1))
+    x = torch.from_numpy(np.random.default_rng(0).normal(size=(4, 32, 32, 3)).astype(np.float32))
+    _card_against_cpu(model, x, 1e-5, 1e-4, cuda)
+
+
+@pytest.mark.parametrize("dtype,out_rel,grad_rel", [(torch.float32, 1e-5, 1e-4),
+                                                    (torch.bfloat16, 3e-2, 5e-2)])
+def test_tiny_vit_on_the_card_matches_the_cpu(cuda, dtype, out_rel, grad_rel):
+    """The tiny ViT in f32 and bf16 (cuBLAS against the CPU's GEMMs: in
+    bf16 a few steps of the type apart, as against JAX)."""
+    from pytorch_distributedtraining_tpu_torch.models import ViT, ViTConfig
+
+    model = ViT(ViTConfig.tiny(dtype=dtype), generator=torch.Generator().manual_seed(0))
+    with torch.no_grad():  # the init zeroes the head
+        model.heads.head.weight.normal_(0.0, 0.2, generator=torch.Generator().manual_seed(1))
+    x = torch.from_numpy(np.random.default_rng(0).normal(size=(3, 32, 32, 3)).astype(np.float32))
+    _card_against_cpu(model, x, out_rel, grad_rel, cuda)
+
+
 # a ragged parameter list: 2601 elements, not a multiple of the 1024 padding
 RAGGED = [(37, 11), (5,), (3, 7, 9), (2000,)]
 

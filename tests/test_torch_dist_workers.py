@@ -258,3 +258,51 @@ def gpt2_worker(rank: int, world: int, *, policy: str, remat: str, steps: int) -
     vocab = [n for n, p in model.named_parameters() if tuple(p.shape) == (cfg.vocab_size,
                                                                           cfg.n_embd)]
     return {"losses": losses, "params": full_params(model), "vocab_params": vocab}
+
+
+# the tiny image models of tests/test_torch_resnet.py and test_torch_vit.py
+TINY_RESNET = dict(stage_sizes=(1, 1), num_classes=10, num_filters=8, small_inputs=True)
+
+
+def tiny_image_model(kind: str, state: dict | None = None):
+    """The tiny CIFAR ResNet (Basic blocks) or ``ViTConfig.tiny()``, weights
+    from seed 0 or from ``state`` (numpy arrays by state-dict name)."""
+    from pytorch_distributedtraining_tpu_torch.models import ResNet, ViT, ViTConfig
+
+    gen = torch.Generator().manual_seed(0)
+    model = ResNet(**TINY_RESNET, generator=gen) if kind == "resnet" else ViT(
+        ViTConfig.tiny(), generator=gen)
+    if state is not None:
+        model.load_state_dict({k: torch.from_numpy(v) for k, v in state.items()}, strict=True)
+    return model
+
+
+def image_steps_worker(rank: int, world: int, *, runs: list[dict], batches: list,
+                       states: dict) -> list[dict]:
+    """``TrainStep`` with softmax cross entropy (clip 1.0, lr 1e-3) on a
+    tiny image model for each of ``runs`` (``kind``, ``policy``, ``opt``,
+    ``accum``): rank r takes rows ``r::world`` of each global batch. Returns
+    per run the losses, the whole parameters and the buffers (BatchNorm
+    running statistics)."""
+    from pytorch_distributedtraining_tpu_torch import parallel
+    from pytorch_distributedtraining_tpu_torch.runtime.mesh import MeshSpec, make_mesh
+
+    out = []
+    for run in runs:
+        pol = getattr(parallel, POLICIES[run["policy"]])(min_shard_size=1)
+        mesh = make_mesh(MeshSpec.zero() if pol.shard_opt_state else MeshSpec.ddp())
+        tx = make_tx(run["opt"], lr=1e-3, clip_grad_norm=1.0)
+        st = parallel.create_train_state(tiny_image_model(run["kind"], states[run["kind"]]), tx,
+                                         mesh, pol, device="cpu")
+
+        def loss_fn(model, batch):
+            return torch.nn.functional.cross_entropy(model(batch[0]), batch[1].long()), {}
+
+        step = parallel.TrainStep(st.model, loss_fn, st.tx, mesh, pol,
+                                  grad_accum_steps=run["accum"])
+        losses = [float(step((torch.from_numpy(x[rank::world]),
+                              torch.from_numpy(y[rank::world])))["loss"]) for x, y in batches]
+        out.append({"losses": losses, "params": full_params(st.module),
+                    "buffers": {n: b.numpy().copy() for n, b in st.module.named_buffers()},
+                    "opt": type(st.tx).__name__, "wrapped": type(st.model).__name__})
+    return out

@@ -183,7 +183,7 @@ def test_bf16_config_keeps_a_bf16_residual_stream():
 
 @pytest.mark.parametrize("kw", [dict(decode=True), dict(paged=(4, 8))])
 def test_unported_serving_options_raise(kw):
-    with pytest.raises(NotImplementedError, match="ladder-models and GPT-2 slice"):
+    with pytest.raises(NotImplementedError, match="GPT-2 remainder slice"):
         tg.GPT2(tg.GPT2Config.tiny(), **kw)
 
 
