@@ -219,9 +219,11 @@ OPT_BYTES, OPT_EMA_BYTES, OPT_FLOPS = 28, 36, 20
 ESPCN_N = 1024  # 1013 training images: 25 batches of 40, one loss print
 # phase 13: the ladder's image rungs (benchmarks.ladder.IMAGE_RUNGS); the tiny
 # models' card-against-CPU tolerances (output, grads: relative to the largest
-# CPU value), f32 a sum order apart, bf16 a few steps of the type
+# CPU value), f32 a sum order apart; bf16 on the seeded input agrees exactly in
+# the output and to 1.8e-5 in the gradients (H100, torch 2.11), so a path that
+# lost precision (bf16 accumulation, a cast of the gradients) fails
 IMAGE_CONFIGS = (1, 2, 3, 5)
-IMAGE_CARD_TOL = {"float32": (1e-5, 1e-4), "bfloat16": (3e-2, 5e-2)}
+IMAGE_CARD_TOL = {"float32": (1e-5, 1e-4), "bfloat16": (1e-3, 1e-3)}
 # phase 11: loss trajectories with a group of one against none; bf16 at
 # the noise ROADMAP.md C.1 records between the bf16 and f32 losses
 DIST_F32_TOL, DIST_BF16_TOL = 1e-6, 1.6e-3
@@ -1550,7 +1552,7 @@ def phase_image_rungs(smi: str, steps: int = 5, warmup: int = 2) -> dict:
     import torch
 
     from pytorch_distributedtraining_tpu_torch.benchmarks import ladder
-    from pytorch_distributedtraining_tpu_torch.models.resnet import batch_norm_state
+    from pytorch_distributedtraining_tpu_torch.parallel.sync_bn import batch_norm_state
     from pytorch_distributedtraining_tpu_torch.ops import flash_attn as tfa
     from pytorch_distributedtraining_tpu_torch.ops import window_attn as twa
     from pytorch_distributedtraining_tpu_torch.runtime import dist

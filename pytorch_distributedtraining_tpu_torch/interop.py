@@ -181,8 +181,7 @@ def _resnet_blocks(params: dict) -> list[str]:
     return sorted(blocks, key=lambda k: int(k.rsplit("_", 1)[1]))
 
 
-def resnet_state_dict_from_jax(params: dict, batch_stats: dict,
-                               stage_sizes: tuple | None = None) -> dict[str, torch.Tensor]:
+def resnet_state_dict_from_jax(params: dict, batch_stats: dict) -> dict[str, torch.Tensor]:
     """JAX ResNet ``params`` and ``batch_stats`` -> state dict of the port's
     ``ResNet`` (torchvision's names).
 
@@ -190,9 +189,9 @@ def resnet_state_dict_from_jax(params: dict, batch_stats: dict,
     ``Conv_{c}`` / ``BatchNorm_{c}`` and the projection ``conv_proj`` /
     ``norm_proj``); torchvision per stage (``layer{i}.{j}.conv{c+1}`` /
     ``bn{c+1}``, ``downsample.0`` / ``.1``). JAX's ``torchvision_key_map`` is
-    this table read the other way. ``stage_sizes`` defaults to what the
-    tree shows: a stage starts at the first block and at every block with a
-    projection. Conv kernels go HWIO -> OIHW, the head's ``[in, out]`` ->
+    this table read the other way. The stages are read off the tree: a
+    stage starts at the first block and at every block with a projection
+    (each later stage opens with a stride-2 one). Conv kernels go HWIO -> OIHW, the head's ``[in, out]`` ->
     ``[out, in]``, BatchNorm ``scale`` -> ``weight``, ``mean`` / ``var`` ->
     ``running_mean`` / ``running_var``; ``num_batches_tracked``, which flax
     does not keep, is 0. ``params`` may be nested under ``"params"``.
@@ -202,9 +201,8 @@ def resnet_state_dict_from_jax(params: dict, batch_stats: dict,
     if set(batch_stats) == {"batch_stats"}:
         batch_stats = batch_stats["batch_stats"]
     blocks = _resnet_blocks(params)
-    if stage_sizes is None:
-        starts = [g for g, b in enumerate(blocks) if g == 0 or "conv_proj" in params[b]]
-        stage_sizes = tuple(e - s for s, e in zip(starts, starts[1:] + [len(blocks)]))
+    starts = [g for g, b in enumerate(blocks) if g == 0 or "conv_proj" in params[b]]
+    stage_sizes = [e - s for s, e in zip(starts, starts[1:] + [len(blocks)])]
     names = {"conv_init": "conv1", "bn_init": "bn1", "head": "fc"}
     g = 0
     for i, n in enumerate(stage_sizes):

@@ -16,22 +16,14 @@ The numerics are flax's, not torch's defaults:
   size, every 3x3/2 convolution (0, 1), and the 3x3/2 max pool (0, 1)
   with -inf (:func:`same_pads`). torch's even ``padding=3`` / ``=1`` would
   shift every stride-2 window by one pixel.
-- :class:`BatchNorm` is flax's ``nn.BatchNorm(momentum=0.9, epsilon=1e-5)``:
-  statistics in f32 whatever ``dtype`` is, the variance as
-  ``mean(x²) - mean(x)²``, and the *biased* variance into
-  ``running_var`` (torch's ``BatchNorm2d`` stores the unbiased one).
+- BatchNorm is flax's (``parallel.sync_bn.BatchNorm``): statistics in f32
+  whatever ``dtype`` is, the *biased* variance into ``running_var``.
 - The last BatchNorm of each block starts at scale zero, and convolution
   and dense kernels at flax's ``lecun_normal`` (:meth:`ResNet.init_weights`).
 
-BatchNorm is synchronous over the data group: in JAX, ``jit`` sees the
-global batch, so its statistics are always the global batch's. Here each
-rank holds a shard of the batch, so a BatchNorm with a ``process_group``
-of more than one rank all-reduces its per-channel sum, sum of squares and
-count, through a differentiable all-reduce whose backward sums the
-gradients of the statistics as well: forward and backward are the global
-batch's. ``parallel.create_train_state`` hands the mesh's data group to
-every BatchNorm (:func:`sync_batch_norm`); without a group, or at one
-rank, no collective is issued.
+BatchNorm is synchronous over the data group, as JAX's, whose ``jit``
+sees the global batch: ``parallel.create_train_state`` hands the mesh's
+data group to every BatchNorm (``parallel.sync_bn``).
 
 ``train`` (default: the module's ``training`` flag, so ``module.eval()``
 does the same as ``train=False``) selects batch statistics, which update
@@ -44,10 +36,10 @@ import functools
 from typing import Sequence
 
 import torch
-import torch.distributed as tdist
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel.sync_bn import BatchNorm
 from .gpt2 import _dense
 
 # the stddev of a unit normal truncated to [-2, 2]: flax's truncated_normal
@@ -82,85 +74,6 @@ def max_pool_same(x: torch.Tensor, k: int = 3, s: int = 2) -> torch.Tensor:
     """flax ``nn.max_pool(x, (k, k), (s, s), padding="SAME")``: pads of -inf."""
     x, pad = _pad_same(x, k, s, float("-inf"))
     return F.max_pool2d(x, k, s, pad)
-
-
-class _AllReduceSum(torch.autograd.Function):
-    """A sum over the ranks of ``group`` whose gradient is the sum of the
-    ranks' gradients: every rank's statistics feed every rank's loss."""
-
-    @staticmethod
-    def forward(ctx, t: torch.Tensor, group) -> torch.Tensor:
-        ctx.group = group
-        t = t.clone()
-        tdist.all_reduce(t, group=group)
-        return t
-
-    @staticmethod
-    def backward(ctx, g: torch.Tensor):
-        return _AllReduceSum.apply(g, ctx.group), None
-
-
-class BatchNorm(nn.Module):
-    """flax's ``nn.BatchNorm`` over the channels of an NCHW tensor, under
-    torch's parameter and buffer names (``weight``, ``bias``,
-    ``running_mean``, ``running_var``, ``num_batches_tracked``), synchronous
-    over ``process_group`` when it has more than one rank."""
-
-    def __init__(self, num_features: int, momentum: float = 0.9, eps: float = 1e-5,
-                 dtype: torch.dtype = torch.float32, zero_init: bool = False):
-        super().__init__()
-        self.momentum, self.eps, self.dtype = momentum, eps, dtype
-        self.zero_init = zero_init  # flax scale_init=zeros (the block's last BN)
-        self.weight = nn.Parameter(torch.ones(num_features))
-        self.bias = nn.Parameter(torch.zeros(num_features))
-        self.register_buffer("running_mean", torch.zeros(num_features))
-        self.register_buffer("running_var", torch.ones(num_features))
-        self.register_buffer("num_batches_tracked", torch.tensor(0, dtype=torch.long))
-        self.process_group = None
-
-    def _batch_stats(self, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-        """Mean and biased variance per channel, over every rank of the group."""
-        s, ss = x.sum((0, 2, 3)), (x * x).sum((0, 2, 3))
-        count = float(x.numel() // x.shape[1])
-        group = self.process_group
-        if group is not None and tdist.get_world_size(group) > 1:
-            c = s.shape[0]
-            stats = _AllReduceSum.apply(torch.cat([s, ss, s.new_full((1,), count)]), group)
-            s, ss, count = stats[:c], stats[c:2 * c], stats[2 * c]
-        mean = s / count
-        return mean, torch.clamp_min(ss / count - mean * mean, 0.0)
-
-    def forward(self, x: torch.Tensor, train: bool = True) -> torch.Tensor:
-        xf = x.float()
-        if train:
-            mean, var = self._batch_stats(xf)
-            with torch.no_grad():
-                m = self.momentum
-                self.running_mean.mul_(m).add_(mean.detach(), alpha=1 - m)
-                self.running_var.mul_(m).add_(var.detach(), alpha=1 - m)
-                self.num_batches_tracked.add_(1)
-        else:
-            mean, var = self.running_mean, self.running_var
-        # (x - mean) * a + bias, as x * a + (bias - mean * a): one full-size pass
-        a = torch.rsqrt(var + self.eps) * self.weight
-        b = self.bias - mean * a
-        return torch.addcmul(b[:, None, None], xf, a[:, None, None]).to(self.dtype)
-
-
-def sync_batch_norm(module: nn.Module, group) -> None:
-    """Make every :class:`BatchNorm` of ``module`` synchronous over ``group``
-    (None: each rank's own batch)."""
-    for m in module.modules():
-        if isinstance(m, BatchNorm):
-            m.process_group = group
-
-
-def batch_norm_state(module: nn.Module) -> list[torch.Tensor]:
-    """The model state a training forward updates in place: every
-    :class:`BatchNorm`'s running statistics and counter (JAX's
-    ``batch_stats`` collection)."""
-    return [t for m in module.modules() if isinstance(m, BatchNorm)
-            for t in (m.running_mean, m.running_var, m.num_batches_tracked)]
 
 
 def _downsample(cin: int, cout: int, stride: int, dtype) -> nn.Sequential | None:

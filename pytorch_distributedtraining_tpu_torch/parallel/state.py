@@ -9,7 +9,7 @@ sharded layout; PyTorch builds the module first, so
 1. put the model on the rank's device (``cuda:LOCAL_RANK`` by default);
 2. make its parameters and buffers equal on every rank: the caller builds
    it from a seed, and rank 0's values are broadcast, as DDP does; and
-   hand the mesh's data group to every ``models.resnet.BatchNorm``, whose
+   hand the mesh's data group to every ``sync_bn.BatchNorm``, whose
    statistics are then the global batch's, as under JAX's ``jit``;
 3. wrap it as the policy asks: ``DistributedDataParallel`` for ``DDP``
    with a per-leaf optimizer; FSDP2 ``fully_shard`` (parameters sharded
@@ -42,6 +42,7 @@ from ..runtime.dist import resolve_device
 from ..runtime.mesh import data_group, mesh_axis_size
 from .policy import Policy
 from .spec import ShardPlan
+from .sync_bn import sync_batch_norm
 
 
 class TrainState(NamedTuple):
@@ -103,8 +104,6 @@ def create_train_state(model: torch.nn.Module, tx: Callable, mesh=None,
         check_fused(policy)
     group = data_group(mesh)
     broadcast_module(model, group)
-    from ..models.resnet import sync_batch_norm  # models import parallel.remat
-
     sync_batch_norm(model, group)
 
     if policy.shard_params:

@@ -56,6 +56,7 @@ from .policy import Policy
 from .remat import apply_remat, resolve_remat
 from .spec import all_reduce_sum_, all_reduce_tensors
 from .state import check_fused
+from .sync_bn import batch_norm_state
 
 
 def _split_microbatches(batch, n: int) -> list:
@@ -151,8 +152,6 @@ class TrainStep:
         remat = self.policy.remat if remat is None else remat
         self.loss_fn = apply_remat(loss_fn, remat)
         self.tx = tx
-        from ..models.resnet import batch_norm_state  # models import parallel.remat
-
         self.model_state = batch_norm_state(model)
         self._recomputes = resolve_remat(remat) in ("full", "dots")
         self.fused = tx if isinstance(tx, FusedAdamW) else None

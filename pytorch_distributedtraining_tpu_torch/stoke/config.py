@@ -7,7 +7,7 @@ configs ``drivers/stoke_ddp.py`` passes. The facade reads
 than one rank); ``local_rank``, ``convert_to_sync_batch_norm`` and
 ``backend`` (NCCL on the card, gloo on the CPU, by ``runtime.dist``) are
 recorded only. ``convert_to_sync_batch_norm`` has nothing to convert: the
-port's BatchNorm (``models.resnet.BatchNorm``) is synchronous over the
+port's BatchNorm (``parallel.sync_bn.BatchNorm``) is synchronous over the
 data group whenever there is one, as JAX's always is (its ``jit`` sees the
 global batch).
 """

@@ -511,10 +511,12 @@ def test_tiny_resnet_on_the_card_matches_the_cpu(cuda, small_inputs, block):
 
 
 @pytest.mark.parametrize("dtype,out_rel,grad_rel", [(torch.float32, 1e-5, 1e-4),
-                                                    (torch.bfloat16, 3e-2, 5e-2)])
+                                                    (torch.bfloat16, 1e-3, 1e-3)])
 def test_tiny_vit_on_the_card_matches_the_cpu(cuda, dtype, out_rel, grad_rel):
-    """The tiny ViT in f32 and bf16 (cuBLAS against the CPU's GEMMs: in
-    bf16 a few steps of the type apart, as against JAX)."""
+    """The tiny ViT in f32 and bf16, cuBLAS against the CPU's GEMMs. On
+    this seeded input bf16 agrees exactly in the output and to 1.8e-5 in
+    the gradients (H100, torch 2.11): the limits catch a path that lost
+    precision, such as bf16 accumulation or a cast of the gradients."""
     from pytorch_distributedtraining_tpu_torch.models import ViT, ViTConfig
 
     model = ViT(ViTConfig.tiny(dtype=dtype), generator=torch.Generator().manual_seed(0))
