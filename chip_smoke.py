@@ -133,14 +133,38 @@ Phases, each fatal on failure:
    the first loss against ln(classes), a finite last loss, moved weights,
    moved BatchNorm running statistics (ResNets), a traced step's device
    busy ms and ms by kernel family, and no launch of K1-K5 (no kernel of
-   the port lies on these paths), beside the card's name and power limit.
+   the port lies on these paths), beside the card's name and power limit;
+14. serving: GPT-2 125M at full width and depth (weights from seed 0) in f32
+   and bf16 through ``Stoke.serve``, which builds the continuous-batching
+   ``ServeEngine`` at the JAX engine's defaults (4 slots, page 16, 257
+   pages, prefill chunk 32, buckets 8/16/32), over 24 seeded greedy
+   requests arriving at once (prompts of 16, 48, 100 and 200 tokens, 32-96
+   new): every request delivered in full, no steady recompile, every page
+   free again, no launch of K1-K5; in f32 the tokens equal
+   ``generate(kv_layout="contiguous")``'s for each prompt on the card and
+   those of the same trace at ``spec_k=4`` (``held_tokens``: where two runs
+   part, the step must be a tie within ``TIE_TOL``); in bf16 finite logits
+   and the share of tokens equal to f32's, reported. Decode tokens/s,
+   TTFT and latency p50/p99, the tick's ms, prefill ms per bucket, the
+   spec accept rate, peak GiB and a traced decode-only tick's device busy
+   ms and idle share. Then SwinIR-M x2 (phase 12's model, seed 0) through
+   ``serve.build_engine``'s ``SwinIRTileServer`` (tile 48, overlap 8, 4
+   tiles a batch) in f32 and bf16 over six seeded images (40x30, which is
+   reflect-padded, 64x64, 96x128, 128x200, 256x256, 48x48): exactly 36 K1
+   and no K2 a tile batch, every request at its upscaled size, no steady
+   recompile, and one batch against the same model on the CPU within
+   ``TILE_CARD_TOL``; tiles/s, output megapixels/s, request latency
+   p50/p99 and peak GiB, beside the card's name and power limit.
 
-Phases 5-9, 11 and 12 note the shape, dtype and mask (or causality) of
+Phases 5-9, 11, 12 and 14 note the shape, dtype and mask (or causality) of
 every launch; the run fails if one of them was not held against the plain
-version in phase 3 or 4. The kernels' JSON lists all five kernels: K1/K2 from phase
+version in phase 3 or 4 (phase 3 holds phase 14's tile batch, q/k/v [144,
+6, 64, 30], in f32 and bf16 with and without the mask). The kernels' JSON
+lists all five kernels: K1/K2 from phase
 6's f32 run (its launch counts, and the errors and times of phase 3 at
 its shape), K3-K5 from phase 7 (its launch counts, and phase 4's numbers
-for the causal bf16 case). The line before it, ``{"swinir_m_kernels":
+for the causal bf16 case), and K1 at the tile server's shape in each type
+(phase 14's launches over its run, phase 3's numbers). The line before it, ``{"swinir_m_kernels":
 [...]}``, holds K1/K2 at phase 12's shapes (each type, and pack 2, which
 phase 12 does not launch: phase 3's errors and times, phase 12's launches
 a step). The last lines are that JSON, the
@@ -227,6 +251,22 @@ IMAGE_CARD_TOL = {"float32": (1e-5, 1e-4), "bfloat16": (1e-3, 1e-3)}
 # phase 11: loss trajectories with a group of one against none; bf16 at
 # the noise ROADMAP.md C.1 records between the bf16 and f32 losses
 DIST_F32_TOL, DIST_BF16_TOL = 1e-6, 1.6e-3
+# phase 14: serving. GPT-2 125M through Stoke.serve at the JAX engine's
+# defaults (4 slots, page 16, 1 + 4 * 1024 / 16 pages, chunk 32, buckets
+# 8/16/32); 24 seeded requests, all arriving at 0
+SERVE_REQUESTS, SERVE_PROMPTS, SERVE_NEW = 24, (16, 48, 100, 200), (32, 96)
+SERVE_SLOTS, SERVE_PAGE, SERVE_PAGES, SERVE_CHUNK, SERVE_BUCKETS = 4, 16, 257, 32, (8, 16, 32)
+SERVE_SPEC_K = 4
+# greedy tokens are held equal in f32; where two runs part, the step must be
+# a tie: the two tokens' logits (the full forward's, on the card) within this
+TIE_TOL = 1e-4
+# the tile server: SwinIR-M x2 (phase 12's model), six seeded images (40x30
+# reflect-padded up to the tile), tile 48, overlap 8, 4 tiles a batch: K1 at
+# [4 * 36, 6, 64, 30], 36 launches a batch; one batch on the card against the
+# same model on the CPU (relative to the largest CPU value; bf16 against f32)
+TILE_IMAGES = ((40, 30), (64, 64), (96, 128), (128, 200), (256, 256), (48, 48))
+TILE, TILE_OVERLAP, TILE_BATCH = 48, 8, 4
+TILE_CARD_TOL = {"float32": 1e-4, "bfloat16": 5e-2}
 DIST_LAYOUTS = (  # name, build_stoke flags, precision
     ("ddp+fused", dict(oss=False, sddp=False), None),
     ("oss+fused", dict(oss=True, sddp=False), None),
@@ -570,7 +610,7 @@ def _kernel_case(dtype, with_mask: bool, pack: int, batch: int, lr_size: int,
     bwd_bound = bound_ms(7 * q.numel() * esize + side + bias.numel() * 4,
                          10 * bn * h * n * n * d, dt, TENSOR_PEAK_FLOPS)
     return {"dtype": dt, "mask": with_mask, "pack": pack, "shape": tuple(q.shape),
-            "model": "SwinIR-M" if dim == M_DIM else "SwinIR-S",
+            "batch": batch, "model": "SwinIR-M" if dim == M_DIM else "SwinIR-S",
             "errors": errors, "times": t, "fwd_bound": fwd_bound, "bwd_bound": bwd_bound,
             "checked": checked}
 
@@ -589,6 +629,9 @@ def phase_kernels(smi: str) -> list[dict]:
     configs += [(dtype, with_mask, pack, M_BATCH, M_LR, M_DIM)
                 for dtype in (torch.float32, torch.bfloat16)
                 for with_mask in (False, True) for pack in (1, 2)]
+    # phase 14's tile server: SwinIR-M at TILE_BATCH tiles of 48x48
+    configs += [(dtype, with_mask, 1, TILE_BATCH, TILE, M_DIM)
+                for dtype in (torch.float32, torch.bfloat16) for with_mask in (False, True)]
     cases = []
     for seed, (dtype, with_mask, pack, batch, lr_size, dim) in enumerate(configs):
         c = _kernel_case(dtype, with_mask, pack, batch, lr_size, seed, dim)
@@ -929,16 +972,24 @@ def traced_call(fn) -> dict:
     from pytorch_distributedtraining_tpu_torch.benchmarks.profile_swinir import device_breakdown
 
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        fn()
-        torch.cuda.synchronize()
     (ROOT / "build").mkdir(exist_ok=True)
-    with tempfile.TemporaryDirectory(dir=ROOT / "build") as d:
-        path = os.path.join(d, "trace.json")
-        prof.export_chrome_trace(path)
-        with open(path) as f:
-            events = json.load(f)["traceEvents"]
-        r = device_breakdown(path)
+    # CUPTI now and then hands back a trace with no device activity at all;
+    # such a capture is retaken (up to twice), never read as zero work
+    for attempt in range(3):
+        with torch.profiler.profile(activities=acts) as prof:
+            fn()
+            torch.cuda.synchronize()
+        with tempfile.TemporaryDirectory(dir=ROOT / "build") as d:
+            path = os.path.join(d, "trace.json")
+            prof.export_chrome_trace(path)
+            with open(path) as f:
+                events = json.load(f)["traceEvents"]
+            if attempt < 2 and not any(e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")
+                                       for e in events):
+                print(f"[trace] capture {attempt + 1} held no device activity; retaken")
+                continue
+            r = device_breakdown(path)
+        break
     nccl = sum(1 for e in events
                if e.get("cat") == "kernel" and e.get("name", "").lower().startswith("nccl"))
     return {"activities": r["kernels"], "busy_ms": r["busy_ms"], "nccl": nccl,
@@ -1456,10 +1507,10 @@ def swinir_m_kernels(cases: list[dict], runs: dict) -> list[dict]:
     type (0 at pack 2, which the model does not run)."""
     out = []
     for c in cases:
-        if c["model"] != "SwinIR-M" or not c["mask"]:
+        if c["model"] != "SwinIR-M" or not c["mask"] or c["batch"] != M_BATCH:
             continue
         pair = [d for d in cases if d["model"] == "SwinIR-M" and d["dtype"] == c["dtype"]
-                and d["pack"] == c["pack"]]
+                and d["pack"] == c["pack"] and d["batch"] == M_BATCH]
         run = next((r for r in runs.values() if r["dtype"] == c["dtype"]
                     and c["pack"] == 1 and r["remat"] == "none"), None)
         t = c["times"]
@@ -1629,6 +1680,344 @@ def phase_image_rungs(smi: str, steps: int = 5, warmup: int = 2) -> dict:
     return out
 
 
+def _serve_requests(vocab: int) -> list:
+    """Phase 14's trace: SERVE_REQUESTS seeded greedy requests, all arriving
+    at 0, each prompt length of SERVE_PROMPTS equally often, 32-96 new tokens."""
+    import numpy as np
+
+    from pytorch_distributedtraining_tpu_torch.serve.scheduler import Request
+
+    rng = np.random.default_rng(0)
+    lens = rng.permutation(np.repeat(SERVE_PROMPTS, SERVE_REQUESTS // len(SERVE_PROMPTS)))
+    news = rng.integers(SERVE_NEW[0], SERVE_NEW[1] + 1, SERVE_REQUESTS)
+    return [Request(i, rng.integers(0, vocab, int(n)).astype(np.int32), int(m))
+            for i, (n, m) in enumerate(zip(lens, news))]
+
+
+def _ttft_s(life: dict) -> float:
+    """A lifecycle's seconds from enqueue to the end of its last prefill
+    chunk, the one that samples the first token."""
+    return max(b for ph, _, b, _ in life["intervals"] if ph == "prefill") - life["t_start"]
+
+
+def _pct(values: list, q: float) -> float:
+    import numpy as np
+
+    return float(np.percentile(np.asarray(values), q))
+
+
+def held_tokens(name: str, model, reqs: list, got: dict, want: dict) -> tuple[int, list]:
+    """Greedy tokens of two runs held equal: (requests equal, [(rid, step,
+    gap)] where two part). A parting must be a tie: the two tokens' logits
+    from the full forward of the shared prefix (``model``, decode, on the
+    card) within TIE_TOL; else the run fails."""
+    import numpy as np
+    import torch
+
+    from pytorch_distributedtraining_tpu_torch.models.generate import init_cache
+
+    equal, parted = 0, []
+    for r in reqs:
+        a, b = got[r.rid], want[r.rid]
+        if a == b:
+            equal += 1
+            continue
+        d = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
+        if d is None:  # one is a prefix of the other: lengths differ
+            parted.append((r.rid, min(len(a), len(b)), float("inf")))
+            continue
+        prefix = np.concatenate([r.prompt, np.asarray(b[:d], np.int32)])[None]
+        cache = init_cache(model, 1, prefix.shape[1])
+        with torch.inference_mode():
+            logits = model(torch.from_numpy(prefix).cuda(), cache)[0, -1]
+        parted.append((r.rid, d, abs(logits[a[d]] - logits[b[d]]).item()))
+    print(f"[serve]   {name}: {equal} of {len(reqs)} requests token-identical; parted "
+          f"(rid, step, |logit gap|): {parted} (a tie: gap <= {TIE_TOL:g})")
+    bad = [p for p in parted if not p[2] <= TIE_TOL]
+    if bad:
+        raise SystemExit(f"{name}: tokens part where the logits are no tie: {bad}")
+    return equal, parted
+
+
+def _serve_gpt2_run(stoke, reqs: list, smi: str, label: str, **kw) -> dict:
+    """One engine through ``Stoke.serve`` over ``reqs``: warm-up, the
+    steady mark, the run (launch counts from 0, spans on, every dispatch's
+    logits checked finite), then prefill ms per bucket and an untraced and
+    a traced decode-only tick."""
+    import numpy as np
+    import torch
+
+    from pytorch_distributedtraining_tpu_torch.observe import trace
+    from pytorch_distributedtraining_tpu_torch.ops import flash_attn as tfa
+    from pytorch_distributedtraining_tpu_torch.ops import window_attn as twa
+    from pytorch_distributedtraining_tpu_torch.serve.scheduler import Request
+
+    eng = stoke.serve(**kw)
+    layout = (eng.n_slots, eng.page_size, eng.num_pages, eng.prefill_chunk, eng.prefill_buckets)
+    if layout != (SERVE_SLOTS, SERVE_PAGE, SERVE_PAGES, SERVE_CHUNK, SERVE_BUCKETS):
+        raise SystemExit(f"{label}: engine layout {layout}, not JAX's defaults")
+    t0 = time.perf_counter()
+    eng.warmup()
+    warm_s = time.perf_counter() - t0
+    eng.mark_steady()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    twa.reset_launch_counts()
+    tfa.reset_launch_counts()
+    # every prefill, decode and verify dispatch of the served trace leaves a
+    # device-side "all logits finite" flag (two small kernels, no sync)
+    flags, forward = [], eng._forward
+
+    def checked_forward(*args):
+        logits = forward(*args)
+        flags.append(torch.isfinite(logits).all())
+        return logits
+
+    eng._forward = checked_forward
+    trace.enable(crash_handler=False)
+    trace.clear()
+    try:
+        t0 = time.perf_counter()
+        recs = list(eng.run(reqs, realtime=False))
+        wall = time.perf_counter() - t0
+        spans = trace.records()
+    finally:
+        trace.disable()
+        trace.clear()
+        del eng._forward
+    served_finite = bool(flags) and bool(torch.stack(flags).all())
+    if not served_finite:
+        raise SystemExit(f"{label}: non-finite logits in the served trace's "
+                         f"{len(flags)} dispatches")
+    launches = (twa.fwd_launches, twa.bwd_launches, tfa.fwd_launches, tfa.dq_launches,
+                tfa.dkv_launches)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    m = eng.metrics()
+    recompiles = eng.steady_recompiles()
+    eng.pool.check_invariants()
+    if len(recs) != len(reqs) or any(r["new_tokens"] != q.max_new_tokens
+                                     for r, q in zip(sorted(recs, key=lambda r: r["rid"]), reqs)):
+        raise SystemExit(f"{label}: {len(recs)} of {len(reqs)} requests delivered in full")
+    if recompiles or eng.pool.available != eng.pool.capacity:
+        raise SystemExit(f"{label}: {recompiles} steady recompiles, {eng.pool.in_use} pages "
+                         "still in use")
+    if any(launches):
+        raise SystemExit(f"{label}: launched K1-K5 {launches}; no kernel of the port lies on "
+                         "GPT-2 decode")
+    tick_kind = "serve.spec_verify.dispatch" if eng.spec_k else "serve.decode.dispatch"
+    lives = list(eng.ledger.completed)
+    ttft = [_ttft_s(life) for life in lives]
+    lat = [life["wall_s"] for life in lives]
+    out = {
+        "tokens": {r["rid"]: r["tokens"] for r in recs}, "wall_s": wall,
+        "decode_tokens_per_s": m["decode_tokens_per_sec"],
+        "tokens_per_s": sum(r["new_tokens"] for r in recs) / wall,
+        "ttft_p50": _pct(ttft, 50), "ttft_p99": _pct(ttft, 99),
+        "latency_p50": _pct(lat, 50), "latency_p99": _pct(lat, 99),
+        "tick_ms": statistics.median(r["dur"] for r in spans if r["name"] == tick_kind) * 1e3,
+        "accept_rate": m["spec"]["accept_rate"], "spec_ticks": m["spec"]["ticks"],
+        "ticks": m["ticks"], "programs": m["compiled_programs"], "peak_gib": peak,
+    }
+
+    # one chunk of each bucket against the null page (the warmed programs)
+    null_row, zero = np.zeros((1, eng.max_pages), np.int32), np.zeros((1,), np.int32)
+    prefill_ms = {}
+    for b in SERVE_BUCKETS:
+        chunk = np.arange(b, dtype=np.int32)[None]
+        times = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            eng._forward(f"prefill_{b}", chunk, null_row, zero)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        prefill_ms[b] = statistics.median(times)
+    # decode-only ticks: every slot resident, prefill done; five untraced
+    # (host clock, each ends in the tokens' host read) and one traced
+    for i in range(SERVE_SLOTS):
+        eng.submit(Request(1000 + i, reqs[i].prompt[:16], 64))
+    while eng.sched.next_prefill() is not None or eng.sched.queue:
+        eng.tick(0.0)
+    walls = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        eng.tick(0.0)
+        walls.append((time.perf_counter() - t0) * 1e3)
+    traced = traced_call(lambda: eng.tick(0.0))
+    eng.run([], realtime=False)
+    if eng.steady_recompiles():
+        raise SystemExit(f"{label}: steady recompiles {eng.steady_recompiles()} after the "
+                         "extra ticks")
+    out.update(warm_s=warm_s, prefill_ms=prefill_ms, decode_tick_ms=statistics.median(walls),
+               busy_ms=traced["busy_ms"], activities=traced["activities"],
+               families=traced["families"])
+    out["idle"] = 1 - traced["busy_ms"] / out["decode_tick_ms"]
+    decode_tick_ms, tick_ms = out["decode_tick_ms"], out["tick_ms"]
+    print(f"[serve] GPT-2 125M {label}: {len(recs)} requests, {sum(r['new_tokens'] for r in recs)} "
+          f"new tokens in {wall:.2f} s ({out['tokens_per_s']:.1f} tokens/s end to end; decode "
+          f"{out['decode_tokens_per_s']:.1f} tokens/s over the decode ticks), {m['ticks']} ticks, "
+          f"{m['compiled_programs']} programs, 0 steady recompiles, finite logits in all "
+          f"{len(flags)} dispatches, warm-up {warm_s:.2f} s; TTFT "
+          f"p50 {out['ttft_p50']:.3f} s p99 {out['ttft_p99']:.3f} s, latency p50 "
+          f"{out['latency_p50']:.3f} s p99 {out['latency_p99']:.3f} s; {tick_kind} median "
+          f"{tick_ms:.3f} ms; prefill ms by bucket {prefill_ms}; spec accept rate "
+          f"{out['accept_rate']:.4f} over {out['spec_ticks']} verify ticks; peak {peak:.2f} GiB; "
+          f"a decode-only tick {decode_tick_ms:.3f} ms untraced, traced device busy "
+          f"{traced['busy_ms']:.3f} ms, {traced['activities']} device activities, idle share "
+          f"{out['idle']:.3f} | {smi}")
+    top = ", ".join(f"{k} {v:.3f}" for k, v in sorted(traced["families"].items(),
+                                                       key=lambda kv: -kv[1])[:6])
+    print(f"[serve]   {label}: device ms of the traced tick by family: {top}")
+    del eng
+    torch.cuda.empty_cache()
+    return out
+
+
+def _tile_run(model, compute_dtype, smi: str) -> dict:
+    """The tile server over TILE_IMAGES on the card: launch counts from 0
+    around the run, every request at its upscaled size, one batch against
+    ``model`` (f32) on the CPU."""
+    import numpy as np
+    import torch
+
+    from pytorch_distributedtraining_tpu_torch.ops import flash_attn as tfa
+    from pytorch_distributedtraining_tpu_torch.ops import window_attn as twa
+    from pytorch_distributedtraining_tpu_torch.serve import build_engine
+    from pytorch_distributedtraining_tpu_torch.serve.tiles import TileRequest
+
+    dt = "bfloat16" if compute_dtype is torch.bfloat16 else "float32"
+    srv = build_engine(model, tile=TILE, overlap=TILE_OVERLAP, tile_batch=TILE_BATCH,
+                       compute_dtype=compute_dtype, device="cuda")
+    t0 = time.perf_counter()
+    srv.warmup()
+    warm_s = time.perf_counter() - t0
+    rng = np.random.default_rng(0)
+    reqs = [TileRequest(i, rng.random((h, w, 3)).astype(np.float32))
+            for i, (h, w) in enumerate(TILE_IMAGES)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    twa.reset_launch_counts()
+    tfa.reset_launch_counts()
+    t0 = time.perf_counter()
+    recs = srv.run(reqs)
+    wall = time.perf_counter() - t0
+    launches = (twa.fwd_launches, twa.bwd_launches, tfa.fwd_launches, tfa.dq_launches,
+                tfa.dkv_launches)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    m = srv.metrics()
+    tiles = sum(r["tiles"] for r in recs)
+    if launches != (M_LAYERS * m["ticks"], 0, 0, 0, 0):
+        raise SystemExit(f"tile server {dt}: launches K1-K5 {launches} over {m['ticks']} tile "
+                         f"batches, expected {M_LAYERS} K1 a batch and nothing else")
+    shapes = {r["rid"]: r["image"].shape for r in recs}
+    want = {i: (2 * h, 2 * w, 3) for i, (h, w) in enumerate(TILE_IMAGES)}
+    if shapes != want or not all(np.isfinite(r["image"]).all() for r in recs):
+        raise SystemExit(f"tile server {dt}: delivered {shapes}, expected {want}, finite")
+    if m["steady_recompiles"] or srv.programs != {((TILE_BATCH, TILE, TILE, 3), "float32")}:
+        raise SystemExit(f"tile server {dt}: programs {srv.programs}")
+    # one batch (four tiles of the 96x128 image) on the card against the CPU
+    img = reqs[2].image
+    batch = np.stack([img[y:y + TILE, x:x + TILE] for y, x in ((0, 0), (0, 40), (48, 0),
+                                                                (48, 80))])
+    got = srv._apply(batch)
+    with torch.no_grad():
+        ref = model(torch.from_numpy(batch)).numpy()
+    rel = float(np.abs(got - ref).max() / max(1.0, np.abs(ref).max()))
+    lat = [life["wall_s"] for life in srv.ledger.completed]
+    mpix = sum(4 * h * w for h, w in TILE_IMAGES) / 1e6
+    out = {"tiles": tiles, "ticks": m["ticks"], "wall_s": wall, "tiles_per_s": tiles / wall,
+           "mpix_per_s": mpix / wall, "latency_p50": _pct(lat, 50), "latency_p99": _pct(lat, 99),
+           "peak_gib": peak, "launches": launches[0], "cpu_rel_err": rel, "dtype": dt,
+           "warm_s": warm_s, "occupancy": m["mean_batch_occupancy"]}
+    print(f"[serve] SwinIR-M x2 tile server {dt}: {len(recs)} requests, {tiles} tiles in "
+          f"{m['ticks']} batches of {TILE_BATCH} (occupancy {m['mean_batch_occupancy']:.3f}) in "
+          f"{wall:.3f} s: {out['tiles_per_s']:.1f} tiles/s, {out['mpix_per_s']:.3f} output "
+          f"megapixels/s; request latency p50 {out['latency_p50']:.3f} s p99 "
+          f"{out['latency_p99']:.3f} s; peak {peak:.2f} GiB; warm-up {warm_s:.2f} s; K1 "
+          f"{launches[0]} ({M_LAYERS} a batch), K2 0; one batch against the CPU's f32: rel err "
+          f"{rel:.2e} (tol {TILE_CARD_TOL[dt]:g}) | {smi}")
+    if not rel <= TILE_CARD_TOL[dt]:
+        raise SystemExit(f"tile server {dt}: a batch departs from the CPU's by {rel:.2e}")
+    del srv
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_serving(smi: str) -> dict:
+    """Phase 14: GPT-2 125M through ``Stoke.serve`` (f32 and bf16, vanilla
+    and speculative) and SwinIR-M x2 through the tile server (f32, bf16)."""
+    import torch
+
+    from pytorch_distributedtraining_tpu_torch.models import GPT2, GPT2Config, SwinIR
+    from pytorch_distributedtraining_tpu_torch.models.gpt2 import cross_entropy_loss
+    from pytorch_distributedtraining_tpu_torch.models.generate import generate
+    from pytorch_distributedtraining_tpu_torch.stoke import Stoke, StokeOptimizer
+
+    t_phase = time.perf_counter()
+    out = {}
+    reqs = None
+    for dtype in (torch.float32, torch.bfloat16):
+        dt = str(dtype).split(".")[1]
+        cfg = GPT2Config(dtype=dtype)
+        reqs = reqs or _serve_requests(cfg.vocab_size)
+        stoke = Stoke(GPT2(cfg, generator=torch.Generator().manual_seed(0)),
+                      StokeOptimizer(optimizer="AdamW"), loss=cross_entropy_loss)
+        out[dt] = _serve_gpt2_run(stoke, reqs, smi, dt)
+        if dtype is torch.float32:
+            out["spec"] = _serve_gpt2_run(stoke, reqs, smi, f"{dt} spec_k={SERVE_SPEC_K}",
+                                          spec_k=SERVE_SPEC_K)
+            gen = GPT2(cfg, decode=True).cuda()
+            gen.load_state_dict(stoke.model_access.state_dict())
+            t0 = time.perf_counter()
+            ref = {r.rid: generate(gen, r.prompt[None], r.max_new_tokens,
+                                   temperature=0.0)[0, r.prompt_len:].tolist() for r in reqs}
+            gen_s = time.perf_counter() - t0
+            print(f"[serve]   generate(kv_layout='contiguous'), one request at a time: "
+                  f"{sum(map(len, ref.values()))} tokens in {gen_s:.2f} s")
+            out["f32_vs_generate"] = held_tokens("f32 engine vs generate", gen, reqs,
+                                                 out[dt]["tokens"], ref)
+            out["spec_vs_vanilla"] = held_tokens(f"f32 spec_k={SERVE_SPEC_K} vs vanilla", gen,
+                                                 reqs, out["spec"]["tokens"], out[dt]["tokens"])
+            del gen
+        del stoke
+        torch.cuda.empty_cache()
+    same = sum(a == b for r in reqs for a, b in zip(out["bfloat16"]["tokens"][r.rid],
+                                                     out["float32"]["tokens"][r.rid]))
+    total = sum(r.max_new_tokens for r in reqs)
+    out["bf16_same_share"] = same / total
+    print(f"[serve] bf16 tokens equal to the f32 run's, position by position: {same} of {total} "
+          f"({same / total:.3f}; not gated: batched and sequential GEMMs round differently)")
+
+    model = SwinIR(**SWINIR_M, generator=torch.Generator().manual_seed(0))
+    out["tiles"] = {}
+    for dtype in (None, torch.bfloat16):
+        r = _tile_run(model, dtype, smi)
+        out["tiles"][r["dtype"]] = r
+    print(f"[serve] phase {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+def serving_kernels(cases: list[dict], serving: dict) -> list[dict]:
+    """The kernels line's K1 entries at the tile server's shape, one per
+    type: phase 3's errors (worst of masked and unmasked) and times (the
+    masked case), phase 14's launches over its run."""
+    out = []
+    for dt, run in serving["tiles"].items():
+        pair = [c for c in cases if c["batch"] == TILE_BATCH and c["model"] == "SwinIR-M"
+                and c["dtype"] == dt and c["pack"] == 1]
+        c = next(c for c in pair if c["mask"])
+        bound = c["fwd_bound"]
+        out.append({
+            "name": "window_attn_fwd", "route": "cuda", "source": SOURCES["window_attn"],
+            "replaces": REPLACES["window_attn_fwd"], "path": "tile server", "dtype": dt,
+            "shape": list(c["shape"]), "launches": run["launches"],
+            "max_abs_err": max(d["errors"]["o"][0] for d in pair), "ms": c["times"]["fwd"],
+            "plain_ms": c["times"]["plain_fwd"], "bound_ms": bound[0], "bound_by": bound[1],
+            "library_ms": c["times"]["lib_fwd"],
+        })
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1654,8 +2043,10 @@ def main() -> int:
         phase_distributed(smi, lm)
         m_runs = phase_swinir_m(smi)
     phase_image_rungs(smi)
+    with record_launches(seen):
+        serving = phase_serving(smi)
     checked = set().union(*(c["checked"] for c in cases + flash_cases))
-    print(f"[shapes] phases 5-9, 11 and 12 launched {len(seen)} kinds of (kernel, q shape, dtype, mask "
+    print(f"[shapes] phases 5-9, 11, 12 and 14 launched {len(seen)} kinds of (kernel, q shape, dtype, mask "
           f"windows or causal): {sorted(seen, key=str)}")
     if seen - checked:
         raise SystemExit(f"launched on a driven path but never held against the plain "
@@ -1698,6 +2089,7 @@ def main() -> int:
             "plain_ms": t[f"plain_{key}"], "bound_ms": bound[0], "bound_by": bound[1],
             "library_ms": t[lib],
         })
+    kernels += serving_kernels(cases, serving)
     print(f"[done] {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"swinir_m_kernels": swinir_m_kernels(cases, m_runs)}))
     print(json.dumps({"kernels": kernels}))

@@ -22,7 +22,12 @@ mesh), ``parallel`` (the DDP and ZeRO-1/2/3 policies, remat, the train
 state and the steps), ``data`` (patch stores, paired augmentation,
 device prefetch; the patch store's u8 normalisation in
 ``csrc/fastpipe.cpp``, built with ``g++``), ``checkpoint``, ``observe``
-and ``stoke``. ``python -m torch.distributed.run --standalone
+(sinks, span telemetry, request-lifecycle SLOs), ``resilience`` (fault
+injection) and ``stoke``. It serves too: ``serve`` runs GPT-2 decode with
+continuous batching over a paged KV cache (and speculative decode) and
+SwinIR super-resolution in tiles batched across requests, through
+``Stoke.serve`` or ``serve.build_engine``; ``models.generate`` decodes one
+batch. ``python -m torch.distributed.run --standalone
 --nproc_per_node N -m pytorch_distributedtraining_tpu_torch.drivers.
 stoke_ddp`` trains on N GPUs over NCCL (``--device cpu``: gloo ranks).
 

@@ -1,5 +1,5 @@
 """Models of the port: SwinIR (its three tails), the ESPCN ``Net``, GPT-2
-(training path), the VGG-16 feature column of the perceptual loss, and the
+(training and KV-cache decode; ``generate`` decodes), the VGG-16 feature column of the perceptual loss, and the
 ladder's image models, ResNet-18/34/50/101 and ViT-B/16."""
 
 from .gpt2 import GPT2, GPT2Config, cross_entropy_loss

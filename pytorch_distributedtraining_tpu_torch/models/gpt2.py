@@ -1,4 +1,5 @@
-"""GPT-2 causal LM, the training path — ladder config 4 ("GPT-2 125M").
+"""GPT-2 causal LM: the training path (ladder config 4, "GPT-2 125M") and
+KV-cache decode, contiguous or paged, for ``models.generate`` and ``serve``.
 
 Counterpart of ``pytorch_distributedtraining_tpu/models/gpt2.py``:
 decoder-only, pre-LN (LayerNorm eps 1e-5), learned positions, fused QKV
@@ -15,10 +16,21 @@ stream is bf16 throughout; dense layers compute in bf16; LayerNorm takes
 its statistics in f32 and returns bf16; the logits are ``x @ wteᵀ`` in
 bf16, cast to f32.
 
-Not ported yet: KV-cache decode, the paged serving layout, quantized KV
-pages, fp8 dense layers, scan over layers, remat, dropout > 0 and an
-untied LM head. A config or argument that asks for one raises
-``NotImplementedError``.
+``decode=True`` takes a KV cache on every call (``models.generate``): a
+:class:`~.generate.KVCache` (contiguous, one global write position, the
+JAX model's ``"cache"`` collection) or a :class:`~.generate.PagedKVCache`
+with ``page_table`` ``[B, max_pages]`` and ``lengths`` ``[B]`` (per-slot
+positions, the JAX ``"pages"`` collection; ``paged=(num_pages,
+page_size)`` sizes ``init_paged_cache``'s pool and makes the paged layout
+the only one the model takes). The forward writes the chunk's K/V into
+the cache in place and attends it with plain PyTorch, as the JAX Block
+does with ``_cached_attention``/``_paged_attention``; ``attn_fn`` (and the
+flash kernels) serve the cache-less forward only.
+
+Not ported yet: quantized KV pages (``kv_wire``; the quantized-KV slice),
+fp8 dense layers, scan over layers, remat, dropout > 0 and an untied LM
+head (the GPT-2 remainder slice). A config or argument that asks for one
+raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -30,6 +42,9 @@ from typing import Callable
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from .generate import (QUANTIZED_KV, KVCache, PagedKVCache, cached_attention,
+                       paged_attention, write_paged_kv)
 
 AttnFn = Callable[..., torch.Tensor]  # (q, k, v, *, causal) -> out
 
@@ -124,7 +139,10 @@ class Block(nn.Module):
         self.ln_2 = nn.LayerNorm(cfg.n_embd, eps=1e-5)
         self.mlp = MLP(cfg)
 
-    def forward(self, x):
+    def forward(self, x, cache=None, layer: int = 0, page_table=None, lengths=None):
+        """``cache`` (with this block's ``layer`` index) switches to KV-cache
+        decode: contiguous at ``cache.position``, or paged at each slot's
+        ``lengths`` through ``page_table``."""
         cfg, dt = self.cfg, self.cfg.dtype
         b, t, d = x.shape
         h = cfg.n_head
@@ -133,7 +151,14 @@ class Block(nn.Module):
         # views of the fused projection, [B, T, H, Dh]: the flash kernels
         # read them through strides, without copies
         q, k, v = (a.unflatten(-1, (h, d // h)) for a in qkv.split(d, dim=-1))
-        y = self.attn_fn(q, k, v, causal=True).reshape(b, t, d)
+        if cache is None:
+            y = self.attn_fn(q, k, v, causal=True)
+        elif isinstance(cache, PagedKVCache):
+            kp, vp = write_paged_kv(cache.k[layer], cache.v[layer], k, v, page_table, lengths)
+            y = paged_attention(q, kp, vp, page_table, lengths)
+        else:
+            y = cached_attention(q, k, v, cache.k[layer], cache.v[layer], cache.position)
+        y = y.reshape(b, t, d)
         x = x + _dense(self.attn.c_proj, y, dt)
 
         y = _layer_norm(self.ln_2, x, dt)
@@ -147,14 +172,21 @@ class GPT2(nn.Module):
     ``generator`` seeds the initialisation, the JAX model's scheme: dense
     kernels and ``wte`` normal(0.02), ``wpe`` normal(0.01), zero biases,
     LayerNorms at one and zero.
+
+    ``decode=True``: ``forward(tokens, cache, page_table=, lengths=)`` with
+    a cache from ``generate.init_cache`` or ``generate.init_paged_cache``
+    (module docstring); ``paged=(num_pages, page_size)`` needs ``decode``.
     """
 
     def __init__(self, cfg: GPT2Config = GPT2Config(), attn_fn: AttnFn = default_attention,
                  *, decode: bool = False, paged: tuple | None = None, kv_wire=None,
                  generator: torch.Generator | None = None):
         super().__init__()
+        if kv_wire is not None:
+            raise NotImplementedError(QUANTIZED_KV.format(f"GPT2 kv_wire={kv_wire!r}"))
+        if paged is not None and not decode:
+            raise ValueError("paged KV layout requires decode=True")
         waits = {
-            "decode": decode, "paged": paged is not None, "kv_wire": kv_wire is not None,
             "fp8": cfg.fp8 is not None, "scan_layers": cfg.scan_layers,
             "remat": bool(cfg.remat), "dropout > 0": cfg.dropout > 0,
             "untied lm_head": not cfg.tie_word_embeddings,
@@ -163,8 +195,10 @@ class GPT2(nn.Module):
         if asked:
             raise NotImplementedError(
                 f"GPT2 {', '.join(asked)}: not ported yet (the GPT-2 remainder "
-                "slice); the port has the training path only")
+                "slice)")
         self.cfg = cfg
+        self.decode = decode
+        self.paged = None if paged is None else (int(paged[0]), int(paged[1]))
         self.transformer = nn.ModuleDict(dict(
             wte=nn.Embedding(cfg.vocab_size, cfg.n_embd),
             wpe=nn.Embedding(cfg.n_positions, cfg.n_embd),
@@ -192,14 +226,42 @@ class GPT2(nn.Module):
         that shares it."""
         return list(self.transformer.h)
 
-    def forward(self, tokens):
+    def forward(self, tokens, cache=None, *, page_table=None, lengths=None):
         dt, tr = self.cfg.dtype, self.transformer
         t = tokens.shape[1]
-        x = tr.wte.weight[tokens.long()].to(dt) + tr.wpe.weight[:t].to(dt)
-        for block in tr.h:
-            x = block(x)
+        pe = self._positions(tokens, cache, page_table, lengths)
+        x = tr.wte.weight[tokens.long()].to(dt) + pe.to(dt)
+        for i, block in enumerate(tr.h):
+            x = block(x, cache, i, page_table, lengths)
+        if isinstance(cache, KVCache):
+            cache.position += t
         x = _layer_norm(tr.ln_f, x, dt)
         return (x @ tr.wte.weight.to(dt).t()).float()  # the head is tied to wte
+
+    def _positions(self, tokens, cache, page_table, lengths):
+        """The position embeddings of this call, checking its cache."""
+        wpe, t = self.transformer.wpe.weight, tokens.shape[1]
+        if cache is None:
+            if self.decode:
+                raise ValueError("a decode=True model takes a KV cache on every call "
+                                 "(generate.init_cache / init_paged_cache)")
+            return wpe[:t]
+        if not self.decode:
+            raise ValueError("a KV cache needs a model built with decode=True")
+        if isinstance(cache, PagedKVCache):
+            if page_table is None or lengths is None:
+                raise ValueError("paged decode needs page_table [B, max_pages] and lengths [B] "
+                                 "on every call")
+            # per-slot positions; the clip keeps padded garbage rows in range
+            pos = lengths.long()[:, None] + torch.arange(t, device=tokens.device)[None, :]
+            return wpe[pos.clamp(0, self.cfg.n_positions - 1)]
+        if self.paged is not None:
+            raise ValueError("a model built with paged= takes a PagedKVCache")
+        start = cache.position
+        if start + t > self.cfg.n_positions:
+            raise ValueError(f"positions {start}..{start + t - 1} exceed n_positions "
+                             f"{self.cfg.n_positions}")
+        return wpe[start:start + t]
 
 
 def cross_entropy_loss(logits, targets, ignore_index: int = -100):

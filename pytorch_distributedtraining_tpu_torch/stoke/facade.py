@@ -5,8 +5,8 @@ Counterpart of ``pytorch_distributedtraining_tpu/stoke/facade.py`` for the
 surface ``drivers/stoke_ddp.py`` drives: ``.model``, ``.loss``,
 ``.backward``, ``.step``, ``.DataLoader``, ``.print_ema_loss``,
 ``.detach_and_sync_loss``, ``.eval_step``, ``.save``, ``.init``,
-``.load_model_state``, ``.model_access``, ``.print_on_devices`` and
-``.optimizer``.
+``.load_model_state``, ``.model_access``, ``.print_on_devices``,
+``.optimizer`` and ``.serve`` (a serving engine over the live weights).
 
 PyTorch runs eagerly, so the JAX facade's deferred handles and compiled
 programs have no counterpart: ``.model`` runs the forward under the
@@ -403,6 +403,31 @@ class Stoke:
                     local.copy_(piece.to(local.dtype))
                 else:
                     t.copy_(v)
+
+    def serve(self, **overrides):
+        """A serving engine over the live parameters (``serve/``): GPT-2
+        gets the continuous-batching ``ServeEngine``, SwinIR the
+        ``SwinIRTileServer`` (its forward under the facade's precision).
+        The parameters are snapshotted (gathered from their shards), so
+        later training steps do not reach the engine. The ``GRAFT_SERVE_*``
+        env knobs fill what ``overrides`` leaves out; the engine runs on
+        the facade's device unless ``device=`` says otherwise. The JAX
+        facade's ``TPUConfig`` serve overrides wait for the ``TPUConfig``
+        twin."""
+        from ..models.swinir import SwinIR
+        from ..serve import build_engine
+
+        sharded = any(is_dtensor(v) for v in self._module.state_dict().values())
+        if sharded and isinstance(self._module, SwinIR):
+            raise NotImplementedError(
+                "Stoke.serve of a ZeRO-3 (fairscale_fsdp) SwinIR is not ported yet: serve "
+                "the checkpoint Stoke.save writes through serve.build_engine")
+        params = {k: (v.full_tensor() if is_dtensor(v) else v).detach().clone()
+                  for k, v in self._module.state_dict().items()}
+        overrides.setdefault("device", self.device)
+        if isinstance(self._module, SwinIR):
+            overrides.setdefault("compute_dtype", self.precision.compute_dtype)
+        return build_engine(self._module, params, **overrides)
 
     # -- introspection and rank I/O ---------------------------------------------
 

@@ -181,14 +181,15 @@ def test_bf16_config_keeps_a_bf16_residual_stream():
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-2)
 
 
-@pytest.mark.parametrize("kw", [dict(decode=True), dict(paged=(4, 8))])
+@pytest.mark.parametrize("kw", [dict(decode=True, kv_wire="int8_block"),
+                                dict(decode=True, paged=(4, 8), kv_wire="fp8_e4m3")])
 def test_unported_serving_options_raise(kw):
-    with pytest.raises(NotImplementedError, match="GPT-2 remainder slice"):
+    with pytest.raises(NotImplementedError, match="quantized-KV slice"):
         tg.GPT2(tg.GPT2Config.tiny(), **kw)
 
 
 @pytest.mark.parametrize("cfg_kw", [dict(remat=True), dict(scan_layers=True), dict(fp8="e4m3"),
                                     dict(dropout=0.1), dict(tie_word_embeddings=False)])
 def test_unported_config_options_raise(cfg_kw):
-    with pytest.raises(NotImplementedError, match="not ported yet"):
+    with pytest.raises(NotImplementedError, match="not ported yet.*GPT-2 remainder slice"):
         tg.GPT2(tg.GPT2Config.tiny(**cfg_kw))
