@@ -18,7 +18,8 @@ Phases, each fatal on failure:
 3. kernels: K1 (forward) and K2 (backward) against their plain PyTorch
    versions at every shape the two SwinIR paths below give them: the
    bench shape (q/k/v [1152, 6, 64, 10]: batch 18 at LR 64x64) in f32 and
-   bf16, with and without the shift mask, pack 1 and 2; the driver's
+   bf16, with and without the shift mask, pack 1 and 2, and in f16 (phase
+   15's fp16 amp run) at pack 1; the driver's
    training batches ([288, 6, 64, 10]: batch 18 at LR 32x32) and its
    validation batch ([160, 6, 64, 10]: 10 images) in f32, with and
    without the mask; phase 12's SwinIR-M shapes (head dim 30: [576, 6, 64,
@@ -154,9 +155,25 @@ Phases, each fatal on failure:
    and no K2 a tile batch, every request at its upscaled size, no steady
    recompile, and one batch against the same model on the CPU within
    ``TILE_CARD_TOL``; tiles/s, output megapixels/s, request latency
-   p50/p99 and peak GiB, beside the card's name and power limit.
+   p50/p99 and peak GiB, beside the card's name and power limit;
+15. resume: the driver's facade (``build_model``/``build_stoke``: SwinIR-S,
+   ``feat_loss``, AdamW, clip 0.1, accum 2) at the bench shape on eight
+   seeded micro-batches, with cuDNN deterministic, for each of
+   ``RESUME_RUNS`` (f32 and fp16 ``amp`` under the driver's OSS + SDDP
+   flags, the per-leaf chain; f32 under DDP flags, ``FusedAdamW``): four
+   optimizer steps unbroken, against two steps, ``Stoke.save``, a fresh
+   facade's ``Stoke.load`` and two more. Every loss, parameter and moment
+   (and the loss scale) must equal the unbroken run's bitwise
+   (``resume_mismatch`` names the first that does not); 24 K1 and 24 K2
+   launches a micro-batch; the checkpoint's bytes and the save and load
+   seconds. Then the driver's flags through an NCCL group of one:
+   ``Stoke.save_portable`` at step 2, ``Stoke.load_resharded`` into a
+   facade with no group (parameters and moments bitwise the saved ones)
+   and one step there, whose losses must agree with the group's next step
+   within ``DIST_F32_TOL``; bytes and seconds, beside the card's name and
+   power limit.
 
-Phases 5-9, 11, 12 and 14 note the shape, dtype and mask (or causality) of
+Phases 5-9, 11, 12, 14 and 15 note the shape, dtype and mask (or causality) of
 every launch; the run fails if one of them was not held against the plain
 version in phase 3 or 4 (phase 3 holds phase 14's tile batch, q/k/v [144,
 6, 64, 30], in f32 and bf16 with and without the mask). The kernels' JSON
@@ -267,6 +284,16 @@ TIE_TOL = 1e-4
 TILE_IMAGES = ((40, 30), (64, 64), (96, 128), (128, 200), (256, 256), (48, 48))
 TILE, TILE_OVERLAP, TILE_BATCH = 48, 8, 4
 TILE_CARD_TOL = {"float32": 1e-4, "bfloat16": 5e-2}
+# phase 15: resume. The driver's facade at the bench shape, RESUME_STEPS
+# optimizer steps unbroken against a save at step RESUME_SPLIT and a load
+# into a fresh facade, compared bitwise (cuDNN deterministic); label, fp16,
+# build_stoke flags
+RESUME_STEPS, RESUME_SPLIT = 4, 2
+RESUME_RUNS = (
+    ("f32, the driver's OSS + SDDP flags", None, {}),
+    ("fp16 amp, the driver's OSS + SDDP flags", "amp", {}),
+    ("f32, DDP flags", None, dict(oss=False, sddp=False)),
+)
 DIST_LAYOUTS = (  # name, build_stoke flags, precision
     ("ddp+fused", dict(oss=False, sddp=False), None),
     ("oss+fused", dict(oss=True, sddp=False), None),
@@ -625,6 +652,8 @@ def phase_kernels(smi: str) -> list[dict]:
                for with_mask in (False, True) for pack in (1, 2)]
     configs += [(torch.float32, with_mask, 1, batch, DRIVER_LR, DIM)
                 for batch in (BATCH, DRIVER_VAL) for with_mask in (False, True)]
+    # phase 15's fp16 amp run: the bench shape in float16
+    configs += [(torch.float16, with_mask, 1, BATCH, LR_SIZE, DIM) for with_mask in (False, True)]
     # phase 12's SwinIR-M x2: head dim 30, the kernels' DP = 32 instantiations
     configs += [(dtype, with_mask, pack, M_BATCH, M_LR, M_DIM)
                 for dtype in (torch.float32, torch.bfloat16)
@@ -2018,6 +2047,195 @@ def serving_kernels(cases: list[dict], serving: dict) -> list[dict]:
     return out
 
 
+def resume_batches(n_micro: int, seed: int = 15) -> list:
+    """``n_micro`` bench-shape micro-batches on the card, each its own: random
+    HR 128x128 from numpy ``seed``, box-downsampled LR 64x64."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n_micro):
+        hr = rng.random((BATCH, 2 * LR_SIZE, 2 * LR_SIZE, 3), dtype=np.float32)
+        lr = hr.reshape(BATCH, LR_SIZE, 2, LR_SIZE, 2, 3).mean(axis=(2, 4))
+        out.append((torch.from_numpy(lr).cuda(), torch.from_numpy(hr).cuda()))
+    return out
+
+
+def resume_snapshot(stoke, losses: list) -> dict:
+    """A run's losses, its parameters and its optimizer moments (whole, by
+    parameter name, and the step count) on the host."""
+    import torch
+
+    from pytorch_distributedtraining_tpu_torch import optim
+
+    opt = stoke._opt
+    sd = opt.leaf_state_dict() if isinstance(opt, optim.FusedAdamW) else opt.full_state_dict()
+    moments = {"count": torch.tensor(int(sd["count"]))}
+    for key in ("mu", "nu"):
+        vals = sd[key]
+        items = vals.items() if isinstance(vals, dict) else zip(opt.names, vals)
+        moments.update({f"{key}/{n}": v.detach().cpu().clone() for n, v in items})
+    params = {n: p.detach().cpu().clone() for n, p in stoke.model_access.named_parameters()}
+    return {"losses": list(losses), "params": params, "moments": moments}
+
+
+def resume_mismatch(a: dict, b: dict) -> tuple[float, str | None]:
+    """The largest absolute difference between two runs (``resume_snapshot``'s
+    losses, parameters and moments), and the first entry, in that order,
+    that is not bitwise equal: None when every entry is. A missing entry, a
+    shape that differs or a NaN counts as an infinite difference."""
+    import torch
+
+    worst, first = 0.0, None
+    for group in ("losses", "params", "moments"):
+        xa, xb = a[group], b[group]
+        if group == "losses":
+            xa = {f"loss {i}": v for i, v in enumerate(xa)}
+            xb = {f"loss {i}": v for i, v in enumerate(xb)}
+        for name in list(xa) + [k for k in xb if k not in xa]:
+            if name in xa and name in xb:
+                ta = torch.as_tensor(xa[name], dtype=torch.float64)
+                tb = torch.as_tensor(xb[name], dtype=torch.float64)
+                if ta.shape == tb.shape and torch.equal(ta, tb):
+                    continue
+                d = (ta - tb).abs().max().item() if ta.shape == tb.shape and ta.numel() else \
+                    float("inf")
+                d = float("inf") if d != d else d
+            else:
+                d = float("inf")
+            worst = max(worst, d)
+            first = first or (name if group == "losses" else f"{group}/{name}")
+    return worst, first
+
+
+def _resume_steps(stoke, batches) -> list[float]:
+    """One micro-batch of ``batches`` after another through the facade; the
+    losses, read after the last."""
+    losses = []
+    for x, y in batches:
+        loss = stoke.loss(stoke.model(x), y)
+        stoke.backward(loss)
+        stoke.step()
+        losses.append(loss.detach())
+    return [v.item() for v in losses]
+
+
+def phase_resume(smi: str) -> dict:
+    """Phase 15: a SwinIR-S run saved at step RESUME_SPLIT, loaded into a
+    fresh facade and stepped on, against the unbroken run (bitwise), for
+    each of RESUME_RUNS; then a ZeRO-2 portable checkpoint written through
+    an NCCL group of one and resharded into a facade with no group."""
+    import torch
+
+    from pytorch_distributedtraining_tpu_torch.drivers import stoke_ddp
+    from pytorch_distributedtraining_tpu_torch.ops import window_attn as twa
+    from pytorch_distributedtraining_tpu_torch.runtime import dist
+
+    t_phase = time.perf_counter()
+    batches = resume_batches(2 * RESUME_STEPS)
+    split = 2 * RESUME_SPLIT
+    out = {}
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True  # resumed and unbroken runs compared bitwise
+    (ROOT / "build").mkdir(exist_ok=True)
+    try:
+        with tempfile.TemporaryDirectory(dir=ROOT / "build") as ckpt_dir:
+            for i, (label, fp16, flags) in enumerate(RESUME_RUNS):
+                def build():
+                    return stoke_ddp.build_stoke(stoke_ddp.build_model(), fp16=fp16,
+                                                 batch_size=BATCH, verbose=False, **flags)
+
+                a = build()
+                twa.reset_launch_counts()
+                unbroken = resume_snapshot(a, _resume_steps(a, batches))
+                launches = twa.fwd_launches, twa.bwd_launches
+                scale = None if a.loss_scaler is None else a.loss_scaler.state_dict()
+                opt = type(a._opt).__name__
+                del a
+                b = build()
+                first = _resume_steps(b, batches[:split])
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                path, _ = b.save(ckpt_dir, f"resume_{i}")
+                save_s = time.perf_counter() - t0
+                nbytes = os.path.getsize(path)
+                del b
+                c = build()
+                t0 = time.perf_counter()
+                c.load(path)
+                torch.cuda.synchronize()
+                load_s = time.perf_counter() - t0
+                resumed = resume_snapshot(c, first + _resume_steps(c, batches[split:]))
+                worst, differs = resume_mismatch(unbroken, resumed)
+                scale_c = None if c.loss_scaler is None else c.loss_scaler.state_dict()
+                del c
+                print(f"[resume] SwinIR-S {label} ({opt}), batch {BATCH} x accum 2 at LR "
+                      f"{LR_SIZE}: {RESUME_STEPS} steps unbroken vs save at step "
+                      f"{RESUME_SPLIT}, load into a fresh facade, {RESUME_STEPS - RESUME_SPLIT}"
+                      f" more: largest difference {worst:.3e} over {len(unbroken['losses'])} "
+                      f"losses, {len(unbroken['params'])} parameters and "
+                      f"{len(unbroken['moments'])} moments (first differing: {differs}), "
+                      f"scaler {scale} vs {scale_c}, last loss {resumed['losses'][-1]:.6f}; "
+                      f"checkpoint {nbytes} bytes, save {save_s:.3f} s, load {load_s:.3f} s; "
+                      f"launches fwd {launches[0]} bwd {launches[1]} | {smi}")
+                if launches != (24 * len(batches),) * 2:
+                    raise SystemExit(f"{label}: launches {launches}, expected 24 of each per "
+                                     "micro-batch")
+                if differs is not None or scale != scale_c:
+                    raise SystemExit(f"{label}: the resumed run departs from the unbroken one at "
+                                     f"{differs} (largest difference {worst:.3e})")
+                if not all(abs(v) < float("inf") for v in unbroken["losses"]):
+                    raise SystemExit(f"{label}: losses {unbroken['losses']} are not finite")
+                out[label] = {"bytes": nbytes, "save_s": save_s, "load_s": load_s,
+                              "max_diff": worst, "launches": launches}
+
+            # the driver's OSS + SDDP (ZeRO-2) over NCCL at world 1, portable
+            # checkpoint, resharded into a facade with no group
+            os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(dist.find_free_port()),
+                              RANK="0", WORLD_SIZE="1", LOCAL_RANK="0")
+            dist.initialize()
+            try:
+                if dist.backend() != "nccl":
+                    raise SystemExit(f"the group came up on {dist.backend()}, not NCCL")
+                g = stoke_ddp.build_stoke(stoke_ddp.build_model(), batch_size=BATCH,
+                                          verbose=False)
+                _resume_steps(g, batches[:split])
+                t0 = time.perf_counter()
+                portable = g.save_portable(os.path.join(ckpt_dir, "portable"))
+                save_s = time.perf_counter() - t0
+                saved = resume_snapshot(g, [])
+                grouped = _resume_steps(g, batches[split:split + 2])
+                del g
+            finally:
+                dist.shutdown()
+            nbytes = sum(f.stat().st_size for f in Path(portable).iterdir())
+            u = stoke_ddp.build_stoke(stoke_ddp.build_model(), batch_size=BATCH, verbose=False)
+            t0 = time.perf_counter()
+            u.load_resharded(portable)
+            torch.cuda.synchronize()
+            load_s = time.perf_counter() - t0
+            worst, differs = resume_mismatch(saved, resume_snapshot(u, []))
+            alone = _resume_steps(u, batches[split:split + 2])
+            rel = max(abs(x - y) / max(abs(y), 1e-30) for x, y in zip(alone, grouped))
+            print(f"[resume] portable: ZeRO-2 (OSS + SDDP) through NCCL at world 1, saved at "
+                  f"step {RESUME_SPLIT} ({nbytes} bytes in {len(list(Path(portable).iterdir()))} "
+                  f"files, save {save_s:.3f} s), resharded into a facade with no group (load "
+                  f"{load_s:.3f} s): parameters and moments differ by {worst:.3e} (first "
+                  f"differing: {differs}); the next step's losses {alone} vs the group's "
+                  f"{grouped}, max rel {rel:.2e} (tol {DIST_F32_TOL:g}) | {smi}")
+            if differs is not None:
+                raise SystemExit(f"the resharded restore differs from the saved state at {differs}")
+            if not rel <= DIST_F32_TOL:
+                raise SystemExit(f"the resharded facade's step departs from the group's: {alone} "
+                                 f"vs {grouped}")
+            out["portable"] = {"bytes": nbytes, "save_s": save_s, "load_s": load_s, "rel": rel}
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    print(f"[resume] phase {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2045,8 +2263,9 @@ def main() -> int:
     phase_image_rungs(smi)
     with record_launches(seen):
         serving = phase_serving(smi)
+        phase_resume(smi)
     checked = set().union(*(c["checked"] for c in cases + flash_cases))
-    print(f"[shapes] phases 5-9, 11, 12 and 14 launched {len(seen)} kinds of (kernel, q shape, dtype, mask "
+    print(f"[shapes] phases 5-9, 11, 12, 14 and 15 launched {len(seen)} kinds of (kernel, q shape, dtype, mask "
           f"windows or causal): {sorted(seen, key=str)}")
     if seen - checked:
         raise SystemExit(f"launched on a driven path but never held against the plain "

@@ -5,7 +5,11 @@ Counterpart of ``pytorch_distributedtraining_tpu/checkpoint.py``
 (``save_checkpoint`` and ``load_params_dict``, ``checkpoint.py:127-186``).
 State dicts are the native format here, so a file holds
 ``{"params": model.state_dict(), ...}`` and loads back with torch's own
-``load_state_dict`` after the same strict key and shape checks.
+``load_state_dict`` after the same strict key and shape checks. The
+facade's ``save`` writes ``TrainState.state_dict()`` (params, the
+gathered optimizer state, meta) through :func:`save_checkpoint` and its
+``load`` reads it back through :func:`load_file`; the sharded and
+portable formats live in ``checkpoint_sharded``.
 """
 
 from __future__ import annotations

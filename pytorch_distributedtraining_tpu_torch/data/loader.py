@@ -103,6 +103,11 @@ class DataLoader:
         n = len(self.sampler) if self.sampler is not None else len(self.dataset)
         return n // self.batch_size if self.drop_last else -(-n // self.batch_size)
 
+    @property
+    def epoch(self) -> int:
+        """The epoch the next iteration snapshots."""
+        return self._epoch
+
     def set_epoch(self, epoch: int) -> None:
         """Pin the epoch: the sampler's shuffle and the transform's draws."""
         self._epoch = epoch

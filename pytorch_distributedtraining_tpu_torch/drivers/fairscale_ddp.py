@@ -23,13 +23,25 @@ as in the JAX driver. The reference bugs that the JAX driver fixes stay
 fixed: ``num_replicas`` is not hard-coded to 4, the sampler's epoch
 advances (the loader sets it), and the computed rank is used.
 
+``--ckpt DIR`` checkpoints the train state through
+``checkpoint_sharded.CheckpointManager`` every ``--save-every`` steps
+(keeping the last three, portable format, ``--ckpt-async`` to write in a
+background thread) and at a SIGTERM, and resumes from the newest committed
+checkpoint under ``DIR``, at this run's world size whatever the one that
+saved it: the resume finishes the original ``--epochs`` schedule, skipping
+the iterations the checkpoint already covers (one optimizer step an
+iteration; the loader's epoch is set so the data order is the unbroken
+run's)::
+
+    python -m pytorch_distributedtraining_tpu_torch.drivers.fairscale_ddp \
+        --synthetic --ckpt ckpt/espcn --save-every 100
+
 It runs on the GPU (``--device cuda``, the default) and refuses to start
 without one unless ``--device cpu`` is given. When the data folders are
 absent it trains on synthetic data. The JAX driver's flags whose modules
 are not ported (``--remat``, ``--pp``, ``--pp-schedule``, ``--wire``,
-``--hier``, ``--plan``, ``--analyze``, ``--ckpt``, ``--ckpt-async``,
-``--save-every``, ``--trace``, ``--numerics``, ``--opcost``,
-``--capture``, ``--device-prefetch``) are not defined.
+``--hier``, ``--plan``, ``--analyze``, ``--trace``, ``--numerics``,
+``--opcost``, ``--capture``, ``--device-prefetch``) are not defined.
 """
 
 from __future__ import annotations
@@ -42,6 +54,7 @@ import sys
 import torch
 
 from pytorch_distributedtraining_tpu_torch import optim
+from pytorch_distributedtraining_tpu_torch.checkpoint_sharded import CheckpointManager
 from pytorch_distributedtraining_tpu_torch.data import (
     CustomDataset,
     DataLoader,
@@ -149,13 +162,40 @@ def _train(opt: argparse.Namespace, device: torch.device, model: Net | None) -> 
                                    policy, device=device)
         step = TrainStep(state.model, loss_fn, state.tx, mesh, policy)
 
-        loss = None
-        for e in range(opt.epochs):
-            for iteration, batch in enumerate(training_dataloader, 1):
-                loss = step(batch)["loss"]
-                if iteration % 25 == 0:
-                    print(float(loss))
-            _line("For Epoch {}, loss: {:.2f}".format(e, float(loss)))
+        mgr, start_step = None, 0
+        if opt.ckpt:
+            mgr = CheckpointManager(opt.ckpt, save_every=opt.save_every, keep=3,
+                                    async_save=opt.ckpt_async)
+            resumed = mgr.restore_latest(state)
+            if resumed is not None:
+                start_step = resumed[0]
+                _line(f"===> Resumed from checkpoint @ step {start_step}")
+        # a resume finishes the original schedule: the epochs and iterations
+        # the checkpoint covers are skipped, not trained again
+        steps_per_epoch = len(training_dataloader)
+        start_epoch, skip = divmod(start_step, steps_per_epoch) if steps_per_epoch else (0, 0)
+        if start_epoch >= opt.epochs:
+            _line(f"===> Checkpoint step {start_step} already covers the {opt.epochs}-epoch "
+                  "schedule; nothing left to train")
+        training_dataloader.set_epoch(training_dataloader.epoch + start_epoch)
+
+        loss, global_step = None, start_step
+        try:
+            for e in range(start_epoch, opt.epochs):
+                for iteration, batch in enumerate(training_dataloader, 1):
+                    if e == start_epoch and iteration <= skip:
+                        continue
+                    loss = step(batch)["loss"]
+                    global_step += 1
+                    if mgr is not None:
+                        mgr.maybe_save(global_step, state)
+                    if iteration % 25 == 0:
+                        print(float(loss))
+                if loss is not None:
+                    _line("For Epoch {}, loss: {:.2f}".format(e, float(loss)))
+        finally:
+            if mgr is not None:
+                mgr.close()
     finally:
         training_dataloader.shutdown_workers()
     return None if loss is None else float(loss)
@@ -173,6 +213,14 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--synthetic-n", type=int, default=512)
     parser.add_argument("--device", type=str, default="cuda", choices=["cuda", "cpu"],
                         help="train on the GPU (default; fails without one) or the CPU")
+    parser.add_argument("--ckpt", type=str, default=None,
+                        help="checkpoint root dir: save every --save-every steps (and at a "
+                             "SIGTERM), resume from the newest committed checkpoint there")
+    parser.add_argument("--ckpt-async", action="store_true",
+                        help="write checkpoints in a background thread (the step pays only "
+                             "the copy to host memory)")
+    parser.add_argument("--save-every", type=int, default=100,
+                        help="checkpoint cadence in steps (with --ckpt)")
     return parser
 
 

@@ -20,11 +20,21 @@ device (``$GRAFT_DEVICE_PREFETCH``), and rank 0 writes the checkpoints.
 ``--remat`` checkpoints each Swin layer under a named policy, as the JAX
 driver's does.
 
+``--portable-ckpt DIR`` also writes the whole train state each epoch as a
+portable checkpoint ``DIR/epoch_NNNN`` (``Stoke.save_portable``, with the
+epoch and both schedulers' state), and at start resumes from the newest
+committed one there, resharded onto this run's process group and policy
+whatever world size wrote it (``Stoke.load_resharded``), then trains the
+epochs after it::
+
+    python -m pytorch_distributedtraining_tpu_torch.drivers.stoke_ddp \
+        --synthetic --nEpochs 10 --portable-ckpt ckpt/swinir
+
 It runs on the GPU (``--device cuda``, the default) and refuses to start
 without one unless ``--device cpu`` is given. The TPU-only flags of the
 JAX driver (``--scan-layers``, ``--pp``, ``--wire``,
 ``--fp8``, ``--plan``, ``--analyze``, ``--trace``, ``--numerics``,
-``--opcost``, ``--capture``, ``--portable-ckpt``) are not ported.
+``--opcost``, ``--capture``) are not ported.
 """
 
 from __future__ import annotations
@@ -35,6 +45,7 @@ import os
 import torch
 
 from pytorch_distributedtraining_tpu_torch import metrics
+from pytorch_distributedtraining_tpu_torch.checkpoint_sharded import is_committed_dir
 from pytorch_distributedtraining_tpu_torch.data import (
     CustomDataset,
     DistributedSampler,
@@ -137,14 +148,30 @@ def validate(val_dataloader, stoke_model: Stoke, epoch):
     return val_avg_loss
 
 
-def save_checkpoint(stoke_model, epoch, train_loss, val_loss):
+def save_checkpoint(stoke_model, epoch, train_loss, val_loss, portable_dir=None,
+                    extras=None):
     os.makedirs("checkpoint/", exist_ok=True)
     path, tag = stoke_model.save(
         path="checkpoint/",
         name="model_{}_{:.2f}_{:.2f}".format(epoch, train_loss, val_loss),
     )
     print("Checkpoint saved after epoch {}".format(epoch))
+    if portable_dir:
+        # the topology-independent twin: restores at another world size or
+        # policy through Stoke.load_resharded
+        p = stoke_model.save_portable(os.path.join(portable_dir, "epoch_{:04d}".format(epoch)),
+                                      extras={"epoch": epoch, **(extras or {})})
+        print("Portable (reshardable) checkpoint saved: {}".format(p))
     return path, tag
+
+
+def latest_portable(root: str) -> str | None:
+    """The newest committed portable checkpoint under ``root`` (staging
+    ``.tmp`` dirs and marker-less dirs are never candidates), or None."""
+    if not root or not os.path.isdir(root):
+        return None
+    cands = sorted(os.path.join(root, d) for d in os.listdir(root))
+    return next((p for p in reversed(cands) if is_committed_dir(p)), None)
 
 
 def build_parser():
@@ -164,6 +191,10 @@ def build_parser():
     parser.add_argument("--synthetic-n", type=int, default=256)
     parser.add_argument("--pretrained", type=str, default=None,
                         help="checkpoint to load (nested 'params' key supported)")
+    parser.add_argument("--portable-ckpt", type=str, default=None,
+                        help="also write a portable checkpoint per epoch under DIR, and "
+                             "resume from the newest committed one there, resharded onto "
+                             "this run's world size and policy")
     parser.add_argument("--fp16", type=str, default=None, choices=[None, "amp", "bf16"],
                         help="precision: amp (fp16+scaler) or bf16")
     parser.add_argument("--device", type=str, default="cuda", choices=["cuda", "cpu"],
@@ -305,14 +336,29 @@ def _main(opt):
     )
     wandb.init(project=opt.projectName, config=config, reinit=True)
 
+    # resume: the newest committed portable checkpoint, resharded onto this
+    # run's group; the epochs it covers are not trained again
+    start_epoch = 0
+    latest = latest_portable(opt.portable_ckpt)
+    if latest is not None:
+        meta = stoke_model.load_resharded(latest)
+        scheduler1.load_state_dict(meta["scheduler1"])
+        scheduler2.load_state_dict(meta["scheduler2"])
+        start_epoch = int(meta["epoch"]) + 1
+        print("===> Resumed portable checkpoint {} (resharded onto this run), from epoch "
+              "{}".format(latest, start_epoch))
+
     print("===> Training")
     train_loss = val_loss = float("nan")
     try:
-        for epoch in range(epochs):
+        for epoch in range(start_epoch, epochs):
             train_loss = train(train_dataloader, stoke_model, scheduler1, scheduler2, epoch)
             val_loss = validate(val_dataloader, stoke_model, epoch)
             scheduler1.lr_scale = scheduler2.step(val_loss)
-            save_checkpoint(stoke_model, epoch, train_loss, val_loss)
+            save_checkpoint(stoke_model, epoch, train_loss, val_loss,
+                            portable_dir=opt.portable_ckpt,
+                            extras={"scheduler1": scheduler1.state_dict(),
+                                    "scheduler2": scheduler2.state_dict()})
             print("--------Train Loss after Epoch {} - {} --------".format(epoch, train_loss))
             print("--------Val Loss after Epoch {} - {} --------".format(epoch, val_loss))
     finally:

@@ -13,11 +13,23 @@ the tree); the output strict-loads into ``models.swinir.SwinIR`` (any of
 its three tails, from the per-layer or the ``scan_layers=True`` layout),
 ``models.gpt2.GPT2``, ``models.sr_espcn.Net``, ``models.vgg.VGG16Features``,
 ``models.resnet.ResNet`` or ``models.vit.ViT``.
+
+Files: :func:`load_torch_checkpoint` reads ``.pth``/``.pt`` with
+``torch.load`` and ``.safetensors`` with :func:`load_safetensors`, a parser
+of the format itself (an 8-byte little-endian header length, a JSON
+header, raw little-endian bytes; BF16 included), so no ``safetensors``
+package is needed. :func:`gpt2_state_dict_from_hf` takes an HF GPT-2 state
+dict, whose ``Conv1D`` linears store ``[in, out]`` (JAX's
+``conv1d_kernels=True``), into the port's ``nn.Linear`` layout.
+:func:`params_from_jax_portable` reads the parameters out of a portable
+checkpoint the JAX package wrote, for the ``*_state_dict_from_jax`` maps.
 """
 
 from __future__ import annotations
 
+import json
 import re
+import struct
 
 import numpy as np
 import torch
@@ -272,7 +284,8 @@ CHECKPOINT_WRAPPERS = ("params", "state_dict", "model")
 
 def load_torch_checkpoint(path: str, key: str | None = None) -> dict[str, torch.Tensor]:
     """A ``.pth``/``.pt`` file -> its flat state dict, read with
-    ``torch.load(weights_only=True)`` on the CPU.
+    ``torch.load(weights_only=True)`` on the CPU; a ``.safetensors`` file
+    through :func:`load_safetensors` (flat by format).
 
     The file may hold the state dict itself or a wrapper around it: under
     ``key`` when given and present (official real-SR SwinIR files nest
@@ -280,6 +293,8 @@ def load_torch_checkpoint(path: str, key: str | None = None) -> dict[str, torch.
     :data:`CHECKPOINT_WRAPPERS` it holds (official classical SwinIR files
     nest under ``'params'``; torchvision's are bare).
     """
+    if path.endswith(".safetensors"):
+        return load_safetensors(path)
     obj = torch.load(path, map_location="cpu", weights_only=True)
     if not isinstance(obj, dict):
         raise ValueError(f"{path}: expected a state dict or a wrapper dict, got {type(obj)}")
@@ -291,3 +306,96 @@ def load_torch_checkpoint(path: str, key: str | None = None) -> dict[str, torch.
     if bad:
         raise ValueError(f"{path}: not a state dict; non-tensor entries {bad[:5]}")
     return obj
+
+
+# safetensors dtype names -> torch (float8 where this torch has it)
+SAFETENSORS_DTYPES = {
+    "F64": torch.float64, "F32": torch.float32, "F16": torch.float16, "BF16": torch.bfloat16,
+    "I64": torch.int64, "I32": torch.int32, "I16": torch.int16, "I8": torch.int8,
+    "U8": torch.uint8, "BOOL": torch.bool,
+    **{name: getattr(torch, attr) for name, attr in (("F8_E4M3", "float8_e4m3fn"),
+                                                      ("F8_E5M2", "float8_e5m2"))
+       if hasattr(torch, attr)},
+}
+
+
+def load_safetensors(path: str) -> dict[str, torch.Tensor]:
+    """A ``.safetensors`` file -> its flat state dict on the CPU: the
+    8-byte little-endian header length, the JSON header (``dtype``,
+    ``shape``, ``data_offsets`` per tensor, an optional ``__metadata__``),
+    then each tensor's raw little-endian bytes, read with
+    ``torch.frombuffer``."""
+    with open(path, "rb") as fh:
+        (n,) = struct.unpack("<Q", fh.read(8))
+        header = json.loads(fh.read(n))
+        data = fh.read()
+    out = {}
+    for name, info in header.items():
+        if name == "__metadata__":
+            continue
+        dtype = SAFETENSORS_DTYPES.get(info["dtype"])
+        if dtype is None:
+            raise ValueError(f"{path}: tensor {name!r} has dtype {info['dtype']}, which this "
+                             f"reader does not know ({sorted(SAFETENSORS_DTYPES)})")
+        start, stop = info["data_offsets"]
+        raw = bytearray(data[start:stop])
+        flat = torch.frombuffer(raw, dtype=dtype) if raw else torch.empty(0, dtype=dtype)
+        out[name] = flat.reshape(info["shape"])
+    return out
+
+
+# the HF GPT-2 linears, Conv1D modules that store their weight as [in, out]
+_HF_CONV1D = re.compile(r"\.(attn\.c_attn|attn\.c_proj|mlp\.c_fc|mlp\.c_proj)\.weight$")
+# HF buffers and the tied head the port's GPT-2 does not hold
+_HF_DROP = re.compile(r"(\.attn\.(bias|masked_bias)$)|(^lm_head\.weight$)")
+
+
+def gpt2_state_dict_from_hf(state: dict, conv1d_kernels: bool = True) -> dict[str, torch.Tensor]:
+    """An HF GPT-2 state dict (``GPT2LMHeadModel``'s, or ``GPT2Model``'s
+    without the ``transformer.`` prefix) -> the port's ``GPT2``'s.
+
+    HF's ``c_attn``, ``c_proj`` and ``c_fc`` are ``Conv1D`` modules whose
+    weight is ``[in, out]``; with ``conv1d_kernels`` (the default, as JAX's
+    ``load_torch_into_template(conv1d_kernels=True)``) they are transposed
+    to ``nn.Linear``'s ``[out, in]``; pass False for a file already in the
+    ``nn.Linear`` layout. The causal-mask buffers (``attn.bias``,
+    ``attn.masked_bias``) and the tied ``lm_head.weight`` are dropped."""
+    sd = {}
+    for k, v in state.items():
+        if not k.startswith(("transformer.", "lm_head.")):
+            k = f"transformer.{k}"
+        if _HF_DROP.search(k):
+            continue
+        v = torch.as_tensor(v)
+        sd[k] = v.t().contiguous() if conv1d_kernels and _HF_CONV1D.search(k) else v
+    return sd
+
+
+def params_from_jax_portable(path: str) -> dict:
+    """The parameters of a portable checkpoint the JAX package wrote
+    (``save_portable``, a directory with a ``_COMMIT`` marker) as a nested
+    dict of numpy arrays, the input of the ``*_state_dict_from_jax`` maps.
+    JAX names leaves by ``keystr`` path (``.params['conv_first']['kernel']``
+    for a train state, ``['params']['conv_first']['kernel']`` for a dict);
+    bfloat16 leaves come back as float32. A scanned SwinIR's stacked pairs
+    stay stacked (the SwinIR map unstacks them)."""
+    from .checkpoint_sharded import _assemble_host_tree, host_tensor
+
+    manifest, host = _assemble_host_tree(path)
+    head = re.compile(r"^(\.params|\['params'\])")
+    out: dict = {}
+    for key, arr in host.items():
+        m = head.match(key)
+        if not m:
+            continue
+        parts = re.findall(r"\['([^']*)'\]|\[(\d+)\]", key[m.end():])
+        node = out
+        names = [a or b for a, b in parts]
+        for p in names[:-1]:
+            node = node.setdefault(p, {})
+        t = host_tensor(arr, manifest["leaves"][key]["dtype"])
+        node[names[-1]] = (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+    if not out:
+        raise ValueError(f"{path}: no parameter leaf (leaves: "
+                         f"{sorted(host)[:5]}...)")
+    return out

@@ -24,7 +24,10 @@ Counterpart of ``pytorch_distributedtraining_tpu/optim.py``:
   parameters (ZeRO-1). ``update_wire_dtype`` (Fairscale OSS's
   ``broadcast_fp16``, bf16 as in JAX) casts the lr-scaled update before it
   is gathered and added. ``full_state_dict()`` gathers the state into the
-  layout of a run on one rank.
+  layout of a run on one rank, and ``load_state_dict`` takes either that
+  or the optimizer's own ``state_dict()`` (or moments by parameter name)
+  and re-slices each moment onto this rank's share, so a state saved at
+  one world size or layout resumes at another.
 - ``onecycle`` and ``cosine_with_warmup`` are schedules, functions of a
   step (an int or a 0-d tensor). ``OneCycleLR`` and ``ReduceLROnPlateau``
   stay pure-Python closed forms, not ``torch.optim.lr_scheduler``, so their
@@ -60,6 +63,32 @@ def _lr_at(lr, count):
     return lr(count) if callable(lr) else lr
 
 
+def _by_name(saved, saved_names, names: list[str], key: str) -> list:
+    """``saved`` (a list in the order of ``saved_names``, or of ``names``
+    when that is None, or a dict by name) as a list in the order of
+    ``names``."""
+    if not isinstance(saved, dict):
+        saved = list(saved)
+        if saved_names is None:
+            if len(saved) != len(names):
+                raise ValueError(f"optimizer state {key!r} holds {len(saved)} tensors for "
+                                 f"{len(names)} parameters")
+            return saved
+        saved = dict(zip(saved_names, saved))
+    missing = [n for n in names if n not in saved]
+    if missing:
+        raise ValueError(f"optimizer state {key!r} lacks parameters {missing[:5]}"
+                         f"{'...' if len(missing) > 5 else ''}")
+    return [saved[n] for n in names]
+
+
+def _leaves_from_flat(flat: torch.Tensor, layout: dict) -> dict:
+    """A whole flat ``FusedAdamW`` buffer as ``{name: view shaped like the
+    parameter}``, by the ``layout`` its ``state_dict`` carries."""
+    return {n: flat[o:o + math.prod(shape)].view(tuple(shape))
+            for n, o, shape in zip(layout["names"], layout["offsets"], layout["shapes"])}
+
+
 class RecordedClip(NamedTuple):
     """The pre-clip global norm and whether the clip fired this step
     (JAX ``RecordedClipState``), both device scalars."""
@@ -71,7 +100,11 @@ class RecordedClip(NamedTuple):
 class _LeafOptimizer:
     """What the per-leaf chains share: the parameter list, its grads, the
     recorded clip, the params EMA and, with a ``shard`` plan, this rank's
-    shard of each (:attr:`local`), where the state and the update live."""
+    shard of each (:attr:`local`), where the state and the update live.
+    ``STATE`` names the per-leaf state lists (each ``None`` or one tensor
+    per parameter, shaped like its share)."""
+
+    STATE: tuple = ("ema",)
 
     def __init__(self, params, lr, clip_grad_norm, clip_grad_value, ema_decay=None,
                  shard=None, update_wire_dtype=None):
@@ -152,6 +185,12 @@ class _LeafOptimizer:
         else:
             torch._foreach_add_(self.params, [s.to(p.dtype) for s, p in zip(steps, self.params)])
 
+    def state_dict(self) -> dict:
+        """The step count, the parameter names and each per-leaf state list
+        (this rank's shares)."""
+        return {"count": self.count, "names": list(self.names),
+                **{k: getattr(self, k) for k in self.STATE}}
+
     def full_state_dict(self) -> dict:
         """:meth:`state_dict` with every sharded buffer gathered whole, the
         layout of a run on one rank (a collective when sharded: every rank
@@ -159,8 +198,62 @@ class _LeafOptimizer:
         sd = self.state_dict()
         if self.shard is None:
             return sd
-        return {k: (self.shard.gather_state(self.params, v) if isinstance(v, list) else v)
+        return {k: (self.shard.gather_state(self.params, v) if k in self.STATE and v is not None
+                    else v)
                 for k, v in sd.items()}
+
+    @torch.no_grad()
+    def load_state_dict(self, state: dict) -> None:
+        """Restore a :meth:`state_dict` or :meth:`full_state_dict`, saved at
+        this world size or any other: each state list holds one tensor per
+        parameter, in the order of ``state["names"]`` (this optimizer's when
+        absent), or is a dict by parameter name. A tensor shaped like the
+        whole leaf is cut to this rank's share (a ZeRO-1/2 leaf along its
+        ``leaf_spec`` dimension, an FSDP2 leaf's first-dimension chunk); one
+        shaped like the share is copied as it is. A ``FusedAdamW``
+        :meth:`~FusedAdamW.full_state_dict` loads too, by its layout."""
+        if "layout" in state:  # a flat FusedAdamW state: by name from its layout
+            if tuple(state["layout"]["slice"]) != (0, state["layout"]["padded"]):
+                raise ValueError("a FusedAdamW state_dict() holds one rank's slice; load its "
+                                 "full_state_dict() into a per-leaf optimizer")
+            state = {k: (_leaves_from_flat(torch.as_tensor(v), state["layout"])
+                         if k in ("mu", "nu", "ema") and v is not None else v)
+                     for k, v in state.items() if k != "layout"}
+        for key in self.STATE:
+            mine, saved = getattr(self, key), state.get(key)
+            if (mine is None) != (saved is None):
+                raise ValueError(
+                    f"optimizer state {key!r}: the checkpoint "
+                    f"{'has none' if saved is None else 'has one'} but this optimizer "
+                    f"{'keeps one' if mine is not None else 'keeps none'} (ema_decay, momentum "
+                    "must match the run that saved it)")
+            if mine is None:
+                continue
+            for i, (dst, src) in enumerate(zip(mine, _by_name(saved, state.get("names"),
+                                                              self.names, key))):
+                dst.copy_(self._share(i, torch.as_tensor(src), dst, key))
+        self.count = int(state["count"])
+
+    def _share(self, i: int, src: torch.Tensor, dst: torch.Tensor, key: str) -> torch.Tensor:
+        """This rank's share of leaf ``i`` from ``src``, the whole leaf or
+        the share itself."""
+        whole = tuple(self.params[i].shape)
+        if tuple(src.shape) != tuple(dst.shape) and tuple(src.shape) == whole \
+                and self.shard is not None:
+            src = self.shard.piece(i, src)
+        if tuple(src.shape) != tuple(dst.shape):
+            raise ValueError(
+                f"optimizer state {key}[{self.names[i]!r}]: shape {tuple(src.shape)} is neither "
+                f"the whole leaf {whole} nor this rank's share {tuple(dst.shape)}")
+        return src
+
+    def ema_params(self) -> list[torch.Tensor] | None:
+        """The params EMA of each leaf, whole (gathered from the shards when
+        sharded, a collective: every rank calls it); None without
+        ``ema_decay``."""
+        if self.ema is None:
+            return None
+        return self.ema if self.shard is None else self.shard.gather_state(self.params, self.ema)
 
 
 class AdamW(_LeafOptimizer):
@@ -171,6 +264,8 @@ class AdamW(_LeafOptimizer):
     correction by step count (in Python doubles), scaled by ``min(1,
     max_norm/‖g‖)`` first when clipping is on; ``p -= lr·u``.
     """
+
+    STATE = ("mu", "nu", "ema")
 
     def __init__(self, params, lr=1e-3, betas=(0.9, 0.999), eps: float = 1e-8,
                  weight_decay: float = 0.01, clip_grad_norm: float | None = None,
@@ -211,14 +306,14 @@ class AdamW(_LeafOptimizer):
         self._update_ema()
         return None if self.clip is None else self.clip.gnorm
 
-    def state_dict(self) -> dict:
-        return {"count": self.count, "mu": self.mu, "nu": self.nu, "ema": self.ema}
 
 
 class SGD(_LeafOptimizer):
     """``clip_by_global_norm -> clip -> add_decayed_weights -> trace``, then
     ``* -lr``: optax's ``sgd`` with momentum as a trace ``t = g + m·t``
     (Nesterov: the update is ``g + m·t``), no dampening."""
+
+    STATE = ("trace",)
 
     def __init__(self, params, lr=1e-2, momentum: float = 0.0, weight_decay: float = 0.0,
                  nesterov: bool = False, clip_grad_norm: float | None = None,
@@ -246,8 +341,6 @@ class SGD(_LeafOptimizer):
         self._apply(grads, lr)
         return None if self.clip is None else self.clip.gnorm
 
-    def state_dict(self) -> dict:
-        return {"count": self.count, "trace": self.trace}
 
 
 def adamw(params, lr=1e-3, betas=(0.9, 0.999), eps: float = 1e-8, weight_decay: float = 0.01,
@@ -552,6 +645,72 @@ class FusedAdamW:
         sd["layout"]["slice"] = (0, self.flat_param.numel())
         return sd
 
+    def leaf_state_dict(self) -> dict:
+        """The state per parameter: ``{"count": int, "names": [...], "mu":
+        {name: tensor shaped like it}, "nu": ..., "ema": ... or None}``,
+        views of the whole flat moments (gathered first under ZeRO-1, a
+        collective): the layout-free form a portable checkpoint keeps."""
+        out = {"count": int(self.state.count), "names": list(self.names)}
+        for k in ("mu", "nu", "ema"):
+            flat = getattr(self.state, k)
+            if flat is not None:
+                flat = self._gathered(flat)
+                flat = {n: flat[o:o + p.numel()].view_as(p)
+                        for n, o, p in zip(self.names, self.offsets, self.params)}
+            out[k] = flat
+        return out
+
+    @torch.no_grad()
+    def load_state_dict(self, state: dict) -> None:
+        """Restore the moments, EMA and count from :meth:`state_dict`,
+        :meth:`full_state_dict` or :meth:`leaf_state_dict` output (a
+        per-leaf optimizer's ``full_state_dict`` too): a flat buffer is
+        mapped onto this optimizer's layout by parameter name and offset
+        (``state["layout"]``), per-leaf moments by name, and the result cut
+        to this rank's slice. A flat buffer that is one rank's slice loads
+        only into the same layout and slice."""
+        has_ema = state.get("ema") is not None
+        if has_ema != (self.ema_decay is not None):
+            raise ValueError(
+                f"the checkpoint {'carries' if has_ema else 'has no'} params EMA but this "
+                f"FusedAdamW has ema_decay={self.ema_decay}: construct it as the run that "
+                "saved the state was")
+        moments = [self._live_slice(state[k], state, k) if state.get(k) is not None else None
+                   for k in ("mu", "nu", "ema")]
+        count = torch.tensor(int(state["count"]), dtype=torch.int32,
+                             device=self.flat_param.device)
+        self.state = FusedAdamWState(count, *moments)
+
+    def _live_slice(self, saved, state: dict, key: str) -> torch.Tensor:
+        """``saved`` (a flat buffer in ``state["layout"]``, or per-leaf
+        tensors) as this rank's slice of the live flat layout."""
+        device = self.flat_param.device
+        layout = state.get("layout")
+        if layout is not None and not isinstance(saved, (dict, list, tuple)):
+            saved = torch.as_tensor(saved)
+            start, stop = layout["slice"]
+            if (start, stop) != (0, layout["padded"]):
+                same = (list(layout["names"]) == self.names
+                        and list(layout["offsets"]) == self.offsets
+                        and layout["padded"] == self.flat_param.numel()
+                        and (start, stop) == (self.slice.start, self.slice.stop))
+                if not same:
+                    raise ValueError(
+                        f"FusedAdamW state {key!r} is one rank's slice {start}:{stop} of another "
+                        "layout; load a full_state_dict() (or a portable checkpoint) instead")
+                return saved.to(device, torch.float32).clone()
+            saved = _leaves_from_flat(saved, layout)
+        else:
+            saved = dict(zip(self.names, _by_name(saved, state.get("names"), self.names, key)))
+        out = torch.zeros_like(self.flat_param)
+        for n, o, p in zip(self.names, self.offsets, self.params):
+            src = torch.as_tensor(saved[n])
+            if tuple(src.shape) != tuple(p.shape):
+                raise ValueError(f"FusedAdamW state {key}[{n!r}]: shape {tuple(src.shape)}, the "
+                                 f"parameter is {tuple(p.shape)}")
+            out[o:o + p.numel()].copy_(src.reshape(-1))
+        return out[self.slice].clone()
+
 
 def fused_adamw_eligible(policy) -> bool:
     """Can :class:`FusedAdamW` replace the per-leaf chain under this
@@ -575,10 +734,11 @@ def has_ema(opt) -> bool:
 
 
 def ema_params(opt, params=None) -> list[torch.Tensor] | None:
-    """The EMA of each of ``opt``'s parameters, in its order, cast to the
-    dtype of each of ``params`` when given (eval-ready), else f32. None when
-    no EMA is kept."""
-    ema = opt.ema_params() if isinstance(opt, FusedAdamW) else getattr(opt, "ema", None)
+    """The EMA of each of ``opt``'s parameters, whole and in its order
+    (gathered from the shards when sharded: every rank calls it), cast to
+    the dtype of each of ``params`` when given (eval-ready), else f32. None
+    when no EMA is kept."""
+    ema = opt.ema_params()
     if ema is None:
         return None
     if params is not None:
@@ -755,7 +915,7 @@ class ReduceLROnPlateau:
 
     def load_state_dict(self, d: dict) -> None:
         self.current = d["current"]
-        self._best = d["best"]
+        self._best = d.get("best")  # a checkpoint's meta drops None values
         self._bad = d["bad"]
         self._cool = d["cool"]
         if self.optimizer is not None and d.get("lr") is not None:

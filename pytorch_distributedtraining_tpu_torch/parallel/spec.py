@@ -73,6 +73,19 @@ def shard(t: torch.Tensor, dim: int, rank: int, world: int) -> torch.Tensor:
     return t.narrow(dim, rank * k, k)
 
 
+def dim0_chunk(t: torch.Tensor, rank: int, world: int) -> torch.Tensor:
+    """Rank ``rank``'s first-dimension chunk of ``t`` as FSDP2 lays it out
+    (``torch.chunk``: ``ceil(n / world)`` rows a rank, the last ones
+    shorter or empty); a view of ``t``."""
+    chunks = t.chunk(world, dim=0)
+    return chunks[rank] if rank < len(chunks) else t[:0]
+
+
+def dim0_chunk_start(n: int, rank: int, world: int) -> int:
+    """The first row of rank ``rank``'s :func:`dim0_chunk` of ``n`` rows."""
+    return min(n, rank * -(-n // world)) if n else 0
+
+
 def _rank_major(t: torch.Tensor, dim: int, world: int) -> torch.Tensor:
     """``t`` as ``[world, shard numel]``: row r is rank r's shard, flat."""
     k = t.shape[dim] // world
@@ -192,6 +205,32 @@ class ShardPlan:
             return [t.to_local() if is_dtensor(t) else t for t in tensors]
         return [t if d is None else shard(t, d, self.rank, self.world)
                 for t, d in zip(tensors, self.dims)]
+
+    def piece(self, i: int, whole: torch.Tensor) -> torch.Tensor:
+        """This rank's share of leaf ``i`` cut from ``whole``, the whole
+        leaf (a view): its :func:`leaf_spec` shard, or under FSDP2 its
+        first-dimension chunk; ``whole`` itself for an unsharded leaf."""
+        if self.dtensor:
+            return dim0_chunk(whole, self.rank, self.world)
+        d = self.dims[i]
+        return whole if d is None else shard(whole, d, self.rank, self.world)
+
+    def index(self, i: int, param: torch.Tensor, local_shape) -> list | None:
+        """Where this rank's share (``local_shape``) of leaf ``i``
+        (``param``) lies in the whole leaf, as ``[[start, stop], ...]`` per
+        dimension; None for a leaf that every rank holds whole."""
+        shape = [int(n) for n in param.shape]
+        if self.dtensor:
+            if not is_dtensor(param):
+                return None
+            start = dim0_chunk_start(shape[0], self.rank, self.world)
+            return [[start, start + int(local_shape[0])]] + [[0, n] for n in shape[1:]]
+        d = self.dims[i]
+        if d is None:
+            return None
+        k = shape[d] // self.world
+        return [[self.rank * k, (self.rank + 1) * k] if j == d else [0, n]
+                for j, n in enumerate(shape)]
 
     def norm_sq(self, sq: torch.Tensor) -> torch.Tensor:
         """The global sum of squares from each leaf's local one (``sq``,

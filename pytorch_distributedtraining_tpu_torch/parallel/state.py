@@ -26,6 +26,15 @@ sharded layout; PyTorch builds the module first, so
 gradient once, which keeps the gradient views bound to the flat buffer.
 Without a mesh the state is the model on its device and the optimizer
 over its parameters, the one-process layout.
+
+:meth:`TrainState.state_dict` is the state in the layout of a run on one
+rank (the module's state dict without a DDP ``module.`` prefix, FSDP2
+shards gathered; the optimizer's ``full_state_dict``; the caller's
+metadata), a collective under a sharded policy; :meth:`TrainState.
+load_state_dict` puts such a state back into a train state of any policy
+and world size, each rank taking its share. ``torch.save`` of it is what
+``checkpoint.save_checkpoint`` writes; the portable and sharded formats
+(``checkpoint_sharded``) keep the same state rank by rank.
 """
 
 from __future__ import annotations
@@ -41,7 +50,7 @@ from ..optim import FusedAdamW
 from ..runtime.dist import resolve_device
 from ..runtime.mesh import data_group, mesh_axis_size
 from .policy import Policy
-from .spec import ShardPlan
+from .spec import ShardPlan, dim0_chunk, is_dtensor
 from .sync_bn import sync_batch_norm
 
 
@@ -51,6 +60,52 @@ class TrainState(NamedTuple):
     tx: object  # the port's optimizer over this rank's share
     mesh: object  # the DeviceMesh, or None for one process
     policy: Policy
+
+    def state_dict(self, meta: dict | None = None) -> dict:
+        """``{"params", "opt_state", "meta"}`` in the layout of a run on one
+        rank: the module's state (FSDP2 shards gathered), the optimizer's
+        ``full_state_dict`` and the caller's ``meta`` (the facade's holds
+        the step, lr, loss scaler and generators). Every rank calls it (the
+        gathers are collectives)."""
+        return {"params": full_module_state(self.module),
+                "opt_state": self.tx.full_state_dict(), "meta": dict(meta or {})}
+
+    def load_state_dict(self, state: dict) -> dict:
+        """Restore :meth:`state_dict` output (saved at any world size or
+        policy) into this train state: the module's state (each FSDP2 rank
+        its chunk) and the optimizer's (re-sliced onto this rank's share).
+        Returns the ``meta`` dict, which the caller puts back."""
+        load_module_state(self.module, state["params"])
+        self.tx.load_state_dict(state["opt_state"])
+        return dict(state.get("meta") or {})
+
+
+def full_module_state(module: torch.nn.Module) -> dict[str, torch.Tensor]:
+    """``module.state_dict()`` with each FSDP2 ``DTensor`` gathered whole
+    (a collective: every rank calls it)."""
+    return {k: v.full_tensor() if is_dtensor(v) else v for k, v in module.state_dict().items()}
+
+
+@torch.no_grad()
+def load_module_state(module: torch.nn.Module, state: dict, strict: bool = True) -> None:
+    """Copy whole tensors ``state`` (a state dict, or one nested under
+    ``"params"``) into ``module`` in place, after ``checkpoint.
+    load_params_dict``'s key and shape checks (strict by default): an FSDP2
+    ``DTensor`` takes this rank's first-dimension chunk. The tensors keep
+    their storage, so views into them (``FusedAdamW``'s flat buffer) stay
+    bound."""
+    from ..checkpoint import load_params_dict
+
+    template = module.state_dict()
+    matched, _ = load_params_dict(state, template, strict=strict)
+    for k, v in matched.items():
+        t = template[k]
+        v = torch.as_tensor(v)
+        if is_dtensor(t):
+            local, mesh = t.to_local(), t.device_mesh
+            local.copy_(dim0_chunk(v, mesh.get_local_rank(), mesh.size()).to(local.dtype))
+        else:
+            t.copy_(v)
 
 
 def _factory(tx: Callable):

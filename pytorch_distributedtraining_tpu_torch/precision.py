@@ -6,7 +6,8 @@ forward (``None`` = f32, ``bfloat16``, ``float16``) and enters
 ``torch.autocast`` for it. ``DynamicLossScaler`` is the ``--fp16 amp``
 GradScaler twin: scale the loss, unscale the grads, skip the update and
 halve the scale on a non-finite gradient, grow it after
-``growth_interval`` clean steps. fp8 is not ported yet.
+``growth_interval`` clean steps; ``state_dict``/``load_state_dict``
+carry it across a resume. fp8 is not ported yet.
 """
 
 from __future__ import annotations
@@ -71,3 +72,9 @@ class DynamicLossScaler:
 
     def state_dict(self) -> dict:
         return {"scale": self.scale, "growth_count": self.growth_count}
+
+    def load_state_dict(self, state: dict) -> None:
+        """Restore what :meth:`state_dict` returned: the scale and the count
+        of clean steps since the last change."""
+        self.scale = float(state["scale"])
+        self.growth_count = int(state["growth_count"])

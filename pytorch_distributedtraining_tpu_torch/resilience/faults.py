@@ -4,6 +4,18 @@ Counterpart of ``pytorch_distributedtraining_tpu/resilience/faults.py``,
 with the sites the port threads so far:
 
 =====================  =====================================================
+``checkpoint.write``   transient I/O error on a checkpoint write: at the
+                       sharded write (retried through the outage
+                       classifier) and at ``CheckpointManager.save``
+                       (``checkpoint_sharded.py``)
+``ckpt.write``         kill/delay inside the portable writer (the
+                       background thread with ``async_save``), after the
+                       staging dir exists: manufactures torn, uncommitted
+                       step dirs (``checkpoint_sharded.py``)
+``train.preempt``      mid-step preemption delivered to self at a chosen
+                       ``CheckpointManager.maybe_save`` call: ``sigterm``
+                       takes the forced-save path, ``kill`` dies with only
+                       the committed checkpoints (``checkpoint_sharded.py``)
 ``serve.admit``        admission controller sheds a request at admission
                        -- ``raise`` drops it, counted, engine keeps serving
                        (``serve/scheduler.py``)
@@ -47,7 +59,13 @@ ENV_VAR = "GRAFT_FAULT_PLAN"
 
 _VALID_ACTIONS = ("raise", "oserror", "exit", "kill", "sigterm", "sleep")
 
-SITES = frozenset({"serve.admit", "serve.client"})
+SITES = frozenset({
+    "checkpoint.write",
+    "ckpt.write",
+    "train.preempt",
+    "serve.admit",
+    "serve.client",
+})
 
 
 class InjectedFault(RuntimeError):

@@ -2,15 +2,17 @@
 
 from .config import (
     AMPConfig,
+    ClipGradConfig,
     ClipGradNormConfig,
     DDPConfig,
     DistributedOptions,
     FairscaleOSSConfig,
+    FP16Options,
 )
 from .facade import Stoke
 from .optimizer import StokeOptimizer
 
 __all__ = [
-    "AMPConfig", "ClipGradNormConfig", "DDPConfig", "DistributedOptions",
-    "FairscaleOSSConfig", "Stoke", "StokeOptimizer",
+    "AMPConfig", "ClipGradConfig", "ClipGradNormConfig", "DDPConfig", "DistributedOptions",
+    "FP16Options", "FairscaleOSSConfig", "Stoke", "StokeOptimizer",
 ]

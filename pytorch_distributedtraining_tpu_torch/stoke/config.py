@@ -1,7 +1,8 @@
 """Config dataclasses and option enums of the Stoke surface.
 
 Counterpart of ``pytorch_distributedtraining_tpu/stoke/config.py`` for the
-configs ``drivers/stoke_ddp.py`` passes. The facade reads
+configs ``drivers/stoke_ddp.py`` passes, the ``FP16Options`` enum and the
+clip-by-value ``ClipGradConfig``. The facade reads
 ``DDPConfig.find_unused_parameters`` (for the DDP wrapper) and
 ``FairscaleOSSConfig.broadcast_fp16`` (the bf16 update wire over more
 than one rank); ``local_rank``, ``convert_to_sync_batch_norm`` and
@@ -9,7 +10,8 @@ than one rank); ``local_rank``, ``convert_to_sync_batch_norm`` and
 recorded only. ``convert_to_sync_batch_norm`` has nothing to convert: the
 port's BatchNorm (``parallel.sync_bn.BatchNorm``) is synchronous over the
 data group whenever there is one, as JAX's always is (its ``jit`` sees the
-global batch).
+global batch). JAX's ``TPUConfig`` has no twin yet: its knobs that matter
+on a GPU come with the CUDA-graph step slice.
 """
 
 from __future__ import annotations
@@ -22,6 +24,17 @@ class DistributedOptions(Enum):
     ddp = "ddp"
     deepspeed = "deepspeed"
     horovod = "horovod"
+
+
+class FP16Options(Enum):
+    """``amp`` (and the ``apex_O1``/``apex_O2``/``deepspeed`` spellings of
+    it) is fp16 autocast with the loss scaler, ``bf16`` bf16 autocast."""
+
+    amp = "amp"
+    apex_O1 = "apex_O1"
+    apex_O2 = "apex_O2"
+    deepspeed = "deepspeed"
+    bf16 = "bf16"
 
 
 @dataclass
@@ -45,6 +58,14 @@ class ClipGradNormConfig:
     def __post_init__(self):
         if self.norm_type != 2.0:
             raise ValueError("only norm_type=2.0 is supported")
+
+
+@dataclass
+class ClipGradConfig:
+    """Clip each gradient element to ``[-clip, clip]`` (the optimizers'
+    ``clip_grad_value``)."""
+
+    clip: float
 
 
 @dataclass

@@ -3,10 +3,15 @@ grad accumulation and clipping, data loading, checkpoints and rank I/O.
 
 Counterpart of ``pytorch_distributedtraining_tpu/stoke/facade.py`` for the
 surface ``drivers/stoke_ddp.py`` drives: ``.model``, ``.loss``,
-``.backward``, ``.step``, ``.DataLoader``, ``.print_ema_loss``,
-``.detach_and_sync_loss``, ``.eval_step``, ``.save``, ``.init``,
+``.backward``, ``.step``, ``.zero_grad``, ``.DataLoader``,
+``.print_ema_loss``, ``.detach_and_sync_loss``, ``.eval_step``, ``.init``,
 ``.load_model_state``, ``.model_access``, ``.print_on_devices``,
-``.optimizer`` and ``.serve`` (a serving engine over the live weights).
+``.barrier``, ``.optimizer``, ``.state``, ``.ema_params``,
+``.export_trace`` and ``.serve`` (a serving engine over the live weights),
+and the checkpoints: ``.save``/``.load`` (one consolidated file, the resume
+path), ``.save_sharded``/``.load_sharded`` (every rank its shards, through
+``torch.distributed.checkpoint``) and ``.save_portable``/``.load_resharded``
+(the portable format, which restores at another world size or policy).
 
 PyTorch runs eagerly, so the JAX facade's deferred handles and compiled
 programs have no counterpart: ``.model`` runs the forward under the
@@ -31,6 +36,10 @@ call) or a ``mesh=``, ``parallel.create_train_state`` replicates or shards
 the model and optimizer and :meth:`step` syncs the gradients as the
 policy says; every rank runs its own shard of the data. Without a group
 the facade trains one process, and ``WORLD_SIZE > 1`` then raises.
+``fp16`` takes the string or ``FP16Options`` (``amp``, and the
+``apex_O1``/``apex_O2``/``deepspeed`` spellings of it, run fp16 autocast
+with the loss scaler; ``bf16`` bf16 autocast); ``grad_clip`` a
+``ClipGradNormConfig`` (global norm) or a ``ClipGradConfig`` (by value).
 ``FairscaleOSSConfig(broadcast_fp16=True)`` narrows the update to bf16
 before it is gathered, on a sharded-optimizer policy over more than one
 rank (JAX's rule: at one rank there is no fan-out to narrow). Losses and
@@ -49,6 +58,7 @@ from __future__ import annotations
 
 import functools
 import os
+import weakref
 from typing import Callable
 
 import numpy as np
@@ -59,14 +69,17 @@ from .. import optim as optim_mod
 from ..data import DataLoader as _DataLoader
 from ..parallel.policy import policy_from_flags
 from ..parallel.spec import all_reduce_sum_, is_dtensor, shard_axis
-from ..parallel.state import create_train_state
+from ..parallel.state import TrainState, create_train_state, load_module_state
 from ..parallel.step import mean_over_ranks, reduce_gradients
 from ..precision import DynamicLossScaler, Policy
 from ..runtime import dist
 from ..runtime.mesh import MeshSpec, data_group, make_mesh
-from .config import (AMPConfig, ClipGradNormConfig, DDPConfig, DistributedOptions,
-                     FairscaleOSSConfig)
+from .config import (AMPConfig, ClipGradConfig, ClipGradNormConfig, DDPConfig,
+                     DistributedOptions, FairscaleOSSConfig, FP16Options)
 from .optimizer import StokeOptimizer
+
+# fp16 options that run fp16 autocast with the loss scaler (JAX's set)
+_SCALED_FP16 = ("amp", "apex_O1", "apex_O2", "deepspeed")
 
 
 def _as_tensor(x, device: torch.device) -> torch.Tensor:
@@ -84,14 +97,14 @@ class Stoke:
         batch_size_per_device: int = 1,
         verbose: bool = False,
         gpu: bool = False,  # parity no-op: `device` decides
-        fp16: str | None = None,
+        fp16: str | FP16Options | None = None,
         distributed: str | DistributedOptions | None = None,
         fairscale_oss: bool = False,
         fairscale_sddp: bool = False,
         fairscale_fsdp: bool = False,
         grad_accum_steps: int = 1,
         configs: list | None = None,
-        grad_clip: ClipGradNormConfig | None = None,
+        grad_clip: ClipGradNormConfig | ClipGradConfig | None = None,
         fused_optimizer: bool | None = None,
         *,
         device: str | torch.device = "cuda",
@@ -122,9 +135,10 @@ class Stoke:
         self._configs = list(configs or [])
         amp_config = self._find_config(AMPConfig) or AMPConfig()
 
+        fp16 = fp16.value if isinstance(fp16, FP16Options) else fp16
         self.fp16 = fp16
         self.loss_scaler = None
-        if fp16 == "amp":
+        if fp16 in _SCALED_FP16:
             self.precision = Policy.from_name("fp16")
             if amp_config.enabled:
                 self.loss_scaler = DynamicLossScaler(
@@ -142,9 +156,12 @@ class Stoke:
         base_lr = float(kwargs.pop("lr", 1e-3))
         if isinstance(grad_clip, ClipGradNormConfig):
             kwargs.setdefault("clip_grad_norm", grad_clip.max_norm)
+        elif isinstance(grad_clip, ClipGradConfig):
+            kwargs.setdefault("clip_grad_value", grad_clip.clip)
         elif grad_clip is not None:
             raise TypeError(
-                f"grad_clip must be a ClipGradNormConfig, got {type(grad_clip).__name__}"
+                "grad_clip must be a ClipGradNormConfig or a ClipGradConfig, got "
+                f"{type(grad_clip).__name__}"
             )
         fused_eligible = factory is optim_mod.adamw and optim_mod.fused_adamw_eligible(
             self.policy)
@@ -162,6 +179,7 @@ class Stoke:
         ddp_config = self._find_config(DDPConfig) or DDPConfig()
         state = create_train_state(model, tx, mesh, self.policy, device=self.device,
                                    find_unused_parameters=ddp_config.find_unused_parameters)
+        self._state = state
         self._module, self._wrapped, self._opt = state.module, state.model, state.tx
         oss_config = self._find_config(FairscaleOSSConfig) or FairscaleOSSConfig()
         if (oss_config.broadcast_fp16 and self.policy.shard_opt_state
@@ -177,6 +195,8 @@ class Stoke:
         self._ema_host = None
         self._ema_event = None
         self._ema_shown: float | None = None
+        self._loaders: list = []  # weak references to the loaders built here, in order
+        self._loader_epochs: list[int] = []  # restored epochs, for loaders built later
         if self.verbose:
             n = sum(p.numel() for p in self._module.parameters())
             self.print_on_devices(
@@ -226,6 +246,13 @@ class Stoke:
         scaled.backward()
         self._backward_count += 1
         return loss
+
+    def zero_grad(self):
+        """Drop the accumulated gradients and restart the accumulation
+        window (the raw loop's ``optimizer.zero_grad()``,
+        ``Fairscale-DDP.py:97``)."""
+        self._opt.zero_grad()
+        self._backward_count = 0
 
     def step(self):
         """Optimizer step on every ``grad_accum_steps``-th call. Under
@@ -336,7 +363,7 @@ class Stoke:
         each batch when it is taken)."""
         if device_prefetch is None:
             device_prefetch = int(os.environ.get("GRAFT_DEVICE_PREFETCH", "2") or 0)
-        return _DataLoader(
+        loader = _DataLoader(
             dataset,
             batch_size=batch_size or self.batch_size_per_device,
             sampler=sampler,
@@ -346,26 +373,72 @@ class Stoke:
             device_prefetch=device_prefetch,
             **kwargs,
         )
+        if len(self._loaders) < len(self._loader_epochs):  # a resume came first
+            epoch = self._loader_epochs[len(self._loaders)]
+            if epoch >= 0:
+                loader.set_epoch(epoch)
+        self._loaders.append(weakref.ref(loader))
+        return loader
 
     # -- checkpoints -----------------------------------------------------------
 
-    def save(self, path: str = "./", name: str = "checkpoint", extras: dict | None = None):
-        """Write ``{path}/{name}.pt`` -> ``(full_path, tag)``: params,
-        optimizer state (``FusedAdamW``'s with its flat layout) and the
-        step/lr/scaler metadata. Every rank calls it: sharded parameters
-        and state are gathered into the layout of a one-rank run, rank 0
-        writes, and all wait for the file at a barrier, so a checkpoint
-        loads at any world size."""
-        meta = {
+    def _meta(self, extras: dict | None = None) -> dict:
+        """What a checkpoint keeps besides the train state: the step, the
+        micro-batches of an open accumulation window, the lr, the loss
+        scaler, the loss monitor's EMA, the generators (:meth:`load` says
+        which) and the loaders' epochs."""
+        rng = {"cpu": torch.get_rng_state()}
+        if self.device.type == "cuda":
+            rng["cuda"] = torch.cuda.get_rng_state(self.device)
+        return {
             "step": self._step_count,
             "lr": self._opt_handle.lr,
             "backward_count": self._backward_count,
             "scaler": None if self.loss_scaler is None else self.loss_scaler.state_dict(),
+            "ema_loss": None if self._ema is None else float(self._ema),
+            "rng": rng,
+            "loader_epochs": [-1 if (dl := ref()) is None else dl.epoch
+                              for ref in self._loaders],
             **(extras or {}),
         }
-        params = {k: v.full_tensor() if is_dtensor(v) else v
-                  for k, v in self._module.state_dict().items()}
-        trees = {"params": params, "opt_state": self._opt.full_state_dict(), "meta": meta}
+
+    def _restore_meta(self, meta: dict) -> dict:
+        """Put :meth:`_meta`'s values back; returns ``meta``."""
+        self._step_count = int(meta.get("step", 0))
+        self._backward_count = int(meta.get("backward_count", 0))
+        self._opt_handle.lr = float(meta.get("lr", self._opt_handle.lr))
+        if self.loss_scaler is not None and meta.get("scaler") is not None:
+            self.loss_scaler.load_state_dict(meta["scaler"])
+        ema = meta.get("ema_loss")
+        self._ema = None if ema is None else torch.tensor(ema, dtype=torch.float32,
+                                                          device=self.device)
+        self._ema_event = self._ema_shown = None
+        rng = meta.get("rng") or {}
+        if "cpu" in rng:
+            torch.set_rng_state(torch.as_tensor(rng["cpu"], dtype=torch.uint8))
+        if "cuda" in rng and self.device.type == "cuda":
+            torch.cuda.set_rng_state(torch.as_tensor(rng["cuda"], dtype=torch.uint8),
+                                     self.device)
+        epochs = meta.get("loader_epochs")
+        self._loader_epochs = ([] if epochs is None else
+                               [int(e) for e in torch.as_tensor(epochs).reshape(-1)])
+        for ref, epoch in zip(self._loaders, self._loader_epochs):
+            if (dl := ref()) is not None and epoch >= 0:
+                dl.set_epoch(epoch)
+        if self.verbose:
+            self.print_on_devices(f"restored checkpoint @ step {self._step_count}")
+        return meta
+
+    def save(self, path: str = "./", name: str = "checkpoint", extras: dict | None = None):
+        """Write ``{path}/{name}.pt`` -> ``(full_path, tag)``: params and
+        buffers (BatchNorm statistics), optimizer state (``FusedAdamW``'s
+        with its flat layout), the metadata :meth:`load` restores, and
+        ``extras``. Every rank calls it: sharded parameters and state are
+        gathered into the layout of a one-rank run, rank 0 writes, and all
+        wait for the file at a barrier, so a checkpoint loads at any world
+        size. Save at a step boundary: the gradients of an open
+        accumulation window are not kept."""
+        trees = self._state.state_dict(self._meta(extras))
         if self.rank == 0:
             out = ckpt.save_checkpoint(path, name, trees)
         else:
@@ -373,36 +446,75 @@ class Stoke:
         dist.coordination_barrier(f"save {name}")
         return out
 
+    def load(self, path: str) -> dict:
+        """Restore everything :meth:`save` wrote (the resume path): the
+        parameters and buffers, the optimizer state (re-sliced onto this
+        rank's share, at any world size), the step, the micro-batch count,
+        the lr, the loss scaler, the 0.98-EMA loss monitor, the generators
+        and the loaders' epochs. The generators are the process's default
+        CPU generator (``torch.get_rng_state``) and the facade device's
+        CUDA generator, which augmentations drawn with ``torch.rand*``
+        consume; the port's own data order and ``PairedRandomAug`` draws
+        follow from each loader's epoch (with the sampler's seed), which
+        comes back for every loader built through :meth:`DataLoader`, in
+        the order they were built, also for those built after the load.
+        Every rank calls it. Returns the metadata, ``extras`` included."""
+        meta = self._state.load_state_dict(ckpt.load_file(path))
+        return self._restore_meta(meta)
+
+    def save_sharded(self, path: str) -> str:
+        """Every rank writes its own shards of the whole train state into
+        the directory ``path`` (``checkpoint_sharded.save_sharded``, over
+        ``torch.distributed.checkpoint``): nothing is gathered onto one
+        rank."""
+        from ..checkpoint_sharded import save_sharded
+
+        return save_sharded(path, self._state, self._meta())
+
+    def load_sharded(self, path: str) -> dict:
+        """Restore a :meth:`save_sharded` checkpoint into the live state, in
+        place, under this policy (the optimizer must be of the kind that
+        saved it). Returns the metadata."""
+        from ..checkpoint_sharded import restore_sharded
+
+        return self._restore_meta(restore_sharded(path, self._state))
+
+    def save_portable(self, path: str, *, step: int | None = None,
+                      extras: dict | None = None) -> str:
+        """The whole train state in the portable format (a manifest, one
+        payload a rank, a commit marker), which :meth:`load_resharded`
+        restores under another policy or world size. Every rank calls it."""
+        from ..checkpoint_sharded import save_portable
+
+        return save_portable(path, self._state, self._meta(extras),
+                             step=self._step_count if step is None else step)
+
+    def load_resharded(self, path: str) -> dict:
+        """Restore a :meth:`save_portable` checkpoint into the live state,
+        re-placing every leaf (parameters and optimizer moments) onto this
+        run's layout: the N-to-M resume. Returns the metadata."""
+        from ..checkpoint_sharded import restore_portable
+
+        return self._restore_meta(restore_portable(path, self._state))
+
     def load_model_state(self, source, strict: bool = True, param_key: str = "params"):
-        """Load weights from a ``.pt``/``.pth`` path or a state dict,
-        optionally nested under ``param_key``; strict matching by default.
-        A ``.pth`` file is read as ``interop.load_torch_checkpoint`` reads
-        it (a state dict, or one under ``param_key`` or a usual wrapper
-        key), so official SwinIR files of all three tails load as they
-        are: the port's module names are the official ones."""
+        """Load weights from a ``.pt``/``.pth``/``.safetensors`` path or a
+        state dict, optionally nested under ``param_key``; strict matching
+        by default. A ``.pth`` or ``.safetensors`` file is read as
+        ``interop.load_torch_checkpoint`` reads it (a state dict, or one
+        under ``param_key`` or a usual wrapper key), so official SwinIR
+        files of all three tails load as they are: the port's module names
+        are the official ones. Under FSDP2 each rank copies its own
+        first-dimension chunk."""
         if isinstance(source, str):
-            if source.endswith(".pth"):
+            if source.endswith((".pth", ".safetensors")):
                 from ..interop import load_torch_checkpoint
 
                 source = load_torch_checkpoint(source, key=param_key)
             else:
                 source = ckpt.load_file(source)
-        template = self._module.state_dict()
-        matched, _ = ckpt.load_params_dict(source, template, strict=strict, param_key=param_key)
-        if not any(is_dtensor(v) for v in template.values()):
-            self._module.load_state_dict(matched, strict=strict)
-            return
-        # FSDP2: each rank copies its own first-dimension chunk into its shard
-        with torch.no_grad():
-            for k, v in matched.items():
-                t = template[k]
-                if is_dtensor(t):
-                    local = t.to_local()
-                    chunks = v.chunk(dist.world_size(), dim=0)
-                    piece = chunks[self.rank] if self.rank < len(chunks) else v[:0]
-                    local.copy_(piece.to(local.dtype))
-                else:
-                    t.copy_(v)
+        load_module_state(self._module, source[param_key] if param_key in source else source,
+                          strict=strict)
 
     def serve(self, **overrides):
         """A serving engine over the live parameters (``serve/``): GPT-2
@@ -412,8 +524,8 @@ class Stoke:
         later training steps do not reach the engine. The ``GRAFT_SERVE_*``
         env knobs fill what ``overrides`` leaves out; the engine runs on
         the facade's device unless ``device=`` says otherwise. The JAX
-        facade's ``TPUConfig`` serve overrides wait for the ``TPUConfig``
-        twin."""
+        facade's ``TPUConfig`` serve overrides wait for its twin, which
+        comes with the CUDA-graph step slice."""
         from ..models.swinir import SwinIR
         from ..serve import build_engine
 
@@ -450,6 +562,38 @@ class Stoke:
     @property
     def step_count(self) -> int:
         return self._step_count
+
+    @property
+    def state(self) -> TrainState:
+        """The train state: the model as the step calls it, the module, the
+        optimizer, the mesh and the policy (``state.state_dict()`` is what
+        :meth:`save` writes, without the facade's metadata)."""
+        return self._state
+
+    @property
+    def ema_params(self) -> dict[str, torch.Tensor] | None:
+        """The params EMA as ``{name: tensor}`` in each parameter's dtype
+        (load it with ``model_access.load_state_dict(ema, strict=False)``),
+        or None when no EMA is kept; ``optimizer_kwargs={"ema_decay":
+        0.999}`` turns it on, for the fused and the per-leaf optimizer
+        alike. A sharded EMA is gathered whole: every rank calls it."""
+        ema = optim_mod.ema_params(self._opt, self._opt.params)
+        return None if ema is None else dict(zip(self._opt.names, ema))
+
+    def barrier(self):
+        """Every rank waits here (a no-op without a process group)."""
+        dist.coordination_barrier("stoke")
+
+    def export_trace(self, path: str | None = None) -> str | None:
+        """Write the recorded telemetry spans (``observe.trace``) as Chrome
+        trace-event JSON to ``path``, else to ``telemetry-<pid>.trace.json``
+        under the run dir; returns the path, or None when telemetry was
+        never enabled (nothing to export is not an error)."""
+        from ..observe import trace
+
+        if not trace.enabled() and not trace.records():
+            return None
+        return trace.export_chrome_trace(path)
 
     def _prints(self, rank) -> bool:
         return rank is None or self.rank in (rank if isinstance(rank, (list, tuple)) else [rank])

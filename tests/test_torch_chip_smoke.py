@@ -8,12 +8,14 @@ says, and no flash kernel spills; and unless every body of K1 and K2
 The flash bounds take each kernel's body's rate, and phase 4 fails on a
 kernel slower than its plain version. The optimizer phase's bound is the
 bytes of one pass over p, g and the moments, and its gate check names each
-buffer a skipped step changed."""
+buffer a skipped step changed. Phase 15's resume check names the first
+loss, parameter or moment in which two runs differ."""
 
 import importlib.util
 from pathlib import Path
 
 import pytest
+import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -255,3 +257,40 @@ def test_gated_step_faults_find_a_buffer_that_moved(smoke, moved):
     if moved is not None:
         after[moved].view(-1)[0] += 1
     assert smoke.gated_step_faults(before, after) == ([] if moved is None else [moved])
+
+
+def _run(**changes) -> dict:
+    run = {"losses": [0.5, 0.25, 0.125],
+           "params": {"conv.weight": torch.arange(6.0).view(2, 3), "conv.bias": torch.zeros(2)},
+           "moments": {"count": torch.tensor(2), "mu/conv.weight": torch.ones(2, 3),
+                       "nu/conv.weight": torch.full((2, 3), 0.5)}}
+    for path, value in changes.items():
+        group, _, name = path.partition(":")
+        if group == "losses":
+            run["losses"][int(name)] = value
+        elif value is None:
+            del run[group][name]
+        else:
+            run[group][name] = value
+    return run
+
+
+@pytest.mark.parametrize("changes,first,worst", [
+    ({}, None, 0.0),
+    ({"losses:2": 0.125 + 2**-20}, "loss 2", 2**-20),
+    ({"params:conv.bias": torch.tensor([0.0, -1e-7])}, "params/conv.bias", 1e-7),
+    ({"moments:nu/conv.weight": torch.full((2, 3), 0.75),
+      "losses:1": 0.3}, "loss 1", 0.25),
+    ({"moments:mu/conv.weight": torch.ones(3, 2)}, "moments/mu/conv.weight",
+     float("inf")),
+    ({"moments:count": None}, "moments/count", float("inf")),
+    ({"params:conv.weight": torch.full((2, 3), float("nan"))},
+     "params/conv.weight", float("inf")),
+], ids=["equal", "a-loss", "a-parameter", "first-of-two", "a-shape", "a-missing-moment", "nan"])
+def test_resume_mismatch_names_the_first_entry_that_differs(smoke, changes, first, worst):
+    """Phase 15's check: two runs' losses, parameters and moments compared
+    bitwise, the largest difference and the first entry (losses, then
+    parameters, then moments) that is not equal."""
+    got_worst, got_first = smoke.resume_mismatch(_run(), _run(**changes))
+    assert got_first == first
+    assert got_worst == pytest.approx(worst, rel=1e-6)

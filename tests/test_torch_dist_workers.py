@@ -306,3 +306,74 @@ def image_steps_worker(rank: int, world: int, *, runs: list[dict], batches: list
                     "buffers": {n: b.numpy().copy() for n, b in st.module.named_buffers()},
                     "opt": type(st.tx).__name__, "wrapped": type(st.model).__name__})
     return out
+
+
+def _moments(opt) -> dict:
+    """Every optimizer moment whole, by parameter name (a collective when
+    sharded): ``{"mu/<name>": array, "nu/<name>": array, "count": n}``."""
+    sd = (opt.leaf_state_dict() if isinstance(opt, optim.FusedAdamW) else
+          opt.full_state_dict())
+    out = {"count": int(sd["count"])}
+    for key in ("mu", "nu"):
+        vals = sd[key]
+        items = vals.items() if isinstance(vals, dict) else zip(opt.names, vals)
+        out.update({f"{key}/{n}": v.detach().float().cpu().numpy().copy() for n, v in items})
+    return out
+
+
+def _facade_steps(s, micro: list, rank: int, world: int) -> list[float]:
+    losses = []
+    for x, y in micro:
+        loss = s.loss(s.model(x[rank::world]), y[rank::world])
+        s.backward(loss)
+        s.step()
+        losses.append(float(s.detach_and_sync_loss(loss)))
+    return losses
+
+
+def resume_worker(rank: int, world: int, *, micro: list, layouts: dict, save_dir: str,
+                  split: int, reshard_from: str | None = None,
+                  reshard_into: dict | None = None) -> dict:
+    """At this world, for each ``layouts`` entry (``facade`` flags): the
+    facade run through ``micro`` unbroken, and the same run saved after
+    micro-batch ``split`` (``Stoke.save`` and ``Stoke.save_portable``),
+    loaded into a fresh facade each way and run to the end. Returns per
+    layout the losses, whole parameters and whole moments of the three
+    runs, and the paths written. Then, with ``reshard_from`` (a layout
+    name) and ``reshard_into`` (flags), the portable checkpoint of that
+    layout is restored into a fresh facade of those flags, whose whole
+    moments and parameters are returned under ``"resharded"``."""
+    out = {}
+    for name, flags in layouts.items():
+        a = facade(toy_swinir(), **flags)
+        unbroken = _facade_steps(a, micro, rank, world)
+        b = facade(toy_swinir(), **flags)
+        first = _facade_steps(b, micro[:split], rank, world)
+        pt, _ = b.save(save_dir, f"{name}_w{world}")
+        portable = b.save_portable(os.path.join(save_dir, f"{name}_w{world}_portable"))
+        runs = {"unbroken": (unbroken, a)}
+        for kind in ("pt", "portable"):
+            c = facade(toy_swinir(), **flags)
+            c.load(pt) if kind == "pt" else c.load_resharded(portable)
+            runs[kind] = (first + _facade_steps(c, micro[split:], rank, world), c)
+        out[name] = {k: {"losses": losses, "params": full_params(s.model_access),
+                         "moments": _moments(s._opt), "opt": type(s._opt).__name__,
+                         "step": s.step_count}
+                     for k, (losses, s) in runs.items()}
+        out[name]["paths"] = {"pt": pt, "portable": portable}
+        out[name]["saved"] = {"moments": _moments(b._opt), "params": full_params(b.model_access)}
+    if reshard_from is not None:
+        s = facade(toy_swinir(), **reshard_into)
+        s.load_resharded(out[reshard_from]["paths"]["portable"])
+        out["resharded"] = {"moments": _moments(s._opt), "params": full_params(s.model_access),
+                            "opt": type(s._opt).__name__, "step": s.step_count}
+    return out
+
+
+def espcn_driver_worker(rank: int, world: int, *, argv: list, ckpts: list) -> list:
+    """The ESPCN driver's ``main(argv)`` in this rank of the group, once for
+    each of ``ckpts`` (``--ckpt`` that dir, or none for None): the last
+    loss of each run."""
+    from pytorch_distributedtraining_tpu_torch.drivers import fairscale_ddp
+
+    return [fairscale_ddp.main(argv + (["--ckpt", c] if c else [])) for c in ckpts]
