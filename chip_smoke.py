@@ -171,12 +171,47 @@ Phases, each fatal on failure:
    facade with no group (parameters and moments bitwise the saved ones)
    and one step there, whose losses must agree with the group's next step
    within ``DIST_F32_TOL``; bytes and seconds, beside the card's name and
-   power limit.
+   power limit;
+16. training health: (a) GPT-2 125M at full width and depth with dropout
+   0.1, an untied head and full remat (``GPT2Config(dropout=0.1,
+   tie_word_embeddings=False, remat=True)``) through phase 7's builder
+   (``benchmarks.ladder.build_lm(..., numerics=True)``: weights from seed
+   0, the flash ``attn_fn``, AdamW, ``TrainStep`` with the probe and the
+   train state's step stream), bf16, batch 8 x 512: 2 warm-up and 5 timed
+   steps, the
+   first loss within 0.5 of ln(vocab) + 1/2 (the untied head's lecun_normal
+   init gives the first logits a variance of ~1), finite losses, no
+   non-finite leaf in the probe, a moved head, 24 K3 (the recompute), 12
+   K4 and 12 K5 launches a step; step ms, tokens/s, MFU by
+   ``observe.goodput`` (JAX's ``gpt2_train_flops`` over the H100's 989
+   TFLOP/s), the allocator's peak through ``observe.memory``, a traced
+   step's device busy ms and families, and phase 7's MFU beside it; (b)
+   one forward and backward at that shape with and without remat from
+   one dropout key: the gradients within
+   ``REMAT_GRAD_TOL`` of the largest (bitwise is expected) and the same
+   loss, and another key's loss different; (c) the numerics drill on
+   SwinIR-S at the bench shape (batch 18, LR 64, f32, per-leaf AdamW,
+   MSE, cuDNN deterministic): the step ms without the probe and with it
+   decoded every step; ``GRAFT_NUMERICS_INJECT``-style poisoning of
+   ``DRILL_LEAF`` at step ``DRILL_INJECT_AT``, blamed by name at row 0;
+   the ``rollback`` watchdog restoring the committed step
+   (``CheckpointManager``, saves every ``DRILL_SAVE_EVERY``) and the run
+   after it equal to an unbroken run's, bitwise; ``detect_anomaly=True``
+   raising on the poisoned step with the parameters bitwise unchanged;
+   (d) ``tune_batch_size`` over ``TrainStep.memory_analysis`` for SwinIR-S
+   f32 against ``device_hbm_budget()`` between ``TUNE_START`` and
+   ``TUNE_MAX`` images: the batch chosen, its projected peak and the
+   allocator's peak of a real step there (which must give a finite loss),
+   and K1/K2 held against their plain versions at every probed batch
+   (``window_shape_checks``), beside the card's name and power limit.
+   After it, ``mfu_lines`` prints the MFU of phases 6, 7, 8, 13's ViT and
+   16(a) by ``observe.goodput``.
 
-Phases 5-9, 11, 12, 14 and 15 note the shape, dtype and mask (or causality) of
+Phases 5-9, 11, 12 and 14-16 note the shape, dtype and mask (or causality) of
 every launch; the run fails if one of them was not held against the plain
 version in phase 3 or 4 (phase 3 holds phase 14's tile batch, q/k/v [144,
-6, 64, 30], in f32 and bf16 with and without the mask). The kernels' JSON
+6, 64, 30], in f32 and bf16 with and without the mask) or, for phase 16's
+memory probes, in phase 16 itself. The kernels' JSON
 lists all five kernels: K1/K2 from phase
 6's f32 run (its launch counts, and the errors and times of phase 3 at
 its shape), K3-K5 from phase 7 (its launch counts, and phase 4's numbers
@@ -2236,6 +2271,347 @@ def phase_resume(smi: str) -> dict:
     return out
 
 
+# phase 16: training health. (a) GPT-2 125M with dropout 0.1, an untied head
+# and full remat through TrainStep(numerics=True), bf16, phase 7's batch;
+# (b) the same forward and backward with and without remat from one dropout
+# key; (c) the numerics drill on SwinIR-S at the bench shape, f32, per-leaf
+# AdamW, MSE; (d) tune_batch_size(TrainStep.memory_analysis) for (c)'s step
+HEALTH_STEPS, HEALTH_WARMUP, HEALTH_DROPOUT = 5, 2, 0.1
+REMAT_GRAD_TOL = 1e-6  # (b): max |grad difference| / max |grad|
+DRILL_STEPS, DRILL_SAVE_EVERY, DRILL_INJECT_AT = 6, 2, 2  # (c): poison step 2 (0-based)
+DRILL_LEAF = "layers.2.residual_group.blocks.3.attn.qkv.weight"
+TUNE_START, TUNE_MAX = BATCH, 16 * BATCH  # (d): the search's bounds, images a step
+
+
+def window_shape_checks(batch: int, seed: int = 700) -> set:
+    """K1 and K2 against their plain versions at SwinIR-S's shape for a
+    ``batch`` of LR 64x64 crops in f32, with and without the shift mask
+    (errors within ``TOL``; no timing): the launch signatures covered."""
+    import torch
+
+    from pytorch_distributedtraining_tpu_torch.ops import window_attn as twa
+
+    checked = set()
+    for with_mask in (False, True):
+        q, k, v, do, bias, mask = _attention_inputs(torch.float32, with_mask, batch, LR_SIZE,
+                                                    seed)
+        want = [twa.plain_forward(q, k, v, bias, mask),
+                *twa.plain_backward(q, k, v, bias, mask, do)]
+        got = [twa.kernel_forward(q, k, v, bias, mask),
+               *twa.kernel_backward(q, k, v, bias, mask, do)]
+        worst = max(err(a, b)[1] for a, b in zip(got, want))
+        if not worst <= TOL["float32"]:
+            raise SystemExit(f"K1/K2 at batch {batch} (mask {with_mask}) disagree with their "
+                             f"plain versions: rel err {worst:.3e}")
+        checked |= {launch_signature(kind, q, mask) for kind in ("fwd", "bwd")}
+        del q, k, v, do, bias, mask, want, got
+    torch.cuda.empty_cache()
+    return checked
+
+
+def phase_health(smi: str, lm: dict) -> dict:
+    """Phase 16: training health (module docstring)."""
+    import functools
+    import math
+
+    import torch
+
+    from pytorch_distributedtraining_tpu_torch import optim
+    from pytorch_distributedtraining_tpu_torch.benchmarks import ladder
+    from pytorch_distributedtraining_tpu_torch.checkpoint_sharded import CheckpointManager
+    from pytorch_distributedtraining_tpu_torch.drivers import stoke_ddp
+    from pytorch_distributedtraining_tpu_torch.losses import mse_loss
+    from pytorch_distributedtraining_tpu_torch.models import GPT2Config
+    from pytorch_distributedtraining_tpu_torch.observe import goodput, memory, numerics
+    from pytorch_distributedtraining_tpu_torch.ops import flash_attn as tfa
+    from pytorch_distributedtraining_tpu_torch.ops import window_attn as twa
+    from pytorch_distributedtraining_tpu_torch.parallel import TrainStep, create_train_state
+    from pytorch_distributedtraining_tpu_torch.parallel.rng import DropoutKey
+
+    t_phase = time.perf_counter()
+    kind = torch.cuda.get_device_name(0)
+    out = {}
+
+    # (a) GPT-2 125M, dropout, untied head, full remat, the probe on
+    cfg = GPT2Config(dropout=HEALTH_DROPOUT, tie_word_embeddings=False, remat=True)
+    model, step, tokens = ladder.build_lm(cfg, LM_BATCH, LM_SEQ, torch.device("cuda"),
+                                          numerics=True)
+    w = model.lm_head.weight
+    w0 = w.detach().clone()
+    m = step(tokens)
+    first = m["loss"].item()
+    for _ in range(HEALTH_WARMUP - 1):
+        step(tokens)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    tfa.reset_launch_counts()
+    losses = []
+    t0 = time.perf_counter()
+    for _ in range(HEALTH_STEPS):
+        m = step(tokens)
+        losses.append(m["loss"])
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    launches = tfa.fwd_launches, tfa.dq_launches, tfa.dkv_launches
+    hbm = memory.record_hbm_stats()
+    traced = traced_call(lambda: step(tokens))
+    families = sorted(traced["families"].items(), key=lambda kv: -kv[1])[:6]
+    summary = step.numerics.observe(m["numerics"], step=step.rng.step, loss=m["loss"])
+    losses = [v.item() for v in losses]
+    moved = (w - w0).abs().max().item()
+    step_ms = elapsed / HEALTH_STEPS * 1e3
+    flops = goodput.gpt2_train_flops(cfg, LM_BATCH, seq=LM_SEQ)
+    mfu = goodput.mfu(flops, step_ms / 1e3, 1, "gpu", kind)
+    mfu7 = goodput.mfu(goodput.gpt2_train_flops(GPT2Config(), LM_BATCH, seq=LM_SEQ),
+                       lm["step_ms"] / 1e3, 1, "gpu", kind)
+    per_step = tuple(n // HEALTH_STEPS for n in launches)
+    # the untied head starts as flax's lecun_normal (variance 1 / n_embd), so
+    # the first logits of the unit-variance final features have variance
+    # ~1, and the first loss sits ~1/2 above ln(vocab) (the tied head's
+    # normal(0.02) gives 768 * 0.02^2 / 2 = 0.15 above, phase 7's)
+    expected_first = math.log(cfg.vocab_size) + 0.5
+    print(f"[health] (a) GPT-2 125M, dropout {HEALTH_DROPOUT}, untied head, remat full, "
+          f"TrainStep(numerics=True), bf16, batch {LM_BATCH} x seq {LM_SEQ}: step {step_ms:.2f} "
+          f"ms, {LM_BATCH * LM_SEQ / (step_ms / 1e3):.1f} tokens/s ({HEALTH_STEPS} steps after "
+          f"{HEALTH_WARMUP}), MFU {mfu:.4f} ({flops:.4g} FLOP a step, peak "
+          f"{goodput.peak_flops('gpu', kind):.4g}), peak {hbm['hbm_high_water_bytes'] / 2**30:.2f}"
+          f" GiB, first loss {first:.4f} (ln vocab + 1/2 {expected_first:.4f}), losses "
+          f"{[round(v, 4) for v in losses]}, probe grad norm {summary['grad_norm']:.4f} param "
+          f"norm {summary['param_norm']:.2f} max update ratio {summary['update_ratio_max']:.3e} "
+          f"nonfinite {summary['nonfinite']}, lm_head moved {moved:.2e}, launches a step K3 "
+          f"{per_step[0]} K4 {per_step[1]} K5 {per_step[2]}; a traced step: device busy "
+          f"{traced['busy_ms']:.2f} ms (idle {1 - traced['busy_ms'] / step_ms:.3f} of the "
+          f"untraced step), activities {traced['activities']}, by family "
+          f"{[(k, round(v, 2)) for k, v in families]} | {smi}")
+    print(f"[health] (a) phase 7's step (tied, no dropout, no remat): {lm['step_ms']:.2f} ms, "
+          f"MFU {mfu7:.4f} | {smi}")
+    if abs(first - expected_first) > 0.5:
+        raise SystemExit(f"first loss {first} is not near ln(vocab) + 1/2 = {expected_first}")
+    if not all(math.isfinite(v) for v in losses) or summary["nonfinite"] or not moved > 0:
+        raise SystemExit(f"losses {losses}, probe nonfinite {summary['nonfinite']} or the head "
+                         "did not move")
+    if launches != (2 * LM_LAYERS * HEALTH_STEPS, LM_LAYERS * HEALTH_STEPS,
+                    LM_LAYERS * HEALTH_STEPS):
+        raise SystemExit(f"launches {launches}: expected K3 twice a layer (the recompute), K4 "
+                         "and K5 once, a step")
+    out["gpt2"] = {"step_ms": step_ms, "mfu": mfu, "mfu_phase7": mfu7, "launches": per_step,
+                   "peak_bytes": hbm["hbm_high_water_bytes"], "losses": losses,
+                   "busy_ms": traced["busy_ms"]}
+    del model, step, tokens, m, w, w0
+    torch.cuda.empty_cache()
+
+    # (b) the same masks under remat: one forward and backward each
+    grads, seeded = {}, {}
+    for remat in (True, False):
+        model, _, tokens = ladder.build_lm(GPT2Config(
+            dropout=HEALTH_DROPOUT, tie_word_embeddings=False, remat=remat), LM_BATCH, LM_SEQ,
+            torch.device("cuda"))
+        loss, _ = ladder._lm_loss(model, tokens, DropoutKey(0))
+        loss.backward()
+        seeded[remat] = loss.item()
+        grads[remat] = {n: p.grad for n, p in model.named_parameters()}
+        if remat:
+            with torch.no_grad():
+                other = ladder._lm_loss(model, tokens, DropoutKey(1))[0].item()
+        del model, tokens, loss
+    diff = max((grads[True][n] - grads[False][n]).abs().max().item() for n in grads[True])
+    scale = max(g.abs().max().item() for g in grads[False].values())
+    bitwise = all(torch.equal(grads[True][n], grads[False][n]) for n in grads[True])
+    print(f"[health] (b) dropout under remat: loss {seeded[True]:.6f} (remat) vs "
+          f"{seeded[False]:.6f}, gradients max diff {diff:.3e} of max {scale:.3e} (tol "
+          f"{REMAT_GRAD_TOL:g} of it), bitwise {bitwise}; another key's loss {other:.6f}")
+    if not diff <= REMAT_GRAD_TOL * scale or seeded[True] != seeded[False]:
+        raise SystemExit("a recomputed forward drew other dropout masks than the forward")
+    if other == seeded[True]:
+        raise SystemExit("a second dropout key gave the same loss")
+    out["remat_dropout"] = {"max_diff": diff, "bitwise": bitwise}
+    del grads
+    torch.cuda.empty_cache()
+
+    # (c) the numerics drill on SwinIR-S, f32, per-leaf AdamW
+    batches = resume_batches(DRILL_STEPS, seed=16)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True  # runs compared bitwise
+
+    def mse(model, b):
+        return mse_loss(model(b[0]), b[1]), {}
+
+    def drill_state():
+        return create_train_state(stoke_ddp.build_model(), functools.partial(
+            optim.adamw, lr=5e-4, clip_grad_norm=0.1), device="cuda")
+
+    def timed(step, observe):
+        for b in batches[:HEALTH_WARMUP]:
+            step(b)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for b in batches[:HEALTH_STEPS]:
+            m = step(b)
+            if observe:
+                step.numerics.observe(m["numerics"], step=step.rng.step, loss=m["loss"])
+            else:
+                m["loss"].item()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / HEALTH_STEPS * 1e3
+
+    try:
+        st = drill_state()
+        twa.reset_launch_counts()
+        plain_ms = timed(TrainStep(st.model, mse, st.tx, rng=st.rng), False)
+        probe_ms = timed(TrainStep(st.model, mse, st.tx, rng=st.rng, numerics=True), True)
+        drill_launches = twa.fwd_launches, twa.bwd_launches
+        del st
+        # the unbroken run
+        st = drill_state()
+        step = TrainStep(st.model, mse, st.tx, rng=st.rng, numerics=True)
+        unbroken = [step(b)["loss"].item() for b in batches]
+        want = {n: p.detach().clone() for n, p in st.module.named_parameters()}
+        del st, step
+        # poisoned at DRILL_INJECT_AT, rolled back to the last committed step
+        st = drill_state()
+        probe = numerics.NumericsProbe(inject=f"{DRILL_LEAF}@{DRILL_INJECT_AT}")
+        step = TrainStep(st.model, mse, st.tx, rng=st.rng, numerics=probe)
+        watchdog = numerics.NumericsWatchdog("rollback")
+        (ROOT / "build").mkdir(exist_ok=True)
+        with tempfile.TemporaryDirectory(dir=ROOT / "build") as root:
+            mgr = CheckpointManager(root, save_every=DRILL_SAVE_EVERY, keep=3)
+            losses, blame, rolled, i = {}, None, None, 0
+            while i < len(batches):
+                m = step(batches[i])
+                i += 1
+                summary = probe.observe(m["numerics"], step=step.rng.step, loss=m["loss"],
+                                        watchdog=watchdog)
+                if summary["nonfinite"] and blame is None:
+                    blame = summary["blame"]
+                verdict = summary.get("verdict")
+                if verdict is not None:
+                    rolled = watchdog.apply_action(verdict, manager=mgr, template=st)[0]
+                    i = rolled
+                    probe.inject_spec = None  # the drill's fault is one-shot
+                    continue
+                losses[i] = summary["loss"]
+                if not summary["nonfinite"]:
+                    mgr.maybe_save(step.rng.step, st)
+            mgr.close()
+        after = [losses[j + 1] for j in range(rolled, len(batches))] if rolled is not None else []
+        same_losses = after == unbroken[rolled:] if rolled is not None else False
+        differs = [n for n, p in st.module.named_parameters() if not torch.equal(p, want[n])]
+        del st, step
+        # detect_anomaly on the poisoned step: raises, parameters untouched
+        st = drill_state()
+        step = TrainStep(st.model, mse, st.tx, rng=st.rng, detect_anomaly=True,
+                         numerics=numerics.NumericsProbe(inject=f"{DRILL_LEAF}@0"))
+        before = {n: p.detach().clone() for n, p in st.module.named_parameters()}
+        try:
+            step(batches[0])
+            raised = None
+        except FloatingPointError as e:
+            raised = str(e)
+        untouched = all(torch.equal(p, before[n]) for n, p in st.module.named_parameters())
+        del st, step, before, want
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    overhead = probe_ms / plain_ms - 1
+    print(f"[health] (c) SwinIR-S f32, per-leaf AdamW, MSE, batch {BATCH} LR {LR_SIZE}: step "
+          f"{plain_ms:.2f} ms without the probe, {probe_ms:.2f} ms with it decoded every step "
+          f"(overhead {overhead:+.3f}); blame of the poisoned step {blame} (injected "
+          f"{DRILL_LEAF!r} at step {DRILL_INJECT_AT}); rollback to committed step {rolled}, "
+          f"the losses after it {'equal' if same_losses else 'differ from'} the unbroken "
+          f"run's bitwise ({after} vs {unbroken[rolled or 0:]}), parameters differing "
+          f"{len(differs)}; detect_anomaly raised {raised is not None} ({raised}), parameters "
+          f"untouched {untouched}; launches fwd {drill_launches[0]} bwd {drill_launches[1]} | "
+          f"{smi}")
+    if blame is None or blame["leaf"] != DRILL_LEAF or blame["layer"] != 0:
+        raise SystemExit(f"the probe blamed {blame}, not {DRILL_LEAF} row 0")
+    if rolled != DRILL_SAVE_EVERY or not same_losses or differs:
+        raise SystemExit(f"rollback to {rolled}: the run after it departs from the unbroken one "
+                         f"(losses {after} vs {unbroken}, parameters {differs[:3]})")
+    if raised is None or DRILL_LEAF not in raised or not untouched:
+        raise SystemExit(f"detect_anomaly: raised {raised}, parameters untouched {untouched}")
+    if drill_launches != (24 * 2 * (HEALTH_WARMUP + HEALTH_STEPS),) * 2:
+        raise SystemExit(f"drill launches {drill_launches}, expected 24 of each a step")
+    out["drill"] = {"plain_ms": plain_ms, "probe_ms": probe_ms, "overhead": overhead,
+                    "rolled_back_to": rolled}
+
+    # (d) the largest batch whose measured peak fits the card
+    st = create_train_state(stoke_ddp.build_model(), functools.partial(
+        optim.adamw, lr=5e-4, clip_grad_norm=0.1), device="cuda")
+    step = TrainStep(st.model, mse, st.tx, rng=st.rng)
+    budget = memory.device_hbm_budget()
+    probed: dict = {}
+
+    def crops(b: int):
+        g = torch.Generator(device="cuda").manual_seed(b)
+        hr = torch.rand(b, 2 * LR_SIZE, 2 * LR_SIZE, 3, generator=g, device="cuda")
+        return hr.reshape(b, LR_SIZE, 2, LR_SIZE, 2, 3).mean(dim=(2, 4)), hr
+
+    def peak(b: int):
+        stats = step.memory_analysis(crops(b))
+        return None if stats is None else stats.peak_bytes
+
+    t0 = time.perf_counter()
+    chosen = memory.tune_batch_size(peak, budget_bytes=budget, start=TUNE_START,
+                                    max_batch=TUNE_MAX, cache=probed)
+    tune_s = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    m = step(crops(chosen))
+    real_loss = m["loss"].item()
+    real_peak = torch.cuda.max_memory_allocated()
+    del st, step, m
+    torch.cuda.empty_cache()
+    checked = set()
+    for b in sorted(probed):
+        checked |= window_shape_checks(b)
+    print(f"[health] (d) tune_batch_size(TrainStep.memory_analysis), SwinIR-S f32 at LR "
+          f"{LR_SIZE}, budget {budget / 2**30:.2f} GiB x 0.9, batches {TUNE_START}..{TUNE_MAX}: "
+          f"probed {{{', '.join(f'{b}: {v / 2**30:.2f} GiB' for b, v in sorted(probed.items()))}}}"
+          f" in {tune_s:.1f} s, chosen batch {chosen} (projected peak "
+          f"{probed[chosen] / 2**30:.2f} GiB), a step there: loss {real_loss:.5f}, "
+          f"max_memory_allocated {real_peak / 2**30:.2f} GiB; K1/K2 held against their plain "
+          f"versions at every probed batch | {smi}")
+    if not math.isfinite(real_loss):
+        raise SystemExit(f"the step at the chosen batch {chosen} gave loss {real_loss}")
+    out["memory"] = {"batch": chosen, "projected": probed[chosen], "real_peak": real_peak,
+                     "probed": probed}
+    out["checked"] = checked
+    print(f"[health] phase {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+def mfu_lines(smi: str, bench: dict, bench_cfg: dict, lm: dict, images: dict,
+              health: dict) -> dict:
+    """The MFU of each measured training path that ``observe.goodput``
+    counts (SwinIR-S, GPT-2, ViT; the ResNets have no analytic count
+    there): JAX's analytic FLOPs a step over the step ms measured above,
+    against the table's peak for this card (989 TFLOP/s, dense bf16, for
+    the f32 runs too)."""
+    import torch
+
+    from pytorch_distributedtraining_tpu_torch.models import GPT2Config, ViTConfig
+    from pytorch_distributedtraining_tpu_torch.observe import goodput
+
+    kind = torch.cuda.get_device_name(0)
+    swinir = goodput.swinir_train_flops(2 * BATCH, LR_SIZE, LR_SIZE)  # 2 micro-batches a step
+    gpt2 = goodput.gpt2_train_flops(GPT2Config(), LM_BATCH, seq=LM_SEQ)
+    paths = [(f"SwinIR-S facade {k} (phase 6)", swinir, v["step_ms"]) for k, v in bench.items()]
+    paths += [(f"SwinIR-S TrainStep + FusedAdamW {k} (phase 8)", swinir, v["step_ms"])
+              for k, v in bench_cfg.items()]
+    paths += [("GPT-2 125M (phase 7)", gpt2, lm["step_ms"]),
+              ("GPT-2 125M dropout + untied + remat (phase 16a)", gpt2,
+               health["gpt2"]["step_ms"])]
+    vit = images.get("5_vitb16_bf16_fsdp")
+    if vit is not None:
+        paths.append(("ViT-B/16 bf16 ZeRO-3 (phase 13)",
+                      goodput.vit_train_flops(ViTConfig.b16(), 64), vit["step_ms"]))
+    out = {}
+    for name, flops, step_ms in paths:
+        out[name] = goodput.mfu(flops, step_ms / 1e3, 1, "gpu", kind)
+        print(f"[mfu] {name}: {flops:.4g} FLOP a step, step {step_ms:.2f} ms, MFU "
+              f"{out[name]:.4f} of {goodput.peak_flops('gpu', kind):.4g} FLOP/s | {smi}")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2254,19 +2630,21 @@ def main() -> int:
         phase_driver()
         bench = phase_bench(smi)
         lm = phase_gpt2(smi)
-        phase_bench_config(smi)
+        bench_cfg = phase_bench_config(smi)
         phase_espcn()
     phase_optimizer(smi)
     with record_launches(seen):
         phase_distributed(smi, lm)
         m_runs = phase_swinir_m(smi)
-    phase_image_rungs(smi)
+    images = phase_image_rungs(smi)
     with record_launches(seen):
         serving = phase_serving(smi)
         phase_resume(smi)
-    checked = set().union(*(c["checked"] for c in cases + flash_cases))
-    print(f"[shapes] phases 5-9, 11, 12, 14 and 15 launched {len(seen)} kinds of (kernel, q shape, dtype, mask "
-          f"windows or causal): {sorted(seen, key=str)}")
+        health = phase_health(smi, lm)
+    mfu_lines(smi, bench, bench_cfg, lm, images, health)
+    checked = set().union(*(c["checked"] for c in cases + flash_cases), health["checked"])
+    print(f"[shapes] phases 5-9, 11, 12 and 14-16 launched {len(seen)} kinds of (kernel, q "
+          f"shape, dtype, mask windows or causal): {sorted(seen, key=str)}")
     if seen - checked:
         raise SystemExit(f"launched on a driven path but never held against the plain "
                          f"version: {sorted(seen - checked, key=str)}")

@@ -15,7 +15,8 @@ the VGG-16 perceptual loss too), ESPCN through ``parallel.TrainStep``
 (``drivers.fairscale_ddp``), and through ``benchmarks.ladder`` ResNet-18
 on CIFAR-10, ResNet-50 under DDP and ZeRO-2 (BatchNorm synchronous over
 the data group), GPT-2 125M and ViT-B/16 in bf16 under ZeRO-3, with
-``ops``, ``models``, ``interop``, ``losses``, ``metrics``, ``optim``
+``ops``, ``models`` (GPT-2 and ViT with dropout, whose masks a
+``parallel.rng`` key fixes, and per-block remat), ``interop``, ``losses``, ``metrics``, ``optim``
 (per-leaf AdamW and SGD, the flat ``FusedAdamW``, the schedules, all
 shardable), ``precision``, ``runtime`` (the process group and the device
 mesh), ``parallel`` (the DDP and ZeRO-1/2/3 policies, remat, the train
@@ -25,7 +26,11 @@ device prefetch; the patch store's u8 normalisation in
 ``checkpoint_sharded`` (the consolidated, sharded and portable formats
 and ``CheckpointManager``: a run resumes at any world size, through
 ``Stoke.load``/``load_resharded`` and both drivers), ``observe`` (sinks,
-span telemetry, request-lifecycle SLOs), ``resilience`` (fault injection,
+span telemetry, request-lifecycle SLOs, the training numerics probe and
+divergence watchdog, the goodput ledger with analytic FLOPs and MFU, and
+device memory accounting: ``TrainStep(numerics=, detect_anomaly=)``,
+``TrainStep.memory_analysis``, the drivers' ``--numerics`` and
+``--trace``), ``resilience`` (fault injection,
 the outage classifier and retry policy) and ``stoke``. It serves too:
 ``serve`` runs GPT-2 decode with continuous batching over a paged KV
 cache (and speculative decode) and SwinIR super-resolution in tiles

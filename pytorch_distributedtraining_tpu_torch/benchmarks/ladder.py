@@ -175,26 +175,31 @@ def join_group(device: torch.device) -> None:
         dist.initialize(f"127.0.0.1:{dist.find_free_port()}", 1, 0, device=device.type)
 
 
-def _lm_loss(model, tokens):
-    logits = model(tokens)
+def _lm_loss(model, tokens, rng=None):
+    """Next-token cross entropy; with a key (``TrainStep`` passes one as
+    ``rng``) the model's dropout is on, a no-op at ``cfg.dropout`` 0."""
+    logits = model(tokens, deterministic=rng is None, generator=rng)
     return cross_entropy_loss(logits[:, :-1], tokens[:, 1:]), {}
 
 
 def build_lm(cfg: GPT2Config, batch_size: int, seq: int, device: torch.device, seed: int = 0,
-             policy: str = "none", remat: str | None = None):
+             policy: str = "none", remat: str | None = None, numerics: bool = False):
     """The rung's model (flash ``attn_fn``), train step and token batch on
     ``device``: ``(model, step, tokens)``. ``policy`` other than ``"none"``
     needs the process group (:func:`join_group`) and lays the model and
-    optimizer out on a mesh of the whole world."""
+    optimizer out on a mesh of the whole world. The step draws its dropout
+    keys from the train state's stream (seed ``seed``); ``numerics`` adds
+    the probe's aux to its metrics."""
     model = GPT2(cfg, attn_fn=make_flash_attn_fn(),
                  generator=torch.Generator().manual_seed(seed))
     tx = functools.partial(optim.adamw, lr=3e-4, clip_grad_norm=1.0)
     pol = POLICIES[policy]() if POLICIES[policy] is not None else None
     mesh = _mesh(pol)
-    state = parallel.create_train_state(model, tx, mesh, pol, device=device)
+    state = parallel.create_train_state(model, tx, mesh, pol, device=device, seed=seed)
     tok = np.random.default_rng(seed + dist.rank()).integers(
         0, cfg.vocab_size, size=(batch_size, seq)).astype(np.int32)
-    step = TrainStep(state.model, _lm_loss, state.tx, mesh, pol, remat=remat)
+    step = TrainStep(state.model, _lm_loss, state.tx, mesh, pol, remat=remat, rng=state.rng,
+                     numerics=numerics)
     return state.module, step, torch.from_numpy(tok).to(device)
 
 

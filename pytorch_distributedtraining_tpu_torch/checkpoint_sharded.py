@@ -39,7 +39,8 @@ loss scaler, ...). Its leaves are named by the port's own paths:
 ``params/<state-dict key>``, ``opt_state/count`` and
 ``opt_state/{mu,nu,ema,trace}/<parameter name>`` (``FusedAdamW``'s flat
 moments are kept per parameter, so they restore into either optimizer),
-and ``meta/<key>``. Only the container is JAX's: a JAX checkpoint's
+``rng/seed`` and ``rng/step`` (the train state's step stream, where it has
+one) and ``meta/<key>``. Only the container is JAX's: a JAX checkpoint's
 leaves are ``keystr`` paths, and its parameters reach the port's models
 through the ``interop`` key maps (``interop.params_from_jax_portable``).
 
@@ -247,9 +248,27 @@ def state_leaves(state, meta: dict | None = None) -> list[Leaf]:
                 path = f"opt_state/{key}/{name}"
                 leaves.append(_whole(path, t) if index is None
                               else _sharded(path, p.shape, t, index, axis))
+    for key, t in _rng_leaves(state).items():
+        leaves.append(_whole(key, t))
     for key, t in _flat_meta(meta).items():
         leaves.append(_whole(f"meta/{key}", t))
     return leaves
+
+
+def _rng_leaves(state) -> dict[str, torch.Tensor]:
+    """The step stream's ``rng/seed`` and ``rng/step`` (none without one)."""
+    rng = getattr(state, "rng", None)
+    if rng is None:
+        return {}
+    return {f"rng/{k}": torch.tensor(v, dtype=torch.int64) for k, v in rng.state_dict().items()}
+
+
+def _load_rng(state, values: dict) -> None:
+    """Put ``{"seed", "step"}`` back into the step stream, where both sides
+    have one (an older checkpoint has none)."""
+    rng = getattr(state, "rng", None)
+    if rng is not None and {"seed", "step"} <= set(values):
+        rng.load_state_dict({k: int(values[k]) for k in ("seed", "step")})
 
 
 def template_of(state) -> dict[str, tuple[tuple, torch.dtype]]:
@@ -288,6 +307,7 @@ def load_state(state, arrays: dict[str, torch.Tensor]) -> dict:
         pre = f"opt_state/{key}/"
         opt[key] = {k[len(pre):]: v for k, v in arrays.items() if k.startswith(pre)} or None
     tx.load_state_dict(opt)
+    _load_rng(state, {k[len("rng/"):]: v for k, v in arrays.items() if k.startswith("rng/")})
     return _nested_meta({k[len("meta/"):]: v for k, v in arrays.items()
                          if k.startswith("meta/")})
 
@@ -335,8 +355,11 @@ def _dcp_state(state, meta: dict | None = None) -> dict:
                 else:
                     entry[name] = wrap(t, state.mesh[axis], [Shard(tx.shard.dims[i])], p.shape)
             opt[key] = entry
-    return {"params": state.module.state_dict(), "opt_state": opt,
-            "meta": _flat_meta(meta)}
+    out = {"params": state.module.state_dict(), "opt_state": opt, "meta": _flat_meta(meta)}
+    rng = {k[len("rng/"):]: v for k, v in _rng_leaves(state).items()}
+    if rng:
+        out["rng"] = rng
+    return out
 
 
 def _dcp_call(fn, sd: dict, path: str) -> None:
@@ -395,10 +418,13 @@ def restore_sharded(path: str, state) -> dict:
         if key.startswith("meta."):
             sd["meta"][key[len("meta."):]] = torch.empty(
                 tuple(md.size), dtype=md.properties.dtype)
+    if "rng.step" not in saved:  # saved without a step stream
+        sd.pop("rng", None)
     _dcp_call(dcp.load, sd, path)
     tx = state.tx
     if not _is_fused(tx):
         tx.count = int(sd["opt_state"]["count"])
+    _load_rng(state, sd.get("rng", {}))
     return _nested_meta(sd["meta"])
 
 
@@ -745,7 +771,7 @@ def reshard_restore(path: str, state) -> dict:
                          f"({path}): " + "; ".join(problems[:5])
                          + ("..." if len(problems) > 5 else ""))
     arrays = {p: host_tensor(a, dtypes.get(p, str(a.dtype))) for p, a in host.items()
-              if p in want or p.startswith("meta/")}
+              if p in want or p.startswith(("meta/", "rng/"))}
     return load_state(state, arrays)
 
 

@@ -20,14 +20,22 @@ the dataset's transform is set to that epoch before the sample is read.
 So a worker process, which holds its own copy of the dataset (pickled
 once, and kept across epochs with ``persistent_workers``), draws each
 epoch's augmentation, not epoch 0's again.
+
+With telemetry on (``observe.trace``), the consumer's time blocked on each
+batch is an ``input`` span (``input.fetch`` without workers,
+``input.wait`` with them or through the prefetcher), which the goodput
+ledger bills as ``input_wait``.
 """
 
 from __future__ import annotations
+
+import time
 
 import numpy as np
 import torch
 import torch.utils.data
 
+from ..observe import trace as telemetry
 from ..runtime.dist import resolve_device
 from .prefetch import DevicePrefetcher
 from .sampler import DistributedSampler
@@ -143,7 +151,18 @@ class DataLoader:
         return self._plain_iter()
 
     def _plain_iter(self):
-        for batch in self._host_batches():
+        # the consumer's time blocked on the next batch is the goodput
+        # ledger's input_wait: a synchronous fetch and collate without
+        # workers ("input.fetch"), the wait for a worker's batch with them
+        name = "input.wait" if self._loader.num_workers > 0 else "input.fetch"
+        batches = self._host_batches()
+        while True:
+            t0 = time.perf_counter()
+            batch = next(batches, None)
+            if batch is None:
+                return
+            if telemetry.enabled():
+                telemetry.add_span(name, "input", t0, time.perf_counter() - t0)
             yield tuple(t.to(self.device, non_blocking=True) for t in batch)
 
     def device_iter(self, depth: int = 2) -> DevicePrefetcher:

@@ -15,8 +15,10 @@ issued before the taken one is returned.
 ``staged``, ``yielded``, ``wait_s`` and :meth:`overlap_fraction` keep the
 JAX prefetcher's accounting: ``wait_s`` is the consumer's time blocked in
 ``next`` (the host's fetch and the issue of the copies; not the copies
-themselves, which the consumer's stream waits for on the device). On
-``device="cpu"`` the prefetcher passes the host batches through unchanged.
+themselves, which the consumer's stream waits for on the device), and
+with telemetry on each wait is an ``input.wait`` span (the goodput
+ledger's ``input_wait``). On ``device="cpu"`` the prefetcher passes the
+host batches through unchanged.
 """
 
 from __future__ import annotations
@@ -25,6 +27,8 @@ import collections
 import time
 
 import torch
+
+from ..observe import trace as telemetry
 
 __all__ = ["DevicePrefetcher"]
 
@@ -78,7 +82,12 @@ class DevicePrefetcher:
                 t.record_stream(consumer)
         if not self._done:
             self._stage()  # keep `depth` batches in flight while this one is used
-        self.wait_s += time.perf_counter() - t0
+        dt = time.perf_counter() - t0
+        self.wait_s += dt
+        if telemetry.enabled():
+            # the wait is the unhidden input time: the goodput ledger's
+            # input_wait bucket
+            telemetry.add_span("input.wait", "input", t0, dt, {"n": self.yielded})
         self.yielded += 1
         return batch
 

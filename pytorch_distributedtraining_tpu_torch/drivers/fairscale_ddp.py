@@ -36,12 +36,28 @@ run's)::
     python -m pytorch_distributedtraining_tpu_torch.drivers.fairscale_ddp \
         --synthetic --ckpt ckpt/espcn --save-every 100
 
+``--numerics [halt|rollback|degrade]`` (env twins ``GRAFT_NUMERICS``,
+``GRAFT_NUMERICS_ACTION``) runs the numerics probe in the step and the
+watchdog over it every step: ``halt`` raises ``NumericsDivergence`` on a
+trip, ``rollback`` restores the newest committed ``--ckpt`` checkpoint
+(the step stream too) and trains on from there, ``degrade`` sets
+``GRAFT_WIRE=fp32`` for a relaunch. A step the probe finds non-finite is
+not checkpointed. ``--trace [DIR]`` (``GRAFT_TRACE``; ``GRAFT_TELEMETRY=0``
+turns it off) records the step, input and checkpoint spans and, at exit,
+writes the Chrome trace under ``DIR`` (or the run dir) and prints the
+goodput breakdown and the MFU (``observe.goodput``; ESPCN has no analytic
+FLOP count, so its MFU is not given)::
+
+    GRAFT_NUMERICS_INJECT="conv1.weight@3" python -m \
+        pytorch_distributedtraining_tpu_torch.drivers.fairscale_ddp --synthetic \
+        --epochs 2 --numerics rollback --ckpt ckpt/espcn --save-every 2 --trace
+
 It runs on the GPU (``--device cuda``, the default) and refuses to start
 without one unless ``--device cpu`` is given. When the data folders are
 absent it trains on synthetic data. The JAX driver's flags whose modules
 are not ported (``--remat``, ``--pp``, ``--pp-schedule``, ``--wire``,
-``--hier``, ``--plan``, ``--analyze``, ``--trace``, ``--numerics``,
-``--opcost``, ``--capture``, ``--device-prefetch``) are not defined.
+``--hier``, ``--plan``, ``--analyze``, ``--opcost``, ``--capture``,
+``--device-prefetch``) are not defined.
 """
 
 from __future__ import annotations
@@ -62,8 +78,11 @@ from pytorch_distributedtraining_tpu_torch.data import (
     SyntheticSRDataset,
     random_split,
 )
+from pytorch_distributedtraining_tpu_torch.drivers import observe_flags
 from pytorch_distributedtraining_tpu_torch.losses import mse_loss
 from pytorch_distributedtraining_tpu_torch.models import Net
+from pytorch_distributedtraining_tpu_torch.observe import numerics
+from pytorch_distributedtraining_tpu_torch.observe import trace as telemetry
 from pytorch_distributedtraining_tpu_torch.parallel import TrainStep, ZeRO2, create_train_state
 from pytorch_distributedtraining_tpu_torch.runtime import dist
 from pytorch_distributedtraining_tpu_torch.runtime.mesh import MeshSpec, make_mesh
@@ -160,7 +179,11 @@ def _train(opt: argparse.Namespace, device: torch.device, model: Net | None) -> 
                                weight_decay=1e-4)
         state = create_train_state(build_model() if model is None else model, tx, mesh,
                                    policy, device=device)
-        step = TrainStep(state.model, loss_fn, state.tx, mesh, policy)
+        # --numerics: the probe in the step, the watchdog over its aux
+        probe = numerics.probe_from_env()
+        watchdog = numerics.watchdog_from_env() if probe is not None else None
+        step = TrainStep(state.model, loss_fn, state.tx, mesh, policy, rng=state.rng,
+                         numerics=probe)
 
         mgr, start_step = None, 0
         if opt.ckpt:
@@ -179,15 +202,32 @@ def _train(opt: argparse.Namespace, device: torch.device, model: Net | None) -> 
                   "schedule; nothing left to train")
         training_dataloader.set_epoch(training_dataloader.epoch + start_epoch)
 
-        loss, global_step = None, start_step
+        loss, global_step, taken = None, start_step, 0
         try:
             for e in range(start_epoch, opt.epochs):
                 for iteration, batch in enumerate(training_dataloader, 1):
                     if e == start_epoch and iteration <= skip:
                         continue
-                    loss = step(batch)["loss"]
+                    metrics = step(batch)
+                    loss = metrics["loss"]
                     global_step += 1
-                    if mgr is not None:
+                    taken += 1
+                    clean = True
+                    if probe is not None:
+                        summary = probe.observe(metrics["numerics"], step=global_step,
+                                                loss=loss, watchdog=watchdog)
+                        # a non-finite step poisoned the parameters: saving it
+                        # would make the rollback target divergent itself
+                        clean = not summary["nonfinite"]
+                        verdict = summary.get("verdict")
+                        if verdict is not None:
+                            rolled = watchdog.apply_action(verdict, manager=mgr, template=state)
+                            if rolled is not None:
+                                global_step = rolled[0]
+                                _line(f"===> numerics watchdog {verdict['kind']} @ step "
+                                      f"{verdict['step']}: rolled back to committed step "
+                                      f"{global_step}")
+                    if mgr is not None and clean:
                         mgr.maybe_save(global_step, state)
                     if iteration % 25 == 0:
                         print(float(loss))
@@ -198,6 +238,8 @@ def _train(opt: argparse.Namespace, device: torch.device, model: Net | None) -> 
                 mgr.close()
     finally:
         training_dataloader.shutdown_workers()
+    if telemetry.enabled():
+        observe_flags.report(opt.trace, taken, None, device)
     return None if loss is None else float(loss)
 
 
@@ -221,12 +263,16 @@ def build_parser() -> argparse.ArgumentParser:
                              "the copy to host memory)")
     parser.add_argument("--save-every", type=int, default=100,
                         help="checkpoint cadence in steps (with --ckpt)")
+    observe_flags.add_arguments(parser)
     return parser
 
 
 def main(argv=None, model: Net | None = None) -> float | None:
-    return train(build_parser().parse_args(argv), model)
+    opt = build_parser().parse_args(argv)
+    observe_flags.apply(opt)
+    return train(opt, model)
 
 
 if __name__ == "__main__":
     main()
+

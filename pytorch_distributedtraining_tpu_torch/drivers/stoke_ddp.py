@@ -30,11 +30,20 @@ epochs after it::
     python -m pytorch_distributedtraining_tpu_torch.drivers.stoke_ddp \
         --synthetic --nEpochs 10 --portable-ckpt ckpt/swinir
 
+``--numerics [halt|rollback|degrade]`` and ``--trace [DIR]`` thread the
+facade's numerics plane and telemetry through their env twins
+(``GRAFT_NUMERICS``/``GRAFT_NUMERICS_ACTION``, ``GRAFT_TELEMETRY``/
+``GRAFT_TRACE``), as the JAX driver does: the facade probes each
+optimizer step's gradients and a ``halt`` verdict raises
+``NumericsDivergence``; at exit the Chrome trace is written and the
+goodput breakdown and MFU (SwinIR's analytic FLOPs at the training crops'
+size, ``observe.goodput``) printed.
+
 It runs on the GPU (``--device cuda``, the default) and refuses to start
 without one unless ``--device cpu`` is given. The TPU-only flags of the
 JAX driver (``--scan-layers``, ``--pp``, ``--wire``,
-``--fp8``, ``--plan``, ``--analyze``, ``--trace``, ``--numerics``,
-``--opcost``, ``--capture``) are not ported.
+``--fp8``, ``--plan``, ``--analyze``, ``--opcost``, ``--capture``) are not
+ported.
 """
 
 from __future__ import annotations
@@ -52,9 +61,10 @@ from pytorch_distributedtraining_tpu_torch.data import (
     SyntheticSRDataset,
     random_split,
 )
+from pytorch_distributedtraining_tpu_torch.drivers import observe_flags
 from pytorch_distributedtraining_tpu_torch.losses import feat_loss
 from pytorch_distributedtraining_tpu_torch.models import SwinIR
-from pytorch_distributedtraining_tpu_torch.observe import wandb
+from pytorch_distributedtraining_tpu_torch.observe import goodput, wandb
 from pytorch_distributedtraining_tpu_torch.optim import OneCycleLR, ReduceLROnPlateau
 from pytorch_distributedtraining_tpu_torch.parallel.remat import resolve_remat
 from pytorch_distributedtraining_tpu_torch.runtime import dist
@@ -202,6 +212,7 @@ def build_parser():
     parser.add_argument("--remat", type=str, default=None,
                         help="activation remat policy per Swin layer: none/full/dots/offload "
                              "(default: $GRAFT_REMAT or none)")
+    observe_flags.add_arguments(parser)
     return parser
 
 
@@ -261,6 +272,7 @@ def build_stoke(model: torch.nn.Module, *, lr: float = 0.001, weight_decay: floa
 
 def main(argv=None):
     opt = build_parser().parse_args(argv)
+    observe_flags.apply(opt)
     joined = not dist.is_initialized()
     dist.initialize(device=opt.device)  # a no-op when started by hand on one device
     try:
@@ -272,6 +284,7 @@ def main(argv=None):
 
 def _main(opt):
     epochs = opt.nEpochs
+    steps = 0
 
     print("===> Building model")
     remat = resolve_remat(opt.remat if opt.remat is not None
@@ -352,7 +365,9 @@ def _main(opt):
     train_loss = val_loss = float("nan")
     try:
         for epoch in range(start_epoch, epochs):
+            before = stoke_model.step_count
             train_loss = train(train_dataloader, stoke_model, scheduler1, scheduler2, epoch)
+            steps += stoke_model.step_count - before
             val_loss = validate(val_dataloader, stoke_model, epoch)
             scheduler1.lr_scale = scheduler2.step(val_loss)
             save_checkpoint(stoke_model, epoch, train_loss, val_loss,
@@ -365,6 +380,12 @@ def _main(opt):
         wandb.finish()
         train_dataloader.shutdown_workers()
         val_dataloader.shutdown_workers()
+    if stoke_model.telemetry:
+        lr_size = full_dataset[0][0].shape[0]  # one optimizer step: accum x batch crops
+        flops = goodput.model_train_flops(
+            stoke_model.model_access, opt.batchSize * stoke_model.grad_accum_steps,
+            input_hw=(lr_size, lr_size))
+        observe_flags.report(stoke_model.trace_dir, steps, flops, stoke_model.device)
     return train_loss, val_loss
 
 

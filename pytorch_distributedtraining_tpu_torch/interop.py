@@ -20,7 +20,11 @@ of the format itself (an 8-byte little-endian header length, a JSON
 header, raw little-endian bytes; BF16 included), so no ``safetensors``
 package is needed. :func:`gpt2_state_dict_from_hf` takes an HF GPT-2 state
 dict, whose ``Conv1D`` linears store ``[in, out]`` (JAX's
-``conv1d_kernels=True``), into the port's ``nn.Linear`` layout.
+``conv1d_kernels=True``), into the port's ``nn.Linear`` layout; its
+``lm_head.weight`` is kept for an untied model and dropped for a tied one.
+:func:`jax_leading_axes` names, for each parameter of a port module, the
+axis that is the JAX leaf's leading one under the transposes these maps
+make (the numerics probe's ``bad_layer`` reads along it).
 :func:`params_from_jax_portable` reads the parameters out of a portable
 checkpoint the JAX package wrote, for the ``*_state_dict_from_jax`` maps.
 """
@@ -124,9 +128,11 @@ def swinir_state_dict_from_jax(params: dict, img_size: int = 64) -> dict[str, to
 def gpt2_state_dict_from_jax(params: dict) -> dict[str, torch.Tensor]:
     """JAX GPT-2 ``params`` -> state dict of the port's ``GPT2``.
 
-    Dense kernels ``[in, out]`` -> ``nn.Linear`` ``[out, in]``, LayerNorm
-    ``scale`` -> ``weight``; the embeddings keep their ``[rows, n_embd]``
-    layout. ``params`` may be nested under ``"params"``.
+    Dense kernels ``[in, out]`` -> ``nn.Linear`` ``[out, in]`` (an untied
+    model's ``lm_head/kernel`` ``[n_embd, vocab]`` -> ``lm_head.weight``
+    ``[vocab, n_embd]``), LayerNorm ``scale`` -> ``weight``; the embeddings
+    keep their ``[rows, n_embd]`` layout. ``params`` may be nested under
+    ``"params"``.
     """
     if set(params) == {"params"}:
         params = params["params"]
@@ -346,11 +352,14 @@ def load_safetensors(path: str) -> dict[str, torch.Tensor]:
 
 # the HF GPT-2 linears, Conv1D modules that store their weight as [in, out]
 _HF_CONV1D = re.compile(r"\.(attn\.c_attn|attn\.c_proj|mlp\.c_fc|mlp\.c_proj)\.weight$")
-# HF buffers and the tied head the port's GPT-2 does not hold
-_HF_DROP = re.compile(r"(\.attn\.(bias|masked_bias)$)|(^lm_head\.weight$)")
+# HF buffers the port's GPT-2 does not hold, and the head a tied model shares
+# with wte
+_HF_DROP = re.compile(r"\.attn\.(bias|masked_bias)$")
+_HF_HEAD = "lm_head.weight"
 
 
-def gpt2_state_dict_from_hf(state: dict, conv1d_kernels: bool = True) -> dict[str, torch.Tensor]:
+def gpt2_state_dict_from_hf(state: dict, conv1d_kernels: bool = True,
+                            tie_word_embeddings: bool = True) -> dict[str, torch.Tensor]:
     """An HF GPT-2 state dict (``GPT2LMHeadModel``'s, or ``GPT2Model``'s
     without the ``transformer.`` prefix) -> the port's ``GPT2``'s.
 
@@ -359,16 +368,37 @@ def gpt2_state_dict_from_hf(state: dict, conv1d_kernels: bool = True) -> dict[st
     ``load_torch_into_template(conv1d_kernels=True)``) they are transposed
     to ``nn.Linear``'s ``[out, in]``; pass False for a file already in the
     ``nn.Linear`` layout. The causal-mask buffers (``attn.bias``,
-    ``attn.masked_bias``) and the tied ``lm_head.weight`` are dropped."""
+    ``attn.masked_bias``) are dropped, and so is ``lm_head.weight`` (an
+    ``nn.Linear`` ``[vocab, n_embd]`` in HF, kept as it is) unless the
+    port's config is untied (``tie_word_embeddings=False``)."""
     sd = {}
     for k, v in state.items():
         if not k.startswith(("transformer.", "lm_head.")):
             k = f"transformer.{k}"
-        if _HF_DROP.search(k):
+        if _HF_DROP.search(k) or (k == _HF_HEAD and tie_word_embeddings):
             continue
         v = torch.as_tensor(v)
         sd[k] = v.t().contiguous() if conv1d_kernels and _HF_CONV1D.search(k) else v
     return sd
+
+
+def jax_leading_axes(module: torch.nn.Module) -> dict[str, int]:
+    """``{parameter name: axis}``: the axis of each port parameter that is
+    its JAX leaf's leading axis. The maps above transpose every JAX
+    ``kernel``: a dense ``[in, out]`` becomes ``nn.Linear``'s (and
+    ``nn.MultiheadAttention``'s packed) ``[out, in]``, so JAX's axis 0 is
+    axis 1 here; a convolution HWIO becomes OIHW, so JAX's axis 0 (kernel
+    height) is axis 2. Every other leaf keeps its layout (axis 0)."""
+    axes = {}
+    for prefix, m in module.named_modules():
+        dot = f"{prefix}." if prefix else ""
+        if isinstance(m, torch.nn.Linear):
+            axes[f"{dot}weight"] = 1
+        elif isinstance(m, torch.nn.Conv2d):
+            axes[f"{dot}weight"] = 2
+        elif isinstance(m, torch.nn.MultiheadAttention):
+            axes[f"{dot}in_proj_weight"] = 1
+    return {name: axes.get(name, 0) for name, _ in module.named_parameters()}
 
 
 def params_from_jax_portable(path: str) -> dict:

@@ -3,7 +3,9 @@ KV-cache decode, contiguous or paged, for ``models.generate`` and ``serve``.
 
 Counterpart of ``pytorch_distributedtraining_tpu/models/gpt2.py``:
 decoder-only, pre-LN (LayerNorm eps 1e-5), learned positions, fused QKV
-projection, tanh GELU, LM head tied to ``wte``, and a pluggable ``attn_fn``
+projection, tanh GELU, an LM head tied to ``wte`` (or, with
+``tie_word_embeddings=False``, a bias-free ``lm_head`` of ``[vocab,
+n_embd]``) and a pluggable ``attn_fn``
 (``ops.flash_attn.make_flash_attn_fn`` routes it through the CUDA flash
 kernels). Module names are HF ``GPT2LMHeadModel``'s
 (``transformer.h.{i}.attn.c_attn``, ``transformer.wte``, ...), the names
@@ -16,6 +18,16 @@ stream is bf16 throughout; dense layers compute in bf16; LayerNorm takes
 its statistics in f32 and returns bf16; the logits are ``x @ wteᵀ`` in
 bf16, cast to f32.
 
+Dropout (``cfg.dropout``) runs only when ``forward(..., deterministic=False,
+generator=...)`` asks, JAX's default: after the embedding sum, after the
+attention's ``c_proj`` and after the MLP's ``c_proj`` (JAX's ``mlp_proj``),
+each with its own site in :func:`~..parallel.rng.dropout`'s key, none on
+the attention probabilities (the JAX model has none there, so ``attn_fn``
+and the flash kernels stay as they are). ``cfg.remat`` checkpoints each
+block under a ``parallel.remat`` policy (``True``/``'full'`` or
+``'dots'``, as JAX's ``remat_block``); a recomputed block redraws the
+same masks, which are fixed by the key and the site.
+
 ``decode=True`` takes a KV cache on every call (``models.generate``): a
 :class:`~.generate.KVCache` (contiguous, one global write position, the
 JAX model's ``"cache"`` collection) or a :class:`~.generate.PagedKVCache`
@@ -27,10 +39,11 @@ the cache in place and attends it with plain PyTorch, as the JAX Block
 does with ``_cached_attention``/``_paged_attention``; ``attn_fn`` (and the
 flash kernels) serve the cache-less forward only.
 
-Not ported yet: quantized KV pages (``kv_wire``; the quantized-KV slice),
-fp8 dense layers, scan over layers, remat, dropout > 0 and an untied LM
-head (the GPT-2 remainder slice). A config or argument that asks for one
-raises ``NotImplementedError``.
+Not ported yet, and raising ``NotImplementedError``: quantized KV pages
+(``kv_wire``; the quantized-KV slice), ``fp8`` dense layers (the fp8
+matmul slice), ``scan_layers`` (the scan-over-layers slice),
+``remat='names'`` (torch has no ``checkpoint_name`` tags) and
+``remat='offload'`` (the offload slice).
 """
 
 from __future__ import annotations
@@ -43,10 +56,15 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..parallel.remat import NAMES_UNSUPPORTED, apply_remat, resolve_remat
+from ..parallel.rng import as_key, dropout
 from .generate import (QUANTIZED_KV, KVCache, PagedKVCache, cached_attention,
                        paged_attention, write_paged_kv)
 
 AttnFn = Callable[..., torch.Tensor]  # (q, k, v, *, causal) -> out
+# the stddev of a unit normal truncated to [-2, 2]: flax's truncated_normal
+# variance scaling divides by it
+_TRUNC_STD = 0.87962566103423978
 
 
 @dataclass(frozen=True)
@@ -139,10 +157,12 @@ class Block(nn.Module):
         self.ln_2 = nn.LayerNorm(cfg.n_embd, eps=1e-5)
         self.mlp = MLP(cfg)
 
-    def forward(self, x, cache=None, layer: int = 0, page_table=None, lengths=None):
+    def forward(self, x, cache=None, layer: int = 0, page_table=None, lengths=None,
+                key=None, deterministic: bool = True):
         """``cache`` (with this block's ``layer`` index) switches to KV-cache
         decode: contiguous at ``cache.position``, or paged at each slot's
-        ``lengths`` through ``page_table``."""
+        ``lengths`` through ``page_table``. ``key`` draws the dropout masks
+        of this block's two sites, ``1 + 2 * layer`` and ``2 + 2 * layer``."""
         cfg, dt = self.cfg, self.cfg.dtype
         b, t, d = x.shape
         h = cfg.n_head
@@ -159,11 +179,15 @@ class Block(nn.Module):
         else:
             y = cached_attention(q, k, v, cache.k[layer], cache.v[layer], cache.position)
         y = y.reshape(b, t, d)
-        x = x + _dense(self.attn.c_proj, y, dt)
+        y = dropout(_dense(self.attn.c_proj, y, dt), cfg.dropout, key, 1 + 2 * layer,
+                    deterministic)
+        x = x + y
 
         y = _layer_norm(self.ln_2, x, dt)
         y = F.gelu(_dense(self.mlp.c_fc, y, dt), approximate="tanh")
-        return x + _dense(self.mlp.c_proj, y, dt)
+        y = dropout(_dense(self.mlp.c_proj, y, dt), cfg.dropout, key, 2 + 2 * layer,
+                    deterministic)
+        return x + y
 
 
 class GPT2(nn.Module):
@@ -176,6 +200,11 @@ class GPT2(nn.Module):
     ``decode=True``: ``forward(tokens, cache, page_table=, lengths=)`` with
     a cache from ``generate.init_cache`` or ``generate.init_paged_cache``
     (module docstring); ``paged=(num_pages, page_size)`` needs ``decode``.
+
+    ``forward(tokens, deterministic=False, generator=key)`` turns dropout
+    on (``cfg.dropout > 0``); ``key`` is a ``parallel.rng.DropoutKey``
+    (module docstring). An untied ``lm_head`` is
+    initialised as flax's ``Dense`` default, LeCun normal (truncated).
     """
 
     def __init__(self, cfg: GPT2Config = GPT2Config(), attn_fn: AttnFn = default_attention,
@@ -186,16 +215,18 @@ class GPT2(nn.Module):
             raise NotImplementedError(QUANTIZED_KV.format(f"GPT2 kv_wire={kv_wire!r}"))
         if paged is not None and not decode:
             raise ValueError("paged KV layout requires decode=True")
-        waits = {
-            "fp8": cfg.fp8 is not None, "scan_layers": cfg.scan_layers,
-            "remat": bool(cfg.remat), "dropout > 0": cfg.dropout > 0,
-            "untied lm_head": not cfg.tie_word_embeddings,
-        }
-        asked = [name for name, on in waits.items() if on]
+        waits = {"scan_layers": (cfg.scan_layers, "the scan-over-layers slice"),
+                 "fp8": (cfg.fp8 is not None, "the fp8 matmul slice")}
+        asked = [f"{name} (waits for {slice_})" for name, (on, slice_) in waits.items() if on]
         if asked:
+            raise NotImplementedError(f"GPT2 {', '.join(asked)}: not ported yet")
+        self.remat = resolve_remat(cfg.remat)
+        if self.remat == "names":
+            raise NotImplementedError(NAMES_UNSUPPORTED)
+        if self.remat == "offload":
             raise NotImplementedError(
-                f"GPT2 {', '.join(asked)}: not ported yet (the GPT-2 remainder "
-                "slice)")
+                "GPT2 remat='offload': JAX offloads the checkpoint_name-tagged activations "
+                "to host memory, which waits for the offload slice; use 'full' or 'dots'")
         self.cfg = cfg
         self.decode = decode
         self.paged = None if paged is None else (int(paged[0]), int(paged[1]))
@@ -205,6 +236,8 @@ class GPT2(nn.Module):
             h=nn.ModuleList(Block(cfg, attn_fn) for _ in range(cfg.n_layer)),
             ln_f=nn.LayerNorm(cfg.n_embd, eps=1e-5),
         ))
+        if not cfg.tie_word_embeddings:
+            self.lm_head = nn.Linear(cfg.n_embd, cfg.vocab_size, bias=False)
         self.init_weights(generator)
 
     @torch.no_grad()
@@ -219,24 +252,38 @@ class GPT2(nn.Module):
                 nn.init.zeros_(m.bias)
         nn.init.normal_(self.transformer.wte.weight, std=0.02, generator=generator)
         nn.init.normal_(self.transformer.wpe.weight, std=0.01, generator=generator)
+        if not self.cfg.tie_word_embeddings:
+            # flax Dense's default kernel init: lecun_normal, a normal truncated
+            # to two of its standard deviations, scaled back to variance 1/fan_in
+            std = (1.0 / self.cfg.n_embd) ** 0.5 / _TRUNC_STD
+            nn.init.trunc_normal_(self.lm_head.weight, std=std, a=-2 * std, b=2 * std,
+                                  generator=generator)
 
     def fsdp_blocks(self) -> list[nn.Module]:
         """The units ZeRO-3 shards one by one (FSDP2, before the root): the
-        transformer blocks. ``wte`` stays in the root's unit with the head
-        that shares it."""
+        transformer blocks. ``wte`` (and an untied ``lm_head``) stay in the
+        root's unit."""
         return list(self.transformer.h)
 
-    def forward(self, tokens, cache=None, *, page_table=None, lengths=None):
-        dt, tr = self.cfg.dtype, self.transformer
-        t = tokens.shape[1]
+    def forward(self, tokens, cache=None, *, page_table=None, lengths=None,
+                deterministic: bool = True, generator=None):
+        cfg, tr = self.cfg, self.transformer
+        dt, t = cfg.dtype, tokens.shape[1]
+        key = as_key(generator)
         pe = self._positions(tokens, cache, page_table, lengths)
         x = tr.wte.weight[tokens.long()].to(dt) + pe.to(dt)
+        x = dropout(x, cfg.dropout, key, 0, deterministic)
+        remat = self.remat != "none" and cache is None
         for i, block in enumerate(tr.h):
-            x = block(x, cache, i, page_table, lengths)
+            # the module call (hooks fire), checkpointed per block under remat
+            call = apply_remat(block.__call__, self.remat) if remat else block
+            x = call(x, cache, i, page_table, lengths, key, deterministic)
         if isinstance(cache, KVCache):
             cache.position += t
         x = _layer_norm(tr.ln_f, x, dt)
-        return (x @ tr.wte.weight.to(dt).t()).float()  # the head is tied to wte
+        if cfg.tie_word_embeddings:
+            return (x @ tr.wte.weight.to(dt).t()).float()
+        return _dense(self.lm_head, x, dt).float()
 
     def _positions(self, tokens, cache, page_table, lengths):
         """The position embeddings of this call, checking its cache."""

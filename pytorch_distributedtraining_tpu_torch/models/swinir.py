@@ -335,6 +335,8 @@ class SwinIR(nn.Module):
         self.window_size = window_size
         self.img_range = img_range
         self.depths = tuple(depths)
+        self.embed_dim = embed_dim
+        self.mlp_ratio = mlp_ratio
         self.upsampler = upsampler
         self.norm_dtype = norm_dtype
         self.register_buffer(

@@ -23,9 +23,16 @@ zero, ``pos_embedding`` normal(0.02), encoder dense kernels
 xavier-uniform, the head's kernel zero, every bias zero.
 
 ``cfg.remat`` checkpoints each encoder block under a ``parallel.remat``
-policy (``'names'`` raises, as for SwinIR). Not ported yet, and raising
-``NotImplementedError``: ``scan_layers`` (the scan-over-layers slice),
-``fp8`` (the fp8 matmul slice) and ``dropout > 0`` (the dropout slice).
+policy (``'names'`` raises, as for SwinIR). Dropout (``cfg.dropout``) runs
+only when ``forward(images, deterministic=False, generator=key)`` asks,
+as in JAX: after the embedding (site 0), after each block's ``out_proj``
+(JAX's ``c_proj``, site ``1 + 2 i``) and after its ``mlp.3`` (JAX's
+``mlp_proj``, site ``2 + 2 i``), by GPT-2's helper
+(:func:`~..parallel.rng.dropout`), so a recomputed block redraws its masks.
+The torchvision ``nn.Dropout`` placeholders in ``mlp`` stay at rate 0, for
+the names. Not ported yet, and raising ``NotImplementedError``:
+``scan_layers`` (the scan-over-layers slice) and ``fp8`` (the fp8 matmul
+slice).
 """
 
 from __future__ import annotations
@@ -39,11 +46,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..parallel.remat import NAMES_UNSUPPORTED, apply_remat, resolve_remat
-from .gpt2 import AttnFn, _dense, _layer_norm, default_attention
-
-# the stddev of a unit normal truncated to [-2, 2]: flax's truncated_normal
-# variance scaling divides by it
-_TRUNC_STD = 0.87962566103423978
+from ..parallel.rng import as_key, dropout
+from .gpt2 import _TRUNC_STD, AttnFn, _dense, _layer_norm, default_attention
 
 
 @dataclass(frozen=True)
@@ -86,19 +90,25 @@ class EncoderBlock(nn.Module):
         self.mlp = nn.Sequential(nn.Linear(d, cfg.mlp_dim), nn.GELU("tanh"), nn.Dropout(0.0),
                                  nn.Linear(cfg.mlp_dim, d), nn.Dropout(0.0))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        dt, h = self.cfg.dtype, self.cfg.num_heads
+    def forward(self, x: torch.Tensor, layer: int = 0, key=None,
+                deterministic: bool = True) -> torch.Tensor:
+        """``key`` draws the masks of the block's sites ``1 + 2 * layer`` and
+        ``2 + 2 * layer``."""
+        cfg = self.cfg
+        dt, h = cfg.dtype, cfg.num_heads
         b, t, d = x.shape
         sa = self.self_attention
         y = _layer_norm(self.ln_1, x, dt)
         qkv = F.linear(y, sa.in_proj_weight.to(dt), sa.in_proj_bias.to(dt))
         q, k, v = (a.unflatten(-1, (h, d // h)) for a in qkv.split(d, dim=-1))
         y = self.attn_fn(q, k, v, causal=False).reshape(b, t, d)
-        x = x + _dense(sa.out_proj, y, dt)
+        x = x + dropout(_dense(sa.out_proj, y, dt), cfg.dropout, key, 1 + 2 * layer,
+                        deterministic)
 
         y = _layer_norm(self.ln_2, x, dt)
         y = F.gelu(_dense(self.mlp[0], y, dt), approximate="tanh")
-        return x + _dense(self.mlp[3], y, dt)
+        return x + dropout(_dense(self.mlp[3], y, dt), cfg.dropout, key, 2 + 2 * layer,
+                           deterministic)
 
 
 class Encoder(nn.Module):
@@ -113,14 +123,14 @@ class Encoder(nn.Module):
 
 class ViT(nn.Module):
     """ViT classifier. ``forward(images [B, H, W, C]) -> logits [B,
-    num_classes]`` (f32)."""
+    num_classes]`` (f32); ``deterministic=False, generator=key`` turns
+    dropout on (module docstring)."""
 
     def __init__(self, cfg: ViTConfig = ViTConfig(), attn_fn: AttnFn = default_attention, *,
                  generator: torch.Generator | None = None):
         super().__init__()
         waits = {"scan_layers": (cfg.scan_layers, "the scan-over-layers slice"),
-                 "fp8": (cfg.fp8 is not None, "the fp8 matmul slice"),
-                 "dropout > 0": (cfg.dropout > 0, "the dropout slice")}
+                 "fp8": (cfg.fp8 is not None, "the fp8 matmul slice")}
         asked = [f"{name} (waits for {slice_})" for name, (on, slice_) in waits.items() if on]
         if asked:
             raise NotImplementedError(f"ViT {', '.join(asked)}: not ported yet")
@@ -163,16 +173,21 @@ class ViT(nn.Module):
         encoder blocks."""
         return list(self.encoder.layers)
 
-    def forward(self, images: torch.Tensor) -> torch.Tensor:  # [B, H, W, C]
-        dt, p = self.cfg.dtype, self.cfg.patch_size
+    def forward(self, images: torch.Tensor, deterministic: bool = True,
+                generator=None) -> torch.Tensor:  # [B, H, W, C]
+        cfg = self.cfg
+        dt, p = cfg.dtype, cfg.patch_size
+        key = as_key(generator)
         x = images.to(dt).permute(0, 3, 1, 2)
         x = F.conv2d(x, self.conv_proj.weight.to(dt), self.conv_proj.bias.to(dt), p)
         x = x.flatten(2).transpose(1, 2)  # [B, gh * gw, d], patches row-major
         b = x.shape[0]
         x = torch.cat([self.class_token.to(dt).expand(b, -1, -1), x], dim=1)
         x = x + self.encoder.pos_embedding.to(dt)
-        for block in self.encoder.layers:
-            x = apply_remat(block.__call__, self.remat)(x)  # the module call: hooks fire
+        x = dropout(x, cfg.dropout, key, 0, deterministic)
+        for i, block in enumerate(self.encoder.layers):
+            # the module call: hooks fire
+            x = apply_remat(block.__call__, self.remat)(x, i, key, deterministic)
         x = _layer_norm(self.encoder.ln, x, dt)[:, 0]  # CLS pool
         return _dense(self.heads.head, x, dt).float()
 

@@ -22,9 +22,15 @@ trimmed to what the serving path uses:
 Stdlib only. With telemetry off, a call site costs one attribute load and
 one branch.
 
-Spans are collected between :func:`enable` and :func:`disable`. Env knob:
-``GRAFT_RUN_DIR`` (run-scoped scratch directory, where flight records and
-default exports go; default ``<tempdir>/graft-runs/<pid>``).
+Spans are collected between :func:`enable` and :func:`disable`;
+:func:`configure_from_env` turns collection on from ``GRAFT_TELEMETRY``
+(a falsy value is the opt-out that wins, any other collects) and
+``GRAFT_TRACE`` (an export directory, which implies collection), as
+:func:`telemetry_from_env` resolves them for the facade too. ``GRAFT_RUN_DIR`` is the
+run-scoped scratch directory, where flight records and default exports go
+(default ``<tempdir>/graft-runs/<pid>``). The flight record carries the
+numerics probe's snapshot and the memory high-water (``observe.numerics``,
+``observe.memory``) where those modules are loaded.
 """
 
 from __future__ import annotations
@@ -286,6 +292,52 @@ def disable() -> None:
     _TRACER.enabled = False
 
 
+FALSY = ("", "0", "false", "off", "no")
+
+
+def telemetry_from_env(telemetry: bool = False, trace_dir: str | None = None,
+                       env: dict | None = None) -> tuple[bool, str | None]:
+    """``(enabled, trace_dir)``, the arguments overridden by their env
+    twins: ``GRAFT_TELEMETRY`` (any value but a falsy one collects) for
+    ``telemetry``; a non-empty ``GRAFT_TRACE`` (the Chrome-trace export
+    destination) for ``trace_dir``, which turns collection on too. An
+    explicit falsy ``GRAFT_TELEMETRY`` wins over everything."""
+    e = os.environ if env is None else env
+    trace_dir = e.get("GRAFT_TRACE", trace_dir) or None
+    raw = e.get("GRAFT_TELEMETRY")
+    if raw is not None:
+        return raw.strip().lower() not in FALSY, trace_dir
+    return bool(telemetry or trace_dir), trace_dir
+
+
+def configure_from_env(env: dict | None = None) -> bool:
+    """Turn collection on or off by :func:`telemetry_from_env`, the
+    current state as its default; returns whether it is on."""
+    on, _ = telemetry_from_env(_TRACER.enabled, None, env)
+    (enable if on else disable)()
+    return on
+
+
+def trace_path(base: str | None = None) -> str:
+    """Where a Chrome trace goes: ``base`` itself when it ends in
+    ``.json``, else ``telemetry-<pid>.trace.json`` in ``base`` (default
+    the run dir)."""
+    base = base or run_dir()
+    if base.endswith(".json"):
+        return base
+    return os.path.join(base, f"telemetry-{os.getpid()}.trace.json")
+
+
+def get_tracer() -> Tracer:
+    return _TRACER
+
+
+def add_span(name: str, cat: str, t0: float, dur: float, attrs: dict | None = None) -> None:
+    """Record a span measured by the caller (``t0`` from
+    ``time.perf_counter()``), at the current nesting depth."""
+    _TRACER.add_span(name, cat, t0, dur, attrs)
+
+
 def span(name: str, cat: str = "other", **attrs):
     """``with span("serve.tick", "step"): ...`` on the default tracer."""
     if not _TRACER.enabled:
@@ -378,6 +430,16 @@ def flush_flight_record(reason: str, exc: BaseException | None = None,
             serve_inflight = slo_mod.inflight_requests()
             if serve_inflight:
                 doc["serve_in_flight"] = serve_inflight
+        # the numerics and memory halves, by the same lookup: the non-finite
+        # blame, watchdog verdicts and high-water at the moment of death
+        num_mod = sys.modules.get(f"{__package__}.numerics")
+        if num_mod is not None:
+            num_snap = num_mod.snapshot()
+            if num_snap.get("steps_observed"):
+                doc["numerics"] = num_snap
+        mem_stats = getattr(sys.modules.get(f"{__package__}.memory"), "runtime_stats", None)
+        if mem_stats and any(v is not None for v in mem_stats.values()):
+            doc["memory"] = dict(mem_stats)
         if exc is not None:
             doc["exception"] = {
                 "type": type(exc).__name__,

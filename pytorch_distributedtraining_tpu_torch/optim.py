@@ -19,7 +19,10 @@ Counterpart of ``pytorch_distributedtraining_tpu/optim.py``:
   moments, EMA and the update live on each leaf's shard (ZeRO-1/2, by the
   ``leaf_spec`` rule) or on each FSDP2 ``DTensor``'s local tensor (ZeRO-3),
   the global norm sums squares over shards with one all-reduce, and the
-  updated shards are all-gathered. ``FusedAdamW(shard_group=...)`` updates
+  updated shards are all-gathered. With ``track_updates`` set, a per-leaf
+  step keeps each leaf's update norm (``update_norms``), the numerics
+  probe's ``update_ratio`` feed, from the update it applies (no copy of
+  the parameters). ``FusedAdamW(shard_group=...)`` updates
   this rank's slice of the flat buffer and all-gathers the flat
   parameters (ZeRO-1). ``update_wire_dtype`` (Fairscale OSS's
   ``broadcast_fp16``, bf16 as in JAX) casts the lr-scaled update before it
@@ -89,6 +92,11 @@ def _leaves_from_flat(flat: torch.Tensor, layout: dict) -> dict:
             for n, o, shape in zip(layout["names"], layout["offsets"], layout["shapes"])}
 
 
+def _norms(tensors: list[torch.Tensor]) -> torch.Tensor:
+    """The f32 L2 norm of each tensor, ``[n]`` (0 for an empty one)."""
+    return torch.stack(torch._foreach_norm(tensors, 2, dtype=torch.float32))
+
+
 class RecordedClip(NamedTuple):
     """The pre-clip global norm and whether the clip fired this step
     (JAX ``RecordedClipState``), both device scalars."""
@@ -120,6 +128,10 @@ class _LeafOptimizer:
         self.update_wire_dtype = update_wire_dtype
         self.count = 0
         self.clip: RecordedClip | None = None
+        # the numerics probe's feed: with track_updates, each step leaves the
+        # f32 norm of every leaf's applied update (this rank's share) here
+        self.track_updates = False
+        self.update_norms: torch.Tensor | None = None
         self.ema = None
         if self.ema_decay is not None:
             self.ema = [p.detach().float().clone() for p in self.local]
@@ -175,11 +187,15 @@ class _LeafOptimizer:
         ``-lr·u`` is cast to it first and it is the steps that are gathered
         (the narrow fan-out wire), then added, upcast."""
         if self.update_wire_dtype is None:
+            if self.track_updates:
+                self.update_norms = _norms(upd) * lr
             torch._foreach_add_(self.local, upd, alpha=-lr)
             if self.shard is not None:
                 self.shard.gather_(self.params)
             return
         steps = [u.to(self.update_wire_dtype) for u in torch._foreach_mul(upd, -lr)]
+        if self.track_updates:
+            self.update_norms = _norms(steps)
         if self.shard is not None:
             self.shard.gather_(self.params, steps)
         else:

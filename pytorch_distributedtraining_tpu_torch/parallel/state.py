@@ -29,8 +29,9 @@ over its parameters, the one-process layout.
 
 :meth:`TrainState.state_dict` is the state in the layout of a run on one
 rank (the module's state dict without a DDP ``module.`` prefix, FSDP2
-shards gathered; the optimizer's ``full_state_dict``; the caller's
-metadata), a collective under a sharded policy; :meth:`TrainState.
+shards gathered; the optimizer's ``full_state_dict``; the step stream
+``rng``, a :class:`~.rng.StepRng`; the caller's metadata), a collective
+under a sharded policy; :meth:`TrainState.
 load_state_dict` puts such a state back into a train state of any policy
 and world size, each rank taking its share. ``torch.save`` of it is what
 ``checkpoint.save_checkpoint`` writes; the portable and sharded formats
@@ -50,6 +51,7 @@ from ..optim import FusedAdamW
 from ..runtime.dist import resolve_device
 from ..runtime.mesh import data_group, mesh_axis_size
 from .policy import Policy
+from .rng import StepRng
 from .spec import ShardPlan, dim0_chunk, is_dtensor
 from .sync_bn import sync_batch_norm
 
@@ -60,23 +62,31 @@ class TrainState(NamedTuple):
     tx: object  # the port's optimizer over this rank's share
     mesh: object  # the DeviceMesh, or None for one process
     policy: Policy
+    rng: StepRng | None = None  # the step's random stream (TrainStep(rng=state.rng))
 
     def state_dict(self, meta: dict | None = None) -> dict:
-        """``{"params", "opt_state", "meta"}`` in the layout of a run on one
-        rank: the module's state (FSDP2 shards gathered), the optimizer's
-        ``full_state_dict`` and the caller's ``meta`` (the facade's holds
-        the step, lr, loss scaler and generators). Every rank calls it (the
-        gathers are collectives)."""
-        return {"params": full_module_state(self.module),
-                "opt_state": self.tx.full_state_dict(), "meta": dict(meta or {})}
+        """``{"params", "opt_state", "rng", "meta"}`` in the layout of a run
+        on one rank: the module's state (FSDP2 shards gathered), the
+        optimizer's ``full_state_dict``, the step stream's seed and step,
+        and the caller's ``meta`` (the facade's holds the step, lr, loss
+        scaler and generators). Every rank calls it (the gathers are
+        collectives)."""
+        out = {"params": full_module_state(self.module),
+               "opt_state": self.tx.full_state_dict(), "meta": dict(meta or {})}
+        if self.rng is not None:
+            out["rng"] = self.rng.state_dict()
+        return out
 
     def load_state_dict(self, state: dict) -> dict:
         """Restore :meth:`state_dict` output (saved at any world size or
         policy) into this train state: the module's state (each FSDP2 rank
-        its chunk) and the optimizer's (re-sliced onto this rank's share).
-        Returns the ``meta`` dict, which the caller puts back."""
+        its chunk), the optimizer's (re-sliced onto this rank's share) and
+        the step stream. Returns the ``meta`` dict, which the caller puts
+        back."""
         load_module_state(self.module, state["params"])
         self.tx.load_state_dict(state["opt_state"])
+        if self.rng is not None and state.get("rng") is not None:
+            self.rng.load_state_dict(state["rng"])
         return dict(state.get("meta") or {})
 
 
@@ -145,16 +155,18 @@ def broadcast_module(module: torch.nn.Module, group) -> None:
 
 def create_train_state(model: torch.nn.Module, tx: Callable, mesh=None,
                        policy: Policy | None = None, *, device: str | torch.device = "cuda",
-                       find_unused_parameters: bool = False) -> TrainState:
+                       find_unused_parameters: bool = False, seed: int = 0) -> TrainState:
     """Place, replicate or shard ``model`` as ``policy`` asks on ``mesh``
     and build the optimizer ``tx(named_parameters, ...)`` over this rank's
-    share (see the module docstring)."""
+    share (see the module docstring); the step stream starts at ``seed``,
+    step 0."""
     policy = policy or Policy()
     device = resolve_device(device)
     model = model.to(device)
     fused = makes_fused(tx)
+    rng = StepRng(seed)
     if mesh is None:
-        return TrainState(model, model, tx(model.named_parameters()), None, policy)
+        return TrainState(model, model, tx(model.named_parameters()), None, policy, rng)
     if fused:
         check_fused(policy)
     group = data_group(mesh)
@@ -169,16 +181,16 @@ def create_train_state(model: torch.nn.Module, tx: Callable, mesh=None,
             fully_shard(block, mesh=mesh[axis], reshard_after_forward=True)
         fully_shard(model, mesh=mesh[axis], reshard_after_forward=True)
         opt = tx(model.named_parameters(), shard=ShardPlan(group=group, dtensor=True))
-        return TrainState(model, model, opt, mesh, policy)
+        return TrainState(model, model, opt, mesh, policy, rng)
     if fused:
         shard_group = group if policy.shard_opt_state else None
         return TrainState(model, model, tx(model.named_parameters(), shard_group=shard_group),
-                          mesh, policy)
+                          mesh, policy, rng)
     if policy.shard_opt_state:
         named = [(n, p) for n, p in model.named_parameters() if p.requires_grad]
         dims = policy.opt_specs(named, mesh)
         opt = tx(named, shard=ShardPlan([dims[n] for n, _ in named], group))
-        return TrainState(model, model, opt, mesh, policy)
+        return TrainState(model, model, opt, mesh, policy, rng)
     from torch.nn.parallel import DistributedDataParallel
 
     # no buffer sync a forward: the buffers are equal from the broadcast
@@ -190,4 +202,4 @@ def create_train_state(model: torch.nn.Module, tx: Callable, mesh=None,
     wrapped = DistributedDataParallel(
         model, device_ids=[device.index] if device.type == "cuda" else None,
         process_group=group, find_unused_parameters=find_unused_parameters, **{quiet: False})
-    return TrainState(wrapped, model, tx(model.named_parameters()), mesh, policy)
+    return TrainState(wrapped, model, tx(model.named_parameters()), mesh, policy, rng)

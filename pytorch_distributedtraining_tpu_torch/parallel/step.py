@@ -36,24 +36,54 @@ keep last"), so ``grad_accum_steps`` micro-batches update it once, not n
 times in a row. A forward that ``remat`` recomputes in backward does not
 update it twice.
 
+The random stream: ``rng`` (a :class:`~.rng.StepRng`, pass the train
+state's ``state.rng`` so that ``state.state_dict()`` carries it) fixes
+each micro-batch's dropout key by ``(seed, step, micro-batch)``, in place
+of JAX's ``fold_in(state.rng, step)`` and ``fold_in(rng, i)``, and
+advances one step a call. A ``loss_fn`` that takes a third argument (or
+an ``rng`` keyword) gets the key, ``loss_fn(model, batch, key)``, and
+hands it to the model (``model(x, deterministic=False, generator=key)``);
+``loss_fn(model, batch)`` callers are called as before.
+
+``numerics`` (True or an ``observe.numerics.NumericsProbe``) adds
+``metrics["numerics"]``, the probe's aux of the step's gradients (after
+reduction, before the update), the pre-update parameters and, with a
+per-leaf optimizer, each leaf's update; nothing is read back to the
+host. Its ``GRAFT_NUMERICS_INJECT`` spec poisons the named gradient leaf
+at its step before the update. ``detect_anomaly=True`` reads the
+gradients' and the loss's finiteness back every step and raises
+``FloatingPointError`` naming the non-finite leaves before the update,
+with the parameters, optimizer state, BatchNorm statistics and the step
+stream as they were before the step. Each call runs inside
+``observe.trace.dispatch_span(self, "TrainStep")``: the first is billed
+as ``compile`` (on the card that includes the first use's kernel build),
+the rest as ``step``.
+
+:meth:`TrainStep.memory_analysis` measures a step's peak device memory
+for ``observe.memory.tune_batch_size``: JAX reads the compiled program's
+plan without running a step; the port runs one forward and backward.
+
 Not ported yet: ``MultiStep`` (a CUDA-graph twin, the CUDA-graph step
-slice), the numerics probe and ``detect_anomaly`` (the numerics slice),
-host offload (the offload slice) and the loss scaler inside the step
-(the facade has it).
+slice), host offload (the offload slice) and the loss scaler inside the
+step (the facade has it).
 """
 
 from __future__ import annotations
 
 import contextlib
+import inspect
 from typing import Callable
 
 import torch
 import torch.distributed as tdist
 
+from ..observe import trace as telemetry
+from ..observe.numerics import leaf_norms, probe_layout
 from ..optim import FusedAdamW
 from ..runtime.mesh import data_group
 from .policy import Policy
 from .remat import apply_remat, resolve_remat
+from .rng import StepRng
 from .spec import all_reduce_sum_, all_reduce_tensors
 from .state import check_fused
 from .sync_bn import batch_norm_state
@@ -70,6 +100,25 @@ def _split_microbatches(batch, n: int) -> list:
     if isinstance(batch, torch.Tensor):
         return list(split(batch))
     return list(zip(*(split(x) for x in batch)))
+
+
+def takes_rng(fn: Callable) -> str | None:
+    """How ``fn`` takes a key after ``(model, batch)``: ``"rng"`` for a
+    parameter named ``rng`` (passed by keyword), ``"positional"`` for a third
+    positional parameter without a default or ``*args``, else ``None``."""
+    try:
+        params = list(inspect.signature(fn).parameters.values())
+    except (TypeError, ValueError):
+        return None
+    for p in params:
+        if p.name == "rng" and p.kind not in (p.POSITIONAL_ONLY, p.VAR_POSITIONAL, p.VAR_KEYWORD):
+            return "rng"
+    positional = [p for p in params if p.kind in (p.POSITIONAL_ONLY, p.POSITIONAL_OR_KEYWORD)]
+    if len(positional) >= 3 and positional[2].default is inspect.Parameter.empty:
+        return "positional"
+    if len(positional) < 3 and any(p.kind is p.VAR_POSITIONAL for p in params):
+        return "positional"
+    return None
 
 
 def _is_ddp(model) -> bool:
@@ -141,7 +190,8 @@ class TrainStep:
     """``step(batch, lr_factor=1.0) -> metrics``: one optimizer step of ``model``."""
 
     def __init__(self, model: torch.nn.Module, loss_fn: Callable, tx, mesh=None,
-                 policy: Policy | None = None, *, grad_accum_steps: int = 1, remat=None):
+                 policy: Policy | None = None, *, grad_accum_steps: int = 1, remat=None,
+                 rng: StepRng | int | None = None, numerics=None, detect_anomaly: bool = False):
         if grad_accum_steps < 1:
             raise ValueError(f"grad_accum_steps must be >= 1, got {grad_accum_steps}")
         self.model = model
@@ -150,25 +200,58 @@ class TrainStep:
         check_layout(model, tx, mesh, self.policy)
         self.group = None if mesh is None else data_group(mesh)
         remat = self.policy.remat if remat is None else remat
+        self._keyed = takes_rng(loss_fn)
         self.loss_fn = apply_remat(loss_fn, remat)
         self.tx = tx
         self.model_state = batch_norm_state(model)
         self._recomputes = resolve_remat(remat) in ("full", "dots")
         self.fused = tx if isinstance(tx, FusedAdamW) else None
         self.grad_accum_steps = int(grad_accum_steps)
+        self.rng = rng if isinstance(rng, StepRng) else StepRng(0 if rng is None else rng)
+        self.detect_anomaly = bool(detect_anomaly)
+        if numerics is True:
+            from ..observe.numerics import NumericsProbe
+
+            numerics = NumericsProbe()
+        self.numerics = numerics or None
+        self._layout = None
+        if self.numerics is not None:
+            self._layout = probe_layout(model, tx)
+            if self.fused is None:
+                tx.track_updates = True
 
     def __call__(self, batch, lr_factor: float = 1.0) -> dict[str, torch.Tensor]:
-        n = self.grad_accum_steps
-        self.tx.zero_grad()
+        with telemetry.dispatch_span(self, "TrainStep"):
+            return self._step(batch, lr_factor)
+
+    def _shares(self, grads) -> tuple[list, list]:
+        """This rank's share of each gradient and parameter, in ``tx``'s
+        order: ``grads`` (from :func:`reduce_gradients`) and the local
+        shares, or FusedAdamW's views of its flat buffers."""
+        tx = self.tx
+        if self.fused is not None:
+            return [p.grad for p in tx.params], list(tx.params)
+        return grads, list(tx.local)
+
+    def _loss(self, mb, i: int):
+        """``loss_fn`` on micro-batch ``i``, with its key when it takes one."""
+        if self._keyed == "rng":
+            return self.loss_fn(self.model, mb, rng=self.rng.key(i))
+        if self._keyed:
+            return self.loss_fn(self.model, mb, self.rng.key(i))
+        return self.loss_fn(self.model, mb)
+
+    def _forward_backward(self, micro: list) -> tuple[list, list]:
+        """Every micro-batch's forward and backward: the losses and auxs."""
+        n = len(micro)
         losses, auxs = [], []
-        micro = _split_microbatches(batch, n) if n > 1 else [batch]
         start = [t.clone() for t in self.model_state] if self.model_state and n > 1 else None
         for i, mb in enumerate(micro):
             if start is not None and i > 0:  # every micro-batch from the step's state
                 torch._foreach_copy_(self.model_state, start)
             quiet = _is_ddp(self.model) and i < n - 1
             with self.model.no_sync() if quiet else contextlib.nullcontext():
-                loss, aux = self.loss_fn(self.model, mb)
+                loss, aux = self._loss(mb, i)
                 kept = ([t.clone() for t in self.model_state]
                         if self.model_state and self._recomputes else None)
                 loss.backward()
@@ -176,7 +259,25 @@ class TrainStep:
                 torch._foreach_copy_(self.model_state, kept)
             losses.append(loss.detach())
             auxs.append(aux)
+        return losses, auxs
+
+    def _step(self, batch, lr_factor: float) -> dict[str, torch.Tensor]:
+        n = self.grad_accum_steps
+        self.tx.zero_grad()
+        micro = _split_microbatches(batch, n) if n > 1 else [batch]
+        before = ([t.clone() for t in self.model_state]
+                  if self.model_state and self.detect_anomaly else None)
+        losses, auxs = self._forward_backward(micro)
         grads = reduce_gradients(self.tx, self.policy, self.group, n)
+        probe, layout = self.numerics, self._layout
+        shard = None if self.fused is not None else self.tx.shard
+        leaf_grads, leaf_params = self._shares(grads)
+        if probe is not None:
+            probe.inject(leaf_grads, self.rng.step, layout["names"])
+        if self.detect_anomaly:
+            self._check_finite(leaf_grads, torch.stack(losses), shard, before)
+        # the pre-update parameters' norms, for the probe
+        param_norms = leaf_norms(leaf_params) if probe is not None else None
         if self.fused is not None:
             gnorm, _ = self.fused.apply_tree(lr_factor)
         else:
@@ -188,7 +289,92 @@ class TrainStep:
             metrics[k] = torch.stack([a[k].detach().float() for a in auxs]).mean(0)
         metrics = mean_over_ranks(metrics, self.group)
         metrics["grad_norm"] = gnorm
+        if probe is not None:
+            metrics["numerics"] = probe.aux(
+                leaf_grads, param_norms=param_norms, grad_norm=gnorm, shard=shard,
+                update_norms=None if self.fused is not None else self.tx.update_norms,
+                **layout)
+        self.rng.step += 1
         return metrics
+
+    def _check_finite(self, grads: list, losses: torch.Tensor, shard, before) -> None:
+        """detect_anomaly: read the leaves' and the loss's finiteness (over
+        every rank's shares) and raise naming the non-finite ones, the
+        BatchNorm statistics put back to the step's start (nothing else has
+        changed yet)."""
+        bad = (~torch.isfinite(leaf_norms(grads, float("inf")))).float()
+        flags = torch.cat([(~torch.isfinite(losses.float())).any().float().reshape(1), bad])
+        if shard is not None:
+            all_reduce_sum_(flags, shard.group)
+        elif self.group is not None:
+            all_reduce_sum_(flags, self.group)
+        flags = flags.cpu()
+        if not flags.any():
+            return
+        if before is not None:
+            torch._foreach_copy_(self.model_state, before)
+        names = self._layout["names"] if self._layout else list(self.tx.names)
+        bad_names = (["<loss>"] if flags[0] else []) + [
+            n for n, f in zip(names, flags[1:].tolist()) if f]
+        raise FloatingPointError("detect_anomaly: non-finite values in " + ", ".join(
+            bad_names[:8]) + (" ..." if len(bad_names) > 8 else ""))
+
+    def memory_analysis(self, batch):
+        """The step's device memory at ``batch`` as an
+        ``observe.memory.MemoryStats``, measured: one forward and backward
+        of the first micro-batch (no update) between a reset of the
+        allocator's peak and a read of it. JAX compiles the step and reads
+        XLA's plan without running anything; eager torch has no such plan,
+        so this runs the step's compute once. ``argument_bytes`` is what
+        was allocated before (parameters, optimizer state, the batch),
+        ``temp_bytes`` the rise to the peak. The parameters, their
+        gradients (as they lay), the optimizer state, the BatchNorm
+        statistics and the step stream are as they were afterwards. An
+        out-of-memory error reads as a peak above the card's memory (does
+        not fit). On the CPU there is no allocator peak: None, so
+        ``tune_batch_size`` returns its ``start``. Every rank calls it under
+        a process group (the backward's collectives)."""
+        from ..observe.memory import MemoryStats, device_hbm_budget
+
+        tx = self.tx
+        dev = tx.params[0].device
+        if dev.type != "cuda":
+            return None
+        n = self.grad_accum_steps
+        mb = _split_microbatches(batch, n)[0] if n > 1 else batch
+        state = [t.clone() for t in self.model_state]
+        fused = self.fused
+        saved = fused.flat_grad.to("cpu") if fused is not None else [p.grad for p in tx.params]
+        if fused is not None:
+            fused.flat_grad.zero_()
+        else:
+            for p in tx.params:
+                p.grad = None
+        torch.cuda.synchronize(dev)
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        oom = False
+        try:
+            with self.model.no_sync() if _is_ddp(self.model) else contextlib.nullcontext():
+                loss, _ = self._loss(mb, 0)
+                loss.backward()
+                del loss
+            torch.cuda.synchronize(dev)
+        except torch.cuda.OutOfMemoryError:
+            oom = True
+        peak = torch.cuda.max_memory_allocated(dev)
+        if fused is not None:
+            fused.flat_grad.copy_(saved)
+        else:
+            for p, g in zip(tx.params, saved):
+                p.grad = g
+        if state:
+            torch._foreach_copy_(self.model_state, state)
+        if oom:
+            torch.cuda.empty_cache()
+            peak = device_hbm_budget(dev) + 1
+        return MemoryStats(argument_bytes=int(base), output_bytes=0,
+                           temp_bytes=int(peak - base), alias_bytes=0, generated_code_bytes=0)
 
 
 class EvalStep:

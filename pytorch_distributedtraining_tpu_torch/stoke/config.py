@@ -11,7 +11,11 @@ recorded only. ``convert_to_sync_batch_norm`` has nothing to convert: the
 port's BatchNorm (``parallel.sync_bn.BatchNorm``) is synchronous over the
 data group whenever there is one, as JAX's always is (its ``jit`` sees the
 global batch). JAX's ``TPUConfig`` has no twin yet: its knobs that matter
-on a GPU come with the CUDA-graph step slice.
+on a GPU come with the CUDA-graph step slice. Its telemetry and numerics
+fields are the facade's constructor arguments here, resolved against
+their env twins by ``observe.trace.telemetry_from_env`` and
+``observe.numerics.numerics_from_env`` (JAX's ``_telemetry_from_env`` and
+``_numerics_from_env``).
 """
 
 from __future__ import annotations

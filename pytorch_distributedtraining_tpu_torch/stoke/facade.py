@@ -47,6 +47,25 @@ eval metrics are averaged over ranks; prints come from rank 0 by default,
 as Stoke's; :meth:`save` gathers the sharded state and writes on rank 0
 alone, in the layout of a one-rank run.
 
+Telemetry and numerics (JAX ``facade.py:231-243``, ``:179-200``,
+``:610-635``, ``:1730-1750``): ``telemetry=``/``trace_dir=`` (env twins
+``GRAFT_TELEMETRY``/``GRAFT_TRACE``) turn the span tracer on at
+construction, with spans around the facade's forward, backward and
+optimizer step (the first of each billed as ``compile``) and the loader's
+input waits, and :meth:`export_trace` writes under ``trace_dir``.
+``numerics=``/``numerics_action=`` (``GRAFT_NUMERICS``/
+``GRAFT_NUMERICS_ACTION``) build an ``observe.numerics.NumericsProbe`` and
+``NumericsWatchdog``; every ``GRAFT_NUMERICS_EVERY``-th optimizer step
+(default 1) takes the probe's aux of that step's gradients and decodes it
+(:attr:`numerics_summary`): a ``halt`` verdict raises
+``NumericsDivergence`` out of :meth:`step`, ``rollback`` and ``degrade``
+verdicts stay on ``numerics_watchdog.tripped`` for the training loop.
+``GRAFT_NUMERICS_INJECT`` poisons its leaf at its optimizer step (0-based)
+before the update. Dropout follows JAX's facade: the forward passes
+``train=`` only to a model whose ``forward`` takes it, and nothing turns a
+model's ``deterministic`` off, so GPT-2's and ViT's dropout stay off here
+as they do there.
+
 The optimizer follows the JAX facade's rule (``facade.py:889-930`` there):
 AdamW on a layout where a flat update fits (DDP, or ZeRO-1/OSS:
 ``fairscale_oss`` without ``fairscale_sddp`` or ``fairscale_fsdp``) runs as
@@ -57,6 +76,7 @@ the per-leaf chain, and ``fused_optimizer=True`` on one of them raises.
 from __future__ import annotations
 
 import functools
+import inspect
 import os
 import weakref
 from typing import Callable
@@ -69,6 +89,8 @@ from .. import optim as optim_mod
 from ..data import DataLoader as _DataLoader
 from ..parallel.policy import policy_from_flags
 from ..parallel.spec import all_reduce_sum_, is_dtensor, shard_axis
+from ..observe import trace as _telemetry
+from ..observe import numerics as _numerics
 from ..parallel.state import TrainState, create_train_state, load_module_state
 from ..parallel.step import mean_over_ranks, reduce_gradients
 from ..precision import DynamicLossScaler, Policy
@@ -109,6 +131,10 @@ class Stoke:
         *,
         device: str | torch.device = "cuda",
         mesh=None,
+        telemetry: bool = False,
+        trace_dir: str | None = None,
+        numerics: bool = False,
+        numerics_action: str = "halt",
     ):
         distributed = distributed.value if isinstance(distributed, DistributedOptions) else distributed
         if distributed not in (None, "ddp"):
@@ -181,6 +207,7 @@ class Stoke:
                                    find_unused_parameters=ddp_config.find_unused_parameters)
         self._state = state
         self._module, self._wrapped, self._opt = state.module, state.model, state.tx
+        self._accepts_train = "train" in inspect.signature(self._module.forward).parameters
         oss_config = self._find_config(FairscaleOSSConfig) or FairscaleOSSConfig()
         if (oss_config.broadcast_fp16 and self.policy.shard_opt_state
                 and shard_axis(mesh) is not None):
@@ -188,6 +215,23 @@ class Stoke:
             # sharded update fans out to every rank in bf16
             self._opt.update_wire_dtype = torch.bfloat16
         self._opt_handle = optim_mod.OptimizerHandle(base_lr)
+
+        # span telemetry (env > arguments); export_trace() writes the trace
+        self.telemetry, self.trace_dir = _telemetry.telemetry_from_env(telemetry, trace_dir)
+        if self.telemetry:
+            _telemetry.enable()
+        # the numerics plane (env > arguments): the probe's aux of a step's
+        # gradients, decoded at the GRAFT_NUMERICS_EVERY cadence
+        numerics_on, action = _numerics.numerics_from_env(numerics, numerics_action)
+        self.numerics_probe = self.numerics_watchdog = self.numerics_summary = None
+        if numerics_on:
+            self.numerics_probe = _numerics.NumericsProbe()
+            self.numerics_watchdog = _numerics.NumericsWatchdog(action=action)
+            self._numerics_layout = _numerics.probe_layout(self._module, self._opt)
+            if not isinstance(self._opt, optim_mod.FusedAdamW):
+                self._opt.track_updates = True
+        self._numerics_every = max(1, int(os.environ.get("GRAFT_NUMERICS_EVERY", "1") or 1))
+        self._last_loss = None
 
         self._backward_count = 0
         self._step_count = 0
@@ -227,8 +271,9 @@ class Stoke:
             last = (self._backward_count + 1) % self.grad_accum_steps == 0
             self._wrapped.require_backward_grad_sync = last
         grad = torch.enable_grad() if training else torch.no_grad()
-        with grad, self._autocast():
-            out = self._wrapped(x)
+        kw = {"train": training} if self._accepts_train else {}
+        with _telemetry.bucket_dispatch_span(self, "Stoke.model", None), grad, self._autocast():
+            out = self._wrapped(x, **kw)
         return out.float()
 
     def loss(self, outputs, targets):
@@ -243,7 +288,8 @@ class Stoke:
         scaled = loss / self.grad_accum_steps
         if self.loss_scaler is not None:
             scaled = self.loss_scaler.scale_loss(scaled)
-        scaled.backward()
+        with _telemetry.bucket_dispatch_span(self, "Stoke.backward", None):
+            scaled.backward()
         self._backward_count += 1
         return loss
 
@@ -260,24 +306,63 @@ class Stoke:
         host-side scale costs one read of the finite flag a step."""
         if self._backward_count == 0 or self._backward_count % self.grad_accum_steps:
             return
-        # the global batch's gradient (backward already divided by accum)
-        grads = reduce_gradients(self._opt, self.policy, self._group)
-        if isinstance(self._opt, optim_mod.FusedAdamW):
-            # the flag gates the update on the device; the host reads it after
-            _, finite = self._opt.apply_tree(self._opt_handle.lr, scaler=self.loss_scaler)
-            if finite is not None:
-                self.loss_scaler.update(bool(finite))
-        else:
-            finite = True
-            if self.loss_scaler is not None:
-                grads = self.loss_scaler.unscale(grads)
-                finite = self._all_ranks(self.loss_scaler.grads_finite(grads))
-                self.loss_scaler.update(finite)
-            if finite:
-                self._opt.step(grads, lr=self._opt_handle.lr)
+        with _telemetry.bucket_dispatch_span(self, "Stoke.step", None):
+            aux = self._update()
         self._opt.zero_grad()
         self._backward_count = 0
         self._step_count += 1
+        if aux is not None:
+            self._observe_numerics(aux)
+
+    def _update(self) -> dict | None:
+        """The optimizer update of one step; the numerics probe's aux on a
+        step it decodes, else None."""
+        fused = isinstance(self._opt, optim_mod.FusedAdamW)
+        # the global batch's gradient (backward already divided by accum)
+        grads = reduce_gradients(self._opt, self.policy, self._group)
+        probe = self.numerics_probe
+        observe = probe is not None and (self._step_count + 1) % self._numerics_every == 0
+        if fused:
+            # the flag gates the update on the device; the host reads it after
+            leaf_grads = [p.grad for p in self._opt.params]
+            if probe is not None:
+                probe.inject(leaf_grads, self._step_count, self._numerics_layout["names"])
+            pnorm = _numerics.leaf_norms(self._opt.params) if observe else None
+            gnorm, finite = self._opt.apply_tree(self._opt_handle.lr, scaler=self.loss_scaler)
+            if finite is not None:
+                self.loss_scaler.update(bool(finite))
+            shard, unorms = None, None
+        else:
+            finite, gnorm = True, None
+            if self.loss_scaler is not None:
+                grads = self.loss_scaler.unscale(grads)
+            if probe is not None:
+                probe.inject(grads, self._step_count, self._numerics_layout["names"])
+            if self.loss_scaler is not None:
+                finite = self._all_ranks(self.loss_scaler.grads_finite(grads))
+                self.loss_scaler.update(finite)
+            pnorm = _numerics.leaf_norms(self._opt.local) if observe else None
+            self._opt.update_norms = None
+            if finite:
+                gnorm = self._opt.step(grads, lr=self._opt_handle.lr)
+            leaf_grads, shard, unorms = grads, self._opt.shard, self._opt.update_norms
+        if not observe:
+            return None
+        if gnorm is None:
+            gnorm = self._opt.norm(grads)
+        return probe.aux(leaf_grads, param_norms=pnorm, update_norms=unorms, grad_norm=gnorm,
+                         shard=shard, **self._numerics_layout)
+
+    def _observe_numerics(self, aux: dict) -> None:
+        """Decode a step's numerics aux and feed the watchdog; a ``halt``
+        verdict raises ``NumericsDivergence`` (JAX ``_observe_numerics``).
+        ``rollback``/``degrade`` verdicts stay on ``numerics_watchdog.
+        tripped``: the facade has no checkpoint manager to roll back through."""
+        self.numerics_summary = summary = self.numerics_probe.observe(
+            aux, step=self._step_count, loss=self._last_loss, watchdog=self.numerics_watchdog)
+        verdict = summary.get("verdict")
+        if verdict is not None and verdict.get("action") == "halt":
+            self.numerics_watchdog.apply_action(verdict)
 
     def _all_ranks(self, flag: bool) -> bool:
         """``flag`` on every rank (one all-reduce with a group): a shard's
@@ -323,6 +408,7 @@ class Stoke:
     @torch.no_grad()
     def _note_loss(self, loss) -> None:
         val = loss.detach().float().mean()
+        self._last_loss = val
         self._ema = val if self._ema is None else 0.98 * self._ema + 0.02 * val
 
     def _ema_value(self) -> float:
@@ -586,14 +672,14 @@ class Stoke:
 
     def export_trace(self, path: str | None = None) -> str | None:
         """Write the recorded telemetry spans (``observe.trace``) as Chrome
-        trace-event JSON to ``path``, else to ``telemetry-<pid>.trace.json``
-        under the run dir; returns the path, or None when telemetry was
-        never enabled (nothing to export is not an error)."""
-        from ..observe import trace
-
-        if not trace.enabled() and not trace.records():
+        trace-event JSON. Destination: ``path``, else ``trace_dir`` (from
+        the constructor or ``GRAFT_TRACE``; a ``.json`` path is the file
+        itself), else the run dir, as ``telemetry-<pid>.trace.json``.
+        Returns the path, or None when telemetry was never enabled (nothing
+        to export is not an error)."""
+        if not _telemetry.enabled() and not _telemetry.records():
             return None
-        return trace.export_chrome_trace(path)
+        return _telemetry.export_chrome_trace(path or _telemetry.trace_path(self.trace_dir))
 
     def _prints(self, rank) -> bool:
         return rank is None or self.rank in (rank if isinstance(rank, (list, tuple)) else [rank])

@@ -93,6 +93,18 @@ def test_ladder_lm_rung_runs_tiny_on_cpu(capsys):
     assert r["value"] <= r["roofline"] and math.isfinite(r["loss"])
 
 
+def test_gpt2_options_sweep_runs_tiny_on_cpu(capsys):
+    """The per-option GPT-2 sweep at ``GPT2Config.tiny`` on the CPU: one
+    JSON line a row, the base first and last, each with a finite loss."""
+    from pytorch_distributedtraining_tpu_torch.benchmarks import gpt2_options
+
+    assert gpt2_options.main(["--tiny", "--device", "cpu", "--steps", "1", "--warmup", "1"]) == 0
+    rows = [json.loads(line) for line in capsys.readouterr().out.strip().splitlines()]
+    assert [r["options"] for r in rows] == [name for name, _ in gpt2_options.ROWS]
+    assert all(math.isfinite(r["loss"]) and r["step_ms"] > 0 for r in rows)
+    assert rows[0]["loss"] == rows[-1]["loss"]  # the same seed, the same run
+
+
 @pytest.mark.parametrize("config,name,policy,optimizer", [
     (1, "1_resnet18_cifar10_single", "none", "FusedAdamW"),
     (2, "2_resnet50_ddp", "ddp", "FusedAdamW"),

@@ -377,3 +377,32 @@ def espcn_driver_worker(rank: int, world: int, *, argv: list, ckpts: list) -> li
     from pytorch_distributedtraining_tpu_torch.drivers import fairscale_ddp
 
     return [fairscale_ddp.main(argv + (["--ckpt", c] if c else [])) for c in ckpts]
+
+
+def numerics_worker(rank: int, world: int, *, runs: list[dict], batches: list,
+                    inject: str | None = None) -> list[list[dict]]:
+    """For each run (``policy``: none, zero2, zero3) a toy SwinIR through
+    ``TrainStep(numerics=NumericsProbe(inject=...))`` with the per-leaf
+    AdamW: each step's probe summary, decoded on this rank (rank r takes
+    rows ``r::world`` of each global batch)."""
+    from pytorch_distributedtraining_tpu_torch import parallel
+    from pytorch_distributedtraining_tpu_torch.observe import numerics
+    from pytorch_distributedtraining_tpu_torch.runtime.mesh import MeshSpec, make_mesh
+
+    out = []
+    for run in runs:
+        policy = run["policy"]
+        pol = getattr(parallel, POLICIES[policy])() if POLICIES[policy] else None
+        mesh = make_mesh(MeshSpec.zero()) if pol is not None else None
+        st = parallel.create_train_state(toy_swinir(), make_tx("adamw", lr=1e-3,
+                                                               clip_grad_norm=0.1),
+                                         mesh, pol, device="cpu")
+        probe = numerics.NumericsProbe(inject=inject or "")
+        step = parallel.TrainStep(st.model, mse_loss_fn, st.tx, mesh, pol, rng=st.rng,
+                                  numerics=probe)
+        summaries = []
+        for x, y in batches:
+            m = step((torch.from_numpy(x[rank::world]), torch.from_numpy(y[rank::world])))
+            summaries.append(probe.observe(m["numerics"], step=step.rng.step, loss=m["loss"]))
+        out.append(summaries)
+    return out

@@ -17,7 +17,9 @@ Also here: a torchvision ``vit_b_16``-named state dict (synthesized as
 the JAX interop test does, with ``nn.MultiheadAttention``'s packed
 ``in_proj_weight``) loads strictly into the port and, through JAX's
 ``VIT_KEY_MAP``, into the JAX model with the same logits; per-block remat
-gives the same numbers; the options that wait for later slices raise.
+gives the same numbers; dropout with JAX's captured masks gives JAX's
+numbers at the f32 tolerances; the options that wait for later slices
+raise.
 """
 
 import jax
@@ -139,8 +141,49 @@ def test_per_block_remat_gives_the_same_numbers(remat):
 
 @pytest.mark.parametrize("kw,match", [(dict(scan_layers=True), "scan-over-layers slice"),
                                       (dict(fp8="e4m3"), "fp8 matmul slice"),
-                                      (dict(dropout=0.1), "dropout slice"),
-                                      (dict(remat="names"), "named-activation")])
+                                      pytest.param(dict(remat="names"), "named-activation",
+                                                   id="kw3-named-activation")])
 def test_options_of_later_slices_raise(kw, match):
     with pytest.raises(NotImplementedError, match=match):
         tvit.ViT(tvit.ViTConfig.tiny(**kw))
+
+
+@pytest.mark.parametrize("remat", [False, "full"])
+def test_dropout_with_jax_masks_matches_jax(remat):
+    """Dropout 0.1 with JAX's own masks (captured in call order: the
+    embedding, then each block's c_proj and mlp_proj, the port's sites 0,
+    1 + 2i, 2 + 2i) fed to the port: the f32 tolerances above; the same
+    with per-block remat on both sides."""
+    from test_torch_gpt2 import ReplayMasks, capture_jax_masks
+
+    jcfg = jvit.ViTConfig.tiny(dropout=0.1, remat=remat)
+    jm = jvit.ViT(jcfg)
+    params = jax_params(jm, jcfg)
+    x = images(jcfg)
+    key = jax.random.PRNGKey(3)
+
+    def f(model):
+        def loss(p):
+            out = model.apply({"params": p}, x, deterministic=False, rngs={"dropout": key})
+            return jnp.mean(out ** 2), out
+        return loss
+
+    plain = jvit.ViT(jvit.ViTConfig.tiny(dropout=0.1))  # flax's remat traces: masks from here
+    _, masks = capture_jax_masks(lambda: plain.apply({"params": params}, x, deterministic=False,
+                                                     rngs={"dropout": key}))
+    (_, want), grads = jax.value_and_grad(f(jm), has_aux=True)(params)
+    assert len(masks) == 1 + 2 * jcfg.num_layers
+    tm = tvit.ViT(tvit.ViTConfig.tiny(dropout=0.1, remat=remat))
+    tm.load_state_dict(vit_state_dict_from_jax(params), strict=True)
+    source = ReplayMasks(masks)
+    got = tm(torch.from_numpy(x), deterministic=False, generator=source)
+    got.square().mean().backward()
+    assert sorted(set(source.sites)) == list(range(len(masks)))
+    close_rel(got.detach(), want, 1e-5)
+    want_g = vit_state_dict_from_jax(jax.device_get(grads))
+    scale = max(float(g.abs().max()) for g in want_g.values())
+    for name, p in tm.named_parameters():
+        np.testing.assert_allclose(p.grad.numpy(), want_g[name].numpy(), rtol=0,
+                                   atol=1e-4 * scale, err_msg=name)
+    with torch.no_grad():  # deterministic (the default): JAX's deterministic logits
+        close_rel(tm(torch.from_numpy(x)), jm.apply({"params": params}, x), 1e-5)
