@@ -205,9 +205,36 @@ Phases, each fatal on failure:
    and K1/K2 held against their plain versions at every probed batch
    (``window_shape_checks``), beside the card's name and power limit.
    After it, ``mfu_lines`` prints the MFU of phases 6, 7, 8, 13's ViT and
-   16(a) by ``observe.goodput``.
+   16(a) by ``observe.goodput``;
+17. observe part 2, in a process group of one over NCCL: (a) the driver's
+   facade (``build_model``/``build_stoke`` with DDP flags: SwinIR-S,
+   ``FusedAdamW``, ``feat_loss``, f32, batch 18 at LR 64, accum 2) with
+   ``GRAFT_OPCOST=1``, ``GRAFT_CAPTURE`` (a build directory) and the
+   numerics plane on, ``DRILL_LEAF`` poisoned at step ``CAPTURE_INJECT_AT``
+   (``GRAFT_NUMERICS_INJECT``, action ``rollback``): the armed capture must
+   fire once, from the ``numerics`` source, and its ingested op table must
+   hold ``window_attn_fwd_kernel`` and ``window_attn_bwd_kernel`` at 48
+   launches each per optimizer step it covers (``table_launches``), with
+   ``opcost.runtime_stats["tables_built"]`` grown and one all-reduce record
+   of the flat gradient a step (its bandwidth at one rank: not measured),
+   and those launches must be what the wrappers counted over the captured
+   steps, with no launch in the capture lacking its device record
+   (``lost_launches``; a lossy capture is not retaken); the same steps
+   under a raw ``torch.profiler`` session, without the guard's warm-up,
+   print how many launches such a session loses in this process; the µs
+   of an idle armed ``poll()`` over ``IDLE_POLLS`` calls and its share of
+   an untraced step; (b) GPT-2 125M bf16 under ``ZeRO3`` (FSDP2, no
+   remat) through ``observe.profiler_trace`` over ``GPT2_TRACED_STEPS``
+   steps, with a second ``profiler_trace`` inside it that must be a no-op
+   with a warning: ``opcost.ingest_trace`` must count K3, K4 and K5 at 12
+   launches a step, the trace must lose no device record, and the
+   inventory must list one all-gather record for each all-gather FSDP2 issued (``fsdp_all_gathers``; FSDP2 skips its
+   collectives at one rank on torch 2.13), and reduce-scatter records if it
+   issued any, and ``calibrate`` prints its ``mfu_flops`` row
+   (``observe.goodput``'s analytic FLOPs at the H100's peak against the
+   trace's compute seconds a step), beside the card's name and power limit.
 
-Phases 5-9, 11, 12 and 14-16 note the shape, dtype and mask (or causality) of
+Phases 5-9, 11, 12 and 14-17 note the shape, dtype and mask (or causality) of
 every launch; the run fails if one of them was not held against the plain
 version in phase 3 or 4 (phase 3 holds phase 14's tile batch, q/k/v [144,
 6, 64, 30], in f32 and bf16 with and without the mask) or, for phase 16's
@@ -1027,32 +1054,21 @@ def gated_step_faults(before: dict, after: dict) -> list[str]:
 
 
 def traced_call(fn) -> dict:
-    """One call of ``fn`` under ``torch.profiler``: its device activities
-    (kernels, copies, sets), the device's busy ms, the NCCL kernels among
-    them (names beginning ``nccl``), the host's ms in blocking CUDA calls
-    and the device ms by kernel family."""
-    import torch
+    """One call of ``fn`` under the port's guarded profiler
+    (``observe.profiling.profile_call``): its device activities (kernels,
+    copies, sets), the device's busy ms, the NCCL kernels among them (names
+    beginning ``nccl``), the host's ms in blocking CUDA calls and the device
+    ms by kernel family (``observe.opcost.device_breakdown``)."""
+    from pytorch_distributedtraining_tpu_torch.observe import opcost, profiling
 
-    from pytorch_distributedtraining_tpu_torch.benchmarks.profile_swinir import device_breakdown
-
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    (ROOT / "build").mkdir(exist_ok=True)
     # CUPTI now and then hands back a trace with no device activity at all;
     # such a capture is retaken (up to twice), never read as zero work
     for attempt in range(3):
-        with torch.profiler.profile(activities=acts) as prof:
-            fn()
-            torch.cuda.synchronize()
-        with tempfile.TemporaryDirectory(dir=ROOT / "build") as d:
-            path = os.path.join(d, "trace.json")
-            prof.export_chrome_trace(path)
-            with open(path) as f:
-                events = json.load(f)["traceEvents"]
-            if attempt < 2 and not any(e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")
-                                       for e in events):
-                print(f"[trace] capture {attempt + 1} held no device activity; retaken")
-                continue
-            r = device_breakdown(path)
+        _, events = profiling.profile_call(fn)
+        if attempt < 2 and not any(e.get("cat") in opcost.DEVICE_CATS for e in events):
+            print(f"[trace] capture {attempt + 1} held no device activity; retaken")
+            continue
+        r = opcost.device_breakdown(events)
         break
     nccl = sum(1 for e in events
                if e.get("cat") == "kernel" and e.get("name", "").lower().startswith("nccl"))
@@ -2579,6 +2595,284 @@ def phase_health(smi: str, lm: dict) -> dict:
     return out
 
 
+# phase 17: observe part 2. (a) the flagship facade under DDP over NCCL at
+# world 1 with the capture armed, tripped by a poisoned gradient at optimizer
+# step CAPTURE_INJECT_AT (0-based): the numerics plane sees it on the next
+# step, the capture then traces the armed profiler's default window of three
+# optimizer steps (it lands after step 5 of at most CAPTURE_MAX_STEPS);
+# IDLE_POLLS polls of an armed, idle profiler.
+# (b) GPT-2 125M bf16 under ZeRO3 (no remat), GPT2_TRACED_STEPS traced steps.
+CAPTURE_INJECT_AT, CAPTURE_MAX_STEPS, IDLE_POLLS = 1, 8, 10_000
+GPT2_TRACED_STEPS, OPCOST_TOP = 3, 40
+WINDOW_KERNELS = {"K1": "window_attn_fwd_kernel", "K2": "window_attn_bwd_kernel"}
+FLASH_KERNELS = {"K3": "flash_attn_fwd_kernel", "K4": "flash_attn_dq_kernel",
+                 "K5": "flash_attn_dkv_kernel"}
+
+
+def table_launches(table: dict, kernels: dict) -> dict:
+    """``{id: events}`` of the op table's compute row for each kernel
+    (``observe.opcost.op_table`` groups a kernel's template instantiations
+    under its name); 0 for a kernel with no row."""
+    rows = {r["op"]: r["events"] for r in table["ops"] if r["class"] == "compute"}
+    return {k: rows.get(name, 0) for k, name in kernels.items()}
+
+
+def wire_counts(wires) -> dict:
+    """``{kind: records}`` of a collective inventory (``observe.comms``)."""
+    out: dict = {}
+    for w in wires:
+        out[w.kind] = out.get(w.kind, 0) + 1
+    return out
+
+
+def fsdp_all_gathers(events) -> int:
+    """The all-gathers FSDP2 issued in a trace: its ``FSDP::all_gather (<module>)``
+    annotations (FSDP2 skips the collective, annotation and all, at one rank
+    on torch 2.13)."""
+    return sum(1 for e in events if e.get("cat") == "user_annotation"
+               and str(e.get("name", "")).split(" (")[0] == "FSDP::all_gather")
+
+
+LAUNCH_CALLS = ("Launch", "Memcpy", "Memset")
+
+
+def lost_launches(events) -> list:
+    """The correlation ids of a trace's CUDA launch, copy and set calls
+    (``cuda_runtime``/``cuda_driver`` events) whose device activity is not
+    in it: the device records the profiler lost."""
+    devices = {e.get("args", {}).get("correlation") for e in events
+               if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")}
+    return [e["args"]["correlation"] for e in events
+            if e.get("cat") in ("cuda_runtime", "cuda_driver")
+            and any(k in e.get("name", "") for k in LAUNCH_CALLS)
+            and "correlation" in e.get("args", {}) and e["args"]["correlation"] not in devices]
+
+
+def launch_faults(launches: dict, per_step: int, steps: int) -> list[str]:
+    """The kernels whose launches over ``steps`` steps are not ``per_step``
+    a step."""
+    return [f"{k}: {n} launches over {steps} steps, expected {per_step} a step"
+            for k, n in launches.items() if n != per_step * steps]
+
+
+def phase_observe(smi: str) -> dict:
+    """Phase 17: observe part 2 (module docstring)."""
+    import warnings
+
+    import torch
+
+    from pytorch_distributedtraining_tpu_torch.benchmarks import ladder
+    from pytorch_distributedtraining_tpu_torch.benchmarks.profile_swinir import make_batches
+    from pytorch_distributedtraining_tpu_torch.drivers import stoke_ddp
+    from pytorch_distributedtraining_tpu_torch.models import GPT2Config
+    from pytorch_distributedtraining_tpu_torch.observe import (capture, goodput, numerics, opcost,
+                                                               profiling)
+    from pytorch_distributedtraining_tpu_torch.ops import window_attn as twa
+    from pytorch_distributedtraining_tpu_torch.runtime import dist
+    from pytorch_distributedtraining_tpu_torch.runtime.mesh import mesh_shape
+
+    t_phase = time.perf_counter()
+    kind = torch.cuda.get_device_name(0)
+    out = {}
+    (ROOT / "build").mkdir(exist_ok=True)
+    env = {"GRAFT_OPCOST": "1", "GRAFT_NUMERICS": "1", "GRAFT_NUMERICS_ACTION": "rollback",
+           "GRAFT_NUMERICS_INJECT": f"{DRILL_LEAF}@{CAPTURE_INJECT_AT}"}
+    os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(dist.find_free_port()),
+                      RANK="0", WORLD_SIZE="1", LOCAL_RANK="0")
+    dist.initialize()
+    try:
+        if dist.backend() != "nccl":
+            raise SystemExit(f"the group came up on {dist.backend()}, not NCCL")
+        with tempfile.TemporaryDirectory(dir=ROOT / "build") as cap_root:
+            # (a) the flagship path: the facade under DDP, tripped by numerics
+            os.environ.update(env, GRAFT_CAPTURE=cap_root)
+            try:
+                capture.reset()
+                numerics.reset()
+                tables0 = opcost.runtime_stats["tables_built"]
+                s = stoke_ddp.build_stoke(stoke_ddp.build_model(), batch_size=BATCH,
+                                          verbose=False, oss=False, sddp=False)
+            finally:
+                for k in (*env, "GRAFT_CAPTURE"):
+                    os.environ.pop(k, None)
+            batches = make_batches("cuda")
+            times, fired, landed, window0, counted = [], None, None, None, None
+            while landed is None and len(times) < CAPTURE_MAX_STEPS:
+                t0 = time.perf_counter()
+                for x, y in batches:
+                    s.backward(s.loss(s.model(x), y))
+                    s.step()
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+                now = {"K1": twa.fwd_launches, "K2": twa.bwd_launches}
+                if fired is None and s.capture.capturing is not None:
+                    fired, window0 = len(times), now
+                elif fired is not None and s.capture.capturing is None:
+                    landed = len(times)
+                    counted = {k: v - window0[k] for k, v in now.items()}
+            summary, result = s.capture.summary(), s.opcost_result
+            lost = (len(lost_launches(opcost.load_trace_events(summary["capture_dirs"][-1])[0]))
+                    if summary["capture_dirs"] else None)
+            # the same steps under a raw torch.profiler session, without the
+            # guard's warm-up: what it loses is the fault the warm-up absorbs
+            raw = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                     torch.profiler.ProfilerActivity.CUDA])
+            with raw:
+                for _ in range(s.capture.capture_steps):
+                    for x, y in batches:
+                        s.backward(s.loss(s.model(x), y))
+                        s.step()
+                torch.cuda.synchronize()
+            raw.export_chrome_trace(os.path.join(cap_root, "raw.json"))
+            raw_lost = len(lost_launches(opcost.read_trace(os.path.join(cap_root, "raw.json"))))
+            for _ in range(2):  # untraced steps after the capture, for its cost
+                t0 = time.perf_counter()
+                for x, y in batches:
+                    s.backward(s.loss(s.model(x), y))
+                    s.step()
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+            step_ms = statistics.median(times[-2:])
+            grad_elems = s._opt.flat_grad.numel()
+            idle = capture.OnDemandProfiler(trace_dir=os.path.join(cap_root, "idle")).arm()
+            t0 = time.perf_counter()
+            for _ in range(IDLE_POLLS):
+                idle.poll()
+            poll_us = (time.perf_counter() - t0) / IDLE_POLLS * 1e6
+            del s
+        torch.cuda.empty_cache()
+        if landed is None or result is None:
+            raise SystemExit(f"phase 17 (a): no capture landed an op table in "
+                             f"{CAPTURE_MAX_STEPS} steps (fired after step {fired}, landed "
+                             f"after step {landed}; capture {summary}, tables built "
+                             f"{opcost.runtime_stats['tables_built'] - tables0})")
+        table = result["table"]
+        launches = table_launches(table, WINDOW_KERNELS)
+        reduces = [w for w in result["wires"] if w.kind == "all-reduce"]
+        grad_reduces = [w for w in reduces if w.elems == grad_elems]
+        band = result["bandwidth"] or {}
+        rates = {ax: ("not measured (no NCCL kernel ran: a one-rank collective is a copy)"
+                      if row["bytes_per_s"] is None else f"{row['bytes_per_s']:.4g} B/s")
+                 for ax, row in band.items()}
+        top_rows = [(r["op"][:60], r["class"], r["events"], round(r["s"] * 1e3, 3))
+                    for r in table["ops"][:8]]
+        print(f"[observe] (a) SwinIR-S facade, DDP + FusedAdamW over NCCL world 1, f32, batch "
+              f"{BATCH} LR {LR_SIZE} accum 2, feat_loss, GRAFT_OPCOST=1 GRAFT_CAPTURE=<build "
+              f"dir>, GRAFT_NUMERICS_INJECT={DRILL_LEAF}@{CAPTURE_INJECT_AT} (rollback): capture "
+              f"source {summary['last_trigger'] and summary['last_trigger']['source']}, fired "
+              f"after step {fired}, landed after step {landed}, dir "
+              f"{summary['capture_dirs']}, tables built "
+              f"{opcost.runtime_stats['tables_built'] - tables0}; op table: total "
+              f"{table['total_s'] * 1e3:.2f} ms over {result['steps']} steps, classes "
+              f"{ {k: round(v['seconds'] * 1e3, 3) for k, v in table['classes'].items()} } ms, "
+              f"top rows (op, class, launches, ms) {top_rows}; K1/K2 launches {launches} "
+              f"({launches['K1'] / result['steps']:g} and {launches['K2'] / result['steps']:g} "
+              f"a step; the wrappers counted {counted}); launches without their device record: "
+              f"{lost} in the capture, {raw_lost} in a raw torch.profiler session of as many "
+              f"steps; collectives "
+              f"{wire_counts(result['wires'])}: {len(grad_reduces)} all-reduce records of the "
+              f"flat gradient ({grad_elems} f32 elements, {4 * grad_elems} B a step) among "
+              f"{len(reduces)}, bandwidth {rates}; untraced step {step_ms:.2f} ms; an armed "
+              f"idle poll {poll_us:.3f} us ({poll_us / (step_ms * 1e3):.2e} of the step) | {smi}")
+        faults = launch_faults(launches, 2 * 24, result["steps"])
+        if counted != launches or lost != 0:
+            faults.append(f"the capture lost device records: the table's launches {launches} "
+                          f"are not the wrappers' {counted} over the captured steps, or "
+                          f"{lost} launches have none")
+        if summary["captures"] != 1 or summary["last_trigger"]["source"] != "numerics":
+            faults.append(f"capture {summary}: expected one, by the numerics plane")
+        if opcost.runtime_stats["tables_built"] != tables0 + 1:
+            faults.append("opcost.runtime_stats['tables_built'] did not grow by the capture's "
+                          "table")
+        if len(grad_reduces) != result["steps"]:
+            faults.append(f"{len(grad_reduces)} all-reduces of the {grad_elems}-element "
+                          f"gradient over {result['steps']} steps: {reduces}")
+        if any(row["bytes_per_s"] == 0 for row in band.values()):
+            faults.append(f"a bandwidth of 0 B/s: {band}")
+        if faults:
+            raise SystemExit("phase 17 (a): " + "; ".join(faults))
+        out["capture"] = {"launches": launches, "poll_us": poll_us, "step_ms": step_ms,
+                          "grad_bytes": 4 * grad_elems, "bandwidth": band}
+
+        # (b) GPT-2 125M under ZeRO3 through profiler_trace
+        cfg = GPT2Config.gpt2_125m()
+        model, step, tokens = ladder.build_lm(cfg, LM_BATCH, LM_SEQ, torch.device("cuda"),
+                                              policy="zero3")
+        step(tokens)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(GPT2_TRACED_STEPS):
+            step(tokens)
+        torch.cuda.synchronize()
+        untraced_ms = (time.perf_counter() - t0) / GPT2_TRACED_STEPS * 1e3
+        with tempfile.TemporaryDirectory(dir=ROOT / "build") as logdir:
+            second = os.path.join(logdir, "second")
+            with profiling.trace(os.path.join(logdir, "run")):
+                with warnings.catch_warnings(record=True) as caught:
+                    warnings.simplefilter("always")
+                    with profiling.trace(second):
+                        pass
+                for _ in range(GPT2_TRACED_STEPS):
+                    step(tokens)
+            reentrant = [str(w.message) for w in caught if w.category is RuntimeWarning]
+            second_made = os.path.exists(second)
+            events, _ = opcost.load_trace_events(os.path.join(logdir, "run"))
+            fsdp_gathers = fsdp_all_gathers(events)
+            lost_b = len(lost_launches(events))
+            opcost_ok = True
+            try:
+                res = opcost.ingest_trace(os.path.join(logdir, "run"),
+                                          mesh_axes=mesh_shape(step.mesh),
+                                          steps=GPT2_TRACED_STEPS, top=OPCOST_TOP,
+                                          device="cuda")
+            except RuntimeError as e:
+                opcost_ok, res = str(e), None
+        if res is None:
+            raise SystemExit(f"phase 17 (b): no op table from the GPT-2 trace ({opcost_ok})")
+        flash = table_launches(res["table"], FLASH_KERNELS)
+        gpt2_counts = wire_counts(res["wires"])
+        flops = goodput.gpt2_train_flops(cfg, LM_BATCH, seq=LM_SEQ)
+        compute_s = res["table"]["classes"]["compute"]["seconds"] / GPT2_TRACED_STEPS
+        calib = opcost.calibrate({"mfu_flops": {
+            "analytic": flops / goodput.peak_flops("gpu", kind), "measured": compute_s,
+            "unit": "s"}})
+        ag = [w for w in res["wires"] if w.kind == "all-gather"]
+        rs = [w for w in res["wires"] if w.kind == "reduce-scatter"]
+        print(f"[observe] (b) GPT-2 125M bf16 ZeRO3 (FSDP2) at NCCL world 1, batch {LM_BATCH} x "
+              f"seq {LM_SEQ}, profiler_trace over {GPT2_TRACED_STEPS} steps: K3/K4/K5 launches "
+              f"{flash} ({', '.join(f'{k} {n / GPT2_TRACED_STEPS:g}' for k, n in flash.items())}"
+              f" a step; {lost_b} launches without their device record); FSDP2's all-gathers (its FSDP::all_gather annotations) "
+              f"{fsdp_gathers}; collective records {gpt2_counts} (all-gather elements "
+              f"{sum(w.elems for w in ag)}, reduce-scatter input elements "
+              f"{sum(w.in_elems for w in rs)}, dtypes {sorted({w.dtype for w in ag + rs})}); "
+              f"op classes {({k: round(v['seconds'] * 1e3, 3) for k, v in res['table']['classes'].items()})} "
+              f"ms; a second profiler_trace inside: no-op {not second_made}, warning "
+              f"{reentrant}; calibrate mfu_flops {calib.get('mfu_flops')} (analytic "
+              f"{flops:.4g} FLOP over {goodput.peak_flops('gpu', kind):.4g} FLOP/s; measured: "
+              f"compute seconds a step of the trace; untraced step {untraced_ms:.2f} ms) | {smi}")
+        faults = launch_faults(flash, LM_LAYERS, GPT2_TRACED_STEPS)
+        if lost_b:
+            faults.append(f"the trace lost the device records of {lost_b} launches")
+        if len(ag) != fsdp_gathers or (fsdp_gathers and not rs):
+            faults.append(f"FSDP2 issued {fsdp_gathers} all-gathers (its FSDP::all_gather "
+                          f"annotations), the inventory holds {gpt2_counts}")
+        if second_made or not any("already active" in m for m in reentrant):
+            faults.append(f"the second entrant was not a no-op with a warning: made "
+                          f"{second_made}, warnings {reentrant}")
+        if "mfu_flops" not in calib:
+            faults.append(f"no mfu_flops row: {calib}")
+        if faults:
+            raise SystemExit("phase 17 (b): " + "; ".join(faults))
+        out["gpt2"] = {"launches": flash, "counts": gpt2_counts, "calibration": calib,
+                       "untraced_ms": untraced_ms}
+        del model, step, tokens
+    finally:
+        dist.shutdown()
+    torch.cuda.empty_cache()
+    print(f"[observe] phase {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
 def mfu_lines(smi: str, bench: dict, bench_cfg: dict, lm: dict, images: dict,
               health: dict) -> dict:
     """The MFU of each measured training path that ``observe.goodput``
@@ -2641,9 +2935,10 @@ def main() -> int:
         serving = phase_serving(smi)
         phase_resume(smi)
         health = phase_health(smi, lm)
+        phase_observe(smi)
     mfu_lines(smi, bench, bench_cfg, lm, images, health)
     checked = set().union(*(c["checked"] for c in cases + flash_cases), health["checked"])
-    print(f"[shapes] phases 5-9, 11, 12 and 14-16 launched {len(seen)} kinds of (kernel, q "
+    print(f"[shapes] phases 5-9, 11, 12 and 14-17 launched {len(seen)} kinds of (kernel, q "
           f"shape, dtype, mask windows or causal): {sorted(seen, key=str)}")
     if seen - checked:
         raise SystemExit(f"launched on a driven path but never held against the plain "

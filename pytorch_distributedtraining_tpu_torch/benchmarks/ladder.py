@@ -81,6 +81,7 @@ from .. import optim, parallel
 from ..models.gpt2 import GPT2, GPT2Config, cross_entropy_loss
 from ..models.resnet import ResNet18, ResNet50
 from ..models.vit import ViT, ViTConfig
+from ..observe import opcost, profiling
 from ..ops.flash_attn import make_flash_attn_fn
 from ..parallel import TrainStep
 from ..runtime import dist
@@ -311,37 +312,32 @@ FLASH_KERNELS = {"K3": "flash_attn_fwd_kernel", "K4": "flash_attn_dq_kernel",
                  "K5": "flash_attn_dkv_kernel"}
 
 
-def flash_kernel_ms(trace_path: str, n_steps: int) -> dict:
+def flash_kernel_ms(trace, n_steps: int) -> dict:
     """Device ms and launches per step of each flash kernel, by its name in
-    a Chrome trace written by ``torch.profiler``."""
-    with open(trace_path) as f:
-        events = json.load(f)["traceEvents"]
-    out = {}
-    for kid, name in FLASH_KERNELS.items():
-        durs = [e["dur"] for e in events if e.get("cat") == "kernel" and name in e["name"]]
-        out[kid] = {"ms": sum(durs) / 1e3 / n_steps, "launches": len(durs) / n_steps}
-    return out
+    a Chrome trace written by ``torch.profiler`` (a path, or its events)."""
+    return {kid: {"ms": r["ms"] / n_steps, "launches": r["launches"] / n_steps}
+            for kid, r in opcost.kernel_stats(trace, FLASH_KERNELS).items()}
 
 
 def _traced_steps(step: TrainStep, batch, n_steps: int, trace_path: str) -> dict:
     """Device time per step by kernel family and the device's busy and idle
-    shares, from a ``torch.profiler`` trace of ``n_steps`` steps on a card."""
-    from .profile_swinir import device_breakdown
+    shares, from a ``torch.profiler`` trace of ``n_steps`` steps on a card
+    (``observe.profiling.profile_call``, ``observe.opcost.device_breakdown``)."""
 
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
+    def window():
         t0 = time.perf_counter()
         for _ in range(n_steps):
             step(batch)
         _sync(_device(batch))
-        traced_ms = (time.perf_counter() - t0) / n_steps * 1e3
-    prof.export_chrome_trace(trace_path)
-    r = device_breakdown(trace_path)
+        return (time.perf_counter() - t0) / n_steps * 1e3
+
+    traced_ms, events = profiling.profile_call(window, trace_path)
+    r = opcost.device_breakdown(events)
     return {
         "traced_step_ms": traced_ms,
         "device_ms_by_family": {k: v / n_steps for k, v in r["device_ms_by_family"].items()},
         "top_kernels_ms": [(k, v / n_steps) for k, v in r["top_kernels_ms"]],
-        "flash_kernels": flash_kernel_ms(trace_path, n_steps),
+        "flash_kernels": flash_kernel_ms(events, n_steps),
         "kernels_per_step": r["kernels"] / n_steps,
         "busy_ms": r["busy_ms"] / n_steps,
         "idle_share": r["idle_share"],

@@ -26,26 +26,11 @@ import numpy as np
 import torch
 
 from pytorch_distributedtraining_tpu_torch.drivers import stoke_ddp
+from pytorch_distributedtraining_tpu_torch.observe import profiling
+from pytorch_distributedtraining_tpu_torch.observe.opcost import device_breakdown
 from pytorch_distributedtraining_tpu_torch.stoke import Stoke
 
 BATCH, LR_SIZE, ACCUM = 18, 64, 2
-TOP_KERNELS = 12  # kernels listed by name in a breakdown
-
-# kernel-name fragments -> family, first match wins
-# (cuDNN's implicit-GEMM convolutions carry "gemm" and "xmma" too, so
-# convolution is tested before GEMM)
-FAMILIES = (
-    ("window attention (K1/K2)", ("window_attn", "dbias_reduce")),
-    ("flash attention (K3-K5)", ("flash_attn",)),
-    ("softmax / cross entropy", ("softmax", "nll_loss")),
-    ("convolution", ("conv", "cudnn", "fprop", "dgrad", "wgrad")),
-    ("GEMM", ("gemm", "gemv", "xmma", "cutlass", "cublas", "nvjet")),
-    ("LayerNorm", ("layer_norm",)),
-    ("optimizer (foreach)", ("foreach", "multi_tensor")),
-    ("reduction", ("reduce",)),
-    ("copy / permute / roll", ("copy", "memcpy", "memset", "roll")),
-    ("elementwise", ("elementwise", "vectorized", "unrolled")),
-)
 
 
 def make_batches(device, batch: int = BATCH,
@@ -73,73 +58,10 @@ def train_steps(stoke: Stoke, batches, steps: int) -> torch.Tensor:
     return loss
 
 
-def family(name: str) -> str:
-    low = name.lower()
-    for fam, keys in FAMILIES:
-        if any(k in low for k in keys):
-            return fam
-    return "other"
-
-
-def _union_us(spans: list[tuple[float, float]]) -> float:
-    busy, end = 0.0, float("-inf")
-    for a, b in sorted(spans):
-        if b > end:
-            busy += b - max(a, end)
-            end = b
-    return busy
-
-
-# CUDA runtime calls in which the host waits for the device
-HOST_WAITS = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaEventSynchronize",
-              "cudaMemcpy", "cudaMemcpy2D", "cudaMemset", "cudaStreamQuery")
-
-
-def device_breakdown(trace_path: str) -> dict:
-    """Device time by kernel family and of the longest kernels by name, and
-    busy/idle shares of the span from the first kernel's start to the last
-    kernel's end, from a Chrome trace written by ``torch.profiler``; also the
-    host's time in each blocking CUDA runtime call (``host_wait_ms``) and
-    in the longest host ops and annotations by name, each counted with the
-    ops it calls (``top_host_ops_ms``)."""
-    with open(trace_path) as f:
-        events = json.load(f)["traceEvents"]
-    kernels = [e for e in events
-               if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset") and "dur" in e]
-    if not kernels:
-        raise RuntimeError("the trace holds no device activity (no CUPTI kernels)")
-    by_family: dict[str, float] = {}
-    by_name: dict[str, float] = {}
-    spans = []
-    for e in kernels:
-        by_family[family(e["name"])] = by_family.get(family(e["name"]), 0.0) + e["dur"]
-        by_name[e["name"]] = by_name.get(e["name"], 0.0) + e["dur"]
-        spans.append((float(e["ts"]), float(e["ts"]) + float(e["dur"])))
-    window = max(b for _, b in spans) - min(a for a, _ in spans)
-    busy = _union_us(spans)
-    waits: dict[str, float] = {}
-    host_ops: dict[str, float] = {}
-    for e in events:
-        if e.get("cat") in ("cuda_runtime", "cuda_driver") and e.get("name") in HOST_WAITS:
-            waits[e["name"]] = waits.get(e["name"], 0.0) + e.get("dur", 0.0) / 1e3
-        elif e.get("cat") in ("cpu_op", "user_annotation") and "dur" in e:
-            host_ops[e["name"]] = host_ops.get(e["name"], 0.0) + e["dur"] / 1e3
-    return {
-        "kernels": len(kernels),
-        "host_wait_ms": waits,
-        "top_host_ops_ms": sorted(host_ops.items(), key=lambda kv: -kv[1])[:TOP_KERNELS],
-        "device_ms_by_family": {k: v / 1e3 for k, v in
-                                sorted(by_family.items(), key=lambda kv: -kv[1])},
-        "top_kernels_ms": [(k[:120], v / 1e3) for k, v in
-                           sorted(by_name.items(), key=lambda kv: -kv[1])[:TOP_KERNELS]],
-        "busy_ms": busy / 1e3,
-        "window_ms": window / 1e3,
-        "idle_share": 1.0 - busy / window,
-    }
-
-
 def profile(stoke: Stoke, batches, steps: int, warmup: int, trace_path: str) -> dict:
-    """Step time with the profiler off, then a traced window of ``steps``."""
+    """Step time with the profiler off, then a traced window of ``steps``
+    (``observe.profiling.profile_call``) and its device breakdown
+    (``observe.opcost.device_breakdown``)."""
     dev = stoke.device
     sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
     train_steps(stoke, batches, warmup)
@@ -148,22 +70,21 @@ def profile(stoke: Stoke, batches, steps: int, warmup: int, trace_path: str) -> 
     loss = train_steps(stoke, batches, steps)
     sync()
     plain_ms = (time.perf_counter() - t0) / steps * 1e3
-    activities = [torch.profiler.ProfilerActivity.CPU]
-    if dev.type == "cuda":
-        activities.append(torch.profiler.ProfilerActivity.CUDA)
-    with torch.profiler.profile(activities=activities) as prof:
+
+    def window():
         t0 = time.perf_counter()
         train_steps(stoke, batches, steps)
         sync()
-        traced_ms = (time.perf_counter() - t0) / steps * 1e3
-    prof.export_chrome_trace(trace_path)
+        return (time.perf_counter() - t0) / steps * 1e3
+
+    traced_ms, events = profiling.profile_call(window, trace_path)
     result = {
         "precision": stoke.fp16 or "fp32", "step_ms": plain_ms,
         "images_per_s": stoke.grad_accum_steps * stoke.batch_size_per_device / plain_ms * 1e3,
         "traced_step_ms": traced_ms, "loss": float(loss.detach()),
     }
     if dev.type == "cuda":
-        result.update(device_breakdown(trace_path))
+        result.update(device_breakdown(events))
         for k in ("busy_ms", "window_ms"):
             result[k] /= steps
         result["device_ms_by_family"] = {k: v / steps

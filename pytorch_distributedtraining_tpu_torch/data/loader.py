@@ -165,11 +165,12 @@ class DataLoader:
                 telemetry.add_span(name, "input", t0, time.perf_counter() - t0)
             yield tuple(t.to(self.device, non_blocking=True) for t in batch)
 
-    def device_iter(self, depth: int = 2) -> DevicePrefetcher:
+    def device_iter(self, depth: int = 2, probe=None) -> DevicePrefetcher:
         """This epoch's batches through a :class:`~.prefetch.DevicePrefetcher`
         that keeps ``depth`` of them copied (or copying) to the device ahead
-        of the consumer."""
-        return DevicePrefetcher(self._host_batches(), self.device, depth=depth)
+        of the consumer; ``probe`` (an ``observe.profiling.
+        TransferOverlapProbe``) receives its waits."""
+        return DevicePrefetcher(self._host_batches(), self.device, depth=depth, probe=probe)
 
     def shutdown_workers(self) -> None:
         """Stop persistent worker processes now rather than at exit."""

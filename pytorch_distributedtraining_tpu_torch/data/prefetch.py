@@ -17,8 +17,10 @@ JAX prefetcher's accounting: ``wait_s`` is the consumer's time blocked in
 ``next`` (the host's fetch and the issue of the copies; not the copies
 themselves, which the consumer's stream waits for on the device), and
 with telemetry on each wait is an ``input.wait`` span (the goodput
-ledger's ``input_wait``). On ``device="cpu"`` the prefetcher passes the
-host batches through unchanged.
+ledger's ``input_wait``). An optional ``probe`` (an
+``observe.profiling.TransferOverlapProbe``) receives every wait, as in
+JAX. On ``device="cpu"`` the prefetcher passes the host batches through
+unchanged.
 """
 
 from __future__ import annotations
@@ -37,9 +39,10 @@ class DevicePrefetcher:
     """Iterator staging up to ``depth`` batches (tuples of host tensors) on
     ``device`` ahead of the consumer."""
 
-    def __init__(self, source, device, depth: int = 2):
+    def __init__(self, source, device, depth: int = 2, probe=None):
         self.device = torch.device(device)
         self.depth = max(1, int(depth))
+        self.probe = probe
         self.wait_s = 0.0
         self.yielded = 0
         self.staged = 0
@@ -84,6 +87,8 @@ class DevicePrefetcher:
             self._stage()  # keep `depth` batches in flight while this one is used
         dt = time.perf_counter() - t0
         self.wait_s += dt
+        if self.probe is not None:
+            self.probe.note_wait(dt)
         if telemetry.enabled():
             # the wait is the unhidden input time: the goodput ledger's
             # input_wait bucket

@@ -46,7 +46,12 @@ not checkpointed. ``--trace [DIR]`` (``GRAFT_TRACE``; ``GRAFT_TELEMETRY=0``
 turns it off) records the step, input and checkpoint spans and, at exit,
 writes the Chrome trace under ``DIR`` (or the run dir) and prints the
 goodput breakdown and the MFU (``observe.goodput``; ESPCN has no analytic
-FLOP count, so its MFU is not given)::
+FLOP count, so its MFU is not given). ``--capture [DIR]``
+(``GRAFT_CAPTURE``) arms the anomaly-triggered profiler capture
+(``observe.capture``) on the step loop, polled after each step's numerics;
+with ``--opcost`` (``GRAFT_OPCOST``) a landed capture is parsed into the op
+table and the per-axis collective bandwidth (``observe.opcost``, with the
+mesh's axes)::
 
     GRAFT_NUMERICS_INJECT="conv1.weight@3" python -m \
         pytorch_distributedtraining_tpu_torch.drivers.fairscale_ddp --synthetic \
@@ -56,8 +61,8 @@ It runs on the GPU (``--device cuda``, the default) and refuses to start
 without one unless ``--device cpu`` is given. When the data folders are
 absent it trains on synthetic data. The JAX driver's flags whose modules
 are not ported (``--remat``, ``--pp``, ``--pp-schedule``, ``--wire``,
-``--hier``, ``--plan``, ``--analyze``, ``--opcost``, ``--capture``,
-``--device-prefetch``) are not defined.
+``--hier``, ``--plan``, ``--analyze``, ``--device-prefetch``) are not
+defined.
 """
 
 from __future__ import annotations
@@ -85,7 +90,7 @@ from pytorch_distributedtraining_tpu_torch.observe import numerics
 from pytorch_distributedtraining_tpu_torch.observe import trace as telemetry
 from pytorch_distributedtraining_tpu_torch.parallel import TrainStep, ZeRO2, create_train_state
 from pytorch_distributedtraining_tpu_torch.runtime import dist
-from pytorch_distributedtraining_tpu_torch.runtime.mesh import MeshSpec, make_mesh
+from pytorch_distributedtraining_tpu_torch.runtime.mesh import MeshSpec, make_mesh, mesh_shape
 
 # reference constants (Fairscale-DDP.py:57,118)
 BATCH_SIZE = 40
@@ -184,6 +189,9 @@ def _train(opt: argparse.Namespace, device: torch.device, model: Net | None) -> 
         watchdog = numerics.watchdog_from_env() if probe is not None else None
         step = TrainStep(state.model, loss_fn, state.tx, mesh, policy, rng=state.rng,
                          numerics=probe)
+        # --capture: the anomaly-triggered profiler on this loop
+        capture = observe_flags.armed_capture(
+            None if mesh is None else mesh_shape(mesh), device.type)
 
         mgr, start_step = None, 0
         if opt.ckpt:
@@ -227,6 +235,8 @@ def _train(opt: argparse.Namespace, device: torch.device, model: Net | None) -> 
                                 _line(f"===> numerics watchdog {verdict['kind']} @ step "
                                       f"{verdict['step']}: rolled back to committed step "
                                       f"{global_step}")
+                    if capture is not None:
+                        capture.note_step()
                     if mgr is not None and clean:
                         mgr.maybe_save(global_step, state)
                     if iteration % 25 == 0:

@@ -1,12 +1,16 @@
-"""The drivers' ``--trace`` and ``--numerics`` flags, shared by both.
+"""The drivers' ``--trace``, ``--numerics``, ``--opcost`` and
+``--capture`` flags, shared by both.
 
 ``add_arguments`` defines them as JAX's drivers do (``--trace [DIR]``,
 env twin ``GRAFT_TRACE``; ``--numerics [halt|rollback|degrade]``, a bare
-flag meaning ``halt``); ``apply`` threads them through their env twins
+flag meaning ``halt``; ``--opcost``, env twin ``GRAFT_OPCOST``;
+``--capture [DIR]``, a bare flag writing under the run dir, env twin
+``GRAFT_CAPTURE``); ``apply`` threads them through their env twins
 (``GRAFT_TELEMETRY``/``GRAFT_TRACE``, ``GRAFT_NUMERICS``/
-``GRAFT_NUMERICS_ACTION``), which the facade and ``observe.numerics``
-read, and turns the tracer on; ``report`` writes the Chrome trace at exit
-and prints the goodput breakdown and the MFU.
+``GRAFT_NUMERICS_ACTION``, ``GRAFT_OPCOST``, ``GRAFT_CAPTURE``), which the
+facade and ``observe`` read, and turns the tracer on; ``armed_capture``
+arms the anomaly capture on a driver's own step loop; ``report`` writes
+the Chrome trace at exit and prints the goodput breakdown and the MFU.
 """
 
 from __future__ import annotations
@@ -14,7 +18,7 @@ from __future__ import annotations
 import argparse
 import os
 
-from ..observe import goodput
+from ..observe import capture, goodput, opcost
 from ..observe import trace as telemetry
 
 
@@ -30,6 +34,18 @@ def add_arguments(parser: argparse.ArgumentParser) -> None:
                         help="the numerics probe on each step and the divergence watchdog; the "
                              "value is the watchdog's action (bare --numerics = halt; env twins "
                              "$GRAFT_NUMERICS / $GRAFT_NUMERICS_ACTION)")
+    parser.add_argument("--opcost", action="store_true",
+                        default=bool(os.environ.get("GRAFT_OPCOST")),
+                        help="the op-cost attribution plane: a landed profiler capture is "
+                             "parsed into per-class cost tables and per-axis collective "
+                             "bandwidth gauges (env twin $GRAFT_OPCOST)")
+    parser.add_argument("--capture", type=str, nargs="?", const="1",
+                        default=os.environ.get("GRAFT_CAPTURE"),
+                        help="arm the anomaly-triggered profiler capture on the training loop "
+                             "(a bounded torch.profiler trace on a straggler, SLO-burn, numerics "
+                             "or regression signal); bare --capture writes under the run dir, "
+                             "--capture DIR there (env twin $GRAFT_CAPTURE; with --opcost the "
+                             "capture is ingested)")
 
 
 def apply(opt: argparse.Namespace) -> None:
@@ -39,12 +55,37 @@ def apply(opt: argparse.Namespace) -> None:
         os.environ["GRAFT_NUMERICS"] = "1"
         os.environ["GRAFT_NUMERICS_ACTION"] = opt.numerics
         print(f"===> numerics plane on, watchdog action={opt.numerics}")
+    if opt.opcost:
+        os.environ["GRAFT_OPCOST"] = "1"
+        print("===> op-cost attribution on")
+    if opt.capture and opt.capture.strip().lower() not in telemetry.FALSY:
+        os.environ["GRAFT_CAPTURE"] = opt.capture
+        print(f"===> anomaly capture armed (dir: "
+              f"{opt.capture if opt.capture != '1' else 'run dir'})")
     if opt.trace is not None:
         os.environ.setdefault("GRAFT_TELEMETRY", "1")
         if opt.trace:
             os.environ["GRAFT_TRACE"] = opt.trace
     if telemetry.configure_from_env():
         print(f"===> telemetry on (trace dir: {opt.trace or 'run dir'})")
+
+
+def armed_capture(mesh_axes: dict | None, device_type: str) -> capture.OnDemandProfiler | None:
+    """The anomaly capture a driver arms on its own step loop when
+    ``GRAFT_CAPTURE`` says so (None otherwise); with ``GRAFT_OPCOST`` a
+    landed capture is ingested (``observe.opcost.ingest_trace``) with
+    ``mesh_axes`` (``observe.capture.armed``: a directory per rank under a
+    group). ``note_step()`` goes after each step's numerics."""
+    on, capture_dir = capture.capture_from_env()
+    if not on:
+        return None
+    prof = capture.armed(capture_dir)
+    if opcost.opcost_from_env():
+        def on_capture(cap_dir, source):
+            opcost.ingest_trace(cap_dir, mesh_axes=mesh_axes, steps=prof.capture_steps,
+                                device=device_type)
+        prof.on_capture = on_capture
+    return prof
 
 
 def report(path: str | None, steps: int, flops_per_step: float | None, device) -> dict:

@@ -39,11 +39,17 @@ optimizer step's gradients and a ``halt`` verdict raises
 goodput breakdown and MFU (SwinIR's analytic FLOPs at the training crops'
 size, ``observe.goodput``) printed.
 
+``--capture [DIR]`` and ``--opcost`` thread the anomaly-triggered
+capture and the op-cost plane through ``GRAFT_CAPTURE`` and
+``GRAFT_OPCOST``: the facade arms an ``observe.capture.OnDemandProfiler``
+at construction, polled after each optimizer step's numerics, and a
+landed capture is parsed into the op table and the per-axis collective
+bandwidth (``observe.opcost``).
+
 It runs on the GPU (``--device cuda``, the default) and refuses to start
 without one unless ``--device cpu`` is given. The TPU-only flags of the
 JAX driver (``--scan-layers``, ``--pp``, ``--wire``,
-``--fp8``, ``--plan``, ``--analyze``, ``--opcost``, ``--capture``) are not
-ported.
+``--fp8``, ``--plan``, ``--analyze``) are not ported.
 """
 
 from __future__ import annotations

@@ -19,6 +19,11 @@ objective.
 - :func:`serve_chrome_events` / :func:`export_serve_trace`: the
   ``graft-serve`` Chrome-trace lane, one thread lane per slot and a flow
   chain per request.
+- :data:`runtime_stats`: the process-wide counters JAX keeps at the same
+  sites (requests closed, sheds, objective misses, the burn rate and its
+  peak, the least error budget left, the objective), which the anomaly
+  capture's ``slo-burn`` source reads through ``sys.modules``
+  (``observe.capture``).
 
 Stdlib only.
 """
@@ -73,6 +78,18 @@ _COMPUTE_PHASES = ("prefill", "decode", "tile")
 # slack for monotonicity checks: perf_counter deltas below this are
 # indistinguishable from clock granularity, not reordering
 _EPS = 1e-9
+
+# process-wide SLO counters, read through sys.modules (observe/capture.py's
+# slo-burn source): budget_remaining <= 0 or burn_rate_peak > 1 trips it
+runtime_stats = {
+    "requests": 0,          # lifecycles completed (any outcome)
+    "shed": 0,              # terminal-shed lifecycles
+    "violations": 0,        # SLO objective misses observed
+    "burn_rate": None,      # latest rolling burn rate
+    "burn_rate_peak": 0.0,  # worst rolling burn rate seen
+    "budget_remaining": None,  # min all-time error-budget fraction left
+    "objective": None,      # human-readable objective string
+}
 
 # live ledgers, for the crash flight recorder: observe/trace.py asks
 # "which requests were in flight, and in what phase" at flush time
@@ -208,6 +225,7 @@ class RequestLedger:
         t = time.perf_counter() if t is None else float(t)
         self.add_phase(rid, "queue_wait", life.t_start, t)
         self.add_phase(rid, "shed", t, t)
+        runtime_stats["shed"] += 1
         return self.complete(rid, t=t, outcome=SHED)
 
     def complete(self, rid, t: float | None = None,
@@ -229,6 +247,7 @@ class RequestLedger:
             "intervals": life.intervals,
         }
         self.completed.append(rec)
+        runtime_stats["requests"] += 1
         return rec
 
     # -- accounting --------------------------------------------------------
@@ -431,6 +450,7 @@ class SLOTracker:
         self._window: list = []  # (t, violated) — pruned to window_s
         self.total = 0
         self.violations = 0
+        runtime_stats["objective"] = self.describe()
 
     def describe(self) -> str:
         parts = []
@@ -466,6 +486,9 @@ class SLOTracker:
         self.violations += int(violated)
         self._window.append((t, violated))
         self._prune(t)
+        if violated:
+            runtime_stats["violations"] += 1
+        self._sync_stats(t)
         return violated
 
     def _prune(self, t: float) -> None:
@@ -496,6 +519,14 @@ class SLOTracker:
         if self.total == 0:
             return 1.0
         return 1.0 - (self.violations / self.total) / self.budget
+
+    def _sync_stats(self, t: float) -> None:
+        burn = self.burn_rate(t)
+        remaining = self.budget_remaining()
+        runtime_stats["burn_rate"] = burn
+        runtime_stats["burn_rate_peak"] = max(runtime_stats["burn_rate_peak"], burn)
+        prev = runtime_stats["budget_remaining"]
+        runtime_stats["budget_remaining"] = remaining if prev is None else min(prev, remaining)
 
     def snapshot(self) -> dict:
         """Record-shaped summary for the SLO bench."""

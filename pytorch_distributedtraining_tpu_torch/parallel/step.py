@@ -59,6 +59,12 @@ stream as they were before the step. Each call runs inside
 as ``compile`` (on the card that includes the first use's kernel build),
 the rest as ``step``.
 
+:meth:`TrainStep.comm_cost` is JAX's analytic bytes on the wire of a
+step's gradient hop; :meth:`TrainStep.trace_comms` profiles one step and
+returns the collectives it ran (``observe.comms``), in place of JAX's
+``compiled_text`` and an HLO audit: eager torch has no compiled program to
+read, so the port reads what the profiler recorded of each c10d call.
+
 :meth:`TrainStep.memory_analysis` measures a step's peak device memory
 for ``observe.memory.tune_batch_size``: JAX reads the compiled program's
 plan without running a step; the port runs one forward and backward.
@@ -318,6 +324,57 @@ class TrainStep:
             n for n, f in zip(names, flags[1:].tolist()) if f]
         raise FloatingPointError("detect_anomaly: non-finite values in " + ", ".join(
             bad_names[:8]) + (" ..." if len(bad_names) > 8 else ""))
+
+    def comm_cost(self, params=None) -> dict:
+        """Analytic bytes on the wire for the gradient hop of one step, as
+        JAX's ``TrainStep.comm_cost``: a reduce-scattered leaf moves its n
+        f32 bytes once, an all-reduced one twice (the reduce and the
+        gather hops); leaves below the policy's ``min_shard_size`` (or with
+        no dimension the axis divides) stay whole and pay the all-reduce
+        rate even under ``shard_grads``. ``params``: tensors or shapes
+        (default: the model's trainable parameters, at their full shapes).
+        This is JAX's layout: FSDP2 (ZeRO-3 here) reduce-scatters every
+        leaf, small ones too, padded along its first dimension, so a traced
+        ZeRO-3 step moves other bytes than this count."""
+        from ..runtime.mesh import mesh_axis_size
+        from .spec import leaf_spec, shard_axis
+
+        ax = shard_axis(self.mesh)
+        size = mesh_axis_size(self.mesh, ax) if ax else 1
+        if ax is None or size <= 1:
+            return {"collective": None, "fp32_bytes": 0, "wire_bytes": 0, "wire_format": None,
+                    "axis": None, "axis_size": 1}
+        if params is None:
+            params = [p for p in self.model.parameters() if p.requires_grad]
+        rs = bool(self.policy.shard_grads)
+        total = 0
+        for p in params:
+            shape = tuple(getattr(p, "shape", p))
+            n = 1
+            for d in shape:
+                n *= int(d)
+            scattered = rs and leaf_spec(shape, ax, size, self.policy.min_shard_size) is not None
+            total += (1 if scattered else 2) * n * 4
+        return {
+            "collective": "reduce-scatter" if rs else "all-reduce",
+            "fp32_bytes": int(total),
+            "wire_bytes": int(total),  # f32 wire: no quantized format
+            "wire_format": None,
+            "axis": ax,
+            "axis_size": size,
+        }
+
+    def trace_comms(self, batch, lr_factor: float = 1.0) -> list:
+        """Run one step of ``batch`` under the guarded profiler and return
+        the collectives it ran, ``observe.comms.WireCollective`` records in
+        trace order (the counterpart of JAX's ``compiled_text`` and
+        ``observe.hlo.wire_inventory``). The step updates the state as any
+        step does. Every rank calls it under a process group."""
+        from ..observe import comms, profiling
+
+        world = 1 if self.group is None else tdist.get_world_size(self.group)
+        _, events = profiling.profile_call(lambda: self(batch, lr_factor))
+        return comms.wire_inventory(events, group_size=world)
 
     def memory_analysis(self, batch):
         """The step's device memory at ``batch`` as an

@@ -98,6 +98,11 @@ def mesh_axis_size(mesh, name: str) -> int:
     return mesh.size(names.index(name)) if name in names else 1
 
 
+def mesh_shape(mesh) -> dict:
+    """``{axis: size}`` of a mesh (JAX's ``dict(mesh.shape)``)."""
+    return {name: mesh_axis_size(mesh, name) for name in (mesh.mesh_dim_names or ())}
+
+
 def data_axes(mesh) -> tuple:
     """Axes a global batch is split over: the sized data axes, else
     ``("dp",)`` as in JAX."""

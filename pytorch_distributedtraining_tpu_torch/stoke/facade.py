@@ -66,6 +66,22 @@ before the update. Dropout follows JAX's facade: the forward passes
 model's ``deterministic`` off, so GPT-2's and ViT's dropout stay off here
 as they do there.
 
+Op-cost attribution and the anomaly-triggered capture (JAX
+``facade.py:205-227``, ``:636-662``): ``opcost=`` and ``capture=``/
+``capture_dir=`` (env twins ``GRAFT_OPCOST`` and ``GRAFT_CAPTURE``; a
+``GRAFT_CAPTURE`` that is not a boolean spelling is the capture directory)
+stand in for JAX's ``TPUConfig`` fields until its twin. With capture on,
+the facade arms an ``observe.capture.OnDemandProfiler``
+(:attr:`capture`), and with opcost on too, a landed capture is parsed by
+``observe.opcost.ingest_trace`` with the mesh's axes (the result on
+:attr:`opcost_result`); under a process group each rank captures into
+its own ``rank<r>`` directory. The profiler is polled by ``capture.note_step()``
+right after the numerics plane decodes a step, on every optimizer step
+:meth:`step` takes, so a numerics trip fires the capture on the step that
+saw it. JAX calls it from ``fused_step``, its one-call step, which waits
+here for the CUDA-graph step slice; the port's facade has only the
+Stoke-style ``step``.
+
 The optimizer follows the JAX facade's rule (``facade.py:889-930`` there):
 AdamW on a layout where a flat update fits (DDP, or ZeRO-1/OSS:
 ``fairscale_oss`` without ``fairscale_sddp`` or ``fairscale_fsdp``) runs as
@@ -91,11 +107,13 @@ from ..parallel.policy import policy_from_flags
 from ..parallel.spec import all_reduce_sum_, is_dtensor, shard_axis
 from ..observe import trace as _telemetry
 from ..observe import numerics as _numerics
+from ..observe import opcost as _opcost
+from ..observe import capture as _capture
 from ..parallel.state import TrainState, create_train_state, load_module_state
 from ..parallel.step import mean_over_ranks, reduce_gradients
 from ..precision import DynamicLossScaler, Policy
 from ..runtime import dist
-from ..runtime.mesh import MeshSpec, data_group, make_mesh
+from ..runtime.mesh import MeshSpec, data_group, make_mesh, mesh_shape
 from .config import (AMPConfig, ClipGradConfig, ClipGradNormConfig, DDPConfig,
                      DistributedOptions, FairscaleOSSConfig, FP16Options)
 from .optimizer import StokeOptimizer
@@ -135,6 +153,9 @@ class Stoke:
         trace_dir: str | None = None,
         numerics: bool = False,
         numerics_action: str = "halt",
+        opcost: bool = False,
+        capture: bool = False,
+        capture_dir: str | None = None,
     ):
         distributed = distributed.value if isinstance(distributed, DistributedOptions) else distributed
         if distributed not in (None, "ddp"):
@@ -232,6 +253,12 @@ class Stoke:
                 self._opt.track_updates = True
         self._numerics_every = max(1, int(os.environ.get("GRAFT_NUMERICS_EVERY", "1") or 1))
         self._last_loss = None
+        # op-cost attribution and the armed capture (env > arguments)
+        self.opcost = _opcost.opcost_from_env(opcost)
+        capture_on, capture_dir = _capture.capture_from_env(capture, capture_dir)
+        self.capture = self.opcost_result = None
+        if capture_on:
+            self.capture = _capture.armed(capture_dir, self._ingest if self.opcost else None)
 
         self._backward_count = 0
         self._step_count = 0
@@ -313,6 +340,8 @@ class Stoke:
         self._step_count += 1
         if aux is not None:
             self._observe_numerics(aux)
+        if self.capture is not None:
+            self.capture.note_step()
 
     def _update(self) -> dict | None:
         """The optimizer update of one step; the numerics probe's aux on a
@@ -363,6 +392,15 @@ class Stoke:
         verdict = summary.get("verdict")
         if verdict is not None and verdict.get("action") == "halt":
             self.numerics_watchdog.apply_action(verdict)
+
+    def _ingest(self, cap_dir: str, source: str) -> None:
+        """The capture's post-fire hook: the op table and, with a mesh, the
+        per-axis collective bandwidth of the capture (on the card, a capture
+        without device activity raises here; the capture swallows it)."""
+        self.opcost_result = None
+        self.opcost_result = _opcost.ingest_trace(
+            cap_dir, mesh_axes=None if self.mesh is None else mesh_shape(self.mesh),
+            steps=self.capture.capture_steps, device=self.device.type)
 
     def _all_ranks(self, flag: bool) -> bool:
         """``flag`` on every rank (one all-reduce with a group): a shard's

@@ -9,7 +9,9 @@ The flash bounds take each kernel's body's rate, and phase 4 fails on a
 kernel slower than its plain version. The optimizer phase's bound is the
 bytes of one pass over p, g and the moments, and its gate check names each
 buffer a skipped step changed. Phase 15's resume check names the first
-loss, parameter or moment in which two runs differ."""
+loss, parameter or moment in which two runs differ. Phase 17 reads K1/K2
+(and K3-K5) launches from the op table of a capture, counts FSDP2's
+all-gathers by its annotations and a collective inventory by kind."""
 
 import importlib.util
 from pathlib import Path
@@ -294,3 +296,70 @@ def test_resume_mismatch_names_the_first_entry_that_differs(smoke, changes, firs
     got_worst, got_first = smoke.resume_mismatch(_run(), _run(**changes))
     assert got_first == first
     assert got_worst == pytest.approx(worst, rel=1e-6)
+
+
+def _k1k2_trace(steps: int, per_step: int, drop: int = 0) -> list:
+    """A capture's events: K1, K2 and its dbias reduction ``per_step`` times a
+    step over ``steps`` steps, as CUPTI names them (template arguments
+    vary by shape), a GEMM, a copy, an NCCL all-reduce a step, host ops."""
+    events = []
+    for i in range(steps * per_step - drop):
+        for name in (f"void (anonymous namespace)::window_attn_fwd_kernel<float, {i % 2 + 1}, 16>(x)",
+                     "void (anonymous namespace)::window_attn_bwd_kernel<float, 64, 16>(x)",
+                     "void (anonymous namespace)::dbias_reduce_kernel(x)"):
+            events.append({"ph": "X", "cat": "kernel", "name": name, "ts": float(i), "dur": 1.0})
+    for i in range(steps):
+        events.append({"ph": "X", "cat": "kernel", "ts": 0.0, "dur": 5.0,
+                       "name": "ncclDevKernel_AllReduce_Sum_f32_RING_LL(x)"})
+    events += [{"ph": "X", "cat": "kernel", "name": "sm90_xmma_gemm_f32f32", "ts": 0.0,
+                "dur": 500.0},
+               {"ph": "X", "cat": "gpu_memcpy", "name": "Memcpy DtoD (Device -> Device)",
+                "ts": 0.0, "dur": 2.0},
+               {"ph": "X", "cat": "cpu_op", "name": "window_attn_fwd_kernel", "ts": 0.0,
+                "dur": 900.0}]
+    return events
+
+
+@pytest.mark.parametrize("drop,faults", [(0, []), (1, ["K1", "K2"])])
+def test_k1_k2_launches_read_from_a_captures_op_table(smoke, drop, faults):
+    """Phase 17 (a): 48 K1 and 48 K2 a step (24 a micro-batch, two
+    micro-batches) over the capture's three steps, read from the op table's
+    compute rows; a missing launch is a fault."""
+    from pytorch_distributedtraining_tpu_torch.observe import opcost
+
+    table = opcost.op_table(_k1k2_trace(3, 48, drop))
+    launches = smoke.table_launches(table, smoke.WINDOW_KERNELS)
+    assert launches == {"K1": 144 - drop, "K2": 144 - drop}
+    got = smoke.launch_faults(launches, 48, 3)
+    assert [f.split(":")[0] for f in got] == faults
+    assert smoke.table_launches(table, smoke.FLASH_KERNELS) == {"K3": 0, "K4": 0, "K5": 0}
+
+
+def test_fsdp_all_gathers_and_wire_counts(smoke):
+    from pytorch_distributedtraining_tpu_torch.observe import comms
+
+    events = [{"cat": "user_annotation", "name": f"FSDP::all_gather ({m})"}
+              for m in ("transformer.h.0", "transformer.h.1", "")]
+    events += [{"cat": "user_annotation", "name": "FSDP::all_gather_copy_out (transformer.h.0)"},
+               {"cat": "cpu_op", "name": "FSDP::all_gather (x)"}]
+    assert smoke.fsdp_all_gathers(events) == 3
+    wires = [comms.WireCollective(k, "f32", 4, "") for k in
+             ("all-gather", "reduce-scatter", "all-gather")]
+    assert smoke.wire_counts(wires) == {"all-gather": 2, "reduce-scatter": 1}
+
+
+def test_lost_launches_are_the_calls_without_a_device_record(smoke):
+    """Phase 17: a launch, copy or set call whose correlation id has no
+    kernel, copy or set record in the trace is a record the profiler lost."""
+    def ev(cat, corr, name="x"):
+        return {"ph": "X", "cat": cat, "name": name, "ts": 0.0, "dur": 1.0,
+                "args": {"correlation": corr}}
+
+    events = [ev("cuda_runtime", 1, "cudaLaunchKernel"), ev("kernel", 1),
+              ev("cuda_driver", 2, "cuLaunchKernel"),
+              ev("cuda_runtime", 3, "cudaMemcpyAsync"), ev("gpu_memcpy", 3),
+              ev("cuda_runtime", 4, "cudaMemsetAsync"),
+              ev("cuda_runtime", 5, "cudaStreamSynchronize"),
+              {"cat": "cpu_op", "name": "aten::add", "ts": 0.0}]
+    assert smoke.lost_launches(events) == [2, 4]
+    assert smoke.lost_launches(events[:2]) == []

@@ -406,3 +406,53 @@ def numerics_worker(rank: int, world: int, *, runs: list[dict], batches: list,
             summaries.append(probe.observe(m["numerics"], step=step.rng.step, loss=m["loss"]))
         out.append(summaries)
     return out
+
+
+def comms_worker(rank: int, world: int, *, batch: tuple, policies: list[str], capture_dir: str,
+                 inject: str) -> dict:
+    """For each of ``policies``: one traced ``TrainStep`` of the toy SwinIR
+    with the per-leaf AdamW (``trace_comms``: its collectives) and its
+    ``comm_cost``, with every parameter's full shape. Then the facade (the
+    driver's flags) with the capture armed and the op-cost plane on
+    (``GRAFT_CAPTURE``/``GRAFT_OPCOST``) over two seeded steps, the first
+    poisoned by ``GRAFT_NUMERICS_INJECT``: the capture's summary and its
+    ingested table."""
+    from pytorch_distributedtraining_tpu_torch import parallel
+    from pytorch_distributedtraining_tpu_torch.observe import capture, opcost
+    from pytorch_distributedtraining_tpu_torch.runtime.mesh import MeshSpec, make_mesh
+
+    x, y = (torch.from_numpy(a[rank::world]) for a in batch)
+    out = {}
+    for policy in policies:
+        pol = getattr(parallel, POLICIES[policy])()
+        mesh = make_mesh(MeshSpec.zero() if policy.startswith("zero") else MeshSpec.ddp())
+        st = parallel.create_train_state(toy_swinir(), make_tx("adamw", lr=1e-3), mesh, pol,
+                                         device="cpu")
+        step = parallel.TrainStep(st.model, mse_loss_fn, st.tx, mesh, pol)
+        step((x, y))  # DDP's first step builds its buckets
+        wires = step.trace_comms((x, y))
+        shapes = {n: tuple(p.shape) for n, p in st.module.named_parameters()}
+        out[policy] = {"wires": [(w.kind, w.dtype, w.elems, w.in_elems, w.group_size)
+                                 for w in wires],
+                       "comm_cost": step.comm_cost(), "shapes": shapes}
+    env = {"GRAFT_CAPTURE": capture_dir, "GRAFT_OPCOST": "1", "GRAFT_NUMERICS": "1",
+           "GRAFT_NUMERICS_ACTION": "rollback", "GRAFT_NUMERICS_INJECT": inject}
+    os.environ.update(env)
+    try:
+        capture.reset()
+        opcost.reset()
+        s = facade(toy_swinir(), oss=False, sddp=False, batch=2)
+        for _ in range(2 * 5):  # five optimizer steps of two micro-batches
+            s.backward(s.loss(s.model(x), y))
+            s.step()
+        result = s.opcost_result
+        out["facade"] = {
+            "summary": s.capture.summary(),
+            "tables_built": opcost.runtime_stats["tables_built"],
+            "table": None if result is None else result["table"],
+            "wires": None if result is None else [(w.kind, w.elems) for w in result["wires"]],
+            "bandwidth": None if result is None else result["bandwidth"]}
+    finally:
+        for k in env:
+            os.environ.pop(k, None)
+    return out

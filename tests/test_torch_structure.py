@@ -40,6 +40,7 @@ def test_scan_sees_the_whole_port():
     assert "pytorch_distributedtraining_tpu_torch/models/gpt2.py" in names
     for module in ("runtime/dist.py", "runtime/mesh.py", "parallel/spec.py",
                    "parallel/policy.py", "parallel/remat.py", "parallel/state.py",
-                   "parallel/step.py"):
+                   "parallel/step.py", "observe/profiling.py", "observe/capture.py",
+                   "observe/opcost.py", "observe/comms.py"):
         assert f"pytorch_distributedtraining_tpu_torch/{module}" in names
     assert _imported_roots(ROOT / "tests" / "test_torch_stoke.py") & FORBIDDEN
