@@ -232,7 +232,38 @@ Phases, each fatal on failure:
    collectives at one rank on torch 2.13), and reduce-scatter records if it
    issued any, and ``calibrate`` prints its ``mfu_flops`` row
    (``observe.goodput``'s analytic FLOPs at the H100's peak against the
-   trace's compute seconds a step), beside the card's name and power limit.
+   trace's compute seconds a step), beside the card's name and power limit;
+18. the launcher on the card, the reference's launch line: (a)
+   ``python -m pytorch_distributedtraining_tpu_torch.runtime.launch
+   --nproc_per_node 1`` runs the SwinIR-S driver as a file (NCCL group of
+   one, phase 5's ``DRIVER_N`` images at batch ``BATCH``, ``LAUNCH_EPOCHS``
+   epochs, ``--portable-ckpt``, ``--deterministic``, ``--kernel-launches``);
+   (b) the same with ``--max_restarts 1`` and a ``ckpt.write`` kill of
+   attempt 0 at hit ``LAUNCH_KILL_AT`` (inside epoch 2's portable save):
+   the launcher must say ``restart 1/1`` once and exit 0, the portable dir
+   must hold ``epoch_0000``, ``epoch_0001`` and the torn ``epoch_0002.tmp``
+   and nothing else when it says so, generation 1 must run as attempt 1 and
+   resume from ``epoch_0001`` (``recovery_mode=retry``), and its final
+   train and validation losses must equal (a)'s within ``LAUNCH_TOL``
+   relative (the difference printed); (w) is (a) with phase 5's two loader
+   workers a loader (``--threads 2``: spawn workers, which run the driver
+   file again as ``__mp_main__``), whose losses must equal (a)'s too and
+   whose workers must be the same processes at every epoch's end; every
+   generation of (a), (b) and (w) must have launched K1 and K2 (each
+   child's own counters, printed after each epoch), (a) and (w) exactly
+   phase 5's count an epoch; the restart's cost, (b)'s wall seconds minus
+   (a)'s, each generation's start and (a)'s and (w)'s epoch times are
+   printed; (c) the recovery
+   drill (``runtime/recovery_drill.py``) under ``--elastic --max_restarts 1
+   --min_world 1`` with JAX's bench plan (``DRILL_K`` = 4: a ``ckpt.write``
+   sleep leaves step 3 torn, a ``train.preempt`` kill at step 4): the
+   events must be steps 1-3, one ``resume`` at step 2 past
+   ``step_0000000003.tmp`` in mode ``retry`` (world 1 cannot shrink), steps
+   3-6 and ``done`` at 6; the time to recover (the first step after the
+   resume minus the last before the kill, the drill's own clock) is
+   printed beside the card's name and power limit. The children run in
+   their own processes, so their launches reach neither
+   ``record_launches`` nor the kernels line; their shapes are phase 5's.
 
 Phases 5-9, 11, 12 and 14-17 note the shape, dtype and mask (or causality) of
 every launch; the run fails if one of them was not held against the plain
@@ -2648,6 +2679,34 @@ def lost_launches(events) -> list:
             and "correlation" in e.get("args", {}) and e["args"]["correlation"] not in devices]
 
 
+def lost_where(events) -> dict:
+    """Where a trace's lost launches (``lost_launches``) lie: their count
+    among all launch, copy and set calls, their first and last index in
+    time order, their offsets in ms from the first call and to the last,
+    their call names, the host threads that made them beside all threads
+    that launched, and the host ops (by external id) they came from."""
+    calls = sorted((e for e in events if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                    and any(k in e.get("name", "") for k in LAUNCH_CALLS)
+                    and "correlation" in e.get("args", {})), key=lambda e: e["ts"])
+    lost = set(lost_launches(events))
+    idx = [i for i, e in enumerate(calls) if e["args"]["correlation"] in lost]
+    if not idx:
+        return {"lost": 0, "of": len(calls)}
+    t0, t1 = calls[0]["ts"], calls[-1]["ts"]
+    ops = {e["args"].get("External id"): e.get("name") for e in events
+           if e.get("cat") == "cpu_op" and "External id" in e.get("args", {})}
+    picked = [calls[i] for i in idx]
+    return {"lost": len(idx), "of": len(calls), "first": idx[0], "last": idx[-1],
+            "from_first_ms": [round((picked[0]["ts"] - t0) / 1e3, 3),
+                              round((picked[-1]["ts"] - t0) / 1e3, 3)],
+            "to_last_ms": [round((t1 - picked[-1]["ts"]) / 1e3, 3),
+                           round((t1 - picked[0]["ts"]) / 1e3, 3)],
+            "names": sorted({e["name"] for e in picked}),
+            "tids": sorted({str(e.get("tid")) for e in picked}),
+            "all_tids": sorted({str(e.get("tid")) for e in calls}),
+            "ops": sorted({str(ops.get(e["args"].get("External id"))) for e in picked})[:8]}
+
+
 def launch_faults(launches: dict, per_step: int, steps: int) -> list[str]:
     """The kernels whose launches over ``steps`` steps are not ``per_step``
     a step."""
@@ -2711,8 +2770,9 @@ def phase_observe(smi: str) -> dict:
                     landed = len(times)
                     counted = {k: v - window0[k] for k, v in now.items()}
             summary, result = s.capture.summary(), s.opcost_result
-            lost = (len(lost_launches(opcost.load_trace_events(summary["capture_dirs"][-1])[0]))
-                    if summary["capture_dirs"] else None)
+            where = (lost_where(opcost.load_trace_events(summary["capture_dirs"][-1])[0])
+                     if summary["capture_dirs"] else None)
+            lost = where and where["lost"]
             # the same steps under a raw torch.profiler session, without the
             # guard's warm-up: what it loses is the fault the warm-up absorbs
             raw = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
@@ -2724,7 +2784,8 @@ def phase_observe(smi: str) -> dict:
                         s.step()
                 torch.cuda.synchronize()
             raw.export_chrome_trace(os.path.join(cap_root, "raw.json"))
-            raw_lost = len(lost_launches(opcost.read_trace(os.path.join(cap_root, "raw.json"))))
+            raw_where = lost_where(opcost.read_trace(os.path.join(cap_root, "raw.json")))
+            raw_lost = raw_where["lost"]
             for _ in range(2):  # untraced steps after the capture, for its cost
                 t0 = time.perf_counter()
                 for x, y in batches:
@@ -2768,8 +2829,8 @@ def phase_observe(smi: str) -> dict:
               f"top rows (op, class, launches, ms) {top_rows}; K1/K2 launches {launches} "
               f"({launches['K1'] / result['steps']:g} and {launches['K2'] / result['steps']:g} "
               f"a step; the wrappers counted {counted}); launches without their device record: "
-              f"{lost} in the capture, {raw_lost} in a raw torch.profiler session of as many "
-              f"steps; collectives "
+              f"{lost} in the capture ({where}), {raw_lost} in a raw torch.profiler session of "
+              f"as many steps ({raw_where}); collectives "
               f"{wire_counts(result['wires'])}: {len(grad_reduces)} all-reduce records of the "
               f"flat gradient ({grad_elems} f32 elements, {4 * grad_elems} B a step) among "
               f"{len(reduces)}, bandwidth {rates}; untraced step {step_ms:.2f} ms; an armed "
@@ -2778,7 +2839,7 @@ def phase_observe(smi: str) -> dict:
         if counted != launches or lost != 0:
             faults.append(f"the capture lost device records: the table's launches {launches} "
                           f"are not the wrappers' {counted} over the captured steps, or "
-                          f"{lost} launches have none")
+                          f"{lost} launches have none ({where})")
         if summary["captures"] != 1 or summary["last_trigger"]["source"] != "numerics":
             faults.append(f"capture {summary}: expected one, by the numerics plane")
         if opcost.runtime_stats["tables_built"] != tables0 + 1:
@@ -2818,7 +2879,8 @@ def phase_observe(smi: str) -> dict:
             second_made = os.path.exists(second)
             events, _ = opcost.load_trace_events(os.path.join(logdir, "run"))
             fsdp_gathers = fsdp_all_gathers(events)
-            lost_b = len(lost_launches(events))
+            where_b = lost_where(events)
+            lost_b = where_b["lost"]
             opcost_ok = True
             try:
                 res = opcost.ingest_trace(os.path.join(logdir, "run"),
@@ -2841,7 +2903,7 @@ def phase_observe(smi: str) -> dict:
         print(f"[observe] (b) GPT-2 125M bf16 ZeRO3 (FSDP2) at NCCL world 1, batch {LM_BATCH} x "
               f"seq {LM_SEQ}, profiler_trace over {GPT2_TRACED_STEPS} steps: K3/K4/K5 launches "
               f"{flash} ({', '.join(f'{k} {n / GPT2_TRACED_STEPS:g}' for k, n in flash.items())}"
-              f" a step; {lost_b} launches without their device record); FSDP2's all-gathers (its FSDP::all_gather annotations) "
+              f" a step; {lost_b} launches without their device record: {where_b}); FSDP2's all-gathers (its FSDP::all_gather annotations) "
               f"{fsdp_gathers}; collective records {gpt2_counts} (all-gather elements "
               f"{sum(w.elems for w in ag)}, reduce-scatter input elements "
               f"{sum(w.in_elems for w in rs)}, dtypes {sorted({w.dtype for w in ag + rs})}); "
@@ -2852,7 +2914,7 @@ def phase_observe(smi: str) -> dict:
               f"compute seconds a step of the trace; untraced step {untraced_ms:.2f} ms) | {smi}")
         faults = launch_faults(flash, LM_LAYERS, GPT2_TRACED_STEPS)
         if lost_b:
-            faults.append(f"the trace lost the device records of {lost_b} launches")
+            faults.append(f"the trace lost the device records of {lost_b} launches ({where_b})")
         if len(ag) != fsdp_gathers or (fsdp_gathers and not rs):
             faults.append(f"FSDP2 issued {fsdp_gathers} all-gathers (its FSDP::all_gather "
                           f"annotations), the inventory holds {gpt2_counts}")
@@ -2870,6 +2932,288 @@ def phase_observe(smi: str) -> dict:
         dist.shutdown()
     torch.cuda.empty_cache()
     print(f"[observe] phase {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+# phase 18: the launcher on the card. The reference's launch line (python -m
+# torch.distributed.launch --nproc_per_node=4 Stoke-DDP.py) as the port runs
+# it: runtime.launch starts the SwinIR-S driver as a file, one rank, in an
+# NCCL group of one, with phase 5's arguments (DRIVER_N synthetic images,
+# batch BATCH; no loader workers in (a) and (b), whose start each generation
+# would pay; (w) runs (a) with phase 5's two a loader and times its epochs), so
+# the children launch K1/K2 at phase 5's shapes, which phase 3 holds against
+# the plain versions: q/k/v [BATCH * 16, 6, 64, 10] for training,
+# [DRIVER_VAL * 16, ...] for validation.
+# The children's launches are counted by their own wrappers and printed after
+# each epoch (the driver's --kernel-launches line), so a killed generation
+# shows the epochs it finished.
+LAUNCH_EPOCHS = 3
+# (b) kills generation 0 inside epoch 2's portable save. One portable save
+# makes one ckpt.write hit a rank (in the writer, after its staging dir
+# exists) and no checkpoint.write hit (that site is on the sharded and
+# CheckpointManager paths only, as in JAX), so the kill is the third ckpt.write
+# hit, attempt 0: epoch_0002.tmp is left torn, and the relaunch resumes from
+# epoch_0001
+LAUNCH_KILL_AT = 3
+LAUNCH_TOL = 1e-6  # (b)'s final losses against (a)'s, relative; bitwise expected
+# (c): JAX's bench recovery arm (bench.py): K = 4, GRAFT_DRILL_STEPS = K + 2
+DRILL_K = 4
+LAUNCH_MODULE = "pytorch_distributedtraining_tpu_torch.runtime.launch"
+INHERITED_CONTRACT = ("RANK", "LOCAL_RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT")
+
+
+def launch_env(run_dir: str, **extra) -> dict:
+    """The environment of a launcher run: this process's, without a group's
+    contract or any GRAFT_* knob an earlier phase left, plus ``extra``."""
+    env = {k: v for k, v in os.environ.items()
+           if k not in INHERITED_CONTRACT and not k.startswith("GRAFT_")}
+    env.update(PYTHONPATH=str(ROOT), PYTHONUNBUFFERED="1", WANDB_MODE="disabled",
+               TMPDIR=run_dir, GRAFT_RESTART_BACKOFF="0.1", **extra)
+    return env
+
+
+def timed_lines(cmd: list, cwd: str, env: dict, timeout: float,
+                on_line=None) -> tuple[int | None, list, float]:
+    """Run ``cmd`` (stderr into stdout) in a process group of its own and
+    return its exit code (None when it outlived ``timeout`` and the whole
+    group was killed: the launcher and every child it started), each output
+    line with the seconds since the start at which it arrived, and the wall
+    seconds. ``on_line(line, pid)`` sees each line as it arrives, with the
+    pid of ``cmd``'s process."""
+    import signal
+    import threading
+
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=cwd, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True, start_new_session=True)
+    lines = []
+
+    def read():
+        for line in proc.stdout:
+            lines.append((time.perf_counter() - t0, line.rstrip("\n")))
+            if on_line is not None:
+                on_line(lines[-1][1], proc.pid)
+
+    reader = threading.Thread(target=read, daemon=True)
+    reader.start()
+    rc = None
+    try:
+        rc = proc.wait(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        with contextlib.suppress(ProcessLookupError):
+            os.killpg(proc.pid, signal.SIGKILL)  # strays of a finished run too
+        proc.wait()
+        reader.join(timeout=10)
+    return rc, lines, time.perf_counter() - t0
+
+
+def grandchildren(pid: int) -> list:
+    """``(pid, start ticks)`` of the children of ``pid``'s children, from
+    ``/proc``: the launcher's ranks' own processes (loader workers)."""
+    parent, start = {}, {}
+    for d in os.listdir("/proc"):
+        if not d.isdigit():
+            continue
+        try:
+            with open(f"/proc/{d}/stat", encoding="utf-8") as fh:
+                fields = fh.read().rsplit(")", 1)[1].split()
+        except OSError:
+            continue
+        parent[int(d)], start[int(d)] = int(fields[1]), int(fields[19])
+    ranks = {p for p, pp in parent.items() if pp == pid}
+    return sorted((p, start[p]) for p, pp in parent.items() if pp in ranks)
+
+
+def parse_driver_run(lines: list) -> dict:
+    """The stoke driver's final losses, its ``[kernels]`` lines by attempt,
+    its resume lines, the launcher's restart lines and the seconds at which
+    each generation reached its training loop."""
+    text = [ln for _, ln in lines]
+    kernels: dict = {}
+    for ln in text:
+        if ln.startswith("[kernels] "):
+            doc = json.loads(ln[len("[kernels] "):])
+            kernels.setdefault(doc["attempt"], []).append(doc)
+    train = re.findall(r"Train Loss after Epoch (\d+) - (\S+) -", "\n".join(text))
+    val = re.findall(r"Val Loss after Epoch (\d+) - (\S+) -", "\n".join(text))
+    return {
+        "train": [(int(e), float(v)) for e, v in train], "val": [(int(e), float(v)) for e, v in val],
+        "kernels": kernels,
+        "resumed": [ln for ln in text if ln.startswith("===> Resumed portable checkpoint")],
+        "restarts": [ln for ln in text if re.search(r"restart \d+/\d+", ln)],
+        "training_at": [t for t, ln in lines if ln.startswith("===> Training")],
+        "epochs_at": [round(t, 2) for t, ln in lines if "Val Loss after Epoch" in ln],
+        "restart_at": [t for t, ln in lines if re.search(r"restart \d+/\d+", ln)],
+    }
+
+
+def phase_launch(smi: str) -> dict:
+    """Phase 18: the launcher on the card (module docstring)."""
+    t_phase = time.perf_counter()
+    driver = ROOT / "pytorch_distributedtraining_tpu_torch" / "drivers" / "stoke_ddp.py"
+    drill = ROOT / "pytorch_distributedtraining_tpu_torch" / "runtime" / "recovery_drill.py"
+    (ROOT / "build").mkdir(exist_ok=True)
+    out = {}
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as work:
+        runs = {}
+        for name, restarts, plan, threads in (
+                ("a", 0, None, 0),
+                ("b", 1, {"faults": [{"site": "ckpt.write", "action": "kill", "attempt": 0,
+                                      "at": LAUNCH_KILL_AT}]}, 0),
+                ("w", 0, None, 2)):
+            run_dir = os.path.join(work, name)
+            portable = os.path.join(run_dir, "portable")
+            os.makedirs(run_dir)
+            env = launch_env(run_dir)
+            if plan is not None:
+                env["GRAFT_FAULT_PLAN"] = json.dumps(plan)
+            # the portable dir as the launcher decides the restart (the
+            # relaunch's start, ~10 s, comes before its first write), and
+            # the ranks' loader workers at each epoch's end
+            at_restart, workers = [], []
+
+            def on_line(line, pid, portable=portable, at_restart=at_restart,
+                        workers=workers):
+                if re.search(r"restart \d+/\d+", line) and not at_restart:
+                    at_restart.append(sorted(os.listdir(portable)))
+                elif "Val Loss after Epoch" in line:
+                    workers.append(grandchildren(pid))
+
+            rc, lines, wall = timed_lines(
+                [sys.executable, "-m", LAUNCH_MODULE, "--nproc_per_node", "1",
+                 "--max_restarts", str(restarts), str(driver), "--synthetic", "--synthetic-n",
+                 str(DRIVER_N), "--batchSize", str(BATCH), "--nEpochs", str(LAUNCH_EPOCHS),
+                 "--threads", str(threads), "--deterministic", "--kernel-launches",
+                 "--portable-ckpt", portable], run_dir, env, timeout=300, on_line=on_line)
+            with open(os.path.join(run_dir, "output.log"), "w") as fh:
+                fh.writelines(f"{t:9.3f} {ln}\n" for t, ln in lines)
+            parsed = parse_driver_run(lines)
+            parsed.update(rc=rc, wall=wall, tail=[ln for _, ln in lines[-30:]],
+                          at_restart=at_restart, workers=workers)
+            runs[name] = parsed
+        a, b, w = runs["a"], runs["b"], runs["w"]
+        faults = []
+        for name, run in runs.items():
+            if run["rc"] != 0:
+                faults.append(f"({name}) the launcher exited {run['rc']}: {run['tail']}")
+        last = LAUNCH_EPOCHS - 1
+        final = {name: (dict(run["train"]).get(last), dict(run["val"]).get(last))
+                 for name, run in runs.items()}
+        rel, rel_w = ([abs(x - y) / max(abs(y), 1e-30) for x, y in zip(final[n], final["a"])
+                       if x is not None and y is not None] for n in ("b", "w"))
+        # an epoch's seconds: from the training loop's start, then from the
+        # previous epoch's end
+        epoch_s = {n: [round(t1 - t0, 2) for t0, t1 in zip(
+            runs[n]["training_at"][:1] + runs[n]["epochs_at"], runs[n]["epochs_at"])]
+            for n in ("a", "w")}
+        per_gen = {name: {att: (docs[-1]["window_attn_fwd"], docs[-1]["window_attn_bwd"])
+                          for att, docs in run["kernels"].items()} for name, run in runs.items()}
+        train_batches = (DRIVER_N - DRIVER_VAL) // BATCH
+        full = (LAUNCH_EPOCHS * 24 * (train_batches + 1), LAUNCH_EPOCHS * 24 * train_batches)
+        gen_start = {"a gen 0": a["training_at"][:1], "b gen 0": b["training_at"][:1],
+                     "b gen 1": [t - b["restart_at"][0] for t in b["training_at"][1:2]]
+                     if b["restart_at"] else []}
+        restart_cost = b["wall"] - a["wall"]
+        print(f"[launch] (a) {LAUNCH_MODULE} --nproc_per_node 1 stoke_ddp.py (SwinIR-S x2, NCCL "
+              f"world 1, f32, {DRIVER_N} synthetic images, batch {BATCH}, {LAUNCH_EPOCHS} epochs, "
+              f"--deterministic): rc {a['rc']}, {a['wall']:.1f} s; final train {final['a'][0]!r}"
+              f", val {final['a'][1]!r}; K1/K2 launches by generation {per_gen['a']}; its "
+              f"training loop at {a['training_at']} s, epochs done at {a['epochs_at']} s | {smi}")
+        print(f"[launch] (b) the same with --max_restarts 1 and a ckpt.write kill at hit "
+              f"{LAUNCH_KILL_AT} of attempt 0 (inside epoch 2's portable save): rc {b['rc']}, "
+              f"{b['wall']:.1f} s; launcher {b['restarts']}; {b['resumed']}; final train "
+              f"{final['b'][0]!r}, val {final['b'][1]!r}; relative difference to (a) "
+              f"{[f'{r:.3e}' for r in rel]} (tol {LAUNCH_TOL:g}); K1/K2 launches by generation "
+              f"{per_gen['b']}; training loops at {b['training_at']} s, epochs done at "
+              f"{b['epochs_at']} s, restart line at {b['restart_at']} s | {smi}")
+        print(f"[launch] restart cost on the card: (b) - (a) = {restart_cost:.1f} s of wall; a "
+              f"generation's start (launch or restart line to its '===> Training') "
+              f"{ {k: [round(t, 2) for t in v] for k, v in gen_start.items()} } s; the "
+              f"portable dir at the restart line {b['at_restart']} | {smi}")
+        worker_sets = [[p for p, _ in ws] for ws in w["workers"]]
+        print(f"[launch] (w) (a) with --threads 2 (two spawn loader workers a loader): rc "
+              f"{w['rc']}, {w['wall']:.1f} s; final train {final['w'][0]!r}, val "
+              f"{final['w'][1]!r}, relative difference to (a) {[f'{r:.3e}' for r in rel_w]}; "
+              f"K1/K2 {per_gen['w']}; training loop at {w['training_at']} s; epoch seconds "
+              f"(w) {epoch_s['w']} against (a) {epoch_s['a']}; the rank's child processes "
+              f"(pid, start ticks) at each epoch's end {w['workers']} | {smi}")
+        if len(b["restarts"]) != 1 or "restart 1/1" not in b["restarts"][0]:
+            faults.append(f"(b) expected one 'restart 1/1', the launcher said {b['restarts']}")
+        if b["at_restart"] != [["epoch_0000", "epoch_0001", "epoch_0002.tmp"]]:
+            faults.append(f"(b) generation 0 did not leave epoch_0002.tmp torn past the "
+                          f"committed epoch_0001: the portable dir at the restart line held "
+                          f"{b['at_restart']}")
+        if len(b["resumed"]) != 1 or "epoch_0001 (resharded onto this run), from epoch 2 " \
+                "(recovery_mode=retry)" not in b["resumed"][0]:
+            faults.append(f"(b) generation 1 did not resume past the torn epoch_0002.tmp from "
+                          f"epoch_0001 with recovery_mode=retry: {b['resumed']}")
+        if sorted(per_gen["b"]) != [0, 1]:
+            faults.append(f"(b) generation 1 saw no GRAFT_RESTART_ATTEMPT=1 (attempts "
+                          f"{sorted(per_gen['b'])} in its [kernels] lines)")
+        if len(rel) != 2 or max(rel) > LAUNCH_TOL:
+            faults.append(f"(b)'s final losses {final['b']} depart from (a)'s {final['a']}")
+        for name in ("a", "w"):
+            if per_gen[name].get(0) != full:
+                faults.append(f"({name}) launched K1/K2 {per_gen[name]}, expected {full} over "
+                              f"the run")
+        if len(rel_w) != 2 or max(rel_w) > LAUNCH_TOL:
+            faults.append(f"(w)'s final losses {final['w']} depart from (a)'s {final['a']}")
+        if len(worker_sets) != LAUNCH_EPOCHS or not worker_sets[0] or any(
+                ws != worker_sets[0] for ws in worker_sets):
+            faults.append(f"(w)'s loader workers did not persist across the epochs: "
+                          f"{w['workers']}")
+        for name, gens in per_gen.items():
+            if not gens or any(f == 0 or k2 == 0 for f, k2 in gens.values()):
+                faults.append(f"({name}) a generation launched no K1 or no K2: {gens}")
+        if faults:
+            raise SystemExit("phase 18: " + "; ".join(faults))
+        out["driver"] = {"final": final, "rel": rel, "rel_w": rel_w,
+                         "walls": (a["wall"], b["wall"], w["wall"]),
+                         "restart_cost_s": restart_cost, "gen_start_s": gen_start,
+                         "epoch_s": epoch_s, "launches": per_gen}
+
+        # (c) the recovery drill, JAX's bench plan, at world 1 on the card
+        run_dir = os.path.join(work, "drill")
+        os.makedirs(run_dir)
+        events_path = os.path.join(run_dir, "events.jsonl")
+        plan = {"faults": [
+            {"site": "ckpt.write", "action": "sleep", "arg": 600, "rank": 0, "attempt": 0,
+             "match": {"step": DRILL_K - 1}},
+            {"site": "train.preempt", "action": "kill", "rank": 0, "attempt": 0,
+             "match": {"step": DRILL_K}}]}
+        env = launch_env(run_dir, GRAFT_FAULT_PLAN=json.dumps(plan), GRAFT_DRILL_OUT=events_path,
+                         GRAFT_DRILL_CKPT=os.path.join(run_dir, "ckpt"),
+                         GRAFT_DRILL_STEPS=str(DRILL_K + 2), GRAFT_LAUNCH_ESCALATE_S="5")
+        rc, lines, wall = timed_lines(
+            [sys.executable, "-m", LAUNCH_MODULE, "--nproc_per_node", "1", "--elastic",
+             "--max_restarts", "1", "--min_world", "1", str(drill)], run_dir, env, timeout=240)
+        events = []
+        if os.path.exists(events_path):
+            with open(events_path, encoding="utf-8") as fh:
+                events = [json.loads(ln) for ln in fh]
+        shape = [(e["event"], e.get("step"), e.get("attempt"), e.get("world"), e.get("mode"),
+                  tuple(e.get("torn_dirs", ()))) for e in events]
+        want = ([("step", s, 0, 1, None, ()) for s in range(1, DRILL_K)]
+                + [("resume", DRILL_K - 2, 1, 1, "retry", (f"step_{DRILL_K - 1:010d}.tmp",))]
+                + [("step", s, 1, 1, None, ()) for s in range(DRILL_K - 1, DRILL_K + 3)]
+                + [("done", DRILL_K + 2, 1, 1, None, ())])
+        before = [e["t"] for e in events if e["event"] == "step" and e["attempt"] == 0]
+        after = [e["t"] for e in events if e["event"] == "step" and e["attempt"] == 1]
+        recover_s = after[0] - before[-1] if before and after else None
+        restarts = [ln for _, ln in lines if "[launch]" in ln and "restart" in ln]
+        print(f"[launch] (c) recovery drill (ESPCN, ZeRO-2, NCCL world 1) under --elastic "
+              f"--max_restarts 1 --min_world 1, ckpt.write sleep at step {DRILL_K - 1} and "
+              f"train.preempt kill at step {DRILL_K}: rc {rc}, {wall:.1f} s; launcher "
+              f"{restarts}; events {[(e[0], e[1], e[2]) for e in shape]}; time to recover "
+              f"(first step after the resume - last step before the kill, the drill's clock) "
+              f"{recover_s if recover_s is None else round(recover_s, 3)} s | {smi}")
+        if rc != 0 or shape != want:
+            raise SystemExit(f"phase 18 (c): rc {rc}, events {shape}, expected {want}; "
+                             f"tail {[ln for _, ln in lines[-20:]]}")
+        out["drill"] = {"wall": wall, "recover_s": recover_s, "resume_step": DRILL_K - 2}
+    print(f"[launch] phase {time.perf_counter() - t_phase:.1f} s")
     return out
 
 
@@ -2936,6 +3280,7 @@ def main() -> int:
         phase_resume(smi)
         health = phase_health(smi, lm)
         phase_observe(smi)
+    phase_launch(smi)
     mfu_lines(smi, bench, bench_cfg, lm, images, health)
     checked = set().union(*(c["checked"] for c in cases + flash_cases), health["checked"])
     print(f"[shapes] phases 5-9, 11, 12 and 14-17 launched {len(seen)} kinds of (kernel, q "

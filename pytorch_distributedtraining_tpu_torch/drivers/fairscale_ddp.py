@@ -11,13 +11,17 @@ a loss print every 25 iterations and one line per epoch::
     python -m pytorch_distributedtraining_tpu_torch.drivers.fairscale_ddp \\
         --synthetic --epochs 1 --workers 2
 
+    python -m pytorch_distributedtraining_tpu_torch.runtime.launch --nproc_per_node N \\
+        pytorch_distributedtraining_tpu_torch/drivers/fairscale_ddp.py --synthetic
+
     python -m torch.distributed.run --standalone --nproc_per_node N \\
         -m pytorch_distributedtraining_tpu_torch.drivers.fairscale_ddp --synthetic
 
-Under the launcher it joins the process group (NCCL on the GPU, gloo with
-``--device cpu``) and shards optimizer state and gradients over the
-launcher's world (the JAX driver's ``WORLD_SIZE = 4`` becomes it); started
-by hand it trains one process, with the same update. ZeRO-2 is not a
+Under a launcher (the port's ``runtime.launch``, which runs the driver as
+a file, or ``torch.distributed.run``) it joins the process group (NCCL on
+the GPU, gloo with ``--device cpu``) and shards optimizer state and
+gradients over the launcher's world (the JAX driver's ``WORLD_SIZE = 4``
+becomes it); started by hand it trains one process, with the same update. ZeRO-2 is not a
 layout for the flat ``FusedAdamW``, so the update is the per-leaf chain,
 as in the JAX driver. The reference bugs that the JAX driver fixes stay
 fixed: ``num_replicas`` is not hard-coded to 4, the sampler's epoch
@@ -31,7 +35,10 @@ checkpoint under ``DIR``, at this run's world size whatever the one that
 saved it: the resume finishes the original ``--epochs`` schedule, skipping
 the iterations the checkpoint already covers (one optimizer step an
 iteration; the loader's epoch is set so the data order is the unbroken
-run's)::
+run's). A resume under the port's launcher prints the launcher's
+``GRAFT_RECOVERY_MODE`` (``retry``, ``shrink`` or ``grow``) beside the
+step; with ``--max_restarts K`` (and ``--elastic`` to go on with the
+survivors) the launcher relaunches a killed world onto the same ``--ckpt``::
 
     python -m pytorch_distributedtraining_tpu_torch.drivers.fairscale_ddp \
         --synthetic --ckpt ckpt/espcn --save-every 100
@@ -71,6 +78,12 @@ import argparse
 import functools
 import os
 import sys
+from pathlib import Path
+
+if __package__ in (None, ""):
+    # run as a file (the launcher's way): the repository root is not on the
+    # path, only this file's directory
+    sys.path.insert(0, str(Path(__file__).resolve().parents[2]))
 
 import torch
 
@@ -200,7 +213,9 @@ def _train(opt: argparse.Namespace, device: torch.device, model: Net | None) -> 
             resumed = mgr.restore_latest(state)
             if resumed is not None:
                 start_step = resumed[0]
-                _line(f"===> Resumed from checkpoint @ step {start_step}")
+                mode = os.environ.get("GRAFT_RECOVERY_MODE", "")
+                _line(f"===> Resumed from checkpoint @ step {start_step}"
+                      + (f" (recovery_mode={mode})" if mode else ""))
         # a resume finishes the original schedule: the epochs and iterations
         # the checkpoint covers are skipped, not trained again
         steps_per_epoch = len(training_dataloader)

@@ -10,12 +10,18 @@ flag meaning ``halt``; ``--opcost``, env twin ``GRAFT_OPCOST``;
 ``GRAFT_NUMERICS_ACTION``, ``GRAFT_OPCOST``, ``GRAFT_CAPTURE``), which the
 facade and ``observe`` read, and turns the tracer on; ``armed_capture``
 arms the anomaly capture on a driver's own step loop; ``report`` writes
-the Chrome trace at exit and prints the goodput breakdown and the MFU.
+the Chrome trace at exit and prints the goodput breakdown and the MFU;
+``print_launches`` (the SwinIR driver's ``--kernel-launches``) prints,
+after each epoch, how many times this process has launched each of the
+port's kernels: one JSON line, so a run under the launcher shows each
+rank's and each generation's, a killed one's too (``chip_smoke.py`` reads
+them).
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import os
 
 from ..observe import capture, goodput, opcost
@@ -106,3 +112,21 @@ def report(path: str | None, steps: int, flops_per_step: float | None, device) -
     print(f"===> goodput: wall {summary['wall_s']:.3f}s over {steps} steps, "
           f"{ledger or 'no spans'}; MFU {mfu}")
     return summary
+
+
+def print_launches(epoch: int) -> dict:
+    """Print ``[kernels] {"rank": r, "attempt": a, "epoch": e,
+    "window_attn_fwd": n, ...}``: the launch counters of
+    ``ops.window_attn`` (K1, K2) and ``ops.flash_attn`` (K3-K5) in this
+    process since it started, after ``epoch``, with the launcher's
+    ``GRAFT_RESTART_ATTEMPT`` (0 without one); returns the dict."""
+    from ..ops import flash_attn, window_attn
+    from ..runtime import dist
+
+    counts = {"rank": dist.rank(), "attempt": int(os.environ.get("GRAFT_RESTART_ATTEMPT") or 0),
+              "epoch": epoch, "window_attn_fwd": window_attn.fwd_launches,
+              "window_attn_bwd": window_attn.bwd_launches,
+              "flash_attn_fwd": flash_attn.fwd_launches,
+              "flash_attn_dq": flash_attn.dq_launches, "flash_attn_dkv": flash_attn.dkv_launches}
+    print("[kernels] " + json.dumps(counts), flush=True)
+    return counts

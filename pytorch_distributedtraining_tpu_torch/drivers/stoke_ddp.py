@@ -8,10 +8,22 @@ reference CLI flag for flag, plus ``--synthetic``, ``--synthetic-n``,
     python -m pytorch_distributedtraining_tpu_torch.drivers.stoke_ddp \\
         --synthetic --nEpochs 1 --batchSize 18 --threads 2
 
-On N GPUs, one process each (NCCL; ``--device cpu`` for gloo ranks)::
+On N GPUs, one process each (NCCL; ``--device cpu`` for gloo ranks),
+under the port's launcher, which runs the driver as a file as the
+reference's ``torch.distributed.launch`` line does, or under
+``torch.distributed.run``::
+
+    python -m pytorch_distributedtraining_tpu_torch.runtime.launch --nproc_per_node N \\
+        pytorch_distributedtraining_tpu_torch/drivers/stoke_ddp.py --synthetic
 
     python -m torch.distributed.run --standalone --nproc_per_node N \\
         -m pytorch_distributedtraining_tpu_torch.drivers.stoke_ddp --synthetic
+
+The launcher's ``--max_restarts K`` relaunches a failed world (with
+``--portable-ckpt`` the relaunch resumes from the newest committed epoch),
+``--elastic`` relaunches with the survivors, and on the CPU
+``--one_cpu_device_per_rank`` hides the cards from ranks started with
+``--device cpu``.
 
 The facade's flags are the reference's, DDP with Fairscale OSS and
 ShardedDDP (ZeRO-2) and ``broadcast_fp16``; each rank trains on its own
@@ -39,6 +51,10 @@ optimizer step's gradients and a ``halt`` verdict raises
 goodput breakdown and MFU (SwinIR's analytic FLOPs at the training crops'
 size, ``observe.goodput``) printed.
 
+``--kernel-launches`` prints, after each epoch, each rank's launches of
+the port's kernels so far (one ``[kernels] {json}`` line);
+``--deterministic`` asks cuDNN for its deterministic algorithms, so a
+resume reproduces the unbroken run.
 ``--capture [DIR]`` and ``--opcost`` thread the anomaly-triggered
 capture and the op-cost plane through ``GRAFT_CAPTURE`` and
 ``GRAFT_OPCOST``: the facade arms an ``observe.capture.OnDemandProfiler``
@@ -56,6 +72,13 @@ from __future__ import annotations
 
 import argparse
 import os
+import sys
+from pathlib import Path
+
+if __package__ in (None, ""):
+    # run as a file (the launcher's way): the repository root is not on the
+    # path, only this file's directory
+    sys.path.insert(0, str(Path(__file__).resolve().parents[2]))
 
 import torch
 
@@ -218,6 +241,13 @@ def build_parser():
     parser.add_argument("--remat", type=str, default=None,
                         help="activation remat policy per Swin layer: none/full/dots/offload "
                              "(default: $GRAFT_REMAT or none)")
+    parser.add_argument("--deterministic", action="store_true",
+                        help="cuDNN's deterministic algorithms (torch.backends.cudnn."
+                             "deterministic), so a resumed run reproduces the unbroken one "
+                             "bitwise on the GPU")
+    parser.add_argument("--kernel-launches", action="store_true",
+                        help="after each epoch, print this rank's launches of each of the "
+                             "port's kernels (K1-K5) so far as one line: [kernels] {json}")
     observe_flags.add_arguments(parser)
     return parser
 
@@ -279,6 +309,8 @@ def build_stoke(model: torch.nn.Module, *, lr: float = 0.001, weight_decay: floa
 def main(argv=None):
     opt = build_parser().parse_args(argv)
     observe_flags.apply(opt)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = deterministic or opt.deterministic
     joined = not dist.is_initialized()
     dist.initialize(device=opt.device)  # a no-op when started by hand on one device
     try:
@@ -286,6 +318,7 @@ def main(argv=None):
     finally:
         if joined:
             dist.shutdown()
+        torch.backends.cudnn.deterministic = deterministic
 
 
 def _main(opt):
@@ -364,8 +397,10 @@ def _main(opt):
         scheduler1.load_state_dict(meta["scheduler1"])
         scheduler2.load_state_dict(meta["scheduler2"])
         start_epoch = int(meta["epoch"]) + 1
+        mode = os.environ.get("GRAFT_RECOVERY_MODE", "")
         print("===> Resumed portable checkpoint {} (resharded onto this run), from epoch "
-              "{}".format(latest, start_epoch))
+              "{}{}".format(latest, start_epoch,
+                            f" (recovery_mode={mode})" if mode else ""))
 
     print("===> Training")
     train_loss = val_loss = float("nan")
@@ -382,6 +417,8 @@ def _main(opt):
                                     "scheduler2": scheduler2.state_dict()})
             print("--------Train Loss after Epoch {} - {} --------".format(epoch, train_loss))
             print("--------Val Loss after Epoch {} - {} --------".format(epoch, val_loss))
+            if opt.kernel_launches:
+                observe_flags.print_launches(epoch)
     finally:
         wandb.finish()
         train_dataloader.shutdown_workers()

@@ -38,12 +38,17 @@ On a card a session warms CUPTI up before its window opens: it starts
 collecting (``prepare_trace``), runs ``WARMUP_KERNELS`` one-element kernels
 to the end, and only then opens the trace's window (``start_trace``), the
 split torch's own ``WARMUP`` schedule step makes. In a process that had run
-``chip_smoke.py``'s earlier phases, CUPTI lost the first dozen or so device
-records of every session, whatever they were and however long after the
-start they came (12 in phase 17's raw session; the H100, torch 2.11, CUDA
-runtime 12.8, driver 13.0; never in a fresh process; why, unknown): the
-warm-up's records absorb that loss, and those that survive fall before the
-window, where Kineto drops them.
+``chip_smoke.py``'s earlier phases, CUPTI lost the first device records of
+every session, whatever they were and however long after the start they
+came (the H100, torch 2.11, CUDA runtime 12.8, driver 13.0; never in a
+fresh process; why, unknown). The loss counts records, not time: a raw
+session lost its first 12-21 calls' records, a warm-up of k quick kernels
+cut that by about k, 8 kernels spread over 10 ms by as much as 8 quick
+ones, and one 10 ms spin kernel by about one kernel's worth. The warm-up's
+records absorb the loss, and those that survive fall before the window,
+where Kineto drops them. 256 kernels absorbed it in every session but one
+(a guarded session once lost 25 records, whose place in its trace was not
+recorded); 4096, tried beside 256 in one lossy process, lost none either.
 """
 
 from __future__ import annotations
@@ -57,7 +62,7 @@ from dataclasses import dataclass, field
 
 from . import trace as _telemetry
 
-WARMUP_KERNELS = 256  # far above the dozen records a session was seen to lose
+WARMUP_KERNELS = 4096  # 16x the 256 that once fell short; 200x the 21 a raw session lost
 
 # the session this module started: its logdir, the profile object and the
 # wall time it started at (the run directory's name)

@@ -4,6 +4,20 @@ Counterpart of ``pytorch_distributedtraining_tpu/resilience/faults.py``,
 with the sites the port threads so far:
 
 =====================  =====================================================
+``launch.worker``      launcher monitor SIGKILLs a chosen local rank
+                       mid-generation (``runtime/launch.py``)
+``launch.grow``        elastic launcher is about to initiate a grow-back
+                       reshard -- ``raise`` vetoes this grow attempt (the
+                       gate re-arms), ``sleep`` delays the teardown
+                       (``runtime/launch.py``)
+``membership.heartbeat`` a host's membership heartbeat is dropped -- the
+                       host ages out of the live set and cannot be grown
+                       onto (``runtime/membership.py``)
+``dist.rendezvous``    the rendezvous fails before
+                       ``torch.distributed.init_process_group``
+                       (``runtime/dist.py``)
+``collective.barrier`` the process-group barrier raises a pool-style
+                       ``UNAVAILABLE`` error (``runtime/dist.py``)
 ``checkpoint.write``   transient I/O error on a checkpoint write: at the
                        sharded write (retried through the outage
                        classifier) and at ``CheckpointManager.save``
@@ -39,7 +53,9 @@ site, 1-based (default 1); ``times``: consecutive hits that fire (default
 ``GRAFT_RESTART_ATTEMPT`` matches; ``match``: equality constraints on the
 call site's context kwargs; ``message`` / ``arg``: error text / action
 argument (exit code, sleep seconds); ``after_s``: delay for
-monitor-driven sites.
+monitor-driven sites (``launch.worker``: the launcher kills the rule's
+``rank``, a local rank, ``after_s`` seconds into the generation whose
+attempt matches).
 
 Stdlib only; without a plan, :func:`fault_point` is a global read and a
 ``None`` check.
@@ -60,6 +76,11 @@ ENV_VAR = "GRAFT_FAULT_PLAN"
 _VALID_ACTIONS = ("raise", "oserror", "exit", "kill", "sigterm", "sleep")
 
 SITES = frozenset({
+    "launch.worker",
+    "launch.grow",
+    "membership.heartbeat",
+    "dist.rendezvous",
+    "collective.barrier",
     "checkpoint.write",
     "ckpt.write",
     "train.preempt",

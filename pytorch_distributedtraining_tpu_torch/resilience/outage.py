@@ -18,7 +18,20 @@ the errors torch's own I/O and stores raise:
 - ``torch.distributed``'s ``DistStoreError`` (a rendezvous store that
   timed out or went away) and ``DistNetworkError`` are OUTAGE, and so is a
   ``DistBackendError`` whose text says a collective timed out. They are
-  matched by class name, so this module stays stdlib-only.
+  matched by class name, so this module stays stdlib-only;
+- :func:`is_outage_text` knows the two texts torch's ``TCPStore`` gives a
+  rendezvous that could not form, which JAX's gRPC and transport
+  signatures miss: a client that never reached the store ("... timed out
+  after 3000ms while trying to connect to (127.0.0.1, 29500)": torch
+  retries a refused connection until its timeout) and a store whose
+  ranks never all came ("Timed out after 60 seconds waiting for clients.
+  1/2 clients joined."). So a child's last lines carrying either classify
+  as an outage, as JAX's coordinator texts do there.
+
+:func:`classify`, :func:`external_termination` and
+:func:`attributes_to_host` read a child's return code (and its last
+lines): the elastic launcher's restart, shrink and quarantine decisions
+(``runtime/launch.py``), copied as they are.
 """
 
 from __future__ import annotations
@@ -66,12 +79,104 @@ _CONNECTION_SENTINELS = (
     "host unreachable",
 )
 
+# torch's TCPStore rendezvous texts (case-insensitive): a client that never
+# reached the store, and a store whose ranks never all joined
+_TORCH_STORE_SENTINELS = (
+    "while trying to connect to",
+    "waiting for clients",
+)
+
+# return codes that are outage-class by construction:
+#   None -- the caller killed a hung child
+#   3    -- a probe's refusal to fall back to the CPU (the pool dropped)
+#   4    -- a bench child's refusal to fall back to the CPU
+#   124  -- coreutils `timeout` expiry (a driver-side kill of a hung run)
+_OUTAGE_RCS = frozenset({3, 4, 124})
+
+
 def is_outage_text(text: str) -> bool:
     """True when ``text`` carries a recognized outage signature."""
     if any(s in text for s in _GRPC_SENTINELS):
         return True
     low = text.lower()
-    return any(s in low for s in _CONNECTION_SENTINELS)
+    return any(s in low for s in _CONNECTION_SENTINELS + _TORCH_STORE_SENTINELS)
+
+
+def classify(rc: int | None, tail: str = "") -> OutageClass:
+    """Classify one failed probe/attempt from its return code + output tail.
+
+    ``rc`` is the child's return code (None = killed on timeout); ``tail``
+    is whatever diagnostic text survived (the informative last lines).
+    """
+    if rc is None or rc in _OUTAGE_RCS:
+        return OutageClass.OUTAGE
+    if rc in (-9, -15, 137, 143):
+        # killed by SIGKILL/SIGTERM (subprocess negative convention or the
+        # 128+N shell convention): an *external* termination -- preemption,
+        # OOM-killer, driver timeout -- is outage-class, not a code bug
+        return OutageClass.OUTAGE
+    if tail and is_outage_text(tail):
+        return OutageClass.OUTAGE
+    if rc is not None and rc < 0:
+        # some other signal (SIGSEGV, SIGILL): could be a flaky backend or
+        # a real crash -- ride briefly, like a bare rc=1
+        return OutageClass.UNKNOWN
+    if rc == 1:
+        # a bare interpreter-level failure with no recognizable signature:
+        # could be either (errors sometimes lose their text to a truncated
+        # tail) -- let the caller's fast-fail window decide
+        return OutageClass.UNKNOWN
+    # rc=2 (usage), ImportError-style startup rc, or any other distinct
+    # code with no outage text: deterministic, retrying cannot help
+    return OutageClass.DETERMINISTIC
+
+
+def external_termination(rc: int | None) -> bool:
+    """True when a rank's exit looks like the WORKER WAS TAKEN AWAY --
+    SIGKILL/SIGTERM (negative subprocess convention or the 128+N shell
+    convention) or a kill-on-timeout (rc None) -- rather than the program
+    failing on its own. This is the elastic launcher's shrink-vs-retry
+    discriminator: a preempted/OOM-killed/timed-out rank is *gone*, so
+    the surviving world relaunches smaller (shrink-to-survive); any other
+    outage-class failure (rendezvous flake, transient I/O) retries at the
+    same world size first.
+    """
+    return rc is None or rc in (-9, -15, 124, 137, 143)
+
+
+# crash signatures that point at the HOST rather than the code or the
+# pool: memory/bus faults and illegal instructions are the classic
+# bad-DIMM / cooked-device ways a machine eats a rank, and a hardware
+# sentinel in the tail is the driver saying so outright
+_HOST_FAULT_RCS = frozenset({-11, -7, -4, -8, 139, 135, 132, 136})
+_HOST_FAULT_SENTINELS = (
+    "uncorrectable ecc",
+    "hbm error",
+    "device failure",
+    "hardware error",
+    "machine check",
+    "bus error",
+    "segmentation fault",
+)
+
+
+def attributes_to_host(rc: int | None, tail: str = "") -> bool:
+    """True when a rank's failure is plausibly the HOST's fault -- the
+    elastic launcher's quarantine discriminator.
+
+    An external termination (preemption/OOM-kill/timeout) says the pool
+    took the worker: the host is innocent and stays admissible for
+    grow-back. A SIGSEGV/SIGBUS/SIGILL/SIGFPE death, or a hardware
+    sentinel in the diagnostic tail, says the machine itself ate the
+    rank -- growing back onto it would just crash the next generation,
+    so it enters quarantine with exponential backoff instead.
+    """
+    if rc is not None and rc in _HOST_FAULT_RCS:
+        return True
+    if external_termination(rc):
+        return False
+    low = tail.lower()
+    return any(s in low for s in _HOST_FAULT_SENTINELS)
 
 
 # errno values that say the request itself is wrong: retrying cannot help

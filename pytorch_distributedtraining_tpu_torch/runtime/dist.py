@@ -17,6 +17,17 @@ A run started with none of the env contract is a no-op for
 forms the group, so ``torch.distributed.run --nproc_per_node 1`` trains
 through the same collectives as a run on many GPUs.
 
+The rendezvous retries as JAX's does: the ``dist.rendezvous`` fault site,
+then ``init_process_group`` under ``RetryPolicy(attempts=
+GRAFT_RENDEZVOUS_ATTEMPTS or 2, base 1 s, max 15 s)``, retrying only what
+the outage classifier calls OUTAGE and is not a ``ValueError``. Whatever
+a failed attempt left (a default group registered before the failure,
+its store) is destroyed before the next. Under the elastic launcher
+(``GRAFT_MEMBERSHIP``, a directory store) each rank notes itself up in
+the membership store when it joins and down at :func:`shutdown`,
+best-effort. :func:`coordination_barrier` holds the ``collective.barrier``
+fault site.
+
 The XLA-only helpers of the JAX module have no counterpart here:
 ``enable_latency_hiding_scheduler`` (NCCL kernels overlap compute on their
 own streams) and ``force_platform`` (the device is an argument of every
@@ -26,12 +37,23 @@ entry point).
 from __future__ import annotations
 
 import datetime
+import gc
 import inspect
+import logging
 import os
-import socket
 
 import torch
 import torch.distributed as tdist
+
+from ..resilience.faults import fault_point
+from ..resilience.outage import OutageClass, RetryPolicy, classify_exception
+from .ports import find_free_port
+
+__all__ = ["resolve_device", "find_free_port", "initialize", "shutdown", "is_initialized",
+           "world_size", "rank", "process_count", "process_index", "device_count",
+           "local_device_count", "backend", "coordination_barrier"]
+
+logger = logging.getLogger(__name__)
 
 INIT_TIMEOUT_S = 60.0  # a rendezvous that hangs fails within a minute
 
@@ -62,14 +84,6 @@ def _env_int(name: str, default: int) -> int:
     return int(raw)
 
 
-def find_free_port() -> int:
-    """A free TCP port on localhost, for a single-host rendezvous."""
-    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
-        s.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
-
-
 def initialize(coordinator_address: str | None = None, num_processes: int | None = None,
                process_id: int | None = None, *, device: str | torch.device = "cuda",
                timeout_s: float = INIT_TIMEOUT_S) -> None:
@@ -80,8 +94,9 @@ def initialize(coordinator_address: str | None = None, num_processes: int | None
     ``process_id`` to ``RANK``. With no world size and no coordinator this
     is a no-op (one process, no group). ``device`` picks the backend: NCCL
     for ``cuda`` (on ``cuda:LOCAL_RANK``), gloo for ``cpu``. The rendezvous
-    and every later collective time out after ``timeout_s`` seconds.
-    Idempotent.
+    and every later collective time out after ``timeout_s`` seconds; a
+    rendezvous that fails with an outage is tried again (module
+    docstring). Idempotent.
     """
     if tdist.is_initialized():
         return
@@ -117,16 +132,77 @@ def initialize(coordinator_address: str | None = None, num_processes: int | None
         backend = "gloo"
     else:
         raise ValueError(f"the port runs on 'cuda' or 'cpu', not {device}")
-    tdist.init_process_group(
-        backend=backend, init_method=f"tcp://{coordinator_address}",
-        world_size=num_processes, rank=process_id,
-        timeout=datetime.timedelta(seconds=timeout_s), **kwargs)
+
+    def rendezvous():
+        # a failed handshake surfaces here, before torch talks to the store
+        fault_point("dist.rendezvous", process_id=process_id)
+        try:
+            tdist.init_process_group(
+                backend=backend, init_method=f"tcp://{coordinator_address}",
+                world_size=num_processes, rank=process_id,
+                timeout=datetime.timedelta(seconds=timeout_s), **kwargs)
+        except BaseException:
+            _discard_partial_group()
+            raise
+
+    # a store still binding, or a peer late to the rendezvous, gets one
+    # in-process backoff cycle before the rank dies and the launcher's
+    # restart takes over; what the classifier cannot call an outage
+    # propagates at once
+    policy = RetryPolicy(attempts=_env_int("GRAFT_RENDEZVOUS_ATTEMPTS", 2),
+                         base_delay_s=1.0, max_delay_s=15.0)
+    policy.run(
+        rendezvous,
+        retry_on=lambda e: (not isinstance(e, ValueError)
+                            and classify_exception(e) is OutageClass.OUTAGE),
+        on_retry=lambda i, e, d: logger.warning(
+            "rendezvous attempt %d failed (%s); retrying in %.1fs", i + 1, e, d))
+    _note_membership_rank(up=True)
+
+
+def _discard_partial_group() -> None:
+    """Destroy what a failed ``init_process_group`` left behind: a default
+    group registered before the failure (NCCL's eager init with
+    ``device_id`` runs after it) and, with it, its store, so the next
+    attempt starts clean instead of failing on "initialize the default
+    process group twice"."""
+    if tdist.is_initialized():
+        try:
+            tdist.destroy_process_group()
+        except Exception:  # noqa: BLE001 -- the group was half made; best effort
+            logger.debug("destroying a half-made process group failed", exc_info=True)
+    gc.collect()  # drop the failed attempt's store (and its listening socket)
+
+
+def _note_membership_rank(up: bool = True) -> None:
+    """Rank-level liveness into the elastic membership store, when the
+    launcher exported one (``GRAFT_MEMBERSHIP``, directory-backed only).
+
+    This is how a launcher watching the store can see REMOTE rank deaths:
+    a rank that registered ``up`` and then stopped refreshing has died with
+    its machine, even though no local exit code exists for it. Best-effort:
+    membership never breaks initialization.
+    """
+    location = os.environ.get("GRAFT_MEMBERSHIP")
+    if not location or location.startswith("tcp://"):
+        return
+    if "RANK" not in os.environ:
+        return
+    try:
+        from .membership import MembershipStore
+
+        MembershipStore(location).note_rank(
+            rank=int(os.environ["RANK"]),
+            host_id=f"node{os.environ.get('GRAFT_NODE_RANK', '0')}", up=up)
+    except (OSError, ValueError):
+        logger.debug("membership rank note failed", exc_info=True)
 
 
 def shutdown() -> None:
     """Tear the group down (``dist.destroy_process_group()``); a no-op
     without one."""
     if tdist.is_initialized():
+        _note_membership_rank(up=False)
         tdist.destroy_process_group()
 
 
@@ -174,6 +250,9 @@ def coordination_barrier(name: str = "sync", timeout_s: float = 600.0) -> None:
     the error."""
     if not tdist.is_initialized():
         return
+    # a hang or an UNAVAILABLE raise during a pool flap surfaces at the
+    # barrier: the first place a dead peer is observable
+    fault_point("collective.barrier", name=name)
     work = tdist.barrier(async_op=True)
     try:
         work.wait(timeout=datetime.timedelta(seconds=timeout_s))

@@ -251,3 +251,15 @@ def test_collate_timer_times_both_ways_at_a_toy_batch(capsys):
     lines = [json.loads(x) for x in capsys.readouterr().out.splitlines()]
     assert [x["path"] for x in lines] == [c[0] for c in collate.CASES]
     assert all(x["procs"] == 1 and x["np_stack_ms"] > 0 and x["fast_stack_ms"] > 0 for x in lines)
+
+
+def test_trace_loss_needs_a_card(capsys):
+    """``benchmarks/trace_loss.py`` measures CUPTI's record loss on a card
+    only: without one it prints why and exits 2, before importing the
+    smoke script or building anything."""
+    from pytorch_distributedtraining_tpu_torch.benchmarks import trace_loss
+
+    assert not torch.cuda.is_available()
+    assert trace_loss.main(["--age", "--reps", "1", "--observe", "1"]) == 2
+    assert "needs a CUDA card" in capsys.readouterr().err
+    assert set(trace_loss.VARIANTS) >= {"raw", "warm 256", "observe.profiling"}

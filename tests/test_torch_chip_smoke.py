@@ -11,9 +11,16 @@ bytes of one pass over p, g and the moments, and its gate check names each
 buffer a skipped step changed. Phase 15's resume check names the first
 loss, parameter or moment in which two runs differ. Phase 17 reads K1/K2
 (and K3-K5) launches from the op table of a capture, counts FSDP2's
-all-gathers by its annotations and a collective inventory by kind."""
+all-gathers by its annotations and a collective inventory by kind. Phase
+18 reads a launcher run's output: the driver's final losses, each
+generation's ``[kernels]`` lines, the resume and restart lines and when
+each generation reached its training loop, and sees each line (and the
+processes the ranks started) as it comes; its launcher runs see no
+group's contract and no ``GRAFT_*`` knob an earlier phase left."""
 
 import importlib.util
+import os
+import sys
 from pathlib import Path
 
 import pytest
@@ -363,3 +370,91 @@ def test_lost_launches_are_the_calls_without_a_device_record(smoke):
               {"cat": "cpu_op", "name": "aten::add", "ts": 0.0}]
     assert smoke.lost_launches(events) == [2, 4]
     assert smoke.lost_launches(events[:2]) == []
+
+
+def test_lost_where_locates_the_lost_calls(smoke):
+    """Phase 17: the lost calls' indices in time order, offsets, names,
+    threads and host ops."""
+    def call(corr, ts, name="cudaLaunchKernel", tid=1):
+        return {"ph": "X", "cat": "cuda_runtime", "name": name, "ts": ts, "dur": 1.0,
+                "tid": tid, "args": {"correlation": corr, "External id": corr}}
+
+    def dev(corr):
+        return {"ph": "X", "cat": "kernel", "name": "k", "ts": 0.0, "dur": 1.0,
+                "args": {"correlation": corr}}
+
+    events = [call(3, 3000.0), call(1, 1000.0, "cudaMemcpyAsync", tid=2), call(2, 2000.0),
+              call(4, 4000.0), dev(3), dev(4),
+              {"ph": "X", "cat": "cpu_op", "name": "aten::mm", "ts": 900.0,
+               "args": {"External id": 1}}]
+    got = smoke.lost_where(events)
+    assert got["lost"] == 2 and got["of"] == 4 and (got["first"], got["last"]) == (0, 1)
+    assert got["from_first_ms"] == [0.0, 1.0] and got["to_last_ms"] == [2.0, 3.0]
+    assert got["names"] == ["cudaLaunchKernel", "cudaMemcpyAsync"]
+    assert got["tids"] == ["1", "2"] and got["all_tids"] == ["1", "2"]
+    assert got["ops"] == ["None", "aten::mm"]
+    assert smoke.lost_where(events[:1] + [dev(3)]) == {"lost": 0, "of": 1}
+
+
+LAUNCH_OUTPUT = [
+    (0.1, "[launch] membership: register host=node0 capacity=1"),
+    (9.4, "===> Training"),
+    (12.0, "--------Train Loss after Epoch 0 - 1.5 --------"),
+    (12.1, "--------Val Loss after Epoch 0 - 2.5 --------"),
+    (12.2, '[kernels] {"rank": 0, "attempt": 0, "epoch": 0, "window_attn_fwd": 144, '
+           '"window_attn_bwd": 120, "flash_attn_fwd": 0, "flash_attn_dq": 0, '
+           '"flash_attn_dkv": 0}'),
+    (20.0, "[launch] world failed (rc=-9, class=outage), restart 1/1 in 0.1s"),
+    (33.0, "===> Resumed portable checkpoint /x/epoch_0000 (resharded onto this run), from "
+           "epoch 1 (recovery_mode=retry)"),
+    (34.0, "===> Training"),
+    (36.0, "--------Train Loss after Epoch 1 - 1.25 --------"),
+    (36.1, "--------Val Loss after Epoch 1 - 2.0 --------"),
+    (36.2, '[kernels] {"rank": 0, "attempt": 1, "epoch": 1, "window_attn_fwd": 144, '
+           '"window_attn_bwd": 120, "flash_attn_fwd": 0, "flash_attn_dq": 0, '
+           '"flash_attn_dkv": 0}'),
+]
+
+
+def test_parse_driver_run_reads_a_launcher_run(smoke):
+    got = smoke.parse_driver_run(LAUNCH_OUTPUT)
+    assert got["train"] == [(0, 1.5), (1, 1.25)] and got["val"] == [(0, 2.5), (1, 2.0)]
+    assert sorted(got["kernels"]) == [0, 1]
+    assert got["kernels"][1][-1]["window_attn_bwd"] == 120
+    assert got["resumed"] == [LAUNCH_OUTPUT[6][1]] and got["restarts"] == [LAUNCH_OUTPUT[5][1]]
+    assert got["training_at"] == [9.4, 34.0] and got["restart_at"] == [20.0]
+    assert got["epochs_at"] == [12.1, 36.1]
+
+
+def test_launch_env_drops_the_contract_and_stale_knobs(smoke, monkeypatch):
+    monkeypatch.setenv("RANK", "3")
+    monkeypatch.setenv("MASTER_PORT", "1234")
+    monkeypatch.setenv("GRAFT_NUMERICS", "1")
+    env = smoke.launch_env("/run/dir", GRAFT_FAULT_PLAN="{}")
+    assert "RANK" not in env and "MASTER_PORT" not in env and "GRAFT_NUMERICS" not in env
+    assert env["GRAFT_FAULT_PLAN"] == "{}" and env["TMPDIR"] == "/run/dir"
+    assert env["PYTHONPATH"] == str(ROOT)
+
+
+def test_timed_lines_shows_each_line_with_the_grandchildren(smoke, tmp_path):
+    """Phase 18 (w): ``on_line`` sees each line as it arrives, while the
+    command runs, and ``grandchildren`` finds the processes its children
+    started (a rank's loader workers under the launcher)."""
+    code = ("import subprocess, sys\n"
+            "inner = 'import subprocess, sys, time; "
+            "g = subprocess.Popen([sys.executable, \"-c\", \"import time; time.sleep(60)\"]); "
+            "print(g.pid, flush=True); time.sleep(60)'\n"
+            "c = subprocess.Popen([sys.executable, '-c', inner], stdout=subprocess.PIPE, "
+            "text=True)\n"
+            "print('grandchild', c.stdout.readline().strip(), flush=True)\n"
+            "print('done', flush=True)\n")
+    seen = []
+
+    def on_line(line, pid):
+        seen.append((line, [p for p, _ in smoke.grandchildren(pid)]))
+
+    rc, lines, _ = smoke.timed_lines([sys.executable, "-c", code], str(tmp_path), dict(os.environ),
+                                     timeout=30, on_line=on_line)
+    assert rc == 0 and [ln for _, ln in lines] == [ln for ln, _ in seen]
+    grandchild = int(seen[0][0].split()[1])
+    assert seen[0][1] == [grandchild]

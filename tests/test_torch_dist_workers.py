@@ -15,6 +15,7 @@ import functools
 import os
 import queue
 import traceback
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -456,3 +457,82 @@ def comms_worker(rank: int, world: int, *, batch: tuple, policies: list[str], ca
         for k in env:
             os.environ.pop(k, None)
     return out
+
+
+def allreduce_worker(rank: int, out_dir: str) -> None:
+    """A rank started by ``runtime.launch.spawn``: joins the gloo group from
+    the env contract, all-reduces ``rank + 1`` and writes the sum, the world
+    size and whether the launcher hid the cards to ``out_dir/rank<r>``."""
+    torch.set_num_threads(1)
+    dist.initialize(device="cpu")
+    try:
+        t = torch.tensor([rank + 1.0])
+        torch.distributed.all_reduce(t)
+        hidden = "cpu-only" if os.environ.get("CUDA_VISIBLE_DEVICES") == "" else "sees cards"
+        with open(os.path.join(out_dir, f"rank{rank}"), "w") as fh:
+            fh.write(f"{t.item()} {dist.world_size()} {hidden}")
+    finally:
+        dist.shutdown()
+
+
+def rendezvous_worker(rank: int, out_dir: str, half_made: bool) -> None:
+    """A rank started by ``runtime.launch.spawn`` that joins through
+    ``dist.initialize``'s retry. With ``half_made`` the first
+    ``init_process_group`` forms the group and then raises torch's
+    refused-connection error, as a failure after the group registered
+    would; the retry must start clean. Then it all-reduces, trips the
+    ``collective.barrier`` site if the plan has one, and writes what it saw
+    to ``out_dir/rank<r>.json``."""
+    import json
+
+    import torch.distributed as tdist
+
+    from pytorch_distributedtraining_tpu_torch.resilience import faults
+
+    torch.set_num_threads(1)
+    calls = []
+    real = tdist.init_process_group
+
+    def flaky(*args, **kwargs):
+        calls.append(tdist.is_initialized())
+        real(*args, **kwargs)
+        if half_made and len(calls) == 1:
+            raise tdist.DistNetworkError("The client socket has timed out after 1000ms while "
+                                         "trying to connect to (127.0.0.1, 1).")
+
+    tdist.init_process_group = flaky
+    try:
+        dist.initialize(device="cpu")
+    finally:
+        tdist.init_process_group = real
+    try:
+        t = torch.tensor([rank + 1.0])
+        tdist.all_reduce(t)
+        barrier = None
+        try:
+            dist.coordination_barrier("after-join", timeout_s=30)
+        except faults.InjectedFault as e:
+            barrier = str(e)
+        plan = faults.active_plan()
+        hits = {site: [r.hits for r in plan.rules_for(site)] for site in
+                ("dist.rendezvous", "collective.barrier")} if plan else {}
+        with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as fh:
+            json.dump({"sum": t.item(), "calls": calls, "hits": hits, "barrier": barrier}, fh)
+    finally:
+        dist.shutdown()
+
+
+LAUNCH_CONTRACT = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT",
+                   "GRAFT_FAULT_PLAN", "GRAFT_RECOVERY_MODE", "GRAFT_RUN_DIR")
+
+
+def launcher_env(tmp, **extra) -> dict:
+    """The environment of a launcher run in a test: this process's, without
+    a rank contract, a fault plan, a recovery mode or a run dir it may
+    carry, with the repo on the path, ``tmp`` as the temp directory (the
+    launcher's default run dir lands there), one thread a rank and a 0.1 s
+    restart backoff; then ``extra``."""
+    env = {k: v for k, v in os.environ.items() if k not in LAUNCH_CONTRACT}
+    env.update(PYTHONPATH=str(Path(__file__).resolve().parents[1]), TMPDIR=str(tmp),
+               OMP_NUM_THREADS="1", GRAFT_RESTART_BACKOFF="0.1", **extra)
+    return env

@@ -1,13 +1,18 @@
 """``resilience.outage``, the port's stdlib copy of the JAX module: the
-exception classifier, the outage-text scan and ``RetryPolicy`` give the
-JAX module's answers on the same inputs, and the port's extension classifies torch's
-own errors: an ``OSError`` whose errno says the request is wrong is
+exception classifier, the outage-text scan, the return-code classifiers
+(``classify``, ``external_termination``, ``attributes_to_host``) and
+``RetryPolicy`` give the JAX module's answers on the same inputs, and the
+port's extension classifies torch's own errors: an ``OSError`` whose errno says the request is wrong is
 DETERMINISTIC (JAX calls every ``OSError`` an outage), and
 ``torch.distributed``'s store and network errors, and a backend error that
-timed out, are OUTAGE. The fault sites the checkpoint path adds are
-registered."""
+timed out, are OUTAGE; the texts torch's ``TCPStore`` gives a refused
+connection and a timed-out rendezvous (taken from torch here, not typed
+in) are outage texts. The fault sites the checkpoint path and the
+launcher add are registered."""
 
+import datetime
 import errno
+import socket
 
 import pytest
 import torch.distributed as tdist
@@ -93,3 +98,58 @@ def test_checkpoint_fault_sites_are_registered():
     assert plan.rules_for("ckpt.write")[0].at == 2
     with pytest.raises(ValueError, match="unknown fault site"):
         faults.FaultPlan.from_json([{"site": "ckpt.nope"}])
+
+
+RCS = [None, 0, 1, 2, 3, 17, 124, 137, 139, 143, -4, -7, -8, -9, -11, -15, 132, 135, 136]
+# JAX's sentinel tails: outage texts, hardware texts, and neither
+SENTINEL_TAILS = ["", "UNAVAILABLE: TPU backend", "DEADLINE_EXCEEDED", "Connection refused",
+                  "connection reset by peer", "broken pipe", "host unreachable",
+                  "uncorrectable ECC error on HBM", "HBM error", "device failure",
+                  "hardware error", "Machine check exception", "Bus error",
+                  "Segmentation fault (core dumped)", "ImportError: no module x",
+                  "usage: launch.py [-h]"]
+
+
+@pytest.mark.parametrize("tail", SENTINEL_TAILS)
+@pytest.mark.parametrize("rc", RCS, ids=str)
+def test_return_code_classifiers_equal_jax(rc, tail):
+    assert tout.classify(rc, tail).value == jout.classify(rc, tail).value
+    assert tout.external_termination(rc) == jout.external_termination(rc)
+    assert tout.attributes_to_host(rc, tail) == jout.attributes_to_host(rc, tail)
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _store_text(is_master: bool) -> str:
+    """What torch's ``TCPStore`` raises: a client whose connection is refused
+    until its timeout, or a store whose second rank never joins."""
+    with pytest.raises(tdist.DistError) as e:
+        tdist.TCPStore("127.0.0.1", _free_port(), 2, is_master,
+                       timeout=datetime.timedelta(seconds=1), wait_for_workers=True)
+    return f"{type(e.value).__name__}: {e.value}"
+
+
+@pytest.mark.parametrize("is_master,sentinel", [(False, "while trying to connect to"),
+                                                (True, "waiting for clients")],
+                         ids=["refused-connection", "rendezvous-timeout"])
+def test_torch_store_texts_are_outage_texts(is_master, sentinel):
+    """JAX's gRPC and transport signatures miss both of torch's texts; the
+    port adds one signature for each, named here."""
+    text = _store_text(is_master)
+    assert sentinel in text.lower()
+    assert not jout.is_outage_text(text)
+    assert tout.is_outage_text(text)
+    assert tout.classify(1, text) is tout.OutageClass.OUTAGE
+    assert jout.classify(1, text) is jout.OutageClass.UNKNOWN
+
+
+def test_launch_fault_sites_are_registered():
+    assert {"launch.worker", "launch.grow", "membership.heartbeat", "dist.rendezvous",
+            "collective.barrier"} <= faults.SITES
+    rule = faults.FaultPlan.from_json([{"site": "launch.worker", "rank": 1, "attempt": 0,
+                                        "after_s": 0.5}]).rules_for("launch.worker")[0]
+    assert (rule.rank, rule.attempt, rule.after_s) == (1, 0, 0.5)

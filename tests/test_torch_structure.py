@@ -41,6 +41,7 @@ def test_scan_sees_the_whole_port():
     for module in ("runtime/dist.py", "runtime/mesh.py", "parallel/spec.py",
                    "parallel/policy.py", "parallel/remat.py", "parallel/state.py",
                    "parallel/step.py", "observe/profiling.py", "observe/capture.py",
-                   "observe/opcost.py", "observe/comms.py"):
+                   "observe/opcost.py", "observe/comms.py", "runtime/launch.py",
+                   "runtime/membership.py", "runtime/recovery_drill.py"):
         assert f"pytorch_distributedtraining_tpu_torch/{module}" in names
     assert _imported_roots(ROOT / "tests" / "test_torch_stoke.py") & FORBIDDEN
