@@ -263,9 +263,36 @@ Phases, each fatal on failure:
    resume minus the last before the kill, the drill's own clock) is
    printed beside the card's name and power limit. The children run in
    their own processes, so their launches reach neither
-   ``record_launches`` nor the kernels line; their shapes are phase 5's.
+   ``record_launches`` nor the kernels line; their shapes are phase 5's;
+19. the CUDA-graph step, under cuDNN's and torch's deterministic
+   algorithms (``warn_only``, ``CUBLAS_WORKSPACE_CONFIG=:4096:8``): (a)
+   SwinIR-S at the bench shape in f32 and bf16 through
+   ``MultiStep(k=GRAPH_K)`` over phase 8's ``TrainStep`` + ``FusedAdamW``
+   against the same steps run eagerly from the same weights, over
+   ``GRAPH_WINDOWS`` windows of seeded batches, and through
+   ``Stoke.fused_step`` (the driver's facade with DDP flags: ``feat_loss``,
+   accum 2, ``FusedAdamW``, in an NCCL group of one with NCCL's async
+   error handling off) against the same facade's ``TrainStep`` run eagerly
+   and its Stoke-style loop; (b) GPT-2 125M bf16 (phase 7's builder)
+   through ``MultiStep`` with dropout 0 and 0.1 against its eager steps;
+   (c) ``fp16='amp'`` ``fused_step`` with step 1's targets poisoned (inf):
+   the update skipped and the scale halved on both paths, the graphed
+   parameters equal to the eager ones; (d) ``tune_multi_step_k`` at
+   SwinIR-S bf16 over ``GRAPH_TUNE_KS``. Graphed against eager must be
+   bitwise or, printed, within ``GRAPH_TOL`` (``graph_faults``). Each case
+   prints the step ms eager and graphed, a traced step's (or window's)
+   device busy ms and idle share, the graph launches and K1-K5 kernels a
+   step read from the replay's device records (``replay_counts``: the
+   ``observe.opcost`` op table of a ``cudaGraphLaunch``; a case fails
+   unless it holds 48 K1 and 48 K2, or 12 K3, K4 and K5, a step; a trace
+   that counts fewer, as one that lost device records would, is printed
+   and taken again, ``GRAPH_TAKES`` takes at most: ``replay_traced``), the
+   peak GiB eager and graphed (a replay's allocator peak plus the graph's
+   private pool, whose segments a replay uses without allocating), beside the
+   card's name and power limit. The wrappers' counters see a graph's
+   kernels once, at its capture, never at a replay.
 
-Phases 5-9, 11, 12 and 14-17 note the shape, dtype and mask (or causality) of
+Phases 5-9, 11, 12, 14-17 and 19 note the shape, dtype and mask (or causality) of
 every launch; the run fails if one of them was not held against the plain
 version in phase 3 or 4 (phase 3 holds phase 14's tile batch, q/k/v [144,
 6, 64, 30], in f32 and bf16 with and without the mask) or, for phase 16's
@@ -3217,6 +3244,404 @@ def phase_launch(smi: str) -> dict:
     return out
 
 
+# phase 19: the CUDA-graph step. Each case runs the same steps eagerly and as
+# captured graphs from the same weights and batches, under cuDNN's and
+# torch's deterministic algorithms, and holds the graphed run against the
+# eager one: bitwise expected; else the largest difference is printed and
+# must stay within GRAPH_TOL of the largest change the eager run made (the
+# losses relative to the loss).
+GRAPH_K = 4  # steps a MultiStep window
+GRAPH_WINDOWS = 2  # windows held against the eager steps
+GRAPH_TIMED = 1  # windows (and their steps, eagerly) timed after them
+GRAPH_TOL = {"float32": 1e-5, "bfloat16": 1e-3, "float16": 1e-3}
+GRAPH_TUNE_KS, GRAPH_TUNE_STEPS = (1, 2, 4, 8), 8
+GRAPH_TAKES = 3  # traces of a replay before a short kernel count is a fault
+LM_DROPOUTS = (0.0, 0.1)
+
+
+def graph_mismatch(got: list, want: list, start: list) -> tuple[float, float]:
+    """The largest ``|got - want|`` over paired tensors and that over the
+    largest ``|want - start|`` (the change the reference run made)."""
+    diff = max(float((g.float() - w.float()).abs().max()) for g, w in zip(got, want))
+    moved = max(float((w.float() - s.float()).abs().max()) for w, s in zip(want, start))
+    return diff, diff / moved if moved > 0 else float("inf") if diff else 0.0
+
+
+def graph_faults(name: str, losses: tuple, params: tuple, start: list, dtype: str) -> list:
+    """Print how far the graphed run (first of each pair) lies from the
+    eager one and return the faults: any difference above ``GRAPH_TOL``."""
+    import math
+
+    got, want = losses
+    loss_rel = max(abs(g - w) / max(abs(w), 1e-30) for g, w in zip(got, want))
+    p_abs, p_rel = graph_mismatch(params[0], params[1], start)
+    bitwise = loss_rel == 0.0 and p_abs == 0.0
+    print(f"[graphs]   {name}: {'bitwise equal' if bitwise else 'not bitwise'}: losses rel "
+          f"{loss_rel:.3e}, parameters max |diff| {p_abs:.3e} ({p_rel:.3e} of the largest "
+          f"change), tolerance {GRAPH_TOL[dtype]:g}")
+    tol = GRAPH_TOL[dtype]
+    if not all(math.isfinite(v) for v in got + want):
+        return [f"{name}: non-finite losses {got} / {want}"]
+    return [] if loss_rel <= tol and p_rel <= tol else [f"{name}: graphed differs from eager "
+                                                        f"(losses {loss_rel:.3e}, parameters "
+                                                        f"{p_rel:.3e} > {tol:g})"]
+
+
+def replay_counts(events, steps: int, group_size: int | None = None) -> dict:
+    """From a trace of ``steps`` steps: the graph launches, K1-K5's kernels
+    (``observe.opcost.op_table``'s rows) and the device busy ms, each a
+    step; the launches whose device records are missing (``lost``); with
+    ``group_size``, the collectives ``observe.comms`` reads, by kind."""
+    from pytorch_distributedtraining_tpu_torch.observe import comms, opcost
+
+    table = opcost.op_table(events, top=1000)
+    kernels = table_launches(table, {**WINDOW_KERNELS, **FLASH_KERNELS})
+    graphs = sum(1 for e in events if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                 and "GraphLaunch" in e.get("name", ""))
+    busy = opcost.device_breakdown(events)["busy_ms"]
+    out = {"graph_launches": graphs / steps, "busy_ms": busy / steps,
+           "lost": len(lost_launches(events)), **{k: v / steps for k, v in kernels.items()}}
+    if group_size is not None:
+        out["collectives"] = wire_counts(comms.wire_inventory(events, group_size=group_size))
+    return out
+
+
+def replay_traced(name: str, fn, steps: int, per_step: dict,
+                  group_size: int | None = None) -> dict:
+    """``replay_counts`` of a trace of ``fn``, one call that replays a graph
+    over ``steps`` steps. A replay runs every kernel its graph captured, the
+    same ones each time, and a trace can lose device records (ROADMAP C.6)
+    but never add one: a take that counts fewer of a ``per_step`` kernel is
+    printed and traced again, up to ``GRAPH_TAKES`` takes. The counts of the
+    last take (``takes``: how many) go to ``graph_report``, which fails on
+    any count but the expected one."""
+    from pytorch_distributedtraining_tpu_torch.observe import profiling
+
+    for take in range(1, GRAPH_TAKES + 1):
+        counts = replay_counts(profiling.profile_call(fn)[1], steps, group_size)
+        short = {k: counts[k] for k, n in per_step.items() if counts[k] < n}
+        if not short or take == GRAPH_TAKES:
+            break
+        print(f"[graphs]   {name}: take {take} of the replay's trace lost device records: "
+              f"{short} a step, expected {per_step}; traced again")
+    return {**counts, "takes": take}
+
+
+def _timed(fn, calls: int) -> float:
+    """Seconds for ``calls`` calls of ``fn``, ended by a synchronise."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def _peak_gib(fn, graph=None) -> float:
+    """The allocator's peak over one call of ``fn``; with ``graph`` (a
+    ``torch.cuda.CUDAGraph``) plus the segments of the graph's private
+    pool, which a replay uses without allocating."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    if graph is not None:
+        pool = tuple(graph.pool())
+        peak += sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+                    if tuple(seg.get("segment_pool_id") or ()) == pool)
+    return peak / 2**30
+
+
+def graph_report(name: str, smi: str, eager: dict, graphed: dict, per_step: dict) -> tuple:
+    """Print a case's eager and graphed numbers; faults if a kernel the case
+    runs is missing from the replay's device records."""
+    row = {"eager_ms": eager["ms"], "graphed_ms": graphed["ms"],
+           "eager_busy_ms": eager["counts"]["busy_ms"], "graphed_busy_ms":
+           graphed["counts"]["busy_ms"], "eager_peak_gib": eager["peak"],
+           "graphed_peak_gib": graphed["peak"], "counts": graphed["counts"]}
+    for k in ("eager", "graphed"):
+        row[f"{k}_idle"] = 1.0 - row[f"{k}_busy_ms"] / row[f"{k}_ms"]
+    kern = " ".join(f"{k} {graphed['counts'][k]:g}" for k in per_step)
+    wires = (f"; collectives read (observe.comms) eager {eager['counts']['collectives']}, "
+             f"replay {graphed['counts']['collectives']}" if "collectives" in eager["counts"]
+             else "")
+    print(f"[graphs] {name}: step {eager['ms']:.2f} ms eager, {graphed['ms']:.2f} ms graphed; "
+          f"device busy {row['eager_busy_ms']:.2f} / {row['graphed_busy_ms']:.2f} ms, idle "
+          f"{row['eager_idle']:.3f} / {row['graphed_idle']:.3f}; graph launches a step "
+          f"{graphed['counts']['graph_launches']:g}, kernels a step in the replay: {kern} "
+          f"(take {graphed['counts'].get('takes', 1)} of its trace), "
+          f"launches without a device record {eager['counts']['lost']} / "
+          f"{graphed['counts']['lost']}{wires}; peak {eager['peak']:.2f} / "
+          f"{graphed['peak']:.2f} GiB | {smi}")
+    faults = [f"{name}: {k} {graphed['counts'][k]:g} a step in the replay's device records, "
+              f"expected {n}" for k, n in per_step.items() if graphed["counts"][k] != n]
+    return row, faults
+
+
+def _multi_case(name: str, smi: str, build, batches: list, per_step: dict, dtype: str) -> tuple:
+    """``build() -> (model, TrainStep)`` from one seed: the eager steps of
+    ``batches``, then, from the same state restored, ``MultiStep(GRAPH_K)``
+    over the same batches stacked; then both timed, traced and measured."""
+    import torch
+
+    from pytorch_distributedtraining_tpu_torch.observe import profiling
+    from pytorch_distributedtraining_tpu_torch.parallel import MultiStep
+
+    k, n = GRAPH_K, GRAPH_K * GRAPH_WINDOWS
+    model, step = build()
+    start = [p.detach().clone() for p in model.parameters()]
+    snapshot = step.state_snapshot()
+    eager_losses = [float(step(b)["loss"]) for b in batches[:n]]
+    eager_params = [p.detach().clone() for p in model.parameters()]
+    step.restore_state(snapshot)
+    multi = MultiStep(step, k)
+    stack = (lambda bs: torch.stack(bs)) if isinstance(batches[0], torch.Tensor) else (
+        lambda bs: tuple(torch.stack(xs) for xs in zip(*bs)))
+    wins = [stack(batches[w * k:(w + 1) * k]) for w in range(len(batches) // k)]
+    graph_losses = []
+    for w in wins[:GRAPH_WINDOWS]:
+        graph_losses += multi(w)["loss"].tolist()
+    faults = graph_faults(name, (graph_losses, eager_losses),
+                          ([p.detach() for p in model.parameters()], eager_params), start, dtype)
+    timed = wins[GRAPH_WINDOWS:GRAPH_WINDOWS + GRAPH_TIMED]
+    eager = {"ms": _timed(lambda: [step(b) for b in batches[n:n + GRAPH_TIMED * k]], 1)
+             / (GRAPH_TIMED * k) * 1e3}
+    graphed = {"ms": _timed(lambda: [multi(w) for w in timed], 1) / (GRAPH_TIMED * k) * 1e3}
+    eager["counts"] = replay_counts(profiling.profile_call(lambda: step(batches[0]))[1], 1)
+    graphed["counts"] = replay_traced(name, lambda: multi(wins[0]), k, per_step)
+    eager["peak"] = _peak_gib(lambda: step(batches[0]))
+    graphed["peak"] = _peak_gib(lambda: multi(wins[0]), multi.graph.graph)
+    row, more = graph_report(name, smi, eager, graphed, per_step)
+    row.update(captures=multi.graph.captures, replays=multi.graph.replays)
+    if multi.graph.captures != 1:
+        more.append(f"{name}: {multi.graph.captures} captures, expected 1")
+    return row, faults + more
+
+
+def _swinir_batches(n: int, seed: int) -> list:
+    """``n`` global batches of the bench shape (2 x BATCH images, LR
+    LR_SIZE), random HR on the card, box-downsampled LR."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    out = []
+    for _ in range(n):
+        hr = torch.rand(2 * BATCH, 2 * LR_SIZE, 2 * LR_SIZE, 3, device="cuda", generator=g)
+        out.append((hr.reshape(2 * BATCH, LR_SIZE, 2, LR_SIZE, 2, 3).mean(dim=(2, 4)), hr))
+    return out
+
+
+def _facade_case(name: str, smi: str, fp16, batches: list, dtype: str) -> tuple:
+    """``Stoke.fused_step`` (the driver's facade with DDP flags, through
+    the NCCL group) against the same facade's ``TrainStep`` called eagerly
+    (bitwise expected) and its Stoke-style loop (within ``GRAPH_TOL``),
+    each from the driver's seed-0 weights (a snapshot restored between the
+    runs) over ``batches``."""
+    from pytorch_distributedtraining_tpu_torch.drivers import stoke_ddp
+    from pytorch_distributedtraining_tpu_torch.observe import profiling
+
+    def stoke_style(s, b):  # the step's loss: the mean of its two micro-batches'
+        losses = []
+        for i in range(2):
+            losses.append(s.loss(s.model(b[0][i * BATCH:(i + 1) * BATCH]),
+                                 b[1][i * BATCH:(i + 1) * BATCH]))
+            s.backward(losses[-1])
+            s.step()
+        return (losses[0].detach() + losses[1].detach()) / 2
+
+    def params():
+        return [p.detach().clone() for p in s.model_access.parameters()]
+
+    n = GRAPH_K
+    s = stoke_ddp.build_stoke(stoke_ddp.build_model(), batch_size=BATCH, verbose=False,
+                              oss=False, sddp=False, fp16=fp16)
+    step = s._fused_step_runner()[0]
+    start, snapshot = params(), step.state_snapshot()
+    graph_losses = [float(s.fused_step(*b)["loss"]) for b in batches[:n]]
+    graph_params = params()
+    step.restore_state(snapshot)
+    eager_losses = [float(step(b, s.optimizer.lr)["loss"]) for b in batches[:n]]
+    faults = graph_faults(f"{name} vs TrainStep", (graph_losses, eager_losses),
+                          (graph_params, params()), start, dtype)
+    step.restore_state(snapshot)
+    s.zero_grad()  # the eager TrainStep left its last gradients; the Stoke-style loop adds to .grad
+    styled_losses = [float(stoke_style(s, b)) for b in batches[:n]]
+    faults += graph_faults(f"{name} vs Stoke-style", (graph_losses, styled_losses),
+                           (graph_params, params()), start, dtype)
+    timed = batches[n:n + GRAPH_TIMED * GRAPH_K]
+    eager = {"ms": _timed(lambda: [stoke_style(s, b) for b in timed], 1) / len(timed) * 1e3}
+    graphed = {"ms": _timed(lambda: [s.fused_step(*b) for b in timed], 1) / len(timed) * 1e3}
+    eager["counts"] = replay_counts(profiling.profile_call(
+        lambda: stoke_style(s, batches[0]))[1], 1, group_size=1)
+    per_step = {"K1": 48, "K2": 48}
+    graphed["counts"] = replay_traced(name, lambda: s.fused_step(*batches[0]), 1, per_step,
+                                      group_size=1)
+    eager["peak"] = _peak_gib(lambda: stoke_style(s, batches[0]))
+    graphed["peak"] = _peak_gib(lambda: s.fused_step(*batches[0]), s._fused_graph.graph)
+    row, more = graph_report(name, smi, eager, graphed, per_step)
+    graph = s._fused_graph
+    row.update(captures=graph.captures, replays=graph.replays)
+    if graph.captures != 1:
+        more.append(f"{name}: {graph.captures} captures, expected 1")
+    return row, faults + more
+
+
+def _amp_case(smi: str, batches: list) -> list:
+    """(c): ``fp16='amp'`` ``fused_step`` with step 1's inputs poisoned
+    (NaN): the update skipped and the scale halved on the device, the
+    graphed run equal to the same facade's ``TrainStep`` run eagerly from
+    the same state (a snapshot restored)."""
+    import torch
+
+    from pytorch_distributedtraining_tpu_torch.drivers import stoke_ddp
+
+    poisoned = [b if i != 1 else (torch.full_like(b[0], float("nan")), b[1])
+                for i, b in enumerate(batches[:3])]
+    s = stoke_ddp.build_stoke(stoke_ddp.build_model(), batch_size=BATCH, verbose=False,
+                              oss=False, sddp=False, fp16="amp")
+    step = s._fused_step_runner()[0]
+    snapshot = step.state_snapshot()
+    runs = []
+    for graphed in (True, False):
+        step.restore_state(snapshot)
+        scales, skipped = [], None
+        for i, b in enumerate(poisoned):
+            before = [p.detach().clone() for p in s.model_access.parameters()]
+            if graphed:
+                s.fused_step(*b)
+            else:
+                step(b, s.optimizer.lr)
+            scales.append(float(s.loss_scaler.scale))
+            if i == 1:
+                skipped = all(torch.equal(p, q) for p, q in zip(s.model_access.parameters(),
+                                                                before))
+        runs.append((scales, skipped, [p.detach().clone() for p in s.model_access.parameters()]))
+    (scales, skipped, got), (escales, eskipped, want) = runs
+    diff, _ = graph_mismatch(got, want, got)
+    print(f"[graphs] (c) fp16 amp fused_step, step 1 poisoned: scales graphed {scales}, eager "
+          f"{escales}; update skipped graphed {skipped}, eager {eskipped}; parameters max "
+          f"|graphed - eager| {diff:.3e} | {smi}")
+    faults = []
+    if not (skipped and eskipped) or scales != escales or scales[0] != 2 * scales[1]:
+        faults.append(f"(c): the poisoned step was not skipped with the scale halved on both "
+                      f"paths (scales {scales} / {escales}, skipped {skipped} / {eskipped})")
+    if diff > 0:
+        faults.append(f"(c): graphed parameters differ from eager by {diff:.3e}")
+    return faults
+
+
+def phase_graphs(smi: str) -> dict:
+    """Phase 19: the CUDA-graph step (module docstring)."""
+    import torch
+
+    from pytorch_distributedtraining_tpu_torch import optim
+    from pytorch_distributedtraining_tpu_torch.benchmarks import ladder
+    from pytorch_distributedtraining_tpu_torch.drivers import stoke_ddp
+    from pytorch_distributedtraining_tpu_torch.losses import mse_loss
+    from pytorch_distributedtraining_tpu_torch.models import GPT2Config
+    from pytorch_distributedtraining_tpu_torch.parallel import TrainStep, tune_multi_step_k
+    from pytorch_distributedtraining_tpu_torch.precision import Policy
+    from pytorch_distributedtraining_tpu_torch.runtime import dist
+
+    t_phase = time.perf_counter()
+    saved = (torch.backends.cudnn.deterministic, torch.are_deterministic_algorithms_enabled(),
+             torch.utils.deterministic.fill_uninitialized_memory,
+             os.environ.get("CUBLAS_WORKSPACE_CONFIG"))
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.utils.deterministic.fill_uninitialized_memory = False  # no extra fills in the timings
+    out, faults = {}, []
+    try:
+        n = GRAPH_K * (GRAPH_WINDOWS + GRAPH_TIMED)
+        batches = _swinir_batches(n, seed=19)
+        swinir_steps = {"K1": 48, "K2": 48}
+        for fp16 in (None, "bf16"):
+            dtype = "bfloat16" if fp16 else "float32"
+            policy = Policy.from_name(fp16)
+
+            def loss_fn(m, b, policy=policy):
+                with policy.autocast(b[0].device):
+                    out_ = m(b[0])
+                return mse_loss(out_.float(), b[1]), {}
+
+            def build():
+                model = stoke_ddp.build_model().cuda()
+                tx = optim.FusedAdamW(model.named_parameters(), lr=5e-4, clip_grad_norm=0.1)
+                return model, TrainStep(model, loss_fn, tx, grad_accum_steps=2)
+
+            row, f = _multi_case(f"(a) SwinIR-S {dtype} MultiStep(k={GRAPH_K})", smi, build,
+                                 batches, swinir_steps, dtype)
+            out[f"swinir_multistep_{dtype}"], faults = row, faults + f
+        # the facade's cases through an NCCL group of one; a capture of
+        # NCCL collectives wants NCCL's async error handling off
+        os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(dist.find_free_port()),
+                          RANK="0", WORLD_SIZE="1", LOCAL_RANK="0",
+                          TORCH_NCCL_ASYNC_ERROR_HANDLING="0")
+        dist.initialize()
+        try:
+            if dist.backend() != "nccl":
+                raise SystemExit(f"the group came up on {dist.backend()}, not NCCL")
+            for fp16 in (None, "bf16"):
+                dtype = "bfloat16" if fp16 else "float32"
+                row, f = _facade_case(f"(a) SwinIR-S {dtype} Stoke.fused_step (NCCL world 1)",
+                                      smi, fp16, batches, dtype)
+                out[f"swinir_fused_step_{dtype}"], faults = row, faults + f
+            faults += _amp_case(smi, batches)
+        finally:
+            dist.shutdown()
+            os.environ.pop("TORCH_NCCL_ASYNC_ERROR_HANDLING", None)
+        g = torch.Generator(device="cuda").manual_seed(7)
+        tokens = [torch.randint(0, GPT2Config().vocab_size, (LM_BATCH, LM_SEQ), device="cuda",
+                                generator=g) for _ in range(n)]
+        for rate in LM_DROPOUTS:
+            cfg = GPT2Config(dropout=rate)  # 125M
+
+            def build_lm(cfg=cfg):
+                model, step, _ = ladder.build_lm(cfg, LM_BATCH, LM_SEQ, torch.device("cuda"))
+                return model, step
+
+            row, f = _multi_case(f"(b) GPT-2 125M bf16 dropout {rate} MultiStep(k={GRAPH_K})",
+                                 smi, build_lm, tokens, {"K3": 12, "K4": 12, "K5": 12}, "bfloat16")
+            out[f"gpt2_multistep_dropout_{rate}"], faults = row, faults + f
+        del tokens
+        policy = Policy.from_name("bf16")
+
+        def tune_loss(m, b):
+            with policy.autocast(b[0].device):
+                out_ = m(b[0])
+            return mse_loss(out_.float(), b[1]), {}
+
+        model = stoke_ddp.build_model().cuda()
+        tx = optim.FusedAdamW(model.named_parameters(), lr=5e-4, clip_grad_norm=0.1)
+        best, rates, state = tune_multi_step_k(TrainStep(model, tune_loss, tx, grad_accum_steps=2),
+                                               batches[0], ks=GRAPH_TUNE_KS,
+                                               steps_per_arm=GRAPH_TUNE_STEPS)
+        print(f"[graphs] (d) tune_multi_step_k, SwinIR-S bf16 TrainStep + FusedAdamW over "
+              f"{GRAPH_TUNE_KS}, {GRAPH_TUNE_STEPS} steps an arm: best k {best}, steps/s "
+              + ", ".join(f"k={k} {r:.2f}" for k, r in rates.items())
+              + f", {state['step']} steps taken | {smi}")
+        out["tune"] = {"best_k": best, "rates": rates}
+        if set(rates) != set(GRAPH_TUNE_KS) or not all(r > 0 for r in rates.values()):
+            faults.append(f"(d): rates {rates}")
+    finally:
+        torch.backends.cudnn.deterministic = saved[0]
+        torch.use_deterministic_algorithms(saved[1])
+        torch.utils.deterministic.fill_uninitialized_memory = saved[2]
+        if saved[3] is None:
+            os.environ.pop("CUBLAS_WORKSPACE_CONFIG", None)
+        torch.cuda.empty_cache()
+    print(f"[graphs] phase {time.perf_counter() - t_phase:.1f} s")
+    if faults:
+        raise SystemExit("phase 19: " + "; ".join(faults))
+    return out
+
+
 def mfu_lines(smi: str, bench: dict, bench_cfg: dict, lm: dict, images: dict,
               health: dict) -> dict:
     """The MFU of each measured training path that ``observe.goodput``
@@ -3281,9 +3706,11 @@ def main() -> int:
         health = phase_health(smi, lm)
         phase_observe(smi)
     phase_launch(smi)
+    with record_launches(seen):
+        phase_graphs(smi)
     mfu_lines(smi, bench, bench_cfg, lm, images, health)
     checked = set().union(*(c["checked"] for c in cases + flash_cases), health["checked"])
-    print(f"[shapes] phases 5-9, 11, 12 and 14-17 launched {len(seen)} kinds of (kernel, q "
+    print(f"[shapes] phases 5-9, 11, 12, 14-17 and 19 launched {len(seen)} kinds of (kernel, q "
           f"shape, dtype, mask windows or causal): {sorted(seen, key=str)}")
     if seen - checked:
         raise SystemExit(f"launched on a driven path but never held against the plain "

@@ -1,7 +1,7 @@
 """Where a ``torch.profiler`` session loses device records, on one GPU.
 
     python -m pytorch_distributedtraining_tpu_torch.benchmarks.trace_loss \\
-        --age --reps 3 --observe 4
+        --age --reps 3 --observe 4 --graphs 1
 
 In a process that has run ``chip_smoke.py``'s earlier phases, CUPTI drops
 the first device records of every profiler session (``observe.profiling``'s
@@ -12,10 +12,14 @@ each warm-up variant of ``VARIANTS`` opens ``--reps`` sessions in turn: a
 raw ``torch.profiler`` session, warm-ups of k quick one-element kernels
 between ``prepare_trace`` and ``start_trace``, 8 kernels spread over 10 ms,
 one 10 ms spin kernel, and ``observe.profiling``'s own session
-(``WARMUP_KERNELS``). Each session prints one ``[trace_loss]`` JSON line:
-how many launch, copy and set calls lost their device record and where
-they lie (``chip_smoke.lost_where``). ``--observe N`` then runs phase 17
-itself N times and prints whether each passed.
+(``WARMUP_KERNELS``, then the lead ``opcost.read_trace`` cuts). Each
+session prints one ``[trace_loss]`` JSON line: how many launch, copy and
+set calls of the traced work lost their device record and where they lie
+(``chip_smoke.lost_where``), and for the guarded session how many of the
+lead's calls did (``lead_lost``, by ``opcost.cut_lead``). ``--observe N``
+then runs phase 17 itself N times and ``--graphs N`` phase 19, each
+printing whether it passed (phase 19: how many takes each case's replay
+trace needed).
 """
 
 from __future__ import annotations
@@ -141,6 +145,9 @@ def sessions(smoke, reps: int, smi: str) -> list[dict]:
                     row = {"variant": name, "rep": rep,
                            "s": round(time.perf_counter() - t0, 3),
                            **smoke.lost_where(opcost.read_trace(path))}
+                    if variant == "guard":
+                        row["lead_lost"] = opcost.cut_lead(
+                            opcost.read_trace(path, keep_lead=True))[1]
                     print("[trace_loss]", json.dumps(row), "|", smi, flush=True)
                     out.append(row)
     finally:
@@ -157,6 +164,8 @@ def main(argv=None) -> int:
     ap.add_argument("--reps", type=int, default=3, help="sessions a variant")
     ap.add_argument("--observe", type=int, default=0,
                     help="then run chip_smoke.py's phase 17 this many times")
+    ap.add_argument("--graphs", type=int, default=0,
+                    help="then run chip_smoke.py's phase 19 this many times")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("trace_loss: needs a CUDA card", file=sys.stderr)
@@ -174,11 +183,21 @@ def main(argv=None) -> int:
             print(f"[trace_loss] phase 17 run {i}: passed", flush=True)
         except SystemExit as e:
             print(f"[trace_loss] phase 17 run {i}: failed: {e}", flush=True)
+    graphed = 0
+    for i in range(args.graphs):
+        try:
+            cases = smoke.phase_graphs(smi)
+            graphed += 1
+            takes = {k: v["counts"]["takes"] for k, v in cases.items() if "counts" in v}
+            print(f"[trace_loss] phase 19 run {i}: passed, takes {takes}", flush=True)
+        except SystemExit as e:
+            print(f"[trace_loss] phase 19 run {i}: failed: {e}", flush=True)
     summary = {}
     for r in rows:
         summary.setdefault(r["variant"], []).append(r["lost"])
     print("[trace_loss] lost by variant", json.dumps(summary),
-          f"| phase 17 passed {passed} of {args.observe} | {smi}")
+          f"| phase 17 passed {passed} of {args.observe} | phase 19 passed {graphed} of "
+          f"{args.graphs} | {smi}")
     return 0
 
 

@@ -25,6 +25,9 @@ With telemetry on (``observe.trace``), the consumer's time blocked on each
 batch is an ``input`` span (``input.fetch`` without workers,
 ``input.wait`` with them or through the prefetcher), which the goodput
 ledger bills as ``input_wait``.
+
+:func:`stack_windows` groups batches into ``[k, B, ...]`` stacks, the feed
+of ``parallel.MultiStep`` (JAX's ``stack_windows``).
 """
 
 from __future__ import annotations
@@ -53,6 +56,37 @@ class _EpochBatches:
 
     def __len__(self):
         return len(self.batches)
+
+
+def stack_windows(batches, k: int):
+    """Group an iterable of batches (a tensor or array, or a tuple of them)
+    into ``[k, B, ...]`` stacks, one for each ``k`` consecutive batches; a
+    trailing partial window is dropped (``MultiStep`` runs a fixed K).
+    Device tensors stack on their device (``torch.stack``), numpy arrays
+    with ``np.stack``::
+
+        multi = MultiStep(step, k=8)
+        for stacked in stack_windows(loader, 8):
+            metrics = multi(stacked)
+    """
+    if k < 1:  # checked now, not at the generator's first step
+        raise ValueError(f"k must be >= 1, got {k}")
+
+    def stack(xs):
+        return torch.stack(xs) if isinstance(xs[0], torch.Tensor) else np.stack(xs)
+
+    def gen():
+        window = []
+        for b in batches:
+            window.append(b)
+            if len(window) == k:
+                if isinstance(window[0], (tuple, list)):
+                    yield type(window[0])(stack(list(xs)) for xs in zip(*window))
+                else:
+                    yield stack(window)
+                window = []
+
+    return gen()
 
 
 def _epoch_transform(dataset):

@@ -196,17 +196,26 @@ class NumericsProbe:
 
     # -- the device half (no host read) -----------------------------------
 
-    def inject(self, grads: list, step: int, names: list[str]) -> list:
+    def inject(self, grads: list, step, names: list[str]) -> list:
         """NaN into every gradient leaf whose name holds the spec's pattern,
-        in place, at the spec's step (``step`` is the host's step count, so
-        the branch costs no read of the device). Returns ``grads``."""
+        in place, at the spec's step. ``step`` is the host's step count (a
+        branch on the host) or a device counter (a train step's): then the
+        fill is gated on the device, JAX's ``jnp.where`` on the traced step,
+        so one captured graph runs clean and poisoned steps alike. Returns
+        ``grads``."""
         if self.inject_spec is None:
             return grads
+        import torch
+
         pat, at = self.inject_spec
-        if int(step) == at:
-            for name, g in zip(names, grads):
-                if pat in name:
-                    g.fill_(float("nan"))
+        hit = [g for name, g in zip(names, grads) if pat in name]
+        if isinstance(step, torch.Tensor):
+            fire = step == at
+            for g in hit:
+                g.masked_fill_(fire, float("nan"))
+        elif int(step) == at:
+            for g in hit:
+                g.fill_(float("nan"))
         return grads
 
     def aux(self, grads: list, *, names: list[str], params: list | None = None,
@@ -315,14 +324,21 @@ class NumericsProbe:
     def observe(self, aux: dict, *, step: int | None = None, loss=None,
                 watchdog: "NumericsWatchdog | None" = None) -> dict:
         """Decode one step's aux on the host: name the blame, update the
-        gauges, emit ``numerics.*`` instants, feed the watchdog. Returns a
-        json-safe summary; a watchdog's verdict rides under ``"verdict"``."""
+        gauges, emit ``numerics.*`` instants, feed the watchdog. Accepts
+        k-stacked aux (``MultiStep``: a leading axis on every field), which
+        the decode reduces to the worst step in the window, as JAX's does.
+        Returns a json-safe summary; a watchdog's verdict rides under
+        ``"verdict"``."""
         import numpy as np
 
         finite = _host(aux["finite_mask"]).astype(bool)
-        first_idx = int(_host(aux["first_bad_leaf"]))
+        first_bad = _host(aux["first_bad_leaf"]).reshape(-1)
         bad_layer = _host(aux["bad_layer"])
-        gnorm = float(_host(aux["grad_norm"]))
+        if finite.ndim > 1:  # a k-stacked window: the worst step wins
+            finite = finite.all(axis=tuple(range(finite.ndim - 1)))
+            bad_layer = bad_layer.reshape(-1, bad_layer.shape[-1]).max(0)
+        first_idx = int(next((i for i in first_bad if i >= 0), -1))
+        gnorm = float(np.max(_host(aux["grad_norm"])))
         loss_val = None if loss is None else float(np.ravel(_host(loss))[-1])
 
         nonfinite = first_idx >= 0 or not bool(finite.all())
@@ -338,7 +354,7 @@ class NumericsProbe:
         if loss_val is not None and math.isfinite(loss_val):
             rolling_gauges["loss"] = loss_val
         if "param_norm" in aux:
-            rolling_gauges["param_norm"] = float(_host(aux["param_norm"]))
+            rolling_gauges["param_norm"] = float(np.max(_host(aux["param_norm"])))
         if "update_ratio" in aux:
             rolling_gauges["update_ratio_max"] = float(_host(aux["update_ratio"]).max())
 

@@ -118,11 +118,47 @@ def load_trace_events(trace_dir: str):
     return events, len(files)
 
 
-def read_trace(path: str) -> list:
-    """The ``traceEvents`` of one Chrome trace file (``.json`` or ``.json.gz``)."""
+def read_trace(path: str, keep_lead: bool = False) -> list:
+    """The ``traceEvents`` of one Chrome trace file (``.json`` or
+    ``.json.gz``), without the lead a guarded session opens with
+    (:func:`cut_lead`) unless ``keep_lead``."""
     opener = gzip.open if path.endswith(".gz") else open
     with opener(path, "rb") as fh:
-        return json.loads(fh.read()).get("traceEvents", [])
+        events = json.loads(fh.read()).get("traceEvents", [])
+    return events if keep_lead else cut_lead(events)[0]
+
+
+# the range ``observe.profiling`` opens a session's window with
+LEAD_NAME = "observe.profiling.lead"
+
+
+def cut_lead(events: list) -> tuple[list, int]:
+    """A trace's events without its lead: the ``LEAD_NAME`` ranges, the host
+    ops and CUDA calls on the lead's thread inside its range, the device
+    records and flow arrows of those calls; and how many of the lead's
+    launch, copy and set calls have no device record."""
+    lead = next((e for e in events if e.get("name") == LEAD_NAME
+                 and e.get("cat") == "user_annotation"), None)
+    if lead is None:
+        return events, 0
+    t0, t1, tid = lead["ts"], lead["ts"] + lead.get("dur", 0), lead.get("tid")
+
+    def inside(e) -> bool:
+        return e.get("tid") == tid and t0 <= e.get("ts", t0 - 1) <= t1
+
+    calls = [e for e in events if e.get("cat") in ("cuda_runtime", "cuda_driver") and inside(e)
+             and "correlation" in e.get("args", {})]
+    ids = {e["args"]["correlation"] for e in calls}
+    device = {e.get("args", {}).get("correlation") for e in events
+              if e.get("cat") in DEVICE_CATS}
+    lost = sum(1 for e in calls if e["args"]["correlation"] not in device
+               and any(k in e.get("name", "") for k in ("Launch", "Memcpy", "Memset")))
+    kept = [e for e in events
+            if not (e.get("name") == LEAD_NAME
+                    or (e.get("cat") in ("cpu_op", "cuda_runtime", "cuda_driver") and inside(e))
+                    or (e.get("cat") in DEVICE_CATS and e.get("args", {}).get("correlation") in ids)
+                    or (e.get("cat") == "ac2g" and e.get("id") in ids))]
+    return kept, lost
 
 
 # -- op classification --------------------------------------------------

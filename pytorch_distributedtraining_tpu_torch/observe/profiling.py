@@ -49,6 +49,15 @@ records absorb the loss, and those that survive fall before the window,
 where Kineto drops them. 256 kernels absorbed it in every session but one
 (a guarded session once lost 25 records, whose place in its trace was not
 recorded); 4096, tried beside 256 in one lossy process, lost none either.
+Yet warmed sessions still lost the records of their window's first 2 or
+25 calls now and then, and a graph replay's trace 2 of its K1. So the
+window opens with a lead as well: ``LEAD_KERNELS`` one-element kernels
+inside an ``opcost.LEAD_NAME`` range, run to the end before the traced
+work starts. The trace keeps the lead; the port's readers
+(``opcost.read_trace``, ``opcost.load_trace_events``) cut it
+(``opcost.cut_lead``: its host ops, calls, device records and flow
+arrows), and a lead launch without its device record is one the traced
+work would have lost in its place.
 """
 
 from __future__ import annotations
@@ -61,8 +70,10 @@ import warnings
 from dataclasses import dataclass, field
 
 from . import trace as _telemetry
+from .opcost import LEAD_NAME
 
 WARMUP_KERNELS = 4096  # 16x the 256 that once fell short; 200x the 21 a raw session lost
+LEAD_KERNELS = 1024  # 40x the 25 a warmed session's window lost at its start
 
 # the session this module started: its logdir, the profile object and the
 # wall time it started at (the run directory's name)
@@ -121,6 +132,11 @@ def start_profiler_trace(logdir: str) -> bool:
             x.add_(1)
         torch.cuda.synchronize()
     prof.start_trace()
+    if torch.cuda.is_available():  # the lead of the module docstring
+        with torch.profiler.record_function(LEAD_NAME):
+            for _ in range(LEAD_KERNELS):
+                x.add_(1)
+            torch.cuda.synchronize()
     _ACTIVE.update(logdir=logdir, prof=prof, t0=time.time())
     return True
 

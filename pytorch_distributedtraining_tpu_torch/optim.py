@@ -36,7 +36,18 @@ Counterpart of ``pytorch_distributedtraining_tpu/optim.py``:
   stay pure-Python closed forms, not ``torch.optim.lr_scheduler``, so their
   values match the JAX twins step for step.
 
-Nothing here reads a value back to the host.
+The step's scalars live on the device, so a step runs unchanged inside a
+captured CUDA graph (``parallel.MultiStep``, ``Stoke.fused_step``): every
+optimizer keeps its step count (``count_t``; ``FusedAdamW``'s
+``state.count``) and its lr factor (``lr_factor``, f32) as 0-d tensors on
+its parameters' device. The caller writes the factor with
+:meth:`set_lr_factor` before each step or graph replay (a fill, no copy
+from the host); the lr is ``lr(count) · lr_factor`` on the device (a float
+``lr`` times the factor, a schedule evaluated at the device count), and
+the bias corrections ``1 - β**count`` are f32 on the device, as optax's.
+``step(grads, lr_factor=x)`` and ``apply_tree(lr_factor=x)`` still take a
+number and write it first (the eager callers). Nothing here reads a value
+back to the host but ``count`` and the state dicts.
 """
 
 from __future__ import annotations
@@ -60,10 +71,20 @@ def _named(params) -> list[tuple[str, torch.Tensor]]:
     return out
 
 
-def _lr_at(lr, count):
+def _lr_at(lr, count, factor: torch.Tensor) -> torch.Tensor:
     """The lr at ``count`` (the step count before this update, optax's
-    ``scale_by_schedule``): a float as it is, a schedule evaluated."""
-    return lr(count) if callable(lr) else lr
+    ``scale_by_schedule``: a device tensor) times ``factor``, a 0-d f32
+    device tensor: a float ``lr`` as it is, a schedule evaluated."""
+    return lr(count) * factor if callable(lr) else factor * lr
+
+
+def _set_scalar(t: torch.Tensor, value) -> None:
+    """Write ``value`` (a number or a tensor) into the 0-d tensor ``t`` in
+    place: a fill for a number, so nothing is copied from the host."""
+    if isinstance(value, torch.Tensor):
+        t.copy_(value)
+    else:
+        t.fill_(float(value))
 
 
 def _by_name(saved, saved_names, names: list[str], key: str) -> list:
@@ -120,13 +141,18 @@ class _LeafOptimizer:
         self.names = [n for n, _ in named]
         self.params = [p for _, p in named]
         self.shard = shard
-        self.local = self.params if shard is None else shard.local(self.params)
+        with torch.no_grad():  # views with no autograd history, which would keep each
+            # parameter's AccumulateGrad node alive on this stream, where a graph
+            # capture on its own stream must not meet it
+            self.local = self.params if shard is None else shard.local(self.params)
         self.lr = lr
         self.clip_grad_norm = None if clip_grad_norm is None else float(clip_grad_norm)
         self.clip_grad_value = None if clip_grad_value is None else float(clip_grad_value)
         self.ema_decay = None if ema_decay is None else float(ema_decay)
         self.update_wire_dtype = update_wire_dtype
-        self.count = 0
+        device = self.params[0].device
+        self.count_t = torch.zeros((), dtype=torch.int32, device=device)
+        self.lr_factor = torch.ones((), dtype=torch.float32, device=device)
         self.clip: RecordedClip | None = None
         # the numerics probe's feed: with track_updates, each step leaves the
         # f32 norm of every leaf's applied update (this rank's share) here
@@ -172,8 +198,47 @@ class _LeafOptimizer:
             grads = torch._foreach_clamp_max(torch._foreach_clamp_min(grads, -v), v)
         return grads
 
-    def _lr(self, lr, lr_factor) -> float:
-        return float((_lr_at(self.lr, self.count) if lr is None else lr) * lr_factor)
+    @property
+    def count(self) -> int:
+        """The number of updates applied (a read of :attr:`count_t`)."""
+        return int(self.count_t)
+
+    @count.setter
+    def count(self, value: int) -> None:
+        self.count_t.fill_(int(value))
+
+    def set_lr_factor(self, lr_factor) -> None:
+        """Write the factor of the next update's lr (outside a captured graph)."""
+        _set_scalar(self.lr_factor, lr_factor)
+
+    def state_tensors(self) -> list[torch.Tensor]:
+        """Every tensor a step writes besides the parameters: the count and
+        each state list (a graph's warm-up snapshots and restores them)."""
+        out = [self.count_t]
+        for key in self.STATE:
+            out += getattr(self, key) or []
+        return out
+
+    def _begin(self, lr_factor, gate) -> tuple:
+        """The step's lr (device) and, when ``gate`` is given, copies of the
+        state lists for :meth:`_end` to put back if the gate is off."""
+        if lr_factor is not None:
+            self.set_lr_factor(lr_factor)
+        lr = _lr_at(self.lr, self.count_t, self.lr_factor)
+        saved = None
+        if gate is not None:
+            saved = {k: [t.clone() for t in getattr(self, k)] for k in self.STATE
+                     if getattr(self, k) is not None}
+        return lr, saved
+
+    def _end(self, gate, saved) -> None:
+        """A gated-off step (``gate`` False on the device) leaves every
+        state list as it was, by a select: no read on the host."""
+        if gate is None:
+            return
+        for key, old in saved.items():
+            for t, o in zip(getattr(self, key), old):
+                t.copy_(torch.where(gate, t, o))
 
     def _update_ema(self) -> None:
         """EMA of the new parameters (JAX ``refresh_params_ema``)."""
@@ -181,19 +246,23 @@ class _LeafOptimizer:
             torch._foreach_mul_(self.ema, self.ema_decay)
             torch._foreach_add_(self.ema, self.local, alpha=1.0 - self.ema_decay)
 
-    def _apply(self, upd: list[torch.Tensor], lr: float) -> None:
-        """``p -= lr·u`` on this rank's share, then the sharded leaves
-        gathered back whole. With :attr:`update_wire_dtype` the step
-        ``-lr·u`` is cast to it first and it is the steps that are gathered
-        (the narrow fan-out wire), then added, upcast."""
+    def _apply(self, upd: list[torch.Tensor], lr: torch.Tensor, gate=None) -> None:
+        """``p += u·(-lr)`` on this rank's share (optax's ``scale`` then
+        ``apply_updates``), then the sharded leaves gathered back whole; a
+        step ``gate`` turns off is zero. With :attr:`update_wire_dtype` the
+        step is cast to it first and it is the steps that are gathered (the
+        narrow fan-out wire), then added, upcast."""
+        steps = torch._foreach_mul(upd, -lr)
+        if gate is not None:
+            steps = [torch.where(gate, s, 0.0) for s in steps]
         if self.update_wire_dtype is None:
             if self.track_updates:
-                self.update_norms = _norms(upd) * lr
-            torch._foreach_add_(self.local, upd, alpha=-lr)
+                self.update_norms = _norms(steps)
+            torch._foreach_add_(self.local, steps)
             if self.shard is not None:
                 self.shard.gather_(self.params)
             return
-        steps = [u.to(self.update_wire_dtype) for u in torch._foreach_mul(upd, -lr)]
+        steps = [s.to(self.update_wire_dtype) for s in steps]
         if self.track_updates:
             self.update_norms = _norms(steps)
         if self.shard is not None:
@@ -277,8 +346,8 @@ class AdamW(_LeafOptimizer):
     ``* -lr``, then the params EMA.
 
     The optax chain's arithmetic: ``u = m̂/(√v̂ + eps) + wd·p`` with bias
-    correction by step count (in Python doubles), scaled by ``min(1,
-    max_norm/‖g‖)`` first when clipping is on; ``p -= lr·u``.
+    correction by the device step count (in f32, as optax), scaled by
+    ``min(1, max_norm/‖g‖)`` first when clipping is on; ``p += u·(-lr)``.
     """
 
     STATE = ("mu", "nu", "ema")
@@ -296,21 +365,26 @@ class AdamW(_LeafOptimizer):
         self.nu = [torch.zeros_like(p) for p in self.local]
 
     @torch.no_grad()
-    def step(self, grads: list[torch.Tensor], lr=None, lr_factor=1.0) -> torch.Tensor | None:
+    def step(self, grads: list[torch.Tensor], lr_factor=None,
+             gate: torch.Tensor | None = None) -> torch.Tensor | None:
         """Apply one update from ``grads`` (f32, already unscaled; this
-        rank's share, as :attr:`local`) at ``lr`` (default: :attr:`lr` at
-        the step count) times ``lr_factor``. Returns
-        the pre-clip global norm (a device scalar) when clipping is on, so a
-        caller need not compute it twice; else None."""
-        lr = self._lr(lr, lr_factor)
+        rank's share, as :attr:`local`) at :attr:`lr` at the step count
+        times :attr:`lr_factor` (``lr_factor``, when given, is written there
+        first). ``gate`` (a device bool) keeps parameters, moments, EMA and
+        count as they were when False: the loss scaler's overflow skip,
+        with no read on the host. Returns the pre-clip global norm (a
+        device scalar) when clipping is on, so a caller need not compute it
+        twice; else None."""
+        lr, saved = self._begin(lr_factor, gate)
         grads = self._clip(grads)
-        self.count += 1
+        self.count_t.add_(1 if gate is None else gate.to(torch.int32))
         torch._foreach_mul_(self.mu, self.b1)
         torch._foreach_add_(self.mu, grads, alpha=1.0 - self.b1)
         torch._foreach_mul_(self.nu, self.b2)
         torch._foreach_addcmul_(self.nu, grads, grads, value=1.0 - self.b2)
-        bc1 = 1.0 - self.b1**self.count
-        bc2 = 1.0 - self.b2**self.count
+        t = self.count_t.float()
+        bc1 = 1.0 - self.b1**t
+        bc2 = 1.0 - self.b2**t
         denom = torch._foreach_div(self.nu, bc2)
         torch._foreach_sqrt_(denom)
         torch._foreach_add_(denom, self.eps)
@@ -318,8 +392,9 @@ class AdamW(_LeafOptimizer):
         torch._foreach_div_(upd, denom)
         if self.weight_decay:
             torch._foreach_add_(upd, self.local, alpha=self.weight_decay)
-        self._apply(upd, lr)
+        self._apply(upd, lr, gate)
         self._update_ema()
+        self._end(gate, saved)
         return None if self.clip is None else self.clip.gnorm
 
 
@@ -342,9 +417,10 @@ class SGD(_LeafOptimizer):
         self.trace = [torch.zeros_like(p) for p in self.local] if self.momentum else None
 
     @torch.no_grad()
-    def step(self, grads: list[torch.Tensor], lr=None, lr_factor=1.0) -> torch.Tensor | None:
+    def step(self, grads: list[torch.Tensor], lr_factor=None,
+             gate: torch.Tensor | None = None) -> torch.Tensor | None:
         """As :meth:`AdamW.step`."""
-        lr = self._lr(lr, lr_factor)
+        lr, saved = self._begin(lr_factor, gate)
         grads = self._clip(grads)
         if self.weight_decay:
             grads = torch._foreach_add(grads, self.local, alpha=self.weight_decay)
@@ -353,8 +429,9 @@ class SGD(_LeafOptimizer):
             torch._foreach_add_(self.trace, grads)
             grads = (torch._foreach_add(grads, self.trace, alpha=self.momentum)
                      if self.nesterov else self.trace)
-        self.count += 1
-        self._apply(grads, lr)
+        self.count_t.add_(1 if gate is None else gate.to(torch.int32))
+        self._apply(grads, lr, gate)
+        self._end(gate, saved)
         return None if self.clip is None else self.clip.gnorm
 
 
@@ -472,7 +549,23 @@ class FusedAdamW:
                 p.data = self.flat_param[off:off + k].view_as(p)
                 p.grad = self.flat_grad[off:off + k].view_as(p)
         self.state = self.init()
+        self.lr_factor = torch.ones((), dtype=torch.float32, device=device)
         self.clip: RecordedClip | None = None
+
+    def set_lr_factor(self, lr_factor) -> None:
+        """Write the factor of the next update's lr (outside a captured graph)."""
+        _set_scalar(self.lr_factor, lr_factor)
+
+    def state_tensors(self) -> list[torch.Tensor]:
+        """Every tensor a step writes: the flat parameters and the state."""
+        return [self.flat_param] + [t for t in self.state if t is not None]
+
+    def _assign(self, new: FusedAdamWState) -> None:
+        """Copy ``new`` into the live state's tensors, which keep their
+        storage: a captured graph reads and writes these addresses."""
+        for live, value in zip(self.state, new):
+            if live is not None:
+                live.copy_(value)
 
     def init(self) -> FusedAdamWState:
         """A fresh state for the current parameters (this rank's slice of
@@ -489,7 +582,7 @@ class FusedAdamW:
         """Zero the flat gradient in place (the views stay bound)."""
         self.flat_grad.zero_()
 
-    def _moments(self, g, state: FusedAdamWState, pflat, lr_factor, gnorm=None):
+    def _moments(self, g, state: FusedAdamWState, pflat, gnorm=None):
         """The clip, the moments and the step ``-lr·u`` (in
         :attr:`update_wire_dtype` when set) from flat grads ``g``; ``gnorm``,
         the pre-clip norm, is computed from ``g`` unless given."""
@@ -511,11 +604,7 @@ class FusedAdamW:
         mu = torch.mul(state.mu, self.b1).add_(g, alpha=1.0 - self.b1)
         nu = torch.mul(state.nu, self.b2).addcmul_(g, g, value=1.0 - self.b2)
         t = count.float()
-        lr_t = _lr_at(self.lr, state.count)
-        if isinstance(lr_t, torch.Tensor) or isinstance(lr_factor, torch.Tensor):
-            lr_t = torch.as_tensor(lr_t, dtype=torch.float32) * lr_factor
-        else:  # f32 on the host: a tensor made from it would copy to the device
-            lr_t = float(np.float32(np.float32(lr_t) * np.float32(lr_factor)))
+        lr_t = _lr_at(self.lr, state.count, self.lr_factor)
         # upd = m̂ / (√v̂ + eps) + wd·p, then the step -lr·upd, in one buffer
         upd = torch.div(mu, 1.0 - self.b1**t)
         upd.div_(torch.div(nu, 1.0 - self.b2**t).sqrt_().add_(self.eps))
@@ -553,9 +642,10 @@ class FusedAdamW:
 
     @torch.no_grad()
     def apply(self, gflat: torch.Tensor, state: FusedAdamWState, pflat: torch.Tensor,
-              lr_factor=1.0, gate: torch.Tensor | None = None):
+              lr_factor=None, gate: torch.Tensor | None = None):
         """One update on flat f32 grads ``gflat`` and params ``pflat``
-        (``[N_pad]``), out of place.
+        (``[N_pad]``), out of place, at :attr:`lr_factor` (``lr_factor``,
+        when given, is written there first).
 
         Returns ``(new_pflat, new_state, grad_norm)``; ``grad_norm`` is the
         pre-clip global norm (with a norm clip also recorded in
@@ -563,22 +653,27 @@ class FusedAdamW:
         params, moments, count and EMA as they were when False: the
         GradScaler overflow skip, with no read on the host.
         """
-        step_vec, count, mu, nu, gnorm = self._moments(gflat, state, pflat, lr_factor)
+        if lr_factor is not None:
+            self.set_lr_factor(lr_factor)
+        step_vec, count, mu, nu, gnorm = self._moments(gflat, state, pflat)
         new_p, new_state = self._finish(pflat + step_vec.float(), pflat, state, count, mu, nu,
                                         gate)
         return new_p, new_state, gnorm
 
     @torch.no_grad()
-    def apply_tree(self, lr_factor=1.0, scaler=None):
+    def apply_tree(self, lr_factor=None, scaler=None):
         """One update from the parameters' grads, in place: the shared hot
-        path of ``TrainStep`` and the facade.
+        path of ``TrainStep`` and the facade. The parameters and the
+        state's tensors keep their storage (new values are copied in), so
+        the update can run inside a captured CUDA graph.
 
         The grads already lie in :attr:`flat_grad`, so the ravel costs
         nothing. With ``scaler`` (a ``DynamicLossScaler``), the flat grads
-        are unscaled and their finiteness gates the whole update. Returns
-        ``(grad_norm, finite)``: the pre-clip norm and, with a scaler, the
-        finite flag as a device bool for the scaler's own update (None
-        without one). Nothing is read back to the host here.
+        are unscaled by its device scale and their finiteness gates the
+        whole update. Returns ``(grad_norm, finite)``: the pre-clip norm
+        and, with a scaler, the finite flag as a device bool for the
+        scaler's own update (None without one). Nothing is read back to the
+        host here.
 
         Under ZeRO-1 (``shard_group``) the grads are the same on every rank
         (reduced by the step): the norm is taken over all of them, the
@@ -586,23 +681,26 @@ class FusedAdamW:
         parameters (or, with :attr:`update_wire_dtype`, the steps) are
         all-gathered.
         """
+        if lr_factor is not None:
+            self.set_lr_factor(lr_factor)
         gflat, gate = self.flat_grad, None
         if scaler is not None:
-            gflat = gflat * (1.0 / scaler.scale)
+            gflat = gflat * torch.reciprocal(scaler.to(gflat.device).scale)
             gate = torch.isfinite(gflat).all()
         if self.shard_group is None:
-            new_p, self.state, gnorm = self.apply(gflat, self.state, self.flat_param,
-                                                  lr_factor, gate)
+            new_p, new_state, gnorm = self.apply(gflat, self.state, self.flat_param, None, gate)
             self.flat_param.copy_(new_p)
+            self._assign(new_state)
             return gnorm, gate
         from .parallel.spec import all_gather_flat
 
         own = self.flat_param[self.slice]
         step_vec, count, mu, nu, gnorm = self._moments(
-            gflat[self.slice], self.state, own, lr_factor, torch.sqrt(torch.sum(gflat * gflat)))
+            gflat[self.slice], self.state, own, torch.sqrt(torch.sum(gflat * gflat)))
         if self.update_wire_dtype is None:
-            new_own, self.state = self._finish(own + step_vec, own, self.state, count, mu, nu,
-                                               gate)
+            new_own, new_state = self._finish(own + step_vec, own, self.state, count, mu, nu,
+                                              gate)
+            self._assign(new_state)
             all_gather_flat(self.flat_param, new_own, self.shard_group)
             return gnorm, gate
         if gate is not None:
@@ -613,7 +711,8 @@ class FusedAdamW:
         new_p = self.flat_param + steps.float()
         if gate is not None:
             new_p = torch.where(gate, new_p, self.flat_param)
-        _, self.state = self._finish(new_p[self.slice], own, self.state, count, mu, nu, gate)
+        _, new_state = self._finish(new_p[self.slice], own, self.state, count, mu, nu, gate)
+        self._assign(new_state)
         self.flat_param.copy_(new_p)
         return gnorm, gate
 
@@ -693,9 +792,8 @@ class FusedAdamW:
                 "saved the state was")
         moments = [self._live_slice(state[k], state, k) if state.get(k) is not None else None
                    for k in ("mu", "nu", "ema")]
-        count = torch.tensor(int(state["count"]), dtype=torch.int32,
-                             device=self.flat_param.device)
-        self.state = FusedAdamWState(count, *moments)
+        self.state.count.fill_(int(state["count"]))
+        self._assign(FusedAdamWState(self.state.count, *moments))
 
     def _live_slice(self, saved, state: dict, key: str) -> torch.Tensor:
         """``saved`` (a flat buffer in ``state["layout"]``, or per-leaf

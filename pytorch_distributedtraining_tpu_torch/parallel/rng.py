@@ -10,12 +10,21 @@ reaches it. The port fixes the same things by plain integers:
   ``TrainState.state_dict`` carries it, so a resumed run draws the masks
   the unbroken run drew.
 - :class:`DropoutKey` is one micro-batch's key, ``(seed, step, micro)``.
-  A mask is drawn from a generator seeded by a hash of the key and the
-  dropout site (the site's place in the model's forward), never from a
-  generator that advances. So a forward that ``torch.utils.checkpoint``
-  recomputes in backward draws the same masks again: checkpoint restores
-  the default CPU and CUDA generators only, and an advancing explicit
-  generator would give the recompute new masks and a wrong gradient.
+  A mask is a counter-based draw: each element's bits are a hash of the
+  key, the dropout site (the site's place in the model's forward) and the
+  element's index, computed by integer tensor ops on the mask's device
+  (:func:`keep_mask`), never drawn from a generator that advances. So a
+  forward that ``torch.utils.checkpoint`` recomputes in backward draws the
+  same masks again (checkpoint restores the default CPU and CUDA
+  generators only, and an advancing explicit generator would give the
+  recompute new masks and a wrong gradient), the CPU and the card draw the
+  same bits, and ``step`` may be a device tensor: a captured CUDA graph
+  (``parallel.MultiStep``, ``Stoke.fused_step``) reads the step from a
+  device counter that it advances itself, where a seed computed on the
+  host would be baked into the graph. A reseeded Philox generator cannot
+  serve there: a generator's seed cannot change during a capture, and a
+  graph's registered generator hands each draw an offset by capture order,
+  which neither the eager step nor a remat recompute reproduces.
 - :func:`dropout` is flax's ``nn.Dropout``: with ``deterministic`` or a
   rate of 0 it returns its input; else ``x / (1 - rate)`` where the mask
   keeps and 0 elsewhere (all zeros at rate 1).
@@ -29,6 +38,7 @@ masks.
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 
 import torch
@@ -51,35 +61,55 @@ def mix_seed(*values: int) -> int:
     return h >> 1
 
 
-_GENERATORS: dict = {}
+_M32 = 0xFFFFFFFF
 
 
-def _generator(device: torch.device) -> torch.Generator:
-    """One reusable generator per device; every draw reseeds it first."""
+def _mix32_(x: torch.Tensor) -> torch.Tensor:
+    """A 32-bit avalanche (the lowbias32 shape) of int64 lanes that hold
+    values below 2**32, in place: every product stays below 2**63, so the
+    bits are exact and equal on every device."""
+    x.bitwise_xor_(x >> 16)
+    x.mul_(0x7FEB352D).bitwise_and_(_M32)
+    x.bitwise_xor_(x >> 15)
+    x.mul_(0x6A09E667).bitwise_and_(_M32)
+    return x.bitwise_xor_(x >> 16)
+
+
+def keep_mask(seed: int, step, micro: int, site: int, shape, keep: float,
+              device) -> torch.Tensor:
+    """The keep mask (bool, ``shape``) of dropout site ``site`` under the key
+    ``(seed, step, micro)``: each element kept with probability ``keep``.
+    ``step`` is an int or an integer device tensor (0-d); both give the same
+    bits. Nothing is read back to the host."""
     device = torch.device(device)
-    if device.type == "cuda" and device.index is None:
-        device = torch.device("cuda", torch.cuda.current_device())
-    g = _GENERATORS.get(device)
-    if g is None:
-        g = _GENERATORS[device] = torch.Generator(device=device)
-    return g
+    n = math.prod(tuple(shape))
+    if n >= 1 << 31:
+        raise ValueError(f"dropout mask of {n} elements: at most 2**31 - 1")
+    if isinstance(step, torch.Tensor):
+        k = step.to(device=device, dtype=torch.int64).reshape(())
+    else:
+        k = torch.full((), int(step), dtype=torch.int64, device=device)
+    k = _mix32_((k & 0x7FFFFFFF).mul_(0x9E3779B1).bitwise_xor_(
+        mix_seed(seed, micro, site) & _M32).bitwise_and_(_M32))
+    h = torch.arange(n, dtype=torch.int64, device=device).mul_(0x85EBCA77)
+    h = _mix32_(h.add_(k).bitwise_and_(_M32))
+    return (h < int(keep * (1 << 32))).reshape(tuple(shape))
 
 
 @dataclass(frozen=True)
 class DropoutKey:
     """The key of one micro-batch's forward: each site's mask is a function
-    of ``(seed, step, micro, site)`` alone."""
+    of ``(seed, step, micro, site)`` alone. ``step`` is an int or a 0-d
+    integer device tensor (a train step's counter)."""
 
     seed: int
-    step: int = 0
+    step: object = 0
     micro: int = 0
 
     def mask(self, site: int, shape, keep: float, device) -> torch.Tensor:
         """The keep mask (bool, ``shape``) of dropout site ``site``: each
         element kept with probability ``keep``."""
-        g = _generator(device)
-        g.manual_seed(mix_seed(self.seed, self.step, self.micro, site))
-        return torch.rand(tuple(shape), generator=g, device=device) < keep
+        return keep_mask(self.seed, self.step, self.micro, site, shape, keep, device)
 
 
 def as_key(generator):
@@ -109,8 +139,11 @@ def dropout(x: torch.Tensor, rate: float, key, site: int,
 
 class StepRng:
     """The train state's random stream: ``seed`` and the number of steps
-    taken (``step``); :meth:`key` is micro-batch ``micro``'s key at the
-    current step."""
+    taken (``step``, the host's record); :meth:`key` is micro-batch
+    ``micro``'s key at the current step. A train step keys its micro-batches
+    by a device copy of ``step`` that it advances on the device, and the
+    host count here after each call (``TrainStep``) or window
+    (``MultiStep``)."""
 
     def __init__(self, seed: int = 0, step: int = 0):
         self.seed = int(seed)

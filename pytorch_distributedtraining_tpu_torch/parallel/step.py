@@ -69,15 +69,33 @@ read, so the port reads what the profiler recorded of each c10d call.
 for ``observe.memory.tune_batch_size``: JAX reads the compiled program's
 plan without running a step; the port runs one forward and backward.
 
-Not ported yet: ``MultiStep`` (a CUDA-graph twin, the CUDA-graph step
-slice), host offload (the offload slice) and the loss scaler inside the
-step (the facade has it).
+``loss_scaler`` (a ``precision.DynamicLossScaler``) is JAX's in-step
+scaler: each micro-batch's loss is scaled before its backward, the
+gradients are unscaled after the reduction, their finiteness (over every
+rank's shares) gates the whole update on the device, and the scaler backs
+off or grows by selects; ``metrics["loss_scale"]`` is the scale after the
+step. Nothing of it is read back to the host.
+
+The step's scalars are device tensors, so the step can be captured as a
+CUDA graph: the optimizer's count and lr factor (``optim``), the scaler's
+state, and the step counter that keys dropout and the numerics probe's
+injection (a device copy of ``rng.step``, written before each call and
+advanced on the device; ``rng.step`` stays the host's record, advanced
+after the call). :class:`MultiStep` runs K steps as one captured graph
+(``parallel.graph.StepGraph``) replayed by one launch, JAX's ``lax.scan``
+of K steps in one dispatch; :func:`tune_multi_step_k` measures which K
+pays. :meth:`TrainStep.state_snapshot` and :meth:`TrainStep.restore_state`
+copy every tensor a step writes (the graph's warm-up runs between them).
+
+Not ported yet: host offload (the offload slice).
 """
 
 from __future__ import annotations
 
 import contextlib
 import inspect
+import math
+import time
 from typing import Callable
 
 import torch
@@ -89,7 +107,8 @@ from ..optim import FusedAdamW
 from ..runtime.mesh import data_group
 from .policy import Policy
 from .remat import apply_remat, resolve_remat
-from .rng import StepRng
+from .graph import StepGraph
+from .rng import DropoutKey, StepRng
 from .spec import all_reduce_sum_, all_reduce_tensors
 from .state import check_fused
 from .sync_bn import batch_norm_state
@@ -182,6 +201,17 @@ def reduce_gradients(tx, policy: Policy, group, accum: int = 1) -> list[torch.Te
                               scale=1.0 / (world * accum))
 
 
+def all_finite(finite: torch.Tensor, group) -> torch.Tensor:
+    """``finite`` (a device bool) on every rank of ``group`` at once, by one
+    all-reduce of the bad flag (as it is without a group): a shard's
+    overflow skips the step everywhere. No host read."""
+    if group is None:
+        return finite
+    bad = (~finite).float().reshape(1)
+    all_reduce_sum_(bad, group)
+    return bad[0] == 0
+
+
 def mean_over_ranks(values: dict, group) -> dict:
     """Each value (f32) averaged over the ranks of ``group`` by one
     all-reduce (as they are without a group)."""
@@ -197,7 +227,8 @@ class TrainStep:
 
     def __init__(self, model: torch.nn.Module, loss_fn: Callable, tx, mesh=None,
                  policy: Policy | None = None, *, grad_accum_steps: int = 1, remat=None,
-                 rng: StepRng | int | None = None, numerics=None, detect_anomaly: bool = False):
+                 rng: StepRng | int | None = None, numerics=None, detect_anomaly: bool = False,
+                 loss_scaler=None):
         if grad_accum_steps < 1:
             raise ValueError(f"grad_accum_steps must be >= 1, got {grad_accum_steps}")
         self.model = model
@@ -214,6 +245,11 @@ class TrainStep:
         self.fused = tx if isinstance(tx, FusedAdamW) else None
         self.grad_accum_steps = int(grad_accum_steps)
         self.rng = rng if isinstance(rng, StepRng) else StepRng(0 if rng is None else rng)
+        self.device = tx.params[0].device
+        # the step counter on the device: dropout keys and the probe's
+        # injection read it, so a captured graph needs no host value
+        self.step_t = torch.zeros((), dtype=torch.int64, device=self.device)
+        self.loss_scaler = None if loss_scaler is None else loss_scaler.to(self.device)
         self.detect_anomaly = bool(detect_anomaly)
         if numerics is True:
             from ..observe.numerics import NumericsProbe
@@ -228,7 +264,40 @@ class TrainStep:
 
     def __call__(self, batch, lr_factor: float = 1.0) -> dict[str, torch.Tensor]:
         with telemetry.dispatch_span(self, "TrainStep"):
-            return self._step(batch, lr_factor)
+            self.prepare(lr_factor)
+            metrics = self._step(batch)
+        self.rng.step += 1
+        return metrics
+
+    def prepare(self, lr_factor) -> None:
+        """Write the next step's host values into its device scalars: the
+        optimizer's lr factor and the step counter (``rng.step``). Fills,
+        never copies from the host; outside a captured graph."""
+        self.tx.set_lr_factor(lr_factor)
+        self.step_t.fill_(self.rng.step)
+
+    def state_tensors(self) -> list[torch.Tensor]:
+        """Every tensor a step writes: the parameters (``FusedAdamW``'s flat
+        buffer), the model's buffers (BatchNorm statistics), the optimizer's
+        state, the loss scaler's and the step counter. The gradients are
+        not state: a step starts by zeroing them."""
+        params = [] if self.fused is not None else list(self.tx.params)
+        scaler = [] if self.loss_scaler is None else self.loss_scaler.state_tensors()
+        return (params + list(self.model.buffers()) + self.tx.state_tensors() + scaler
+                + [self.step_t])
+
+    def state_snapshot(self) -> dict:
+        """A copy of :meth:`state_tensors` and of the host's step count."""
+        with torch.no_grad():
+            return {"step": self.rng.step, "tensors": [t.clone() for t in self.state_tensors()]}
+
+    def restore_state(self, snapshot: dict) -> None:
+        """Put a :meth:`state_snapshot` back, in place (every tensor keeps
+        its storage, so a captured graph still reads and writes it)."""
+        with torch.no_grad():
+            for t, v in zip(self.state_tensors(), snapshot["tensors"]):
+                t.copy_(v)
+        self.rng.step = snapshot["step"]
 
     def _shares(self, grads) -> tuple[list, list]:
         """This rank's share of each gradient and parameter, in ``tx``'s
@@ -240,12 +309,15 @@ class TrainStep:
         return grads, list(tx.local)
 
     def _loss(self, mb, i: int):
-        """``loss_fn`` on micro-batch ``i``, with its key when it takes one."""
+        """``loss_fn`` on micro-batch ``i``, with its key when it takes one:
+        the key holds a device copy of the step counter, a value that later
+        steps do not change."""
+        if not self._keyed:
+            return self.loss_fn(self.model, mb)
+        key = DropoutKey(self.rng.seed, self.step_t.clone(), i)
         if self._keyed == "rng":
-            return self.loss_fn(self.model, mb, rng=self.rng.key(i))
-        if self._keyed:
-            return self.loss_fn(self.model, mb, self.rng.key(i))
-        return self.loss_fn(self.model, mb)
+            return self.loss_fn(self.model, mb, rng=key)
+        return self.loss_fn(self.model, mb, key)
 
     def _forward_backward(self, micro: list) -> tuple[list, list]:
         """Every micro-batch's forward and backward: the losses and auxs."""
@@ -260,14 +332,18 @@ class TrainStep:
                 loss, aux = self._loss(mb, i)
                 kept = ([t.clone() for t in self.model_state]
                         if self.model_state and self._recomputes else None)
-                loss.backward()
+                scaler = self.loss_scaler
+                (loss if scaler is None else scaler.scale_loss(loss)).backward()
             if kept is not None:  # the forward's update, not the recompute's
                 torch._foreach_copy_(self.model_state, kept)
             losses.append(loss.detach())
             auxs.append(aux)
         return losses, auxs
 
-    def _step(self, batch, lr_factor: float) -> dict[str, torch.Tensor]:
+    def _step(self, batch) -> dict[str, torch.Tensor]:
+        """One step at the optimizer's lr factor and the device step
+        counter (both written by :meth:`prepare`); advances the counter on
+        the device. No host read unless ``detect_anomaly``."""
         n = self.grad_accum_steps
         self.tx.zero_grad()
         micro = _split_microbatches(batch, n) if n > 1 else [batch]
@@ -275,41 +351,55 @@ class TrainStep:
                   if self.model_state and self.detect_anomaly else None)
         losses, auxs = self._forward_backward(micro)
         grads = reduce_gradients(self.tx, self.policy, self.group, n)
-        probe, layout = self.numerics, self._layout
+        probe, layout, scaler = self.numerics, self._layout, self.loss_scaler
         shard = None if self.fused is not None else self.tx.shard
+        if scaler is not None and self.fused is None:
+            grads = scaler.unscale(grads)  # f32 before clip and update (JAX's tree path)
         leaf_grads, leaf_params = self._shares(grads)
         if probe is not None:
-            probe.inject(leaf_grads, self.rng.step, layout["names"])
+            probe.inject(leaf_grads, self.step_t, layout["names"])
         if self.detect_anomaly:
-            self._check_finite(leaf_grads, torch.stack(losses), shard, before)
+            self._check_finite(leaf_grads, torch.stack(losses), shard, before,
+                               nan_only=scaler is not None)
         # the pre-update parameters' norms, for the probe
         param_norms = leaf_norms(leaf_params) if probe is not None else None
+        finite = None
         if self.fused is not None:
-            gnorm, _ = self.fused.apply_tree(lr_factor)
+            gnorm, finite = self.fused.apply_tree(scaler=scaler)
         else:
-            gnorm = self.tx.step(grads, lr_factor=lr_factor)
+            if scaler is not None:
+                finite = all_finite(scaler.grads_finite(grads),
+                                    None if shard is None else shard.group)
+            gnorm = self.tx.step(grads, gate=finite)
             if gnorm is None:
                 gnorm = self.tx.norm(grads)
+        if scaler is not None:
+            scaler.update(finite)
         metrics = {"loss": torch.stack(losses).float().mean()}
         for k in auxs[0]:
             metrics[k] = torch.stack([a[k].detach().float() for a in auxs]).mean(0)
         metrics = mean_over_ranks(metrics, self.group)
         metrics["grad_norm"] = gnorm
+        if scaler is not None:
+            metrics["loss_scale"] = scaler.scale.clone()
         if probe is not None:
             metrics["numerics"] = probe.aux(
                 leaf_grads, param_norms=param_norms, grad_norm=gnorm, shard=shard,
                 update_norms=None if self.fused is not None else self.tx.update_norms,
                 **layout)
-        self.rng.step += 1
+        self.step_t.add_(1)
         return metrics
 
-    def _check_finite(self, grads: list, losses: torch.Tensor, shard, before) -> None:
+    def _check_finite(self, grads: list, losses: torch.Tensor, shard, before,
+                      nan_only: bool = False) -> None:
         """detect_anomaly: read the leaves' and the loss's finiteness (over
         every rank's shares) and raise naming the non-finite ones, the
         BatchNorm statistics put back to the step's start (nothing else has
-        changed yet)."""
-        bad = (~torch.isfinite(leaf_norms(grads, float("inf")))).float()
-        flags = torch.cat([(~torch.isfinite(losses.float())).any().float().reshape(1), bad])
+        changed yet). With a loss scaler only NaN counts (an inf is the
+        scaler's own skip, as in JAX and torch)."""
+        bad_value = torch.isnan if nan_only else (lambda v: ~torch.isfinite(v))
+        bad = bad_value(leaf_norms(grads, float("inf"))).float()
+        flags = torch.cat([bad_value(losses.float()).any().float().reshape(1), bad])
         if shard is not None:
             all_reduce_sum_(flags, shard.group)
         elif self.group is not None:
@@ -432,6 +522,155 @@ class TrainStep:
             peak = device_hbm_budget(dev) + 1
         return MemoryStats(argument_bytes=int(base), output_bytes=0,
                            temp_bytes=int(peak - base), alias_bytes=0, generated_code_bytes=0)
+
+
+def _window_item(batches, i: int):
+    """Step ``i``'s batch of a stacked window (a tensor or a tuple of them)."""
+    if isinstance(batches, torch.Tensor):
+        return batches[i]
+    return type(batches)(x[i] for x in batches)
+
+
+def _stack_metrics(ms: list) -> dict:
+    """K steps' metrics as one dict of ``[K, ...]`` stacks (nested dicts,
+    the numerics aux, stacked leaf by leaf)."""
+    out = {}
+    for key, v in ms[0].items():
+        if isinstance(v, dict):
+            out[key] = _stack_metrics([m[key] for m in ms])
+        else:
+            out[key] = torch.stack([m[key] for m in ms])
+    return out
+
+
+class MultiStep:
+    """K train steps as ONE captured CUDA graph, replayed by one launch
+    (JAX's ``MultiStep``: K steps as one ``lax.scan`` dispatch).
+
+    Amortizes the host's launch cost over K steps, where the host paces
+    the step (``PERF.md`` §5: the bf16 SwinIR steps)::
+
+        multi = MultiStep(step, k=8)
+        for stacked in multi.feed(loader):     # tensors [8, B, ...]
+            metrics = multi(stacked)           # one graph launch
+
+    Semantics against K ``step()`` calls: the same math and state, the
+    dropout keys and the probe's injection keyed per step (the device step
+    counter advances inside the graph), ``step.rng.step`` advanced by K
+    afterwards. Metrics come back stacked ``[K]`` (the numerics aux too),
+    copied out of the graph's outputs, so they do not change at the next
+    replay. ``lr_factor`` is constant across the window.
+
+    On the card the first window (and a window of new shapes) is captured:
+    the stacked batch is copied into static ``[K, B, ...]`` buffers, the K
+    steps run ``parallel.graph.WARMUP`` times on a side stream (which builds
+    the kernels and every cache at first use) between a snapshot of the
+    state and its restore, then one capture; every call copies its window
+    into the buffers and replays. A failed capture or replay raises;
+    nothing falls back to eager. On the CPU the same runner calls the K
+    steps directly. ZeRO-3 (FSDP2: per-unit hooks, streams and events on
+    the host), a ``DistributedDataParallel`` model (its reducer holds the
+    parameters' AccumulateGrad nodes of another stream) and
+    ``detect_anomaly`` (a host read every step) cannot be captured and
+    raise here, on the CPU too.
+    """
+
+    def __init__(self, step: TrainStep, k: int):
+        if k < 1:
+            raise ValueError(f"k must be >= 1, got {k}")
+        refuse_capture(step, "MultiStep")
+        self.step = step
+        self.k = int(k)
+        self.graph = StepGraph(step, self._window)
+
+    def _window(self, batches) -> dict:
+        return _stack_metrics([self.step._step(_window_item(batches, i))
+                               for i in range(self.k)])
+
+    def __call__(self, batches, lr_factor: float = 1.0) -> dict[str, torch.Tensor]:
+        """``batches``: a tensor or tuple of tensors, each ``[K, B, ...]``."""
+        first = batches if isinstance(batches, torch.Tensor) else batches[0]
+        k = first.shape[0]
+        if k != self.k:
+            raise ValueError(f"stacked batch has window {k}, MultiStep captured for {self.k}")
+        with telemetry.dispatch_span(self, "MultiStep"):
+            metrics = self.graph(batches, lr_factor)
+        self.step.rng.step += self.k
+        return metrics
+
+    def feed(self, loader, depth: int | None = None):
+        """Stacked windows from a loader (``data.DataLoader``), staged ahead
+        by its device prefetch: ``depth`` batches (default ``k``, one whole
+        window) copy to the device while the previous window computes, then
+        :func:`~..data.loader.stack_windows` stacks each ``k``."""
+        from ..data.loader import stack_windows
+
+        return stack_windows(loader.device_iter(depth=self.k if depth is None else depth),
+                             self.k)
+
+
+def refuse_capture(step: TrainStep, what: str) -> None:
+    """Raise ``ValueError`` where ``step`` cannot run as a captured graph."""
+    if step.policy.shard_params:
+        raise ValueError(
+            f"{what} cannot capture a ZeRO-3 step: FSDP2's per-unit hooks, streams and events "
+            "run on the host, outside a CUDA graph (they wait for the wrapped-model graph "
+            "slice); use TrainStep, or ZeRO-2")
+    if _is_ddp(step.model):
+        raise ValueError(
+            f"{what} cannot capture a DistributedDataParallel model: DDP's reducer keeps each "
+            "parameter's AccumulateGrad node from the stream DDP was built on, which the "
+            "capture's backward would have to join (the wrapped-model graph slice); use "
+            "FusedAdamW (no DDP wrapper), or ZeRO-1/2")
+    if step.detect_anomaly:
+        raise ValueError(
+            f"{what} cannot capture a step with detect_anomaly=True: it reads the gradients' "
+            "finiteness back to the host every step; use the numerics probe (numerics=True), "
+            "which stays on the device")
+
+
+def tune_multi_step_k(step: TrainStep, batch, ks=(1, 2, 5, 10), steps_per_arm: int = 20,
+                      lr_factor: float = 1.0):
+    """Measure K steps per graph launch on the live device and pick the
+    winner (JAX's ``tune_multi_step_k``)::
+
+        best_k, rates, state = tune_multi_step_k(step, batch)
+        multi = MultiStep(step, best_k) if best_k > 1 else step
+
+    Each arm takes one call (capture and warm-up on the card) and then
+    ``steps_per_arm // k`` timed calls of ``batch`` repeated K times, at
+    ``lr_factor``: real optimizer steps, so the state advances (in place).
+    The time is wall clock per completed arm, ended by a read of the last
+    loss, so no arm can look fast by not waiting. Returns ``(best_k, {k:
+    steps_per_sec}, state)``, ``state`` a :meth:`TrainStep.state_snapshot`
+    of the advanced state. On a non-finite loss the raised
+    ``RuntimeError`` carries ``err.state``, the snapshot taken before the
+    failing arm (last-good: ``step.restore_state(err.state)`` resumes from
+    it)."""
+    rates: dict[int, float] = {}
+    for k in ks:
+        k = int(k)
+        n_calls = max(1, steps_per_arm // k)
+        snapshot = step.state_snapshot()
+        if k == 1:
+            runner, fed = step, batch
+        else:
+            runner = MultiStep(step, k)
+            fed = (batch.expand(k, *batch.shape) if isinstance(batch, torch.Tensor)
+                   else type(batch)(x.expand(k, *x.shape) for x in batch))
+        metrics = runner(fed, lr_factor)  # capture and warm-up
+        float(metrics["loss"].reshape(-1)[-1])
+        t0 = time.perf_counter()
+        for _ in range(n_calls):
+            metrics = runner(fed, lr_factor)
+        last = float(metrics["loss"].reshape(-1)[-1])  # waits for every step of the arm
+        if not math.isfinite(last):
+            err = RuntimeError(f"non-finite loss while tuning k={k}")
+            err.state = snapshot  # pre-arm: last-good by construction
+            raise err
+        rates[k] = k * n_calls / (time.perf_counter() - t0)
+    best_k = max(rates, key=rates.get)
+    return best_k, rates, step.state_snapshot()
 
 
 class EvalStep:

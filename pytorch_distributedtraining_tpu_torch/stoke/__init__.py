@@ -8,11 +8,12 @@ from .config import (
     DistributedOptions,
     FairscaleOSSConfig,
     FP16Options,
+    TPUConfig,
 )
 from .facade import Stoke
 from .optimizer import StokeOptimizer
 
 __all__ = [
     "AMPConfig", "ClipGradConfig", "ClipGradNormConfig", "DDPConfig", "DistributedOptions",
-    "FP16Options", "FairscaleOSSConfig", "Stoke", "StokeOptimizer",
+    "FP16Options", "FairscaleOSSConfig", "Stoke", "StokeOptimizer", "TPUConfig",
 ]

@@ -10,12 +10,23 @@ than one rank); ``local_rank``, ``convert_to_sync_batch_norm`` and
 recorded only. ``convert_to_sync_batch_norm`` has nothing to convert: the
 port's BatchNorm (``parallel.sync_bn.BatchNorm``) is synchronous over the
 data group whenever there is one, as JAX's always is (its ``jit`` sees the
-global batch). JAX's ``TPUConfig`` has no twin yet: its knobs that matter
-on a GPU come with the CUDA-graph step slice. Its telemetry and numerics
-fields are the facade's constructor arguments here, resolved against
-their env twins by ``observe.trace.telemetry_from_env`` and
-``observe.numerics.numerics_from_env`` (JAX's ``_telemetry_from_env`` and
-``_numerics_from_env``).
+global batch).
+
+``TPUConfig`` is JAX's (``stoke/config.py:80-175``), field for field. The
+facade reads the fields that mean something on this card, each against
+its env twin with JAX's precedence: ``dp`` and ``fsdp`` (the data and
+sharded-data widths of the facade's mesh; no env twin, as in JAX),
+``remat`` (the config's when set, else ``GRAFT_REMAT``; it reaches the
+train step ``Stoke.fused_step`` runs), ``telemetry``/``trace_dir``
+(``GRAFT_TELEMETRY``/``GRAFT_TRACE``), ``numerics``/``numerics_action``
+(``GRAFT_NUMERICS``/``GRAFT_NUMERICS_ACTION``), ``opcost``
+(``GRAFT_OPCOST``), ``capture``/``capture_dir`` (``GRAFT_CAPTURE``) and
+``serve_spec_k`` (``Stoke.serve``'s draft depth: a keyword wins, then
+``GRAFT_SERVE_SPEC_K``, then the field). The facade's keyword arguments of
+the same names stay, and a keyword away from its default beats the
+config's field. ``donate_state`` is recorded: the port updates its state
+in place either way. Each field that waits for another slice raises when
+set away from its default (:meth:`TPUConfig.check`), naming the slice.
 """
 
 from __future__ import annotations
@@ -86,3 +97,58 @@ class DDPConfig:
 @dataclass
 class FairscaleOSSConfig:
     broadcast_fp16: bool = False
+
+
+# fields of TPUConfig that wait for another slice, and the slice's subject
+_DEFERRED = {
+    "tp": "the advanced-parallelism slice", "sp": "the advanced-parallelism slice",
+    "pp": "the advanced-parallelism slice", "pp_schedule": "the advanced-parallelism slice",
+    "pp_micro": "the advanced-parallelism slice", "wire": "the advanced-parallelism slice",
+    "fp8": "the fp8 matmul slice", "hier": "the hierarchical-mesh slice",
+    "serve_kv_wire": "the quantized-KV slice", "plan": "the analyze slice",
+}
+
+
+@dataclass
+class TPUConfig:
+    """JAX's mesh, policy and observability knobs (the module docstring
+    says which the port reads and how)."""
+
+    dp: int | None = None  # data-parallel width; None = every rank
+    fsdp: int = 1  # sharded-data width
+    tp: int = 1
+    sp: int = 1
+    pp: int = 1
+    pp_schedule: str = "1f1b"
+    pp_micro: int = 0
+    remat: bool | str = False  # the fused step's remat; unset: GRAFT_REMAT
+    donate_state: bool = True  # recorded: the state updates in place either way
+    wire: str | None = None
+    hier: bool = False
+    fp8: str | None = None
+    telemetry: bool = False
+    trace_dir: str | None = None
+    numerics: bool = False
+    numerics_action: str = "halt"
+    opcost: bool = False
+    capture: bool = False
+    capture_dir: str | None = None
+    serve_spec_k: int = 0
+    serve_kv_wire: str | None = None
+    plan: str | None = None
+
+    def check(self) -> "TPUConfig":
+        """Raise ``NotImplementedError`` for a field set away from its
+        default that waits for another slice; ``dp`` and ``fsdp`` both above
+        1 (a two-level mesh) too."""
+        defaults = TPUConfig.__dataclass_fields__
+        for name, subject in _DEFERRED.items():
+            if getattr(self, name) != defaults[name].default:
+                raise NotImplementedError(
+                    f"TPUConfig.{name}={getattr(self, name)!r} waits for {subject}; leave it at "
+                    f"{defaults[name].default!r}")
+        if (self.dp or 1) > 1 and self.fsdp > 1:
+            raise NotImplementedError(
+                f"TPUConfig(dp={self.dp}, fsdp={self.fsdp}): a two-level data mesh waits for "
+                "the hierarchical-mesh slice; set one of them")
+        return self

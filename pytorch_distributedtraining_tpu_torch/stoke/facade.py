@@ -13,9 +13,10 @@ path), ``.save_sharded``/``.load_sharded`` (every rank its shards, through
 ``torch.distributed.checkpoint``) and ``.save_portable``/``.load_resharded``
 (the portable format, which restores at another world size or policy).
 
-PyTorch runs eagerly, so the JAX facade's deferred handles and compiled
-programs have no counterpart: ``.model`` runs the forward under the
-precision policy's autocast, ``.backward`` accumulates ``loss /
+The Stoke-style loop runs eagerly: the JAX facade's deferred handles,
+which fuse a ``.model -> .loss -> .backward -> .step`` window into one
+program, wait for the graphed-window slice. ``.model`` runs the forward
+under the precision policy's autocast, ``.backward`` accumulates ``loss /
 grad_accum_steps`` into ``.grad``, and ``.step`` fires the optimizer on
 every ``grad_accum_steps``-th call (Stoke semantics; ``facade.py:1399-1435``
 in the JAX package), with the lr read from :attr:`optimizer` at that
@@ -77,10 +78,30 @@ the facade arms an ``observe.capture.OnDemandProfiler``
 :attr:`opcost_result`); under a process group each rank captures into
 its own ``rank<r>`` directory. The profiler is polled by ``capture.note_step()``
 right after the numerics plane decodes a step, on every optimizer step
-:meth:`step` takes, so a numerics trip fires the capture on the step that
-saw it. JAX calls it from ``fused_step``, its one-call step, which waits
-here for the CUDA-graph step slice; the port's facade has only the
-Stoke-style ``step``.
+:meth:`step` or :meth:`fused_step` takes, so a numerics trip fires the
+capture on the step that saw it.
+
+``fused_step(inputs, targets)`` is JAX's one-call step: forward, backward,
+accumulation (the batch split into ``grad_accum_steps`` micro-batches),
+the loss scaler, clipping and the update as one ``parallel.TrainStep`` over
+the facade's model, loss, optimizer, policy and precision, run on the card
+as a captured CUDA graph (``parallel.graph.StepGraph``) and on the CPU
+directly; it returns the metrics dict, notes the loss, decodes numerics and
+polls the capture as :meth:`step` does. It shares the state with the
+Stoke-style path, so the two mix: the graph binds each parameter's
+``.grad`` back to its own buffers before every replay, and leaves the grads
+zeroed (or dropped) afterwards, as :meth:`step` does. Under ZeRO-3
+(``fairscale_fsdp``), and on a DDP layout with a per-leaf optimizer
+(``fused_optimizer=False``: a ``DistributedDataParallel`` wrapper), it
+raises (``parallel.step.refuse_capture`` says why).
+``TPUConfig`` (``configs=[TPUConfig(...)]``, ``stoke/config.py``) carries
+JAX's mesh and observability knobs; the keywords above stand for its
+fields.
+
+Both paths share the loss scaler (``fp16='amp'``), whose scale and growth
+count live on the device: the update's skip on a non-finite gradient is a
+select on the device flag (all ranks' through one all-reduce), never a
+branch on the host.
 
 The optimizer follows the JAX facade's rule (``facade.py:889-930`` there):
 AdamW on a layout where a flat update fits (DDP, or ZeRO-1/OSS:
@@ -104,22 +125,48 @@ from .. import checkpoint as ckpt
 from .. import optim as optim_mod
 from ..data import DataLoader as _DataLoader
 from ..parallel.policy import policy_from_flags
-from ..parallel.spec import all_reduce_sum_, is_dtensor, shard_axis
+from ..parallel.spec import is_dtensor, shard_axis
 from ..observe import trace as _telemetry
 from ..observe import numerics as _numerics
 from ..observe import opcost as _opcost
 from ..observe import capture as _capture
 from ..parallel.state import TrainState, create_train_state, load_module_state
-from ..parallel.step import mean_over_ranks, reduce_gradients
+from ..parallel.graph import StepGraph
+from ..parallel.rng import StepRng
+from ..parallel.step import (TrainStep, all_finite, mean_over_ranks, reduce_gradients,
+                             refuse_capture)
 from ..precision import DynamicLossScaler, Policy
 from ..runtime import dist
 from ..runtime.mesh import MeshSpec, data_group, make_mesh, mesh_shape
 from .config import (AMPConfig, ClipGradConfig, ClipGradNormConfig, DDPConfig,
-                     DistributedOptions, FairscaleOSSConfig, FP16Options)
+                     DistributedOptions, FairscaleOSSConfig, FP16Options, TPUConfig)
 from .optimizer import StokeOptimizer
 
 # fp16 options that run fp16 autocast with the loss scaler (JAX's set)
 _SCALED_FP16 = ("amp", "apex_O1", "apex_O2", "deepspeed")
+
+
+def _remat_from_env(configured):
+    """The fused step's remat: ``TPUConfig.remat`` when set, else
+    ``GRAFT_REMAT``, else off (JAX's ``_remat_from_env``), checked here."""
+    if configured:
+        return configured
+    env = os.environ.get("GRAFT_REMAT")
+    if env is None:
+        return configured
+    from ..parallel.remat import resolve_remat
+
+    return resolve_remat(env)
+
+
+def _serve_fastpath_overrides(cfg: TPUConfig, overrides: dict) -> dict:
+    """``overrides`` with ``spec_k`` from ``cfg.serve_spec_k`` where neither
+    the caller nor ``$GRAFT_SERVE_SPEC_K`` set it (JAX's precedence)."""
+    out = dict(overrides)
+    if ("spec_k" not in out and not (os.environ.get("GRAFT_SERVE_SPEC_K") or "").strip()
+            and cfg.serve_spec_k):
+        out["spec_k"] = int(cfg.serve_spec_k)
+    return out
 
 
 def _as_tensor(x, device: torch.device) -> torch.Tensor:
@@ -162,11 +209,19 @@ class Stoke:
             raise NotImplementedError(
                 f"distributed={distributed!r} is not ported (DeepSpeed and Horovod have no "
                 "counterpart in the port); use 'ddp'")
+        self._configs = list(configs or [])
+        self.tpu_config = tpu = (self._find_config(TPUConfig) or TPUConfig()).check()
         self.policy = policy_from_flags(distributed, fairscale_oss, fairscale_sddp,
-                                        fairscale_fsdp)
+                                        fairscale_fsdp, remat=_remat_from_env(tpu.remat))
         zero = fairscale_oss or fairscale_sddp or fairscale_fsdp
+        spec = None
+        if tpu.dp is not None or tpu.fsdp > 1:  # the config's widths (JAX's rule)
+            spec = MeshSpec(dp=tpu.dp or 1, fsdp=tpu.fsdp)
+            if spec.size != dist.world_size():
+                raise ValueError(f"TPUConfig(dp={tpu.dp}, fsdp={tpu.fsdp}) spans {spec.size} "
+                                 f"ranks; this run has {dist.world_size()}")
         if mesh is None and dist.is_initialized():
-            mesh = make_mesh(MeshSpec.zero() if zero else MeshSpec.ddp())
+            mesh = make_mesh(spec or (MeshSpec.zero() if zero else MeshSpec.ddp()))
         if mesh is None and dist.world_size() > 1:
             raise RuntimeError(
                 f"WORLD_SIZE={dist.world_size()} but no process group: call "
@@ -179,7 +234,6 @@ class Stoke:
         self.verbose = bool(verbose)
         self.grad_accum_steps = max(1, int(grad_accum_steps))
         self.grad_clip = grad_clip
-        self._configs = list(configs or [])
         amp_config = self._find_config(AMPConfig) or AMPConfig()
 
         fp16 = fp16.value if isinstance(fp16, FP16Options) else fp16
@@ -193,6 +247,7 @@ class Stoke:
                     growth_factor=amp_config.growth_factor,
                     backoff_factor=amp_config.backoff_factor,
                     growth_interval=amp_config.growth_interval,
+                    device=self.device,
                 )
         elif fp16 in (None, "bf16"):
             self.precision = Policy.from_name(fp16)
@@ -218,11 +273,11 @@ class Stoke:
                 "layout; ZeRO-2/3 (fairscale_sddp, fairscale_fsdp) shard grads or params "
                 "per leaf and keep the per-leaf chain"
             )
+        # lr=1: the handle's lr enters each step as the optimizer's lr factor
         if fused_eligible and fused_optimizer is not False:
-            # lr=1: the handle's lr enters each step as the lr factor
             tx = functools.partial(optim_mod.FusedAdamW, lr=1.0, **kwargs)
         else:
-            tx = functools.partial(factory, lr=base_lr, **kwargs)
+            tx = functools.partial(factory, lr=1.0, **kwargs)
         ddp_config = self._find_config(DDPConfig) or DDPConfig()
         state = create_train_state(model, tx, mesh, self.policy, device=self.device,
                                    find_unused_parameters=ddp_config.find_unused_parameters)
@@ -237,6 +292,12 @@ class Stoke:
             self._opt.update_wire_dtype = torch.bfloat16
         self._opt_handle = optim_mod.OptimizerHandle(base_lr)
 
+        # the TPUConfig fields the keywords leave at their defaults
+        telemetry, trace_dir = telemetry or tpu.telemetry, trace_dir or tpu.trace_dir
+        numerics = numerics or tpu.numerics
+        numerics_action = numerics_action if numerics_action != "halt" else tpu.numerics_action
+        opcost, capture = opcost or tpu.opcost, capture or tpu.capture
+        capture_dir = capture_dir or tpu.capture_dir
         # span telemetry (env > arguments); export_trace() writes the trace
         self.telemetry, self.trace_dir = _telemetry.telemetry_from_env(telemetry, trace_dir)
         if self.telemetry:
@@ -260,6 +321,7 @@ class Stoke:
         if capture_on:
             self.capture = _capture.armed(capture_dir, self._ingest if self.opcost else None)
 
+        self._fused = self._fused_graph = None  # fused_step's TrainStep and graph, at first use
         self._backward_count = 0
         self._step_count = 0
         self._ema = None  # 0.98-decay loss monitor, a device scalar
@@ -329,8 +391,8 @@ class Stoke:
 
     def step(self):
         """Optimizer step on every ``grad_accum_steps``-th call. Under
-        ``fp16='amp'`` a non-finite gradient skips the update; the scaler's
-        host-side scale costs one read of the finite flag a step."""
+        ``fp16='amp'`` a non-finite gradient skips the update, gated on the
+        device (no read of the flag on the host)."""
         if self._backward_count == 0 or self._backward_count % self.grad_accum_steps:
             return
         with _telemetry.bucket_dispatch_span(self, "Stoke.step", None):
@@ -347,34 +409,34 @@ class Stoke:
         """The optimizer update of one step; the numerics probe's aux on a
         step it decodes, else None."""
         fused = isinstance(self._opt, optim_mod.FusedAdamW)
+        scaler = self.loss_scaler
         # the global batch's gradient (backward already divided by accum)
         grads = reduce_gradients(self._opt, self.policy, self._group)
         probe = self.numerics_probe
         observe = probe is not None and (self._step_count + 1) % self._numerics_every == 0
+        self._opt.set_lr_factor(self._opt_handle.lr)
         if fused:
-            # the flag gates the update on the device; the host reads it after
+            # the scaler's flag gates the update on the device
             leaf_grads = [p.grad for p in self._opt.params]
             if probe is not None:
                 probe.inject(leaf_grads, self._step_count, self._numerics_layout["names"])
             pnorm = _numerics.leaf_norms(self._opt.params) if observe else None
-            gnorm, finite = self._opt.apply_tree(self._opt_handle.lr, scaler=self.loss_scaler)
-            if finite is not None:
-                self.loss_scaler.update(bool(finite))
+            gnorm, finite = self._opt.apply_tree(scaler=scaler)
             shard, unorms = None, None
         else:
-            finite, gnorm = True, None
-            if self.loss_scaler is not None:
-                grads = self.loss_scaler.unscale(grads)
+            finite = None
+            if scaler is not None:
+                grads = scaler.unscale(grads)
             if probe is not None:
                 probe.inject(grads, self._step_count, self._numerics_layout["names"])
-            if self.loss_scaler is not None:
-                finite = self._all_ranks(self.loss_scaler.grads_finite(grads))
-                self.loss_scaler.update(finite)
+            if scaler is not None:  # every rank's shares: one overflow skips everywhere
+                finite = all_finite(scaler.grads_finite(grads), self._group)
             pnorm = _numerics.leaf_norms(self._opt.local) if observe else None
             self._opt.update_norms = None
-            if finite:
-                gnorm = self._opt.step(grads, lr=self._opt_handle.lr)
+            gnorm = self._opt.step(grads, gate=finite)
             leaf_grads, shard, unorms = grads, self._opt.shard, self._opt.update_norms
+        if scaler is not None:
+            scaler.update(finite)
         if not observe:
             return None
         if gnorm is None:
@@ -402,13 +464,52 @@ class Stoke:
             cap_dir, mesh_axes=None if self.mesh is None else mesh_shape(self.mesh),
             steps=self.capture.capture_steps, device=self.device.type)
 
-    def _all_ranks(self, flag: bool) -> bool:
-        """``flag`` on every rank (one all-reduce with a group): a shard's
-        overflow skips the step everywhere."""
-        if self._group is None:
-            return flag
-        bad = torch.tensor(0.0 if flag else 1.0, device=self.device)
-        return float(all_reduce_sum_(bad, self._group)) == 0.0
+    # -- the one-call step ---------------------------------------------------
+
+    def _fused_step_runner(self):
+        """The ``TrainStep`` of :meth:`fused_step` and its graph runner,
+        built at the first call."""
+        if self._fused is None:
+            kw = {"train": True} if self._accepts_train else {}
+
+            def loss_fn(model, batch):
+                x, y = batch
+                with self._autocast():
+                    out = model(x, **kw)
+                return self._loss_callable(out.float(), y), {}
+
+            step = TrainStep(self._wrapped, loss_fn, self._opt, self.mesh, self.policy,
+                             grad_accum_steps=self.grad_accum_steps, rng=StepRng(0),
+                             numerics=self.numerics_probe, loss_scaler=self.loss_scaler)
+            refuse_capture(step, "Stoke.fused_step")
+            self._fused = step
+            self._fused_graph = StepGraph(step, step._step)
+        return self._fused, self._fused_graph
+
+    def fused_step(self, inputs, targets) -> dict:
+        """One optimizer step of the batch ``(inputs, targets)`` (split into
+        ``grad_accum_steps`` micro-batches) as one program: on the card a
+        replay of the captured graph of forward, backward, accumulation,
+        scaler, clip and update (JAX's ``fused_step``). Returns the metrics
+        dict (``loss``, ``grad_norm``, ``loss_scale`` under ``fp16='amp'``,
+        ``numerics`` with the probe), device tensors. Gradients of an open
+        Stoke-style accumulation window are dropped first, and the step
+        leaves none behind, as :meth:`step` does."""
+        step, graph = self._fused_step_runner()
+        batch = (_as_tensor(inputs, self.device), _as_tensor(targets, self.device))
+        self._opt.zero_grad()
+        self._backward_count = 0
+        step.rng.step = self._step_count  # the probe's injection counts optimizer steps
+        with _telemetry.bucket_dispatch_span(self, "Stoke.fused_step", None):
+            metrics = graph(batch, self._opt_handle.lr)
+        self._opt.zero_grad()
+        self._step_count += 1
+        self._note_loss(metrics["loss"])
+        if "numerics" in metrics and self._step_count % self._numerics_every == 0:
+            self._observe_numerics(metrics["numerics"])
+        if self.capture is not None:
+            self.capture.note_step()
+        return metrics
 
     def detach_and_sync_loss(self, loss):
         """The loss as a detached device scalar, averaged over ranks."""
@@ -646,10 +747,10 @@ class Stoke:
         ``SwinIRTileServer`` (its forward under the facade's precision).
         The parameters are snapshotted (gathered from their shards), so
         later training steps do not reach the engine. The ``GRAFT_SERVE_*``
-        env knobs fill what ``overrides`` leaves out; the engine runs on
-        the facade's device unless ``device=`` says otherwise. The JAX
-        facade's ``TPUConfig`` serve overrides wait for its twin, which
-        comes with the CUDA-graph step slice."""
+        env knobs fill what ``overrides`` leaves out, then
+        ``TPUConfig.serve_spec_k`` (JAX's ``_serve_fastpath_overrides``);
+        the engine runs on the facade's device unless ``device=`` says
+        otherwise."""
         from ..models.swinir import SwinIR
         from ..serve import build_engine
 
@@ -660,6 +761,7 @@ class Stoke:
                 "the checkpoint Stoke.save writes through serve.build_engine")
         params = {k: (v.full_tensor() if is_dtensor(v) else v).detach().clone()
                   for k, v in self._module.state_dict().items()}
+        overrides = _serve_fastpath_overrides(self.tpu_config, overrides)
         overrides.setdefault("device", self.device)
         if isinstance(self._module, SwinIR):
             overrides.setdefault("compute_dtype", self.precision.compute_dtype)

@@ -16,7 +16,10 @@ all-gathers by its annotations and a collective inventory by kind. Phase
 generation's ``[kernels]`` lines, the resume and restart lines and when
 each generation reached its training loop, and sees each line (and the
 processes the ranks started) as it comes; its launcher runs see no
-group's contract and no ``GRAFT_*`` knob an earlier phase left."""
+group's contract and no ``GRAFT_*`` knob an earlier phase left. Phase 19
+holds a graphed run against its eager twin (bitwise, else within the
+stated tolerance of the eager run's change) and reads a replay's graph
+launches and K1-K5 kernels a step from its device records."""
 
 import importlib.util
 import os
@@ -458,3 +461,94 @@ def test_timed_lines_shows_each_line_with_the_grandchildren(smoke, tmp_path):
     assert rc == 0 and [ln for _, ln in lines] == [ln for ln, _ in seen]
     grandchild = int(seen[0][0].split()[1])
     assert seen[0][1] == [grandchild]
+
+
+def test_graph_mismatch_is_relative_to_the_reference_runs_change(smoke):
+    """Phase 19: the largest difference between the graphed and the eager
+    parameters, and that over the largest change the eager run made."""
+    start = [torch.zeros(3), torch.ones(2)]
+    want = [torch.tensor([0.0, 2.0, 0.0]), torch.ones(2)]
+    assert smoke.graph_mismatch(want, want, start) == (0.0, 0.0)
+    got = [torch.tensor([0.0, 2.0, 1e-3]), torch.ones(2)]
+    diff, rel = smoke.graph_mismatch(got, want, start)
+    assert diff == pytest.approx(1e-3) and rel == pytest.approx(5e-4)
+
+
+@pytest.mark.parametrize("loss_shift,param_shift,faults", [
+    (0.0, 0.0, 0), (1e-6, 0.0, 0), (1e-3, 0.0, 1), (0.0, 1e-3, 1), (float("nan"), 0.0, 1)])
+def test_graph_faults_hold_graphed_against_eager_at_the_tolerance(smoke, capsys, loss_shift,
+                                                                  param_shift, faults):
+    """Bitwise passes; a difference within ``GRAPH_TOL`` (f32: 1e-5 of the
+    loss, of the eager run's largest change) passes and is printed; more,
+    or a non-finite loss, is a fault."""
+    start, want = [torch.zeros(4)], [torch.ones(4)]
+    got = [want[0] + param_shift]
+    out = smoke.graph_faults("case", ([1.0 + loss_shift, 0.5], [1.0, 0.5]), (got, want), start,
+                             "float32")
+    assert len(out) == faults
+    said = capsys.readouterr().out
+    assert ("bitwise equal" in said) == (loss_shift == 0.0 and param_shift == 0.0)
+
+
+def _replay_trace(windows: int, k: int) -> list:
+    """A trace of ``windows`` graph launches, each running K3-K5 twelve
+    times a step for ``k`` steps, with the launches' correlation ids on
+    the kernels (as CUPTI records a graph's kernels)."""
+    events, t = [], 0.0
+    for w in range(windows):
+        events.append({"ph": "X", "cat": "cuda_runtime", "name": "cudaGraphLaunch", "ts": t,
+                       "dur": 5.0, "args": {"correlation": w}})
+        for _ in range(12 * k):
+            for name in ("flash_attn_fwd_kernel", "flash_attn_dq_kernel", "flash_attn_dkv_kernel"):
+                events.append({"ph": "X", "cat": "kernel", "name": f"void {name}<bf16>(x)",
+                               "ts": t, "dur": 1.0, "args": {"correlation": w}})
+                t += 1.0
+    return events
+
+
+def test_replay_counts_read_graph_launches_and_kernels_a_step(smoke):
+    """Phase 19: a traced window's graph launches and K1-K5 kernels a step,
+    read from the device records (``observe.opcost``'s op table), and the
+    busy ms a step; a graph's kernels carry its launch's correlation id,
+    so no launch of the trace is lost."""
+    events = _replay_trace(1, 4)
+    got = smoke.replay_counts(events, 4)
+    assert got["graph_launches"] == 0.25
+    assert (got["K3"], got["K4"], got["K5"], got["K1"], got["K2"]) == (12, 12, 12, 0, 0)
+    assert got["busy_ms"] == pytest.approx(144 * 1e-3 / 4) and got["lost"] == 0
+    assert "collectives" not in got
+
+
+@pytest.mark.parametrize("takes,want", [
+    ([48], (1, [])), ([46, 48], (2, [])), ([46, 47, 48], (3, [])),
+    ([46, 46, 46], (3, ["11.5"])), ([50], (1, ["12.5"]))])
+def test_replay_traced_takes_a_lossy_trace_again(smoke, monkeypatch, capsys, takes, want):
+    """Phase 19: a replay's trace that counts fewer K3 than the graph holds
+    (48 over the window: lost device records) is printed and taken again,
+    ``GRAPH_TAKES`` takes at most; the last take's counts are what
+    ``graph_report`` checks, so a trace that never holds them all, or holds
+    more, is a fault."""
+    from pytorch_distributedtraining_tpu_torch.observe import profiling
+
+    traces = []
+    for n in takes:
+        events = _replay_trace(1, 4)
+        kept, k3 = [], 0
+        for e in events:
+            k3 += "flash_attn_fwd_kernel" in e["name"]
+            if "flash_attn_fwd_kernel" not in e["name"] or k3 <= n:
+                kept.append(e)
+        for _ in range(n - 48):  # more K3 records than the graph holds
+            kept.append({**kept[1], "ts": kept[-1]["ts"] + 1.0})
+        traces.append(kept)
+    calls = iter(traces)
+    monkeypatch.setattr(profiling, "profile_call", lambda fn: (fn(), next(calls)))
+    per_step = {"K3": 12, "K4": 12, "K5": 12}
+    counts = smoke.replay_traced("case", lambda: None, 4, per_step)
+    assert counts["takes"] == want[0] and counts["K4"] == counts["K5"] == 12
+    said = capsys.readouterr().out
+    assert said.count("traced again") == want[0] - 1
+    eager = {"ms": 10.0, "peak": 1.0, "counts": {**counts, "busy_ms": 1.0}}
+    graphed = {"ms": 5.0, "peak": 1.0, "counts": counts}
+    _, faults = smoke.graph_report("case", "H100, 700 W", eager, graphed, per_step)
+    assert [f.split("K3 ")[1].split(" ")[0] for f in faults] == want[1]

@@ -536,3 +536,90 @@ def launcher_env(tmp, **extra) -> dict:
     env.update(PYTHONPATH=str(Path(__file__).resolve().parents[1]), TMPDIR=str(tmp),
                OMP_NUM_THREADS="1", GRAFT_RESTART_BACKOFF="0.1", **extra)
     return env
+
+
+def windows(batches: list, k: int, rank: int = 0, world: int = 1) -> list:
+    """The global batches as stacked ``[k, B/world, ...]`` windows of this
+    rank's rows (``r::world``), as numpy tuples."""
+    return [tuple(np.stack([b[j][rank::world] for b in batches[w * k:(w + 1) * k]])
+                  for j in range(2))
+            for w in range(len(batches) // k)]
+
+
+def multi_step_worker(rank: int, world: int, *, runs: list[dict], batches: list,
+                      state: dict | None = None, toy: dict = TOY, k: int = 4,
+                      accum: int = 2) -> list[dict]:
+    """``MultiStep(k)`` over ``TrainStep`` (toy SwinIR, MSE, AdamW: per-leaf,
+    or the run's ``opt``; clip 0.1) under each run's ``policy`` at this
+    world, on ``batches`` cut
+    into windows of ``k`` (rank r takes rows ``r::world``). Returns per run
+    the stacked losses, the host step count and the whole parameters."""
+    from pytorch_distributedtraining_tpu_torch import parallel
+    from pytorch_distributedtraining_tpu_torch.runtime.mesh import MeshSpec, make_mesh
+
+    out = []
+    for run in runs:
+        policy = run["policy"]
+        pol = getattr(parallel, POLICIES[policy])() if POLICIES[policy] else None
+        mesh = (make_mesh(MeshSpec.zero() if policy.startswith("zero") else MeshSpec.ddp())
+                if pol is not None else None)
+        tx = make_tx(run.get("opt", "adamw"), lr=1e-3, betas=(0.9, 0.99), eps=1e-8,
+                     weight_decay=1e-4, clip_grad_norm=0.1)
+        st = parallel.create_train_state(toy_swinir(state, toy), tx, mesh, pol, device="cpu")
+        step = parallel.TrainStep(st.model, mse_loss_fn, st.tx, mesh, pol,
+                                  grad_accum_steps=accum)
+        multi = parallel.MultiStep(step, k)
+        losses = []
+        for xs, ys in windows(batches, k, rank, world):
+            losses += multi((torch.from_numpy(xs), torch.from_numpy(ys)))["loss"].tolist()
+        out.append({"losses": losses, "step": step.rng.step, "params": full_params(st.module)})
+    return out
+
+
+def tpu_config_mesh_worker(rank: int, world: int, *, cases: list[dict]) -> list:
+    """The facade's mesh axes at this world for each case's ``TPUConfig``
+    fields and engine flags."""
+    from pytorch_distributedtraining_tpu_torch import stoke
+    from pytorch_distributedtraining_tpu_torch.runtime.mesh import mesh_shape
+
+    out = []
+    for case in cases:
+        s = stoke.Stoke(model=toy_swinir(), optimizer=stoke.StokeOptimizer("AdamW", {"lr": 1e-3}),
+                        loss=lambda o, t: ((o - t) ** 2).mean(), batch_size_per_device=2,
+                        configs=[stoke.TPUConfig(**case["config"])], device="cpu",
+                        **case.get("flags", {}))
+        out.append({k: v for k, v in mesh_shape(s.mesh).items() if v > 1})
+    return out
+
+
+def graph_vs_eager_worker(rank: int, world: int, *, policy: str, opt: str, batches: list,
+                          k: int = 3, accum: int = 2, device: str = "cuda") -> dict:
+    """One ``TrainStep`` under ``policy`` (toy SwinIR, seed 0) run eagerly
+    over ``batches``, and a twin from the same weights through
+    ``MultiStep(k)`` over the same batches stacked (rank r's rows
+    ``r::world``): both runs' losses, whether their parameters are equal
+    bitwise, and the graph's captures and replays."""
+    from pytorch_distributedtraining_tpu_torch import parallel
+    from pytorch_distributedtraining_tpu_torch.runtime.mesh import MeshSpec, make_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    runs = []
+    for graphed in (False, True):
+        pol = getattr(parallel, POLICIES[policy])()
+        mesh = make_mesh(MeshSpec.zero() if policy.startswith("zero") else MeshSpec.ddp())
+        tx = make_tx(opt, lr=1e-3, clip_grad_norm=0.1)
+        st = parallel.create_train_state(toy_swinir(), tx, mesh, pol, device=device)
+        step = parallel.TrainStep(st.model, mse_loss_fn, st.tx, mesh, pol, grad_accum_steps=accum)
+        wins = [tuple(torch.from_numpy(a).to(device) for a in w)
+                for w in windows(batches, k, rank, world)]
+        if graphed:
+            multi = parallel.MultiStep(step, k)
+            losses = [v for w in wins for v in multi(w)["loss"].tolist()]
+        else:
+            losses = [float(step(tuple(x[i] for x in w))["loss"]) for w in wins for i in range(k)]
+        runs.append((losses, [p.detach().clone() for p in st.module.parameters()],
+                     multi.graph if graphed else None))
+    (want, eager, _), (got, params, graph) = runs
+    return {"eager": want, "graphed": got, "captures": graph.captures, "replays": graph.replays,
+            "equal": all(torch.equal(a, b) for a, b in zip(eager, params))}

@@ -148,7 +148,8 @@ def test_fused_scaler_gate_skips_a_non_finite_step():
     (mse_loss(net(x), y) * scaler.scale).backward()
     tx.apply_tree(scaler=scaler)
     tx.zero_grad()
-    before = tx.flat_param.clone(), tx.state
+    before = tx.flat_param.clone(), tx.state._replace(
+        **{k: getattr(tx.state, k).clone() for k in ("count", "mu", "nu")})
     (mse_loss(net(x), y) * scaler.scale).backward()
     net.conv2.weight.grad[0, 0, 0, 0] = float("inf")
     _, finite = tx.apply_tree(scaler=scaler)

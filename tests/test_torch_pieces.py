@@ -92,7 +92,7 @@ def test_adamw_with_clip_matches_optax_chain():
         lr = 1e-3 * (i + 1)
         upd, state = tx.update([jnp.asarray(a) for a in g], state, jp)
         jp = [p + u * lr for p, u in zip(jp, upd)]
-        opt.step([torch.tensor(a) for a in g], lr=lr)
+        opt.step([torch.tensor(a) for a in g], lr_factor=lr)
     for a, b in zip(tp, jp):
         np.testing.assert_allclose(a.detach().numpy(), np.asarray(b), rtol=1e-5, atol=1e-7)
     assert float(optax.global_norm(grads[0])) > 0.1  # the clip fired

@@ -173,6 +173,90 @@ def test_profile_call_returns_the_value_and_the_events(tmp_path):
             tprof.profile_call(lambda: None)
 
 
+def _lead_trace() -> list:
+    """A card's trace as Kineto writes it: the lead's range on thread 1 with
+    its op, two launches (one without its device record), a sync and a flow
+    arrow; then the traced work on thread 1 and a launch on thread 2 that
+    falls inside the lead's time."""
+    lead = opcost.LEAD_NAME
+    return [
+        {"ph": "X", "cat": "user_annotation", "name": lead, "ts": 100, "dur": 50, "tid": 1},
+        {"ph": "X", "cat": "gpu_user_annotation", "name": lead, "ts": 105, "dur": 40,
+         "tid": 7},
+        {"ph": "X", "cat": "cpu_op", "name": "aten::add_", "ts": 110, "dur": 5, "tid": 1},
+        {"ph": "X", "cat": "cuda_runtime", "name": "cudaLaunchKernel", "ts": 111, "dur": 2,
+         "tid": 1, "args": {"correlation": 5}},
+        {"ph": "X", "cat": "kernel", "name": "add_kernel", "ts": 112, "dur": 1, "tid": 7,
+         "args": {"correlation": 5}},
+        {"ph": "s", "cat": "ac2g", "name": "ac2g", "id": 5, "ts": 111, "tid": 1},
+        {"ph": "f", "cat": "ac2g", "name": "ac2g", "id": 5, "ts": 112, "tid": 7},
+        {"ph": "X", "cat": "cuda_runtime", "name": "cudaLaunchKernel", "ts": 120, "dur": 2,
+         "tid": 1, "args": {"correlation": 6}},
+        {"ph": "X", "cat": "cuda_runtime", "name": "cudaDeviceSynchronize", "ts": 140, "dur": 9,
+         "tid": 1, "args": {"correlation": 7}},
+        {"ph": "X", "cat": "cuda_runtime", "name": "cudaLaunchKernel", "ts": 120, "dur": 2,
+         "tid": 2, "args": {"correlation": 9}},
+        {"ph": "X", "cat": "kernel", "name": "copy_kernel", "ts": 130, "dur": 1, "tid": 8,
+         "args": {"correlation": 9}},
+        {"ph": "X", "cat": "cpu_op", "name": "aten::mul", "ts": 200, "dur": 5, "tid": 1},
+        {"ph": "X", "cat": "cuda_runtime", "name": "cudaLaunchKernel", "ts": 201, "dur": 2,
+         "tid": 1, "args": {"correlation": 8}},
+        {"ph": "X", "cat": "kernel", "name": "mul_kernel", "ts": 202, "dur": 1, "tid": 7,
+         "args": {"correlation": 8}},
+    ]
+
+
+def test_cut_lead_drops_the_lead_and_counts_its_lost_records():
+    """A card's session opens with a lead that its written trace leaves
+    out: the lead's ranges, its host ops and calls on its thread, their
+    device records and flow arrows go; another thread's launch and the
+    traced work stay; the lead's launch without a device record is
+    counted (its sync is no launch)."""
+    events = _lead_trace()
+    kept, lost = opcost.cut_lead(events)
+    assert lost == 1
+    assert [e["name"] for e in kept] == ["cudaLaunchKernel", "copy_kernel", "aten::mul",
+                                         "cudaLaunchKernel", "mul_kernel"]
+    assert opcost.cut_lead(kept) == (kept, 0)
+
+
+def test_cut_lead_reads_a_torch_profiler_range(tmp_path):
+    """On the CPU, a ``record_function(LEAD_NAME)`` range in a real
+    ``torch.profiler`` trace is what ``cut_lead`` finds: the ops inside it
+    go, those after it stay."""
+    path = str(tmp_path / "t.json")
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        with torch.profiler.record_function(opcost.LEAD_NAME):
+            torch.ones(3).add_(1)
+        torch.ones(2).mul(2)
+    prof.export_chrome_trace(path)
+    events = opcost.read_trace(path, keep_lead=True)
+    assert "aten::add_" in _ops(events)
+    kept, lost = opcost.cut_lead(events)
+    assert lost == 0 and "aten::add_" not in _ops(kept) and "aten::mul" in _ops(kept)
+    assert not any(e.get("name") == opcost.LEAD_NAME for e in kept)
+
+
+@pytest.mark.parametrize("name", ["t.json", "t.trace.json.gz"])
+def test_the_port_reads_a_trace_without_its_lead(tmp_path, name):
+    """A card's session keeps its lead in the file it writes; the port's
+    readers (``read_trace``, ``load_trace_events``) leave it out, and
+    ``read_trace(keep_lead=True)`` reads the file whole."""
+    import gzip
+    import json
+
+    run = tmp_path / "2026_01_01_00_00_00"
+    run.mkdir()
+    path = str(run / name)
+    opener = gzip.open if name.endswith(".gz") else open
+    with opener(path, "wt") as fh:
+        json.dump({"schemaVersion": 1, "traceEvents": _lead_trace()}, fh)
+    assert opcost.read_trace(path, keep_lead=True) == _lead_trace()
+    assert opcost.read_trace(path) == opcost.cut_lead(_lead_trace())[0]
+    if name.endswith(".trace.json.gz"):
+        assert opcost.load_trace_events(str(tmp_path)) == (opcost.read_trace(path), 1)
+
+
 # -- StepTimer and TransferOverlapProbe --------------------------------------------
 
 
