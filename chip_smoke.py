@@ -44,13 +44,20 @@ Phases, each fatal on failure:
    version (``flash_speed_faults``); then a tiny f32 GPT-2 on the card
    against the same model on the CPU;
 5. driver: ``drivers.stoke_ddp.main`` (full-width SwinIR-S, one epoch of
-   synthetic data, two optimizer steps) in a scratch directory: finite
-   losses, a checkpoint written, and the launch counts of both kernels;
+   synthetic data, two optimizer steps) in a scratch directory, traced:
+   finite losses, a checkpoint written, K1 and K2 in the trace's device
+   records (the split path's graphs' warm-ups and replays, and the
+   validation forward: ``traced_call``, retaken up to ``GRAPH_TAKES``
+   takes when short) and the wrappers' counts (the two captures and the
+   validation forward: ``capture_launches``), both exact;
 6. bench shape: the model and facade from the driver's ``build_model``
    and ``build_stoke`` at batch 18, LR 64x64 -> HR 128x128, in f32 and
-   bf16: a few optimizer steps, finite loss, moved weights, exactly 24 K1
-   and 24 K2 launches per micro-batch, and step time and images/s beside
-   the card's name and power limit;
+   bf16, through ``profile_swinir.train_steps`` (no loss read inside a
+   window: the window program, one captured graph): a few optimizer
+   steps, finite loss, moved weights, exactly 48 K1 and 48 K2 in a traced
+   step's device records and the window's one capture in the wrappers'
+   counts, and step time, images/s and the peak with the graph's pool
+   beside the card's name and power limit;
 7. GPT-2: the ladder twin's config 4 (``benchmarks.ladder.build_lm``):
    GPT-2 125M at full width and depth, bf16, flash ``attn_fn``, batch 8 x
    seq 512, AdamW: a first loss near ln(vocab), a few optimizer steps
@@ -93,8 +100,12 @@ Phases, each fatal on failure:
    loss trajectory against the same facade without a group (f32 within
    ``DIST_F32_TOL`` relative, bf16 within ``DIST_BF16_TOL``), step ms
    and, from a traced step, device busy ms and activities against the
-   group-less run's, NCCL kernels a step, peak memory, 24 K1 and 24 K2
-   launches a micro-batch, and a checkpoint saved through the group
+   group-less run's, NCCL kernels a step, peak memory with the graphs'
+   pools, 48 K1 and 48 K2 in a traced step's device records (each loss is
+   read after its ``.step()``: the split path's three graphs, each
+   captured once; ZeRO-3, which ``refuse_capture`` refuses, runs them
+   uncaptured and the wrappers count 24 a micro-batch), and a
+   checkpoint saved through the group
    (gathered, written by rank 0, a barrier) that loads strictly. Then
    GPT-2 125M under
    ``ZeRO3(remat="full")``, the JAX rung's layout (``benchmarks.ladder.
@@ -114,9 +125,12 @@ Phases, each fatal on failure:
    which must build) and the facade's loader (four spawned workers,
    device prefetch 2): f32 and bf16 (5 steps after 2 each), and one step
    under ``remat="full"`` for its peak, every run on epoch 0's batches.
-   Finite losses, moved weights, exactly 36 K1 and 36 K2 launches a step
-   (72 K1 under full remat), and the losses of full remat against the run
-   without (``M_SAME_LOSSES``); step ms, images/s, peak GiB, first and
+   Each step is the window program's replay (the facade's ``.loss`` is
+   ``VGGFeatLoss``): finite losses, moved weights, exactly 36 K1 and 36 K2
+   a step in a traced step's device records (72 K1 under full remat), one
+   capture, and the losses of full remat against the run without
+   (``M_SAME_LOSSES``); step ms, images/s, peak GiB with the graph's pool,
+   first and
    last loss, a traced step's device busy ms and idle share, the prefetcher's
    ``staged`` and ``overlap_fraction`` and the batch wait a step, beside
    the card's name and power limit;
@@ -164,8 +178,10 @@ Phases, each fatal on failure:
    optimizer steps unbroken, against two steps, ``Stoke.save``, a fresh
    facade's ``Stoke.load`` and two more. Every loss, parameter and moment
    (and the loss scale) must equal the unbroken run's bitwise
-   (``resume_mismatch`` names the first that does not); 24 K1 and 24 K2
-   launches a micro-batch; the checkpoint's bytes and the save and load
+   (``resume_mismatch`` names the first that does not); 48 K1 and 48 K2
+   in the device records of a traced step after the unbroken run, and
+   the split path's two captures in the wrappers' counts; the
+   checkpoint's bytes and the save and load
    seconds. Then the driver's flags through an NCCL group of one:
    ``Stoke.save_portable`` at step 2, ``Stoke.load_resharded`` into a
    facade with no group (parameters and moments bitwise the saved ones)
@@ -215,11 +231,14 @@ Phases, each fatal on failure:
    fire once, from the ``numerics`` source, and its ingested op table must
    hold ``window_attn_fwd_kernel`` and ``window_attn_bwd_kernel`` at 48
    launches each per optimizer step it covers (``table_launches``), with
-   ``opcost.runtime_stats["tables_built"]`` grown and one all-reduce record
-   of the flat gradient a step (its bandwidth at one rank: not measured),
-   and those launches must be what the wrappers counted over the captured
-   steps, with no launch in the capture lacking its device record
-   (``lost_launches``; a lossy capture is not retaken); the same steps
+   ``opcost.runtime_stats["tables_built"]`` grown, one graph launch (the
+   window's replay) a captured step, the wrappers counting none over
+   them, and no launch in the capture lacking its device record
+   (``lost_launches``, which cannot see a record lost inside a replay; a
+   lossy capture is not retaken); a replay makes no c10d call, so one
+   all-reduce record of the flat gradient a step (its bandwidth at one
+   rank: not measured) is read from one step of the window program run
+   uncaptured (``Stoke.uncaptured``); the same steps
    under a raw ``torch.profiler`` session, without the guard's warm-up,
    print how many launches such a session loses in this process; the µs
    of an idle armed ``poll()`` over ``IDLE_POLLS`` calls and its share of
@@ -251,7 +270,9 @@ Phases, each fatal on failure:
    whose workers must be the same processes at every epoch's end; every
    generation of (a), (b) and (w) must have launched K1 and K2 (each
    child's own counters, printed after each epoch), (a) and (w) exactly
-   phase 5's count an epoch; the restart's cost, (b)'s wall seconds minus
+   the split path's two captures (its first and accumulating programs;
+   every later training micro-batch is a replay, which no wrapper
+   counts) and one validation forward an epoch; the restart's cost, (b)'s wall seconds minus
    (a)'s, each generation's start and (a)'s and (w)'s epoch times are
    printed; (c) the recovery
    drill (``runtime/recovery_drill.py``) under ``--elastic --max_restarts 1
@@ -290,7 +311,20 @@ Phases, each fatal on failure:
    peak GiB eager and graphed (a replay's allocator peak plus the graph's
    private pool, whose segments a replay uses without allocating), beside the
    card's name and power limit. The wrappers' counters see a graph's
-   kernels once, at its capture, never at a replay.
+   kernels at its warm-up and its capture, never at a replay. (e) the
+   graphed Stoke-style window: the driver's facade (``build_stoke``, seed
+   0, through the NCCL group) in f32 and bf16 under each of
+   ``WINDOW_CASES``: the window program (``_stoke_style``: no loss read
+   inside a window) under the driver's ZeRO-2 flags and under DDP flags
+   (``FusedAdamW``), and the driver's own loop (``_driver_style``: each
+   loss read right after ``.step()``, the split path's three programs)
+   under ZeRO-2, each over ``WINDOW_HELD`` steps against the same programs
+   run uncaptured (``Stoke.uncaptured``) from the same state, bitwise
+   expected, then ``WINDOW_TIMED`` steps timed each way, a graphed step
+   traced (48 K1 and 48 K2 a step in the replays' device records, one
+   graph launch a program; the uncaptured twin is timed, not traced), one
+   capture a program, and the peaks, the graphed one with the facade's
+   shared pool.
 
 Phases 5-9, 11, 12, 14-17 and 19 note the shape, dtype and mask (or causality) of
 every launch; the run fails if one of them was not held against the plain
@@ -298,13 +332,15 @@ version in phase 3 or 4 (phase 3 holds phase 14's tile batch, q/k/v [144,
 6, 64, 30], in f32 and bf16 with and without the mask) or, for phase 16's
 memory probes, in phase 16 itself. The kernels' JSON
 lists all five kernels: K1/K2 from phase
-6's f32 run (its launch counts, and the errors and times of phase 3 at
+6's f32 run (the wrappers' counts over it: the window graph's warm-up and
+capture, which is where the wrappers launch on that graphed path; and the
+errors and times of phase 3 at
 its shape), K3-K5 from phase 7 (its launch counts, and phase 4's numbers
 for the causal bf16 case), and K1 at the tile server's shape in each type
 (phase 14's launches over its run, phase 3's numbers). The line before it, ``{"swinir_m_kernels":
 [...]}``, holds K1/K2 at phase 12's shapes (each type, and pack 2, which
-phase 12 does not launch: phase 3's errors and times, phase 12's launches
-a step). The last lines are that JSON, the
+phase 12 does not launch: phase 3's errors and times, phase 12's kernels
+a step in a traced replay's device records). The last lines are that JSON, the
 ``nvidia-smi`` name and power limit, and ``{"ok": true, "device":
 {...}}``. Without a CUDA device, or without the rest of the repository
 beside it, it exits non-zero before printing a result.
@@ -409,6 +445,7 @@ TILE_CARD_TOL = {"float32": 1e-4, "bfloat16": 5e-2}
 # into a fresh facade, compared bitwise (cuDNN deterministic); label, fp16,
 # build_stoke flags
 RESUME_STEPS, RESUME_SPLIT = 4, 2
+RESUME_PER_STEP = {"K1": 48, "K2": 48}  # two micro-batches of 24 layers
 RESUME_RUNS = (
     ("f32, the driver's OSS + SDDP flags", None, {}),
     ("fp16 amp, the driver's OSS + SDDP flags", "amp", {}),
@@ -974,27 +1011,41 @@ def phase_driver() -> None:
     os.environ["WANDB_MODE"] = "disabled"  # offline JSONL sink, no network
     (ROOT / "build").mkdir(exist_ok=True)
     cwd = os.getcwd()
-    with tempfile.TemporaryDirectory(dir=ROOT / "build") as run_dir:
-        os.chdir(run_dir)
-        try:
-            twa.reset_launch_counts()
-            t0 = time.perf_counter()
-            train_loss, val_loss = stoke_ddp.main([
-                "--synthetic", "--synthetic-n", str(DRIVER_N), "--nEpochs", "1",
-                "--batchSize", str(BATCH), "--threads", "2",
-            ])
-            seconds = time.perf_counter() - t0
-            launches = twa.fwd_launches, twa.bwd_launches
-            ckpts = list(Path(run_dir, "checkpoint").glob("model_0_*.pt"))
-        finally:
-            os.chdir(cwd)
-    print(f"[driver] train loss {train_loss}, val loss {val_loss}, checkpoint "
-          f"{[p.name for p in ckpts]}, {seconds:.1f} s, launches fwd {launches[0]} "
-          f"bwd {launches[1]}")
-    # five training micro-batches (24 layers each, fwd+bwd) and one
-    # forward-only validation batch
+    # five training micro-batches (24 layers each, fwd+bwd) through the
+    # split path (the driver reads each loss after .step()): the first and
+    # the accumulating programs, each captured once (a warm-up runs its
+    # kernels, the capture records them) and replayed; one forward-only
+    # validation batch, uncaptured
     train_batches = (DRIVER_N - DRIVER_VAL) // BATCH
-    expected = (24 * train_batches + 24, 24 * train_batches)
+    want = {"K1": 24 * (train_batches + 2) + 24, "K2": 24 * (train_batches + 2)}
+    expected = (capture_launches(2, 24) + 24, capture_launches(2, 24))
+    runs = []
+
+    def run():
+        with tempfile.TemporaryDirectory(dir=ROOT / "build") as run_dir:
+            os.chdir(run_dir)
+            try:
+                twa.reset_launch_counts()
+                t0 = time.perf_counter()
+                losses = stoke_ddp.main([
+                    "--synthetic", "--synthetic-n", str(DRIVER_N), "--nEpochs", "1",
+                    "--batchSize", str(BATCH), "--threads", "2",
+                ])
+                runs.append((losses, time.perf_counter() - t0,
+                             (twa.fwd_launches, twa.bwd_launches),
+                             list(Path(run_dir, "checkpoint").glob("model_0_*.pt"))))
+            finally:
+                os.chdir(cwd)
+
+    traced = traced_call(run, want)
+    (train_loss, val_loss), seconds, launches, ckpts = runs[-1]
+    print(f"[driver] train loss {train_loss}, val loss {val_loss}, checkpoint "
+          f"{[p.name for p in ckpts]}, {seconds:.1f} s (traced), the wrappers' launches fwd "
+          f"{launches[0]} bwd {launches[1]} (expected {expected}: the two captures and the "
+          f"validation forward), device records {traced['kernels']['K1']} K1 and "
+          f"{traced['kernels']['K2']} K2 (expected {want}, take {traced['takes']})")
+    if faults := kernel_faults("driver", traced["kernels"], want):
+        raise SystemExit("; ".join(faults))
     if not (train_loss == train_loss and val_loss == val_loss
             and abs(train_loss) < float("inf") and abs(val_loss) < float("inf")):
         raise SystemExit("driver losses are not finite")
@@ -1019,10 +1070,12 @@ def phase_bench(smi: str, steps: int = 5, warmup: int = 2):
     for fp16 in (None, "bf16"):
         s = stoke_ddp.build_stoke(stoke_ddp.build_model(), fp16=fp16, batch_size=BATCH)
         w0 = s.model_access.conv_first.weight.detach().clone()
+        # the counts from the first step on: the window program's capture
+        # calls the wrappers, its replays do not
+        twa.reset_launch_counts()
         train_steps(s, batches, warmup)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        twa.reset_launch_counts()
         t0 = time.perf_counter()
         loss = train_steps(s, batches, steps)
         torch.cuda.synchronize()
@@ -1034,16 +1087,30 @@ def phase_bench(smi: str, steps: int = 5, warmup: int = 2):
         micro = s.grad_accum_steps * steps
         step_ms = elapsed / steps * 1e3
         ips = BATCH * micro / elapsed
-        peak = torch.cuda.max_memory_allocated() / 2**30
+        peak = torch.cuda.max_memory_allocated() / 2**30 + pools_gib(s)
+        per_step = {"K1": 24 * s.grad_accum_steps, "K2": 24 * s.grad_accum_steps}
+        traced = traced_call(lambda: train_steps(s, batches, 1), per_step)
+        graphs = {kind: (g.captures, g.replays) for (kind, _), g in s._graphs.items()}
         print(f"[bench] {name}: step {step_ms:.2f} ms, {ips:.1f} images/s (batch {BATCH} x "
               f"accum {s.grad_accum_steps}, LR {LR_SIZE} -> HR {2 * LR_SIZE}, {steps} steps "
-              f"after {warmup}), peak {peak:.2f} GiB, loss {loss:.5f}, weights moved "
-              f"{moved:.2e}, launches fwd {launches[0]} bwd {launches[1]} | {smi}")
-        if launches != (24 * micro, 24 * micro):
-            raise SystemExit(f"{name}: launches {launches}, expected 24 of each per micro-batch")
+              f"after {warmup}), peak {peak:.2f} GiB with the graphs' pools, loss {loss:.5f}, "
+              f"weights moved {moved:.2e}; the window's graph: (captures, replays) {graphs}, "
+              f"the wrappers' launches fwd {launches[0]} bwd {launches[1]} (its capture); a "
+              f"traced step: device busy {traced['busy_ms']:.2f} ms, K1 "
+              f"{traced['kernels']['K1']} K2 {traced['kernels']['K2']} in its device records "
+              f"(take {traced['takes']}) | {smi}")
+        faults = kernel_faults(name, traced["kernels"], per_step)
+        if launches != (capture_launches(1, 24 * s.grad_accum_steps),) * 2:
+            faults.append(f"{name}: the wrappers counted {launches}, expected one capture of "
+                          f"the window program")
+        if {k: v[0] for k, v in graphs.items()} != {"window": 1}:
+            faults.append(f"{name}: graphs {graphs}, expected one capture of the window")
+        if faults:
+            raise SystemExit("; ".join(faults))
         if not np.isfinite(loss) or not moved > 0:
             raise SystemExit(f"{name}: loss {loss} or weights did not move")
-        results[name] = {"step_ms": step_ms, "images_per_s": ips, "launches": launches}
+        results[name] = {"step_ms": step_ms, "images_per_s": ips, "launches": launches,
+                         "kernels": traced["kernels"], "busy_ms": traced["busy_ms"]}
         del s
     return results
 
@@ -1111,27 +1178,58 @@ def gated_step_faults(before: dict, after: dict) -> list[str]:
     return [name for name in before if not torch.equal(before[name], after[name])]
 
 
-def traced_call(fn) -> dict:
+def traced_call(fn, want: dict | None = None) -> dict:
     """One call of ``fn`` under the port's guarded profiler
     (``observe.profiling.profile_call``): its device activities (kernels,
     copies, sets), the device's busy ms, the NCCL kernels among them (names
-    beginning ``nccl``), the host's ms in blocking CUDA calls and the device
-    ms by kernel family (``observe.opcost.device_breakdown``)."""
+    beginning ``nccl``), the host's ms in blocking CUDA calls, the device
+    ms by kernel family (``observe.opcost.device_breakdown``) and K1-K5's
+    kernels in its device records (``kernels``, ``observe.opcost``'s op
+    table: a graph's replays run kernels the wrappers never count). With
+    ``want`` (``{id: kernels}``), a take that counts fewer of one, as a
+    take that lost device records would (ROADMAP C.6: a replay's kernels
+    share its launch's correlation id), is printed and taken again, up to
+    ``GRAPH_TAKES`` takes (``takes``); the caller checks the last take's
+    counts exactly."""
     from pytorch_distributedtraining_tpu_torch.observe import opcost, profiling
 
     # CUPTI now and then hands back a trace with no device activity at all;
     # such a capture is retaken (up to twice), never read as zero work
-    for attempt in range(3):
-        _, events = profiling.profile_call(fn)
-        if attempt < 2 and not any(e.get("cat") in opcost.DEVICE_CATS for e in events):
-            print(f"[trace] capture {attempt + 1} held no device activity; retaken")
-            continue
-        r = opcost.device_breakdown(events)
-        break
+    for take in range(1, GRAPH_TAKES + 1):
+        for attempt in range(3):
+            _, events = profiling.profile_call(fn)
+            if attempt < 2 and not any(e.get("cat") in opcost.DEVICE_CATS for e in events):
+                print(f"[trace] capture {attempt + 1} held no device activity; retaken")
+                continue
+            r = opcost.device_breakdown(events)
+            break
+        kernels = table_launches(opcost.op_table(events, top=1000),
+                                 {**WINDOW_KERNELS, **FLASH_KERNELS})
+        short = {k: kernels[k] for k, n in (want or {}).items() if kernels[k] < n}
+        if not short or take == GRAPH_TAKES:
+            break
+        print(f"[trace] take {take} lost device records: {short}, expected {want}; taken again")
     nccl = sum(1 for e in events
                if e.get("cat") == "kernel" and e.get("name", "").lower().startswith("nccl"))
     return {"activities": r["kernels"], "busy_ms": r["busy_ms"], "nccl": nccl,
-            "wait_ms": sum(r["host_wait_ms"].values()), "families": r["device_ms_by_family"]}
+            "wait_ms": sum(r["host_wait_ms"].values()), "families": r["device_ms_by_family"],
+            "kernels": kernels, "takes": take}
+
+
+def kernel_faults(name: str, got: dict, want: dict) -> list[str]:
+    """The kernels of ``want`` (``{id: n}``) whose device-record count in
+    ``got`` is not exactly ``n``."""
+    return [f"{name}: {k} {got.get(k, 0):g} in the device records, expected {n:g}"
+            for k, n in want.items() if got.get(k, 0) != n]
+
+
+def capture_launches(graphs: int, per_call: int) -> int:
+    """The wrappers' count of a kernel over ``graphs`` captures of programs
+    that call it ``per_call`` times: each runs ``parallel.graph.WARMUP``
+    times and once more inside the capture; a replay calls no wrapper."""
+    from pytorch_distributedtraining_tpu_torch.parallel import graph
+
+    return graphs * (graph.WARMUP + 1) * per_call
 
 
 def kernels_per_call(fn) -> int:
@@ -1328,7 +1426,6 @@ def _swinir_run(flags: dict, fp16, batches, steps: int, warmup: int,
     and loads it back strictly into a fresh SwinIR-S."""
     import torch
 
-    from pytorch_distributedtraining_tpu_torch.benchmarks.profile_swinir import train_steps
     from pytorch_distributedtraining_tpu_torch.drivers import stoke_ddp
     from pytorch_distributedtraining_tpu_torch.ops import window_attn as twa
 
@@ -1358,9 +1455,12 @@ def _swinir_run(flags: dict, fp16, batches, steps: int, warmup: int,
     launches = twa.fwd_launches, twa.bwd_launches
     peak = torch.cuda.max_memory_allocated() / 2**30
     out = {"losses": [v.item() for v in losses], "step_ms": statistics.median(times),
-           "peak_gib": peak, "launches": launches, "opt": type(s._opt).__name__,
+           "peak_gib": peak + pools_gib(s), "launches": launches, "opt": type(s._opt).__name__,
            "micro": s.grad_accum_steps * steps,
-           **traced_call(lambda: train_steps(s, batches, 1))}
+           "graphs": {kind: g.captures for (kind, _), g in s._graphs.items()},
+           "refused": s.graph_refusal is not None,
+           **traced_call(one_step, {"K1": 24 * s.grad_accum_steps,
+                                    "K2": 24 * s.grad_accum_steps})}
     if save_dir is not None:
         from pytorch_distributedtraining_tpu_torch import checkpoint
 
@@ -1414,14 +1514,25 @@ def phase_distributed(smi: str, lm: dict, steps: int = 5, warmup: int = 2) -> di
                   f"{a['activities']}), host blocked {g['wait_ms']:.2f} ms (no group "
                   f"{a['wait_ms']:.2f}), NCCL kernels {g['nccl']}; peak {g['peak_gib']:.2f} GiB "
                   f"(no group {a['peak_gib']:.2f}), losses vs no group max rel {rel:.2e} (tol "
-                  f"{tol:g}), last loss {g['losses'][-1]:.6f}, launches fwd {g['launches'][0]} "
-                  f"bwd {g['launches'][1]} | {smi}")
+                  f"{tol:g}), last loss {g['losses'][-1]:.6f}; the split path's graphs "
+                  f"(captures) {g['graphs']}, a traced step's device records K1 "
+                  f"{g['kernels']['K1']} K2 {g['kernels']['K2']} (take {g['takes']}) | {smi}")
             if not rel <= tol:
                 raise SystemExit(f"{label}: the trajectory with a group departs from the one "
                                  f"without: {g['losses']} vs {a['losses']}")
-            if g["launches"] != (24 * g["micro"],) * 2:
-                raise SystemExit(f"{label}: launches {g['launches']}, expected 24 of each per "
-                                 "micro-batch")
+            per_step = {"K1": 48, "K2": 48}
+            faults = kernel_faults(label, g["kernels"], per_step) + kernel_faults(
+                f"{label} (no group)", a["kernels"], per_step)
+            # a layout refuse_capture refuses (ZeRO-3) runs the programs
+            # uncaptured: the wrappers count every micro-batch
+            graphs, launches = ({"first": 0, "acc": 0, "apply": 0}, (24 * g["micro"],) * 2) \
+                if g["refused"] else ({"first": 1, "acc": 1, "apply": 1}, (0, 0))
+            if g["launches"] != launches or g["graphs"] != graphs:
+                faults.append(f"{label}: the wrappers counted {g['launches']} over the timed "
+                              f"steps, expected {launches}; captures {g['graphs']}, expected "
+                              f"{graphs}")
+            if faults:
+                raise SystemExit("; ".join(faults))
             out[label] = {"step_ms": g["step_ms"], "alone_ms": a["step_ms"], "rel": rel,
                           "busy_ms": g["busy_ms"], "nccl": g["nccl"], "peak_gib": g["peak_gib"]}
 
@@ -1521,7 +1632,7 @@ def _swinir_m_run(ds, loader, loss, fp16, remat: str, steps: int,
 
     model = SwinIR(**SWINIR_M, remat=remat, generator=torch.Generator().manual_seed(0))
     s = stoke_ddp.build_stoke(model, fp16=fp16, batch_size=M_BATCH, grad_clip=0.1,
-                              verbose=False)
+                              verbose=False, loss=loss)  # VGGFeatLoss for feat_loss
     s.grad_accum_steps = 1  # the driver accumulates two; a step here is one batch
     if loader is None:
         loader = s.DataLoader(ds, num_workers=4, multiprocessing_context="spawn",
@@ -1536,7 +1647,7 @@ def _swinir_m_run(ds, loader, loss, fp16, remat: str, steps: int,
         t0 = time.perf_counter()
         x, y = next(it)
         waits.append(time.perf_counter() - t0)
-        loss_ = loss(s.model(x), y)  # the driver's feat_loss gives way to VGGFeatLoss
+        loss_ = s.loss(s.model(x), y)
         s.backward(loss_)
         s.step()
         losses.append(loss_.detach())
@@ -1554,11 +1665,16 @@ def _swinir_m_run(ds, loader, loss, fp16, remat: str, steps: int,
     elapsed = time.perf_counter() - t0
     timed_wait = it.wait_s - waited
     launches = twa.fwd_launches, twa.bwd_launches
-    peak = torch.cuda.max_memory_allocated() / 2**30
-    traced = traced_call(one_step)
+    peak = torch.cuda.max_memory_allocated() / 2**30 + pools_gib(s)
+    # one K1 and one K2 per Swin layer a step (one micro-batch); full remat
+    # runs each forward twice
+    want = {"K1": (2 if remat == "full" else 1) * M_LAYERS, "K2": M_LAYERS}
+    traced = traced_call(one_step, want)
     out = {
         "step_ms": elapsed / steps * 1e3, "images_per_s": M_BATCH * steps / elapsed,
         "peak_gib": peak, "losses": [v.item() for v in losses], "launches": launches,
+        "kernels": traced["kernels"], "want": want, "takes": traced["takes"],
+        "graphs": {kind: g.captures for (kind, _), g in s._graphs.items()},
         "moved": (s.model_access.conv_first.weight - w0).abs().max().item(),
         "wait_ms": sum(waits[timed_from:timed_from + steps]) / steps * 1e3,
         "staged": it.staged, "overlap": it.overlap_fraction(time.perf_counter() - t_iter),
@@ -1600,7 +1716,6 @@ def phase_swinir_m(smi: str) -> dict:
             for name, fp16, remat, steps, warmup in M_RUNS:
                 r, loader = _swinir_m_run(ds, loader, loss, fp16, remat, steps, warmup)
                 torch.cuda.empty_cache()
-                per = tuple(n / steps for n in r["launches"])
                 idle = 1 - r["busy_ms"] / r["step_ms"]
                 print(f"[swinir-m] {name}: {r['params']} parameters, step {r['step_ms']:.2f} ms, "
                       f"{r['images_per_s']:.1f} images/s (batch {M_BATCH}, LR {M_LR} -> HR "
@@ -1608,7 +1723,10 @@ def phase_swinir_m(smi: str) -> dict:
                       f"loss first {r['losses'][0]:.6f} last {r['losses'][-1]:.6f}, weights "
                       f"moved {r['moved']:.2e}; a traced step: device busy {r['busy_ms']:.2f} "
                       f"ms, {r['activities']} device activities, idle share {idle:.3f}; "
-                      f"launches a step K1 {per[0]:g} K2 {per[1]:g}; prefetcher staged "
+                      f"peak with the window graph's pool; K1 {r['kernels']['K1']:g} K2 "
+                      f"{r['kernels']['K2']:g} in the traced step's device records (take "
+                      f"{r['takes']}), captures {r['graphs']}, the wrappers' launches over the "
+                      f"timed steps {r['launches']} (replays); prefetcher staged "
                       f"{r['staged']}, overlap_fraction {r['overlap']:.3f} since its first batch "
                       f"was asked for ({r['timed_overlap']:.3f} over the timed steps), batch "
                       f"wait {r['wait_ms']:.3f} ms a step | {smi}")
@@ -1617,11 +1735,13 @@ def phase_swinir_m(smi: str) -> dict:
                 if not all(math.isfinite(v) for v in r["losses"]) or not r["moved"] > 0:
                     raise SystemExit(f"SwinIR-M {name}: losses {r['losses']} or weights moved "
                                      f"{r['moved']}")
-                # one K1 and one K2 per Swin layer a step (one micro-batch);
-                # full remat runs each forward twice
-                want = ((2 if remat == "full" else 1) * M_LAYERS * steps, M_LAYERS * steps)
-                if r["launches"] != want:
-                    raise SystemExit(f"SwinIR-M {name}: launches {r['launches']}, expected {want}")
+                faults = kernel_faults(f"SwinIR-M {name}", r["kernels"], r["want"])
+                if r["launches"] != (0, 0) or r["graphs"] != {"window": 1}:
+                    faults.append(f"SwinIR-M {name}: the wrappers counted {r['launches']} over "
+                                  f"the timed steps (replays: expected none), captures "
+                                  f"{r['graphs']}")
+                if faults:
+                    raise SystemExit("; ".join(faults))
                 results[name] = {**r, "idle": idle}
         finally:
             if loader is not None:
@@ -1642,7 +1762,8 @@ def swinir_m_kernels(cases: list[dict], runs: dict) -> list[dict]:
     """The kernels line's entries at phase 12's shapes, one per (kernel,
     type, pack): phase 3's errors (worst of masked and unmasked) and times
     (the masked case), and the launches a step of the phase-12 run of that
-    type (0 at pack 2, which the model does not run)."""
+    type, from a traced step's device records (the step is a graph's
+    replay; 0 at pack 2, which the model does not run)."""
     out = []
     for c in cases:
         if c["model"] != "SwinIR-M" or not c["mask"] or c["batch"] != M_BATCH:
@@ -1659,7 +1780,7 @@ def swinir_m_kernels(cases: list[dict], runs: dict) -> list[dict]:
                 "name": name, "route": "cuda", "source": SOURCES["window_attn"],
                 "replaces": REPLACES[name], "dtype": c["dtype"], "pack": c["pack"],
                 "shape": list(c["shape"]),
-                "launches": 0 if run is None else run["launches"][i] / run["steps"],
+                "launches": 0 if run is None else run["kernels"][("K1", "K2")[i]],
                 "max_abs_err": max(d["errors"][g][0] for d in pair for g in grads),
                 "ms": t[key], "plain_ms": t[f"plain_{key}"], "bound_ms": bound[0],
                 "bound_by": bound[1], "library_ms": t[f"lib_{key}"],
@@ -2261,6 +2382,8 @@ def phase_resume(smi: str) -> dict:
                 launches = twa.fwd_launches, twa.bwd_launches
                 scale = None if a.loss_scaler is None else a.loss_scaler.state_dict()
                 opt = type(a._opt).__name__
+                # after the snapshot: one more step, traced (a replay)
+                traced = traced_call(lambda: _resume_steps(a, batches[:2]), RESUME_PER_STEP)
                 del a
                 b = build()
                 first = _resume_steps(b, batches[:split])
@@ -2287,17 +2410,22 @@ def phase_resume(smi: str) -> dict:
                       f"{len(unbroken['moments'])} moments (first differing: {differs}), "
                       f"scaler {scale} vs {scale_c}, last loss {resumed['losses'][-1]:.6f}; "
                       f"checkpoint {nbytes} bytes, save {save_s:.3f} s, load {load_s:.3f} s; "
-                      f"launches fwd {launches[0]} bwd {launches[1]} | {smi}")
-                if launches != (24 * len(batches),) * 2:
-                    raise SystemExit(f"{label}: launches {launches}, expected 24 of each per "
-                                     "micro-batch")
+                      f"the wrappers' launches fwd {launches[0]} bwd {launches[1]} (the split "
+                      f"path's captures), a traced step's device records K1 {traced['kernels']['K1']} "
+                      f"K2 {traced['kernels']['K2']} (take {traced['takes']}) | {smi}")
+                faults = kernel_faults(label, traced["kernels"], RESUME_PER_STEP)
+                if launches != (capture_launches(2, 24),) * 2:
+                    faults.append(f"{label}: the wrappers counted {launches}, expected the "
+                                  f"split path's two captures (each loss is read after .step())")
+                if faults:
+                    raise SystemExit("; ".join(faults))
                 if differs is not None or scale != scale_c:
                     raise SystemExit(f"{label}: the resumed run departs from the unbroken one at "
                                      f"{differs} (largest difference {worst:.3e})")
                 if not all(abs(v) < float("inf") for v in unbroken["losses"]):
                     raise SystemExit(f"{label}: losses {unbroken['losses']} are not finite")
                 out[label] = {"bytes": nbytes, "save_s": save_s, "load_s": load_s,
-                              "max_diff": worst, "launches": launches}
+                              "max_diff": worst, "kernels": traced["kernels"]}
 
             # the driver's OSS + SDDP (ZeRO-2) over NCCL at world 1, portable
             # checkpoint, resharded into a facade with no group
@@ -2751,8 +2879,8 @@ def phase_observe(smi: str) -> dict:
     from pytorch_distributedtraining_tpu_torch.benchmarks.profile_swinir import make_batches
     from pytorch_distributedtraining_tpu_torch.drivers import stoke_ddp
     from pytorch_distributedtraining_tpu_torch.models import GPT2Config
-    from pytorch_distributedtraining_tpu_torch.observe import (capture, goodput, numerics, opcost,
-                                                               profiling)
+    from pytorch_distributedtraining_tpu_torch.observe import (capture, comms, goodput, numerics,
+                                                               opcost, profiling)
     from pytorch_distributedtraining_tpu_torch.ops import window_attn as twa
     from pytorch_distributedtraining_tpu_torch.runtime import dist
     from pytorch_distributedtraining_tpu_torch.runtime.mesh import mesh_shape
@@ -2797,9 +2925,23 @@ def phase_observe(smi: str) -> dict:
                     landed = len(times)
                     counted = {k: v - window0[k] for k, v in now.items()}
             summary, result = s.capture.summary(), s.opcost_result
-            where = (lost_where(opcost.load_trace_events(summary["capture_dirs"][-1])[0])
-                     if summary["capture_dirs"] else None)
+            cap_events = (opcost.load_trace_events(summary["capture_dirs"][-1])[0]
+                          if summary["capture_dirs"] else [])
+            where = lost_where(cap_events) if summary["capture_dirs"] else None
             lost = where and where["lost"]
+            replays = sum(1 for e in cap_events if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                          and "GraphLaunch" in e.get("name", ""))
+            # a replay makes no c10d call for observe.comms to read, so the
+            # window program's collectives are read from one step of it run
+            # uncaptured (Stoke.uncaptured: the same function)
+            def uncaptured_step():
+                with s.uncaptured():
+                    for x, y in batches:
+                        s.backward(s.loss(s.model(x), y))
+                        s.step()
+
+            twin_wires = comms.wire_inventory(profiling.profile_call(uncaptured_step)[1],
+                                              group_size=1)
             # the same steps under a raw torch.profiler session, without the
             # guard's warm-up: what it loses is the fault the warm-up absorbs
             raw = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
@@ -2836,7 +2978,7 @@ def phase_observe(smi: str) -> dict:
                              f"{opcost.runtime_stats['tables_built'] - tables0})")
         table = result["table"]
         launches = table_launches(table, WINDOW_KERNELS)
-        reduces = [w for w in result["wires"] if w.kind == "all-reduce"]
+        reduces = [w for w in twin_wires if w.kind == "all-reduce"]
         grad_reduces = [w for w in reduces if w.elems == grad_elems]
         band = result["bandwidth"] or {}
         rates = {ax: ("not measured (no NCCL kernel ran: a one-rank collective is a copy)"
@@ -2855,26 +2997,31 @@ def phase_observe(smi: str) -> dict:
               f"{ {k: round(v['seconds'] * 1e3, 3) for k, v in table['classes'].items()} } ms, "
               f"top rows (op, class, launches, ms) {top_rows}; K1/K2 launches {launches} "
               f"({launches['K1'] / result['steps']:g} and {launches['K2'] / result['steps']:g} "
-              f"a step; the wrappers counted {counted}); launches without their device record: "
+              f"a step; the wrappers counted {counted}: every step a replay); launches without "
+              f"their device record: "
               f"{lost} in the capture ({where}), {raw_lost} in a raw torch.profiler session of "
-              f"as many steps ({raw_where}); collectives "
-              f"{wire_counts(result['wires'])}: {len(grad_reduces)} all-reduce records of the "
-              f"flat gradient ({grad_elems} f32 elements, {4 * grad_elems} B a step) among "
-              f"{len(reduces)}, bandwidth {rates}; untraced step {step_ms:.2f} ms; an armed "
+              f"as many steps ({raw_where}); graph launches in the capture {replays} (a replay "
+              f"a step); collectives in the capture {wire_counts(result['wires'])}, in one step "
+              f"run uncaptured {wire_counts(twin_wires)}: {len(grad_reduces)} all-reduce "
+              f"records of the flat gradient ({grad_elems} f32 elements, {4 * grad_elems} B a "
+              f"step) among {len(reduces)}, bandwidth {rates}; untraced step {step_ms:.2f} ms; "
+              f"an armed "
               f"idle poll {poll_us:.3f} us ({poll_us / (step_ms * 1e3):.2e} of the step) | {smi}")
         faults = launch_faults(launches, 2 * 24, result["steps"])
-        if counted != launches or lost != 0:
-            faults.append(f"the capture lost device records: the table's launches {launches} "
-                          f"are not the wrappers' {counted} over the captured steps, or "
-                          f"{lost} launches have none ({where})")
+        if counted != {"K1": 0, "K2": 0} or lost != 0:
+            faults.append(f"the wrappers counted {counted} over the captured steps (replays: "
+                          f"expected none), or {lost} launches have no device record ({where})")
         if summary["captures"] != 1 or summary["last_trigger"]["source"] != "numerics":
             faults.append(f"capture {summary}: expected one, by the numerics plane")
         if opcost.runtime_stats["tables_built"] != tables0 + 1:
             faults.append("opcost.runtime_stats['tables_built'] did not grow by the capture's "
                           "table")
-        if len(grad_reduces) != result["steps"]:
+        if replays != result["steps"]:
+            faults.append(f"{replays} graph launches in the capture of {result['steps']} steps: "
+                          f"expected the window's replay a step")
+        if len(grad_reduces) != 1:
             faults.append(f"{len(grad_reduces)} all-reduces of the {grad_elems}-element "
-                          f"gradient over {result['steps']} steps: {reduces}")
+                          f"gradient in one step of the window program: {reduces}")
         if any(row["bytes_per_s"] == 0 for row in band.values()):
             faults.append(f"a bandwidth of 0 B/s: {band}")
         if faults:
@@ -3137,8 +3284,12 @@ def phase_launch(smi: str) -> dict:
             for n in ("a", "w")}
         per_gen = {name: {att: (docs[-1]["window_attn_fwd"], docs[-1]["window_attn_bwd"])
                           for att, docs in run["kernels"].items()} for name, run in runs.items()}
-        train_batches = (DRIVER_N - DRIVER_VAL) // BATCH
-        full = (LAUNCH_EPOCHS * 24 * (train_batches + 1), LAUNCH_EPOCHS * 24 * train_batches)
+        # the driver's loop reads each loss after .step(): the split path's
+        # first and accumulating programs are captured once in the process
+        # (their warm-ups and captures are what the wrappers count; every
+        # training micro-batch after is a replay), and each epoch's
+        # validation batch runs K1 uncaptured
+        full = (capture_launches(2, 24) + LAUNCH_EPOCHS * 24, capture_launches(2, 24))
         gen_start = {"a gen 0": a["training_at"][:1], "b gen 0": b["training_at"][:1],
                      "b gen 1": [t - b["restart_at"][0] for t in b["training_at"][1:2]]
                      if b["restart_at"] else []}
@@ -3339,43 +3490,66 @@ def _timed(fn, calls: int) -> float:
     return time.perf_counter() - t0
 
 
-def _peak_gib(fn, graph=None) -> float:
-    """The allocator's peak over one call of ``fn``; with ``graph`` (a
-    ``torch.cuda.CUDAGraph``) plus the segments of the graph's private
-    pool, which a replay uses without allocating."""
+def pool_bytes(*graphs) -> int:
+    """The bytes of the segments of the graphs' private pools (each
+    ``torch.cuda.CUDAGraph``), which a replay uses without allocating."""
+    import torch
+
+    pools = {tuple(g.pool()) for g in graphs}
+    return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+               if tuple(seg.get("segment_pool_id") or ()) in pools)
+
+
+def pools_gib(stoke) -> float:
+    """:func:`pool_bytes` of every captured graph of a Stoke facade's
+    deferred window (the window and the split path's), in GiB."""
+    return pool_bytes(*facade_graphs(stoke)) / 2**30
+
+
+def facade_graphs(stoke) -> list:
+    """The captured ``torch.cuda.CUDAGraph`` of each of a facade's
+    programs."""
+    return [g.graph for g in stoke._graphs.values() if g.graph is not None]
+
+
+def _peak_gib(fn, *graphs) -> float:
+    """The allocator's peak over one call of ``fn``, plus the segments of
+    the private pools of ``graphs`` (:func:`pool_bytes`)."""
     import torch
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     fn()
     torch.cuda.synchronize()
-    peak = torch.cuda.max_memory_allocated()
-    if graph is not None:
-        pool = tuple(graph.pool())
-        peak += sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
-                    if tuple(seg.get("segment_pool_id") or ()) == pool)
-    return peak / 2**30
+    return (torch.cuda.max_memory_allocated() + (pool_bytes(*graphs) if graphs else 0)) / 2**30
 
 
 def graph_report(name: str, smi: str, eager: dict, graphed: dict, per_step: dict) -> tuple:
     """Print a case's eager and graphed numbers; faults if a kernel the case
-    runs is missing from the replay's device records."""
+    runs is missing from the replay's device records. An eager run without
+    ``counts`` was not traced: its busy ms and idle share print as such."""
+    counts = eager.get("counts")
     row = {"eager_ms": eager["ms"], "graphed_ms": graphed["ms"],
-           "eager_busy_ms": eager["counts"]["busy_ms"], "graphed_busy_ms":
+           "eager_busy_ms": None if counts is None else counts["busy_ms"], "graphed_busy_ms":
            graphed["counts"]["busy_ms"], "eager_peak_gib": eager["peak"],
            "graphed_peak_gib": graphed["peak"], "counts": graphed["counts"]}
     for k in ("eager", "graphed"):
-        row[f"{k}_idle"] = 1.0 - row[f"{k}_busy_ms"] / row[f"{k}_ms"]
+        busy = row[f"{k}_busy_ms"]
+        row[f"{k}_idle"] = None if busy is None else 1.0 - busy / row[f"{k}_ms"]
+
+    def shown(v, spec):
+        return "not traced" if v is None else format(v, spec)
+
     kern = " ".join(f"{k} {graphed['counts'][k]:g}" for k in per_step)
-    wires = (f"; collectives read (observe.comms) eager {eager['counts']['collectives']}, "
-             f"replay {graphed['counts']['collectives']}" if "collectives" in eager["counts"]
-             else "")
+    wires = (f"; collectives read (observe.comms) eager "
+             f"{shown(counts and counts['collectives'], '')}, replay "
+             f"{graphed['counts']['collectives']}" if "collectives" in graphed["counts"] else "")
     print(f"[graphs] {name}: step {eager['ms']:.2f} ms eager, {graphed['ms']:.2f} ms graphed; "
-          f"device busy {row['eager_busy_ms']:.2f} / {row['graphed_busy_ms']:.2f} ms, idle "
-          f"{row['eager_idle']:.3f} / {row['graphed_idle']:.3f}; graph launches a step "
-          f"{graphed['counts']['graph_launches']:g}, kernels a step in the replay: {kern} "
-          f"(take {graphed['counts'].get('takes', 1)} of its trace), "
-          f"launches without a device record {eager['counts']['lost']} / "
+          f"device busy {shown(row['eager_busy_ms'], '.2f')} / {row['graphed_busy_ms']:.2f} ms, "
+          f"idle {shown(row['eager_idle'], '.3f')} / {row['graphed_idle']:.3f}; graph launches "
+          f"a step {graphed['counts']['graph_launches']:g}, kernels a step in the replay: "
+          f"{kern} (take {graphed['counts'].get('takes', 1)} of its trace), launches without a "
+          f"device record {shown(counts and counts['lost'], '')} / "
           f"{graphed['counts']['lost']}{wires}; peak {eager['peak']:.2f} / "
           f"{graphed['peak']:.2f} GiB | {smi}")
     faults = [f"{name}: {k} {graphed['counts'][k]:g} a step in the replay's device records, "
@@ -3436,23 +3610,45 @@ def _swinir_batches(n: int, seed: int) -> list:
     return out
 
 
+def _stoke_style(s, b):
+    """One step of the Stoke-style loop on the global batch ``b`` (two
+    micro-batches of ``BATCH``), no loss read inside it (the window
+    program); the step's loss, the mean of its micro-batches'."""
+    losses = []
+    for i in range(2):
+        losses.append(s.loss(s.model(b[0][i * BATCH:(i + 1) * BATCH]),
+                             b[1][i * BATCH:(i + 1) * BATCH]))
+        s.backward(losses[-1])
+        s.step()
+    return (losses[0].detach() + losses[1].detach()) / 2
+
+
+def _driver_style(s, b):
+    """:func:`_stoke_style` as the driver's loop runs it: each micro-batch's
+    loss read (``detach_and_sync_loss``) right after its ``.step()`` (the
+    split path's three programs)."""
+    total = 0.0
+    for i in range(2):
+        loss = s.loss(s.model(b[0][i * BATCH:(i + 1) * BATCH]), b[1][i * BATCH:(i + 1) * BATCH])
+        s.backward(loss)
+        s.step()
+        total = total + s.detach_and_sync_loss(loss)
+    return total / 2
+
+
 def _facade_case(name: str, smi: str, fp16, batches: list, dtype: str) -> tuple:
     """``Stoke.fused_step`` (the driver's facade with DDP flags, through
     the NCCL group) against the same facade's ``TrainStep`` called eagerly
-    (bitwise expected) and its Stoke-style loop (within ``GRAPH_TOL``),
-    each from the driver's seed-0 weights (a snapshot restored between the
-    runs) over ``batches``."""
+    (bitwise expected) and its Stoke-style loop run uncaptured
+    (``Stoke.uncaptured``, within ``GRAPH_TOL``), each from the driver's
+    seed-0 weights (a snapshot restored between the runs) over
+    ``batches``."""
     from pytorch_distributedtraining_tpu_torch.drivers import stoke_ddp
     from pytorch_distributedtraining_tpu_torch.observe import profiling
 
-    def stoke_style(s, b):  # the step's loss: the mean of its two micro-batches'
-        losses = []
-        for i in range(2):
-            losses.append(s.loss(s.model(b[0][i * BATCH:(i + 1) * BATCH]),
-                                 b[1][i * BATCH:(i + 1) * BATCH]))
-            s.backward(losses[-1])
-            s.step()
-        return (losses[0].detach() + losses[1].detach()) / 2
+    def stoke_style(s, b):  # the eager twin: the window program uncaptured
+        with s.uncaptured():
+            return _stoke_style(s, b)
 
     def params():
         return [p.detach().clone() for p in s.model_access.parameters()]
@@ -3488,6 +3684,67 @@ def _facade_case(name: str, smi: str, fp16, batches: list, dtype: str) -> tuple:
     row.update(captures=graph.captures, replays=graph.replays)
     if graph.captures != 1:
         more.append(f"{name}: {graph.captures} captures, expected 1")
+    return row, faults + more
+
+
+WINDOW_HELD = 3  # 19 (e): steps held against the uncaptured twin
+WINDOW_TIMED = 2  # and timed each way after them
+WINDOW_CASES = (  # label, build_stoke flags, loop, the programs it captures
+    ("Stoke-style window, ZeRO-2 (the driver's flags)", {}, "_stoke_style", ("window",)),
+    ("Stoke-style window, DDP flags (FusedAdamW)", dict(oss=False, sddp=False), "_stoke_style",
+     ("window",)),
+    ("the driver's loop (split path), ZeRO-2", {}, "_driver_style", ("first", "acc", "apply")),
+)
+
+
+def _window_case(name: str, smi: str, fp16, flags: dict, loop, programs: tuple,
+                 batches: list, dtype: str) -> tuple:
+    """19 (e): the driver's facade (``build_stoke`` with ``flags``, seed 0,
+    in the NCCL group of one) through ``loop`` (:func:`_stoke_style`: the
+    window program; :func:`_driver_style`: the split path), graphed,
+    against the same programs run uncaptured (``Stoke.uncaptured``) from
+    the same state (its snapshot restored), bitwise expected; then both
+    timed, a graphed step traced (48 K1 and 48 K2 a step in the replays'
+    device records, one graph launch a program), and the peaks, the
+    graphed one with every graph's pool."""
+    from pytorch_distributedtraining_tpu_torch.drivers import stoke_ddp
+
+    def params():
+        return [p.detach().clone() for p in s.model_access.parameters()]
+
+    def uncaptured(bs):
+        with s.uncaptured():
+            return [loop(s, b) for b in bs]
+
+    s = stoke_ddp.build_stoke(stoke_ddp.build_model(), batch_size=BATCH, verbose=False,
+                              fp16=fp16, **flags)
+    start, snapshot = params(), s.state_snapshot()
+    graph_losses = [float(loop(s, b)) for b in batches[:WINDOW_HELD]]
+    graph_params = params()
+    s.restore_state(snapshot)
+    s._step_count = 0
+    eager_losses = [float(v) for v in uncaptured(batches[:WINDOW_HELD])]
+    faults = graph_faults(name, (graph_losses, eager_losses), (graph_params, params()), start,
+                          dtype)
+    timed = batches[WINDOW_HELD:WINDOW_HELD + WINDOW_TIMED]
+    eager = {"ms": _timed(lambda: uncaptured(timed), 1) / len(timed) * 1e3}
+    graphed = {"ms": _timed(lambda: [loop(s, b) for b in timed], 1) / len(timed) * 1e3}
+    per_step = {"K1": 48, "K2": 48}
+    # the uncaptured twin is timed, not traced (phase 19 (a) traces the
+    # facade's eager twin; a trace here costs seconds a case)
+    graphed["counts"] = replay_traced(name, lambda: loop(s, batches[0]), 1, per_step,
+                                      group_size=1)
+    eager["peak"] = _peak_gib(lambda: uncaptured(batches[:1]))
+    graphed["peak"] = _peak_gib(lambda: loop(s, batches[0]), *facade_graphs(s))
+    row, more = graph_report(name, smi, eager, graphed, per_step)
+    caps = {kind: g.captures for (kind, _), g in s._graphs.items()}
+    row.update(captures=caps, replays={kind: g.replays for (kind, _), g in s._graphs.items()})
+    if caps != dict.fromkeys(programs, 1):
+        more.append(f"{name}: captures {caps}, expected one of each of {programs}")
+    if graphed["counts"]["graph_launches"] != len(programs):
+        more.append(f"{name}: {graphed['counts']['graph_launches']:g} graph launches a step, "
+                    f"expected {len(programs)}")
+    del s
     return row, faults + more
 
 
@@ -3578,24 +3835,31 @@ def phase_graphs(smi: str) -> dict:
             row, f = _multi_case(f"(a) SwinIR-S {dtype} MultiStep(k={GRAPH_K})", smi, build,
                                  batches, swinir_steps, dtype)
             out[f"swinir_multistep_{dtype}"], faults = row, faults + f
-        # the facade's cases through an NCCL group of one; a capture of
-        # NCCL collectives wants NCCL's async error handling off
+        # the facade's cases through an NCCL group of one (dist.initialize
+        # turns NCCL's async error handling off for the graphs' collectives)
         os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(dist.find_free_port()),
-                          RANK="0", WORLD_SIZE="1", LOCAL_RANK="0",
-                          TORCH_NCCL_ASYNC_ERROR_HANDLING="0")
+                          RANK="0", WORLD_SIZE="1", LOCAL_RANK="0")
         dist.initialize()
         try:
             if dist.backend() != "nccl":
                 raise SystemExit(f"the group came up on {dist.backend()}, not NCCL")
+            if os.environ.get("TORCH_NCCL_ASYNC_ERROR_HANDLING") != "0":
+                raise SystemExit("dist.initialize left NCCL's async error handling on")
             for fp16 in (None, "bf16"):
                 dtype = "bfloat16" if fp16 else "float32"
                 row, f = _facade_case(f"(a) SwinIR-S {dtype} Stoke.fused_step (NCCL world 1)",
                                       smi, fp16, batches, dtype)
                 out[f"swinir_fused_step_{dtype}"], faults = row, faults + f
             faults += _amp_case(smi, batches)
+            for fp16 in (None, "bf16"):
+                dtype = "bfloat16" if fp16 else "float32"
+                for i, (label, flags, loop, programs) in enumerate(WINDOW_CASES):
+                    row, f = _window_case(f"(e) SwinIR-S {dtype} {label} (NCCL world 1)", smi,
+                                          fp16, flags, globals()[loop], programs, batches, dtype)
+                    out[f"swinir_window_{i}_{dtype}"], faults = row, faults + f
+                    torch.cuda.empty_cache()
         finally:
             dist.shutdown()
-            os.environ.pop("TORCH_NCCL_ASYNC_ERROR_HANDLING", None)
         g = torch.Generator(device="cuda").manual_seed(7)
         tokens = [torch.randint(0, GPT2Config().vocab_size, (LM_BATCH, LM_SEQ), device="cuda",
                                 generator=g) for _ in range(n)]

@@ -267,11 +267,12 @@ def build_model(seed: int = 0, remat: str | None = None) -> SwinIR:
 def build_stoke(model: torch.nn.Module, *, lr: float = 0.001, weight_decay: float = 1e-4,
                 grad_clip: float = 0.1, batch_size: int = 18, fp16: str | None = None,
                 device: str = "cuda", verbose: bool = True, oss: bool = True,
-                sddp: bool = True, fsdp: bool = False) -> Stoke:
+                sddp: bool = True, fsdp: bool = False, loss=feat_loss) -> Stoke:
     """The driver's facade: ``feat_loss``, AdamW, global-norm clip,
     ``grad_accum_steps=2``, DDP with OSS and SDDP (ZeRO-2) and
     ``broadcast_fp16``, over the process group when there is one.
-    ``oss``/``sddp``/``fsdp`` set the Fairscale flags for another layout."""
+    ``oss``/``sddp``/``fsdp`` set the Fairscale flags for another layout,
+    ``loss`` another loss."""
     local_rank = os.getenv("LOCAL_RANK")
     ddp_config = DDPConfig(
         local_rank=int(local_rank) if local_rank not in (None, "None") else None,
@@ -290,7 +291,7 @@ def build_stoke(model: torch.nn.Module, *, lr: float = 0.001, weight_decay: floa
         model=model,
         verbose=verbose,
         optimizer=optimizer,
-        loss=feat_loss,
+        loss=loss,
         batch_size_per_device=batch_size,
         gpu=True,
         fp16=fp16,

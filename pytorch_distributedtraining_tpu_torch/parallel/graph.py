@@ -1,25 +1,27 @@
-"""Train steps as captured CUDA graphs: the runner under ``MultiStep`` and
-``Stoke.fused_step``.
+"""Train steps as captured CUDA graphs: the runner under ``MultiStep``,
+``Stoke.fused_step`` and the Stoke facade's deferred window.
 
 JAX answers a host-bound step with one compiled program per step (or per K
 steps); on the card the matching answer is a ``torch.cuda.CUDAGraph`` of
 the step's kernels, replayed by one launch. :class:`StepGraph` runs
-``fn(inputs) -> outputs`` (the work of one ``TrainStep``'s steps) that way:
+``fn(inputs) -> outputs`` of an *owner* (:class:`GraphOwner`: a
+``TrainStep``, or the facade, whose programs are JAX's ``eager_step``,
+``_jit_acc_first``/``_jit_acc`` and ``_jit_apply``) that way:
 
 - the first call, and any call whose inputs change shape or dtype, copies
   the inputs into static buffers and captures. Before the capture ``fn``
   runs :data:`WARMUP` times on a side stream, between a snapshot of the
-  step's state and its restore: the warm-up builds the kernels, cuDNN's
+  owner's state and its restore: the warm-up builds the kernels, cuDNN's
   and cuBLAS's handles and every cache at first use (masks, plans, the
   probe's index vectors) without taking a step. Autocast's weight-cast
   cache is off through warm-up and capture (a cached cast would be freed
   while the graph still reads it);
 - every call copies its inputs into the static buffers, writes the step's
-  host values into its device scalars (``TrainStep.prepare``: the lr
-  factor, the step counter), binds each parameter's ``.grad`` back to the
-  tensor the graph writes (a per-leaf optimizer drops grads between
-  steps), replays, and returns a copy of the outputs, so one call's
-  metrics do not change at the next replay.
+  host values into its device scalars (``owner.prepare``: the lr factor,
+  the step counter), binds each of ``owner.bound_grads()``'s ``.grad``
+  back to the tensor the graph writes (a per-leaf optimizer drops grads
+  between steps), replays, and returns a copy of the outputs, so one
+  call's outputs do not change at the next replay.
 
 The capture runs with Python's garbage collector held off, after one
 collection: an unreachable graph that a collection freed inside a capture
@@ -28,16 +30,19 @@ would be lost (seen on the card when ``tune_multi_step_k``'s arms, each
 its own graph, followed earlier phases' graphs).
 
 Every input and output of a kernel inside lies in the graph's static
-buffers or its private memory pool: the window and flash kernels launch on
-the current stream with raw pointers, which a replay reuses. A failed
-capture or replay raises; nothing falls back to eager. On the CPU there is
-no graph: ``fn`` runs as it is, the same code path.
+buffers, its private memory pool or the owner's own tensors: the window
+and flash kernels launch on the current stream with raw pointers, which a
+replay reuses. A failed capture or replay raises; nothing falls back to
+eager. On the CPU, and with ``capture=False`` (a layout
+``parallel.step.refuse_capture`` refuses), there is no graph: ``fn`` runs
+as it is, the same code path. :meth:`StepGraph.eager` runs ``fn``
+uncaptured on the card too: the graph's twin for a bitwise check.
 """
 
 from __future__ import annotations
 
 import gc
-from typing import Callable
+from typing import Callable, Protocol
 
 import torch
 
@@ -64,17 +69,46 @@ def _map(fn, tree):
     return tree
 
 
-def _signature(inputs) -> tuple:
+def signature(inputs) -> tuple:
+    """The shapes and dtypes of the tensors of ``inputs``: a graph's key."""
     return tuple((tuple(t.shape), t.dtype) for t in _tensors(inputs))
 
 
-class StepGraph:
-    """``fn(inputs)`` of ``step`` (a ``TrainStep``) as one captured CUDA
-    graph on the card, ``fn`` itself on the CPU."""
+class GraphOwner(Protocol):
+    """What :class:`StepGraph` asks of the owner of ``fn``'s state."""
 
-    def __init__(self, step, fn: Callable):
-        self.step = step
+    device: torch.device
+
+    def prepare(self, *host) -> None:
+        """Write the next call's host values into the owner's device
+        scalars (fills, outside the capture)."""
+
+    def state_snapshot(self):
+        """A copy of every tensor ``fn`` writes."""
+
+    def restore_state(self, snapshot) -> None:
+        """Put a snapshot back in place (the storages stay)."""
+
+    def bound_grads(self) -> list:
+        """The parameters whose ``.grad`` the graph writes from its pool
+        and that must be bound back before each replay; empty where the
+        grads stay bound (flat views, or buffers the owner binds)."""
+
+
+class StepGraph:
+    """``fn(inputs)`` of ``owner`` as one captured CUDA graph on the card,
+    ``fn`` itself on the CPU or with ``capture=False``. ``pool`` (a
+    ``torch.cuda.graph_pool_handle()``) is a memory pool shared with the
+    owner's other graphs: safe where no graph's pool memory must outlive
+    another's replay (each call's outputs are copied out, and the inputs,
+    the state and the grads lie outside the pools) and the graphs replay
+    one at a time on one stream."""
+
+    def __init__(self, owner: GraphOwner, fn: Callable, capture: bool = True, pool=None):
+        self.owner = owner
         self.fn = fn
+        self.capture = bool(capture)
+        self.pool = pool
         self.graph: torch.cuda.CUDAGraph | None = None
         self._inputs = None
         self._outputs = None
@@ -83,53 +117,58 @@ class StepGraph:
         self.captures = 0
         self.replays = 0
 
-    def __call__(self, inputs, lr_factor):
-        step = self.step
-        if step.device.type != "cuda":
-            step.prepare(lr_factor)
-            return self.fn(inputs)
-        if self.graph is None or _signature(inputs) != self._signature:
-            self._capture(inputs, lr_factor)
+    def eager(self, inputs, *host):
+        """``fn`` uncaptured after the same ``owner.prepare``: the graph's
+        twin (and the whole path where there is no graph)."""
+        self.owner.prepare(*host)
+        return self.fn(inputs)
+
+    def __call__(self, inputs, *host):
+        owner = self.owner
+        if owner.device.type != "cuda" or not self.capture:
+            return self.eager(inputs, *host)
+        if self.graph is None or signature(inputs) != self._signature:
+            self._capture(inputs, host)
         for static, new in zip(_tensors(self._inputs), _tensors(inputs)):
             static.copy_(new, non_blocking=True)
-        step.prepare(lr_factor)
+        owner.prepare(*host)
         if self._grads is not None:
-            for p, g in zip(step.tx.params, self._grads):
+            for p, g in zip(owner.bound_grads(), self._grads):
                 p.grad = g
         self.graph.replay()
         self.replays += 1
         return _map(torch.clone, self._outputs)
 
-    def _capture(self, inputs, lr_factor) -> None:
-        step = self.step
+    def _capture(self, inputs, host) -> None:
+        owner = self.owner
         self.graph = self._outputs = self._grads = None  # the old graph's pool goes first
-        self._inputs = _map(lambda t: t.to(step.device, copy=True), inputs)
-        self._signature = _signature(inputs)
-        snapshot = step.state_snapshot()
+        self._inputs = _map(lambda t: t.to(owner.device, copy=True), inputs)
+        self._signature = signature(inputs)
+        snapshot = owner.state_snapshot()
         cache = torch.is_autocast_cache_enabled()
         torch.set_autocast_cache_enabled(False)
         try:
-            side = torch.cuda.Stream(step.device)
-            side.wait_stream(torch.cuda.current_stream(step.device))
+            side = torch.cuda.Stream(owner.device)
+            side.wait_stream(torch.cuda.current_stream(owner.device))
             with torch.cuda.stream(side):
                 for _ in range(WARMUP):
-                    step.prepare(lr_factor)
+                    owner.prepare(*host)
                     self.fn(self._inputs)
-            torch.cuda.current_stream(step.device).wait_stream(side)
-            step.restore_state(snapshot)
-            step.prepare(lr_factor)
+            torch.cuda.current_stream(owner.device).wait_stream(side)
+            owner.restore_state(snapshot)
+            owner.prepare(*host)
             graph = torch.cuda.CUDAGraph()
             gc.collect()  # the module docstring: no graph may be freed inside
             collecting = gc.isenabled()
             gc.disable()
             try:
-                with torch.cuda.graph(graph):
+                with torch.cuda.graph(graph, pool=self.pool):
                     outputs = self.fn(self._inputs)
             except BaseException:
                 # a failed capture leaves the default generator's state
                 # "capturing", and every later random draw on the card
                 # raises; a fresh copy of its state repairs it
-                gen = torch.cuda.default_generators[step.device.index or 0]
+                gen = torch.cuda.default_generators[owner.device.index or 0]
                 gen.graphsafe_set_state(gen.clone_state())
                 raise
             finally:
@@ -138,6 +177,7 @@ class StepGraph:
         finally:
             torch.set_autocast_cache_enabled(cache)
         self.graph, self._outputs = graph, outputs
-        if step.fused is None:  # per-leaf: the grads the graph writes
-            self._grads = [p.grad for p in step.tx.params]
+        bound = owner.bound_grads()
+        if bound:  # the grads the graph writes, bound back before each replay
+            self._grads = [p.grad for p in bound]
         self.captures += 1

@@ -276,6 +276,13 @@ class TrainStep:
         self.tx.set_lr_factor(lr_factor)
         self.step_t.fill_(self.rng.step)
 
+    def bound_grads(self) -> list:
+        """The parameters whose ``.grad`` a captured step writes and
+        ``StepGraph`` binds back before each replay: a per-leaf
+        optimizer's (it drops them between steps); none for
+        ``FusedAdamW``, whose grads stay views of its flat buffer."""
+        return [] if self.fused is not None else list(self.tx.params)
+
     def state_tensors(self) -> list[torch.Tensor]:
         """Every tensor a step writes: the parameters (``FusedAdamW``'s flat
         buffer), the model's buffers (BatchNorm statistics), the optimizer's
@@ -609,8 +616,10 @@ class MultiStep:
                              self.k)
 
 
-def refuse_capture(step: TrainStep, what: str) -> None:
-    """Raise ``ValueError`` where ``step`` cannot run as a captured graph."""
+def refuse_capture(step, what: str) -> None:
+    """Raise ``ValueError`` where ``step`` cannot run as a captured graph.
+    ``step`` is a ``TrainStep`` or anything with its ``policy``, ``model``
+    and ``detect_anomaly`` (the Stoke facade asks once, at construction)."""
     if step.policy.shard_params:
         raise ValueError(
             f"{what} cannot capture a ZeRO-3 step: FSDP2's per-unit hooks, streams and events "

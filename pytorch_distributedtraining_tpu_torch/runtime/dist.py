@@ -96,7 +96,9 @@ def initialize(coordinator_address: str | None = None, num_processes: int | None
     for ``cuda`` (on ``cuda:LOCAL_RANK``), gloo for ``cpu``. The rendezvous
     and every later collective time out after ``timeout_s`` seconds; a
     rendezvous that fails with an outage is tried again (module
-    docstring). Idempotent.
+    docstring). An NCCL group comes up with ``TORCH_NCCL_ASYNC_ERROR_HANDLING``
+    0 unless the environment sets it: the graphed steps capture their
+    collectives. Idempotent.
     """
     if tdist.is_initialized():
         return
@@ -126,6 +128,12 @@ def initialize(coordinator_address: str | None = None, num_processes: int | None
             raise RuntimeError("device='cuda' needs NCCL, and this torch has none")
         torch.cuda.set_device(device)
         backend = "nccl"
+        # the train steps capture their collectives in CUDA graphs
+        # (parallel.graph), which PyTorch documents with NCCL's async error
+        # handling off: set here, where every group of the port is formed
+        # (drivers, launcher children, by hand), before the group reads it;
+        # a value the caller set stays
+        os.environ.setdefault("TORCH_NCCL_ASYNC_ERROR_HANDLING", "0")
         if "device_id" in inspect.signature(tdist.init_process_group).parameters:
             kwargs["device_id"] = device  # bring NCCL up now, so a failure is fatal here
     elif device.type == "cpu":

@@ -13,19 +13,40 @@ path), ``.save_sharded``/``.load_sharded`` (every rank its shards, through
 ``torch.distributed.checkpoint``) and ``.save_portable``/``.load_resharded``
 (the portable format, which restores at another world size or policy).
 
-The Stoke-style loop runs eagerly: the JAX facade's deferred handles,
-which fuse a ``.model -> .loss -> .backward -> .step`` window into one
-program, wait for the graphed-window slice. ``.model`` runs the forward
-under the precision policy's autocast, ``.backward`` accumulates ``loss /
-grad_accum_steps`` into ``.grad``, and ``.step`` fires the optimizer on
-every ``grad_accum_steps``-th call (Stoke semantics; ``facade.py:1399-1435``
-in the JAX package), with the lr read from :attr:`optimizer` at that
-moment. Nothing in the hot loop waits for the device except an explicit
-read of a loss. ``.model`` runs in the module's mode: a BatchNorm model
-trains on batch statistics and updates its running statistics in place
-from one micro-batch to the next, as the JAX facade threads
-``model_state``; after ``model_access.eval()``, and always in
-:meth:`eval_step`, it reads the running statistics.
+The Stoke-style loop is deferred, as the JAX facade's
+(``facade.py:1249-1521`` there; ``fuse_eager_step=True``, the default):
+``.model`` in training mode copies its inputs into a tensor of the
+facade's own and returns a handle (``_LazyOutput``), ``.loss`` on it
+another (``_LazyLoss``), ``.backward`` records the micro-batch, and on
+every ``grad_accum_steps``-th call ``.step`` runs the whole window as one
+program: each micro-batch's forward under the precision policy's
+autocast, its f32 loss, ``(loss / grad_accum_steps · scale).backward()``
+into ``.grad`` and the 0.98-decay loss monitor folded on the device, then
+the update (Stoke semantics; the lr read from :attr:`optimizer` at that
+moment). The handles take their values from the program's outputs; any
+other use materializes one (``torch.*`` calls, tensor methods, arithmetic,
+``float``, ``numpy.asarray``...), so deferral never changes a value the
+caller sees. A loss read inside its window (the driver's loop reads each
+one right after ``.step()``), a window with micro-batches already run, and
+``fuse_eager_step=False`` take the split path: a program for the first
+micro-batch of a window (``.grad`` zeroed, then written), one that
+accumulates, and the update alone (JAX's ``_jit_acc_first``, ``_jit_acc``
+and ``_jit_apply``). On the card every program is a captured CUDA graph
+(``parallel.graph.StepGraph``, one per program and input signature, the
+capture billed as the telemetry span's ``compile``), replayed once a
+call; the lr factor and the step counter are written before each. A layout
+``parallel.step.refuse_capture`` refuses (ZeRO-3, a
+``DistributedDataParallel`` wrapper) runs the same programs uncaptured,
+decided at construction (the reason on :attr:`graph_refusal`, printed
+once under ``verbose``); on the CPU every program runs uncaptured, the
+same code; :meth:`uncaptured` runs them uncaptured on the card, the
+graphs' twin. A capture that fails raises. Nothing in the hot loop waits
+for the device except an explicit read of a loss. The forward of a handle
+read alone and eval-mode ``.model`` run uncaptured. ``.model`` runs in the
+module's mode: a BatchNorm model trains on batch statistics and updates
+its running statistics in place from one micro-batch to the next, as the
+JAX facade threads ``model_state``; after ``model_access.eval()``, and
+always in :meth:`eval_step`, it reads the running statistics.
 
 Device and ranks: the facade runs on ``device`` (``"cuda"`` by default,
 the process's card under a launcher; it raises when no CUDA device exists
@@ -112,10 +133,12 @@ the per-leaf chain, and ``fused_optimizer=True`` on one of them raises.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import inspect
 import os
 import weakref
+from types import SimpleNamespace
 from typing import Callable
 
 import numpy as np
@@ -131,10 +154,11 @@ from ..observe import numerics as _numerics
 from ..observe import opcost as _opcost
 from ..observe import capture as _capture
 from ..parallel.state import TrainState, create_train_state, load_module_state
-from ..parallel.graph import StepGraph
+from ..parallel.graph import StepGraph, signature
 from ..parallel.rng import StepRng
 from ..parallel.step import (TrainStep, all_finite, mean_over_ranks, reduce_gradients,
                              refuse_capture)
+from ..parallel.sync_bn import batch_norm_state
 from ..precision import DynamicLossScaler, Policy
 from ..runtime import dist
 from ..runtime.mesh import MeshSpec, data_group, make_mesh, mesh_shape
@@ -175,6 +199,145 @@ def _as_tensor(x, device: torch.device) -> torch.Tensor:
     return x.to(device, non_blocking=True)
 
 
+def _owned(x, device: torch.device) -> torch.Tensor:
+    """``x`` on ``device`` in a tensor of the facade's own: a recorded
+    micro-batch must not change when the caller writes its tensor later."""
+    t = _as_tensor(x, device)
+    shared = t is x or (isinstance(x, np.ndarray) and t.device.type == "cpu")
+    return t.clone() if shared else t
+
+
+def _materialized(tree):
+    if isinstance(tree, _LazyBase):
+        return tree.materialize()
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_materialized(v) for v in tree)
+    if isinstance(tree, dict):
+        return {k: _materialized(v) for k, v in tree.items()}
+    return tree
+
+
+def _forward_op(name):
+    def op(self, *args):
+        return getattr(self.materialize(), name)(*args)
+
+    op.__name__ = name
+    return op
+
+
+class _LazyBase:
+    """A deferred value (JAX ``facade.py:387-430``): any use outside the
+    deferred ``.loss -> .backward -> .step`` flow materializes it, so a
+    handle behaves like the tensor it stands for: ``torch.*`` calls and
+    tensor methods (``__torch_function__``, attribute access), arithmetic,
+    comparisons, indexing, iteration, ``numpy.asarray`` and ``float``."""
+
+    __slots__ = ("_facade", "_value", "__weakref__")
+
+    def materialize(self) -> torch.Tensor:  # overridden
+        raise NotImplementedError
+
+    @classmethod
+    def __torch_function__(cls, func, types, args=(), kwargs=None):
+        return func(*_materialized(args), **_materialized(kwargs or {}))
+
+    def __array__(self, dtype=None, copy=None):
+        arr = self.materialize().detach().cpu().numpy()
+        return arr.astype(dtype) if dtype is not None else arr
+
+    def __getitem__(self, idx):
+        return self.materialize()[idx]
+
+    def __len__(self):
+        return len(self.materialize())
+
+    def __iter__(self):
+        return iter(self.materialize())
+
+    def __float__(self):
+        return float(self.materialize())
+
+    def __bool__(self):
+        return bool(self.materialize())
+
+    def __format__(self, spec):
+        return format(float(self), spec) if spec else repr(self)
+
+    def detach(self) -> torch.Tensor:
+        return self.materialize().detach()
+
+    def __getattr__(self, name):
+        return getattr(self.materialize(), name)
+
+    def __repr__(self):
+        state = "pending" if self._value is None else "materialized"
+        return f"{type(self).__name__}<{state}>"
+
+
+for _name in (
+    "__add__", "__radd__", "__sub__", "__rsub__", "__mul__", "__rmul__",
+    "__truediv__", "__rtruediv__", "__pow__", "__neg__", "__abs__",
+    "__eq__", "__ne__", "__lt__", "__le__", "__gt__", "__ge__",
+    "__matmul__", "__rmatmul__", "__mod__",
+):
+    setattr(_LazyBase, _name, _forward_op(_name))
+_LazyBase.__hash__ = object.__hash__  # __eq__ above would otherwise drop it
+
+
+class _LazyOutput(_LazyBase):
+    """The deferred forward of ``.model()`` in training mode (JAX
+    ``_LazyOutput``). It holds the facade's own copy of the inputs; the
+    parameters in effect at the ``.model()`` call are the live ones until
+    an update, and ``.step()`` materializes every handle from outside its
+    window before it updates them in place. Materialized alone, it runs
+    the forward uncaptured with the BatchNorm statistics put back (JAX
+    discards the state of its ``_jit_fwd``); inside a window it takes its
+    value from the program's output. ``.shape``/``.dtype``/``.ndim``/
+    ``.size`` come from a per-signature cache once any program has seen
+    the input signature, without a forward."""
+
+    __slots__ = ("_inputs",)
+
+    def __init__(self, facade, inputs: torch.Tensor):
+        self._facade = facade
+        self._inputs = inputs
+        self._value = None
+
+    def materialize(self) -> torch.Tensor:
+        if self._value is None:
+            self._value = self._facade._forward_now(self._inputs)
+        return self._value
+
+    def __getattr__(self, name):
+        if self._value is None and name in ("shape", "dtype", "ndim", "size"):
+            meta = self._facade._out_meta.get(signature(self._inputs))
+            if meta is not None:
+                shape, dtype = meta
+                return {"shape": shape, "dtype": dtype, "ndim": len(shape),
+                        "size": lambda dim=None: shape if dim is None else shape[dim]}[name]
+        return getattr(self.materialize(), name)
+
+
+class _LazyLoss(_LazyBase):
+    """The deferred loss of ``.loss()`` on a pending output (JAX
+    ``_LazyLoss``): resolved by the program that runs its micro-batch, or,
+    read early, by a flush of its window through the split path (or, before
+    ``.backward()``, by the forward and the loss run uncaptured)."""
+
+    __slots__ = ("_output", "_targets")
+
+    def __init__(self, facade, output: _LazyOutput, targets: torch.Tensor):
+        self._facade = facade
+        self._output = output
+        self._targets = targets
+        self._value = None
+
+    def materialize(self) -> torch.Tensor:
+        if self._value is None:
+            self._value = self._facade._materialize_lazy_loss(self)
+        return self._value
+
+
 class Stoke:
     def __init__(
         self,
@@ -203,6 +366,7 @@ class Stoke:
         opcost: bool = False,
         capture: bool = False,
         capture_dir: str | None = None,
+        fuse_eager_step: bool = True,
     ):
         distributed = distributed.value if isinstance(distributed, DistributedOptions) else distributed
         if distributed not in (None, "ddp"):
@@ -234,6 +398,9 @@ class Stoke:
         self.verbose = bool(verbose)
         self.grad_accum_steps = max(1, int(grad_accum_steps))
         self.grad_clip = grad_clip
+        # the reference loop's .backward()/.step() pair as one program per
+        # accumulation window (JAX's fuse_eager_step); False: the split path
+        self.fuse_eager_step = bool(fuse_eager_step)
         amp_config = self._find_config(AMPConfig) or AMPConfig()
 
         fp16 = fp16.value if isinstance(fp16, FP16Options) else fp16
@@ -324,7 +491,38 @@ class Stoke:
         self._fused = self._fused_graph = None  # fused_step's TrainStep and graph, at first use
         self._backward_count = 0
         self._step_count = 0
-        self._ema = None  # 0.98-decay loss monitor, a device scalar
+        # the deferred window (JAX facade.py:941-953): recorded micro-batches
+        # (inputs, targets, loss handle, output handle), the handles not yet
+        # materialized, and whether a split-path micro-batch has written .grad
+        self._pending_micro: list = []
+        self._pending_lazies: list = []
+        self._accumulated = 0
+        self._lazy_output = self._lazy_loss = None
+        self._last_inputs = self._last_targets = None
+        self._out_meta: dict = {}  # input signature -> the forward's (shape, dtype)
+        # the programs' device scalars: the step counter (the probe's
+        # injection) and the 0.98-decay loss monitor with its "has a value"
+        # flag, updated in place by every program
+        self._step_t = torch.zeros((), dtype=torch.int64, device=self.device)
+        self._ema = torch.zeros((), dtype=torch.float32, device=self.device)
+        self._has_ema = torch.zeros((), dtype=torch.bool, device=self.device)
+        self._ema_seen = False
+        # a layout refuse_capture refuses runs every program uncaptured
+        try:
+            refuse_capture(SimpleNamespace(policy=self.policy, model=self._wrapped,
+                                           detect_anomaly=False), "Stoke's deferred window")
+            self.graph_refusal = None
+        except ValueError as refusal:
+            self.graph_refusal = str(refusal)
+        per_leaf = not isinstance(self._opt, optim_mod.FusedAdamW)
+        # per-leaf grads in buffers of the facade's own, bound before every
+        # program, so the window and the split path's graphs write the same
+        # ones (the optimizer drops .grad between steps)
+        self._grad_bufs = ([torch.zeros_like(p) for p in self._opt.params]
+                           if per_leaf and self.graph_refusal is None else None)
+        self._graphs: dict = {}  # (program, input signature) -> StepGraph
+        self._pool = None  # the graphs' shared memory pool (StepGraph's rule holds)
+        self._uncaptured = False
         self._ema_host = None
         self._ema_event = None
         self._ema_shown: float | None = None
@@ -336,6 +534,8 @@ class Stoke:
                 f"Stoke[{self.device.type}]: {type(self._module).__name__} {n / 1e6:.2f}M "
                 f"params, precision={self.fp16 or 'fp32'}, accum={self.grad_accum_steps}"
             )
+            if self.graph_refusal is not None and self.device.type == "cuda":
+                self.print_on_devices(f"the deferred window runs uncaptured: {self.graph_refusal}")
 
     def _find_config(self, cls):
         return next((c for c in self._configs if isinstance(c, cls)), None)
@@ -351,76 +551,283 @@ class Stoke:
         return self.precision.autocast(self.device)
 
     def model(self, inputs):
-        """Forward pass under the precision policy; f32 outputs. In eval
-        mode (``model_access.eval()``) no graph is kept."""
-        x = _as_tensor(inputs, self.device)
-        training = self._module.training
-        if training and hasattr(self._wrapped, "require_backward_grad_sync"):
-            # DDP's no_sync for all but the last micro-batch of a step
-            last = (self._backward_count + 1) % self.grad_accum_steps == 0
-            self._wrapped.require_backward_grad_sync = last
-        grad = torch.enable_grad() if training else torch.no_grad()
-        kw = {"train": training} if self._accepts_train else {}
-        with _telemetry.bucket_dispatch_span(self, "Stoke.model", None), grad, self._autocast():
-            out = self._wrapped(x, **kw)
-        return out.float()
+        """The forward under the precision policy; f32 outputs. In training
+        mode it is deferred (JAX ``facade.py:1249-1269``): the inputs are
+        copied into a tensor of the facade's own and a handle comes back,
+        which the program of its micro-batch resolves, or which runs the
+        forward when used before that. In eval mode
+        (``model_access.eval()``) it runs now, without a graph."""
+        with _telemetry.bucket_dispatch_span(self, "Stoke.model", None):
+            if not self._module.training:
+                x = self._last_inputs = _as_tensor(inputs, self.device)
+                kw = {"train": False} if self._accepts_train else {}
+                with torch.no_grad(), self._autocast():
+                    out = self._wrapped(x, **kw)
+                return out.float()
+            x = self._last_inputs = _owned(inputs, self.device)
+            lazy = self._lazy_output = _LazyOutput(self, x)
+            self._pending_lazies.append(weakref.ref(lazy))
+            return lazy
 
     def loss(self, outputs, targets):
-        """The loss in f32, outside autocast; feeds the EMA monitor."""
-        loss = self._loss_callable(outputs, _as_tensor(targets, self.device))
-        self._note_loss(loss)
-        return loss
+        """The loss in f32, outside autocast; feeds the EMA monitor.
+        Deferred on a pending output: ``.backward()`` records it and its
+        micro-batch's program computes it."""
+        y = self._last_targets = _owned(targets, self.device)
+        if isinstance(outputs, _LazyOutput) and outputs._value is None:
+            lazy = self._lazy_loss = _LazyLoss(self, outputs, y)
+            return lazy
+        return self._materialize_loss(outputs, y)
 
-    def backward(self, loss):
-        """Accumulate ``loss / grad_accum_steps`` (times the loss scale under
-        ``fp16='amp'``) into the parameters' ``.grad``."""
-        scaled = loss / self.grad_accum_steps
-        if self.loss_scaler is not None:
-            scaled = self.loss_scaler.scale_loss(scaled)
+    def backward(self, loss=None):
+        """Record the micro-batch of the last ``.model()``/``.loss()`` for
+        the window's program (``fuse_eager_step``), or run its forward,
+        loss and backward now through the split path, which accumulates
+        ``loss / grad_accum_steps`` (times the loss scale under
+        ``fp16='amp'``) into ``.grad``. The gradients come from the
+        programs, as in JAX (``facade.py:1315-1351``): ``loss`` is taken
+        for parity and comes back when it is not the deferred one."""
+        if self._last_inputs is None or self._last_targets is None:
+            raise RuntimeError(
+                "backward() needs a preceding model(inputs) and loss(outputs, targets)")
+        lazy_loss = loss if isinstance(loss, _LazyLoss) else self._lazy_loss
+        record = (self._last_inputs, self._last_targets, lazy_loss, self._lazy_output)
+        self._lazy_loss = self._lazy_output = None
         with _telemetry.bucket_dispatch_span(self, "Stoke.backward", None):
-            scaled.backward()
+            if self.fuse_eager_step:
+                self._pending_micro.append(record)
+                value = lazy_loss if lazy_loss is not None else loss
+            else:
+                value = self._backward_now(*record)
         self._backward_count += 1
-        return loss
+        return value
 
     def zero_grad(self):
-        """Drop the accumulated gradients and restart the accumulation
-        window (the raw loop's ``optimizer.zero_grad()``,
-        ``Fairscale-DDP.py:97``)."""
+        """Drop the accumulated gradients and the deferred micro-batches
+        and restart the accumulation window (the raw loop's
+        ``optimizer.zero_grad()``, ``Fairscale-DDP.py:97``); a dropped
+        handle still materializes."""
         self._opt.zero_grad()
-        self._backward_count = 0
+        self._backward_count = self._accumulated = 0
+        self._pending_micro = []
 
     def step(self):
-        """Optimizer step on every ``grad_accum_steps``-th call. Under
-        ``fp16='amp'`` a non-finite gradient skips the update, gated on the
-        device (no read of the flag on the host)."""
+        """Optimizer step on every ``grad_accum_steps``-th call. A window
+        whose micro-batches are all deferred runs as one program (forward,
+        loss and backward of each, then the update); otherwise the pending
+        ones go through the split path and the update runs alone (JAX
+        ``facade.py:1399-1435``). On the card each program is a captured
+        CUDA graph. Under ``fp16='amp'`` a non-finite gradient skips the
+        update, gated on the device (no read of the flag on the host)."""
         if self._backward_count == 0 or self._backward_count % self.grad_accum_steps:
             return
-        with _telemetry.bucket_dispatch_span(self, "Stoke.step", None):
-            aux = self._update()
+        window = (self._pending_micro and not self._accumulated
+                  and len(self._pending_micro) == self.grad_accum_steps)
+        if window:
+            out = self._step_window()
+        else:
+            self._flush_pending_micros()
+            self._materialize_pending()
+            out = self._run("Stoke.step", "apply", ())
         self._opt.zero_grad()
-        self._backward_count = 0
+        self._backward_count = self._accumulated = 0
         self._step_count += 1
-        if aux is not None:
-            self._observe_numerics(aux)
+        if "aux" in out and self._step_count % self._numerics_every == 0:
+            self._observe_numerics(out["aux"])
         if self.capture is not None:
             self.capture.note_step()
 
+    # -- the deferred window's programs -----------------------------------------
+
+    def _step_window(self) -> dict:
+        """The whole window as one program (JAX ``_step_fused``); its
+        handles take their values from the program's outputs."""
+        window, self._pending_micro = self._pending_micro, []
+        ids = {id(h) for rec in window for h in rec[2:] if h is not None}
+        self._materialize_pending(skip=ids)
+        out = self._run("Stoke.step", "window", tuple((x, y) for x, y, _, _ in window))
+        for (x, _, lazy_loss, lazy_out), loss, pred in zip(window, out["losses"], out["outs"]):
+            self._resolve(x, lazy_loss, lazy_out, loss, pred)
+        return out
+
+    def _backward_now(self, x, y, lazy_loss=None, lazy_out=None) -> torch.Tensor:
+        """One micro-batch through the split path: the first program of a
+        window (``.grad`` zeroed first) or the one that accumulates."""
+        kind = "acc" if self._accumulated else "first"
+        out = self._run("Stoke.backward", kind, (x, y))
+        self._accumulated += 1
+        self._resolve(x, lazy_loss, lazy_out, out["loss"], out["out"])
+        self._pending_lazies = [r for r in self._pending_lazies
+                                if r() is not None and r()._value is None]
+        return out["loss"]
+
+    def _resolve(self, x, lazy_loss, lazy_out, loss, pred) -> None:
+        """Give a micro-batch's handles the program's values; one already
+        read keeps its value."""
+        self._out_meta[signature(x)] = (pred.shape, pred.dtype)
+        if lazy_loss is not None and lazy_loss._value is None:
+            lazy_loss._value = loss
+        if lazy_out is not None and lazy_out._value is None:
+            lazy_out._value = pred
+
+    def _flush_pending_micros(self) -> None:
+        """The deferred micro-batches through the split path (odd call
+        patterns, a loss read inside its window)."""
+        window, self._pending_micro = self._pending_micro, []
+        for record in window:
+            self._backward_now(*record)
+
+    def _materialize_pending(self, skip=()) -> None:
+        """Materialize every pending output handle but those of ``skip``
+        (ids): the update is about to change the parameters in place."""
+        for ref in self._pending_lazies:
+            lazy = ref()
+            if lazy is not None and lazy._value is None and id(lazy) not in skip:
+                lazy.materialize()
+        self._pending_lazies = []
+
+    def _before_load(self) -> None:
+        """A load writes the parameters (and the optimizer's state, maybe
+        into new tensors): pending handles are materialized first, and the
+        programs' graphs, which hold the old tensors' addresses, go (the
+        next call captures anew)."""
+        self._materialize_pending()
+        self._graphs.clear()
+        self._pool = self._fused = self._fused_graph = None
+
+    def _materialize_lazy_loss(self, lazy: _LazyLoss) -> torch.Tensor:
+        """A deferred loss read early (JAX ``facade.py:1285-1297``): inside
+        a pending window, the window is flushed through the split path,
+        which computes it on the way; else the forward and the loss run
+        uncaptured."""
+        if any(rec[2] is lazy for rec in self._pending_micro):
+            self._flush_pending_micros()
+            return lazy._value
+        return self._materialize_loss(lazy._output, lazy._targets)
+
+    @torch.no_grad()
+    def _materialize_loss(self, outputs, targets) -> torch.Tensor:
+        loss = self._loss_callable(_materialized(outputs), targets)
+        self._note_loss(loss)
+        return loss
+
+    @torch.no_grad()
+    def _forward_now(self, x: torch.Tensor) -> torch.Tensor:
+        """The training forward of a handle read alone, uncaptured (JAX's
+        ``_jit_fwd``): BatchNorm's statistics are put back after it, since
+        the micro-batch's program updates them."""
+        state = batch_norm_state(self._module)
+        kept = [t.clone() for t in state]
+        kw = {"train": True} if self._accepts_train else {}
+        with self._autocast():
+            out = self._wrapped(x, **kw).float()
+        for t, v in zip(state, kept):
+            t.copy_(v)
+        self._out_meta[signature(x)] = (out.shape, out.dtype)
+        return out
+
+    def _run(self, span: str, kind: str, inputs) -> dict:
+        """Program ``kind`` on ``inputs`` through its ``StepGraph`` (one per
+        input signature): a replay on the card (the first call captures,
+        billed as the span's ``compile``), the function itself on the CPU,
+        on a layout ``refuse_capture`` refuses, and inside
+        :meth:`uncaptured`."""
+        key = (kind, signature(inputs))
+        graph = self._graphs.get(key)
+        if graph is None:
+            fn = {"window": self._window_program, "first": self._first_program,
+                  "acc": self._micro_program, "apply": self._apply_program}[kind]
+            if self._pool is None and self.device.type == "cuda":
+                self._pool = torch.cuda.graph_pool_handle()
+            graph = self._graphs[key] = StepGraph(self, fn, capture=self.graph_refusal is None,
+                                                  pool=self._pool)
+        with _telemetry.bucket_dispatch_span(self, span, key):
+            out = graph.eager(inputs) if self._uncaptured else graph(inputs)
+        if kind != "apply":
+            self._last_loss, self._ema_seen = out["last"], True
+        return out
+
+    @contextlib.contextmanager
+    def uncaptured(self):
+        """Run the deferred window's programs uncaptured on the card inside
+        this block: the same functions the graphs captured, the graphs'
+        eager twin for a bitwise check."""
+        saved, self._uncaptured = self._uncaptured, True
+        try:
+            yield self
+        finally:
+            self._uncaptured = saved
+
+    def _zero_grads(self) -> None:
+        if self._grad_bufs is None:
+            self._opt.zero_grad()
+        else:
+            torch._foreach_zero_(self._grad_bufs)
+
+    def _micro(self, x, y, last: bool) -> tuple:
+        """A micro-batch's forward under autocast, its f32 loss outside
+        it, ``(loss / accum · scale).backward()`` into ``.grad`` and the
+        loss monitor's fold, as the eager loop ran them."""
+        if hasattr(self._wrapped, "require_backward_grad_sync"):
+            self._wrapped.require_backward_grad_sync = last  # DDP's no_sync but the last
+        kw = {"train": True} if self._accepts_train else {}
+        with torch.enable_grad():
+            with self._autocast():
+                out = self._wrapped(x, **kw)
+            out = out.float()
+            loss = self._loss_callable(out, y)
+            scaled = loss / self.grad_accum_steps
+            if self.loss_scaler is not None:
+                scaled = self.loss_scaler.scale_loss(scaled)
+            scaled.backward()
+        loss = loss.detach()
+        return loss, out.detach(), self._fold_ema(loss)
+
+    def _window_program(self, micros) -> dict:
+        """JAX's ``eager_step``: every micro-batch's forward, loss and
+        backward, then the update."""
+        self._zero_grads()
+        losses, outs, last = [], [], None
+        for i, (x, y) in enumerate(micros):
+            loss, out, last = self._micro(x, y, i == len(micros) - 1)
+            losses.append(loss)
+            outs.append(out)
+        return {"losses": losses, "outs": outs, "last": last, **self._apply_program(())}
+
+    def _first_program(self, batch) -> dict:
+        """The split path's first micro-batch of a window (JAX
+        ``_jit_loss_grad`` + ``_jit_acc_first``): ``.grad`` zeroed, then
+        written."""
+        self._zero_grads()
+        return self._micro_program(batch)
+
+    def _micro_program(self, batch) -> dict:
+        """A micro-batch that accumulates into ``.grad`` (JAX ``_jit_acc``)."""
+        last = (self._accumulated + 1) % self.grad_accum_steps == 0
+        loss, out, last32 = self._micro(batch[0], batch[1], last)
+        return {"loss": loss, "out": out, "last": last32}
+
+    def _apply_program(self, _inputs) -> dict:
+        """The update (JAX ``_jit_apply``), with the probe's aux."""
+        aux = self._update()
+        return {} if aux is None else {"aux": aux}
+
     def _update(self) -> dict | None:
-        """The optimizer update of one step; the numerics probe's aux on a
-        step it decodes, else None."""
+        """The optimizer update of one step (the lr factor and the step
+        counter written by :meth:`prepare`); with the numerics probe, its
+        aux of the step, every step (decoded at the probe's cadence)."""
         fused = isinstance(self._opt, optim_mod.FusedAdamW)
         scaler = self.loss_scaler
         # the global batch's gradient (backward already divided by accum)
         grads = reduce_gradients(self._opt, self.policy, self._group)
         probe = self.numerics_probe
-        observe = probe is not None and (self._step_count + 1) % self._numerics_every == 0
-        self._opt.set_lr_factor(self._opt_handle.lr)
+        names = None if probe is None else self._numerics_layout["names"]
         if fused:
             # the scaler's flag gates the update on the device
             leaf_grads = [p.grad for p in self._opt.params]
             if probe is not None:
-                probe.inject(leaf_grads, self._step_count, self._numerics_layout["names"])
-            pnorm = _numerics.leaf_norms(self._opt.params) if observe else None
+                probe.inject(leaf_grads, self._step_t, names)
+            pnorm = _numerics.leaf_norms(self._opt.params) if probe is not None else None
             gnorm, finite = self._opt.apply_tree(scaler=scaler)
             shard, unorms = None, None
         else:
@@ -428,21 +835,55 @@ class Stoke:
             if scaler is not None:
                 grads = scaler.unscale(grads)
             if probe is not None:
-                probe.inject(grads, self._step_count, self._numerics_layout["names"])
+                probe.inject(grads, self._step_t, names)
             if scaler is not None:  # every rank's shares: one overflow skips everywhere
                 finite = all_finite(scaler.grads_finite(grads), self._group)
-            pnorm = _numerics.leaf_norms(self._opt.local) if observe else None
+            pnorm = _numerics.leaf_norms(self._opt.local) if probe is not None else None
             self._opt.update_norms = None
             gnorm = self._opt.step(grads, gate=finite)
             leaf_grads, shard, unorms = grads, self._opt.shard, self._opt.update_norms
         if scaler is not None:
             scaler.update(finite)
-        if not observe:
+        if probe is None:
             return None
         if gnorm is None:
             gnorm = self._opt.norm(grads)
         return probe.aux(leaf_grads, param_norms=pnorm, update_norms=unorms, grad_norm=gnorm,
                          shard=shard, **self._numerics_layout)
+
+    # the StepGraph owner (parallel.graph.GraphOwner)
+
+    def prepare(self) -> None:
+        """The programs' host values, written before each call: the lr
+        factor, the step counter and the per-leaf grad buffers' binding."""
+        self._opt.set_lr_factor(self._opt_handle.lr)
+        self._step_t.fill_(self._step_count)
+        if self._grad_bufs is not None:
+            for p, g in zip(self._opt.params, self._grad_bufs):
+                p.grad = g
+
+    def _state_tensors(self) -> list[torch.Tensor]:
+        """Every tensor a program writes: the parameters (``FusedAdamW``'s
+        flat buffer), the model's buffers, the optimizer's and the loss
+        scaler's state, the grads and the loss monitor."""
+        fused = isinstance(self._opt, optim_mod.FusedAdamW)
+        params = [] if fused else list(self._opt.params)
+        grads = [self._opt.flat_grad] if fused else list(self._grad_bufs or [])
+        scaler = [] if self.loss_scaler is None else self.loss_scaler.state_tensors()
+        return (params + list(self._module.buffers()) + self._opt.state_tensors() + scaler
+                + grads + [self._ema, self._has_ema])
+
+    def state_snapshot(self) -> list[torch.Tensor]:
+        with torch.no_grad():
+            return [t.clone() for t in self._state_tensors()]
+
+    def restore_state(self, snapshot: list) -> None:
+        with torch.no_grad():
+            for t, v in zip(self._state_tensors(), snapshot):
+                t.copy_(v)
+
+    def bound_grads(self) -> list:
+        return []  # prepare binds the facade's own buffers
 
     def _observe_numerics(self, aux: dict) -> None:
         """Decode a step's numerics aux and feed the watchdog; a ``halt``
@@ -497,8 +938,8 @@ class Stoke:
         leaves none behind, as :meth:`step` does."""
         step, graph = self._fused_step_runner()
         batch = (_as_tensor(inputs, self.device), _as_tensor(targets, self.device))
-        self._opt.zero_grad()
-        self._backward_count = 0
+        self.zero_grad()
+        self._materialize_pending()  # the update changes the parameters in place
         step.rng.step = self._step_count  # the probe's injection counts optimizer steps
         with _telemetry.bucket_dispatch_span(self, "Stoke.fused_step", None):
             metrics = graph(batch, self._opt_handle.lr)
@@ -512,8 +953,10 @@ class Stoke:
         return metrics
 
     def detach_and_sync_loss(self, loss):
-        """The loss as a detached device scalar, averaged over ranks."""
-        loss = loss.detach()
+        """The loss as a detached device scalar, averaged over ranks; a
+        deferred loss is materialized (inside its window: the window goes
+        through the split path)."""
+        loss = _materialized(loss).detach()
         loss = loss.mean() if loss.dim() else loss
         return mean_over_ranks({"loss": loss}, self._group)["loss"]
 
@@ -545,10 +988,18 @@ class Stoke:
     # -- loss monitor --------------------------------------------------------
 
     @torch.no_grad()
+    def _fold_ema(self, loss: torch.Tensor) -> torch.Tensor:
+        """Fold ``loss``'s f32 mean into the 0.98-decay monitor in place, on
+        the device (JAX ``facade.py:1204-1210``: the flag tells "no value
+        yet" from a NaN one); returns the mean."""
+        val = loss.float().mean()
+        self._ema.copy_(torch.where(self._has_ema, 0.98 * self._ema + 0.02 * val, val))
+        self._has_ema.fill_(True)
+        return val
+
     def _note_loss(self, loss) -> None:
-        val = loss.detach().float().mean()
-        self._last_loss = val
-        self._ema = val if self._ema is None else 0.98 * self._ema + 0.02 * val
+        self._last_loss = self._fold_ema(loss.detach())
+        self._ema_seen = True
 
     def _ema_value(self) -> float:
         """The freshest EMA the device has finished computing. On CUDA the
@@ -572,8 +1023,11 @@ class Stoke:
 
     def print_ema_loss(self, prepend_msg: str = "EMA Loss", rank: int | list | None = 0):
         """This rank's smoothed loss, printed on ``rank`` (Stoke's default,
-        rank 0; a list of ranks, or None for all)."""
-        if self._ema is not None and self.verbose and self._prints(rank):
+        rank 0; a list of ranks, or None for all). A deferred loss enters
+        the monitor when its program runs, so between ``.loss()`` and
+        ``.backward()`` the value is one window behind (JAX
+        ``facade.py:2156-2180``)."""
+        if self._ema_seen and self.verbose and self._prints(rank):
             print(f"{prepend_msg}: {self._ema_value():.6f}", flush=True)
 
     # -- data ----------------------------------------------------------------
@@ -620,7 +1074,7 @@ class Stoke:
             "lr": self._opt_handle.lr,
             "backward_count": self._backward_count,
             "scaler": None if self.loss_scaler is None else self.loss_scaler.state_dict(),
-            "ema_loss": None if self._ema is None else float(self._ema),
+            "ema_loss": float(self._ema) if self._ema_seen else None,
             "rng": rng,
             "loader_epochs": [-1 if (dl := ref()) is None else dl.epoch
                               for ref in self._loaders],
@@ -635,8 +1089,9 @@ class Stoke:
         if self.loss_scaler is not None and meta.get("scaler") is not None:
             self.loss_scaler.load_state_dict(meta["scaler"])
         ema = meta.get("ema_loss")
-        self._ema = None if ema is None else torch.tensor(ema, dtype=torch.float32,
-                                                          device=self.device)
+        self._ema_seen = ema is not None
+        self._ema.fill_(0.0 if ema is None else float(ema))
+        self._has_ema.fill_(self._ema_seen)
         self._ema_event = self._ema_shown = None
         rng = meta.get("rng") or {}
         if "cpu" in rng:
@@ -684,6 +1139,7 @@ class Stoke:
         comes back for every loader built through :meth:`DataLoader`, in
         the order they were built, also for those built after the load.
         Every rank calls it. Returns the metadata, ``extras`` included."""
+        self._before_load()
         meta = self._state.load_state_dict(ckpt.load_file(path))
         return self._restore_meta(meta)
 
@@ -700,6 +1156,7 @@ class Stoke:
         """Restore a :meth:`save_sharded` checkpoint into the live state, in
         place, under this policy (the optimizer must be of the kind that
         saved it). Returns the metadata."""
+        self._before_load()
         from ..checkpoint_sharded import restore_sharded
 
         return self._restore_meta(restore_sharded(path, self._state))
@@ -718,6 +1175,7 @@ class Stoke:
         """Restore a :meth:`save_portable` checkpoint into the live state,
         re-placing every leaf (parameters and optimizer moments) onto this
         run's layout: the N-to-M resume. Returns the metadata."""
+        self._before_load()
         from ..checkpoint_sharded import restore_portable
 
         return self._restore_meta(restore_portable(path, self._state))
@@ -731,6 +1189,7 @@ class Stoke:
         files of all three tails load as they are: the port's module names
         are the official ones. Under FSDP2 each rank copies its own
         first-dimension chunk."""
+        self._before_load()
         if isinstance(source, str):
             if source.endswith((".pth", ".safetensors")):
                 from ..interop import load_torch_checkpoint

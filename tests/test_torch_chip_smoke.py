@@ -552,3 +552,90 @@ def test_replay_traced_takes_a_lossy_trace_again(smoke, monkeypatch, capsys, tak
     graphed = {"ms": 5.0, "peak": 1.0, "counts": counts}
     _, faults = smoke.graph_report("case", "H100, 700 W", eager, graphed, per_step)
     assert [f.split("K3 ")[1].split(" ")[0] for f in faults] == want[1]
+
+
+@pytest.mark.parametrize("takes,want", [([48], (1, [])), ([47, 48], (2, [])),
+                                        ([47, 47, 47], (3, ["K1", "K2"])), ([49], (1, ["K1",
+                                                                                      "K2"]))])
+def test_traced_call_counts_device_records_and_retakes_a_short_take(smoke, monkeypatch, capsys,
+                                                                    takes, want):
+    """Phases 5, 6, 11, 12 and 15: K1/K2 counted from a traced call's device
+    records (a graph's replay calls no wrapper); a take that counts fewer
+    than expected is printed and taken again, ``GRAPH_TAKES`` takes at
+    most, and ``kernel_faults`` holds the last take's counts exactly."""
+    from pytorch_distributedtraining_tpu_torch.observe import profiling
+
+    traces = iter([_k1k2_trace(1, n, 0) for n in takes])
+    monkeypatch.setattr(profiling, "profile_call", lambda fn: (fn(), next(traces)))
+    per_step = {"K1": 48, "K2": 48}
+    got = smoke.traced_call(lambda: None, per_step)
+    assert got["takes"] == want[0] and got["kernels"]["K1"] == takes[want[0] - 1]
+    assert got["kernels"]["K3"] == 0 and got["nccl"] == 1
+    assert capsys.readouterr().out.count("taken again") == want[0] - 1
+    assert [f.split(" ")[1] for f in smoke.kernel_faults("case", got["kernels"], per_step)] \
+        == want[1]
+
+
+def test_capture_launches_count_the_warm_up_and_the_capture(smoke):
+    """A program's kernels reach the wrappers once at each warm-up run and
+    once inside its capture, never at a replay."""
+    from pytorch_distributedtraining_tpu_torch.parallel import graph
+
+    assert smoke.capture_launches(1, 48) == (graph.WARMUP + 1) * 48
+    assert smoke.capture_launches(2, 24) == smoke.capture_launches(1, 48)
+    assert smoke.capture_launches(0, 24) == 0
+
+
+class _Graph:
+    def __init__(self, pool):
+        self._pool = pool
+
+    def pool(self):
+        return self._pool
+
+
+def test_peaks_add_the_pools_of_every_graph(smoke, monkeypatch):
+    """Phases 6, 11, 12 and 19: a facade holds a graph per program, each
+    with its private pool; the peak adds every pool's segments once, and
+    no other pool's."""
+    segments = [{"segment_pool_id": (0, 1), "total_size": 2**30},
+                {"segment_pool_id": (0, 1), "total_size": 2**29},
+                {"segment_pool_id": (0, 2), "total_size": 2**28},
+                {"segment_pool_id": (0, 3), "total_size": 2**27},
+                {"segment_pool_id": None, "total_size": 2**26}]
+    monkeypatch.setattr(torch.cuda, "memory_snapshot", lambda: segments)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+    monkeypatch.setattr(torch.cuda, "reset_peak_memory_stats", lambda: None)
+    monkeypatch.setattr(torch.cuda, "max_memory_allocated", lambda: 2**30)
+    a, b = _Graph((0, 1)), _Graph((0, 2))
+    assert smoke.pool_bytes(a, b) == 2**30 + 2**29 + 2**28
+    assert smoke.pool_bytes(a, a) == 2**30 + 2**29
+    assert smoke._peak_gib(lambda: None) == 1.0
+    assert smoke._peak_gib(lambda: None, a, b) == 1.0 + 1.5 + 0.25
+
+    class Runner:
+        def __init__(self, graph):
+            self.graph = graph
+
+    stoke = type("Stoke", (), {})()
+    stoke._graphs = {("window", ()): Runner(a), ("first", ()): Runner(b),
+                     ("acc", ()): Runner(None)}
+    assert smoke.facade_graphs(stoke) == [a, b]
+    assert smoke.pools_gib(stoke) == 1.75
+
+
+def test_graph_report_prints_an_untraced_eager_run_as_such(smoke, capsys):
+    """Phase 19 (e) times its uncaptured twin without tracing it: the
+    report prints its busy ms and idle share as not traced and still
+    holds the replay's kernel counts exactly."""
+    counts = {"graph_launches": 3.0, "busy_ms": 80.0, "lost": 0, "K1": 48, "K2": 47,
+              "collectives": {"all-reduce": 2}, "takes": 1}
+    row, faults = smoke.graph_report("case", "H100, 700 W", {"ms": 250.0, "peak": 5.0},
+                                     {"ms": 80.5, "peak": 5.5, "counts": counts},
+                                     {"K1": 48, "K2": 48})
+    said = capsys.readouterr().out
+    assert "device busy not traced / 80.00 ms" in said and "idle not traced / 0.006" in said
+    assert "collectives read (observe.comms) eager not traced, replay" in said
+    assert row["eager_busy_ms"] is None and row["eager_idle"] is None
+    assert row["graphed_idle"] == pytest.approx(1 - 80.0 / 80.5)
+    assert [f.split(": ")[1].split(" ")[0] for f in faults] == ["K2"]

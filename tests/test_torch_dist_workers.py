@@ -11,6 +11,7 @@ raises with the failing rank's traceback).
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import os
 import queue
@@ -177,8 +178,8 @@ def facade(model, oss=True, sddp=True, fsdp=False, batch=4, **extra):
         grad_accum_steps=2,
         configs=[stoke.AMPConfig(init_scale=2.0**14), stoke.DDPConfig(local_rank=None),
                  stoke.FairscaleOSSConfig(broadcast_fp16=True)],
-        grad_clip=stoke.ClipGradNormConfig(max_norm=0.1, norm_type=2.0), device="cpu",
-        **extra)
+        grad_clip=stoke.ClipGradNormConfig(max_norm=0.1, norm_type=2.0),
+        device=extra.pop("device", "cpu"), **extra)
 
 
 def facade_worker(rank: int, world: int, *, micro: list, lrs: list, state: dict | None = None,
@@ -623,3 +624,98 @@ def graph_vs_eager_worker(rank: int, world: int, *, policy: str, opt: str, batch
     (want, eager, _), (got, params, graph) = runs
     return {"eager": want, "graphed": got, "captures": graph.captures, "replays": graph.replays,
             "equal": all(torch.equal(a, b) for a, b in zip(eager, params))}
+
+
+def oss_fused_eager_worker(rank: int, world: int, *, state: dict, batch: tuple,
+                           iters: int) -> dict:
+    """The deferred facade on ESPCN ``Net`` (weights ``state``) under
+    ``fairscale_oss`` (ZeRO-1, ``FusedAdamW``) at this world, AdamW lr
+    3e-3: ``iters`` steps of rows ``r::world`` of ``batch``. Returns the
+    losses averaged over ranks, the optimizer's kind and its local and
+    padded flat sizes."""
+    from pytorch_distributedtraining_tpu_torch import losses, stoke
+    from pytorch_distributedtraining_tpu_torch.models import Net
+
+    net = Net(upscale_factor=2)
+    net.load_state_dict({k: torch.from_numpy(v) for k, v in state.items()})
+    s = stoke.Stoke(model=net, optimizer=stoke.StokeOptimizer("AdamW", {"lr": 3e-3}),
+                    loss=losses.mse_loss, fairscale_oss=True, device="cpu")
+    x, y = batch
+    out = []
+    for _ in range(iters):
+        loss = s.loss(s.model(x[rank::world]), y[rank::world])
+        s.backward(loss=loss)
+        s.step()
+        out.append(float(s.detach_and_sync_loss(loss)))
+    return {"losses": out, "opt": type(s._opt).__name__,
+            "mu_local": s._opt.state.mu.numel(), "mu_padded": s._opt.flat_param.numel()}
+
+
+def refused_layout_worker(rank: int, world: int, *, batches: list) -> dict:
+    """The driver's facade with DDP flags and ``fused_optimizer=False`` (a
+    ``DistributedDataParallel`` wrapper, which ``refuse_capture`` refuses)
+    over rows ``r::world``, deferred and split (``fuse_eager_step``):
+    the refusal, how many micro-batches one ``.backward()`` left pending,
+    whether any program was built to capture, the programs run, each
+    run's losses (read after its steps) and whether the parameters agree
+    bitwise."""
+    from torch.nn.parallel import DistributedDataParallel
+
+    out = {"losses": {}}
+    params = []
+    for fuse in (True, False):
+        s = facade(toy_swinir(), oss=False, sddp=False, fused_optimizer=False,
+                   fuse_eager_step=fuse)
+        losses = []
+        for j, (x, y) in enumerate(batches):
+            for i in range(2):
+                sl = slice(4 * i + rank, 4 * i + 4, world)
+                loss = s.loss(s.model(x[sl]), y[sl])
+                s.backward(loss)
+                if fuse and j == 0 and i == 0:
+                    out["pending_after_backward"] = len(s._pending_micro)
+                s.step()
+                losses.append(loss)
+        out["losses"][fuse] = [float(s.detach_and_sync_loss(v)) for v in losses]
+        params.append([p.detach().clone() for p in s.model_access.parameters()])
+        if fuse:
+            out.update(refusal=s.graph_refusal, ddp=isinstance(s._wrapped, DistributedDataParallel),
+                       captured=any(g.capture for g in s._graphs.values()),
+                       kinds=sorted({kind for kind, _ in s._graphs}))
+    out["equal"] = all(torch.equal(a, b) for a, b in zip(*params))
+    return out
+
+
+def stoke_window_worker(rank: int, world: int, *, read_each: bool, steps: int = 3) -> dict:
+    """The driver's facade (ZeRO-2, toy SwinIR, seed 0) on the card in this
+    rank's group: ``steps`` optimizer steps of the Stoke-style loop,
+    graphed and then uncaptured from the same weights, each loss read after
+    its ``.step()`` (``read_each``: the split path) or after the run (the
+    window). Returns both runs' losses, whether the parameters agree
+    bitwise, the graphed run's captures and NCCL's async error handling."""
+    from pytorch_distributedtraining_tpu_torch import stoke
+
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    g = torch.Generator(device="cuda").manual_seed(0)
+    batches = []
+    for _ in range(2 * steps):
+        hr = torch.rand(4, 16, 16, 3, device="cuda", generator=g)
+        batches.append((hr.reshape(4, 8, 2, 8, 2, 3).mean(dim=(2, 4)), hr))
+    out, params = {}, []
+    for graphed in (True, False):
+        s = facade(toy_swinir(), device="cuda")
+        losses = []
+        with s.uncaptured() if not graphed else contextlib.nullcontext():
+            for x, y in batches:
+                loss = s.loss(s.model(x), y)
+                s.backward(loss)
+                s.step()
+                losses.append(loss.item() if read_each else loss)
+        out["graphed" if graphed else "uncaptured"] = [float(v) for v in losses]
+        params.append([p.detach().clone() for p in s.model_access.parameters()])
+        if graphed:
+            out["captures"] = {kind: gr.captures for (kind, _), gr in s._graphs.items()}
+    out["equal"] = all(torch.equal(a, b) for a, b in zip(*params))
+    out["async_error_handling"] = os.environ.get("TORCH_NCCL_ASYNC_ERROR_HANDLING")
+    return out
