@@ -324,9 +324,37 @@ Phases, each fatal on failure:
    traced (48 K1 and 48 K2 a step in the replays' device records, one
    graph launch a program; the uncaptured twin is timed, not traced), one
    capture a program, and the peaks, the graphed one with the facade's
-   shared pool.
+   shared pool;
+20. host offload and named remat, under phase 19's deterministic
+   settings: first the card's pinned copy rates (``pinned_rates``: a
+   ``OFFLOAD_PROBE_MIB`` MiB pinned buffer each way, CUDA events); (a)
+   SwinIR-S at the bench shape (one micro-batch of ``BATCH``) through
+   ``TrainStep`` + ``FusedAdamW`` in f32 and bf16 under each of
+   ``REMAT_POLICIES`` (the model's per-layer ``remat``), ``REMAT_STEPS``
+   steps from one seed: step ms, the allocator's peak, and K1/K2 a step in
+   a traced step's device records, which must be ``remat_kernels`` of the
+   policy (the recompute runs K1 again under every policy but ``none``:
+   ``names`` and ``offload`` save the tag after K1, not its residuals);
+   losses and parameters against ``none``'s, bitwise expected, within
+   ``GRAPH_TOL``; (b) GPT-2 125M bf16 with dropout 0.1 (the ladder's
+   ``build_lm``) under ``names`` and ``offload`` against ``none`` the same way,
+   K3 twice a step under remat, K4 and K5 once; (c) GPT-2 125M bf16 under
+   ``ZeRO1(offload_opt_state=True)`` and then ``ZeRO1(offload_params=
+   True)``, each with the per-leaf ``AdamW`` and ``FusedAdamW``, against
+   the resident run of the same optimizer over ``OFFLOAD_STEPS`` steps:
+   losses and parameters bitwise equal, every offloaded tensor on the host
+   and pinned, ``torch.cuda.memory_allocated()`` between steps lower by the
+   offloaded bytes within ``OFFLOAD_MEM_TOL``, step ms and peak beside the
+   resident's and the step ms the copy rates predict; then the parameter
+   arm's steps again as one ``MultiStep(k=OFFLOAD_STEPS)`` replay from the
+   same state, bitwise equal to them; (d) the driver's facade with
+   ``DeepspeedConfig(zero_optimization=DeepspeedZeROConfig(stage=2),
+   offload_optimizer=DeepspeedOffloadOptimizerConfig(device="cpu"))``:
+   the per-leaf state on the host, pinned, finite losses, moved weights,
+   48 K1 and 48 K2 a step in a replay's device records; (e) the ESPCN
+   driver with ``--remat names --device-prefetch 2``.
 
-Phases 5-9, 11, 12, 14-17 and 19 note the shape, dtype and mask (or causality) of
+Phases 5-9, 11, 12, 14-17, 19 and 20 note the shape, dtype and mask (or causality) of
 every launch; the run fails if one of them was not held against the plain
 version in phase 3 or 4 (phase 3 holds phase 14's tile batch, q/k/v [144,
 6, 64, 30], in f32 and bf16 with and without the mask) or, for phase 16's
@@ -3906,6 +3934,360 @@ def phase_graphs(smi: str) -> dict:
     return out
 
 
+REMAT_POLICIES = ("none", "full", "dots", "names", "offload")
+REMAT_STEPS = 3
+OFFLOAD_STEPS = 4
+OFFLOAD_MEM_TOL = 0.05  # the between-step memory drop against the offloaded bytes
+OFFLOAD_PROBE_MIB = 256
+SWINIR_LAYERS = 24  # SwinIR-S: 6 residual groups of 4 Swin layers
+
+
+def remat_kernels(policy: str) -> dict:
+    """K1/K2 a SwinIR-S step (one micro-batch) under ``policy``: every
+    policy but ``none`` recomputes each Swin layer's forward in backward,
+    K1 included, since none of them saves K1's residuals (``names`` and
+    ``offload`` save the ``attn_out`` tag after it)."""
+    return {"K1": SWINIR_LAYERS * (1 if policy == "none" else 2), "K2": SWINIR_LAYERS}
+
+
+def pinned_rates() -> dict:
+    """GB/s of a pinned host buffer of ``OFFLOAD_PROBE_MIB`` MiB copied to the
+    card and back, each the best of three timed with CUDA events."""
+    import torch
+
+    n = OFFLOAD_PROBE_MIB * 2**20
+    host = torch.empty(n, dtype=torch.uint8, pin_memory=True)
+    dev = torch.empty(n, dtype=torch.uint8, device="cuda")
+    out = {}
+    for name, dst, src in (("h2d", dev, host), ("d2h", host, dev)):
+        best = float("inf")
+        for _ in range(3):
+            t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            t0.record()
+            dst.copy_(src, non_blocking=True)
+            t1.record()
+            t1.synchronize()
+            best = min(best, t0.elapsed_time(t1))
+        out[name] = n / best / 1e6
+    return out
+
+
+def _compare(name: str, run: dict, ref: dict, dtype: str) -> tuple[bool, list]:
+    """Whether ``run``'s losses and parameters equal the reference run's
+    (from the same start, ``ref["start"]``) bitwise, and ``graph_faults``'
+    faults: a difference above ``GRAPH_TOL`` of the reference's change."""
+    import torch
+
+    bitwise = run["losses"] == ref["losses"] and all(
+        torch.equal(a, b) for a, b in zip(run["params"], ref["params"]))
+    return bitwise, graph_faults(name, (run["losses"], ref["losses"]),
+                                 (run["params"], ref["params"]), ref["start"], dtype)
+
+
+def _remat_swinir(policy: str, fp16, batches: list) -> dict:
+    """Phase 20 (a): SwinIR-S (the driver's ``build_model``, seed 0) with its
+    layers under ``policy``, ``TrainStep`` + ``FusedAdamW``, the steps of
+    ``batches``: losses, parameters, step ms, peak, a traced step's K1/K2."""
+    import torch
+
+    from pytorch_distributedtraining_tpu_torch import optim
+    from pytorch_distributedtraining_tpu_torch.drivers import stoke_ddp
+    from pytorch_distributedtraining_tpu_torch.losses import mse_loss
+    from pytorch_distributedtraining_tpu_torch.parallel import TrainStep
+    from pytorch_distributedtraining_tpu_torch.precision import Policy
+
+    prec = Policy.from_name(fp16)
+
+    def loss_fn(m, b):
+        with prec.autocast(b[0].device):
+            out_ = m(b[0])
+        return mse_loss(out_.float(), b[1]), {}
+
+    model = stoke_ddp.build_model(remat=policy).cuda()
+    start = [p.detach().clone() for p in model.parameters()]
+    step = TrainStep(model, loss_fn, optim.FusedAdamW(model.named_parameters(), lr=5e-4,
+                                                      clip_grad_norm=0.1))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, times = [], []
+    for b in batches:
+        t0 = time.perf_counter()
+        losses.append(step(b)["loss"])
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    params = [p.detach().clone() for p in model.parameters()]
+    traced = traced_call(lambda: step(batches[0]), remat_kernels(policy))
+    return {"losses": [v.item() for v in losses], "params": params, "start": start,
+            "step_ms": statistics.median(times[1:]), "peak_gib": peak,
+            "kernels": traced["kernels"], "takes": traced["takes"]}
+
+
+def _remat_lm(policy: str, tokens: list) -> dict:
+    """Phase 20 (b): GPT-2 125M bf16, dropout 0.1, per-block ``policy``
+    (the ladder's ``build_lm``, seed 0), the steps of ``tokens``."""
+    import torch
+
+    from pytorch_distributedtraining_tpu_torch.benchmarks import ladder
+    from pytorch_distributedtraining_tpu_torch.models import GPT2Config
+
+    model, step, _ = ladder.build_lm(GPT2Config(dropout=0.1, remat=policy), LM_BATCH, LM_SEQ,
+                                     torch.device("cuda"))
+    start = [p.detach().clone() for p in model.parameters()]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, times = [], []
+    for t in tokens:
+        t0 = time.perf_counter()
+        losses.append(step(t)["loss"])
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    params = [p.detach().clone() for p in model.parameters()]
+    want = {"K3": LM_LAYERS * (1 if policy == "none" else 2), "K4": LM_LAYERS, "K5": LM_LAYERS}
+    traced = traced_call(lambda: step(tokens[0]), want)
+    return {"losses": [v.item() for v in losses], "params": params, "want": want, "start": start,
+            "step_ms": statistics.median(times[1:]), "peak_gib": peak,
+            "kernels": traced["kernels"], "takes": traced["takes"]}
+
+
+def _offload_arm(opt: str, what: str | None, tokens: list, multi: bool = False) -> dict:
+    """Phase 20 (c): GPT-2 125M bf16 (flash attention, seed 0) under
+    ``ZeRO1`` with ``what`` ("state", "params" or None: resident) offloaded,
+    ``opt`` ("adamw" per leaf or "fused"), the steps of ``tokens``: losses,
+    parameters on the host, step ms, peak, the between-step allocation
+    (``memory_allocated`` after the steps less before the build, less the
+    device copies a ``multi`` snapshot holds; the peak likewise), the
+    offloaded tensors' bytes and whether each is on the host and pinned;
+    with ``multi``, the same steps again from the same state as one
+    ``MultiStep`` replay (its losses, parameters and captures)."""
+    import functools
+
+    import torch
+
+    from pytorch_distributedtraining_tpu_torch import optim, parallel
+    from pytorch_distributedtraining_tpu_torch.benchmarks import ladder
+    from pytorch_distributedtraining_tpu_torch.models import GPT2, GPT2Config
+    from pytorch_distributedtraining_tpu_torch.ops import flash_attn as tfa
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    model = GPT2(GPT2Config(), attn_fn=tfa.make_flash_attn_fn(),
+                 generator=torch.Generator().manual_seed(0))
+    factory = optim.adamw if opt == "adamw" else optim.FusedAdamW
+    policy = parallel.ZeRO1(offload_opt_state=what == "state", offload_params=what == "params")
+    st = parallel.create_train_state(model, functools.partial(factory, lr=3e-4,
+                                                              clip_grad_norm=1.0),
+                                     None, policy, device="cuda")
+    step = parallel.TrainStep(st.model, ladder._lm_loss, st.tx)
+    tx = st.tx
+    offloaded = ((tx._host_params or []) if what == "params" else
+                 [t for v in tx._state().values() for t in v] if what == "state" else [])
+    snapshot = step.state_snapshot() if multi else None
+    kept = sum(t.numel() * t.element_size() for t in (snapshot or {}).get("tensors", [])
+               if t.is_cuda)  # the snapshot's device copies (the moments), not the step's
+    torch.cuda.reset_peak_memory_stats()
+    losses, times = [], []
+    for t in tokens:
+        t0 = time.perf_counter()
+        losses.append(step(t)["loss"])
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    out = {"losses": [v.item() for v in losses], "step_ms": statistics.median(times[1:]),
+           "peak_gib": (torch.cuda.max_memory_allocated() - kept) / 2**30,
+           "held_gib": (torch.cuda.memory_allocated() - base - kept) / 2**30,
+           "offloaded_bytes": sum(t.numel() * t.element_size() for t in offloaded),
+           "on_host_pinned": all(t.device.type == "cpu" and t.is_pinned() for t in offloaded),
+           "n_offloaded": len(offloaded)}
+    tx.settle()
+    out["params"] = [p.detach().to("cpu", copy=True) for p in model.parameters()]
+    if multi:
+        step.restore_state(snapshot)
+        runner = parallel.MultiStep(step, len(tokens))
+        m = runner(torch.stack(tokens))
+        tx.settle()
+        out["captures"] = runner.graph.captures
+        out["multi_losses"] = m["loss"].tolist()
+        out["multi_params"] = [p.detach().to("cpu", copy=True) for p in model.parameters()]
+    del step, st, model, tx, offloaded, snapshot
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_offload(smi: str) -> dict:
+    """Phase 20: host offload and named remat (module docstring)."""
+    import math
+
+    import torch
+
+    from pytorch_distributedtraining_tpu_torch.drivers import fairscale_ddp, stoke_ddp
+    from pytorch_distributedtraining_tpu_torch.models import GPT2Config
+    from pytorch_distributedtraining_tpu_torch.stoke import (DeepspeedConfig,
+                                                             DeepspeedOffloadOptimizerConfig,
+                                                             DeepspeedZeROConfig)
+
+    t_phase = time.perf_counter()
+    saved = (torch.backends.cudnn.deterministic, torch.are_deterministic_algorithms_enabled(),
+             torch.utils.deterministic.fill_uninitialized_memory,
+             os.environ.get("CUBLAS_WORKSPACE_CONFIG"))
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.utils.deterministic.fill_uninitialized_memory = False
+    out, faults = {"remat": {}, "offload": {}}, []
+    try:
+        rates = out["pinned_gbps"] = pinned_rates()
+        print(f"[offload] pinned copies of {OFFLOAD_PROBE_MIB} MiB: host to card "
+              f"{rates['h2d']:.2f} GB/s, card to host {rates['d2h']:.2f} GB/s | {smi}")
+        # (a) SwinIR-S under each remat policy, f32 and bf16
+        batches = [(x[:BATCH], y[:BATCH]) for x, y in _swinir_batches(REMAT_STEPS, seed=20)]
+        for fp16 in (None, "bf16"):
+            dtype = "bfloat16" if fp16 else "float32"
+            runs = {}
+            for policy in REMAT_POLICIES:
+                runs[policy] = r = _remat_swinir(policy, fp16, batches)
+                torch.cuda.empty_cache()
+                name = f"(a) SwinIR-S {dtype} remat {policy}"
+                bitwise, f = (True, []) if policy == "none" else _compare(
+                    name, r, runs["none"], dtype)
+                want = remat_kernels(policy)
+                f += kernel_faults(name, r["kernels"], want)
+                print(f"[offload] {name}: step {r['step_ms']:.2f} ms, peak {r['peak_gib']:.3f} "
+                      f"GiB, K1 {r['kernels']['K1']:g} K2 {r['kernels']['K2']:g} a step in the "
+                      f"device records (expected {want['K1']}/{want['K2']}, take {r['takes']}), "
+                      f"{'the reference' if policy == 'none' else 'bitwise equal to none' if bitwise else 'not bitwise'} "
+                      f"| {smi}")
+                faults += f
+                out["remat"][f"swinir_{dtype}_{policy}"] = {
+                    k: r[k] for k in ("step_ms", "peak_gib", "kernels")} | {"bitwise": bitwise}
+            for r in runs.values():
+                r.pop("params"), r.pop("start")
+            peaks = {p: runs[p]["peak_gib"] for p in REMAT_POLICIES}
+            print(f"[offload] (a) SwinIR-S {dtype} peaks in order: "
+                  + " > ".join(f"{p} {v:.3f}" for p, v in sorted(peaks.items(),
+                                                                 key=lambda kv: -kv[1])))
+        # (b) GPT-2 125M bf16, dropout 0.1, under names and offload
+        g = torch.Generator(device="cuda").manual_seed(20)
+        tokens = [torch.randint(0, GPT2Config().vocab_size, (LM_BATCH, LM_SEQ), device="cuda",
+                                generator=g) for _ in range(OFFLOAD_STEPS)]
+        lm = {}
+        for policy in ("none", "names", "offload"):
+            lm[policy] = r = _remat_lm(policy, tokens[:REMAT_STEPS])
+            torch.cuda.empty_cache()
+            name = f"(b) GPT-2 125M bf16 dropout 0.1 remat {policy}"
+            bitwise, f = (True, []) if policy == "none" else _compare(name, r, lm["none"],
+                                                                      "bfloat16")
+            f += kernel_faults(name, r["kernels"], r["want"])
+            print(f"[offload] {name}: step {r['step_ms']:.2f} ms, peak {r['peak_gib']:.3f} GiB, "
+                  + " ".join(f"{k} {r['kernels'][k]:g}" for k in r["want"])
+                  + f" a step (expected {r['want']}, take {r['takes']}), "
+                  f"{'the reference' if policy == 'none' else 'bitwise equal to none' if bitwise else 'not bitwise'} "
+                  f"| {smi}")
+            faults += f
+            out["remat"][f"gpt2_{policy}"] = {k: r[k] for k in ("step_ms", "peak_gib",
+                                                                "kernels")} | {"bitwise": bitwise}
+        del lm
+        torch.cuda.empty_cache()
+        # (c) optimizer-state, then parameter offload on GPT-2 125M
+        for opt in ("adamw", "fused"):
+            resident = _offload_arm(opt, None, tokens)
+            for what in ("state", "params"):
+                r = _offload_arm(opt, what, tokens, multi=what == "params")
+                name = f"(c) GPT-2 125M bf16 {opt} ZeRO1(offload_{'opt_state' if what == 'state' else 'params'}=True)"
+                bitwise = r["losses"] == resident["losses"] and all(
+                    torch.equal(a, b) for a, b in zip(r["params"], resident["params"]))
+                drop = (resident["held_gib"] - r["held_gib"]) * 2**30
+                rel = abs(drop - r["offloaded_bytes"]) / r["offloaded_bytes"]
+                moved = 2 * r["offloaded_bytes"]  # in before the update, back after it
+                predicted = (r["offloaded_bytes"] / rates["h2d"]
+                             + r["offloaded_bytes"] / rates["d2h"]) / 1e6
+                row = {"step_ms": r["step_ms"], "resident_step_ms": resident["step_ms"],
+                       "predicted_extra_ms": predicted, "peak_gib": r["peak_gib"],
+                       "resident_peak_gib": resident["peak_gib"],
+                       "offloaded_gib": r["offloaded_bytes"] / 2**30, "drop_gib": drop / 2**30,
+                       "drop_rel_err": rel, "bitwise": bitwise, "pinned": r["on_host_pinned"]}
+                print(f"[offload] {name}: {r['n_offloaded']} tensors, "
+                      f"{r['offloaded_bytes'] / 2**30:.4f} GiB on the host "
+                      f"({'pinned' if r['on_host_pinned'] else 'NOT pinned'}); between steps "
+                      f"{drop / 2**30:.4f} GiB less on the card (rel. err {rel:.4f}); step "
+                      f"{r['step_ms']:.2f} ms vs resident {resident['step_ms']:.2f} ms (the copy "
+                      f"rates predict +{predicted:.2f} ms for {moved / 2**30:.3f} GiB moved); "
+                      f"peak {r['peak_gib']:.3f} vs {resident['peak_gib']:.3f} GiB; "
+                      f"{OFFLOAD_STEPS} steps {'bitwise equal' if bitwise else 'NOT bitwise'} "
+                      f"to the resident run | {smi}")
+                if not bitwise:
+                    faults.append(f"{name}: not bitwise equal to the resident run")
+                if not r["on_host_pinned"] or not r["n_offloaded"]:
+                    faults.append(f"{name}: offloaded state not on the host and pinned")
+                if rel > OFFLOAD_MEM_TOL:
+                    faults.append(f"{name}: between-step drop {drop / 2**30:.4f} GiB, offloaded "
+                                  f"{r['offloaded_bytes'] / 2**30:.4f} GiB")
+                if "multi_losses" in r:
+                    mbit = r["multi_losses"] == r["losses"] and all(
+                        torch.equal(a, b) for a, b in zip(r["multi_params"], r["params"]))
+                    row["multistep_bitwise"] = mbit
+                    print(f"[offload] {name}: MultiStep(k={OFFLOAD_STEPS}) replay "
+                          f"({r['captures']} capture) {'bitwise equal' if mbit else 'NOT bitwise'} "
+                          f"to its eager steps")
+                    if not mbit or r["captures"] != 1:
+                        faults.append(f"{name}: MultiStep captures {r['captures']}, bitwise {mbit}")
+                out["offload"][f"{opt}_{what}"] = row
+                del r
+            del resident
+        torch.cuda.empty_cache()
+        # (d) the driver's facade with DeepSpeed ZeRO-2 + optimizer offload
+        ds = DeepspeedConfig(zero_optimization=DeepspeedZeROConfig(stage=2),
+                             offload_optimizer=DeepspeedOffloadOptimizerConfig(device="cpu"))
+        s = stoke_ddp.build_stoke(stoke_ddp.build_model(), batch_size=BATCH, verbose=False,
+                                  configs=[ds])
+        w0 = [p.detach().clone() for p in s.model_access.parameters()]
+        gb = _swinir_batches(2, seed=21)
+        losses = [_stoke_style(s, b).item() for b in gb]
+        state = [t for v in s._opt._state().values() for t in v]
+        pinned = s._opt.offloaded_state and all(t.is_pinned() for t in state)
+        traced = traced_call(lambda: _stoke_style(s, gb[0]), {"K1": 48, "K2": 48})
+        moved = max(float((p.detach() - w).abs().max())
+                    for p, w in zip(s.model_access.parameters(), w0))
+        name = "(d) the driver's facade, DeepspeedConfig(stage 2, offload_optimizer cpu)"
+        print(f"[offload] {name}: {type(s.policy).__name__}(offload_opt_state="
+              f"{s.policy.offload_opt_state}), {type(s._opt).__name__}, {len(state)} state "
+              f"tensors {'pinned on the host' if pinned else 'NOT pinned'}, losses {losses}, "
+              f"weights moved {moved:.3e}, K1 {traced['kernels']['K1']:g} K2 "
+              f"{traced['kernels']['K2']:g} a step in the replay's device records (take "
+              f"{traced['takes']}), graphs {[g_.captures for g_ in s._graphs.values()]} | {smi}")
+        faults += kernel_faults(name, traced["kernels"], {"K1": 48, "K2": 48})
+        if not pinned or not all(math.isfinite(v) for v in losses) or not moved > 0:
+            faults.append(f"{name}: pinned {pinned}, losses {losses}, moved {moved}")
+        out["facade"] = {"losses": losses, "pinned": pinned, "kernels": traced["kernels"]}
+        del s, w0, state
+        torch.cuda.empty_cache()
+        # (e) the ESPCN driver with --remat names --device-prefetch 2
+        model = fairscale_ddp.build_model()
+        w0 = model.conv1.weight.detach().clone()
+        t0 = time.perf_counter()
+        loss = fairscale_ddp.main(["--synthetic", "--synthetic-n", "256", "--epochs", "1",
+                                   "--workers", "0", "--remat", "names", "--device-prefetch",
+                                   "2"], model=model)
+        moved = (model.conv1.weight.detach().cpu() - w0.cpu()).abs().max().item()
+        print(f"[offload] (e) drivers.fairscale_ddp --remat names --device-prefetch 2: one "
+              f"epoch in {time.perf_counter() - t0:.1f} s, last loss {loss}, weights moved "
+              f"{moved:.2e}, on {model.conv1.weight.device}")
+        if loss is None or not math.isfinite(loss) or not moved > 0 or \
+                model.conv1.weight.device.type != "cuda":
+            faults.append(f"(e): loss {loss}, moved {moved}, on {model.conv1.weight.device}")
+    finally:
+        torch.backends.cudnn.deterministic = saved[0]
+        torch.use_deterministic_algorithms(saved[1])
+        torch.utils.deterministic.fill_uninitialized_memory = saved[2]
+        if saved[3] is None:
+            os.environ.pop("CUBLAS_WORKSPACE_CONFIG", None)
+        torch.cuda.empty_cache()
+    print(f"[offload] phase {time.perf_counter() - t_phase:.1f} s")
+    if faults:
+        raise SystemExit("phase 20: " + "; ".join(faults))
+    return out
+
+
 def mfu_lines(smi: str, bench: dict, bench_cfg: dict, lm: dict, images: dict,
               health: dict) -> dict:
     """The MFU of each measured training path that ``observe.goodput``
@@ -3972,9 +4354,10 @@ def main() -> int:
     phase_launch(smi)
     with record_launches(seen):
         phase_graphs(smi)
+        phase_offload(smi)
     mfu_lines(smi, bench, bench_cfg, lm, images, health)
     checked = set().union(*(c["checked"] for c in cases + flash_cases), health["checked"])
-    print(f"[shapes] phases 5-9, 11, 12, 14-17 and 19 launched {len(seen)} kinds of (kernel, q "
+    print(f"[shapes] phases 5-9, 11, 12, 14-17, 19 and 20 launched {len(seen)} kinds of (kernel, q "
           f"shape, dtype, mask windows or causal): {sorted(seen, key=str)}")
     if seen - checked:
         raise SystemExit(f"launched on a driven path but never held against the plain "

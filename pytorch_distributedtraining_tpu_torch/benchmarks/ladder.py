@@ -405,7 +405,7 @@ def main(argv=None) -> int:
                     help="the sharding policy (default: the rung's own; none, the plain "
                          "one-device step, for config 4, where zero3 with --remat full is "
                          "the JAX rung's layout)")
-    ap.add_argument("--remat", default="none", choices=["none", "full", "dots", "offload"],
+    ap.add_argument("--remat", default="none", choices=["none", "full", "dots", "names", "offload"],
                     help="activation rematerialisation of the loss (parallel.remat)")
     ap.add_argument("--trace", default=None, metavar="PATH",
                     help="also trace --steps steps into this Chrome trace and add the device "

@@ -223,6 +223,7 @@ def state_leaves(state, meta: dict | None = None) -> list[Leaf]:
     cut per parameter (gathered first under ZeRO-1: a collective)."""
     from .parallel.spec import dim0_chunk_start, is_dtensor
 
+    state.tx.settle()  # offloaded state: the host copies, complete
     axis = _data_axis(state.mesh)
     leaves = []
     for name, t in state.module.state_dict().items():
@@ -300,6 +301,7 @@ def load_state(state, arrays: dict[str, torch.Tensor]) -> dict:
     from .parallel.state import load_module_state
 
     params = {k[len("params/"):]: v for k, v in arrays.items() if k.startswith("params/")}
+    state.tx.settle()  # into the master parameters (host ones if offloaded)
     load_module_state(state.module, params)
     tx = state.tx
     opt: dict = {"count": int(arrays["opt_state/count"])}
@@ -327,6 +329,8 @@ def _dcp_state(state, meta: dict | None = None) -> dict:
                                           shape=shape, stride=stride)
 
     from torch.distributed.tensor import Shard
+
+    state.tx.settle()
 
     tx = state.tx
     axis = _data_axis(state.mesh)

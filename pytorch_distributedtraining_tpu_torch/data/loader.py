@@ -23,8 +23,9 @@ epoch's augmentation, not epoch 0's again.
 
 With telemetry on (``observe.trace``), the consumer's time blocked on each
 batch is an ``input`` span (``input.fetch`` without workers,
-``input.wait`` with them or through the prefetcher), which the goodput
-ledger bills as ``input_wait``.
+``input.wait`` with them; through the prefetcher, that span of the host
+batch and the prefetcher's ``input.wait``, as JAX's loader records them),
+which the goodput ledger bills as ``input_wait``.
 
 :func:`stack_windows` groups batches into ``[k, B, ...]`` stacks, the feed
 of ``parallel.MultiStep`` (JAX's ``stack_windows``).
@@ -184,12 +185,12 @@ class DataLoader:
             return self.device_iter(depth=self.device_prefetch)
         return self._plain_iter()
 
-    def _plain_iter(self):
-        # the consumer's time blocked on the next batch is the goodput
-        # ledger's input_wait: a synchronous fetch and collate without
-        # workers ("input.fetch"), the wait for a worker's batch with them
+    def _timed(self, batches):
+        # the time blocked on the next host batch is the goodput ledger's
+        # input_wait: a synchronous fetch and collate without workers
+        # ("input.fetch"), the wait for a worker's batch with them; JAX's
+        # loader records it with or without the device prefetcher after it
         name = "input.wait" if self._loader.num_workers > 0 else "input.fetch"
-        batches = self._host_batches()
         while True:
             t0 = time.perf_counter()
             batch = next(batches, None)
@@ -197,6 +198,10 @@ class DataLoader:
                 return
             if telemetry.enabled():
                 telemetry.add_span(name, "input", t0, time.perf_counter() - t0)
+            yield batch
+
+    def _plain_iter(self):
+        for batch in self._timed(self._host_batches()):
             yield tuple(t.to(self.device, non_blocking=True) for t in batch)
 
     def device_iter(self, depth: int = 2, probe=None) -> DevicePrefetcher:
@@ -204,7 +209,8 @@ class DataLoader:
         that keeps ``depth`` of them copied (or copying) to the device ahead
         of the consumer; ``probe`` (an ``observe.profiling.
         TransferOverlapProbe``) receives its waits."""
-        return DevicePrefetcher(self._host_batches(), self.device, depth=depth, probe=probe)
+        return DevicePrefetcher(self._timed(self._host_batches()), self.device, depth=depth,
+                                probe=probe)
 
     def shutdown_workers(self) -> None:
         """Stop persistent worker processes now rather than at exit."""

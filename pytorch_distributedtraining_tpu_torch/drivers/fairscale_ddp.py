@@ -66,10 +66,14 @@ mesh's axes)::
 
 It runs on the GPU (``--device cuda``, the default) and refuses to start
 without one unless ``--device cpu`` is given. When the data folders are
-absent it trains on synthetic data. The JAX driver's flags whose modules
-are not ported (``--remat``, ``--pp``, ``--pp-schedule``, ``--wire``,
-``--hier``, ``--plan``, ``--analyze``, ``--device-prefetch``) are not
-defined.
+absent it trains on synthetic data. ``--remat`` (else ``$GRAFT_REMAT``,
+else ``none``) is the step's activation-checkpointing policy,
+``ZeRO2(remat=)``, as in JAX (ESPCN tags no activation, so ``names`` and
+``offload`` recompute as ``full`` does); ``--device-prefetch N`` (default
+2, 0 for none) is how many batches both loaders copy to the device ahead
+of the step (``DataLoader(device_prefetch=)``). The JAX driver's flags
+whose modules are not ported (``--pp``, ``--pp-schedule``, ``--wire``,
+``--hier``, ``--plan``, ``--analyze``) are not defined.
 """
 
 from __future__ import annotations
@@ -173,15 +177,18 @@ def _train(opt: argparse.Namespace, device: torch.device, model: Net | None) -> 
     # persistent workers: the probe batch's half-read epoch is reset, not
     # torn down mid-flight, and the epochs reuse the same processes
     context = "spawn" if opt.workers > 0 else None
+    # --device-prefetch batches staged on the device ahead of the step, so
+    # the copy overlaps the running step
     training_dataloader = DataLoader(
         train_dataset, batch_size=opt.batch_size, sampler=train_sampler,
         num_workers=opt.workers, drop_last=True, device=device,
         persistent_workers=True, multiprocessing_context=context,
+        device_prefetch=opt.device_prefetch,
     )
     # built as the reference builds it; the loop below never reads it
     DataLoader(val_dataset, batch_size=opt.batch_size, sampler=val_sampler,
                num_workers=min(8, opt.workers), drop_last=True, device=device,
-               multiprocessing_context=context)
+               multiprocessing_context=context, device_prefetch=opt.device_prefetch)
 
     try:
         # probe batch (Fairscale-DDP.py:67-71)
@@ -190,8 +197,10 @@ def _train(opt: argparse.Namespace, device: torch.device, model: Net | None) -> 
         _line("--Shape--", tuple(x.shape), tuple(y.shape))
 
         print("===> Building model")
-        # OSS(AdamW) + ShardedDDP (:78-89): ZeRO-2 over the world's ranks
-        policy = ZeRO2()
+        # OSS(AdamW) + ShardedDDP (:78-89): ZeRO-2 over the world's ranks;
+        # --remat/$GRAFT_REMAT picks the activation-checkpointing policy
+        remat = opt.remat if opt.remat is not None else os.environ.get("GRAFT_REMAT", "none")
+        policy = ZeRO2(remat=remat)
         mesh = make_mesh(MeshSpec.zero()) if dist.is_initialized() else None
         tx = functools.partial(optim.adamw, lr=1e-3, betas=(0.9, 0.99), eps=1e-8,
                                weight_decay=1e-4)
@@ -275,6 +284,11 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--input-dir", type=str, default=INPUT_PATH)
     parser.add_argument("--target-dir", type=str, default=TARGET_PATH)
     parser.add_argument("--workers", type=int, default=16)
+    parser.add_argument("--device-prefetch", type=int, default=2,
+                        help="batches staged on the device ahead of the step (0 = none)")
+    parser.add_argument("--remat", type=str, default=None,
+                        help="activation remat policy for the step: none/full/dots/names/"
+                             "offload (default: $GRAFT_REMAT or none)")
     parser.add_argument("--synthetic", action="store_true",
                         help="train on synthetic SR data (no dataset needed)")
     parser.add_argument("--synthetic-n", type=int, default=512)

@@ -239,7 +239,7 @@ def build_parser():
     parser.add_argument("--device", type=str, default="cuda", choices=["cuda", "cpu"],
                         help="train on the GPU (default; fails without one) or the CPU")
     parser.add_argument("--remat", type=str, default=None,
-                        help="activation remat policy per Swin layer: none/full/dots/offload "
+                        help="activation remat policy per Swin layer: none/full/dots/names/offload "
                              "(default: $GRAFT_REMAT or none)")
     parser.add_argument("--deterministic", action="store_true",
                         help="cuDNN's deterministic algorithms (torch.backends.cudnn."
@@ -267,12 +267,14 @@ def build_model(seed: int = 0, remat: str | None = None) -> SwinIR:
 def build_stoke(model: torch.nn.Module, *, lr: float = 0.001, weight_decay: float = 1e-4,
                 grad_clip: float = 0.1, batch_size: int = 18, fp16: str | None = None,
                 device: str = "cuda", verbose: bool = True, oss: bool = True,
-                sddp: bool = True, fsdp: bool = False, loss=feat_loss) -> Stoke:
+                sddp: bool = True, fsdp: bool = False, loss=feat_loss,
+                configs: tuple = ()) -> Stoke:
     """The driver's facade: ``feat_loss``, AdamW, global-norm clip,
     ``grad_accum_steps=2``, DDP with OSS and SDDP (ZeRO-2) and
     ``broadcast_fp16``, over the process group when there is one.
     ``oss``/``sddp``/``fsdp`` set the Fairscale flags for another layout,
-    ``loss`` another loss."""
+    ``loss`` another loss, ``configs`` more configs after the driver's (a
+    ``DeepspeedConfig``: a ZeRO stage, host offload)."""
     local_rank = os.getenv("LOCAL_RANK")
     ddp_config = DDPConfig(
         local_rank=int(local_rank) if local_rank not in (None, "None") else None,
@@ -301,7 +303,7 @@ def build_stoke(model: torch.nn.Module, *, lr: float = 0.001, weight_decay: floa
         fairscale_fsdp=fsdp,
         grad_accum_steps=2,
         configs=[AMPConfig(init_scale=2.0**14), ddp_config,
-                 FairscaleOSSConfig(broadcast_fp16=True)],
+                 FairscaleOSSConfig(broadcast_fp16=True), *configs],
         grad_clip=ClipGradNormConfig(max_norm=grad_clip, norm_type=2.0),
         device=device,
     )

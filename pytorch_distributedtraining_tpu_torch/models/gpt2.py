@@ -24,9 +24,11 @@ attention's ``c_proj`` and after the MLP's ``c_proj`` (JAX's ``mlp_proj``),
 each with its own site in :func:`~..parallel.rng.dropout`'s key, none on
 the attention probabilities (the JAX model has none there, so ``attn_fn``
 and the flash kernels stay as they are). ``cfg.remat`` checkpoints each
-block under a ``parallel.remat`` policy (``True``/``'full'`` or
-``'dots'``, as JAX's ``remat_block``); a recomputed block redraws the
-same masks, which are fixed by the key and the site.
+block under a ``parallel.remat`` policy (``True``/``'full'``, ``'dots'``,
+``'names'`` or ``'offload'``, as JAX's ``remat_block``); the attention's
+output before ``c_proj`` carries JAX's ``attn_out`` tag, the set
+``'names'`` saves and ``'offload'`` keeps on the host. A recomputed block
+redraws the same masks, which are fixed by the key and the site.
 
 ``decode=True`` takes a KV cache on every call (``models.generate``): a
 :class:`~.generate.KVCache` (contiguous, one global write position, the
@@ -41,9 +43,7 @@ flash kernels) serve the cache-less forward only.
 
 Not ported yet, and raising ``NotImplementedError``: quantized KV pages
 (``kv_wire``; the quantized-KV slice), ``fp8`` dense layers (the fp8
-matmul slice), ``scan_layers`` (the scan-over-layers slice),
-``remat='names'`` (torch has no ``checkpoint_name`` tags) and
-``remat='offload'`` (the offload slice).
+matmul slice) and ``scan_layers`` (the scan-over-layers slice).
 """
 
 from __future__ import annotations
@@ -56,7 +56,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..parallel.remat import NAMES_UNSUPPORTED, apply_remat, resolve_remat
+from ..parallel.remat import apply_remat, checkpoint_name, resolve_remat
 from ..parallel.rng import as_key, dropout
 from .generate import (QUANTIZED_KV, KVCache, PagedKVCache, cached_attention,
                        paged_attention, write_paged_kv)
@@ -178,7 +178,8 @@ class Block(nn.Module):
             y = paged_attention(q, kp, vp, page_table, lengths)
         else:
             y = cached_attention(q, k, v, cache.k[layer], cache.v[layer], cache.position)
-        y = y.reshape(b, t, d)
+        # the named-remat tag ("names"/"offload"): save softmax·V
+        y = checkpoint_name(y, "attn_out").reshape(b, t, d)
         y = dropout(_dense(self.attn.c_proj, y, dt), cfg.dropout, key, 1 + 2 * layer,
                     deterministic)
         x = x + y
@@ -221,12 +222,6 @@ class GPT2(nn.Module):
         if asked:
             raise NotImplementedError(f"GPT2 {', '.join(asked)}: not ported yet")
         self.remat = resolve_remat(cfg.remat)
-        if self.remat == "names":
-            raise NotImplementedError(NAMES_UNSUPPORTED)
-        if self.remat == "offload":
-            raise NotImplementedError(
-                "GPT2 remat='offload': JAX offloads the checkpoint_name-tagged activations "
-                "to host memory, which waits for the offload slice; use 'full' or 'dots'")
         self.cfg = cfg
         self.decode = decode
         self.paged = None if paged is None else (int(paged[0]), int(paged[1]))

@@ -50,8 +50,10 @@ f32 raises, as the JAX ``'pallas'`` path does. ``norm_dtype`` rounds each
 LayerNorm's output to that type and casts it back to the input's type,
 where the JAX model casts (``patch_norm``, ``norm1``, ``norm2``, ``norm``).
 ``remat`` checkpoints each Swin layer under a ``parallel.remat`` policy
-(``none``, ``full``, ``dots``, ``offload``; ``names`` raises, as
-``apply_remat`` does), the unit the JAX model's ``remat_block`` wraps.
+(``none``, ``full``, ``dots``, ``names``, ``offload``), the unit the JAX
+model's ``remat_block`` wraps; the attention's softmax·V product, before
+``proj``, carries JAX's ``attn_out`` tag, the set ``names`` saves and
+``offload`` keeps on the host.
 """
 
 from __future__ import annotations
@@ -64,7 +66,7 @@ from torch import nn
 import torch.nn.functional as F
 
 from ..ops import window_attn
-from ..parallel.remat import NAMES_UNSUPPORTED, apply_remat, resolve_remat
+from ..parallel.remat import apply_remat, checkpoint_name, resolve_remat
 from .sr_espcn import conv_nhwc, pixel_shuffle
 
 LN_EPS = 1e-6  # flax.linen.LayerNorm's default, which the JAX model keeps
@@ -139,7 +141,8 @@ class WindowAttention(nn.Module):
         bias = self.relative_position_bias_table[self.relative_position_index.reshape(-1)]
         bias = bias.reshape(n, n, h).permute(2, 0, 1).float().contiguous()
         out = window_attn.window_attention(q, k, v, bias, mask)
-        return self.proj(out.transpose(1, 2).reshape(bn, n, c))
+        # the named-remat tag ("names"/"offload"): save softmax·V
+        return self.proj(checkpoint_name(out.transpose(1, 2).reshape(bn, n, c), "attn_out"))
 
 
 class Mlp(nn.Module):
@@ -327,8 +330,6 @@ class SwinIR(nn.Module):
                 "the window-attention kernels compute softmax in f32; "
                 f"softmax_dtype={softmax_dtype} is not honored")
         self.remat = resolve_remat(remat)
-        if self.remat == "names":
-            raise NotImplementedError(NAMES_UNSUPPORTED)
         self.upscale = upscale
         self.in_chans = in_chans
         self.img_size = img_size

@@ -23,7 +23,8 @@ zero, ``pos_embedding`` normal(0.02), encoder dense kernels
 xavier-uniform, the head's kernel zero, every bias zero.
 
 ``cfg.remat`` checkpoints each encoder block under a ``parallel.remat``
-policy (``'names'`` raises, as for SwinIR). Dropout (``cfg.dropout``) runs
+policy, the attention's output before ``out_proj`` tagged ``attn_out`` as
+in JAX (the set ``'names'`` saves and ``'offload'`` keeps on the host). Dropout (``cfg.dropout``) runs
 only when ``forward(images, deterministic=False, generator=key)`` asks,
 as in JAX: after the embedding (site 0), after each block's ``out_proj``
 (JAX's ``c_proj``, site ``1 + 2 i``) and after its ``mlp.3`` (JAX's
@@ -45,7 +46,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..parallel.remat import NAMES_UNSUPPORTED, apply_remat, resolve_remat
+from ..parallel.remat import apply_remat, checkpoint_name, resolve_remat
 from ..parallel.rng import as_key, dropout
 from .gpt2 import _TRUNC_STD, AttnFn, _dense, _layer_norm, default_attention
 
@@ -101,7 +102,8 @@ class EncoderBlock(nn.Module):
         y = _layer_norm(self.ln_1, x, dt)
         qkv = F.linear(y, sa.in_proj_weight.to(dt), sa.in_proj_bias.to(dt))
         q, k, v = (a.unflatten(-1, (h, d // h)) for a in qkv.split(d, dim=-1))
-        y = self.attn_fn(q, k, v, causal=False).reshape(b, t, d)
+        # the named-remat tag ("names"/"offload"): save softmax·V
+        y = checkpoint_name(self.attn_fn(q, k, v, causal=False), "attn_out").reshape(b, t, d)
         x = x + dropout(_dense(sa.out_proj, y, dt), cfg.dropout, key, 1 + 2 * layer,
                         deterministic)
 
@@ -135,8 +137,6 @@ class ViT(nn.Module):
         if asked:
             raise NotImplementedError(f"ViT {', '.join(asked)}: not ported yet")
         self.remat = resolve_remat(cfg.remat)
-        if self.remat == "names":
-            raise NotImplementedError(NAMES_UNSUPPORTED)
         self.cfg = cfg
         d, p = cfg.hidden_dim, cfg.patch_size
         self.conv_proj = nn.Conv2d(3, d, p, p)

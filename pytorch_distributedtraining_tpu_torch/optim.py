@@ -48,10 +48,28 @@ the bias corrections ``1 - β**count`` are f32 on the device, as optax's.
 ``step(grads, lr_factor=x)`` and ``apply_tree(lr_factor=x)`` still take a
 number and write it first (the eager callers). Nothing here reads a value
 back to the host but ``count`` and the state dicts.
+
+Host offload (``Policy.offload_opt_state``/``offload_params``, DeepSpeed's
+``offload_optimizer``/``offload_param``): :meth:`~_Offload.offload` moves
+the state (moments, EMA, momentum trace) and/or the parameters into pinned
+host memory, allocated once at fixed addresses (``parallel.spec.pin``).
+An update then streams the offloaded state to the card (``non_blocking``
+copies on a side stream: per leaf for the per-leaf optimizers, per flat
+buffer for ``FusedAdamW``), updates it there as JAX's program does on its
+streamed operands, and writes it back; the count and the lr factor stay on
+the device. Offloaded parameters come in by :meth:`~_Offload.params_in`
+(the step calls it before the forward): each parameter's ``.data`` is
+rebound to a device copy, and after the update the copies are written back
+and ``.data`` rebound to the host tensors (:meth:`~_Offload.
+release_params` drops copies that took no update). Between steps the
+device holds neither. The copies fork from and join the current stream,
+so an offloaded step captures as a CUDA graph. Reads of offloaded state on
+the host (state dicts, snapshots) wait for the copies in flight first.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Callable, NamedTuple
 
@@ -126,7 +144,127 @@ class RecordedClip(NamedTuple):
     clipped: torch.Tensor  # bool: the scale was < 1
 
 
-class _LeafOptimizer:
+class _Offload:
+    """Host offload of an optimizer's state and parameters (the module
+    docstring). A subclass names its offloadable state (:meth:`_state`,
+    :meth:`_set_state`) and its parameter storage (:meth:`_param_tensors`,
+    :meth:`_bind`)."""
+
+    offloaded_state = False
+    offloaded_params = False
+    _host_params: list | None = None
+    _device_params: list | None = None
+
+    @property
+    def offloaded(self) -> bool:
+        return self.offloaded_state or self.offloaded_params
+
+    def _state(self) -> dict:  # overridden: {key: [tensors]} of the offloadable state
+        raise NotImplementedError
+
+    def _set_state(self, state: dict) -> None:  # overridden
+        raise NotImplementedError
+
+    def _param_tensors(self) -> list:  # overridden: the tensors that hold the parameters
+        raise NotImplementedError
+
+    def _bind(self, tensors: list) -> None:  # overridden: point the parameters at ``tensors``
+        raise NotImplementedError
+
+    @torch.no_grad()
+    def offload(self, opt_state: bool = False, params: bool = False) -> None:
+        """Move the optimizer state (``opt_state``) and the parameters
+        (``params``) into pinned host memory for good: ``parallel.
+        create_train_state`` calls it on a card for a policy's offload
+        flags."""
+        from .parallel.spec import pin
+
+        if opt_state and not self.offloaded_state:
+            self._set_state({k: [pin(t) for t in v] for k, v in self._state().items()})
+            self.offloaded_state = True
+        if params and not self.offloaded_params:
+            self._host_params = [pin(t) for t in self._param_tensors()]
+            self._bind(self._host_params)
+            self.offloaded_params = True
+
+    @torch.no_grad()
+    def params_in(self) -> bool:
+        """Stream offloaded parameters to the device and point the
+        parameters at the copies (before a forward); True if this call did
+        (False when nothing is offloaded or the copies are in already)."""
+        if not self.offloaded_params or self._device_params is not None:
+            return False
+        from .parallel.spec import stream_to_device
+
+        self._device_params = stream_to_device(self._host_params, self.device)
+        self._bind(self._device_params)
+        return True
+
+    @torch.no_grad()
+    def _params_home(self, write: bool) -> None:
+        """Point the parameters back at their host tensors, after writing
+        the device copies into them (``write``, after an update)."""
+        if self._device_params is None:
+            return
+        if write:
+            from .parallel.spec import stream_to_host
+
+            stream_to_host(self._host_params, self._device_params)
+        self._bind(self._host_params)
+        self._device_params = None
+
+    def release_params(self) -> None:
+        """Drop device copies of offloaded parameters that took no update
+        (after a forward outside a step, before a replay)."""
+        self._params_home(write=False)
+
+    @contextlib.contextmanager
+    def params_on_device(self):
+        """The parameters on the device inside the block (streamed in and
+        released after, unless they were in already)."""
+        streamed = self.params_in()
+        try:
+            yield
+        finally:
+            if streamed:
+                self.release_params()
+
+    @contextlib.contextmanager
+    def _state_streamed(self):
+        """Offloaded state on the device inside the block (the update), then
+        written back to its host tensors."""
+        if not self.offloaded_state:
+            yield
+            return
+        from .parallel.spec import stream_to_device, stream_to_host
+
+        host = self._state()
+        dev = {k: stream_to_device(v, self.device) for k, v in host.items()}
+        self._set_state(dev)
+        try:
+            yield
+        finally:
+            self._set_state(host)
+        with torch.no_grad():
+            stream_to_host([t for v in host.values() for t in v],
+                           [t for v in dev.values() for t in v])
+
+    def _host_sync(self) -> None:
+        """Wait for offload copies in flight before the host touches state."""
+        if self.offloaded:
+            from .parallel.spec import host_sync
+
+            host_sync(self.device)
+
+    def settle(self) -> None:
+        """Before the host reads or writes the state or the parameters
+        (checkpoints, snapshots): drop device copies of parameters that took
+        no update and wait for the offload copies in flight."""
+        self.release_params()
+        self._host_sync()
+
+
+class _LeafOptimizer(_Offload):
     """What the per-leaf chains share: the parameter list, its grads, the
     recorded clip, the params EMA and, with a ``shard`` plan, this rank's
     shard of each (:attr:`local`), where the state and the update live.
@@ -150,7 +288,7 @@ class _LeafOptimizer:
         self.clip_grad_value = None if clip_grad_value is None else float(clip_grad_value)
         self.ema_decay = None if ema_decay is None else float(ema_decay)
         self.update_wire_dtype = update_wire_dtype
-        device = self.params[0].device
+        device = self.device = self.params[0].device
         self.count_t = torch.zeros((), dtype=torch.int32, device=device)
         self.lr_factor = torch.ones((), dtype=torch.float32, device=device)
         self.clip: RecordedClip | None = None
@@ -161,6 +299,22 @@ class _LeafOptimizer:
         self.ema = None
         if self.ema_decay is not None:
             self.ema = [p.detach().float().clone() for p in self.local]
+
+    def _state(self) -> dict:
+        return {k: getattr(self, k) for k in self.STATE if getattr(self, k) is not None}
+
+    def _set_state(self, state: dict) -> None:
+        for k, v in state.items():
+            setattr(self, k, v)
+
+    def _param_tensors(self) -> list:
+        return [p.detach() for p in self.params]
+
+    def _bind(self, tensors: list) -> None:
+        for p, t in zip(self.params, tensors):
+            p.data = t
+        if self.shard is not None:  # the shard views follow the storage
+            self.local = self.shard.local(self.params)
 
     def grads(self) -> list[torch.Tensor]:
         """The parameters' grads as they lie (whole, or FSDP2 ``DTensor``s)."""
@@ -270,9 +424,31 @@ class _LeafOptimizer:
         else:
             torch._foreach_add_(self.params, [s.to(p.dtype) for s, p in zip(steps, self.params)])
 
+    @torch.no_grad()
+    def step(self, grads: list[torch.Tensor], lr_factor=None,
+             gate: torch.Tensor | None = None) -> torch.Tensor | None:
+        """Apply one update from ``grads`` (f32, already unscaled; this
+        rank's share, as :attr:`local`) at :attr:`lr` at the step count
+        times :attr:`lr_factor` (``lr_factor``, when given, is written there
+        first). ``gate`` (a device bool) keeps parameters, state and count
+        as they were when False: the loss scaler's overflow skip, with no
+        read on the host. Returns the pre-clip global norm (a device
+        scalar) when clipping is on, so a caller need not compute it twice;
+        else None. Offloaded state and parameters are streamed in for the
+        update and written back after it."""
+        self.params_in()
+        with self._state_streamed():
+            gnorm = self._update(grads, lr_factor, gate)
+        self._params_home(write=True)
+        return gnorm
+
+    def _update(self, grads, lr_factor, gate):  # overridden: the chain's arithmetic
+        raise NotImplementedError
+
     def state_dict(self) -> dict:
         """The step count, the parameter names and each per-leaf state list
         (this rank's shares)."""
+        self._host_sync()
         return {"count": self.count, "names": list(self.names),
                 **{k: getattr(self, k) for k in self.STATE}}
 
@@ -283,9 +459,13 @@ class _LeafOptimizer:
         sd = self.state_dict()
         if self.shard is None:
             return sd
-        return {k: (self.shard.gather_state(self.params, v) if k in self.STATE and v is not None
-                    else v)
+        return {k: (self.shard.gather_state(self.params, self._on_device(v))
+                    if k in self.STATE and v is not None else v)
                 for k, v in sd.items()}
+
+    def _on_device(self, tensors: list) -> list:
+        """Offloaded state as device copies, for a collective."""
+        return [t.to(self.device) for t in tensors] if self.offloaded_state else tensors
 
     @torch.no_grad()
     def load_state_dict(self, state: dict) -> None:
@@ -314,6 +494,7 @@ class _LeafOptimizer:
                     "must match the run that saved it)")
             if mine is None:
                 continue
+            self._host_sync()
             for i, (dst, src) in enumerate(zip(mine, _by_name(saved, state.get("names"),
                                                               self.names, key))):
                 dst.copy_(self._share(i, torch.as_tensor(src), dst, key))
@@ -338,7 +519,9 @@ class _LeafOptimizer:
         ``ema_decay``."""
         if self.ema is None:
             return None
-        return self.ema if self.shard is None else self.shard.gather_state(self.params, self.ema)
+        self._host_sync()
+        return (self.ema if self.shard is None
+                else self.shard.gather_state(self.params, self._on_device(self.ema)))
 
 
 class AdamW(_LeafOptimizer):
@@ -364,17 +547,7 @@ class AdamW(_LeafOptimizer):
         self.mu = [torch.zeros_like(p) for p in self.local]
         self.nu = [torch.zeros_like(p) for p in self.local]
 
-    @torch.no_grad()
-    def step(self, grads: list[torch.Tensor], lr_factor=None,
-             gate: torch.Tensor | None = None) -> torch.Tensor | None:
-        """Apply one update from ``grads`` (f32, already unscaled; this
-        rank's share, as :attr:`local`) at :attr:`lr` at the step count
-        times :attr:`lr_factor` (``lr_factor``, when given, is written there
-        first). ``gate`` (a device bool) keeps parameters, moments, EMA and
-        count as they were when False: the loss scaler's overflow skip,
-        with no read on the host. Returns the pre-clip global norm (a
-        device scalar) when clipping is on, so a caller need not compute it
-        twice; else None."""
+    def _update(self, grads, lr_factor, gate):
         lr, saved = self._begin(lr_factor, gate)
         grads = self._clip(grads)
         self.count_t.add_(1 if gate is None else gate.to(torch.int32))
@@ -416,10 +589,7 @@ class SGD(_LeafOptimizer):
         self.nesterov = bool(nesterov)
         self.trace = [torch.zeros_like(p) for p in self.local] if self.momentum else None
 
-    @torch.no_grad()
-    def step(self, grads: list[torch.Tensor], lr_factor=None,
-             gate: torch.Tensor | None = None) -> torch.Tensor | None:
-        """As :meth:`AdamW.step`."""
+    def _update(self, grads, lr_factor, gate):
         lr, saved = self._begin(lr_factor, gate)
         grads = self._clip(grads)
         if self.weight_decay:
@@ -459,7 +629,7 @@ class FusedAdamWState(NamedTuple):
     ema: torch.Tensor | None = None  # f32 [N_pad] params EMA (ema_decay set)
 
 
-class FusedAdamW:
+class FusedAdamW(_Offload):
     """Flat AdamW + clipping: the whole update as ~15 full-width tensor ops.
 
     At construction every parameter's ``.data`` and ``.grad`` become views
@@ -503,7 +673,7 @@ class FusedAdamW:
             raise ValueError("FusedAdamW got no trainable parameters")
         self.names = [n for n, _ in named]
         self.params = [p for _, p in named]
-        device = self.params[0].device
+        device = self.device = self.params[0].device
         for name, p in named:
             if p.dtype != torch.float32 or p.device != device:
                 raise ValueError(
@@ -555,6 +725,24 @@ class FusedAdamW:
     def set_lr_factor(self, lr_factor) -> None:
         """Write the factor of the next update's lr (outside a captured graph)."""
         _set_scalar(self.lr_factor, lr_factor)
+
+    def _state(self) -> dict:
+        return {k: [getattr(self.state, k)] for k in ("mu", "nu", "ema")
+                if getattr(self.state, k) is not None}
+
+    def _set_state(self, state: dict) -> None:
+        self.state = self.state._replace(**{k: v[0] for k, v in state.items()})
+
+    def _param_tensors(self) -> list:
+        return [self.flat_param]
+
+    def _bind(self, tensors: list) -> None:
+        """Point :attr:`flat_param` and every parameter's ``.data`` at the
+        flat buffer ``tensors[0]`` (the grads stay views of the flat grad)."""
+        (flat,) = tensors
+        self.flat_param = flat
+        for off, p in zip(self.offsets, self.params):
+            p.data = flat[off:off + p.numel()].view_as(p)
 
     def state_tensors(self) -> list[torch.Tensor]:
         """Every tensor a step writes: the flat parameters and the state."""
@@ -683,6 +871,13 @@ class FusedAdamW:
         """
         if lr_factor is not None:
             self.set_lr_factor(lr_factor)
+        self.params_in()
+        with self._state_streamed():
+            out = self._apply_tree(scaler)
+        self._params_home(write=True)
+        return out
+
+    def _apply_tree(self, scaler):
         gflat, gate = self.flat_grad, None
         if scaler is not None:
             gflat = gflat * torch.reciprocal(scaler.to(gflat.device).scale)
@@ -723,6 +918,7 @@ class FusedAdamW:
         ema = (self.state if state is None else state).ema
         if ema is None:
             return None
+        self._host_sync()
         ema = self._gathered(ema)
         return [ema[o:o + p.numel()].view_as(p) for o, p in zip(self.offsets, self.params)]
 
@@ -733,8 +929,8 @@ class FusedAdamW:
             return own
         from .parallel.spec import all_gather_flat
 
-        out = torch.empty_like(self.flat_param)
-        all_gather_flat(out, own.contiguous(), self.shard_group)
+        out = torch.empty(self.flat_param.numel(), dtype=own.dtype, device=self.device)
+        all_gather_flat(out, own.to(self.device).contiguous(), self.shard_group)
         return out
 
     def state_dict(self) -> dict:
@@ -742,6 +938,7 @@ class FusedAdamW:
         shape in :attr:`flat_param`, in buffer order (the module's
         registration order, not JAX's ``ravel_pytree`` order). Under ZeRO-1
         the moments are this rank's slice (``layout["slice"]``)."""
+        self._host_sync()
         return {
             **self.state._asdict(),
             "layout": {"names": list(self.names), "offsets": list(self.offsets),
@@ -765,6 +962,7 @@ class FusedAdamW:
         {name: tensor shaped like it}, "nu": ..., "ema": ... or None}``,
         views of the whole flat moments (gathered first under ZeRO-1, a
         collective): the layout-free form a portable checkpoint keeps."""
+        self._host_sync()
         out = {"count": int(self.state.count), "names": list(self.names)}
         for k in ("mu", "nu", "ema"):
             flat = getattr(self.state, k)
@@ -790,6 +988,7 @@ class FusedAdamW:
                 f"the checkpoint {'carries' if has_ema else 'has no'} params EMA but this "
                 f"FusedAdamW has ema_decay={self.ema_decay}: construct it as the run that "
                 "saved the state was")
+        self._host_sync()
         moments = [self._live_slice(state[k], state, k) if state.get(k) is not None else None
                    for k in ("mu", "nu", "ema")]
         self.state.count.fill_(int(state["count"]))

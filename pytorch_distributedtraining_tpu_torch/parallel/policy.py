@@ -14,8 +14,14 @@ mesh's ZeRO axis; :mod:`.state` and :mod:`.step` turn that into PyTorch:
   its root, the optimizer on the local shards.
 
 The spec builders answer per parameter name with a dimension or None
-(:func:`.spec.tree_specs`), where JAX answers with PartitionSpecs. The
-offload flags raise: host offload waits for the offload slice.
+(:func:`.spec.tree_specs`), where JAX answers with PartitionSpecs.
+
+``offload_opt_state`` (DeepSpeed's ``offload_optimizer``) keeps the
+optimizer's moments, and ``offload_params`` (``offload_param``) the master
+parameters, in pinned host memory between steps: the step streams them to
+the card, updates them there and writes them back (``optim``,
+``parallel.state``). Where the device cannot hold host state (the CPU)
+they stay in place with a warning, as JAX's do on its CPU backend.
 """
 
 from __future__ import annotations
@@ -36,17 +42,17 @@ class Policy:
     # activation rematerialisation: a bool (True == "full") or a name from
     # parallel.remat: "none" | "full" | "dots" | "names" | "offload"
     remat: bool | str = False
+    # DeepSpeed offload_optimizer twin: the optimizer's moments in pinned
+    # host memory, streamed to the card for the update
     offload_opt_state: bool = False
+    # DeepSpeed offload_param twin: the master parameters in pinned host
+    # memory, streamed in before the forward, written back after the update
     offload_params: bool = False
 
     def __post_init__(self):
         from .remat import resolve_remat
 
         resolve_remat(self.remat)  # fail at construction, not first step
-        if self.offload_opt_state or self.offload_params:
-            raise NotImplementedError(
-                "offload_opt_state/offload_params: host offload of optimizer state and "
-                "parameters waits for the offload slice")
 
     @property
     def remat_policy(self) -> str:
@@ -121,7 +127,10 @@ FSDP = ZeRO3
 def policy_from_flags(distributed: str | None = None, fairscale_oss: bool = False,
                       fairscale_sddp: bool = False, fairscale_fsdp: bool = False,
                       **kwargs) -> Policy:
-    """Map Stoke's flag surface onto a policy."""
+    """Map Stoke's flag surface onto a policy (JAX ``policy.py:124-138``):
+    the Fairscale flags pick the ZeRO stage; ``distributed`` (``ddp``,
+    ``deepspeed`` or ``horovod``) is the launch backend and leaves the
+    policy replicated when no flag is set."""
     if fairscale_fsdp:
         return ZeRO3(**kwargs)
     if fairscale_sddp:

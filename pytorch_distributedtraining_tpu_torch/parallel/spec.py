@@ -17,15 +17,103 @@ dimension other than the first is a strided view; the collectives pack
 shards rank-major into one contiguous buffer, so each step issues one
 all-gather, one reduce-scatter or one all-reduce for the whole list.
 
-Host offload (``host_offload_supported``, ``stream_to_device``,
-``tree_shardings``) waits for the offload slice; the policies' offload
-flags raise until then.
+Host offload (``Policy.offload_opt_state``/``offload_params``, JAX
+``spec.py:66-118``): :func:`host_offload_supported` says whether a device
+can keep state in pinned host memory (a CUDA card; not the CPU, where JAX's
+CPU backend cannot either), :func:`pin` makes such a copy once, at a fixed
+address, and :func:`stream_to_device` / :func:`stream_to_host` move a list
+of tensors in and back by ``non_blocking`` copies on a side stream that
+the current stream joins before and after (the fork and join a captured
+CUDA graph records as it is, so an offloaded step can be captured). A
+host read of offloaded state waits for the copies in flight first
+(:func:`host_sync`).
 """
 
 from __future__ import annotations
 
 import torch
 import torch.distributed as tdist
+
+
+def host_offload_supported(device) -> bool:
+    """Can ``device`` keep offloaded state in pinned host memory and stream
+    it in for a step? A CUDA card can; the CPU cannot (JAX's answer for
+    its CPU backend, so the offload flags fall back there too)."""
+    return torch.device(device).type == "cuda" and torch.cuda.is_available()
+
+
+def pin(t: torch.Tensor) -> torch.Tensor:
+    """A copy of ``t`` in pinned host memory, allocated once at a fixed
+    address (the offloaded state lives there between steps). Raises when
+    the memory cannot be pinned: nothing falls back to pageable memory."""
+    if not torch.cuda.is_available():  # no card to pin for: a host copy (the CPU tests)
+        return t.detach().to("cpu", copy=True)
+    out = torch.empty(t.shape, dtype=t.dtype, device="cpu", pin_memory=True)
+    if not out.is_pinned():
+        raise RuntimeError(f"host offload: could not pin {tuple(t.shape)} {t.dtype}")
+    out.copy_(t.detach())
+    return out
+
+
+_side_streams: dict = {}
+
+
+def _side(device: torch.device):
+    """The offload copies' side stream of ``device``, made once (a capture
+    must not create streams)."""
+    key = device.index if device.index is not None else torch.cuda.current_device()
+    if key not in _side_streams:
+        _side_streams[key] = torch.cuda.Stream(torch.device("cuda", key))
+    return _side_streams[key]
+
+
+def stream_to_device(host: list[torch.Tensor], device) -> list[torch.Tensor]:
+    """Device copies of the pinned ``host`` tensors (JAX's
+    ``stream_to_device``): allocated on the current stream, filled by
+    ``non_blocking`` copies on the side stream, which waits for the
+    current stream first; the current stream then waits for the copies.
+    Off the card, plain copies (the mechanics the CPU tests hold)."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return [h.clone() for h in host]
+    cur = torch.cuda.current_stream(device)
+    out = [torch.empty(h.shape, dtype=h.dtype, device=device) for h in host]
+    side = _side(device)
+    side.wait_stream(cur)
+    with torch.cuda.stream(side):
+        for d, h in zip(out, host):
+            d.copy_(h, non_blocking=True)
+    cur.wait_stream(side)
+    return out
+
+
+def stream_to_host(host: list[torch.Tensor], dev: list[torch.Tensor]) -> None:
+    """Write ``dev`` back into the pinned ``host`` tensors by
+    ``non_blocking`` copies on the side stream, after the current stream's
+    work; the current stream then waits for them, so the device memory is
+    reused only after its copy. A host read waits in :func:`host_sync`."""
+    if not dev:
+        return
+    device = dev[0].device
+    if device.type != "cuda":
+        for h, d in zip(host, dev):
+            h.copy_(d)
+        return
+    cur = torch.cuda.current_stream(device)
+    side = _side(device)
+    side.wait_stream(cur)
+    with torch.cuda.stream(side):
+        for h, d in zip(host, dev):
+            h.copy_(d, non_blocking=True)
+    cur.wait_stream(side)
+
+
+def host_sync(device) -> None:
+    """Wait for the offload copies in flight to ``device``'s pinned state
+    (a no-op off the card): before the host reads or writes it."""
+    device = torch.device(device)
+    if device.type == "cuda" and torch.cuda.is_available():
+        torch.cuda.synchronize(device)
 
 
 def shard_axis(mesh) -> str | None:

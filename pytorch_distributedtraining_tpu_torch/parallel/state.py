@@ -22,6 +22,17 @@ sharded layout; PyTorch builds the module first, so
    of FSDP2's local shards for ZeRO-3, or ``FusedAdamW``'s flat slice
    (``shard_group``) for ZeRO-1.
 
+5. place the offloaded fields (JAX ``state.py:90-111``): with
+   ``policy.offload_opt_state`` the optimizer's state, with
+   ``offload_params`` the parameters, go to pinned host memory
+   (``optim``'s ``offload``), on a card; where the device has no host
+   placement (the CPU) they stay in place and JAX's warning is logged. On
+   the card a failed pin raises. Offloaded parameters are refused under
+   ZeRO-3, whose shards FSDP2 owns, and under ``DDP`` they go without the
+   ``DistributedDataParallel`` wrapper (its reducer hooks the parameters'
+   accumulators, which a move between host and device replaces):
+   :func:`.step.reduce_gradients` all-reduces their grads instead.
+
 ``FusedAdamW`` gets no DDP wrapper: the step all-reduces its flat
 gradient once, which keeps the gradient views bound to the flat buffer.
 Without a mesh the state is the model on its device and the optimizer
@@ -42,6 +53,7 @@ from __future__ import annotations
 
 import functools
 import inspect
+import logging
 from typing import Callable, NamedTuple
 
 import torch
@@ -52,8 +64,10 @@ from ..runtime.dist import resolve_device
 from ..runtime.mesh import data_group, mesh_axis_size
 from .policy import Policy
 from .rng import StepRng
-from .spec import ShardPlan, dim0_chunk, is_dtensor
+from .spec import ShardPlan, dim0_chunk, host_offload_supported, is_dtensor
 from .sync_bn import sync_batch_norm
+
+logger = logging.getLogger(__name__)
 
 
 class TrainState(NamedTuple):
@@ -71,6 +85,7 @@ class TrainState(NamedTuple):
         and the caller's ``meta`` (the facade's holds the step, lr, loss
         scaler and generators). Every rank calls it (the gathers are
         collectives)."""
+        self.tx.settle()
         out = {"params": full_module_state(self.module),
                "opt_state": self.tx.full_state_dict(), "meta": dict(meta or {})}
         if self.rng is not None:
@@ -83,6 +98,7 @@ class TrainState(NamedTuple):
         its chunk), the optimizer's (re-sliced onto this rank's share) and
         the step stream. Returns the ``meta`` dict, which the caller puts
         back."""
+        self.tx.settle()  # the load goes into the master parameters (host ones if offloaded)
         load_module_state(self.module, state["params"])
         self.tx.load_state_dict(state["opt_state"])
         if self.rng is not None and state.get("rng") is not None:
@@ -158,13 +174,23 @@ def create_train_state(model: torch.nn.Module, tx: Callable, mesh=None,
                        find_unused_parameters: bool = False, seed: int = 0) -> TrainState:
     """Place, replicate or shard ``model`` as ``policy`` asks on ``mesh``
     and build the optimizer ``tx(named_parameters, ...)`` over this rank's
-    share (see the module docstring); the step stream starts at ``seed``,
-    step 0."""
+    share, its offloaded fields in host memory (see the module docstring);
+    the step stream starts at ``seed``, step 0."""
     policy = policy or Policy()
     device = resolve_device(device)
-    model = model.to(device)
+    offload = offload_placed(policy, device)
+    state = _laid_out(model.to(device), tx, mesh, policy, device, find_unused_parameters,
+                      StepRng(seed), ddp_wrapper=not offload[1])
+    if any(offload):
+        state.tx.offload(opt_state=offload[0], params=offload[1])
+    return state
+
+
+def _laid_out(model, tx, mesh, policy: Policy, device: torch.device,
+              find_unused_parameters: bool, rng: StepRng, ddp_wrapper: bool) -> TrainState:
+    """Steps 1-4 of the module docstring; without ``ddp_wrapper`` a DDP
+    layout keeps the bare module (offloaded parameters)."""
     fused = makes_fused(tx)
-    rng = StepRng(seed)
     if mesh is None:
         return TrainState(model, model, tx(model.named_parameters()), None, policy, rng)
     if fused:
@@ -191,6 +217,8 @@ def create_train_state(model: torch.nn.Module, tx: Callable, mesh=None,
         dims = policy.opt_specs(named, mesh)
         opt = tx(named, shard=ShardPlan([dims[n] for n, _ in named], group))
         return TrainState(model, model, opt, mesh, policy, rng)
+    if not ddp_wrapper:  # reduce_gradients all-reduces the grads
+        return TrainState(model, model, tx(model.named_parameters()), mesh, policy, rng)
     from torch.nn.parallel import DistributedDataParallel
 
     # no buffer sync a forward: the buffers are equal from the broadcast
@@ -203,3 +231,26 @@ def create_train_state(model: torch.nn.Module, tx: Callable, mesh=None,
         model, device_ids=[device.index] if device.type == "cuda" else None,
         process_group=group, find_unused_parameters=find_unused_parameters, **{quiet: False})
     return TrainState(wrapped, model, tx(model.named_parameters()), mesh, policy, rng)
+
+
+def offload_placed(policy: Policy, device: torch.device) -> tuple[bool, bool]:
+    """Which of (optimizer state, parameters) go to host memory under
+    ``policy`` on ``device``: the policy's flags on a card, nothing where
+    the device has no host placement, with JAX's warning for each flag it
+    keeps in device memory."""
+    if not (policy.offload_opt_state or policy.offload_params):
+        return False, False
+    if not host_offload_supported(device):
+        for on, what in ((policy.offload_opt_state, "optimizer-state"),
+                         (policy.offload_params, "parameter")):
+            if on:
+                logger.warning("%s host offload requested but the %s backend has no "
+                               "host-placement support; keeping %s in device memory",
+                               what, device.type, what)
+        return False, False
+    if policy.offload_params and policy.shard_params:
+        raise ValueError(
+            "offload_params under ZeRO-3: FSDP2 owns the parameter shards' storage, which "
+            "cannot move to host memory between steps here; use ZeRO-2 with offload_params, "
+            "or ZeRO-3 with offload_opt_state")
+    return bool(policy.offload_opt_state), bool(policy.offload_params)

@@ -87,7 +87,16 @@ of K steps in one dispatch; :func:`tune_multi_step_k` measures which K
 pays. :meth:`TrainStep.state_snapshot` and :meth:`TrainStep.restore_state`
 copy every tensor a step writes (the graph's warm-up runs between them).
 
-Not ported yet: host offload (the offload slice).
+Host offload (JAX ``step.py:230-243``, ``:733-735``): under
+``Policy(offload_params=True)`` the step streams the parameters to the
+card before the forward (``tx.params_in()``) and the optimizer writes them
+back after the update; under ``offload_opt_state`` the optimizer streams
+its state in and out around the update (``optim``). :class:`EvalStep`
+streams the parameters in for its forward and drops the copies after.
+Both run inside a captured graph: the copies fork from the current stream
+and join it again. Under ``DDP`` with offloaded parameters there is no
+``DistributedDataParallel`` wrapper (``parallel.state``):
+:func:`reduce_gradients` all-reduces the grads itself.
 """
 
 from __future__ import annotations
@@ -170,7 +179,7 @@ def check_layout(model, tx, mesh, policy: Policy) -> None:
             "a DistributedDataParallel model")
     ok = (shard is not None and shard.dtensor if policy.shard_params else
           shard is not None and not shard.dtensor if policy.shard_opt_state else
-          _is_ddp(model) and shard is None)
+          (_is_ddp(model) or tx.offloaded_params) and shard is None)
     if not ok:
         raise ValueError(f"{policy.name} with a per-leaf optimizer needs {want}: build the "
                          "model and optimizer with parallel.create_train_state")
@@ -190,6 +199,9 @@ def reduce_gradients(tx, policy: Policy, group, accum: int = 1) -> list[torch.Te
             tx.flat_grad.div_(world * accum)
         return None
     shard = tx.shard
+    if shard is None and group is not None and tx.offloaded_params:
+        # DDP's layout without its wrapper (offloaded parameters): one all-reduce
+        return all_reduce_tensors(tx.grads(), group, 1.0 / (world * accum))
     if shard is None or shard.dtensor:
         # one process, DDP's own all-reduce, or FSDP2's reduce-scatter: the
         # ranks are averaged already
@@ -241,11 +253,11 @@ class TrainStep:
         self.loss_fn = apply_remat(loss_fn, remat)
         self.tx = tx
         self.model_state = batch_norm_state(model)
-        self._recomputes = resolve_remat(remat) in ("full", "dots")
+        self._recomputes = resolve_remat(remat) != "none"  # every policy but none recomputes
         self.fused = tx if isinstance(tx, FusedAdamW) else None
         self.grad_accum_steps = int(grad_accum_steps)
         self.rng = rng if isinstance(rng, StepRng) else StepRng(0 if rng is None else rng)
-        self.device = tx.params[0].device
+        self.device = tx.device  # where the step runs (offloaded parameters live on the host)
         # the step counter on the device: dropout keys and the probe's
         # injection read it, so a captured graph needs no host value
         self.step_t = torch.zeros((), dtype=torch.int64, device=self.device)
@@ -275,13 +287,16 @@ class TrainStep:
         never copies from the host; outside a captured graph."""
         self.tx.set_lr_factor(lr_factor)
         self.step_t.fill_(self.rng.step)
+        self.tx.release_params()  # device copies a forward outside the step left
 
     def bound_grads(self) -> list:
         """The parameters whose ``.grad`` a captured step writes and
         ``StepGraph`` binds back before each replay: a per-leaf
         optimizer's (it drops them between steps); none for
         ``FusedAdamW``, whose grads stay views of its flat buffer."""
-        return [] if self.fused is not None else list(self.tx.params)
+        if self.fused is not None or self.tx.offloaded_params:
+            return []  # offloaded: the parameters are on the host between replays
+        return list(self.tx.params)
 
     def state_tensors(self) -> list[torch.Tensor]:
         """Every tensor a step writes: the parameters (``FusedAdamW``'s flat
@@ -295,12 +310,14 @@ class TrainStep:
 
     def state_snapshot(self) -> dict:
         """A copy of :meth:`state_tensors` and of the host's step count."""
+        self.tx.settle()
         with torch.no_grad():
             return {"step": self.rng.step, "tensors": [t.clone() for t in self.state_tensors()]}
 
     def restore_state(self, snapshot: dict) -> None:
         """Put a :meth:`state_snapshot` back, in place (every tensor keeps
         its storage, so a captured graph still reads and writes it)."""
+        self.tx.settle()
         with torch.no_grad():
             for t, v in zip(self.state_tensors(), snapshot["tensors"]):
                 t.copy_(v)
@@ -353,6 +370,7 @@ class TrainStep:
         the device. No host read unless ``detect_anomaly``."""
         n = self.grad_accum_steps
         self.tx.zero_grad()
+        self.tx.params_in()  # offloaded parameters: to the device for the forward
         micro = _split_microbatches(batch, n) if n > 1 else [batch]
         before = ([t.clone() for t in self.model_state]
                   if self.model_state and self.detect_anomaly else None)
@@ -491,7 +509,7 @@ class TrainStep:
         from ..observe.memory import MemoryStats, device_hbm_budget
 
         tx = self.tx
-        dev = tx.params[0].device
+        dev = tx.device
         if dev.type != "cuda":
             return None
         n = self.grad_accum_steps
@@ -509,7 +527,8 @@ class TrainStep:
         torch.cuda.reset_peak_memory_stats(dev)
         oom = False
         try:
-            with self.model.no_sync() if _is_ddp(self.model) else contextlib.nullcontext():
+            with self.model.no_sync() if _is_ddp(self.model) else contextlib.nullcontext(), \
+                    tx.params_on_device():
                 loss, _ = self._loss(mb, 0)
                 loss.backward()
                 del loss
@@ -685,14 +704,19 @@ def tune_multi_step_k(step: TrainStep, batch, ks=(1, 2, 5, 10), steps_per_arm: i
 class EvalStep:
     """``step(batch) -> metrics``: ``eval_fn(model, batch) -> {name:
     scalar}`` without a graph, each value averaged over the ranks of the
-    mesh's data axis (each rank evaluates its own shard of the batch)."""
+    mesh's data axis (each rank evaluates its own shard of the batch).
+    ``tx``, the train state's optimizer, streams offloaded parameters in
+    for the forward (JAX's ``stream_to_device`` in the eval program)."""
 
-    def __init__(self, model: torch.nn.Module, eval_fn: Callable, mesh=None):
+    def __init__(self, model: torch.nn.Module, eval_fn: Callable, mesh=None, tx=None):
         self.model = model
         self.eval_fn = eval_fn
         self.mesh = mesh
+        self.tx = tx
         self.group = None if mesh is None else data_group(mesh)
 
     @torch.no_grad()
     def __call__(self, batch) -> dict[str, torch.Tensor]:
-        return mean_over_ranks(dict(self.eval_fn(self.model, batch)), self.group)
+        with self.tx.params_on_device() if self.tx is not None else contextlib.nullcontext():
+            metrics = dict(self.eval_fn(self.model, batch))
+        return mean_over_ranks(metrics, self.group)

@@ -5,8 +5,15 @@ from .config import (
     ClipGradConfig,
     ClipGradNormConfig,
     DDPConfig,
+    DeepspeedAIOConfig,
+    DeepspeedConfig,
+    DeepspeedOffloadOptimizerConfig,
+    DeepspeedOffloadParamConfig,
+    DeepspeedZeROConfig,
     DistributedOptions,
+    FairscaleFSDPConfig,
     FairscaleOSSConfig,
+    FairscaleSDDPConfig,
     FP16Options,
     TPUConfig,
 )
@@ -14,6 +21,8 @@ from .facade import Stoke
 from .optimizer import StokeOptimizer
 
 __all__ = [
-    "AMPConfig", "ClipGradConfig", "ClipGradNormConfig", "DDPConfig", "DistributedOptions",
-    "FP16Options", "FairscaleOSSConfig", "Stoke", "StokeOptimizer", "TPUConfig",
+    "AMPConfig", "ClipGradConfig", "ClipGradNormConfig", "DDPConfig", "DeepspeedAIOConfig",
+    "DeepspeedConfig", "DeepspeedOffloadOptimizerConfig", "DeepspeedOffloadParamConfig",
+    "DeepspeedZeROConfig", "DistributedOptions", "FP16Options", "FairscaleFSDPConfig",
+    "FairscaleOSSConfig", "FairscaleSDDPConfig", "Stoke", "StokeOptimizer", "TPUConfig",
 ]

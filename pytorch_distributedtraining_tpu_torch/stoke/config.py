@@ -12,6 +12,17 @@ port's BatchNorm (``parallel.sync_bn.BatchNorm``) is synchronous over the
 data group whenever there is one, as JAX's always is (its ``jit`` sees the
 global batch).
 
+The Fairscale and DeepSpeed configs are JAX's (``stoke/config.py:
+170-235``), field for field with its defaults. The facade reads
+``FairscaleFSDPConfig.cpu_offload`` and ``DeepspeedConfig``'s ZeRO stage
+(onto the Fairscale flags), ``offload_optimizer``/``offload_param``
+(``device="cpu"``: the policy's host offload of optimizer state or
+parameters), ``bf16_enabled``/``fp16_enabled`` (the precision, where
+``fp16`` is not given) and ``gradient_clipping`` (the global-norm clip,
+where ``grad_clip`` is not given); ``aio`` and an offload device other than
+``cpu`` warn, as in JAX. The other fields (bucket sizes, ``pin_memory``:
+the port always pins) are recorded only.
+
 ``TPUConfig`` is JAX's (``stoke/config.py:80-175``), field for field. The
 facade reads the fields that mean something on this card, each against
 its env twin with JAX's precedence: ``dp`` and ``fsdp`` (the data and
@@ -97,6 +108,70 @@ class DDPConfig:
 @dataclass
 class FairscaleOSSConfig:
     broadcast_fp16: bool = False
+
+
+@dataclass
+class FairscaleSDDPConfig:
+    reduce_buffer_size: int = 0  # recorded: the collectives are bucketed by the step
+    auto_refresh_trainable: bool = True  # recorded
+
+
+@dataclass
+class FairscaleFSDPConfig:
+    reshard_after_forward: bool = True  # recorded: FSDP2 reshards after forward
+    flatten_parameters: bool = False  # recorded: per-leaf sharding
+    cpu_offload: bool = False  # -> Policy.offload_opt_state (pinned host memory)
+
+
+@dataclass
+class DeepspeedZeROConfig:
+    """The ZeRO stage: 1, 2, 3 are the Fairscale flags' ZeRO-1/2/3."""
+
+    stage: int = 0
+    contiguous_gradients: bool = True
+    overlap_comm: bool = True
+    allgather_bucket_size: int = 5e8  # recorded
+    reduce_bucket_size: int = 5e8  # recorded
+
+
+@dataclass
+class DeepspeedAIOConfig:
+    """NVMe async-IO knobs: recorded, inert (no NVMe tier; the facade warns)."""
+
+    block_size: int = 1048576
+    queue_depth: int = 8
+    single_submit: bool = False
+    overlap_events: bool = True
+    thread_count: int = 1
+
+
+@dataclass
+class DeepspeedOffloadOptimizerConfig:
+    """``device="cpu"``: the optimizer state in pinned host memory
+    (``Policy.offload_opt_state``)."""
+
+    device: str = "cpu"
+    pin_memory: bool = False
+
+
+@dataclass
+class DeepspeedOffloadParamConfig:
+    """``device="cpu"``: the parameters in pinned host memory
+    (``Policy.offload_params``), streamed to the card for each step."""
+
+    device: str = "cpu"
+    pin_memory: bool = False
+
+
+@dataclass
+class DeepspeedConfig:
+    zero_optimization: DeepspeedZeROConfig | None = None
+    aio: DeepspeedAIOConfig | None = None
+    offload_optimizer: DeepspeedOffloadOptimizerConfig | None = None
+    offload_param: DeepspeedOffloadParamConfig | None = None
+    gradient_clipping: float | None = None
+    fp16_enabled: bool = False
+    bf16_enabled: bool = False
 
 
 # fields of TPUConfig that wait for another slice, and the slice's subject

@@ -52,7 +52,20 @@ Device and ranks: the facade runs on ``device`` (``"cuda"`` by default,
 the process's card under a launcher; it raises when no CUDA device exists
 unless ``device="cpu"`` was asked for). The flags map onto a policy
 through ``parallel.policy_from_flags``, as in JAX: ``fairscale_fsdp`` is
-ZeRO-3, ``fairscale_sddp`` ZeRO-2, ``fairscale_oss`` ZeRO-1, else DDP.
+ZeRO-3, ``fairscale_sddp`` ZeRO-2, ``fairscale_oss`` ZeRO-1, else DDP;
+``distributed`` (``ddp``, ``deepspeed``, ``horovod``) names the launch
+backend and leaves the policy to the flags. The configs are read as JAX
+reads them (``facade.py:568``, ``:670-742``, ``:837-842``, ``:883-886``):
+``DeepspeedConfig``'s ZeRO stage sets the Fairscale flags, its
+``offload_optimizer``/``offload_param`` on ``cpu`` and
+``FairscaleFSDPConfig(cpu_offload=True)`` set the policy's host offload
+(``offload_opt_state``/``offload_params``; on the CPU the state stays in
+place with a warning), ``aio`` and another offload device warn, and
+``bf16_enabled``/``fp16_enabled`` and ``gradient_clipping`` stand for
+``fp16`` and ``grad_clip`` when those are not given. Offloaded parameters
+are streamed to the card by each program that runs a forward (and by the
+eval paths) and written back by the update; with a per-leaf optimizer the
+window then runs uncaptured (:attr:`graph_refusal`).
 With a process group (``runtime.dist.initialize()``, which the drivers
 call) or a ``mesh=``, ``parallel.create_train_state`` replicates or shards
 the model and optimizer and :meth:`step` syncs the gradients as the
@@ -162,8 +175,9 @@ from ..parallel.sync_bn import batch_norm_state
 from ..precision import DynamicLossScaler, Policy
 from ..runtime import dist
 from ..runtime.mesh import MeshSpec, data_group, make_mesh, mesh_shape
-from .config import (AMPConfig, ClipGradConfig, ClipGradNormConfig, DDPConfig,
-                     DistributedOptions, FairscaleOSSConfig, FP16Options, TPUConfig)
+from .config import (AMPConfig, ClipGradConfig, ClipGradNormConfig, DDPConfig, DeepspeedConfig,
+                     DistributedOptions, FairscaleFSDPConfig, FairscaleOSSConfig, FP16Options,
+                     TPUConfig)
 from .optimizer import StokeOptimizer
 
 # fp16 options that run fp16 autocast with the loss scaler (JAX's set)
@@ -181,6 +195,34 @@ def _remat_from_env(configured):
     from ..parallel.remat import resolve_remat
 
     return resolve_remat(env)
+
+
+def _offload_knobs(fsdp_config, ds_config) -> tuple[bool, bool]:
+    """``(offload_opt_state, offload_params)`` from the Fairscale FSDP and
+    DeepSpeed configs (JAX ``facade.py:703-737``): ``cpu_offload`` and an
+    ``offload_optimizer`` on ``cpu`` offload the optimizer state, an
+    ``offload_param`` on ``cpu`` the parameters. Knobs the port has no
+    counterpart for warn instead of passing silently: the AIO config (no
+    NVMe tier) and an offload device other than ``cpu`` (or ``none``)."""
+    import warnings
+
+    offload_opt = bool(fsdp_config is not None and fsdp_config.cpu_offload)
+    if ds_config is None:
+        return offload_opt, False
+    if ds_config.offload_optimizer is not None:
+        offload_opt = offload_opt or ds_config.offload_optimizer.device == "cpu"
+    offload_par = (ds_config.offload_param is not None
+                   and ds_config.offload_param.device == "cpu")
+    if ds_config.aio is not None:
+        warnings.warn("DeepspeedAIOConfig is inert here (no NVMe tier); use "
+                      "offload_optimizer/offload_param(device='cpu') for the host-memory "
+                      "offload", stacklevel=3)
+    for label, oc in (("offload_optimizer", ds_config.offload_optimizer),
+                      ("offload_param", ds_config.offload_param)):
+        if oc is not None and oc.device not in ("cpu", "none"):
+            warnings.warn(f"Deepspeed {label} device={oc.device!r} has no counterpart here (only "
+                          "'cpu' = pinned host memory maps); ignoring", stacklevel=3)
+    return offload_opt, offload_par
 
 
 def _serve_fastpath_overrides(cfg: TPUConfig, overrides: dict) -> dict:
@@ -369,14 +411,21 @@ class Stoke:
         fuse_eager_step: bool = True,
     ):
         distributed = distributed.value if isinstance(distributed, DistributedOptions) else distributed
-        if distributed not in (None, "ddp"):
-            raise NotImplementedError(
-                f"distributed={distributed!r} is not ported (DeepSpeed and Horovod have no "
-                "counterpart in the port); use 'ddp'")
         self._configs = list(configs or [])
         self.tpu_config = tpu = (self._find_config(TPUConfig) or TPUConfig()).check()
+        ds_config = self._find_config(DeepspeedConfig)
+        if ds_config is not None and ds_config.zero_optimization is not None:
+            # the ZeRO stage onto the Fairscale flags (JAX facade.py:670-674)
+            stage = ds_config.zero_optimization.stage
+            fairscale_oss = fairscale_oss or stage >= 1
+            fairscale_sddp = fairscale_sddp or stage >= 2
+            fairscale_fsdp = fairscale_fsdp or stage >= 3
+        offload_opt, offload_par = _offload_knobs(self._find_config(FairscaleFSDPConfig),
+                                                  ds_config)
         self.policy = policy_from_flags(distributed, fairscale_oss, fairscale_sddp,
-                                        fairscale_fsdp, remat=_remat_from_env(tpu.remat))
+                                        fairscale_fsdp, remat=_remat_from_env(tpu.remat),
+                                        offload_opt_state=offload_opt,
+                                        offload_params=offload_par)
         zero = fairscale_oss or fairscale_sddp or fairscale_fsdp
         spec = None
         if tpu.dp is not None or tpu.fsdp > 1:  # the config's widths (JAX's rule)
@@ -404,6 +453,9 @@ class Stoke:
         amp_config = self._find_config(AMPConfig) or AMPConfig()
 
         fp16 = fp16.value if isinstance(fp16, FP16Options) else fp16
+        if fp16 is None and ds_config is not None:
+            # DeepSpeed's precision switches, where the argument leaves it open
+            fp16 = "bf16" if ds_config.bf16_enabled else "amp" if ds_config.fp16_enabled else None
         self.fp16 = fp16
         self.loss_scaler = None
         if fp16 in _SCALED_FP16:
@@ -432,6 +484,9 @@ class Stoke:
                 "grad_clip must be a ClipGradNormConfig or a ClipGradConfig, got "
                 f"{type(grad_clip).__name__}"
             )
+        elif ds_config is not None and ds_config.gradient_clipping:
+            # DeepSpeed's global-norm clip, where no grad_clip argument is given
+            kwargs.setdefault("clip_grad_norm", ds_config.gradient_clipping)
         fused_eligible = factory is optim_mod.adamw and optim_mod.fused_adamw_eligible(
             self.policy)
         if fused_optimizer is True and not fused_eligible:
@@ -515,6 +570,11 @@ class Stoke:
         except ValueError as refusal:
             self.graph_refusal = str(refusal)
         per_leaf = not isinstance(self._opt, optim_mod.FusedAdamW)
+        if per_leaf and self._opt.offloaded_params and self.graph_refusal is None:
+            self.graph_refusal = (
+                "a per-leaf optimizer's offloaded parameters live on the host between "
+                "programs, where the graphs' device grad buffers cannot be bound to them; "
+                "FusedAdamW keeps its grads bound and captures")
         # per-leaf grads in buffers of the facade's own, bound before every
         # program, so the window and the split path's graphs write the same
         # ones (the optimizer drops .grad between steps)
@@ -561,7 +621,7 @@ class Stoke:
             if not self._module.training:
                 x = self._last_inputs = _as_tensor(inputs, self.device)
                 kw = {"train": False} if self._accepts_train else {}
-                with torch.no_grad(), self._autocast():
+                with torch.no_grad(), self._autocast(), self._opt.params_on_device():
                     out = self._wrapped(x, **kw)
                 return out.float()
             x = self._last_inputs = _owned(inputs, self.device)
@@ -719,7 +779,7 @@ class Stoke:
         state = batch_norm_state(self._module)
         kept = [t.clone() for t in state]
         kw = {"train": True} if self._accepts_train else {}
-        with self._autocast():
+        with self._autocast(), self._opt.params_on_device():
             out = self._wrapped(x, **kw).float()
         for t, v in zip(state, kept):
             t.copy_(v)
@@ -771,6 +831,7 @@ class Stoke:
         if hasattr(self._wrapped, "require_backward_grad_sync"):
             self._wrapped.require_backward_grad_sync = last  # DDP's no_sync but the last
         kw = {"train": True} if self._accepts_train else {}
+        self._opt.params_in()  # offloaded parameters: the update writes them back
         with torch.enable_grad():
             with self._autocast():
                 out = self._wrapped(x, **kw)
@@ -805,6 +866,7 @@ class Stoke:
         """A micro-batch that accumulates into ``.grad`` (JAX ``_jit_acc``)."""
         last = (self._accumulated + 1) % self.grad_accum_steps == 0
         loss, out, last32 = self._micro(batch[0], batch[1], last)
+        self._opt.release_params()  # no update here: the next program streams them again
         return {"loss": loss, "out": out, "last": last32}
 
     def _apply_program(self, _inputs) -> dict:
@@ -858,6 +920,7 @@ class Stoke:
         factor, the step counter and the per-leaf grad buffers' binding."""
         self._opt.set_lr_factor(self._opt_handle.lr)
         self._step_t.fill_(self._step_count)
+        self._opt.release_params()
         if self._grad_bufs is not None:
             for p, g in zip(self._opt.params, self._grad_bufs):
                 p.grad = g
@@ -874,10 +937,12 @@ class Stoke:
                 + grads + [self._ema, self._has_ema])
 
     def state_snapshot(self) -> list[torch.Tensor]:
+        self._opt.settle()
         with torch.no_grad():
             return [t.clone() for t in self._state_tensors()]
 
     def restore_state(self, snapshot: list) -> None:
+        self._opt.settle()
         with torch.no_grad():
             for t, v in zip(self._state_tensors(), snapshot):
                 t.copy_(v)
@@ -973,7 +1038,7 @@ class Stoke:
             self._module.eval()  # JAX's eval step runs train=False: running statistics
             try:
                 with torch.no_grad():
-                    with self._autocast():
+                    with self._autocast(), self._opt.params_on_device():
                         out = self._wrapped(_as_tensor(inputs, self.device))
                     out = out.float()
                     result = {"loss": self._loss_callable(out, y)}

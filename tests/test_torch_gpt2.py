@@ -194,15 +194,13 @@ def test_unported_serving_options_raise(kw):
 
 
 UNPORTED = {"scan_layers": "scan_layers .*scan-over-layers slice.*not ported yet",
-            "fp8": "fp8 .*fp8 matmul slice.*not ported yet",
-            "names": "named-activation", "offload": "offload slice"}
+            "fp8": "fp8 .*fp8 matmul slice.*not ported yet"}
 
 
-@pytest.mark.parametrize("cfg_kw", [dict(remat="names"), dict(scan_layers=True), dict(fp8="e4m3"),
-                                    dict(remat="offload")])
+@pytest.mark.parametrize("cfg_kw", [dict(scan_layers=True), dict(fp8="e4m3")])
 def test_unported_config_options_raise(cfg_kw):
     ((key, value),) = cfg_kw.items()
-    with pytest.raises(NotImplementedError, match=UNPORTED[value if key == "remat" else key]):
+    with pytest.raises(NotImplementedError, match=UNPORTED[key]):
         tg.GPT2(tg.GPT2Config.tiny(**cfg_kw))
 
 

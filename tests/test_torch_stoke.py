@@ -18,8 +18,11 @@ The fused update's flat norm and f32 bias correction move nothing past
 that.
 Also here: the driver twin end to end on the CPU, and the facade's
 refusals (no CUDA device without ``device="cpu"``, ``WORLD_SIZE > 1``
-without a process group, a ``distributed`` backend the port lacks).
+without a process group), and every ``distributed`` backend value
+building JAX's policy.
 """
+
+import dataclasses
 
 import jax
 import numpy as np
@@ -145,11 +148,17 @@ def test_facade_refuses_more_than_one_process(monkeypatch):
 
 
 @pytest.mark.parametrize("distributed", ["deepspeed", "horovod"])
-def test_facade_refuses_a_distributed_value_it_lacks(distributed):
-    with pytest.raises(NotImplementedError, match="is not ported"):
-        tstoke.Stoke(model=SwinIR(**TOY), loss=tlosses.FeatLoss(), device="cpu",
+def test_facade_takes_every_distributed_value(distributed):
+    """``distributed`` names the launch backend, as in JAX: the policy is
+    JAX's ``policy_from_flags`` for it (DDP without a Fairscale flag)."""
+    from pytorch_distributedtraining_tpu.parallel.policy import policy_from_flags
+
+    s = tstoke.Stoke(model=SwinIR(**TOY), loss=tlosses.FeatLoss(), device="cpu",
                      optimizer=tstoke.StokeOptimizer("AdamW", {"lr": 1e-3}),
-                     distributed=distributed)
+                     distributed=tstoke.DistributedOptions(distributed))
+    want = policy_from_flags(distributed=distributed)
+    assert type(s.policy).__name__ == type(want).__name__ == "DDP"
+    assert dataclasses.asdict(s.policy) == dataclasses.asdict(want)
 
 
 def test_facade_refuses_a_fused_optimizer_on_zero2():

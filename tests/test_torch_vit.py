@@ -140,9 +140,7 @@ def test_per_block_remat_gives_the_same_numbers(remat):
 
 
 @pytest.mark.parametrize("kw,match", [(dict(scan_layers=True), "scan-over-layers slice"),
-                                      (dict(fp8="e4m3"), "fp8 matmul slice"),
-                                      pytest.param(dict(remat="names"), "named-activation",
-                                                   id="kw3-named-activation")])
+                                      (dict(fp8="e4m3"), "fp8 matmul slice")])
 def test_options_of_later_slices_raise(kw, match):
     with pytest.raises(NotImplementedError, match=match):
         tvit.ViT(tvit.ViTConfig.tiny(**kw))
