@@ -47,9 +47,9 @@ Phases, each fatal on failure:
    synthetic data, two optimizer steps) in a scratch directory, traced:
    finite losses, a checkpoint written, K1 and K2 in the trace's device
    records (the split path's graphs' warm-ups and replays, and the
-   validation forward: ``traced_call``, retaken up to ``GRAPH_TAKES``
-   takes when short) and the wrappers' counts (the two captures and the
-   validation forward: ``capture_launches``), both exact;
+   validation's eval graph, its warm-up and replay: ``traced_call``,
+   retaken up to ``GRAPH_TAKES`` takes when short) and the wrappers'
+   counts (the three captures: ``capture_launches``), both exact;
 6. bench shape: the model and facade from the driver's ``build_model``
    and ``build_stoke`` at batch 18, LR 64x64 -> HR 128x128, in f32 and
    bf16, through ``profile_swinir.train_steps`` (no loss read inside a
@@ -103,8 +103,8 @@ Phases, each fatal on failure:
    group-less run's, NCCL kernels a step, peak memory with the graphs'
    pools, 48 K1 and 48 K2 in a traced step's device records (each loss is
    read after its ``.step()``: the split path's three graphs, each
-   captured once; ZeRO-3, which ``refuse_capture`` refuses, runs them
-   uncaptured and the wrappers count 24 a micro-batch), and a
+   captured once, ZeRO-3's too; a layout the facade runs uncaptured,
+   ``graph_refusal``, would count 24 a micro-batch in the wrappers), and a
    checkpoint saved through the group
    (gathered, written by rank 0, a barrier) that loads strictly. Then
    GPT-2 125M under
@@ -272,7 +272,8 @@ Phases, each fatal on failure:
    child's own counters, printed after each epoch), (a) and (w) exactly
    the split path's two captures (its first and accumulating programs;
    every later training micro-batch is a replay, which no wrapper
-   counts) and one validation forward an epoch; the restart's cost, (b)'s wall seconds minus
+   counts) and the validation's eval program's one capture (every later
+   epoch replays it); the restart's cost, (b)'s wall seconds minus
    (a)'s, each generation's start and (a)'s and (w)'s epoch times are
    printed; (c) the recovery
    drill (``runtime/recovery_drill.py``) under ``--elastic --max_restarts 1
@@ -324,7 +325,22 @@ Phases, each fatal on failure:
    traced (48 K1 and 48 K2 a step in the replays' device records, one
    graph launch a program; the uncaptured twin is timed, not traced), one
    capture a program, and the peaks, the graphed one with the facade's
-   shared pool;
+   shared pool. (f) every training program graphed, in the same group:
+   the driver's facade in f32 and bf16 under each of ``LAYOUT_CASES``
+   (ZeRO-3 through ``FairscaleFSDPConfig``, FSDP2's hooks, copies and
+   streams inside the capture; plain DDP with the per-leaf chain, a
+   ``DistributedDataParallel`` model whose programs run the bare module;
+   each through the window program and the driver's split loop) as (e)
+   runs its cases, bitwise required; the cold programs of the ZeRO-3
+   facade (``_cold_case``: a handle read alone, a loss read before
+   ``.backward()``, eval-mode ``.model``, ``eval_step`` over a batch and
+   a partial one of ``COLD_EVAL_N``): one capture a signature, a replay
+   every later call, bitwise their uncaptured twin, ``COLD_KERNELS`` (24
+   K1, no K2) in a forward's replay; GPT-2 125M bf16 under
+   ``ZeRO3(remat="full")`` and ViT-B/16 bf16 under ZeRO-3 (ladder config
+   5, batch 64 at 224x224) through ``MultiStep(k=GRAPH_K)`` against their
+   eager ``TrainStep``, bitwise required, GPT-2 with 24 K3, 12 K4 and 12
+   K5 a step in the replay's device records;
 20. host offload and named remat, under phase 19's deterministic
    settings: first the card's pinned copy rates (``pinned_rates``: a
    ``OFFLOAD_PROBE_MIB`` MiB pinned buffer each way, CUDA events); (a)
@@ -1043,10 +1059,10 @@ def phase_driver() -> None:
     # split path (the driver reads each loss after .step()): the first and
     # the accumulating programs, each captured once (a warm-up runs its
     # kernels, the capture records them) and replayed; one forward-only
-    # validation batch, uncaptured
+    # validation batch, the eval program, captured and replayed the same way
     train_batches = (DRIVER_N - DRIVER_VAL) // BATCH
-    want = {"K1": 24 * (train_batches + 2) + 24, "K2": 24 * (train_batches + 2)}
-    expected = (capture_launches(2, 24) + 24, capture_launches(2, 24))
+    want = {"K1": 24 * (train_batches + 2) + 2 * 24, "K2": 24 * (train_batches + 2)}
+    expected = (capture_launches(3, 24), capture_launches(2, 24))
     runs = []
 
     def run():
@@ -1069,8 +1085,8 @@ def phase_driver() -> None:
     (train_loss, val_loss), seconds, launches, ckpts = runs[-1]
     print(f"[driver] train loss {train_loss}, val loss {val_loss}, checkpoint "
           f"{[p.name for p in ckpts]}, {seconds:.1f} s (traced), the wrappers' launches fwd "
-          f"{launches[0]} bwd {launches[1]} (expected {expected}: the two captures and the "
-          f"validation forward), device records {traced['kernels']['K1']} K1 and "
+          f"{launches[0]} bwd {launches[1]} (expected {expected}: the two training captures "
+          f"and the validation's), device records {traced['kernels']['K1']} K1 and "
           f"{traced['kernels']['K2']} K2 (expected {want}, take {traced['takes']})")
     if faults := kernel_faults("driver", traced["kernels"], want):
         raise SystemExit("; ".join(faults))
@@ -1551,8 +1567,8 @@ def phase_distributed(smi: str, lm: dict, steps: int = 5, warmup: int = 2) -> di
             per_step = {"K1": 48, "K2": 48}
             faults = kernel_faults(label, g["kernels"], per_step) + kernel_faults(
                 f"{label} (no group)", a["kernels"], per_step)
-            # a layout refuse_capture refuses (ZeRO-3) runs the programs
-            # uncaptured: the wrappers count every micro-batch
+            # a layout the facade runs uncaptured (graph_refusal) would
+            # show in the wrappers' counts: every micro-batch
             graphs, launches = ({"first": 0, "acc": 0, "apply": 0}, (24 * g["micro"],) * 2) \
                 if g["refused"] else ({"first": 1, "acc": 1, "apply": 1}, (0, 0))
             if g["launches"] != launches or g["graphs"] != graphs:
@@ -3315,9 +3331,9 @@ def phase_launch(smi: str) -> dict:
         # the driver's loop reads each loss after .step(): the split path's
         # first and accumulating programs are captured once in the process
         # (their warm-ups and captures are what the wrappers count; every
-        # training micro-batch after is a replay), and each epoch's
-        # validation batch runs K1 uncaptured
-        full = (capture_launches(2, 24) + LAUNCH_EPOCHS * 24, capture_launches(2, 24))
+        # training micro-batch after is a replay), and so is the validation's
+        # eval program (every later epoch's validation batch replays it)
+        full = (capture_launches(3, 24), capture_launches(2, 24))
         gen_start = {"a gen 0": a["training_at"][:1], "b gen 0": b["training_at"][:1],
                      "b gen 1": [t - b["restart_at"][0] for t in b["training_at"][1:2]]
                      if b["restart_at"] else []}
@@ -3446,9 +3462,11 @@ def graph_mismatch(got: list, want: list, start: list) -> tuple[float, float]:
     return diff, diff / moved if moved > 0 else float("inf") if diff else 0.0
 
 
-def graph_faults(name: str, losses: tuple, params: tuple, start: list, dtype: str) -> list:
+def graph_faults(name: str, losses: tuple, params: tuple, start: list, dtype: str,
+                 exact: bool = False) -> list:
     """Print how far the graphed run (first of each pair) lies from the
-    eager one and return the faults: any difference above ``GRAPH_TOL``."""
+    eager one and return the faults: any difference above ``GRAPH_TOL``,
+    or with ``exact`` any difference at all."""
     import math
 
     got, want = losses
@@ -3461,9 +3479,19 @@ def graph_faults(name: str, losses: tuple, params: tuple, start: list, dtype: st
     tol = GRAPH_TOL[dtype]
     if not all(math.isfinite(v) for v in got + want):
         return [f"{name}: non-finite losses {got} / {want}"]
+    if exact and not bitwise:
+        return [f"{name}: graphed differs from its uncaptured twin (losses {loss_rel:.3e}, "
+                f"parameters {p_abs:.3e}), bitwise expected"]
     return [] if loss_rel <= tol and p_rel <= tol else [f"{name}: graphed differs from eager "
                                                         f"(losses {loss_rel:.3e}, parameters "
                                                         f"{p_rel:.3e} > {tol:g})"]
+
+
+def local_params(module) -> list:
+    """A copy of each parameter of ``module``, this rank's shard of an FSDP2
+    ``DTensor``."""
+    return [(p.to_local() if hasattr(p, "to_local") else p).detach().clone()
+            for p in module.parameters()]
 
 
 def replay_counts(events, steps: int, group_size: int | None = None) -> dict:
@@ -3585,10 +3613,12 @@ def graph_report(name: str, smi: str, eager: dict, graphed: dict, per_step: dict
     return row, faults
 
 
-def _multi_case(name: str, smi: str, build, batches: list, per_step: dict, dtype: str) -> tuple:
+def _multi_case(name: str, smi: str, build, batches: list, per_step: dict, dtype: str,
+                exact: bool = False) -> tuple:
     """``build() -> (model, TrainStep)`` from one seed: the eager steps of
     ``batches``, then, from the same state restored, ``MultiStep(GRAPH_K)``
-    over the same batches stacked; then both timed, traced and measured."""
+    over the same batches stacked (``exact``: bitwise required); then both
+    timed, traced and measured."""
     import torch
 
     from pytorch_distributedtraining_tpu_torch.observe import profiling
@@ -3596,10 +3626,10 @@ def _multi_case(name: str, smi: str, build, batches: list, per_step: dict, dtype
 
     k, n = GRAPH_K, GRAPH_K * GRAPH_WINDOWS
     model, step = build()
-    start = [p.detach().clone() for p in model.parameters()]
+    start = local_params(model)
     snapshot = step.state_snapshot()
     eager_losses = [float(step(b)["loss"]) for b in batches[:n]]
-    eager_params = [p.detach().clone() for p in model.parameters()]
+    eager_params = local_params(model)
     step.restore_state(snapshot)
     multi = MultiStep(step, k)
     stack = (lambda bs: torch.stack(bs)) if isinstance(batches[0], torch.Tensor) else (
@@ -3609,7 +3639,7 @@ def _multi_case(name: str, smi: str, build, batches: list, per_step: dict, dtype
     for w in wins[:GRAPH_WINDOWS]:
         graph_losses += multi(w)["loss"].tolist()
     faults = graph_faults(name, (graph_losses, eager_losses),
-                          ([p.detach() for p in model.parameters()], eager_params), start, dtype)
+                          (local_params(model), eager_params), start, dtype, exact)
     timed = wins[GRAPH_WINDOWS:GRAPH_WINDOWS + GRAPH_TIMED]
     eager = {"ms": _timed(lambda: [step(b) for b in batches[n:n + GRAPH_TIMED * k]], 1)
              / (GRAPH_TIMED * k) * 1e3}
@@ -3726,19 +3756,21 @@ WINDOW_CASES = (  # label, build_stoke flags, loop, the programs it captures
 
 
 def _window_case(name: str, smi: str, fp16, flags: dict, loop, programs: tuple,
-                 batches: list, dtype: str) -> tuple:
+                 batches: list, dtype: str, exact: bool = False) -> tuple:
     """19 (e): the driver's facade (``build_stoke`` with ``flags``, seed 0,
     in the NCCL group of one) through ``loop`` (:func:`_stoke_style`: the
     window program; :func:`_driver_style`: the split path), graphed,
     against the same programs run uncaptured (``Stoke.uncaptured``) from
-    the same state (its snapshot restored), bitwise expected; then both
-    timed, a graphed step traced (48 K1 and 48 K2 a step in the replays'
-    device records, one graph launch a program), and the peaks, the
-    graphed one with every graph's pool."""
+    the same state (its snapshot restored), bitwise expected (required with
+    ``exact``); then both timed, a graphed step traced (48 K1 and 48 K2 a
+    step in the replays' device records, one graph launch a program), and
+    the peaks, the graphed one with every graph's pool. 19 (f) runs it on
+    ZeRO-3 and on a DDP model (``flags`` then carry ``configs`` and
+    ``fused_optimizer``)."""
     from pytorch_distributedtraining_tpu_torch.drivers import stoke_ddp
 
     def params():
-        return [p.detach().clone() for p in s.model_access.parameters()]
+        return local_params(s.model_access)
 
     def uncaptured(bs):
         with s.uncaptured():
@@ -3753,7 +3785,7 @@ def _window_case(name: str, smi: str, fp16, flags: dict, loop, programs: tuple,
     s._step_count = 0
     eager_losses = [float(v) for v in uncaptured(batches[:WINDOW_HELD])]
     faults = graph_faults(name, (graph_losses, eager_losses), (graph_params, params()), start,
-                          dtype)
+                          dtype, exact)
     timed = batches[WINDOW_HELD:WINDOW_HELD + WINDOW_TIMED]
     eager = {"ms": _timed(lambda: uncaptured(timed), 1) / len(timed) * 1e3}
     graphed = {"ms": _timed(lambda: [loop(s, b) for b in timed], 1) / len(timed) * 1e3}
@@ -3818,6 +3850,167 @@ def _amp_case(smi: str, batches: list) -> list:
     if diff > 0:
         faults.append(f"(c): graphed parameters differ from eager by {diff:.3e}")
     return faults
+
+
+LAYOUT_CASES = (  # 19 (f): label, layout, loop, the programs it captures
+    ("ZeRO-3 (FairscaleFSDPConfig) window", "fsdp", "_stoke_style", ("window",)),
+    ("ZeRO-3 (FairscaleFSDPConfig), the driver's loop", "fsdp", "_driver_style",
+     ("first", "acc", "apply")),
+    ("DDP model (per-leaf AdamW) window", "ddp", "_stoke_style", ("window",)),
+    ("DDP model (per-leaf AdamW), the driver's loop", "ddp", "_driver_style",
+     ("first", "acc", "apply")),
+)
+COLD_EVAL_N = 10  # 19 (f): the partial last eval batch (the driver's validation batch)
+COLD_KERNELS = {"K1": 24, "K2": 0}  # a forward of SwinIR-S's 24 Swin layers
+
+
+def layout_flags(layout: str) -> dict:
+    """19 (f)'s ``build_stoke`` flags: ZeRO-3 (``fairscale_fsdp`` with
+    ``FairscaleFSDPConfig``) or plain DDP with the per-leaf chain (a
+    ``DistributedDataParallel`` model)."""
+    from pytorch_distributedtraining_tpu_torch.stoke import FairscaleFSDPConfig
+
+    if layout == "fsdp":
+        return {"fsdp": True, "configs": (FairscaleFSDPConfig(),)}
+    return {"oss": False, "sddp": False, "fused_optimizer": False}
+
+
+def cold_expected(reads: int) -> list:
+    """19 (f): ``(program, batch, captures, replays)`` of the cold
+    programs after ``reads`` graphed rounds of :func:`_cold_case`: one
+    capture a program and signature, and a replay every call (the forward
+    program twice a round: the handle read alone and the loss's)."""
+    return sorted([("forward", BATCH, 1, 2 * reads), ("loss", BATCH, 1, reads),
+                   ("eval_forward", BATCH, 1, reads), (str(("eval", ())), BATCH, 1, reads),
+                   (str(("eval", ())), COLD_EVAL_N, 1, reads)])
+
+
+def cold_counts(stoke) -> list:
+    """``(program, batch, captures, replays)`` of each of a facade's
+    graphs: the program's name and its first input's batch size."""
+    return sorted((str(kind), sig[0][0][0], g.captures, g.replays)
+                  for (kind, sig), g in stoke._graphs.items())
+
+
+def _cold_case(smi: str, batches: list) -> tuple:
+    """19 (f): the cold programs of the ZeRO-3 facade (f32, SwinIR-S): a
+    handle read alone and a loss read before ``.backward()`` at the bench
+    shape, eval-mode ``.model`` there and ``eval_step`` over a batch of
+    ``BATCH`` and a partial one of ``COLD_EVAL_N`` at the driver's shape
+    (LR 32); two graphed rounds then one uncaptured, every value bitwise
+    the same, one capture a signature (:func:`cold_expected`), and a
+    traced replay of the handle read and of the eval forward each counting
+    ``COLD_KERNELS``."""
+    import torch
+
+    from pytorch_distributedtraining_tpu_torch.drivers import stoke_ddp
+
+    s = stoke_ddp.build_stoke(stoke_ddp.build_model(), batch_size=BATCH, verbose=False,
+                              **layout_flags("fsdp"))
+    x, y = batches[0][0][:BATCH], batches[0][1][:BATCH]
+    g = torch.Generator(device="cuda").manual_seed(23)
+    dy = torch.rand(BATCH, 64, 64, 3, device="cuda", generator=g)
+    dx = dy.reshape(BATCH, 32, 2, 32, 2, 3).mean(dim=(2, 4))
+    ev = s.eval_step()
+
+    def eval_model():
+        s.model_access.eval()
+        try:
+            return s.model(x)
+        finally:
+            s.model_access.train()
+
+    def one_round():
+        return [s.model(x).detach(), s.loss(s.model(x), y).detach(), eval_model(),
+                ev(dx, dy)["loss"], ev(dx[:COLD_EVAL_N], dy[:COLD_EVAL_N])["loss"]]
+
+    t0 = time.perf_counter()
+    rounds = [one_round(), one_round()]
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    with s.uncaptured():
+        twin = one_round()
+    counts = cold_counts(s)
+    equal = all(torch.equal(a, b) and torch.equal(a, c) for a, b, c in zip(*rounds, twin))
+    graphed_ms = _timed(eval_model, 3) / 3 * 1e3
+    with s.uncaptured():
+        eager_ms = _timed(eval_model, 3) / 3 * 1e3
+    traced = {"handle": replay_traced("(f) cold: a handle read alone",
+                                      lambda: s.model(x).detach(), 1, COLD_KERNELS),
+              "eval": replay_traced("(f) cold: eval-mode .model", eval_model, 1, COLD_KERNELS)}
+    print(f"[graphs] (f) cold programs of the ZeRO-3 facade, SwinIR-S f32: graphed rounds and "
+          f"the uncaptured one {'bitwise equal' if equal else 'NOT bitwise equal'}; (program, "
+          f"batch, captures, replays) {counts}; two rounds with their captures "
+          f"{first_s:.2f} s; eval-mode .model {graphed_ms:.2f} ms graphed, {eager_ms:.2f} ms "
+          f"uncaptured; kernels a replay: handle read K1 {traced['handle']['K1']:g} K2 "
+          f"{traced['handle']['K2']:g}, eval forward K1 {traced['eval']['K1']:g} K2 "
+          f"{traced['eval']['K2']:g} | {smi}")
+    faults = [] if equal else ["(f) cold: graphed and uncaptured values differ"]
+    if counts != cold_expected(2):
+        faults.append(f"(f) cold: graphs {counts}, expected {cold_expected(2)}")
+    for what, c in traced.items():
+        if {k: c[k] for k in COLD_KERNELS} != COLD_KERNELS:
+            faults.append(f"(f) cold {what}: {c['K1']:g} K1 and {c['K2']:g} K2 a replay, "
+                          f"expected {COLD_KERNELS}")
+    row = {"counts": counts, "eval_ms": graphed_ms, "eval_uncaptured_ms": eager_ms,
+           "kernels": {k: {n: c[n] for n in COLD_KERNELS} for k, c in traced.items()}}
+    del s
+    return row, faults
+
+
+def _graph_layouts(smi: str, batches: list) -> tuple:
+    """19 (f): every training program graphed on ZeRO-3 and a DDP model
+    (module docstring), in the NCCL group of one."""
+    import torch
+
+    from pytorch_distributedtraining_tpu_torch.benchmarks import ladder
+    from pytorch_distributedtraining_tpu_torch.models import GPT2Config
+
+    t0 = time.perf_counter()
+    out, faults = {}, []
+    for fp16 in (None, "bf16"):
+        dtype = "bfloat16" if fp16 else "float32"
+        for i, (label, layout, loop, programs) in enumerate(LAYOUT_CASES):
+            row, f = _window_case(f"(f) SwinIR-S {dtype} {label} (NCCL world 1)", smi, fp16,
+                                  layout_flags(layout), globals()[loop], programs, batches,
+                                  dtype, exact=True)
+            out[f"layout_{layout}_{loop.strip('_')}_{dtype}"], faults = row, faults + f
+            torch.cuda.empty_cache()
+    row, f = _cold_case(smi, batches)
+    out["cold"], faults = row, faults + f
+    torch.cuda.empty_cache()
+    g = torch.Generator(device="cuda").manual_seed(29)
+    n = GRAPH_K * (GRAPH_WINDOWS + GRAPH_TIMED)
+    tokens = [torch.randint(0, GPT2Config().vocab_size, (LM_BATCH, LM_SEQ), device="cuda",
+                            generator=g) for _ in range(n)]
+
+    def build_lm():
+        model, step, _ = ladder.build_lm(GPT2Config(), LM_BATCH, LM_SEQ, torch.device("cuda"),
+                                         policy="zero3", remat="full")
+        return model, step
+
+    row, f = _multi_case(f"(f) GPT-2 125M bf16 ZeRO3(remat='full') MultiStep(k={GRAPH_K})",
+                         smi, build_lm, tokens, {"K3": 24, "K4": 12, "K5": 12}, "bfloat16",
+                         exact=True)
+    out["gpt2_zero3_multistep"], faults = row, faults + f
+    del tokens
+    torch.cuda.empty_cache()
+
+    def build_vit():
+        model, step, _ = ladder.build_image(5, False, torch.device("cuda"))
+        return model, step
+
+    _, _, batch, img, classes = ladder.IMAGE_RUNGS[5]
+    images = [(torch.randn(batch, img, img, 3, device="cuda", generator=g),
+               torch.randint(0, classes, (batch,), device="cuda", generator=g))
+              for _ in range(n)]
+    row, f = _multi_case(f"(f) ViT-B/16 bf16 ZeRO3 MultiStep(k={GRAPH_K}) (ladder config 5)",
+                         smi, build_vit, images, {}, "bfloat16", exact=True)
+    del images
+    out["vit_zero3_multistep"], faults = row, faults + f
+    torch.cuda.empty_cache()
+    print(f"[graphs] (f) {time.perf_counter() - t0:.1f} s")
+    return out, faults
 
 
 def phase_graphs(smi: str) -> dict:
@@ -3886,6 +4079,9 @@ def phase_graphs(smi: str) -> dict:
                                           fp16, flags, globals()[loop], programs, batches, dtype)
                     out[f"swinir_window_{i}_{dtype}"], faults = row, faults + f
                     torch.cuda.empty_cache()
+            more, f = _graph_layouts(smi, batches)
+            out.update(more)
+            faults += f
         finally:
             dist.shutdown()
         g = torch.Generator(device="cuda").manual_seed(7)

@@ -268,13 +268,15 @@ def build_stoke(model: torch.nn.Module, *, lr: float = 0.001, weight_decay: floa
                 grad_clip: float = 0.1, batch_size: int = 18, fp16: str | None = None,
                 device: str = "cuda", verbose: bool = True, oss: bool = True,
                 sddp: bool = True, fsdp: bool = False, loss=feat_loss,
-                configs: tuple = ()) -> Stoke:
+                configs: tuple = (), fused_optimizer: bool | None = None) -> Stoke:
     """The driver's facade: ``feat_loss``, AdamW, global-norm clip,
     ``grad_accum_steps=2``, DDP with OSS and SDDP (ZeRO-2) and
     ``broadcast_fp16``, over the process group when there is one.
     ``oss``/``sddp``/``fsdp`` set the Fairscale flags for another layout,
     ``loss`` another loss, ``configs`` more configs after the driver's (a
-    ``DeepspeedConfig``: a ZeRO stage, host offload)."""
+    ``DeepspeedConfig``: a ZeRO stage, host offload), ``fused_optimizer``
+    the facade's choice of optimizer (``False``: the per-leaf chain, and
+    under DDP flags a ``DistributedDataParallel`` model)."""
     local_rank = os.getenv("LOCAL_RANK")
     ddp_config = DDPConfig(
         local_rank=int(local_rank) if local_rank not in (None, "None") else None,
@@ -305,6 +307,7 @@ def build_stoke(model: torch.nn.Module, *, lr: float = 0.001, weight_decay: floa
         configs=[AMPConfig(init_scale=2.0**14), ddp_config,
                  FairscaleOSSConfig(broadcast_fp16=True), *configs],
         grad_clip=ClipGradNormConfig(max_norm=grad_clip, norm_type=2.0),
+        fused_optimizer=fused_optimizer,
         device=device,
     )
 

@@ -110,8 +110,10 @@ def default_attention(q, k, v, *, causal: bool = True):
     """Plain softmax attention, the XLA default's counterpart: scores in the
     input dtype, softmax in f32. q/k/v: ``[B, T, H, Dh]`` -> ``[B, T, H, Dh]``."""
     dh = q.shape[-1]
-    logits = torch.einsum("bqhd,bkhd->bhqk", q, k) / torch.tensor(
-        math.sqrt(dh), dtype=q.dtype, device=q.device)
+    # the scale filled on the device (a captured graph refuses a copy from
+    # pageable host memory), rounded to the input dtype as XLA's
+    logits = torch.einsum("bqhd,bkhd->bhqk", q, k) / torch.full(
+        (), math.sqrt(dh), dtype=q.dtype, device=q.device)
     if causal:
         tq, tk = q.shape[1], k.shape[1]
         keep = torch.ones(tq, tk, dtype=torch.bool, device=q.device).tril(tk - tq)

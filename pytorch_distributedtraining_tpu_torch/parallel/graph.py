@@ -1,12 +1,14 @@
-"""Train steps as captured CUDA graphs: the runner under ``MultiStep``,
-``Stoke.fused_step`` and the Stoke facade's deferred window.
+"""Train and eval steps as captured CUDA graphs: the runner under
+``MultiStep``, ``Stoke.fused_step``, ``EvalStep`` and every program of the
+Stoke facade (the deferred window's, the early reads' and the eval ones).
 
 JAX answers a host-bound step with one compiled program per step (or per K
 steps); on the card the matching answer is a ``torch.cuda.CUDAGraph`` of
 the step's kernels, replayed by one launch. :class:`StepGraph` runs
 ``fn(inputs) -> outputs`` of an *owner* (:class:`GraphOwner`: a
-``TrainStep``, or the facade, whose programs are JAX's ``eager_step``,
-``_jit_acc_first``/``_jit_acc`` and ``_jit_apply``) that way:
+``TrainStep``, an ``EvalStep``, or the facade, whose programs are JAX's
+``eager_step``, ``_jit_acc_first``/``_jit_acc``, ``_jit_apply``,
+``_jit_fwd`` and ``_jit_loss``) that way:
 
 - the first call, and any call whose inputs change shape or dtype, copies
   the inputs into static buffers and captures. Before the capture ``fn``
@@ -32,11 +34,16 @@ its own graph, followed earlier phases' graphs).
 Every input and output of a kernel inside lies in the graph's static
 buffers, its private memory pool or the owner's own tensors: the window
 and flash kernels launch on the current stream with raw pointers, which a
-replay reuses. A failed capture or replay raises; nothing falls back to
-eager. On the CPU, and with ``capture=False`` (a layout
-``parallel.step.refuse_capture`` refuses), there is no graph: ``fn`` runs
-as it is, the same code path. :meth:`StepGraph.eager` runs ``fn``
-uncaptured on the card too: the graph's twin for a bitwise check.
+replay reuses. Streams other than the capture's join it by PyTorch's own
+waits: FSDP2's (ZeRO-3) fork from the current stream and are waited on
+again within the step, and a ``DistributedDataParallel`` model's
+AccumulateGrad nodes, which its reducer keeps, sit on the side stream
+``parallel.state`` builds the wrapper under (a node of the default stream
+would invalidate the capture). A failed capture or replay raises; nothing
+falls back to eager. On the CPU, and with ``capture=False`` (the facade's
+per-leaf offloaded parameters), there is no graph: ``fn`` runs as it is,
+the same code path. :meth:`StepGraph.eager` runs ``fn`` uncaptured on the
+card too: the graph's twin for a bitwise check.
 """
 
 from __future__ import annotations

@@ -51,6 +51,7 @@ and world size, each rank taking its share. ``torch.save`` of it is what
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import inspect
 import logging
@@ -227,10 +228,38 @@ def _laid_out(model, tx, mesh, policy: Policy, device: torch.device,
     # from the same global-batch statistics (sync_batch_norm)
     quiet = ("forward_sync_buffers" if "forward_sync_buffers" in
              inspect.signature(DistributedDataParallel).parameters else "broadcast_buffers")
-    wrapped = DistributedDataParallel(
-        model, device_ids=[device.index] if device.type == "cuda" else None,
-        process_group=group, find_unused_parameters=find_unused_parameters, **{quiet: False})
+    # on a card, built under a side stream: the reducer keeps each
+    # parameter's AccumulateGrad node, whose stream is the one current at
+    # its creation, and a node of the default stream cannot join a captured
+    # backward (PyTorch's recipe for DDP under CUDA graphs)
+    side = torch.cuda.Stream(device) if device.type == "cuda" else None
+    if side is not None:
+        side.wait_stream(torch.cuda.current_stream(device))
+    with torch.cuda.stream(side) if side is not None else contextlib.nullcontext():
+        wrapped = DistributedDataParallel(
+            model, device_ids=[device.index] if device.type == "cuda" else None,
+            process_group=group, find_unused_parameters=find_unused_parameters, **{quiet: False})
+    if side is not None:
+        torch.cuda.current_stream(device).wait_stream(side)
     return TrainState(wrapped, model, tx(model.named_parameters()), mesh, policy, rng)
+
+
+def _fsdp_module_type():
+    try:
+        from torch.distributed.fsdp import FSDPModule
+    except ImportError:
+        from torch.distributed._composable.fsdp import FSDPModule
+    return FSDPModule
+
+
+def reshard(module: torch.nn.Module) -> None:
+    """Free the unsharded parameters an FSDP2 ``module`` keeps after a
+    forward that no backward followed (the root keeps its own, FSDP2's
+    training default), so the next forward gathers from the shards again:
+    a program captured later must not read copies another program made
+    before an update. A no-op for any other module."""
+    if isinstance(module, _fsdp_module_type()):
+        module.reshard()
 
 
 def offload_placed(policy: Policy, device: torch.device) -> tuple[bool, bool]:

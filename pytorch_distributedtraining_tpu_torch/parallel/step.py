@@ -97,6 +97,18 @@ Both run inside a captured graph: the copies fork from the current stream
 and join it again. Under ``DDP`` with offloaded parameters there is no
 ``DistributedDataParallel`` wrapper (``parallel.state``):
 :func:`reduce_gradients` all-reduces the grads itself.
+
+A program a graph may capture (:meth:`TrainStep.program` under
+``MultiStep`` and ``Stoke.fused_step``, the facade's programs,
+:class:`EvalStep`) runs a ``DistributedDataParallel`` model without its
+wrapper (:func:`unwrapped`): the reducer's bucketed all-reduces, its
+``no_sync`` and its end-of-backward callback stay out of the capture, and
+:func:`reduce_gradients` all-reduces the grads once after the last
+micro-batch, as it does for offloaded parameters. The eager ``TrainStep``
+call keeps the wrapper and its overlap of the all-reduce with the
+backward. On the card the wrapper is built under a side stream
+(``parallel.state``), so the AccumulateGrad nodes its reducer keeps can
+join a captured backward.
 """
 
 from __future__ import annotations
@@ -116,10 +128,10 @@ from ..optim import FusedAdamW
 from ..runtime.mesh import data_group
 from .policy import Policy
 from .remat import apply_remat, resolve_remat
-from .graph import StepGraph
+from .graph import StepGraph, signature
 from .rng import DropoutKey, StepRng
 from .spec import all_reduce_sum_, all_reduce_tensors
-from .state import check_fused
+from .state import check_fused, reshard
 from .sync_bn import batch_norm_state
 
 
@@ -161,6 +173,12 @@ def _is_ddp(model) -> bool:
     return isinstance(model, DistributedDataParallel)
 
 
+def unwrapped(model: torch.nn.Module) -> torch.nn.Module:
+    """``model`` without its ``DistributedDataParallel`` wrapper: what a
+    program that may be captured runs (the module docstring)."""
+    return model.module if _is_ddp(model) else model
+
+
 def check_layout(model, tx, mesh, policy: Policy) -> None:
     """Refuse a model and optimizer that were not built for ``policy`` on
     ``mesh`` (by :func:`.state.create_train_state`)."""
@@ -185,12 +203,16 @@ def check_layout(model, tx, mesh, policy: Policy) -> None:
                          "model and optimizer with parallel.create_train_state")
 
 
-def reduce_gradients(tx, policy: Policy, group, accum: int = 1) -> list[torch.Tensor] | None:
+def reduce_gradients(tx, policy: Policy, group, accum: int = 1, *,
+                     all_reduce: bool = False) -> list[torch.Tensor] | None:
     """After the last backward of a step, make the gradients the global
     batch's mean: summed over ``group`` as ``policy`` says and divided by
     ranks times ``accum``. Returns this rank's share of the grads for a
     per-leaf ``tx.step``; None for ``FusedAdamW``, whose flat gradient is
-    reduced in place. Without a group, only the division by ``accum``."""
+    reduced in place. Without a group, only the division by ``accum``.
+    ``all_reduce``: the backward ran without a ``DistributedDataParallel``
+    wrapper that the layout has (a program, :func:`unwrapped`), so the
+    replicated grads are all-reduced here, as with offloaded parameters."""
     world = 1 if group is None else tdist.get_world_size(group)
     if isinstance(tx, FusedAdamW):
         if group is not None:
@@ -199,8 +221,8 @@ def reduce_gradients(tx, policy: Policy, group, accum: int = 1) -> list[torch.Te
             tx.flat_grad.div_(world * accum)
         return None
     shard = tx.shard
-    if shard is None and group is not None and tx.offloaded_params:
-        # DDP's layout without its wrapper (offloaded parameters): one all-reduce
+    if shard is None and group is not None and (all_reduce or tx.offloaded_params):
+        # DDP's layout without its wrapper (a program, offloaded parameters): one all-reduce
         return all_reduce_tensors(tx.grads(), group, 1.0 / (world * accum))
     if shard is None or shard.dtensor:
         # one process, DDP's own all-reduce, or FSDP2's reduce-scatter: the
@@ -332,28 +354,30 @@ class TrainStep:
             return [p.grad for p in tx.params], list(tx.params)
         return grads, list(tx.local)
 
-    def _loss(self, mb, i: int):
-        """``loss_fn`` on micro-batch ``i``, with its key when it takes one:
-        the key holds a device copy of the step counter, a value that later
-        steps do not change."""
+    def _loss(self, mb, i: int, model=None):
+        """``loss_fn`` on micro-batch ``i`` (of ``model``, default the
+        step's), with its key when it takes one: the key holds a device
+        copy of the step counter, a value that later steps do not change."""
+        model = self.model if model is None else model
         if not self._keyed:
-            return self.loss_fn(self.model, mb)
+            return self.loss_fn(model, mb)
         key = DropoutKey(self.rng.seed, self.step_t.clone(), i)
         if self._keyed == "rng":
-            return self.loss_fn(self.model, mb, rng=key)
-        return self.loss_fn(self.model, mb, key)
+            return self.loss_fn(model, mb, rng=key)
+        return self.loss_fn(model, mb, key)
 
-    def _forward_backward(self, micro: list) -> tuple[list, list]:
-        """Every micro-batch's forward and backward: the losses and auxs."""
+    def _forward_backward(self, micro: list, model) -> tuple[list, list]:
+        """Every micro-batch's forward and backward through ``model``: the
+        losses and auxs. A DDP wrapper syncs at the last micro-batch only."""
         n = len(micro)
         losses, auxs = [], []
         start = [t.clone() for t in self.model_state] if self.model_state and n > 1 else None
         for i, mb in enumerate(micro):
             if start is not None and i > 0:  # every micro-batch from the step's state
                 torch._foreach_copy_(self.model_state, start)
-            quiet = _is_ddp(self.model) and i < n - 1
-            with self.model.no_sync() if quiet else contextlib.nullcontext():
-                loss, aux = self._loss(mb, i)
+            quiet = _is_ddp(model) and i < n - 1
+            with model.no_sync() if quiet else contextlib.nullcontext():
+                loss, aux = self._loss(mb, i, model)
                 kept = ([t.clone() for t in self.model_state]
                         if self.model_state and self._recomputes else None)
                 scaler = self.loss_scaler
@@ -364,18 +388,28 @@ class TrainStep:
             auxs.append(aux)
         return losses, auxs
 
-    def _step(self, batch) -> dict[str, torch.Tensor]:
+    def program(self, batch) -> dict[str, torch.Tensor]:
+        """:meth:`_step` as a graph captures it (``MultiStep``,
+        ``Stoke.fused_step``): a DDP model runs without its wrapper and
+        :func:`reduce_gradients` all-reduces its grads (the module
+        docstring says why)."""
+        return self._step(batch, program=True)
+
+    def _step(self, batch, program: bool = False) -> dict[str, torch.Tensor]:
         """One step at the optimizer's lr factor and the device step
         counter (both written by :meth:`prepare`); advances the counter on
-        the device. No host read unless ``detect_anomaly``."""
+        the device. No host read unless ``detect_anomaly``. ``program``:
+        as :meth:`program`."""
         n = self.grad_accum_steps
         self.tx.zero_grad()
         self.tx.params_in()  # offloaded parameters: to the device for the forward
         micro = _split_microbatches(batch, n) if n > 1 else [batch]
         before = ([t.clone() for t in self.model_state]
                   if self.model_state and self.detect_anomaly else None)
-        losses, auxs = self._forward_backward(micro)
-        grads = reduce_gradients(self.tx, self.policy, self.group, n)
+        model = unwrapped(self.model) if program else self.model
+        losses, auxs = self._forward_backward(micro, model)
+        grads = reduce_gradients(self.tx, self.policy, self.group, n,
+                                 all_reduce=model is not self.model)
         probe, layout, scaler = self.numerics, self._layout, self.loss_scaler
         shard = None if self.fused is not None else self.tx.shard
         if scaler is not None and self.fused is None:
@@ -594,11 +628,11 @@ class MultiStep:
     state and its restore, then one capture; every call copies its window
     into the buffers and replays. A failed capture or replay raises;
     nothing falls back to eager. On the CPU the same runner calls the K
-    steps directly. ZeRO-3 (FSDP2: per-unit hooks, streams and events on
-    the host), a ``DistributedDataParallel`` model (its reducer holds the
-    parameters' AccumulateGrad nodes of another stream) and
-    ``detect_anomaly`` (a host read every step) cannot be captured and
-    raise here, on the CPU too.
+    steps directly. Every layout captures: ZeRO-3 (FSDP2's hooks, copies
+    and streams inside the capture) and a ``DistributedDataParallel``
+    model, whose steps run :meth:`TrainStep.program` (the bare module, the
+    grads all-reduced once). ``detect_anomaly`` (a host read every step)
+    cannot be captured and raises here, on the CPU too.
     """
 
     def __init__(self, step: TrainStep, k: int):
@@ -610,7 +644,7 @@ class MultiStep:
         self.graph = StepGraph(step, self._window)
 
     def _window(self, batches) -> dict:
-        return _stack_metrics([self.step._step(_window_item(batches, i))
+        return _stack_metrics([self.step.program(_window_item(batches, i))
                                for i in range(self.k)])
 
     def __call__(self, batches, lr_factor: float = 1.0) -> dict[str, torch.Tensor]:
@@ -636,20 +670,10 @@ class MultiStep:
 
 
 def refuse_capture(step, what: str) -> None:
-    """Raise ``ValueError`` where ``step`` cannot run as a captured graph.
-    ``step`` is a ``TrainStep`` or anything with its ``policy``, ``model``
-    and ``detect_anomaly`` (the Stoke facade asks once, at construction)."""
-    if step.policy.shard_params:
-        raise ValueError(
-            f"{what} cannot capture a ZeRO-3 step: FSDP2's per-unit hooks, streams and events "
-            "run on the host, outside a CUDA graph (they wait for the wrapped-model graph "
-            "slice); use TrainStep, or ZeRO-2")
-    if _is_ddp(step.model):
-        raise ValueError(
-            f"{what} cannot capture a DistributedDataParallel model: DDP's reducer keeps each "
-            "parameter's AccumulateGrad node from the stream DDP was built on, which the "
-            "capture's backward would have to join (the wrapped-model graph slice); use "
-            "FusedAdamW (no DDP wrapper), or ZeRO-1/2")
+    """Raise ``ValueError`` where ``step`` (a ``TrainStep``) cannot run as
+    a captured graph: ``detect_anomaly``. Every layout captures, ZeRO-3 and
+    a ``DistributedDataParallel`` model too (``parallel.graph``'s docstring
+    says how their streams join the capture)."""
     if step.detect_anomaly:
         raise ValueError(
             f"{what} cannot capture a step with detect_anomaly=True: it reads the gradients' "
@@ -703,10 +727,15 @@ def tune_multi_step_k(step: TrainStep, batch, ks=(1, 2, 5, 10), steps_per_arm: i
 
 class EvalStep:
     """``step(batch) -> metrics``: ``eval_fn(model, batch) -> {name:
-    scalar}`` without a graph, each value averaged over the ranks of the
-    mesh's data axis (each rank evaluates its own shard of the batch).
-    ``tx``, the train state's optimizer, streams offloaded parameters in
-    for the forward (JAX's ``stream_to_device`` in the eval program)."""
+    scalar}`` as one program (JAX's compiled eval step): on the card a
+    captured CUDA graph per input signature (``parallel.graph.StepGraph``,
+    one shared pool; a last partial batch is one more capture), on the CPU
+    the function itself. Each value is then averaged over the ranks of the
+    mesh's data axis (each rank evaluates its own shard of the batch),
+    outside the program: on gloo that all-reduce is a host-side call. A
+    DDP model runs without its wrapper (:func:`unwrapped`). ``tx``, the
+    train state's optimizer, streams offloaded parameters in for the
+    forward (JAX's ``stream_to_device`` in the eval program)."""
 
     def __init__(self, model: torch.nn.Module, eval_fn: Callable, mesh=None, tx=None):
         self.model = model
@@ -714,9 +743,37 @@ class EvalStep:
         self.mesh = mesh
         self.tx = tx
         self.group = None if mesh is None else data_group(mesh)
+        self.device = tx.device if tx is not None else next(model.parameters()).device
+        self.graphs: dict = {}  # input signature -> StepGraph
+        self._pool = None
+
+    def __call__(self, batch) -> dict[str, torch.Tensor]:
+        key = signature(batch)
+        graph = self.graphs.get(key)
+        if graph is None:
+            if self._pool is None and self.device.type == "cuda":
+                self._pool = torch.cuda.graph_pool_handle()
+            graph = self.graphs[key] = StepGraph(self, self._program, pool=self._pool)
+        return mean_over_ranks(graph(batch), self.group)
 
     @torch.no_grad()
-    def __call__(self, batch) -> dict[str, torch.Tensor]:
+    def _program(self, batch) -> dict:
         with self.tx.params_on_device() if self.tx is not None else contextlib.nullcontext():
-            metrics = dict(self.eval_fn(self.model, batch))
-        return mean_over_ranks(metrics, self.group)
+            metrics = dict(self.eval_fn(unwrapped(self.model), batch))
+        reshard(self.model)  # the next program gathers from the shards again
+        return metrics
+
+    # the StepGraph owner (parallel.graph.GraphOwner): an eval writes no state
+
+    def prepare(self) -> None:
+        if self.tx is not None:
+            self.tx.release_params()
+
+    def state_snapshot(self) -> None:
+        return None
+
+    def restore_state(self, snapshot) -> None:
+        pass
+
+    def bound_grads(self) -> list:
+        return []

@@ -34,16 +34,20 @@ accumulates, and the update alone (JAX's ``_jit_acc_first``, ``_jit_acc``
 and ``_jit_apply``). On the card every program is a captured CUDA graph
 (``parallel.graph.StepGraph``, one per program and input signature, the
 capture billed as the telemetry span's ``compile``), replayed once a
-call; the lr factor and the step counter are written before each. A layout
-``parallel.step.refuse_capture`` refuses (ZeRO-3, a
-``DistributedDataParallel`` wrapper) runs the same programs uncaptured,
-decided at construction (the reason on :attr:`graph_refusal`, printed
-once under ``verbose``); on the CPU every program runs uncaptured, the
-same code; :meth:`uncaptured` runs them uncaptured on the card, the
-graphs' twin. A capture that fails raises. Nothing in the hot loop waits
-for the device except an explicit read of a loss. The forward of a handle
-read alone and eval-mode ``.model`` run uncaptured. ``.model`` runs in the
-module's mode: a BatchNorm model trains on batch statistics and updates
+call; the lr factor and the step counter are written before each. The
+cold programs are graphs too, one per input signature: the forward of a
+handle read alone and the loss of a loss read before ``.backward()``
+(JAX's ``_jit_fwd`` and ``_jit_loss``), eval-mode ``.model`` and
+:meth:`eval_step`. Every layout captures: ZeRO-3 keeps FSDP2's hooks,
+copies and streams inside the capture, and a ``DistributedDataParallel``
+model's programs run the bare module (``parallel.step.unwrapped``), the
+update all-reducing the grads once. The one layout whose programs run
+uncaptured is a per-leaf optimizer's offloaded parameters, decided at
+construction (the reason on :attr:`graph_refusal`, printed once under
+``verbose``); on the CPU every program runs uncaptured, the same code;
+:meth:`uncaptured` runs them uncaptured on the card, the graphs' twin. A
+capture that fails raises. Nothing in the hot loop waits for the device
+except an explicit read of a loss. ``.model`` runs in the module's mode: a BatchNorm model trains on batch statistics and updates
 its running statistics in place from one micro-batch to the next, as the
 JAX facade threads ``model_state``; after ``model_access.eval()``, and
 always in :meth:`eval_step`, it reads the running statistics.
@@ -65,7 +69,7 @@ place with a warning), ``aio`` and another offload device warn, and
 ``fp16`` and ``grad_clip`` when those are not given. Offloaded parameters
 are streamed to the card by each program that runs a forward (and by the
 eval paths) and written back by the update; with a per-leaf optimizer the
-window then runs uncaptured (:attr:`graph_refusal`).
+programs then run uncaptured (:attr:`graph_refusal`).
 With a process group (``runtime.dist.initialize()``, which the drivers
 call) or a ``mesh=``, ``parallel.create_train_state`` replicates or shards
 the model and optimizer and :meth:`step` syncs the gradients as the
@@ -124,10 +128,10 @@ directly; it returns the metrics dict, notes the loss, decodes numerics and
 polls the capture as :meth:`step` does. It shares the state with the
 Stoke-style path, so the two mix: the graph binds each parameter's
 ``.grad`` back to its own buffers before every replay, and leaves the grads
-zeroed (or dropped) afterwards, as :meth:`step` does. Under ZeRO-3
-(``fairscale_fsdp``), and on a DDP layout with a per-leaf optimizer
-(``fused_optimizer=False``: a ``DistributedDataParallel`` wrapper), it
-raises (``parallel.step.refuse_capture`` says why).
+zeroed (or dropped) afterwards, as :meth:`step` does. It captures on every
+layout: ZeRO-3 (``fairscale_fsdp``) and a DDP layout with a per-leaf
+optimizer (``fused_optimizer=False``: a ``DistributedDataParallel`` model,
+which the program runs without its wrapper, ``TrainStep.program``) too.
 ``TPUConfig`` (``configs=[TPUConfig(...)]``, ``stoke/config.py``) carries
 JAX's mesh and observability knobs; the keywords above stand for its
 fields.
@@ -151,7 +155,6 @@ import functools
 import inspect
 import os
 import weakref
-from types import SimpleNamespace
 from typing import Callable
 
 import numpy as np
@@ -166,11 +169,10 @@ from ..observe import trace as _telemetry
 from ..observe import numerics as _numerics
 from ..observe import opcost as _opcost
 from ..observe import capture as _capture
-from ..parallel.state import TrainState, create_train_state, load_module_state
+from ..parallel.state import TrainState, create_train_state, load_module_state, reshard
 from ..parallel.graph import StepGraph, signature
 from ..parallel.rng import StepRng
-from ..parallel.step import (TrainStep, all_finite, mean_over_ranks, reduce_gradients,
-                             refuse_capture)
+from ..parallel.step import TrainStep, all_finite, mean_over_ranks, reduce_gradients
 from ..parallel.sync_bn import batch_norm_state
 from ..precision import DynamicLossScaler, Policy
 from ..runtime import dist
@@ -562,15 +564,10 @@ class Stoke:
         self._ema = torch.zeros((), dtype=torch.float32, device=self.device)
         self._has_ema = torch.zeros((), dtype=torch.bool, device=self.device)
         self._ema_seen = False
-        # a layout refuse_capture refuses runs every program uncaptured
-        try:
-            refuse_capture(SimpleNamespace(policy=self.policy, model=self._wrapped,
-                                           detect_anomaly=False), "Stoke's deferred window")
-            self.graph_refusal = None
-        except ValueError as refusal:
-            self.graph_refusal = str(refusal)
+        # the one layout whose programs run uncaptured
+        self.graph_refusal = None
         per_leaf = not isinstance(self._opt, optim_mod.FusedAdamW)
-        if per_leaf and self._opt.offloaded_params and self.graph_refusal is None:
+        if per_leaf and self._opt.offloaded_params:
             self.graph_refusal = (
                 "a per-leaf optimizer's offloaded parameters live on the host between "
                 "programs, where the graphs' device grad buffers cannot be bound to them; "
@@ -615,15 +612,13 @@ class Stoke:
         mode it is deferred (JAX ``facade.py:1249-1269``): the inputs are
         copied into a tensor of the facade's own and a handle comes back,
         which the program of its micro-batch resolves, or which runs the
-        forward when used before that. In eval mode
-        (``model_access.eval()``) it runs now, without a graph."""
+        forward program when used before that. In eval mode
+        (``model_access.eval()``) its own program runs now (JAX's
+        ``_jit_fwd(train=False)``), a graph on the card as every program."""
+        if not self._module.training:
+            x = self._last_inputs = _as_tensor(inputs, self.device)
+            return self._run("Stoke.model", "eval_forward", x)
         with _telemetry.bucket_dispatch_span(self, "Stoke.model", None):
-            if not self._module.training:
-                x = self._last_inputs = _as_tensor(inputs, self.device)
-                kw = {"train": False} if self._accepts_train else {}
-                with torch.no_grad(), self._autocast(), self._opt.params_on_device():
-                    out = self._wrapped(x, **kw)
-                return out.float()
             x = self._last_inputs = _owned(inputs, self.device)
             lazy = self._lazy_output = _LazyOutput(self, x)
             self._pending_lazies.append(weakref.ref(lazy))
@@ -758,60 +753,53 @@ class Stoke:
     def _materialize_lazy_loss(self, lazy: _LazyLoss) -> torch.Tensor:
         """A deferred loss read early (JAX ``facade.py:1285-1297``): inside
         a pending window, the window is flushed through the split path,
-        which computes it on the way; else the forward and the loss run
-        uncaptured."""
+        which computes it on the way; else the forward program and the
+        loss program run (JAX's ``_jit_fwd`` and ``_jit_loss``)."""
         if any(rec[2] is lazy for rec in self._pending_micro):
             self._flush_pending_micros()
             return lazy._value
         return self._materialize_loss(lazy._output, lazy._targets)
 
-    @torch.no_grad()
     def _materialize_loss(self, outputs, targets) -> torch.Tensor:
-        loss = self._loss_callable(_materialized(outputs), targets)
-        self._note_loss(loss)
-        return loss
+        """The loss program on a materialized output (JAX ``_jit_loss``)."""
+        return self._run("Stoke.loss", "loss", (_materialized(outputs), targets))["loss"]
 
-    @torch.no_grad()
     def _forward_now(self, x: torch.Tensor) -> torch.Tensor:
-        """The training forward of a handle read alone, uncaptured (JAX's
-        ``_jit_fwd``): BatchNorm's statistics are put back after it, since
-        the micro-batch's program updates them."""
-        state = batch_norm_state(self._module)
-        kept = [t.clone() for t in state]
-        kw = {"train": True} if self._accepts_train else {}
-        with self._autocast(), self._opt.params_on_device():
-            out = self._wrapped(x, **kw).float()
-        for t, v in zip(state, kept):
-            t.copy_(v)
+        """The training forward of a handle read alone: the forward
+        program (JAX's ``_jit_fwd``)."""
+        out = self._run("Stoke.model", "forward", x)
         self._out_meta[signature(x)] = (out.shape, out.dtype)
         return out
 
-    def _run(self, span: str, kind: str, inputs) -> dict:
-        """Program ``kind`` on ``inputs`` through its ``StepGraph`` (one per
-        input signature): a replay on the card (the first call captures,
-        billed as the span's ``compile``), the function itself on the CPU,
-        on a layout ``refuse_capture`` refuses, and inside
-        :meth:`uncaptured`."""
+    def _run(self, span: str, kind, inputs, fn: Callable | None = None):
+        """Program ``kind`` (``fn``, or the facade's program of that name)
+        on ``inputs`` through its ``StepGraph`` (one per input signature): a
+        replay on the card (the first call captures, billed as the span's
+        ``compile``), the function itself on the CPU, on a layout
+        :attr:`graph_refusal` names, and inside :meth:`uncaptured`."""
         key = (kind, signature(inputs))
         graph = self._graphs.get(key)
         if graph is None:
-            fn = {"window": self._window_program, "first": self._first_program,
-                  "acc": self._micro_program, "apply": self._apply_program}[kind]
+            fn = fn or {"window": self._window_program, "first": self._first_program,
+                        "acc": self._micro_program, "apply": self._apply_program,
+                        "forward": self._forward_program, "loss": self._loss_program,
+                        "eval_forward": self._eval_forward_program}[kind]
             if self._pool is None and self.device.type == "cuda":
                 self._pool = torch.cuda.graph_pool_handle()
             graph = self._graphs[key] = StepGraph(self, fn, capture=self.graph_refusal is None,
                                                   pool=self._pool)
         with _telemetry.bucket_dispatch_span(self, span, key):
             out = graph.eager(inputs) if self._uncaptured else graph(inputs)
-        if kind != "apply":
+        if isinstance(out, dict) and "last" in out:  # a program that folds the loss monitor
             self._last_loss, self._ema_seen = out["last"], True
         return out
 
     @contextlib.contextmanager
     def uncaptured(self):
-        """Run the deferred window's programs uncaptured on the card inside
-        this block: the same functions the graphs captured, the graphs'
-        eager twin for a bitwise check."""
+        """Run the facade's programs (the deferred window's, the early
+        reads' and the eval ones) uncaptured on the card inside this
+        block: the same functions the graphs captured, the graphs' eager
+        twin for a bitwise check."""
         saved, self._uncaptured = self._uncaptured, True
         try:
             yield self
@@ -824,17 +812,18 @@ class Stoke:
         else:
             torch._foreach_zero_(self._grad_bufs)
 
-    def _micro(self, x, y, last: bool) -> tuple:
+    def _micro(self, x, y) -> tuple:
         """A micro-batch's forward under autocast, its f32 loss outside
         it, ``(loss / accum · scale).backward()`` into ``.grad`` and the
-        loss monitor's fold, as the eager loop ran them."""
-        if hasattr(self._wrapped, "require_backward_grad_sync"):
-            self._wrapped.require_backward_grad_sync = last  # DDP's no_sync but the last
+        loss monitor's fold, as the eager loop ran them. The module runs
+        without a ``DistributedDataParallel`` wrapper (``parallel.step.
+        unwrapped``): the update all-reduces the grads once, so no
+        micro-batch syncs."""
         kw = {"train": True} if self._accepts_train else {}
         self._opt.params_in()  # offloaded parameters: the update writes them back
         with torch.enable_grad():
             with self._autocast():
-                out = self._wrapped(x, **kw)
+                out = self._module(x, **kw)
             out = out.float()
             loss = self._loss_callable(out, y)
             scaled = loss / self.grad_accum_steps
@@ -849,8 +838,8 @@ class Stoke:
         backward, then the update."""
         self._zero_grads()
         losses, outs, last = [], [], None
-        for i, (x, y) in enumerate(micros):
-            loss, out, last = self._micro(x, y, i == len(micros) - 1)
+        for x, y in micros:
+            loss, out, last = self._micro(x, y)
             losses.append(loss)
             outs.append(out)
         return {"losses": losses, "outs": outs, "last": last, **self._apply_program(())}
@@ -864,8 +853,7 @@ class Stoke:
 
     def _micro_program(self, batch) -> dict:
         """A micro-batch that accumulates into ``.grad`` (JAX ``_jit_acc``)."""
-        last = (self._accumulated + 1) % self.grad_accum_steps == 0
-        loss, out, last32 = self._micro(batch[0], batch[1], last)
+        loss, out, last32 = self._micro(batch[0], batch[1])
         self._opt.release_params()  # no update here: the next program streams them again
         return {"loss": loss, "out": out, "last": last32}
 
@@ -874,14 +862,48 @@ class Stoke:
         aux = self._update()
         return {} if aux is None else {"aux": aux}
 
+    @torch.no_grad()
+    def _forward_program(self, x) -> torch.Tensor:
+        """The training forward of a handle read alone (JAX ``_jit_fwd``),
+        its f32 output; BatchNorm's statistics are put back after it, since
+        the micro-batch's program updates them (JAX discards the forward's
+        state)."""
+        state = batch_norm_state(self._module)
+        kept = [t.clone() for t in state]
+        kw = {"train": True} if self._accepts_train else {}
+        with self._autocast(), self._opt.params_on_device():
+            out = self._module(x, **kw).float()
+        reshard(self._module)
+        if state:
+            torch._foreach_copy_(state, kept)
+        return out
+
+    @torch.no_grad()
+    def _loss_program(self, batch) -> dict:
+        """The loss of a materialized output (JAX ``_jit_loss``), folded
+        into the loss monitor."""
+        loss = self._loss_callable(batch[0], batch[1])
+        return {"loss": loss, "last": self._fold_ema(loss.detach())}
+
+    @torch.no_grad()
+    def _eval_forward_program(self, x) -> torch.Tensor:
+        """Eval-mode ``.model`` (JAX ``_jit_fwd(train=False)``): the
+        running statistics are read, nothing is written."""
+        kw = {"train": False} if self._accepts_train else {}
+        with self._autocast(), self._opt.params_on_device():
+            out = self._module(x, **kw).float()
+        reshard(self._module)
+        return out
+
     def _update(self) -> dict | None:
         """The optimizer update of one step (the lr factor and the step
         counter written by :meth:`prepare`); with the numerics probe, its
         aux of the step, every step (decoded at the probe's cadence)."""
         fused = isinstance(self._opt, optim_mod.FusedAdamW)
         scaler = self.loss_scaler
-        # the global batch's gradient (backward already divided by accum)
-        grads = reduce_gradients(self._opt, self.policy, self._group)
+        # the global batch's gradient (backward already divided by accum; a
+        # DDP layout's module ran without its wrapper)
+        grads = reduce_gradients(self._opt, self.policy, self._group, all_reduce=True)
         probe = self.numerics_probe
         names = None if probe is None else self._numerics_layout["names"]
         if fused:
@@ -987,9 +1009,8 @@ class Stoke:
             step = TrainStep(self._wrapped, loss_fn, self._opt, self.mesh, self.policy,
                              grad_accum_steps=self.grad_accum_steps, rng=StepRng(0),
                              numerics=self.numerics_probe, loss_scaler=self.loss_scaler)
-            refuse_capture(step, "Stoke.fused_step")
             self._fused = step
-            self._fused_graph = StepGraph(step, step._step)
+            self._fused_graph = StepGraph(step, step.program)
         return self._fused, self._fused_graph
 
     def fused_step(self, inputs, targets) -> dict:
@@ -1028,22 +1049,31 @@ class Stoke:
     def eval_step(self, metric_fns: dict | None = None) -> Callable:
         """``step(inputs, targets) -> {"loss": ..., **metrics}`` of device
         scalars, computed in eval mode (BatchNorm reads its running
-        statistics) without a graph and averaged over ranks; sum them
-        across batches and read once per epoch."""
+        statistics) by one program (JAX's compiled ``EvalStep``; on the
+        card a graph per input signature, so a last partial batch is one
+        more capture) and averaged over ranks outside it; sum them across
+        batches and read once per epoch."""
         metric_fns = dict(metric_fns or {})
+        kind = ("eval", tuple((name, id(fn)) for name, fn in metric_fns.items()))
+
+        @torch.no_grad()
+        def program(batch) -> dict:
+            x, y = batch
+            with self._autocast(), self._opt.params_on_device():
+                out = self._module(x)
+            reshard(self._module)
+            out = out.float()
+            result = {"loss": self._loss_callable(out, y)}
+            for name, fn in metric_fns.items():
+                result[name] = fn(out, y)
+            return result
 
         def step(inputs, targets):
-            y = _as_tensor(targets, self.device)
+            batch = (_as_tensor(inputs, self.device), _as_tensor(targets, self.device))
             training = self._module.training
             self._module.eval()  # JAX's eval step runs train=False: running statistics
             try:
-                with torch.no_grad():
-                    with self._autocast(), self._opt.params_on_device():
-                        out = self._wrapped(_as_tensor(inputs, self.device))
-                    out = out.float()
-                    result = {"loss": self._loss_callable(out, y)}
-                    for name, fn in metric_fns.items():
-                        result[name] = fn(out, y)
+                result = self._run("Stoke.eval_step", kind, batch, program)
             finally:
                 self._module.train(training)
             return mean_over_ranks(result, self._group)

@@ -639,3 +639,48 @@ def test_graph_report_prints_an_untraced_eager_run_as_such(smoke, capsys):
     assert row["eager_busy_ms"] is None and row["eager_idle"] is None
     assert row["graphed_idle"] == pytest.approx(1 - 80.0 / 80.5)
     assert [f.split(": ")[1].split(" ")[0] for f in faults] == ["K2"]
+
+
+@pytest.mark.parametrize("loss_shift,param_shift,faults", [
+    (0.0, 0.0, 0), (1e-7, 0.0, 1), (0.0, 1e-7, 1)])
+def test_graph_faults_exact_require_bitwise(smoke, capsys, loss_shift, param_shift, faults):
+    """Phase 19 (f) holds every graphed program bitwise against its
+    uncaptured twin: with ``exact`` a difference GRAPH_TOL would pass is a
+    fault."""
+    start, want = [torch.zeros(4)], [torch.ones(4)]
+    got = [want[0] + param_shift]
+    out = smoke.graph_faults("case", ([1.0 + loss_shift], [1.0]), (got, want), start,
+                             "float32", exact=True)
+    assert len(out) == faults
+    assert all("bitwise expected" in f for f in out)
+
+
+def test_layout_flags_build_zero3_and_a_ddp_model(smoke):
+    """19 (f)'s two layouts: ``fairscale_fsdp`` with ``FairscaleFSDPConfig``
+    (ZeRO-3), and DDP flags with the per-leaf chain (the wrapper)."""
+    from pytorch_distributedtraining_tpu_torch.stoke import FairscaleFSDPConfig
+
+    fsdp = smoke.layout_flags("fsdp")
+    assert fsdp["fsdp"] and isinstance(fsdp["configs"][0], FairscaleFSDPConfig)
+    assert smoke.layout_flags("ddp") == {"oss": False, "sddp": False, "fused_optimizer": False}
+    assert {case[1] for case in smoke.LAYOUT_CASES} == {"fsdp", "ddp"}
+    assert {case[3] for case in smoke.LAYOUT_CASES} == {("window",), ("first", "acc", "apply")}
+
+
+def test_cold_counts_read_each_graph_and_match_two_rounds(smoke):
+    """19 (f)'s cold programs: each graph read as (program, batch,
+    captures, replays); two graphed rounds give one capture a program and
+    signature, the forward program replayed twice a round (the handle
+    read alone and the loss's)."""
+    def graph(captures, replays):
+        return type("G", (), {"captures": captures, "replays": replays})()
+
+    b, n = smoke.BATCH, smoke.COLD_EVAL_N
+    sig = lambda rows: (((rows, 32, 32, 3), torch.float32),)  # noqa: E731
+    stoke = type("Stoke", (), {})()
+    stoke._graphs = {("forward", sig(b)): graph(1, 4), ("loss", sig(b)): graph(1, 2),
+                     ("eval_forward", sig(b)): graph(1, 2),
+                     (("eval", ()), sig(b)): graph(1, 2), (("eval", ()), sig(n)): graph(1, 2)}
+    assert smoke.cold_counts(stoke) == smoke.cold_expected(2)
+    stoke._graphs[("loss", sig(b))] = graph(2, 2)  # a second capture of one signature
+    assert smoke.cold_counts(stoke) != smoke.cold_expected(2)

@@ -653,12 +653,12 @@ def oss_fused_eager_worker(rank: int, world: int, *, state: dict, batch: tuple,
 
 def refused_layout_worker(rank: int, world: int, *, batches: list) -> dict:
     """The driver's facade with DDP flags and ``fused_optimizer=False`` (a
-    ``DistributedDataParallel`` wrapper, which ``refuse_capture`` refuses)
-    over rows ``r::world``, deferred and split (``fuse_eager_step``):
-    the refusal, how many micro-batches one ``.backward()`` left pending,
-    whether any program was built to capture, the programs run, each
-    run's losses (read after its steps) and whether the parameters agree
-    bitwise."""
+    ``DistributedDataParallel`` wrapper, which ``refuse_capture`` once
+    refused) over rows ``r::world``, deferred and split
+    (``fuse_eager_step``): the refusal, how many micro-batches one
+    ``.backward()`` left pending, whether every program was built to
+    capture, the programs run, each run's losses (read after its steps)
+    and whether the parameters agree bitwise."""
     from torch.nn.parallel import DistributedDataParallel
 
     out = {"losses": {}}
@@ -680,19 +680,21 @@ def refused_layout_worker(rank: int, world: int, *, batches: list) -> dict:
         params.append([p.detach().clone() for p in s.model_access.parameters()])
         if fuse:
             out.update(refusal=s.graph_refusal, ddp=isinstance(s._wrapped, DistributedDataParallel),
-                       captured=any(g.capture for g in s._graphs.values()),
+                       captured=bool(s._graphs) and all(g.capture for g in s._graphs.values()),
                        kinds=sorted({kind for kind, _ in s._graphs}))
     out["equal"] = all(torch.equal(a, b) for a, b in zip(*params))
     return out
 
 
-def stoke_window_worker(rank: int, world: int, *, read_each: bool, steps: int = 3) -> dict:
-    """The driver's facade (ZeRO-2, toy SwinIR, seed 0) on the card in this
-    rank's group: ``steps`` optimizer steps of the Stoke-style loop,
-    graphed and then uncaptured from the same weights, each loss read after
-    its ``.step()`` (``read_each``: the split path) or after the run (the
-    window). Returns both runs' losses, whether the parameters agree
-    bitwise, the graphed run's captures and NCCL's async error handling."""
+def stoke_window_worker(rank: int, world: int, *, read_each: bool, steps: int = 3,
+                        flags: dict | None = None) -> dict:
+    """The driver's facade (ZeRO-2, or ``facade`` ``flags``; toy SwinIR,
+    seed 0) on the card in this rank's group: ``steps`` optimizer steps of
+    the Stoke-style loop, graphed and then uncaptured from the same
+    weights, each loss read after its ``.step()`` (``read_each``: the split
+    path) or after the run (the window). Returns both runs' losses, whether
+    the parameters agree bitwise, the graphed run's refusal, captures and
+    replays, and NCCL's async error handling."""
     from pytorch_distributedtraining_tpu_torch import stoke
 
     torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
@@ -704,7 +706,7 @@ def stoke_window_worker(rank: int, world: int, *, read_each: bool, steps: int = 
         batches.append((hr.reshape(4, 8, 2, 8, 2, 3).mean(dim=(2, 4)), hr))
     out, params = {}, []
     for graphed in (True, False):
-        s = facade(toy_swinir(), device="cuda")
+        s = facade(toy_swinir(), device="cuda", **(flags or {}))
         losses = []
         with s.uncaptured() if not graphed else contextlib.nullcontext():
             for x, y in batches:
@@ -713,9 +715,111 @@ def stoke_window_worker(rank: int, world: int, *, read_each: bool, steps: int = 
                 s.step()
                 losses.append(loss.item() if read_each else loss)
         out["graphed" if graphed else "uncaptured"] = [float(v) for v in losses]
-        params.append([p.detach().clone() for p in s.model_access.parameters()])
+        params.append(_local_params(s.model_access))
         if graphed:
             out["captures"] = {kind: gr.captures for (kind, _), gr in s._graphs.items()}
+            out["replays"] = {kind: gr.replays for (kind, _), gr in s._graphs.items()}
+            out["refusal"] = s.graph_refusal
     out["equal"] = all(torch.equal(a, b) for a, b in zip(*params))
     out["async_error_handling"] = os.environ.get("TORCH_NCCL_ASYNC_ERROR_HANDLING")
     return out
+
+
+def facade_modes_worker(rank: int, world: int, *, micro: list, lrs: list, state: dict,
+                        layouts: dict, modes: tuple, multi: dict | None = None) -> dict:
+    """The driver's facade (``facade``, weights ``state``) at this world
+    under each of ``layouts`` (name -> flags) and ``modes``: ``"window"``
+    (the Stoke-style loop, each loss read after the run: the window
+    program; before each step an eval-mode ``.model``, a training handle
+    read alone and ``eval_step``, which must leave the trajectory as it
+    is), ``"split"`` (each loss read right after its ``.step()``: the
+    split path) and ``"fused"`` (``fused_step`` on micro-batch pairs).
+    Micro-batch i is rows ``r::world`` of ``micro[i]``, at ``lrs[i // 2]``.
+    Returns per ``"layout/mode"`` the losses averaged over ranks (a
+    micro-batch's, or a ``fused_step``'s), the whole parameters, the
+    refusal, the programs run and whether each was built to capture; with
+    ``multi``, :func:`multi_step_worker`'s result of its keywords too."""
+    out = {}
+    for name, flags in layouts.items():
+        for mode in modes:
+            s = facade(toy_swinir(state), **flags)
+            losses = []
+            if mode == "fused":
+                for j in range(0, len(micro), 2):
+                    s.optimizer.lr = lrs[j // 2]
+                    x, y = (torch.from_numpy(np.concatenate([m[k][rank::world]
+                                                             for m in micro[j:j + 2]]))
+                            for k in (0, 1))
+                    losses.append(float(s.fused_step(x, y)["loss"]))
+                graphs = [s._fused_graph]
+            else:
+                for i, (x, y) in enumerate(micro):
+                    s.optimizer.lr = lrs[i // 2]
+                    if mode == "window" and i % 2 == 0:  # the cold programs
+                        s.model_access.eval()
+                        s.model(x[rank::world])
+                        s.model_access.train()
+                        s.model(x[rank::world]).detach()
+                        s.eval_step()(x[rank::world], y[rank::world])
+                    loss = s.loss(s.model(x[rank::world]), y[rank::world])
+                    s.backward(loss)
+                    s.step()
+                    losses.append(loss)
+                    if mode == "split":  # read inside its window: the split path
+                        losses[-1] = float(s.detach_and_sync_loss(loss))
+                losses = [v if mode == "split" else float(s.detach_and_sync_loss(v))
+                          for v in losses]
+                graphs = list(s._graphs.values())
+            out[f"{name}/{mode}"] = {
+                "losses": losses, "params": full_params(s.model_access),
+                "refusal": s.graph_refusal, "kinds": sorted({str(k) for k, _ in s._graphs}),
+                "capture": bool(graphs) and all(g.capture for g in graphs)}
+    if multi is not None:
+        out["multi"] = multi_step_worker(rank, world, **multi)
+    return out
+
+
+def _local_params(module) -> list:
+    """A copy of each parameter, this rank's shard of an FSDP2 ``DTensor``."""
+    return [(p.to_local() if hasattr(p, "to_local") else p).detach().clone()
+            for p in module.parameters()]
+
+
+def cold_programs_worker(rank: int, world: int, *, flags: dict) -> dict:
+    """The driver's facade (``facade`` ``flags``, toy SwinIR, seed 0) on the
+    card in this rank's group: two graphed rounds and one uncaptured of the
+    cold programs (eval-mode ``.model``, a handle read alone, a loss read
+    before ``.backward()``, ``eval_step`` over a batch of 4 and a partial
+    one of 3); then one Stoke-style step against the same step of a fresh
+    facade that ran no cold program. Returns whether the rounds agree
+    bitwise, each graph's ``(program, batch, captures, replays)`` and
+    whether the step's parameters agree bitwise."""
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    g = torch.Generator(device="cuda").manual_seed(0)
+    hr = torch.rand(8, 16, 16, 3, device="cuda", generator=g)
+    x, y = hr.reshape(8, 8, 2, 8, 2, 3).mean(dim=(2, 4)), hr
+    cold, fresh = (facade(toy_swinir(), device="cuda", **flags) for _ in range(2))
+    ev = cold.eval_step()
+
+    def one_round():
+        cold.model_access.eval()
+        evaluated = cold.model(x[:4])
+        cold.model_access.train()
+        return [evaluated, cold.model(x[:4]).detach(), cold.loss(cold.model(x[:4]), y[:4]).detach(),
+                ev(x[:4], y[:4])["loss"], ev(x[:3], y[:3])["loss"]]
+
+    rounds = [one_round(), one_round()]
+    with cold.uncaptured():
+        twin = one_round()
+    counts = sorted((str(kind), sig[0][0][0], gr.captures, gr.replays)
+                    for (kind, sig), gr in cold._graphs.items())
+    for s in (cold, fresh):
+        for i in range(2):
+            s.backward(s.loss(s.model(x[4 * i:4 * i + 4]), y[4 * i:4 * i + 4]))
+            s.step()
+    return {"equal": all(torch.equal(a, b) and torch.equal(a, c)
+                         for a, b, c in zip(*rounds, twin)),
+            "counts": counts, "refusal": cold.graph_refusal,
+            "step_equal": all(torch.equal(a, b) for a, b in zip(_local_params(cold.model_access),
+                                                                _local_params(fresh.model_access)))}

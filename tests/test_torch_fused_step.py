@@ -42,7 +42,8 @@ from pytorch_distributedtraining_tpu_torch import stoke as tstoke
 from pytorch_distributedtraining_tpu_torch.interop import swinir_state_dict_from_jax
 from pytorch_distributedtraining_tpu_torch.models import SwinIR
 from pytorch_distributedtraining_tpu_torch.observe import numerics as tnumerics
-from test_torch_dist_workers import TOY, facade, full_params, mse_loss_fn, sr_batches, toy_swinir
+from test_torch_dist_workers import (TOY, facade, facade_modes_worker, full_params, mse_loss_fn,
+                                     run_ranks, sr_batches, toy_swinir)
 
 torch.set_num_threads(1)
 
@@ -253,7 +254,34 @@ def test_fused_step_decodes_numerics_and_polls_the_capture(monkeypatch):
 
 
 def test_fused_step_refuses_zero3():
-    s = facade(toy_swinir(), oss=True, sddp=True, fsdp=True)
-    x, y = map(torch.from_numpy, sr_batches(1)[0])
-    with pytest.raises(ValueError, match="ZeRO-3"):
-        s.fused_step(x, y)
+    """ZeRO-3 (``fairscale_fsdp``: FSDP2 in a gloo group of one) is no
+    longer refused: its ``fused_step`` runs the program the card captures
+    and follows the JAX facade's ``fused_step`` under ZeRO-3, at this
+    file's tolerances."""
+    flags = dict(fsdp=True)
+    mesh = make_mesh(MeshSpec.zero(1), devices=jax.devices()[:1])
+    js = jstoke.Stoke(
+        model=JaxSwinIR(**TOY),
+        optimizer=jstoke.StokeOptimizer(optimizer="AdamW", optimizer_kwargs={
+            "lr": 1e-3, "betas": (0.9, 0.99), "eps": 1e-8, "weight_decay": 1e-4}),
+        loss=jlosses.FeatLoss(), batch_size_per_device=8, gpu=True, distributed="ddp",
+        fairscale_oss=True, fairscale_sddp=True, fairscale_fsdp=True, grad_accum_steps=2,
+        configs=[jstoke.AMPConfig(init_scale=2.0**14), jstoke.DDPConfig(local_rank=None),
+                 jstoke.FairscaleOSSConfig(broadcast_fp16=True)],
+        grad_clip=jstoke.ClipGradNormConfig(max_norm=0.1, norm_type=2.0), mesh=mesh,
+        sample_input=np.zeros((8, 8, 8, 3), np.float32))
+    state = {k: v.numpy() for k, v in swinir_state_dict_from_jax(
+        jax.device_get(js.state.params), img_size=TOY["img_size"]).items()}
+    micro = [(x[4 * i:4 * i + 4], y[4 * i:4 * i + 4]) for x, y in sr_batches(3) for i in range(2)]
+    lrs = [1e-3 / (i + 1) for i in range(3)]
+    got = run_ranks(facade_modes_worker, 1, micro=micro, lrs=lrs, state=state,
+                    layouts={"fsdp": flags}, modes=("fused",))[0]["fsdp/fused"]
+    assert got["refusal"] is None and got["capture"]
+    want = []
+    for i, (x, y) in enumerate(sr_batches(3)):
+        js.optimizer.lr = lrs[i]
+        want.append(float(js.fused_step(x, y)["loss"]))
+    np.testing.assert_allclose(got["losses"], want, rtol=1e-5)
+    wparams = swinir_state_dict_from_jax(jax.device_get(js.state.params), img_size=TOY["img_size"])
+    _close(got["params"], {n: wparams[n].numpy() for n in got["params"]}, atol=1e-5,
+           key_atol=KEY_BIAS_ATOL)

@@ -38,7 +38,9 @@ def test_launcher_runs_the_swinir_driver_on_the_card(tmp_path):
     assert run.returncode == 0, run.stdout[-2000:] + run.stderr[-2000:]
     line = next(ln for ln in run.stdout.splitlines() if ln.startswith("[kernels] "))
     counts = json.loads(line[len("[kernels] "):])
-    # five training micro-batches (24 Swin layers each) and one validation batch
-    assert (counts["window_attn_fwd"], counts["window_attn_bwd"]) == (24 * 6, 24 * 5)
+    # the wrappers count a graph's warm-up and capture, never a replay: the
+    # split path's first and accumulating programs (24 Swin layers each,
+    # forward and backward) and the validation's eval program (forward)
+    assert (counts["window_attn_fwd"], counts["window_attn_bwd"]) == (24 * 2 * 3, 24 * 2 * 2)
     losses = [float(v) for v in re.findall(r"Loss after Epoch \d+ - (\S+) -", run.stdout)]
     assert len(losses) == 2 and all(abs(v) < float("inf") for v in losses)

@@ -43,8 +43,9 @@ from pytorch_distributedtraining_tpu_torch.interop import swinir_state_dict_from
 from pytorch_distributedtraining_tpu_torch.models import GPT2, GPT2Config
 from pytorch_distributedtraining_tpu_torch.observe import numerics as tnumerics
 from pytorch_distributedtraining_tpu_torch.parallel.rng import DropoutKey
-from test_torch_dist_workers import (TOY, full_params, mse_loss_fn, multi_step_worker,
-                                     run_ranks, sr_batches, toy_swinir, windows)
+from test_torch_dist_workers import (TOY, full_params, graph_vs_eager_worker, mse_loss_fn,
+                                     multi_step_worker, run_ranks, sr_batches, toy_swinir,
+                                     windows)
 
 torch.set_num_threads(1)
 
@@ -359,12 +360,16 @@ def test_per_leaf_trajectories_match_jax_with_device_scalars(case, jax_start):
 
 
 def test_multi_step_refuses_zero3_ddp_wrappers_and_detect_anomaly():
+    """``detect_anomaly`` (a host read every step) stays refused; ZeRO-3
+    (FSDP2) and a ``DistributedDataParallel`` model are accepted: in a
+    gloo group of one each window equals its K eager steps bitwise (the
+    DDP program runs the bare module and all-reduces the grads itself)."""
     model = toy_swinir()
     tx = toptim.adamw(model.named_parameters(), lr=1e-3)
-    with pytest.raises(ValueError, match="ZeRO-3"):
-        tparallel.MultiStep(tparallel.TrainStep(model, mse_loss_fn, tx, None, tparallel.ZeRO3()),
-                            K)
     with pytest.raises(ValueError, match="detect_anomaly"):
         tparallel.MultiStep(tparallel.TrainStep(model, mse_loss_fn, tx, detect_anomaly=True), K)
-    with pytest.raises(RuntimeError, match="cannot capture a DistributedDataParallel model"):
-        run_ranks(multi_step_worker, 1, runs=[dict(policy="ddp")], batches=sr_batches(K), k=K)
+    for policy in ("zero3", "ddp"):
+        got = run_ranks(graph_vs_eager_worker, 1, policy=policy, opt="adamw",
+                        batches=sr_batches(2 * K), k=K, device="cpu")[0]
+        assert got["graphed"] == got["eager"] and got["equal"], policy
+        assert len(got["graphed"]) == 2 * K

@@ -158,13 +158,19 @@ def test_a_graph_the_collector_frees_does_not_break_a_capture(cuda):
     assert seen == [False] * K and gc.isenabled()
 
 
-@pytest.mark.parametrize("policy,opt", [("ddp", "fused"), ("zero2", "adamw"), ("zero1", "fused")],
-                         ids=["ddp-fused", "zero2-adamw", "zero1-fused"])
+@pytest.mark.parametrize("policy,opt", [("ddp", "fused"), ("zero2", "adamw"), ("zero1", "fused"),
+                                        ("zero3", "adamw"), ("ddp", "adamw")],
+                         ids=["ddp-fused", "zero2-adamw", "zero1-fused", "zero3-adamw",
+                              "ddp-wrapper-adamw"])
 def test_replay_under_an_nccl_group_equals_the_eager_step(cuda, monkeypatch, policy, opt):
     """A whole-network capture through NCCL at world 1: DDP's flat
     all-reduce, ZeRO-2's reduce-scatter and all-gather (its per-leaf shard
-    views hold no autograd history), ZeRO-1's flat all-gather; NCCL's async
-    error handling off, as PyTorch documents for a capture of collectives."""
+    views hold no autograd history), ZeRO-1's flat all-gather, ZeRO-3's
+    FSDP2 hooks, copies and streams, and a ``DistributedDataParallel``
+    model, whose program runs the bare module and all-reduces the grads
+    once (against the eager step through the wrapper's reducer); NCCL's
+    async error handling off, as PyTorch documents for a capture of
+    collectives."""
     from test_torch_dist_workers import graph_vs_eager_worker, run_ranks, sr_batches
 
     monkeypatch.setenv("TORCH_NCCL_ASYNC_ERROR_HANDLING", "0")
@@ -172,3 +178,19 @@ def test_replay_under_an_nccl_group_equals_the_eager_step(cuda, monkeypatch, pol
                     batches=sr_batches(2 * K), k=K)[0]
     assert got["graphed"] == got["eager"] and got["equal"]
     assert got["captures"] == 1 and got["replays"] == 2
+
+
+def test_eval_step_captures_once_a_signature(cuda):
+    """``parallel.EvalStep`` as a graph owner: one capture a batch
+    signature (a partial last batch is one more), a replay every later
+    call, each value bitwise the eval function run eagerly."""
+    model = SwinIR(**TOY, generator=torch.Generator().manual_seed(0)).cuda()
+    step = parallel.EvalStep(model, lambda m, b: {"mse": _mse(m, b)[0]})
+    batches = _batches(2)
+    partial = tuple(t[:3] for t in batches[1])
+    got = [step(b)["mse"] for b in (batches[0], batches[1], partial, partial)]
+    with torch.no_grad():
+        want = [_mse(model, b)[0] for b in (batches[0], batches[1], partial, partial)]
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    counts = sorted((sig[0][0][0], g.captures, g.replays) for sig, g in step.graphs.items())
+    assert counts == [(3, 1, 2), (4, 1, 2)]

@@ -124,13 +124,13 @@ def test_swinir_m_toy_two_steps_on_card_match_cpu(cuda):
     losses = {}
     for device in ("cpu", "cuda"):
         model = SwinIR(**kw, generator=torch.Generator().manual_seed(0))
-        s = stoke_ddp.build_stoke(model, batch_size=2, device=device, verbose=False)
-        s.grad_accum_steps = 1
         vgg = VGGFeatLoss(device=device)
+        s = stoke_ddp.build_stoke(model, batch_size=2, device=device, verbose=False, loss=vgg)
+        s.grad_accum_steps = 1
         before = twa.fwd_launches, twa.bwd_launches
         run = []
         for x, y in batches:
-            loss = vgg(s.model(x), torch.from_numpy(y).to(device))
+            loss = s.loss(s.model(x), torch.from_numpy(y).to(device))
             s.backward(loss)
             s.step()
             run.append(loss.item())

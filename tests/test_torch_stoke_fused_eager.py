@@ -14,9 +14,8 @@ which JAX runs over its 8 devices, runs over two gloo ranks
 
 Torch-only cases: a handle through ``torch.*`` calls and tensor methods;
 an input written in place after ``.model()`` leaves the window as it
-was; a layout ``refuse_capture`` refuses (a ``DistributedDataParallel``
-wrapper, ``fused_optimizer=False``) runs deferred and uncaptured with the
-refusal on the facade; ``fuse_eager_step=False`` equal to ``True``
+was; a ``DistributedDataParallel`` wrapper (``fused_optimizer=False``),
+once refused, runs deferred with every program built to capture; ``fuse_eager_step=False`` equal to ``True``
 bitwise; the driver's loop at accum 2 takes the split path, as JAX's.
 Torch runs at one thread.
 """
@@ -322,15 +321,16 @@ def test_input_written_after_model_does_not_change_the_window():
 
 def test_refused_layout_runs_deferred_and_uncaptured():
     """A ``DistributedDataParallel`` wrapper (DDP flags with
-    ``fused_optimizer=False``, over a gloo group of two): the refusal's
-    message on the facade, the window deferred and every program
-    uncaptured, and the result that of ``fuse_eager_step=False``."""
+    ``fused_optimizer=False``, over a gloo group of two), once refused, now
+    captures: no refusal on the facade, the window deferred and every
+    program built to capture (the bare module, the grads all-reduced by
+    the update), and the result that of ``fuse_eager_step=False``."""
     from test_torch_dist_workers import refused_layout_worker
 
     got = run_ranks(refused_layout_worker, 2, batches=sr_batches(2))
     for r in got:
-        assert "DistributedDataParallel" in r["refusal"] and r["ddp"]
-        assert r["pending_after_backward"] == 1 and not r["captured"]
+        assert r["refusal"] is None and r["ddp"]
+        assert r["pending_after_backward"] == 1 and r["captured"]
         assert r["kinds"] == ["window"]
         assert r["losses"][True] == r["losses"][False]
         assert r["equal"]

@@ -11,8 +11,13 @@ none); run them there with::
 Each graph must equal the same programs run uncaptured
 (``Stoke.uncaptured``) from the same state bitwise (f32, TF32 off,
 cuDNN's deterministic algorithms), each program is captured once for its
-input signature, the per-leaf (ZeRO-2) and flat (``FusedAdamW``) layouts
-both hold, and a capture that cannot work raises rather than run eagerly.
+input signature, the per-leaf (ZeRO-2) and flat (``FusedAdamW``) layouts,
+ZeRO-3 (FSDP2) and a ``DistributedDataParallel`` model (both in an NCCL
+group of one) all hold, and a capture that cannot work raises rather than
+run eagerly. The cold programs (an early read, eval-mode ``.model``,
+``eval_step`` with a partial batch) capture once a signature and replay
+after, bitwise their uncaptured twin, and leave the next training step as
+it would be without them.
 """
 
 import contextlib
@@ -28,7 +33,12 @@ pytestmark = pytest.mark.cuda
 TOY = dict(upscale=2, in_chans=3, img_size=8, window_size=4, depths=(2, 2), embed_dim=12,
            num_heads=(2, 2), mlp_ratio=2.0)
 LAYOUTS = {"ddp-fused": dict(fairscale_oss=False, fairscale_sddp=False),
-           "zero2-per-leaf": dict(fairscale_oss=True, fairscale_sddp=True)}
+           "zero2-per-leaf": dict(fairscale_oss=True, fairscale_sddp=True),
+           # these two need a process group: an NCCL group of one
+           # (tests/test_torch_dist_workers.py's ``facade`` flags)
+           "ddp": dict(oss=False, sddp=False, fused_optimizer=False),
+           "fsdp": dict(fsdp=True)}
+GROUPED = ("ddp", "fsdp")
 
 
 @pytest.fixture
@@ -82,6 +92,17 @@ def _graphs(s) -> dict:
 @pytest.mark.parametrize("read_each", [False, True], ids=["window", "split"])
 @pytest.mark.parametrize("layout", LAYOUTS)
 def test_graphs_equal_the_uncaptured_programs(cuda, layout, read_each):
+    if layout in GROUPED:
+        from test_torch_dist_workers import run_ranks, stoke_window_worker
+
+        got = run_ranks(stoke_window_worker, 1, group_device="cuda", read_each=read_each,
+                        flags=LAYOUTS[layout])[0]
+        assert got["graphed"] == got["uncaptured"] and got["equal"]
+        assert got["refusal"] is None
+        kinds = ("first", "acc", "apply") if read_each else ("window",)
+        assert got["captures"] == dict.fromkeys(kinds, 1)
+        assert got["replays"] == dict.fromkeys(kinds, 3)
+        return
     batches = _batches(6)
     graphed, twin = _facade(layout), _facade(layout)
     got = _loop(graphed, batches, read_each)
@@ -155,3 +176,21 @@ def test_zero2_over_an_nccl_group_equals_the_uncaptured_programs(cuda, read_each
     assert got["async_error_handling"] == "0"
     assert got["captures"] == ({"first": 1, "acc": 1, "apply": 1} if read_each
                                else {"window": 1})
+
+
+@pytest.mark.parametrize("layout", ["zero2-per-leaf", "ddp", "fsdp"])
+def test_cold_programs_capture_once_a_signature(cuda, layout):
+    """Eval-mode ``.model``, a handle read alone, a loss read before
+    ``.backward()`` and ``eval_step`` (a batch of 4 and a partial one of
+    3), in an NCCL group of one: each a graph captured once a signature
+    and replayed after, bitwise their uncaptured twin; a training step
+    after them equals one without them (FSDP2 reshards after each forward
+    program)."""
+    from test_torch_dist_workers import cold_programs_worker, run_ranks
+
+    flags = {"zero2-per-leaf": {}, "ddp": LAYOUTS["ddp"], "fsdp": LAYOUTS["fsdp"]}[layout]
+    got = run_ranks(cold_programs_worker, 1, group_device="cuda", flags=flags)[0]
+    assert got["equal"] and got["step_equal"] and got["refusal"] is None
+    evals = str(("eval", ()))
+    assert got["counts"] == sorted([("eval_forward", 4, 1, 2), ("forward", 4, 1, 4),
+                                    ("loss", 4, 1, 2), (evals, 4, 1, 2), (evals, 3, 1, 2)])
